@@ -1,0 +1,102 @@
+"""The ``cuda_fused`` executor backend: the fused GRU kernels behind the
+runtime's backend interface (counterpart of the ``pallas_fused`` half of
+``repro.kernels.gru_sequence.ops``).
+
+The layer-0 input projection ``x @ W`` stays one ``torch.matmul`` outside
+the kernels; each kernel owns the whole recurrent path. A (B, T) bool
+length mask is turned time-major (T, B) float and streamed through the
+kernel. A depth-1 stack goes to the depth-1 sequence kernel, a deeper
+uniform stack to the fused stack kernel; the decode step is one launch
+through all layers. The per-layer chain backend is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.gru_sequence.kernel import (gru_sequence_kernel,
+                                                     gru_stack_decode_kernel,
+                                                     gru_stack_sequence_kernel)
+
+
+def _time_major_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """(B, T) bool/float -> (T, B) float32, contiguous."""
+    if mask is None:
+        return None
+    return mask.transpose(0, 1).to(torch.float32).contiguous()
+
+
+def prepare_stacked_cells(cells) -> dict:
+    """The fused kernels' weight stacks, built once: ``{"u" (L,H,3H),
+    "w_deep" (L-1,H,3H) or (1,1,3H) zeros for L=1, "b" (L,3H)}``."""
+    cells = tuple(cells)
+    u = torch.stack([c["u"] for c in cells], 0).contiguous()
+    if len(cells) > 1:
+        w_deep = torch.stack([c["w"] for c in cells[1:]], 0).contiguous()
+    else:
+        H = cells[0]["u"].shape[0]
+        w_deep = torch.zeros((1, 1, 3 * H), dtype=u.dtype, device=u.device)
+    b = torch.stack([c["b"] for c in cells], 0).contiguous()
+    return {"u": u, "w_deep": w_deep, "b": b}
+
+
+def gru_sequence_cuda(params: dict, h0: torch.Tensor, xs: torch.Tensor, *,
+                      cfg, return_all: bool = False, mask=None):
+    """One cell over xs (B,T,X) -> (h_T, optionally (B,T,H))."""
+    xp = (xs @ params["w"]).transpose(0, 1).contiguous()     # (T,B,3H)
+    hs = gru_sequence_kernel(h0.contiguous(), xp, params["u"].contiguous(),
+                             params["b"].contiguous(), _time_major_mask(mask),
+                             variant=cfg.variant)
+    return hs[-1], (hs.transpose(0, 1) if return_all else None)
+
+
+def gru_stack_sequence_cuda(params: tuple, h0s: tuple, xs: torch.Tensor, *,
+                            cfg, stacked: dict, return_all: bool = False,
+                            mask=None):
+    """Fused depth-L stack (uniform hidden sizes): one launch. ``stacked``
+    is :func:`prepare_stacked_cells`' output. Returns (per-layer finals,
+    optionally the last layer's (B,T,H))."""
+    if len(params) == 1:
+        hT, hs = gru_sequence_cuda(params[0], h0s[0], xs, cfg=cfg,
+                                   return_all=return_all, mask=mask)
+        return (hT,), hs
+    xp = (xs @ params[0]["w"]).transpose(0, 1).contiguous()  # (T,B,3H)
+    h0 = torch.stack(tuple(h0s), 0)                          # (L,B,H)
+    hs, hT = gru_stack_sequence_kernel(h0, xp, stacked["u"],
+                                       stacked["w_deep"], stacked["b"],
+                                       _time_major_mask(mask),
+                                       variant=cfg.variant)
+    return tuple(hT.unbind(0)), (hs.transpose(0, 1) if return_all else None)
+
+
+def gru_stack_decode_cuda(params: tuple, hs: tuple, x: torch.Tensor, *, cfg,
+                          stacked: dict) -> tuple:
+    """One token through the whole stack in one launch; returns the
+    per-layer new states."""
+    xp = (x @ params[0]["w"]).contiguous()                   # (B,3H)
+    h = torch.stack(tuple(hs), 0)                            # (L,B,H)
+    h2 = gru_stack_decode_kernel(h, xp, stacked["u"], stacked["w_deep"],
+                                 stacked["b"], variant=cfg.variant)
+    return tuple(h2.unbind(0))
+
+
+def register_runtime_backends() -> None:
+    """Register ``cuda_fused`` with the GRU executor (idempotent)."""
+    from repro_torch.core import runtime
+
+    def fused_seq(sp, h0s, xs, *, cfg, return_all, mask):
+        return gru_stack_sequence_cuda(sp.cells, tuple(h0s), xs, cfg=cfg,
+                                       return_all=return_all, mask=mask,
+                                       stacked=sp.stacked)
+
+    def fused_dec(sp, hs, x, *, cfg):
+        return gru_stack_decode_cuda(sp.cells, tuple(hs), x, cfg=cfg,
+                                     stacked=sp.stacked)
+
+    runtime.register_backend(runtime.BackendSpec(
+        name="cuda_fused",
+        caps=runtime.Capabilities(supports_mask=True,
+                                  supports_hetero_dims=False),
+        cost=10,
+        sequence_fn=fused_seq, decode_fn=fused_dec))

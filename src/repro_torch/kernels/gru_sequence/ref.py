@@ -1,0 +1,90 @@
+"""Plain PyTorch versions of the three fused GRU kernels, with the kernels'
+raw-array interface (all fp32):
+
+* ``x_proj`` time-major (T, B, 3H) (decode: (B, 3H)), the layer-0 ``W.x``;
+* ``u`` (L, H, 3H), ``w_deep`` (L-1, H, 3H), ``b`` (L, 3H); depth-1
+  ``gru_sequence_ref`` takes ``u`` (H, 3H) and ``b`` (3H,);
+* ``mask`` (T, B) float, nonzero = live step; a dead step keeps every
+  layer's pre-step h, and the next layer consumes that gated output.
+
+The wrappers in ``kernel.py`` call these for CPU tensors; the tests and
+``chip_smoke.py`` hold the CUDA kernels against them. The gate arithmetic
+follows the kernels' order of additions (``x + (U.h + b)``, and for the v1
+candidate ``(x + U.(r*h)) + b``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def gru_step_ref(h: torch.Tensor, xp: torch.Tensor, u: torch.Tensor,
+                 b: torch.Tensor, variant: str = "v1") -> torch.Tensor:
+    """One cell update: h (B,H), xp (B,3H), u (H,3H), b (3H,) -> (B,H)."""
+    H = h.shape[-1]
+    xz, xr, xh = xp[..., :H], xp[..., H:2 * H], xp[..., 2 * H:]
+    if variant == "v3":
+        ua = h @ u + b
+        z = torch.sigmoid(xz + ua[..., :H])
+        r = torch.sigmoid(xr + ua[..., H:2 * H])
+        ht = torch.tanh(xh + r * ua[..., 2 * H:])
+    else:
+        zr = h @ u[:, :2 * H] + b[:2 * H]
+        z = torch.sigmoid(xz + zr[..., :H])
+        r = torch.sigmoid(xr + zr[..., H:])
+        ht = torch.tanh(xh + (r * h) @ u[:, 2 * H:] + b[2 * H:])
+    return (1.0 - z) * h + z * ht
+
+
+def _live(mask: Optional[torch.Tensor], t: int):
+    return None if mask is None else (mask[t] != 0)[:, None]
+
+
+def gru_sequence_ref(h0: torch.Tensor, x_proj: torch.Tensor, u: torch.Tensor,
+                     b: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     variant: str = "v1") -> torch.Tensor:
+    """h0 (B,H), x_proj (T,B,3H) -> all states (T,B,H)."""
+    h, out = h0, []
+    for t in range(x_proj.shape[0]):
+        h2 = gru_step_ref(h, x_proj[t], u, b, variant)
+        live = _live(mask, t)
+        h = h2 if live is None else torch.where(live, h2, h)
+        out.append(h)
+    return torch.stack(out, dim=0)
+
+
+def gru_stack_sequence_ref(h0: torch.Tensor, x_proj: torch.Tensor,
+                           u: torch.Tensor, w_deep: torch.Tensor,
+                           b: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           variant: str = "v1"):
+    """h0 (L,B,H), x_proj (T,B,3H) -> (last layer's states (T,B,H),
+    per-layer finals (L,B,H))."""
+    L = h0.shape[0]
+    hs = [h0[l] for l in range(L)]
+    out = []
+    for t in range(x_proj.shape[0]):
+        xp = x_proj[t]
+        live = _live(mask, t)
+        for l in range(L):
+            h2 = gru_step_ref(hs[l], xp, u[l], b[l], variant)
+            hs[l] = h2 if live is None else torch.where(live, h2, hs[l])
+            if l + 1 < L:
+                xp = hs[l] @ w_deep[l]
+        out.append(hs[-1])
+    return torch.stack(out, dim=0), torch.stack(hs, dim=0)
+
+
+def gru_stack_decode_ref(h: torch.Tensor, x_proj: torch.Tensor,
+                         u: torch.Tensor, w_deep: torch.Tensor,
+                         b: torch.Tensor, variant: str = "v1") -> torch.Tensor:
+    """h (L,B,H), x_proj (B,3H) of ONE token -> new states (L,B,H)."""
+    L = h.shape[0]
+    xp, out = x_proj, []
+    for l in range(L):
+        h_new = gru_step_ref(h[l], xp, u[l], b[l], variant)
+        out.append(h_new)
+        if l + 1 < L:
+            xp = h_new @ w_deep[l]
+    return torch.stack(out, dim=0)

@@ -1,0 +1,96 @@
+"""Serving driver: a wave of feature-vector requests through the port's
+ServeEngine (the single-engine path of ``repro.launch.serve``; no fleet,
+async front-end or autotuner).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet \\
+        --gru-backend cuda --requests 12 --slots 8 --vary-prompt
+
+Give more requests than ``--slots`` to exercise mid-wave admit and retire.
+``--gru-backend`` sets the executor preference: ``eager`` (plain PyTorch),
+``cuda`` (the fused CUDA kernels, one launch per prefill and per decode
+step) or ``auto`` (cheapest legal backend). The run is on the card unless
+``--device cpu`` is given. Prints each request's class stream, the decode
+latency statistics and the backends that served prefill and decode.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ALL_ARCHS, get_config
+from repro_torch.core.params import init_params
+from repro_torch.models import api as mapi
+from repro_torch.serve.engine import Request, ServeEngine
+
+
+def make_requests(cfg, n: int, prompt_len: int, vary: bool, max_new: int,
+                  seed: int):
+    """``n`` seeded feature-vector requests; ``vary`` draws each prompt's
+    length uniformly from 1..prompt_len."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(n):
+        S = int(rng.integers(1, prompt_len + 1)) if vary else prompt_len
+        reqs.append(Request(
+            prompt=rng.normal(size=(S, cfg.gru.input_dim)).astype(np.float32),
+            max_new_tokens=max_new))
+    return reqs
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", required=True, choices=ALL_ARCHS)
+    p.add_argument("--requests", type=int, default=4)
+    p.add_argument("--slots", type=int, default=0,
+                   help="decode batch slots (0 = --requests); requests "
+                        "beyond this queue and admit as slots free up")
+    p.add_argument("--prompt-len", type=int, default=12)
+    p.add_argument("--vary-prompt", action="store_true",
+                   help="ragged prompt lengths (exercises buckets + mask)")
+    p.add_argument("--max-new", type=int, default=16)
+    p.add_argument("--gru-backend", choices=("eager", "cuda", "auto"),
+                   default=None,
+                   help="executor backend preference (default: the "
+                        "config's, eager)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    args = p.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.gru_backend:
+        cfg = cfg.replace(gru=dataclasses.replace(cfg.gru,
+                                                  backend=args.gru_backend))
+    api = mapi.get_api(cfg)
+    params = init_params(api.specs(cfg), args.seed, cfg.param_dtype,
+                         device=device)
+    reqs = make_requests(cfg, args.requests, args.prompt_len,
+                         args.vary_prompt, args.max_new, args.seed)
+    engine = ServeEngine(cfg, params, max_batch=args.slots or args.requests,
+                         device=device)
+    done = engine.generate(reqs)
+    for i, r in enumerate(done):
+        print(f"req{i}: prompt {len(r.prompt)} -> {len(r.out)} classes "
+              f"{r.out}")
+    stats = engine.latency_stats()
+    print(f"decode latency ({stats['device']}): "
+          f"mean={stats['mean_s'] * 1e3:.4f}ms "
+          f"p50={stats['p50_s'] * 1e3:.4f}ms "
+          f"p90={stats['p90_s'] * 1e3:.4f}ms "
+          f"p99={stats['p99_s'] * 1e3:.4f}ms ({stats['steps']} steps); "
+          f"prefill mean={stats['prefill_mean_s'] * 1e3:.4f}ms "
+          f"({stats['prefills']} prefills)")
+    steps = stats["decode_backend_steps"]
+    attributed = ",".join(f"{k}:{v}" for k, v in sorted(steps.items()))
+    print(f"executor: prefill={'/'.join(sorted(set(engine.prefill_backends)))} "
+          f"decode={engine.decode_backend} "
+          f"decode_steps=[{attributed or '-'}]")
+    return done
+
+
+if __name__ == "__main__":
+    main()

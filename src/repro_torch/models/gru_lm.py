@@ -1,0 +1,91 @@
+"""The jet-tagging GRU (``gru-jet``, ``gru-jet-deep``) behind the model API
+(counterpart of ``repro.models.gru_lm``).
+
+Forward = the sequence classifier (GRU stack + linear head). Serving =
+one recurrent step through the whole stack per feature vector, the
+paper's latency path; the cache carries one hidden state per layer. All
+GRU execution goes through the executor (``repro_torch.core.runtime``):
+``prefill``/``decode_step`` ask ``compile()`` for the memoized executable,
+and ``serve_executable`` exposes it so the engine can record which backend
+ran.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import gru as gru_core
+from repro_torch.core import runtime
+from repro_torch.core.params import Spec, init_params
+
+
+def lm_specs(cfg: ModelConfig) -> dict:
+    return gru_core.gru_classifier_specs(cfg.gru)
+
+
+def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
+    return (h @ params["head"]["w"] + params["head"]["b"]).float()
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: {features (B,T,X)} -> class logits (B,C)."""
+    return gru_core.gru_classify(params, batch["features"], cfg=cfg.gru)
+
+
+def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """One-time serving prep: the cells on ``device`` plus the fused
+    kernels' weight stacks (``"stacked_cells"``), so no step restacks."""
+    sp = runtime.prepare(params, cfg.gru, device=device)
+    out = {"cells": sp.cells,
+           "head": {k: v.to(sp.device) for k, v in params["head"].items()}}
+    if sp.stacked is not None:
+        out["stacked_cells"] = sp.stacked
+    return out
+
+
+def serve_executable(cfg: ModelConfig, *, batch: int, seq: int = None,
+                     masked: bool = False) -> runtime.GRUExecutable:
+    """The executable a serving call with these shapes uses (the same
+    memoized object ``prefill``/``decode_step`` resolve)."""
+    return runtime.compile(cfg.gru, batch=batch, seq=seq, mask=masked)
+
+
+def cache_specs(cfg: ModelConfig, batch: int) -> dict:
+    """Recurrent cache: one hidden state per layer, plus the position."""
+    return {
+        "h": tuple(Spec((batch, h), init="zeros", dtype="float32")
+                   for h in cfg.gru.resolved_layer_dims),
+        "pos": Spec((), init="zeros", dtype="int32"),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+    return init_params(cache_specs(cfg, batch), device=device)
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict,
+                x: torch.Tensor):
+    """One recurrent step through the stack: x (B,X) features ->
+    (class logits, new cache)."""
+    exe = runtime.compile(cfg.gru, batch=x.shape[0])
+    hs = exe.decode(params, cache["h"], x)
+    return _logits(params, hs[-1]), {"h": hs, "pos": cache["pos"] + 1}
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict):
+    """Run the full sequence; return (logits, per-layer cache).
+
+    ``batch["mask"]`` (B, T) bool, optional: False steps freeze the
+    recurrence, so left-padded bucketed prompts give the state of their
+    unpadded originals."""
+    xs = batch["features"]
+    B = xs.shape[0]
+    mask = batch.get("mask")
+    h0s = gru_core.stack_h0(cfg.gru, B, xs.dtype, xs.device)
+    exe = runtime.compile(cfg.gru, batch=B, seq=xs.shape[1],
+                          mask=mask is not None)
+    finals = exe.prefill(params, h0s, xs, mask=mask)
+    cache = {"h": tuple(h.float() for h in finals),
+             "pos": torch.tensor(xs.shape[1] - 1, dtype=torch.int32,
+                                 device=xs.device)}
+    return _logits(params, finals[-1]), cache

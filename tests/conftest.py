@@ -11,6 +11,12 @@ import pytest
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (inside a fixture) "
+                   "where there is none")
+
+
 def run_multidev(body: str, n_devices: int = 4, timeout: int = 420) -> str:
     """Run ``body`` in a fresh python with n host devices; returns stdout.
     The body must print 'PASS' on success."""

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels on the card, held against their plain PyTorch
+versions (same inputs; largest absolute error at most 1e-5, since both are
+fp32 and differ only in summation order and libm).
+
+Every test here is marked ``gpu`` and skips, from a fixture, where there
+is no card. The file imports no JAX, so it runs on a machine that has
+only PyTorch; there, skip the JAX-based session fixtures of
+``conftest.py``::
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
+"""
+import dataclasses
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.core.params import init_params
+from repro_torch.kernels.gru_sequence import kernel as K
+from repro_torch.kernels.gru_sequence import ref
+from repro_torch.models import gru_lm
+from repro_torch.serve.engine import Request, ServeEngine
+
+TOL = 1e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the CUDA kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(L, H, B, T, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+    return dict(h0=rand(L, B, H, scale=0.5), xp=rand(T, B, 3 * H),
+                u=rand(L, H, 3 * H, scale=H ** -0.5),
+                wd=(rand(L - 1, H, 3 * H, scale=H ** -0.5) if L > 1
+                    else torch.zeros(1, 1, 3 * H, device=dev)),
+                b=rand(L, 3 * H, scale=0.3),
+                mask=(torch.rand(T, B, generator=g) > 0.3).float().to(dev))
+
+
+def _max_err(pairs):
+    torch.cuda.synchronize()
+    return max((g - w).abs().max().item() for g, w in pairs)
+
+
+CASES = list(itertools.product(((1, 20), (3, 32)), (1, 8, 64), (8, 32),
+                               ("v1", "v3"), (False, True)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH,B,T,variant,masked", CASES)
+def test_sequence_kernels_match_plain(cuda_device, LH, B, T, variant,
+                                      masked):
+    L, H = LH
+    a = _inputs(L, H, B, T, cuda_device, seed=B + T)
+    m = a["mask"] if masked else None
+    K.reset_launch_counts()
+    if L == 1:
+        got = (K.gru_sequence_kernel(a["h0"][0], a["xp"], a["u"][0],
+                                     a["b"][0], m, variant=variant),)
+        want = (ref.gru_sequence_ref(a["h0"][0], a["xp"], a["u"][0],
+                                     a["b"][0], m, variant),)
+    else:
+        got = K.gru_stack_sequence_kernel(a["h0"], a["xp"], a["u"], a["wd"],
+                                          a["b"], m, variant=variant)
+        want = ref.gru_stack_sequence_ref(a["h0"], a["xp"], a["u"], a["wd"],
+                                          a["b"], m, variant)
+    assert _max_err(zip(got, want)) <= TOL
+    assert [k.launches for k in K.KERNELS] == [int(L == 1), int(L > 1), 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH", ((1, 20), (3, 32)))
+@pytest.mark.parametrize("B", (1, 5, 64))
+@pytest.mark.parametrize("variant", ("v1", "v3"))
+@pytest.mark.parametrize("batch_block", (0, 1, 8))
+def test_decode_kernel_matches_plain(cuda_device, LH, B, variant,
+                                     batch_block):
+    L, H = LH
+    a = _inputs(L, H, B, 1, cuda_device, seed=B)
+    K.reset_launch_counts()
+    got = K.gru_stack_decode_kernel(a["h0"], a["xp"][0], a["u"], a["wd"],
+                                    a["b"], variant=variant,
+                                    batch_block=batch_block)
+    want = ref.gru_stack_decode_ref(a["h0"], a["xp"][0], a["u"], a["wd"],
+                                    a["b"], variant)
+    assert _max_err([(got, want)]) <= TOL
+    assert K.gru_stack_decode_kernel.launches == 1
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_cpu_cuda_mix(cuda_device):
+    a = _inputs(3, 32, 2, 1, cuda_device)
+    with pytest.raises(ValueError):
+        K.gru_stack_decode_kernel(a["h0"], a["xp"][0].cpu(), a["u"], a["wd"],
+                                  a["b"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("gru-jet", "gru-jet-deep"))
+def test_engine_streams_cuda_equal_eager(cuda_device, arch):
+    cfg = get_config(arch)
+    params = init_params(gru_lm.lm_specs(cfg), seed=0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.normal(size=(int(rng.integers(1, 21)), 5))
+               .astype(np.float32) for _ in range(6)]
+    streams = {}
+    for backend in ("eager", "cuda"):
+        c = cfg.replace(gru=dataclasses.replace(cfg.gru, backend=backend))
+        eng = ServeEngine(c, params, max_batch=4, device=cuda_device)
+        streams[backend] = [r.out for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=5) for p in prompts])]
+    assert streams["cuda"] == streams["eager"]
