@@ -8,23 +8,34 @@ Run from the repository root on a machine with one CUDA card::
 Phases (any failure exits non-zero, before the result lines):
 
 1. the device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-2. build the CUDA kernels with ``nvcc`` and print ``-Xptxas -v``'s report;
+2. build the CUDA kernels (``gru_sequence`` and ``gru_sequence_q8``, one
+   ``nvcc`` each, started together) and print ``-Xptxas -v``'s report;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (gru-jet L=1 H=20, gru-jet-deep L=3 H=32; B in
    {1, 8, 64}; T in {8, 16, 32}; v1 and v3; masked and not): largest
-   absolute error at most 1e-5;
+   absolute error at most 1e-5, for the three fp32 kernels and the two q8
+   kernels (int8 weight rows quantized on the card);
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
    attributed to ``cuda_fused``, the launch counters (zeroed just before)
-   must rise by the prefills and steps served, the class streams must
-   equal the ``eager`` engine's on the card, and the prefill logits must
-   be finite and agree with the dense reference on a small batch;
-5. time each kernel and its plain version with CUDA events, on the device
+   must rise by the prefills and steps served, no plain version may run,
+   the class streams must equal the ``eager`` engine's on the card, and
+   the prefill logits must be finite and agree with the dense reference on
+   a small batch;
+5. serve both configs again, pinned to ``cuda_fused_q8`` (the int8
+   datapath), with the counters zeroed just before: both q8 kernels must
+   launch once per prefill and per step, no fp32 kernel and no plain
+   version may run, the class streams and prefill logits must equal the
+   CPU run of the same pin; the share of tokens on which the q8 and fp32
+   streams agree is reported only;
+6. time each kernel and its plain version with CUDA events, on the device
    (calls captured in a CUDA graph and replayed, so the host's per-call
    cost is left out) and per call from Python; the bound is the bytes over
-   3.35 TB/s or the operations over 67 TFLOP/s fp32, whichever is larger.
-   The engine's decode-step p50/p99 come from phase 4 (host clock).
+   3.35 TB/s or the operations over their type's peak (67 TFLOP/s fp32,
+   1,979 TOP/s int8), whichever is larger; and profile a served decode
+   step of gru-jet-deep through ``cuda_fused`` and ``cuda_fused_q8``. The
+   engine's decode-step p50/p99 come from phases 4 and 5 (host clock).
 
 Then it prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -33,6 +44,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -43,14 +55,27 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
+INT8_OP_PER_S = 1979e12            # H100 SXM int8, dense (tensor cores)
 TOL = 1e-5
 SLOTS, REQUESTS, MAX_PROMPT, MAX_NEW = 8, 12, 20, 16
-KERNEL_SOURCE = "src/repro_torch/csrc/gru_sequence.cu"
+KERNEL_SOURCE = {
+    "gru_sequence_kernel": "src/repro_torch/csrc/gru_sequence.cu",
+    "gru_stack_sequence_kernel": "src/repro_torch/csrc/gru_sequence.cu",
+    "gru_stack_decode_kernel": "src/repro_torch/csrc/gru_sequence.cu",
+    "gru_stack_sequence_q8_kernel": "src/repro_torch/csrc/gru_sequence_q8.cu",
+    "gru_stack_decode_q8_kernel": "src/repro_torch/csrc/gru_sequence_q8.cu",
+}
 REPLACES = {
     "gru_sequence_kernel": "src/repro/kernels/gru_sequence/kernel.py:125",
     "gru_stack_sequence_kernel": "src/repro/kernels/gru_sequence/kernel.py:211",
     "gru_stack_decode_kernel": "src/repro/kernels/gru_sequence/kernel.py:291",
+    "gru_stack_sequence_q8_kernel":
+        "src/repro/kernels/gru_sequence/kernel.py:505",
+    "gru_stack_decode_q8_kernel":
+        "src/repro/kernels/gru_sequence/kernel.py:575",
 }
+Q8 = ("gru_stack_sequence_q8_kernel", "gru_stack_decode_q8_kernel")
+DECODE = ("gru_stack_decode_kernel", "gru_stack_decode_q8_kernel")
 
 
 def fail(msg: str) -> None:
@@ -108,7 +133,8 @@ def build_kernels():
     for cfg_name, L, H in (("gru-jet", 1, 20), ("gru-jet-deep", 3, 32)):
         print(f"  dynamic shared memory per block, {cfg_name} (L={L} H={H}, "
               f"{K.DEFAULT_BATCH_BLOCK}-row tile): "
-              f"{K.smem_bytes(L, H, K.DEFAULT_BATCH_BLOCK)} bytes "
+              f"{K.smem_bytes(L, H, K.DEFAULT_BATCH_BLOCK)} bytes fp32, "
+              f"{K.smem_bytes_q8(L, H, K.DEFAULT_BATCH_BLOCK)} bytes q8 "
               f"(limit {K.SMEM_LIMIT})")
 
 
@@ -117,6 +143,7 @@ def build_kernels():
 # ---------------------------------------------------------------------------
 
 def make_inputs(torch, L, H, B, T, seed, dev):
+    from repro_torch.core.params import quantize_gru_cells
     g = torch.Generator().manual_seed(seed)
 
     def rand(*shape, scale=1.0):
@@ -125,12 +152,18 @@ def make_inputs(torch, L, H, B, T, seed, dev):
     lens = torch.randint(1, T + 1, (B,), generator=g)
     for i in range(B):                      # left padding, as the engine
         mask[: T - int(lens[i]), i] = 0.0
-    return dict(
+    a = dict(
         h0=rand(L, B, H, scale=0.5), xp=rand(T, B, 3 * H),
         u=rand(L, H, 3 * H, scale=H ** -0.5),
         wd=(rand(L - 1, H, 3 * H, scale=H ** -0.5) if L > 1
             else torch.zeros(1, 1, 3 * H, device=dev)),
         b=rand(L, 3 * H, scale=0.3), mask=mask.to(dev))
+    # the q8 kernels' int8 views of the same weights, quantized on the card
+    st = quantize_gru_cells(
+        [{"w": a["wd"][max(l - 1, 0)], "u": a["u"][l], "b": a["b"][l]}
+         for l in range(L)]).stacked
+    a["q8"] = tuple(st[k] for k in ("u_q", "u_eff", "wd_q", "wd_eff", "b"))
+    return a
 
 
 def run_kernel(K, ref, name, a, variant, masked, plain):
@@ -145,16 +178,29 @@ def run_kernel(K, ref, name, a, variant, masked, plain):
         if plain:
             return ref.gru_stack_sequence_ref(*args, variant)
         return K.gru_stack_sequence_kernel(*args, variant=variant)
+    if name == "gru_stack_sequence_q8_kernel":
+        args = (a["h0"], a["xp"], *a["q8"], m)
+        if plain:
+            return ref.gru_stack_sequence_q8_ref(*args, variant)
+        return K.gru_stack_sequence_q8_kernel(*args, variant=variant)
+    if name == "gru_stack_decode_q8_kernel":
+        args = (a["h0"], a["xp"][0], *a["q8"])
+        if plain:
+            return (ref.gru_stack_decode_q8_ref(*args, variant),)
+        return (K.gru_stack_decode_q8_kernel(*args, variant=variant),)
     args = (a["h0"], a["xp"][0], a["u"], a["wd"], a["b"])
     if plain:
         return (ref.gru_stack_decode_ref(*args, variant),)
     return (K.gru_stack_decode_kernel(*args, variant=variant),)
 
 
+BOTH = [(1, 20), (3, 32)]
 MAIN_SHAPES = {                    # kernel -> (L, H) on the main path
-    "gru_sequence_kernel": (1, 20),              # gru-jet prefill
-    "gru_stack_sequence_kernel": (3, 32),        # gru-jet-deep prefill
-    "gru_stack_decode_kernel": None,             # both configs' decode
+    "gru_sequence_kernel": [(1, 20)],            # gru-jet prefill
+    "gru_stack_sequence_kernel": [(3, 32)],      # gru-jet-deep prefill
+    "gru_stack_decode_kernel": BOTH,             # both configs' decode
+    "gru_stack_sequence_q8_kernel": BOTH,        # both configs' q8 prefill
+    "gru_stack_decode_q8_kernel": BOTH,          # both configs' q8 decode
 }
 
 
@@ -162,17 +208,16 @@ def check_kernels(torch, dev):
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
     err = {n: 0.0 for n in REPLACES}
-    checks = 0
-    for name, LH in MAIN_SHAPES.items():
-        shapes = [LH] if LH else [(1, 20), (3, 32)]
-        Ts = (8, 16, 32) if LH else (1,)
+    checks = {n: 0 for n in REPLACES}
+    for name, shapes in MAIN_SHAPES.items():
+        decode = name in DECODE
         for (L, H) in shapes:
             for B in (1, 8, 64):
-                for T in Ts:
+                for T in ((1,) if decode else (8, 16, 32)):
                     a = make_inputs(torch, L, H, B, T, seed=B * 100 + T,
                                     dev=dev)
                     for variant in ("v1", "v3"):
-                        for masked in ((False, True) if LH else (False,)):
+                        for masked in ((False,) if decode else (False, True)):
                             got = run_kernel(K, ref, name, a, variant,
                                              masked, plain=False)
                             want = run_kernel(K, ref, name, a, variant,
@@ -186,16 +231,46 @@ def check_kernels(torch, dev):
                                 check(e <= TOL, f"{name} L={L} H={H} B={B} "
                                       f"T={T} {variant} masked={masked}: "
                                       f"max |err| {e:.3g} > {TOL}")
-                            checks += 1
+                            checks[name] += 1
     for n, e in err.items():
-        print(f"  {n}: max |kernel - plain| = {e:.3g} (<= {TOL})")
-    print(f"  {checks} kernel/plain comparisons passed", flush=True)
+        print(f"  {n}: max |kernel - plain| = {e:.3g} (<= {TOL}) over "
+              f"{checks[n]} comparisons")
+    print(f"  {sum(checks.values())} kernel/plain comparisons passed",
+          flush=True)
     return err
 
 
 # ---------------------------------------------------------------------------
 # 4. the main path: serve both configs through the kernels
 # ---------------------------------------------------------------------------
+
+ARCHS = ("gru-jet", "gru-jet-deep")
+PLAIN = ("gru_sequence_ref", "gru_stack_sequence_ref", "gru_stack_decode_ref",
+         "gru_stack_sequence_q8_ref", "gru_stack_decode_q8_ref")
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count calls of the kernels' plain versions while the block runs (the
+    wrappers reach them through the ``ref`` module), so a run can show that
+    none replaced a kernel."""
+    from repro_torch.kernels.gru_sequence import ref
+    counts = dict.fromkeys(PLAIN, 0)
+    saved = {n: getattr(ref, n) for n in PLAIN}
+
+    def counting(n):
+        def fn(*args, **kw):
+            counts[n] += 1
+            return saved[n](*args, **kw)
+        return fn
+    for n in PLAIN:
+        setattr(ref, n, counting(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+
 
 def serve(cfg, params, backend, dev):
     from repro_torch.launch.serve import make_requests
@@ -207,6 +282,49 @@ def serve(cfg, params, backend, dev):
     return eng, [r.out for r in done]
 
 
+def serve_all(K, cfgs, params, backend, dev, kernels):
+    """Serve every config through ``backend`` with all launch counters set
+    to 0 just before; returns engines, streams, the launches of ``kernels``
+    per config and in all, every other kernel's launches, and the plain
+    versions' calls."""
+    K.reset_launch_counts()
+    engines, streams, per_arch = {}, {}, {}
+    before = [0] * len(kernels)
+    with plain_calls() as plain:
+        for a in ARCHS:
+            engines[a], streams[a] = serve(cfgs[a], params[a], backend, dev)
+            after = [k.launches for k in kernels]
+            per_arch[a] = [x - y for x, y in zip(after, before)]
+            before = after
+    launches = dict(zip((k.__name__ for k in kernels), before))
+    others = {k.__name__: k.launches for k in K.KERNELS + K.Q8_KERNELS
+              if k not in kernels}
+    print(f"  main-path launches: {launches}; other kernels {others}; "
+          f"plain versions {plain}", flush=True)
+    check(not any(others.values()), f"{backend}: other kernels ran {others}")
+    check(not any(plain.values()), f"{backend}: plain versions ran {plain}")
+    return engines, streams, per_arch, launches
+
+
+def check_served(a, eng, backend, per_arch, seq_i):
+    """Every prefill and recorded step on ``backend``; the launches equal
+    the prefills (kernel ``seq_i``) and the decode steps (the last)."""
+    st = eng.latency_stats()
+    prefills = len(eng.prefill_backends)
+    steps_run = st["steps"] + 1     # the wave's one decode key: its
+                                    # first step is not recorded
+    check(set(eng.prefill_backends) == {backend},
+          f"{a}: prefill backends {set(eng.prefill_backends)}")
+    check(st["decode_backend_steps"] == {backend: st["steps"]},
+          f"{a}: decode steps {st['decode_backend_steps']}")
+    want = [0] * len(per_arch)
+    want[seq_i] = prefills
+    want[-1] = steps_run
+    check(per_arch == want,
+          f"{a}: launches {per_arch} != prefills/steps {want}")
+    return st, prefills, steps_run
+
+
 def run_main_path(torch, dev):
     from repro_torch.configs.base import get_config
     from repro_torch.core import gru as gru_core
@@ -214,37 +332,18 @@ def run_main_path(torch, dev):
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.models import gru_lm
 
-    archs = ("gru-jet", "gru-jet-deep")
-    cfgs = {a: get_config(a) for a in archs}
+    cfgs = {a: get_config(a) for a in ARCHS}
     params = {a: init_params(gru_lm.lm_specs(cfgs[a]), seed=0, device=dev)
-              for a in archs}
-    K.reset_launch_counts()
-    engines, streams, per_arch = {}, {}, {}
-    before = [0, 0, 0]
-    for a in archs:                                   # the main path
-        engines[a], streams[a] = serve(cfgs[a], params[a], "cuda", dev)
-        after = [k.launches for k in K.KERNELS]
-        per_arch[a] = [x - y for x, y in zip(after, before)]
-        before = after
-    launches = dict(zip((k.__name__ for k in K.KERNELS), before))
-    print(f"  main-path launches: {launches}", flush=True)
+              for a in ARCHS}
+    engines, streams, per_arch, launches = serve_all(        # the main path
+        K, cfgs, params, "cuda", dev, K.KERNELS)
 
     report = {}
-    for a in archs:
+    for a in ARCHS:
         eng = engines[a]
-        st = eng.latency_stats()
-        prefills = len(eng.prefill_backends)
-        steps_run = st["steps"] + 1     # the wave's one decode key: its
-                                        # first step is not recorded
-        check(set(eng.prefill_backends) == {"cuda_fused"},
-              f"{a}: prefill backends {set(eng.prefill_backends)}")
-        check(st["decode_backend_steps"] == {"cuda_fused": st["steps"]},
-              f"{a}: decode steps {st['decode_backend_steps']}")
         seq_i = 0 if cfgs[a].gru.resolved_num_layers == 1 else 1
-        want = [0, 0, steps_run]
-        want[seq_i] = prefills
-        check(per_arch[a] == want,
-              f"{a}: launches {per_arch[a]} != prefills/steps {want}")
+        st, prefills, steps_run = check_served(a, eng, "cuda_fused",
+                                               per_arch[a], seq_i)
         _, eager_streams = serve(cfgs[a], params[a], "eager", dev)
         check(streams[a] == eager_streams,
               f"{a}: class streams differ from the eager engine")
@@ -278,11 +377,72 @@ def run_main_path(torch, dev):
               f"streams == eager; logits vs reference {e:.3g}", flush=True)
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    return launches, report, cfgs, params, streams
+
+
+# ---------------------------------------------------------------------------
+# 5. the int8 path: serve both configs through cuda_fused_q8
+# ---------------------------------------------------------------------------
+
+def to_device(tree, dev):
+    """A copy of a nested dict/tuple of tensors on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def run_q8_path(torch, dev, cfgs, params, fp32_streams):
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.models import gru_lm
+
+    engines, streams, per_arch, launches = serve_all(        # the q8 path
+        K, cfgs, params, "cuda_fused_q8", dev, K.Q8_KERNELS)
+    cpu = torch.device("cpu")
+    report = {}
+    for a in ARCHS:
+        eng = engines[a]
+        st, prefills, steps_run = check_served(a, eng, "cuda_fused_q8",
+                                               per_arch[a], 0)
+        check(st["served_dtype"] == "int8", f"{a}: {st['served_dtype']}")
+        cpu_eng, cpu_streams = serve(cfgs[a], to_device(params[a], cpu),
+                                     "cuda_fused_q8", cpu)
+        check(streams[a] == cpu_streams,
+              f"{a}: q8 class streams on the card differ from the CPU run")
+        # finite logits of the right shape, equal to the plain versions'
+        # on the CPU for the same prepared weights
+        g = torch.Generator().manual_seed(5)
+        xs = torch.randn(3, 7, cfgs[a].gru.input_dim, generator=g)
+        cfg_q = cfgs[a].replace(gru=dataclasses.replace(
+            cfgs[a].gru, backend="cuda_fused_q8"))
+        logits, _ = gru_lm.prefill(eng.params, cfg_q, {"features": xs.to(dev)})
+        want, _ = gru_lm.prefill(cpu_eng.params, cfg_q, {"features": xs})
+        check(tuple(logits.shape) == (3, cfgs[a].gru.num_classes)
+              and bool(torch.isfinite(logits).all()), f"{a}: bad q8 logits")
+        e = (logits.cpu() - want).abs().max().item()
+        check(e <= TOL, f"{a}: q8 prefill logits vs the CPU run {e:.3g}")
+        tokens = [(x, y) for s, f in zip(streams[a], fp32_streams[a])
+                  for x, y in zip(s, f)]
+        agree = sum(x == y for x, y in tokens) / len(tokens)
+        report[a] = {"prefills": prefills, "decode_steps": steps_run,
+                     "decode_p50_ms": st["p50_s"] * 1e3,
+                     "decode_p99_ms": st["p99_s"] * 1e3,
+                     "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+                     "logits_err_vs_cpu": e, "streams_equal_cpu": True,
+                     "token_agreement_with_fp32": agree}
+        print(f"  {a}: {prefills} prefills, {steps_run} decode steps, all "
+              f"cuda_fused_q8 (int8); decode p50 {st['p50_s'] * 1e3:.4f} ms "
+              f"p99 {st['p99_s'] * 1e3:.4f} ms (host clock, synchronized); "
+              f"streams == CPU run; logits vs CPU run {e:.3g}; tokens equal "
+              f"to fp32 cuda_fused: {agree:.4f} (report only)", flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the q8 path never launched: {launches}")
     return launches, report
 
 
 # ---------------------------------------------------------------------------
-# 5. timing
+# 6. timing
 # ---------------------------------------------------------------------------
 
 def call_time_ms(torch, fn, iters: int, warmup: int = 5) -> float:
@@ -331,61 +491,82 @@ def device_time_ms(torch, fn, per_graph: int, replays: int = 5) -> float:
 def bound_ms(name, a):
     """Least time for the same work: every input read once and every output
     written once over 3.35 TB/s, or the operations the live (unmasked)
-    steps need over 67 TFLOP/s, whichever is larger."""
+    steps need over their type's peak (fp32 67 TFLOP/s, int8 1,979 TOP/s),
+    whichever is larger."""
     L, B, H = a["h0"].shape
-    T = a["xp"].shape[0] if name != "gru_stack_decode_kernel" else 1
-    masked = name != "gru_stack_decode_kernel"
-    n_in = (L * B * H + T * B * 3 * H + L * H * 3 * H + (L - 1) * H * 3 * H
-            + L * 3 * H + (T * B if masked else 0))
-    n_out = {"gru_sequence_kernel": T * B * H,
-             "gru_stack_sequence_kernel": T * B * H + L * B * H,
-             "gru_stack_decode_kernel": L * B * H}[name]
-    nbytes = 4 * (n_in + n_out)
+    decode = name in DECODE
+    T = 1 if decode else a["xp"].shape[0]
+    masked = not decode
+    H3 = 3 * H
     live = float(a["mask"].sum().item()) if masked else B
-    # per live (row, step, layer): U matvec 2*H*3H (v1: 2H*2H + 2H*H), the
-    # next layer's W matvec 2*H*3H below the top, 14*H elementwise
-    per_row_step = L * (6 * H * H + 14 * H) + (L - 1) * 6 * H * H
-    flops = live * per_row_step
+    # weights, scales and bias: fp32 U, W_deep, b; q8 int8 rows + f32 eff
+    w_bytes = (4 * (L * H * H3 + (L - 1) * H * H3 + L * H3)
+               if name not in Q8 else
+               (L * H3 * H + (L - 1) * H3 * H) + 4 * (L * H3 + (L - 1) * H3
+                                                      + L * H3))
+    n_in = L * B * H + T * B * H3 + (T * B if masked else 0)
+    n_out = {"gru_sequence_kernel": T * B * H}.get(
+        name, L * B * H if decode else T * B * H + L * B * H)
+    nbytes = w_bytes + 4 * (n_in + n_out)
+    # per live (row, step): the U matvecs 2*H*3H per layer and the next
+    # layer's W matvec 2*H*3H below the top; elementwise 14*H per layer
+    # (q8 adds the dequant 6H, two activation quantizations 8H per layer
+    # and the deep projection's 3H + 4H)
+    mac_ops = live * (L * 6 * H * H + (L - 1) * 6 * H * H)
+    if name in Q8:
+        f32_ops = live * (L * 28 * H + (L - 1) * 7 * H)
+        t_ops = (mac_ops / INT8_OP_PER_S + f32_ops / FP32_FLOP_PER_S) * 1e3
+    else:
+        t_ops = (mac_ops + live * L * 14 * H) / FP32_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+TIMED = (("gru_sequence_kernel", (1, 20)),
+         ("gru_stack_sequence_kernel", (3, 32)),
+         ("gru_stack_decode_kernel", (3, 32)),
+         ("gru_stack_decode_kernel", (1, 20)),
+         ("gru_stack_sequence_q8_kernel", (3, 32)),
+         ("gru_stack_sequence_q8_kernel", (1, 20)),
+         ("gru_stack_decode_q8_kernel", (3, 32)),
+         ("gru_stack_decode_q8_kernel", (1, 20)))
 
 
 def time_kernels(torch, dev, err, launches):
     """Kernel, plain-version and bound times at the main path's shapes;
-    the JSON rows are the 8-slot shapes (gru-jet prefill, gru-jet-deep
-    prefill and decode)."""
+    the JSON rows are the 8-slot shapes (gru-jet fp32 prefill, gru-jet-deep
+    for the others)."""
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
     rows = []
     # main-path shapes: 8 slots, a 16-step bucket, v1 (the configs' variant)
-    for name, (L, H) in (("gru_sequence_kernel", (1, 20)),
-                         ("gru_stack_sequence_kernel", (3, 32)),
-                         ("gru_stack_decode_kernel", (3, 32)),
-                         ("gru_stack_decode_kernel", (1, 20))):
+    for name, (L, H) in TIMED:
         for B in (1, SLOTS, 64):
-            T = 1 if name == "gru_stack_decode_kernel" else 16
+            decode = name in DECODE
+            T = 1 if decode else 16
             a = make_inputs(torch, L, H, B, T, seed=7, dev=dev)
-            masked = name != "gru_stack_decode_kernel"
 
             def kern():
-                return run_kernel(K, ref, name, a, "v1", masked, plain=False)
+                return run_kernel(K, ref, name, a, "v1", not decode,
+                                  plain=False)
 
             def plain_fn():
-                return run_kernel(K, ref, name, a, "v1", masked, plain=True)
+                return run_kernel(K, ref, name, a, "v1", not decode,
+                                  plain=True)
             ms = device_time_ms(torch, kern, per_graph=200)
             plain = device_time_ms(torch, plain_fn, per_graph=4 if T > 1
                                    else 50)
             call = call_time_ms(torch, kern, iters=300)
             plain_call = call_time_ms(torch, plain_fn, iters=10)
             bms, by = bound_ms(name, a)
-            print(f"  {name:26s} L={L} H={H} B={B:2d} T={T:2d}: device "
+            print(f"  {name:28s} L={L} H={H} B={B:2d} T={T:2d}: device "
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
                   f"  bound {bms * 1e6:7.2f} ns ({by})", flush=True)
-            if B == SLOTS and (name != "gru_stack_decode_kernel" or L == 3):
+            if B == SLOTS and (name == "gru_sequence_kernel" or L == 3):
                 rows.append({
-                    "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                    "name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
                     "replaces": REPLACES[name],
                     "launches": launches[name], "max_abs_err": err[name],
                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
@@ -394,13 +575,14 @@ def time_kernels(torch, dev, err, launches):
                     "shape": {"L": L, "H": H, "B": B, "T": T,
                               "variant": "v1"}})
     print("  library_ms: null -- no single PyTorch call computes the v1 "
-          "(paper) GRU recurrence these kernels run", flush=True)
+          "(paper) GRU recurrence these kernels run, in fp32 or on int8 "
+          "weight rows", flush=True)
     return rows
 
 
-def profile_decode(torch, dev):
+def profile_decode(torch, dev, backend):
     """Device busy share of the served decode step: ``torch.profiler`` over
-    20 warm steps of a full 8-slot gru-jet-deep wave through cuda_fused;
+    20 warm steps of a full 8-slot gru-jet-deep wave through ``backend``;
     busy = the kernels' summed device time over the steps' wall time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
@@ -409,7 +591,7 @@ def profile_decode(torch, dev):
     from repro_torch.models import gru_lm
     from repro_torch.serve.engine import ServeEngine
     cfg = get_config("gru-jet-deep")
-    cfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend="cuda"))
+    cfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend=backend))
     params = init_params(gru_lm.lm_specs(cfg), seed=0, device=dev)
     eng = ServeEngine(cfg, params, max_batch=SLOTS, device=dev)
     eng.gru_wave_begin(make_requests(cfg, SLOTS, 10, False, 64, seed=1))
@@ -434,8 +616,8 @@ def profile_decode(torch, dev):
         print("  profiler: no device time recorded -> busy share not "
               "measured", flush=True)
         return None
-    print(f"  decode step (gru-jet-deep, {SLOTS} slots, 20 steps): wall "
-          f"{wall / 20 * 1e3:.4f} ms/step, device busy "
+    print(f"  decode step (gru-jet-deep, {backend}, {SLOTS} slots, 20 "
+          f"steps): wall {wall / 20 * 1e3:.4f} ms/step, device busy "
           f"{busy / 20 * 1e3:.4f} ms/step = {busy / wall:.3%} (idle "
           f"{1 - busy / wall:.3%})", flush=True)
     for k, us in top:
@@ -460,13 +642,20 @@ def main() -> None:
     phase("3. kernels vs plain versions")
     err = check_kernels(torch, dev)
     phase("4. main path: serve gru-jet and gru-jet-deep through cuda_fused")
-    launches, report = run_main_path(torch, dev)
-    phase("5. timing (CUDA events: device via graph replay, and per call)")
+    launches, report, cfgs, params, streams = run_main_path(torch, dev)
+    phase("5. int8 path: serve gru-jet and gru-jet-deep through "
+          "cuda_fused_q8")
+    q8_launches, q8_report = run_q8_path(torch, dev, cfgs, params, streams)
+    launches.update(q8_launches)
+    phase("6. timing (CUDA events: device via graph replay, and per call)")
     rows = time_kernels(torch, dev, err, launches)
-    report["profile_gru_jet_deep_decode"] = profile_decode(torch, dev)
+    report["profile_gru_jet_deep_decode"] = profile_decode(torch, dev,
+                                                           "cuda")
+    q8_report["profile_gru_jet_deep_decode"] = profile_decode(
+        torch, dev, "cuda_fused_q8")
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the JAX package was imported")
-    print(json.dumps({"serve": report}))
+    print(json.dumps({"serve": report, "serve_q8": q8_report}))
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,8 @@ of ``repro``).
 
 Backend preferences are the port's names (see ``repro_torch.core.runtime``):
 ``"eager"`` (default, the JAX ``"xla"``), ``"cuda"`` (the JAX ``"pallas"``),
-an exact backend name such as ``"cuda_fused"``, or ``"auto"``.
+an exact backend name such as ``"cuda_fused"`` or ``"cuda_fused_q8"``, or
+``"auto"``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,10 @@ class GRUConfig:
     layer_dims: Tuple[int, ...] = ()     # per-layer hidden sizes; () -> uniform
     layer_matvec_modes: Tuple[str, ...] = ()  # per-layer matvec_mode overrides
     family: str = "gru"
+    quant: str = ""                  # "" (f32) | "int8": makes the q8
+                                     # backends (cuda_fused_q8) candidates,
+                                     # chosen without a pin only when the
+                                     # quant accuracy gate is open
 
     @property
     def resolved_num_layers(self) -> int:

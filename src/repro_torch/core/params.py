@@ -89,3 +89,82 @@ def params_from_numpy(tree, device="cuda"):
             return torch.from_numpy(np.array(x)).to(dev)
         return x
     return _map_tree(leaf, tree)
+
+
+# ---------------------------------------------------------------------------
+# int8 weight rows for the q8 datapath (copied from repro.core.params)
+# ---------------------------------------------------------------------------
+#
+# The paper's AIE lanes MAC int8 weight ROWS against the activation vector.
+# A (K, 3H) gate matrix is stored transposed, (3H, K) int8, one contiguous
+# row per output element, quantized symmetrically per row
+# (``scale_j = max|row_j| / 127``). Activations need no calibration: a GRU
+# state is a convex mix of its initial state and tanh outputs, so with
+# |h0| <= 1 every h (and r*h) stays in (-1, 1) and the fixed scale 127 is
+# exact-range. An int32 sum ``acc = h_q . u_q_row`` stands for
+# ``(h*127) . (row / scale_j)``, so ``acc * eff_j`` with
+# ``eff_j = scale_j / 127`` dequantizes it; ``eff`` is computed here, once.
+
+ACT_SCALE = 127.0   # fixed activation quantization scale (h in (-1,1))
+
+
+def quantize_rows_int8(w: torch.Tensor):
+    """Symmetric per-output-channel int8 quantization of a (K, N) matrix ->
+    ``(q (N, K) int8, eff (N,) float32)``: ``q`` is the transposed matrix
+    (one contiguous row per output channel), ``eff`` the dequant scale per
+    row with the activation scale folded in (``max|row| / 127 / 127``).
+    All-zero rows get scale 1. Rounds half to even, as ``jnp.round``."""
+    wt = w.to(torch.float32).t()                             # (N, K)
+    scale = wt.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(wt / scale).to(torch.int8).contiguous()
+    return q, (scale[:, 0] / ACT_SCALE).to(torch.float32)
+
+
+@dataclass
+class QuantStackParams:
+    """The q8 datapath's weight views, built once by ``runtime.prepare``.
+
+    ``cells``: per-layer ``{"u_q" (3H,H) int8, "u_eff" (3H,)}``.
+    ``stacked``: the fused q8 kernels' whole-stack views (``{"u_q"
+    (L,3H,H), "u_eff" (L,3H), "wd_q" (L-1,3H,H), "wd_eff" (L-1,3H), "b"
+    (L,3H)}``; for L=1 ``wd_q`` is the (1,3H,1) placeholder and ``wd_eff``
+    (1,3H) zeros, never read), None for heterogeneous stacks."""
+    cells: tuple
+    stacked: Optional[dict] = None
+
+    def to(self, device) -> "QuantStackParams":
+        return QuantStackParams(
+            cells=tuple({k: v.to(device) for k, v in c.items()}
+                        for c in self.cells),
+            stacked=(None if self.stacked is None else
+                     {k: v.to(device) for k, v in self.stacked.items()}))
+
+
+def quantize_gru_cells(cells) -> QuantStackParams:
+    """One-time quantization of a GRU stack's recurrent weights, and for
+    uniform stacks of the fused kernels' stacked views (the deep layers'
+    input projections in int8 too), on the cells' device."""
+    cells = tuple(cells)
+    per_layer = []
+    for c in cells:
+        u_q, u_eff = quantize_rows_int8(c["u"])
+        per_layer.append({"u_q": u_q, "u_eff": u_eff})
+    dims = tuple(c["u"].shape[0] for c in cells)
+    stacked = None
+    if all(d == dims[0] for d in dims):
+        L, H = len(cells), dims[0]
+        dev = cells[0]["u"].device
+        u_q = torch.stack([p["u_q"] for p in per_layer], 0)      # (L,3H,H)
+        u_eff = torch.stack([p["u_eff"] for p in per_layer], 0)  # (L,3H)
+        if L > 1:
+            wd = [quantize_rows_int8(c["w"]) for c in cells[1:]]
+            wd_q = torch.stack([q for q, _ in wd], 0)            # (L-1,3H,H)
+            wd_eff = torch.stack([e for _, e in wd], 0)          # (L-1,3H)
+        else:
+            wd_q = torch.zeros((1, 3 * H, 1), dtype=torch.int8, device=dev)
+            wd_eff = torch.zeros((1, 3 * H), dtype=torch.float32, device=dev)
+        b = torch.stack([c["b"].to(torch.float32) for c in cells], 0)
+        stacked = {"u_q": u_q, "u_eff": u_eff, "wd_q": wd_q,
+                   "wd_eff": wd_eff, "b": b}
+    return QuantStackParams(cells=tuple(per_layer), stacked=stacked)

@@ -12,35 +12,48 @@ backends keyed by ``(cell family, backend)`` (counterpart of
 
 Backend names map from the JAX package as follows:
 
-=================  ===============  ========================================
-JAX name           port name        what runs
-=================  ===============  ========================================
-``xla``            ``eager``        eager PyTorch (``repro_torch.core.gru``)
-``pallas`` (pref)  ``cuda`` (pref)  the ``cuda*`` backends
-``pallas_fused``   ``cuda_fused``   the fused CUDA kernels (one launch per
-                                    prefill, one per decode step)
-=================  ===============  ========================================
+===================  =================  ======================================
+JAX name             port name          what runs
+===================  =================  ======================================
+``xla``              ``eager``          eager PyTorch (``repro_torch.core.gru``)
+``pallas`` (pref)    ``cuda`` (pref)    the ``cuda*`` backends
+``pallas_fused``     ``cuda_fused``     the fused CUDA kernels (one launch
+                                        per prefill, one per decode step)
+``pallas_fused_q8``  ``cuda_fused_q8``  the fused int8 CUDA kernels, on the
+                                        weight rows ``prepare`` quantizes
+                                        once
+===================  =================  ======================================
 
 Capability table for ``family="gru"`` (``cost`` is the static preference,
 lower = preferred)::
 
-    backend     mask  hetero  cost
-    cuda_fused  yes   no      10
-    eager       yes   yes     30
+    backend        mask  hetero  cost
+    cuda_fused     yes   no      10
+    eager          yes   yes     30
+    cuda_fused_q8  yes   no      150
 
-Both serve sequences (prefill) and decode steps, with ``return_all``.
+All serve sequences (prefill) and decode steps, with ``return_all``.
 
 ``cfg.backend`` is a preference: ``"eager"`` (the default, as ``"xla"`` is
 in the JAX config) and ``"cuda"`` pin their family when legal, an exact
 backend name pins that backend, and ``"auto"`` picks the cheapest legal
 one. An illegal preference falls through to the cheapest legal backend.
-The measured CostModel, the int8 gate, mesh placements and the sharded and
-chain backends are not ported yet. On CPU tensors ``cuda_fused`` runs the
-kernels' plain PyTorch versions (see ``repro_torch.kernels.gru_sequence``).
+
+The q8 backends (names ending ``_q8``) change the numerics, so they are
+gated as in the JAX runtime: one is a candidate only under an exact-name
+pin, or when ``cfg.quant == "int8"`` and the recorded accuracy artifact
+(``BENCH_quant_accuracy.json``, or ``$REPRO_GRU_QUANT_ACC``; see
+:func:`load_quant_accuracy`) passed. Its static cost keeps ``auto`` off it
+even then. The measured CostModel, mesh placements and the sharded and
+chain backends are not ported yet. On CPU tensors the ``cuda*`` backends
+run the kernels' plain PyTorch versions (see
+``repro_torch.kernels.gru_sequence``).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -50,6 +63,7 @@ from repro_torch.configs.base import GRUConfig
 from repro_torch.core import cells as cell_families
 from repro_torch.core import gru as gru_core
 from repro_torch.core.cells import UnknownCellFamily  # noqa: F401 (re-export)
+from repro_torch.core.params import QuantStackParams, quantize_gru_cells
 
 
 # ---------------------------------------------------------------------------
@@ -69,13 +83,17 @@ class BackendSpec:
 
     ``sequence_fn(sp, h0s, xs, *, cfg, return_all, mask)`` returns
     ``(per-layer finals, last layer's states | None)``;
-    ``decode_fn(sp, hs, x, *, cfg)`` returns the per-layer new states."""
+    ``decode_fn(sp, hs, x, *, cfg)`` returns the per-layer new states.
+    ``views`` names the weight views the backend reads besides the cells:
+    ``"stacked"`` (``StackParams.stacked``), ``"quant"``
+    (``StackParams.quant``) or ``""``."""
     name: str
     caps: Capabilities
     cost: int
     sequence_fn: Callable
     decode_fn: Callable
     family: str = "gru"
+    views: str = ""
 
 
 _REGISTRY: Dict[Tuple[str, str], BackendSpec] = {}
@@ -114,9 +132,12 @@ register_backend(BackendSpec(
 class StackParams:
     """``cells``: per-layer ``{"w","u","b"}`` dicts, layer 0 first.
     ``stacked``: the fused kernels' weight stacks (``{"u","w_deep","b"}``),
-    present for uniform hidden sizes once requested."""
+    present for uniform hidden sizes once requested. ``quant``: the q8
+    backends' int8 weight views (:class:`QuantStackParams`), present once
+    requested."""
     cells: tuple
     stacked: Optional[dict] = None
+    quant: Optional[QuantStackParams] = None
 
     @property
     def dims(self) -> Tuple[int, ...]:
@@ -127,22 +148,32 @@ class StackParams:
         return self.cells[0]["u"].device
 
 
-def _stack_params(params, cfg: GRUConfig, want_stacked: bool) -> StackParams:
+def _cfg_wants_quant(cfg) -> bool:
+    """Whether this config may route through a q8 backend (the quant flag
+    or an exact ``*_q8`` pin): then ``prepare`` builds the int8 views."""
+    return cfg.quant == "int8" or cfg.backend.endswith("_q8")
+
+
+def _stack_params(params, cfg: GRUConfig, want_stacked: bool,
+                  want_quant: bool = False) -> StackParams:
     """Normalize a layout to StackParams where its tensors already live,
-    building the weight stacks if wanted and missing (uniform stacks)."""
+    building the weight stacks (uniform stacks) and the int8 views if
+    wanted and missing."""
     family = cell_families.get_family(cell_families.cfg_family(cfg))
     if isinstance(params, StackParams):
         sp = params
     else:
+        get = params.get if isinstance(params, dict) else (lambda _k: None)
         sp = StackParams(cells=family.normalize(params, cfg),
-                         stacked=(params.get("stacked_cells")
-                                  if isinstance(params, dict) else None))
+                         stacked=get("stacked_cells"),
+                         quant=get("quant_cells"))
     dims = sp.dims
     if (want_stacked and sp.stacked is None
             and family.stacked_views is not None
             and all(d == dims[0] for d in dims)):
-        sp = StackParams(cells=sp.cells,
-                         stacked=family.stacked_views(sp.cells))
+        sp = dataclasses.replace(sp, stacked=family.stacked_views(sp.cells))
+    if want_quant and sp.quant is None:
+        sp = dataclasses.replace(sp, quant=quantize_gru_cells(sp.cells))
     return sp
 
 
@@ -150,15 +181,99 @@ def prepare(params, cfg: GRUConfig, *, device="cuda",
             want_stacked: bool = True) -> StackParams:
     """Normalize any accepted layout (``StackParams``, ``{"cells": ...}``,
     ``{"cell": ...}``, a bare cell, a sequence of cells; a dict may carry
-    precomputed ``"stacked_cells"``), place it on ``device`` and build the
-    fused kernels' weight stacks once (uniform stacks only)."""
+    precomputed ``"stacked_cells"`` and ``"quant_cells"``), place it on
+    ``device`` and build the fused kernels' weight stacks once (uniform
+    stacks only). When ``cfg`` asks for the q8 datapath (``quant="int8"``
+    or a ``*_q8`` pin) the int8 weight views are built here too, on
+    ``device``, so no execute call quantizes weights."""
     dev = resolve_device(device)
     sp = _stack_params(params, cfg, want_stacked=False)
     cells = tuple({k: v.to(dev) for k, v in c.items()} for c in sp.cells)
     stacked = (None if sp.stacked is None
                else {k: v.to(dev) for k, v in sp.stacked.items()})
-    return _stack_params(StackParams(cells=cells, stacked=stacked), cfg,
-                         want_stacked)
+    quant = None if sp.quant is None else sp.quant.to(dev)
+    return _stack_params(StackParams(cells=cells, stacked=stacked,
+                                     quant=quant), cfg, want_stacked,
+                         _cfg_wants_quant(cfg))
+
+
+# ---------------------------------------------------------------------------
+# quant accuracy gate (the q8 backends' dispatch-eligibility record)
+# ---------------------------------------------------------------------------
+
+class QuantAccuracy:
+    """The recorded result of the q8 accuracy harness
+    (``BENCH_quant_accuracy.json``, the JAX package's schema: ``"bench":
+    "gru_quant_accuracy"``, ``"passed"``). Only a loaded, error-free
+    artifact with ``passed: true`` opens the gate; a missing, corrupt or
+    failing one keeps the q8 backends pin-only."""
+
+    def __init__(self, data: Optional[dict] = None, source: str = "",
+                 error: Optional[str] = None):
+        self.data = dict(data or {})
+        self.source = source
+        self.error = error
+
+    @property
+    def passed(self) -> bool:
+        return self.error is None and bool(self.data.get("passed"))
+
+    @classmethod
+    def load(cls, path) -> "QuantAccuracy":
+        """Tolerant load: a missing, unreadable or schema-mismatched file
+        gives a closed gate, never an exception."""
+        try:
+            with open(path) as f:
+                data = json.load(f)
+            if data.get("bench") != "gru_quant_accuracy":
+                raise ValueError("not a gru_quant_accuracy artifact")
+            return cls(data, source=str(path))
+        except (OSError, ValueError, AttributeError) as e:
+            return cls({}, source=str(path), error=f"{type(e).__name__}: {e}")
+
+
+_QUANT_ACC: Optional[QuantAccuracy] = None
+
+
+def set_quant_accuracy(report: Optional[QuantAccuracy]) -> None:
+    """Install an accuracy report (None re-arms the lazy default load).
+    Gate flips change which backends are legal, so the memoized
+    executables are dropped."""
+    global _QUANT_ACC
+    _QUANT_ACC = report
+    _EXEC_CACHE.clear()
+
+
+def load_quant_accuracy(path) -> QuantAccuracy:
+    """Load ``path`` (tolerantly) and install it. Returns the report."""
+    report = QuantAccuracy.load(path)
+    set_quant_accuracy(report)
+    return report
+
+
+def quant_accuracy() -> QuantAccuracy:
+    """The active accuracy report. On first use, loads
+    ``$REPRO_GRU_QUANT_ACC`` (default ``./BENCH_quant_accuracy.json``) if
+    present; otherwise a closed gate."""
+    global _QUANT_ACC
+    if _QUANT_ACC is None:
+        path = os.environ.get("REPRO_GRU_QUANT_ACC",
+                              "BENCH_quant_accuracy.json")
+        _QUANT_ACC = (QuantAccuracy.load(path) if os.path.exists(path)
+                      else QuantAccuracy({}, source=path,
+                                         error="missing artifact"))
+    return _QUANT_ACC
+
+
+def quant_gate_open() -> bool:
+    """True when the recorded accuracy artifact admits q8 dispatch."""
+    return quant_accuracy().passed
+
+
+def backend_dtype(name: Optional[str]) -> str:
+    """The numeric format a backend's recurrent matvecs run in: what a
+    server reports as its served dtype."""
+    return "int8" if name and name.endswith("_q8") else "float32"
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +317,14 @@ def _rank(spec: BackendSpec, cfg: GRUConfig) -> tuple:
     return (fam, spec.cost, spec.name)
 
 
+def _q8_allowed(spec: BackendSpec, cfg: GRUConfig) -> bool:
+    """A ``*_q8`` backend is a candidate only under its exact-name pin, or
+    under ``quant="int8"`` with the accuracy gate open."""
+    if not spec.name.endswith("_q8") or cfg.backend == spec.name:
+        return True
+    return cfg.quant == "int8" and quant_gate_open()
+
+
 def _select(cfg: GRUConfig, *, masked: bool) -> BackendSpec:
     """The preferred legal backend of ``cfg``'s family (``eager`` serves
     every call, so there always is one)."""
@@ -210,7 +333,8 @@ def _select(cfg: GRUConfig, *, masked: bool) -> BackendSpec:
     legal = [s for s in _REGISTRY.values()
              if s.family == fam
              and (s.caps.supports_mask or not masked)
-             and (s.caps.supports_hetero_dims or not hetero)]
+             and (s.caps.supports_hetero_dims or not hetero)
+             and _q8_allowed(s, cfg)]
     return min(legal, key=lambda s: _rank(s, cfg))
 
 
@@ -238,7 +362,8 @@ def compile(cfg: GRUConfig, *, batch: Optional[int] = None,
         if mask is not None and not masked:
             raise ValueError("executable was compiled with mask=False; "
                              "re-compile with mask=True to pass a mask")
-        sp = _stack_params(params, cfg, seq_spec.name == "cuda_fused")
+        sp = _stack_params(params, cfg, seq_spec.views == "stacked",
+                           seq_spec.views == "quant")
         return seq_spec.sequence_fn(sp, tuple(h0s), xs, cfg=cfg,
                                     return_all=return_all, mask=mask)
 
@@ -246,7 +371,8 @@ def compile(cfg: GRUConfig, *, batch: Optional[int] = None,
         return run_sequence(params, h0s, xs, mask=mask)[0]
 
     def run_decode(params, hs, x):
-        sp = _stack_params(params, cfg, dec_spec.name == "cuda_fused")
+        sp = _stack_params(params, cfg, dec_spec.views == "stacked",
+                           dec_spec.views == "quant")
         return dec_spec.decode_fn(sp, tuple(hs), x, cfg=cfg)
 
     exe = GRUExecutable(

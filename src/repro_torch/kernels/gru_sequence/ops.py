@@ -1,5 +1,6 @@
-"""The ``cuda_fused`` executor backend: the fused GRU kernels behind the
-runtime's backend interface (counterpart of the ``pallas_fused`` half of
+"""The ``cuda_fused`` and ``cuda_fused_q8`` executor backends: the fused GRU
+kernels behind the runtime's backend interface (counterpart of the
+``pallas_fused`` and ``pallas_fused_q8`` parts of
 ``repro.kernels.gru_sequence.ops``).
 
 The layer-0 input projection ``x @ W`` stays one ``torch.matmul`` outside
@@ -7,7 +8,10 @@ the kernels; each kernel owns the whole recurrent path. A (B, T) bool
 length mask is turned time-major (T, B) float and streamed through the
 kernel. A depth-1 stack goes to the depth-1 sequence kernel, a deeper
 uniform stack to the fused stack kernel; the decode step is one launch
-through all layers. The per-layer chain backend is not ported yet.
+through all layers. ``cuda_fused_q8`` runs the same structure on the int8
+weight rows that ``runtime.prepare`` quantizes once (the q8 views); it has
+no depth-1 special case: every depth goes to the q8 stack kernel. The
+per-layer chain backends are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,9 +19,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.gru_sequence.kernel import (gru_sequence_kernel,
-                                                     gru_stack_decode_kernel,
-                                                     gru_stack_sequence_kernel)
+from repro_torch.kernels.gru_sequence.kernel import (
+    gru_sequence_kernel, gru_stack_decode_kernel, gru_stack_decode_q8_kernel,
+    gru_stack_sequence_kernel, gru_stack_sequence_q8_kernel)
 
 
 def _time_major_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -81,8 +85,38 @@ def gru_stack_decode_cuda(params: tuple, hs: tuple, x: torch.Tensor, *, cfg,
     return tuple(h2.unbind(0))
 
 
+def gru_stack_sequence_cuda_q8(params: tuple, h0s: tuple, xs: torch.Tensor,
+                               *, cfg, quant, return_all: bool = False,
+                               mask=None):
+    """Fused q8 depth-L stack (uniform hidden sizes, any depth): one
+    launch on int8 weight rows. The layer-0 ``x @ W`` stays a float32
+    matmul. ``quant`` is ``runtime.prepare``'s ``QuantStackParams``.
+    Returns (per-layer finals, optionally the last layer's (B,T,H))."""
+    st = quant.stacked
+    xp = (xs @ params[0]["w"]).transpose(0, 1).contiguous()  # (T,B,3H)
+    h0 = torch.stack(tuple(h0s), 0)                          # (L,B,H)
+    hs, hT = gru_stack_sequence_q8_kernel(
+        h0, xp, st["u_q"], st["u_eff"], st["wd_q"], st["wd_eff"], st["b"],
+        _time_major_mask(mask), variant=cfg.variant)
+    return tuple(hT.unbind(0)), (hs.transpose(0, 1) if return_all else None)
+
+
+def gru_stack_decode_cuda_q8(params: tuple, hs: tuple, x: torch.Tensor, *,
+                             cfg, quant) -> tuple:
+    """One token through the whole stack on int8 weight rows, one launch;
+    returns the per-layer new states."""
+    st = quant.stacked
+    xp = (x @ params[0]["w"]).contiguous()                   # (B,3H)
+    h = torch.stack(tuple(hs), 0)                            # (L,B,H)
+    h2 = gru_stack_decode_q8_kernel(h, xp, st["u_q"], st["u_eff"],
+                                    st["wd_q"], st["wd_eff"], st["b"],
+                                    variant=cfg.variant)
+    return tuple(h2.unbind(0))
+
+
 def register_runtime_backends() -> None:
-    """Register ``cuda_fused`` with the GRU executor (idempotent)."""
+    """Register ``cuda_fused`` and ``cuda_fused_q8`` with the GRU executor
+    (idempotent)."""
     from repro_torch.core import runtime
 
     def fused_seq(sp, h0s, xs, *, cfg, return_all, mask):
@@ -94,9 +128,26 @@ def register_runtime_backends() -> None:
         return gru_stack_decode_cuda(sp.cells, tuple(hs), x, cfg=cfg,
                                      stacked=sp.stacked)
 
+    def fused_seq_q8(sp, h0s, xs, *, cfg, return_all, mask):
+        return gru_stack_sequence_cuda_q8(sp.cells, tuple(h0s), xs, cfg=cfg,
+                                          return_all=return_all, mask=mask,
+                                          quant=sp.quant)
+
+    def fused_dec_q8(sp, hs, x, *, cfg):
+        return gru_stack_decode_cuda_q8(sp.cells, tuple(hs), x, cfg=cfg,
+                                        quant=sp.quant)
+
     runtime.register_backend(runtime.BackendSpec(
         name="cuda_fused",
         caps=runtime.Capabilities(supports_mask=True,
                                   supports_hetero_dims=False),
         cost=10,
-        sequence_fn=fused_seq, decode_fn=fused_dec))
+        sequence_fn=fused_seq, decode_fn=fused_dec, views="stacked"))
+    # cost 150, as in the JAX table: under the static costs the q8
+    # datapath never wins dispatch, it runs under an exact-name pin
+    runtime.register_backend(runtime.BackendSpec(
+        name="cuda_fused_q8",
+        caps=runtime.Capabilities(supports_mask=True,
+                                  supports_hetero_dims=False),
+        cost=150,
+        sequence_fn=fused_seq_q8, decode_fn=fused_dec_q8, views="quant"))

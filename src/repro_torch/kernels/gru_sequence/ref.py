@@ -11,6 +11,17 @@ The wrappers in ``kernel.py`` call these for CPU tensors; the tests and
 ``chip_smoke.py`` hold the CUDA kernels against them. The gate arithmetic
 follows the kernels' order of additions (``x + (U.h + b)``, and for the v1
 candidate ``(x + U.(r*h)) + b``).
+
+The ``*_q8`` versions are the plain versions of the fused q8 kernels
+(int8 weight rows ``u_q`` (L,3H,H) with per-row scales ``u_eff``, deep
+layers' ``wd_q``/``wd_eff`` likewise, fixed activation scale 127; see
+``repro_torch.core.params.quantize_rows_int8``). They keep quantized
+activations as integer-valued float32, so their float32 products sum the
+kernels' int32 dot products exactly while ``H * 127 * 127 < 2**24``
+(:data:`Q8_EXACT_MAX_H`). Every other operation is a separate, rounded
+float32 op in the order of ``_gate_math_q8`` in the JAX kernels
+(``x + (acc * eff + b)``), which the CUDA kernel repeats without
+contracting any multiply-add.
 """
 from __future__ import annotations
 
@@ -87,4 +98,93 @@ def gru_stack_decode_ref(h: torch.Tensor, x_proj: torch.Tensor,
         out.append(h_new)
         if l + 1 < L:
             xp = h_new @ w_deep[l]
+    return torch.stack(out, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# q8: int8 weight rows, fixed-scale activations
+# ---------------------------------------------------------------------------
+
+Q8_EXACT_MAX_H = 1039    # H * 127 * 127 < 2**24: float32 sums stay exact
+
+
+def _q8_act(a: torch.Tensor) -> torch.Tensor:
+    """Fixed-scale activation quantization kept in float32: round half to
+    even, then clip to [-127, 127] (integer-valued result)."""
+    return torch.clamp(torch.round(a * 127.0), -127.0, 127.0)
+
+
+def _q8_dot(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """aq (B,K) integer-valued float32 against int8 rows wq (N,K) -> (B,N),
+    exact in float32 at K <= Q8_EXACT_MAX_H."""
+    return aq @ wq.to(torch.float32).t()
+
+
+def gru_step_q8_ref(h: torch.Tensor, xp: torch.Tensor, u_q: torch.Tensor,
+                    u_eff: torch.Tensor, b: torch.Tensor,
+                    variant: str = "v1") -> torch.Tensor:
+    """One q8 cell update: h (B,H) float32 state, xp (B,3H) float32, u_q
+    (3H,H) int8 rows, u_eff (3H,), b (3H,) -> (B,H) float32."""
+    H = h.shape[-1]
+    xz, xr, xh = xp[..., :H], xp[..., H:2 * H], xp[..., 2 * H:]
+    hq = _q8_act(h)
+    if variant == "v3":
+        ua = _q8_dot(hq, u_q) * u_eff + b
+        z = torch.sigmoid(xz + ua[..., :H])
+        r = torch.sigmoid(xr + ua[..., H:2 * H])
+        ht = torch.tanh(xh + r * ua[..., 2 * H:])
+    else:
+        zr = _q8_dot(hq, u_q[:2 * H]) * u_eff[:2 * H] + b[:2 * H]
+        z = torch.sigmoid(xz + zr[..., :H])
+        r = torch.sigmoid(xr + zr[..., H:])
+        cand = (_q8_dot(_q8_act(r * h), u_q[2 * H:]) * u_eff[2 * H:]
+                + b[2 * H:])
+        ht = torch.tanh(xh + cand)
+    return (1.0 - z) * h + z * ht
+
+
+def _deep_xp_q8(h: torch.Tensor, wd_q: torch.Tensor,
+                wd_eff: torch.Tensor) -> torch.Tensor:
+    """Deep-layer q8 input projection: quantized h against int8 W rows."""
+    return _q8_dot(_q8_act(h), wd_q) * wd_eff
+
+
+def gru_stack_sequence_q8_ref(h0: torch.Tensor, x_proj: torch.Tensor,
+                              u_q: torch.Tensor, u_eff: torch.Tensor,
+                              wd_q: torch.Tensor, wd_eff: torch.Tensor,
+                              b: torch.Tensor,
+                              mask: Optional[torch.Tensor] = None,
+                              variant: str = "v1"):
+    """h0 (L,B,H), x_proj (T,B,3H) float32 layer-0 Wx -> (last layer's
+    states (T,B,H), per-layer finals (L,B,H)). A dead step keeps every
+    layer's pre-step h; the next layer consumes that gated output."""
+    L = h0.shape[0]
+    hs = [h0[l] for l in range(L)]
+    out = []
+    for t in range(x_proj.shape[0]):
+        xp = x_proj[t]
+        live = _live(mask, t)
+        for l in range(L):
+            h2 = gru_step_q8_ref(hs[l], xp, u_q[l], u_eff[l], b[l], variant)
+            hs[l] = h2 if live is None else torch.where(live, h2, hs[l])
+            if l + 1 < L:
+                xp = _deep_xp_q8(hs[l], wd_q[l], wd_eff[l])
+        out.append(hs[-1])
+    return torch.stack(out, dim=0), torch.stack(hs, dim=0)
+
+
+def gru_stack_decode_q8_ref(h: torch.Tensor, x_proj: torch.Tensor,
+                            u_q: torch.Tensor, u_eff: torch.Tensor,
+                            wd_q: torch.Tensor, wd_eff: torch.Tensor,
+                            b: torch.Tensor,
+                            variant: str = "v1") -> torch.Tensor:
+    """h (L,B,H), x_proj (B,3H) float32 of ONE token -> new states
+    (L,B,H)."""
+    L = h.shape[0]
+    xp, out = x_proj, []
+    for l in range(L):
+        h_new = gru_step_q8_ref(h[l], xp, u_q[l], u_eff[l], b[l], variant)
+        out.append(h_new)
+        if l + 1 < L:
+            xp = _deep_xp_q8(h_new, wd_q[l], wd_eff[l])
     return torch.stack(out, dim=0)

@@ -8,9 +8,16 @@ async front-end or autotuner).
 Give more requests than ``--slots`` to exercise mid-wave admit and retire.
 ``--gru-backend`` sets the executor preference: ``eager`` (plain PyTorch),
 ``cuda`` (the fused CUDA kernels, one launch per prefill and per decode
-step) or ``auto`` (cheapest legal backend). The run is on the card unless
-``--device cpu`` is given. Prints each request's class stream, the decode
-latency statistics and the backends that served prefill and decode.
+step), ``auto`` (cheapest legal backend), or an exact backend name:
+``cuda_fused``, or ``cuda_fused_q8`` (the int8 datapath; a pin serves it
+whatever the accuracy gate says)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet-deep \
+        --gru-backend cuda_fused_q8 --requests 12 --slots 8 --vary-prompt
+
+The run is on the card unless ``--device cpu`` is given. Prints each
+request's class stream, the decode latency statistics, the served dtype
+and the backends that served prefill and decode.
 """
 from __future__ import annotations
 
@@ -51,10 +58,14 @@ def main(argv=None):
     p.add_argument("--vary-prompt", action="store_true",
                    help="ragged prompt lengths (exercises buckets + mask)")
     p.add_argument("--max-new", type=int, default=16)
-    p.add_argument("--gru-backend", choices=("eager", "cuda", "auto"),
+    p.add_argument("--gru-backend",
+                   choices=("eager", "cuda", "auto", "cuda_fused",
+                            "cuda_fused_q8"),
                    default=None,
                    help="executor backend preference (default: the "
-                        "config's, eager)")
+                        "config's, eager); an exact name pins that "
+                        "backend, and the cuda_fused_q8 pin serves the "
+                        "int8 datapath whatever the accuracy gate says")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -81,7 +92,8 @@ def main(argv=None):
           f"mean={stats['mean_s'] * 1e3:.4f}ms "
           f"p50={stats['p50_s'] * 1e3:.4f}ms "
           f"p90={stats['p90_s'] * 1e3:.4f}ms "
-          f"p99={stats['p99_s'] * 1e3:.4f}ms ({stats['steps']} steps); "
+          f"p99={stats['p99_s'] * 1e3:.4f}ms ({stats['steps']} steps, "
+          f"{stats['served_dtype']}); "
           f"prefill mean={stats['prefill_mean_s'] * 1e3:.4f}ms "
           f"({stats['prefills']} prefills)")
     steps = stats["decode_backend_steps"]

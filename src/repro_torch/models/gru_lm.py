@@ -34,12 +34,17 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:
     """One-time serving prep: the cells on ``device`` plus the fused
-    kernels' weight stacks (``"stacked_cells"``), so no step restacks."""
+    kernels' weight stacks (``"stacked_cells"``), so no step restacks, and
+    when the config asks for the q8 datapath (``cfg.gru.quant`` or a
+    ``*_q8`` pin) the int8 weight views (``"quant_cells"``), so no step
+    quantizes weights."""
     sp = runtime.prepare(params, cfg.gru, device=device)
     out = {"cells": sp.cells,
            "head": {k: v.to(sp.device) for k, v in params["head"].items()}}
     if sp.stacked is not None:
         out["stacked_cells"] = sp.stacked
+    if sp.quant is not None:
+        out["quant_cells"] = sp.quant
     return out
 
 

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import runtime
 from repro_torch.models import api as mapi
 from repro_torch.serve.clock import Clock, SystemClock
 
@@ -271,8 +272,10 @@ class ServeEngine:
     def latency_stats(self) -> Dict[str, float]:
         """Per-step decode latency distribution (the paper's constraint is
         a deadline, so tails matter), prefill timings, per-request queue
-        wait and end-to-end time, and recorded steps per backend. Empty
-        histories report NaN."""
+        wait and end-to-end time, recorded steps per backend and the
+        served dtype (int8 for the ``*_q8`` backends, float32 otherwise,
+        of the latest resolved decode backend). Empty histories report
+        NaN."""
         ts, pf = self.step_times, self.prefill_times
         qw, ee = self.queue_waits, self.e2e_times
         per_backend: Dict[str, int] = {}
@@ -288,6 +291,7 @@ class ServeEngine:
                 "e2e_mean_s": _mean(ee),
                 "e2e_p50_s": _pct(ee, 50),
                 "e2e_p99_s": _pct(ee, 99),
+                "served_dtype": runtime.backend_dtype(self.decode_backend),
                 "mean_s": _mean(ts),
                 "p50_s": _pct(ts, 50),
                 "p90_s": _pct(ts, 90),

@@ -4,6 +4,7 @@ serving engine pulls no jax into the process, and the entry points raise
 instead of quietly running on the CPU when there is no card and the
 caller did not ask for the CPU."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -66,12 +67,18 @@ def test_entry_points_raise_without_a_card(no_card):
     cfg = get_config("gru-jet")
     specs = gru_lm.lm_specs(cfg)
     params = init_params(specs, seed=0, device="cpu")
+    q8 = cfg.replace(gru=dataclasses.replace(cfg.gru,
+                                             backend="cuda_fused_q8"))
     for call in (lambda: resolve_device(),
                  lambda: init_params(specs),
                  lambda: runtime.prepare(params, cfg.gru),
                  lambda: gru_lm.prepare_params(params, cfg),
                  lambda: ServeEngine(cfg, params),
-                 lambda: cli.main(["--arch", "gru-jet"])):
+                 lambda: cli.main(["--arch", "gru-jet"]),
+                 lambda: runtime.prepare(params, q8.gru),
+                 lambda: ServeEngine(q8, params),
+                 lambda: cli.main(["--arch", "gru-jet-deep", "--gru-backend",
+                                   "cuda_fused_q8"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     # asked for explicitly, the CPU works

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
 versions (same inputs; largest absolute error at most 1e-5, since both are
-fp32 and differ only in summation order and libm).
+fp32 and differ only in summation order and libm; the q8 kernels' int8
+sums are exact, and their float32 epilogues round op by op as the plain
+versions do).
 
 Every test here is marked ``gpu`` and skips, from a fixture, where there
 is no card. The file imports no JAX, so it runs on a machine that has
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_config
-from repro_torch.core.params import init_params
+from repro_torch.core.params import init_params, quantize_gru_cells
 from repro_torch.kernels.gru_sequence import kernel as K
 from repro_torch.kernels.gru_sequence import ref
 from repro_torch.models import gru_lm
@@ -121,3 +123,81 @@ def test_engine_streams_cuda_equal_eager(cuda_device, arch):
         streams[backend] = [r.out for r in eng.generate(
             [Request(prompt=p, max_new_tokens=5) for p in prompts])]
     assert streams["cuda"] == streams["eager"]
+
+
+def _q8_views(a):
+    """The q8 kernels' int8 views of ``_inputs``' float32 weights."""
+    L = a["u"].shape[0]
+    cells = [{"w": a["wd"][l - 1] if l else a["wd"][0], "u": a["u"][l],
+              "b": a["b"][l]} for l in range(L)]
+    st = quantize_gru_cells(cells).stacked
+    return tuple(st[k] for k in ("u_q", "u_eff", "wd_q", "wd_eff", "b"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH,B,T,variant,masked", CASES)
+def test_q8_sequence_kernel_matches_plain(cuda_device, LH, B, T, variant,
+                                          masked):
+    L, H = LH
+    a = _inputs(L, H, B, T, cuda_device, seed=B + T)
+    q = _q8_views(a)
+    m = a["mask"] if masked else None
+    K.reset_launch_counts()
+    got = K.gru_stack_sequence_q8_kernel(a["h0"], a["xp"], *q, m,
+                                         variant=variant)
+    want = ref.gru_stack_sequence_q8_ref(a["h0"], a["xp"], *q, m, variant)
+    assert _max_err(zip(got, want)) <= TOL
+    assert [k.launches for k in K.Q8_KERNELS] == [1, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH", ((1, 20), (3, 32)))
+@pytest.mark.parametrize("B", (1, 5, 64))
+@pytest.mark.parametrize("variant", ("v1", "v3"))
+@pytest.mark.parametrize("batch_block", (0, 1, 8))
+def test_q8_decode_kernel_matches_plain(cuda_device, LH, B, variant,
+                                        batch_block):
+    L, H = LH
+    a = _inputs(L, H, B, 1, cuda_device, seed=B)
+    q = _q8_views(a)
+    K.reset_launch_counts()
+    got = K.gru_stack_decode_q8_kernel(a["h0"], a["xp"][0], *q,
+                                       variant=variant,
+                                       batch_block=batch_block)
+    want = ref.gru_stack_decode_q8_ref(a["h0"], a["xp"][0], *q, variant)
+    assert _max_err([(got, want)]) <= TOL
+    assert [k.launches for k in K.Q8_KERNELS] == [0, 1]
+
+
+@pytest.mark.gpu
+def test_q8_wrappers_raise_on_float_weights_and_device_mix(cuda_device):
+    a = _inputs(3, 32, 2, 1, cuda_device)
+    u_q, u_eff, wd_q, wd_eff, b = _q8_views(a)
+    with pytest.raises(TypeError):
+        K.gru_stack_decode_q8_kernel(a["h0"], a["xp"][0], u_q.float(), u_eff,
+                                     wd_q, wd_eff, b)
+    with pytest.raises(ValueError):
+        K.gru_stack_decode_q8_kernel(a["h0"], a["xp"][0], u_q, u_eff,
+                                     wd_q.cpu(), wd_eff, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("gru-jet", "gru-jet-deep"))
+def test_engine_streams_q8_card_equal_cpu(cuda_device, arch):
+    cfg = get_config(arch)
+    cfg = cfg.replace(gru=dataclasses.replace(cfg.gru,
+                                              backend="cuda_fused_q8"))
+    params = init_params(gru_lm.lm_specs(cfg), seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.normal(size=(int(rng.integers(1, 21)), 5))
+               .astype(np.float32) for _ in range(6)]
+    streams = {}
+    K.reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        eng = ServeEngine(cfg, params, max_batch=4, device=dev)
+        streams[str(dev)] = [r.out for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=5) for p in prompts])]
+        assert eng.latency_stats()["served_dtype"] == "int8"
+    assert streams["cuda"] == streams["cpu"]
+    assert all(k.launches > 0 for k in K.Q8_KERNELS)
+    assert all(k.launches == 0 for k in K.KERNELS)

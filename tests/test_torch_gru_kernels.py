@@ -25,6 +25,7 @@ from repro.kernels.gru_sequence.kernel import (gru_sequence_kernel as jseq,
 from repro_torch.configs.base import GRUConfig as TCfg
 from repro_torch.core import gru as tgru
 from repro_torch.core import runtime
+from repro_torch.core.params import quantize_gru_cells
 from repro_torch.kernels.gru_sequence import kernel as K
 from repro_torch.kernels.gru_sequence import ops, ref
 
@@ -160,6 +161,36 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take():
                                   torch.zeros(3, big, 3 * big),
                                   torch.zeros(2, big, 3 * big),
                                   torch.zeros(3, 3 * big))
+    # the q8 wrappers: int8 weight rows (3H,H), the L=1 placeholder
+    q = quantize_gru_cells([{"w": _t(a["wd"][max(l - 1, 0)]),
+                             "u": _t(a["u"][l]), "b": _t(a["b"][l])}
+                            for l in range(3)]).stacked
+    uq, ue, wq, we, qb = (q[k] for k in ("u_q", "u_eff", "wd_q", "wd_eff",
+                                         "b"))
+    with pytest.raises(TypeError):
+        K.gru_stack_decode_q8_kernel(h, xp[0], uq.float(), ue, wq, we, qb)
+    with pytest.raises(TypeError):
+        K.gru_stack_sequence_q8_kernel(h, xp, uq, ue, wq.to(torch.int32),
+                                       we, qb)
+    with pytest.raises(ValueError):
+        K.gru_stack_decode_q8_kernel(h, xp[0], uq.transpose(1, 2)
+                                     .contiguous(), ue, wq, we, qb)
+    with pytest.raises(ValueError):
+        K.gru_stack_sequence_q8_kernel(h, xp, uq, ue, wq, we, qb,
+                                       _t(a["mask"][:, :2]))
+    with pytest.raises(ValueError):
+        K.gru_stack_decode_q8_kernel(h[:1], xp[0], uq[:1], ue[:1], wq[:1],
+                                     we[:1], qb[:1])   # L=1: (1,3H,1) only
+    with pytest.raises(ValueError):
+        K.gru_stack_decode_q8_kernel(h, xp[0], uq, ue, wq, we, qb,
+                                     variant="v2")
+    with pytest.raises(ValueError, match="shared"):
+        K.gru_stack_decode_q8_kernel(
+            torch.zeros(3, 1, 4 * big), torch.zeros(1, 12 * big),
+            torch.zeros(3, 12 * big, 4 * big, dtype=torch.int8),
+            torch.zeros(3, 12 * big), torch.zeros(2, 12 * big, 4 * big,
+                                                  dtype=torch.int8),
+            torch.zeros(2, 12 * big), torch.zeros(3, 12 * big))
 
 
 def test_gru_jet_deep_weights_need_dynamic_shared_memory():
@@ -212,6 +243,14 @@ def test_runtime_preference_rules():
     assert pick(backend="auto") == ("cuda_fused", "cuda_fused")  # cost 10
     # heterogeneous dims: the fused kernels cannot serve, fall through
     assert pick(backend="cuda", layer_dims=(8, 16)) == ("eager", "eager")
+    # the q8 datapath: only an exact pin serves it while the accuracy gate
+    # is closed (no artifact); the quant flag alone never does
+    assert pick(backend="cuda_fused_q8") == ("cuda_fused_q8",
+                                             "cuda_fused_q8")
+    assert pick(backend="auto", quant="int8") == ("cuda_fused", "cuda_fused")
+    assert pick(backend="cuda", quant="int8") == ("cuda_fused", "cuda_fused")
+    assert pick(backend="cuda_fused_q8", layer_dims=(8, 16)) == ("eager",
+                                                                "eager")
     assert runtime.compile(TCfg(), batch=2) is runtime.compile(TCfg(), batch=2)
     with pytest.raises(runtime.UnknownCellFamily):
         runtime.compile(TCfg(family="slstm"), batch=2)
