@@ -8,13 +8,15 @@ Run from the repository root on a machine with one CUDA card::
 Phases (any failure exits non-zero, before the result lines):
 
 1. the device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-2. build the CUDA kernels (``gru_sequence`` and ``gru_sequence_q8``, one
-   ``nvcc`` each, started together) and print ``-Xptxas -v``'s report;
+2. build the CUDA kernels (``gru_sequence``, ``gru_sequence_q8`` and
+   ``gru_cell_q8``, one ``nvcc`` each, started together) and print
+   ``-Xptxas -v``'s report;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (gru-jet L=1 H=20, gru-jet-deep L=3 H=32; B in
-   {1, 8, 64}; T in {8, 16, 32}; v1 and v3; masked and not): largest
-   absolute error at most 1e-5, for the three fp32 kernels and the two q8
-   kernels (int8 weight rows quantized on the card);
+   main path's shapes (gru-jet L=1 H=20, gru-jet-deep L=3 H=32, and the
+   chain's depth-1 layers of H=20 and H=32; B in {1, 8, 64}; T in {8, 16,
+   32}; v1 and v3; masked and not): largest absolute error at most 1e-5,
+   for the three fp32 kernels, the two fused q8 kernels and the q8
+   chain's two kernels (int8 weight rows quantized on the card);
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
@@ -29,13 +31,26 @@ Phases (any failure exits non-zero, before the result lines):
    version may run, the class streams and prefill logits must equal the
    CPU run of the same pin; the share of tokens on which the q8 and fp32
    streams agree is reported only;
-6. time each kernel and its plain version with CUDA events, on the device
+6. serve both configs and a heterogeneous stack (gru-jet-deep with
+   ``layer_dims=(32, 32, 20)``) through the per-layer chain, with the
+   counters zeroed just before: the two configs pinned to ``cuda_chain``,
+   the heterogeneous stack under ``backend="cuda"``; every prefill and
+   step must be attributed to ``cuda_chain``, ``gru_sequence_kernel`` must
+   launch L times per prefill and L times per step, no other kernel and no
+   plain version may run, and the class streams must equal the ``eager``
+   engine's on the card;
+7. the same three pinned to ``cuda_chain_q8``: ``gru_sequence_q8_kernel``
+   must launch L times per prefill and ``gru_step_q8`` L times per step,
+   no other kernel and no plain version may run, and the class streams and
+   prefill logits must equal the CPU run of the same pin;
+8. time each kernel and its plain version with CUDA events, on the device
    (calls captured in a CUDA graph and replayed, so the host's per-call
    cost is left out) and per call from Python; the bound is the bytes over
    3.35 TB/s or the operations over their type's peak (67 TFLOP/s fp32,
    1,979 TOP/s int8), whichever is larger; and profile a served decode
-   step of gru-jet-deep through ``cuda_fused`` and ``cuda_fused_q8``. The
-   engine's decode-step p50/p99 come from phases 4 and 5 (host clock).
+   step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
+   ``cuda_chain`` and ``cuda_chain_q8``. The engine's decode-step p50/p99
+   come from phases 4-7 (host clock).
 
 Then it prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -64,6 +79,8 @@ KERNEL_SOURCE = {
     "gru_stack_decode_kernel": "src/repro_torch/csrc/gru_sequence.cu",
     "gru_stack_sequence_q8_kernel": "src/repro_torch/csrc/gru_sequence_q8.cu",
     "gru_stack_decode_q8_kernel": "src/repro_torch/csrc/gru_sequence_q8.cu",
+    "gru_sequence_q8_kernel": "src/repro_torch/csrc/gru_sequence_q8.cu",
+    "gru_step_q8": "src/repro_torch/csrc/gru_cell_q8.cu",
 }
 REPLACES = {
     "gru_sequence_kernel": "src/repro/kernels/gru_sequence/kernel.py:125",
@@ -73,9 +90,15 @@ REPLACES = {
         "src/repro/kernels/gru_sequence/kernel.py:505",
     "gru_stack_decode_q8_kernel":
         "src/repro/kernels/gru_sequence/kernel.py:575",
+    "gru_sequence_q8_kernel": "src/repro/kernels/gru_sequence/kernel.py:420",
+    "gru_step_q8": "src/repro/kernels/gru_cell/kernel.py:179",
 }
-Q8 = ("gru_stack_sequence_q8_kernel", "gru_stack_decode_q8_kernel")
-DECODE = ("gru_stack_decode_kernel", "gru_stack_decode_q8_kernel")
+Q8 = ("gru_stack_sequence_q8_kernel", "gru_stack_decode_q8_kernel",
+      "gru_sequence_q8_kernel", "gru_step_q8")
+DECODE = ("gru_stack_decode_kernel", "gru_stack_decode_q8_kernel",
+          "gru_step_q8")
+STEP_TOO = ("gru_sequence_kernel",)  # also at T=1 unmasked: chain decode
+CHAIN_Q8 = ("gru_sequence_q8_kernel", "gru_step_q8")
 
 
 def fail(msg: str) -> None:
@@ -130,11 +153,15 @@ def build_kernels():
                                        "smem")):
                 print(f"  ptxas[{name}]: {line.strip()}")
     # all shared memory is dynamic, so ptxas does not report it
+    from repro_torch.kernels.gru_cell import kernel as CK
+    bt = K.DEFAULT_BATCH_BLOCK
     for cfg_name, L, H in (("gru-jet", 1, 20), ("gru-jet-deep", 3, 32)):
         print(f"  dynamic shared memory per block, {cfg_name} (L={L} H={H}, "
-              f"{K.DEFAULT_BATCH_BLOCK}-row tile): "
-              f"{K.smem_bytes(L, H, K.DEFAULT_BATCH_BLOCK)} bytes fp32, "
-              f"{K.smem_bytes_q8(L, H, K.DEFAULT_BATCH_BLOCK)} bytes q8 "
+              f"{bt}-row tile): {K.smem_bytes(L, H, bt)} bytes fp32, "
+              f"{K.smem_bytes_q8(L, H, bt)} bytes q8; one chain layer: "
+              f"{K.smem_bytes(1, H, bt)} fp32, "
+              f"{K.smem_bytes_seq_q8(H, bt)} q8 sequence, "
+              f"{CK.smem_bytes_step_q8(H, bt)} q8 step "
               f"(limit {K.SMEM_LIMIT})")
 
 
@@ -167,7 +194,20 @@ def make_inputs(torch, L, H, B, T, seed, dev):
 
 
 def run_kernel(K, ref, name, a, variant, masked, plain):
+    from repro_torch.kernels.gru_cell import kernel as CK
+    from repro_torch.kernels.gru_cell import ref as cref
     m = a["mask"] if masked else None
+    if name in CHAIN_Q8:              # one layer's own int8 rows (L = 1)
+        u_q, u_eff, _, _, b = (x[0] for x in a["q8"])
+        if name == "gru_step_q8":
+            args = (a["h0"][0], a["xp"][0], u_q, u_eff, b)
+            if plain:
+                return (cref.gru_step_q8_ref(*args, variant),)
+            return (CK.gru_step_q8(*args, variant=variant),)
+        args = (a["h0"][0], a["xp"], u_q, u_eff, b, m)
+        if plain:
+            return (ref.gru_sequence_q8_ref(*args, variant),)
+        return (K.gru_sequence_q8_kernel(*args, variant=variant),)
     if name == "gru_sequence_kernel":
         args = (a["h0"][0], a["xp"], a["u"][0], a["b"][0], m)
         if plain:
@@ -196,11 +236,13 @@ def run_kernel(K, ref, name, a, variant, masked, plain):
 
 BOTH = [(1, 20), (3, 32)]
 MAIN_SHAPES = {                    # kernel -> (L, H) on the main path
-    "gru_sequence_kernel": [(1, 20)],            # gru-jet prefill
+    "gru_sequence_kernel": [(1, 20), (1, 32)],   # gru-jet; chain layers
     "gru_stack_sequence_kernel": [(3, 32)],      # gru-jet-deep prefill
     "gru_stack_decode_kernel": BOTH,             # both configs' decode
     "gru_stack_sequence_q8_kernel": BOTH,        # both configs' q8 prefill
     "gru_stack_decode_q8_kernel": BOTH,          # both configs' q8 decode
+    "gru_sequence_q8_kernel": [(1, 20), (1, 32)],  # q8 chain prefill layers
+    "gru_step_q8": [(1, 20), (1, 32)],             # q8 chain decode layers
 }
 
 
@@ -209,15 +251,18 @@ def check_kernels(torch, dev):
     from repro_torch.kernels.gru_sequence import ref
     err = {n: 0.0 for n in REPLACES}
     checks = {n: 0 for n in REPLACES}
+    err_step = {n: 0.0 for n in STEP_TOO}    # the T=1 unmasked cases alone
     for name, shapes in MAIN_SHAPES.items():
-        decode = name in DECODE
+        Ts = ((1,) if name in DECODE else (8, 16, 32))
+        if name in STEP_TOO:
+            Ts = (1,) + Ts
         for (L, H) in shapes:
             for B in (1, 8, 64):
-                for T in ((1,) if decode else (8, 16, 32)):
+                for T in Ts:
                     a = make_inputs(torch, L, H, B, T, seed=B * 100 + T,
                                     dev=dev)
                     for variant in ("v1", "v3"):
-                        for masked in ((False,) if decode else (False, True)):
+                        for masked in ((False,) if T == 1 else (False, True)):
                             got = run_kernel(K, ref, name, a, variant,
                                              masked, plain=False)
                             want = run_kernel(K, ref, name, a, variant,
@@ -228,6 +273,8 @@ def check_kernels(torch, dev):
                                       f"{name}: non-finite output")
                                 e = (g_ - w_).abs().max().item()
                                 err[name] = max(err[name], e)
+                                if name in STEP_TOO and T == 1:
+                                    err_step[name] = max(err_step[name], e)
                                 check(e <= TOL, f"{name} L={L} H={H} B={B} "
                                       f"T={T} {variant} masked={masked}: "
                                       f"max |err| {e:.3g} > {TOL}")
@@ -235,6 +282,9 @@ def check_kernels(torch, dev):
     for n, e in err.items():
         print(f"  {n}: max |kernel - plain| = {e:.3g} (<= {TOL}) over "
               f"{checks[n]} comparisons")
+    for n, e in err_step.items():
+        print(f"  {n} at T=1 unmasked (the fp32 chain's decode layer): "
+              f"max |kernel - plain| = {e:.3g} (<= {TOL})")
     print(f"  {sum(checks.values())} kernel/plain comparisons passed",
           flush=True)
     return err
@@ -245,31 +295,41 @@ def check_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 
 ARCHS = ("gru-jet", "gru-jet-deep")
-PLAIN = ("gru_sequence_ref", "gru_stack_sequence_ref", "gru_stack_decode_ref",
-         "gru_stack_sequence_q8_ref", "gru_stack_decode_q8_ref")
+HETERO = "gru-jet-deep (32, 32, 20)"     # heterogeneous stack of phases 6-7
+PLAIN = {                  # module of plain versions -> names the wrappers call
+    "repro_torch.kernels.gru_sequence.ref": (
+        "gru_sequence_ref", "gru_stack_sequence_ref", "gru_stack_decode_ref",
+        "gru_stack_sequence_q8_ref", "gru_stack_decode_q8_ref",
+        "gru_sequence_q8_ref"),
+    "repro_torch.kernels.gru_cell.ref": ("gru_step_q8_ref",),
+}
 
 
 @contextlib.contextmanager
 def plain_calls():
     """Count calls of the kernels' plain versions while the block runs (the
-    wrappers reach them through the ``ref`` module), so a run can show that
-    none replaced a kernel."""
-    from repro_torch.kernels.gru_sequence import ref
-    counts = dict.fromkeys(PLAIN, 0)
-    saved = {n: getattr(ref, n) for n in PLAIN}
+    wrappers reach them through their ``ref`` modules), so a run can show
+    that none replaced a kernel."""
+    import importlib
+    counts, saved = {}, []
+    for mod_name, names in PLAIN.items():
+        mod = importlib.import_module(mod_name)
+        for n in names:
+            counts[n] = 0
+            saved.append((mod, n, getattr(mod, n)))
 
-    def counting(n):
-        def fn(*args, **kw):
+    def counting(n, fn):
+        def wrapped(*args, **kw):
             counts[n] += 1
-            return saved[n](*args, **kw)
-        return fn
-    for n in PLAIN:
-        setattr(ref, n, counting(n))
+            return fn(*args, **kw)
+        return wrapped
+    for mod, n, fn in saved:
+        setattr(mod, n, counting(n, fn))
     try:
         yield counts
     finally:
-        for n, fn in saved.items():
-            setattr(ref, n, fn)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
 
 
 def serve(cfg, params, backend, dev):
@@ -282,33 +342,35 @@ def serve(cfg, params, backend, dev):
     return eng, [r.out for r in done]
 
 
-def serve_all(K, cfgs, params, backend, dev, kernels):
-    """Serve every config through ``backend`` with all launch counters set
-    to 0 just before; returns engines, streams, the launches of ``kernels``
-    per config and in all, every other kernel's launches, and the plain
-    versions' calls."""
+def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
+    """Serve every config of ``cfgs`` through ``backend`` (or
+    ``backends[name]``) with all launch counters set to 0 just before;
+    returns engines, streams, the launches of ``kernels`` per config and in
+    all, every other kernel's launches, and the plain versions' calls."""
     K.reset_launch_counts()
     engines, streams, per_arch = {}, {}, {}
     before = [0] * len(kernels)
     with plain_calls() as plain:
-        for a in ARCHS:
-            engines[a], streams[a] = serve(cfgs[a], params[a], backend, dev)
+        for a in cfgs:
+            b = (backends or {}).get(a, backend)
+            engines[a], streams[a] = serve(cfgs[a], params[a], b, dev)
             after = [k.launches for k in kernels]
             per_arch[a] = [x - y for x, y in zip(after, before)]
             before = after
     launches = dict(zip((k.__name__ for k in kernels), before))
-    others = {k.__name__: k.launches for k in K.KERNELS + K.Q8_KERNELS
+    others = {k.__name__: k.launches
+              for k in K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
               if k not in kernels}
-    print(f"  main-path launches: {launches}; other kernels {others}; "
+    print(f"  launches: {launches}; other kernels {others}; "
           f"plain versions {plain}", flush=True)
     check(not any(others.values()), f"{backend}: other kernels ran {others}")
     check(not any(plain.values()), f"{backend}: plain versions ran {plain}")
     return engines, streams, per_arch, launches
 
 
-def check_served(a, eng, backend, per_arch, seq_i):
+def check_served(a, eng, backend, per_arch, want):
     """Every prefill and recorded step on ``backend``; the launches equal
-    the prefills (kernel ``seq_i``) and the decode steps (the last)."""
+    ``want(prefills, steps run)``."""
     st = eng.latency_stats()
     prefills = len(eng.prefill_backends)
     steps_run = st["steps"] + 1     # the wave's one decode key: its
@@ -317,11 +379,9 @@ def check_served(a, eng, backend, per_arch, seq_i):
           f"{a}: prefill backends {set(eng.prefill_backends)}")
     check(st["decode_backend_steps"] == {backend: st["steps"]},
           f"{a}: decode steps {st['decode_backend_steps']}")
-    want = [0] * len(per_arch)
-    want[seq_i] = prefills
-    want[-1] = steps_run
-    check(per_arch == want,
-          f"{a}: launches {per_arch} != prefills/steps {want}")
+    w = want(prefills, steps_run)
+    check(per_arch == w, f"{a}: launches {per_arch} != {w} "
+          f"({prefills} prefills, {steps_run} steps)")
     return st, prefills, steps_run
 
 
@@ -342,8 +402,13 @@ def run_main_path(torch, dev):
     for a in ARCHS:
         eng = engines[a]
         seq_i = 0 if cfgs[a].gru.resolved_num_layers == 1 else 1
+
+        def want(prefills, steps):
+            w = [0, 0, steps]
+            w[seq_i] = prefills
+            return w
         st, prefills, steps_run = check_served(a, eng, "cuda_fused",
-                                               per_arch[a], seq_i)
+                                               per_arch[a], want)
         _, eager_streams = serve(cfgs[a], params[a], "eager", dev)
         check(streams[a] == eager_streams,
               f"{a}: class streams differ from the eager engine")
@@ -403,8 +468,8 @@ def run_q8_path(torch, dev, cfgs, params, fp32_streams):
     report = {}
     for a in ARCHS:
         eng = engines[a]
-        st, prefills, steps_run = check_served(a, eng, "cuda_fused_q8",
-                                               per_arch[a], 0)
+        st, prefills, steps_run = check_served(
+            a, eng, "cuda_fused_q8", per_arch[a], lambda p, s: [p, s])
         check(st["served_dtype"] == "int8", f"{a}: {st['served_dtype']}")
         cpu_eng, cpu_streams = serve(cfgs[a], to_device(params[a], cpu),
                                      "cuda_fused_q8", cpu)
@@ -442,7 +507,110 @@ def run_q8_path(torch, dev, cfgs, params, fp32_streams):
 
 
 # ---------------------------------------------------------------------------
-# 6. timing
+# 6-7. the per-layer chains: cuda_chain and cuda_chain_q8
+# ---------------------------------------------------------------------------
+
+def chain_configs(torch, dev, cfgs, params):
+    """Both configs plus gru-jet-deep with heterogeneous ``layer_dims``
+    (three layers keep its three ``layer_matvec_modes`` valid), random
+    weights from seed 0."""
+    from repro_torch.core.params import init_params
+    from repro_torch.models import gru_lm
+    deep = cfgs["gru-jet-deep"]
+    het = deep.replace(gru=dataclasses.replace(deep.gru,
+                                               layer_dims=(32, 32, 20)))
+    ccfgs = dict(cfgs, **{HETERO: het})
+    cparams = dict(params, **{HETERO: init_params(gru_lm.lm_specs(het),
+                                                  seed=0, device=dev)})
+    return ccfgs, cparams
+
+
+def run_chain_path(torch, dev, cfgs, params):
+    """The fp32 chain: the two configs pinned to ``cuda_chain``, the
+    heterogeneous stack under the ``cuda`` preference (which must resolve
+    to the chain)."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    backends = {HETERO: "cuda"}
+    engines, streams, per_arch, launches = serve_all(
+        K, cfgs, params, "cuda_chain", dev, (K.gru_sequence_kernel,),
+        backends)
+    report = {}
+    for a in cfgs:
+        L = cfgs[a].gru.resolved_num_layers
+        st, prefills, steps_run = check_served(
+            a, engines[a], "cuda_chain", per_arch[a],
+            lambda p, s: [L * (p + s)])
+        _, eager_streams = serve(cfgs[a], params[a], "eager", dev)
+        check(streams[a] == eager_streams,
+              f"{a}: cuda_chain class streams differ from the eager engine")
+        report[a] = {"backend_asked": backends.get(a, "cuda_chain"),
+                     "prefills": prefills, "decode_steps": steps_run,
+                     "launches": per_arch[a][0],
+                     "decode_p50_ms": st["p50_s"] * 1e3,
+                     "decode_p99_ms": st["p99_s"] * 1e3,
+                     "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+                     "streams_equal_eager": True}
+        print(f"  {a}: {prefills} prefills, {steps_run} decode steps, all "
+              f"cuda_chain; gru_sequence_kernel launches {per_arch[a][0]} "
+              f"= {L} x ({prefills} + {steps_run}); decode p50 "
+              f"{st['p50_s'] * 1e3:.4f} ms p99 {st['p99_s'] * 1e3:.4f} ms "
+              f"(host clock, synchronized); streams == eager", flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the chain never launched: {launches}")
+    return launches, report
+
+
+def run_chain_q8_path(torch, dev, cfgs, params):
+    """The q8 chain: all three configs pinned to ``cuda_chain_q8``; class
+    streams and prefill logits held against the CPU run of the same pin."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.models import gru_lm
+    engines, streams, per_arch, launches = serve_all(
+        K, cfgs, params, "cuda_chain_q8", dev, K.CHAIN_Q8_KERNELS)
+    cpu = torch.device("cpu")
+    report = {}
+    for a in cfgs:
+        L = cfgs[a].gru.resolved_num_layers
+        eng = engines[a]
+        st, prefills, steps_run = check_served(
+            a, eng, "cuda_chain_q8", per_arch[a],
+            lambda p, s: [L * p, L * s])
+        check(st["served_dtype"] == "int8", f"{a}: {st['served_dtype']}")
+        cpu_eng, cpu_streams = serve(cfgs[a], to_device(params[a], cpu),
+                                     "cuda_chain_q8", cpu)
+        same = [x == y for x, y in zip(streams[a], cpu_streams)]
+        check(all(same), f"{a}: cuda_chain_q8 class streams on the card "
+              f"differ from the CPU run in requests "
+              f"{[i for i, ok in enumerate(same) if not ok]}")
+        g = torch.Generator().manual_seed(5)
+        xs = torch.randn(3, 7, cfgs[a].gru.input_dim, generator=g)
+        cfg_q = cfgs[a].replace(gru=dataclasses.replace(
+            cfgs[a].gru, backend="cuda_chain_q8"))
+        logits, _ = gru_lm.prefill(eng.params, cfg_q, {"features": xs.to(dev)})
+        want, _ = gru_lm.prefill(cpu_eng.params, cfg_q, {"features": xs})
+        check(tuple(logits.shape) == (3, cfgs[a].gru.num_classes)
+              and bool(torch.isfinite(logits).all()), f"{a}: bad q8 logits")
+        e = (logits.cpu() - want).abs().max().item()
+        check(e <= TOL, f"{a}: q8 chain prefill logits vs the CPU run {e:.3g}")
+        report[a] = {"prefills": prefills, "decode_steps": steps_run,
+                     "launches": per_arch[a],
+                     "decode_p50_ms": st["p50_s"] * 1e3,
+                     "decode_p99_ms": st["p99_s"] * 1e3,
+                     "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+                     "logits_err_vs_cpu": e, "streams_equal_cpu": True}
+        print(f"  {a}: {prefills} prefills, {steps_run} decode steps, all "
+              f"cuda_chain_q8 (int8); launches {per_arch[a]} = {L} x "
+              f"({prefills}, {steps_run}); decode p50 "
+              f"{st['p50_s'] * 1e3:.4f} ms p99 {st['p99_s'] * 1e3:.4f} ms "
+              f"(host clock, synchronized); streams == CPU run; logits vs "
+              f"CPU run {e:.3g}", flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the q8 chain never launched: {launches}")
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
+# 8. timing
 # ---------------------------------------------------------------------------
 
 def call_time_ms(torch, fn, iters: int, warmup: int = 5) -> float:
@@ -488,15 +656,16 @@ def device_time_ms(torch, fn, per_graph: int, replays: int = 5) -> float:
     return start.elapsed_time(stop) / (replays * per_graph)
 
 
-def bound_ms(name, a):
+def bound_ms(name, a, masked=None):
     """Least time for the same work: every input read once and every output
     written once over 3.35 TB/s, or the operations the live (unmasked)
     steps need over their type's peak (fp32 67 TFLOP/s, int8 1,979 TOP/s),
-    whichever is larger."""
+    whichever is larger. Decode kernels and ``masked=False`` calls read no
+    mask."""
     L, B, H = a["h0"].shape
     decode = name in DECODE
     T = 1 if decode else a["xp"].shape[0]
-    masked = not decode
+    masked = not decode if masked is None else masked
     H3 = 3 * H
     live = float(a["mask"].sum().item()) if masked else B
     # weights, scales and bias: fp32 U, W_deep, b; q8 int8 rows + f32 eff
@@ -505,7 +674,8 @@ def bound_ms(name, a):
                (L * H3 * H + (L - 1) * H3 * H) + 4 * (L * H3 + (L - 1) * H3
                                                       + L * H3))
     n_in = L * B * H + T * B * H3 + (T * B if masked else 0)
-    n_out = {"gru_sequence_kernel": T * B * H}.get(
+    n_out = {"gru_sequence_kernel": T * B * H,
+             "gru_sequence_q8_kernel": T * B * H}.get(
         name, L * B * H if decode else T * B * H + L * B * H)
     nbytes = w_bytes + 4 * (n_in + n_out)
     # per live (row, step): the U matvecs 2*H*3H per layer and the next
@@ -529,13 +699,18 @@ TIMED = (("gru_sequence_kernel", (1, 20)),
          ("gru_stack_sequence_q8_kernel", (3, 32)),
          ("gru_stack_sequence_q8_kernel", (1, 20)),
          ("gru_stack_decode_q8_kernel", (3, 32)),
-         ("gru_stack_decode_q8_kernel", (1, 20)))
+         ("gru_stack_decode_q8_kernel", (1, 20)),
+         ("gru_sequence_q8_kernel", (1, 32)),
+         ("gru_sequence_q8_kernel", (1, 20)),
+         ("gru_step_q8", (1, 32)),
+         ("gru_step_q8", (1, 20)))
 
 
 def time_kernels(torch, dev, err, launches):
     """Kernel, plain-version and bound times at the main path's shapes;
     the JSON rows are the 8-slot shapes (gru-jet fp32 prefill, gru-jet-deep
-    for the others)."""
+    for the others: L=3 for the fused kernels, one H=32 layer for the q8
+    chain's)."""
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
     rows = []
@@ -563,7 +738,8 @@ def time_kernels(torch, dev, err, launches):
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
                   f"  bound {bms * 1e6:7.2f} ns ({by})", flush=True)
-            if B == SLOTS and (name == "gru_sequence_kernel" or L == 3):
+            if B == SLOTS and (name == "gru_sequence_kernel" or L == 3
+                               or (name in CHAIN_Q8 and H == 32)):
                 rows.append({
                     "name": name, "route": "cuda",
                     "source": KERNEL_SOURCE[name],
@@ -574,9 +750,26 @@ def time_kernels(torch, dev, err, launches):
                     "call_ms": call, "plain_call_ms": plain_call,
                     "shape": {"L": L, "H": H, "B": B, "T": T,
                               "variant": "v1"}})
+    # the fp32 chain's decode layer: the depth-1 sequence kernel at T=1,
+    # unmasked (a row of PERF.md, not of the JSON line)
+    for H in (32, 20):
+        for B in (1, SLOTS, 64):
+            a = make_inputs(torch, 1, H, B, 1, seed=7, dev=dev)
+
+            def step(plain):
+                return run_kernel(K, ref, "gru_sequence_kernel", a, "v1",
+                                  False, plain=plain)
+            ms = device_time_ms(torch, lambda: step(False), per_graph=200)
+            plain = device_time_ms(torch, lambda: step(True), per_graph=50)
+            call = call_time_ms(torch, lambda: step(False), iters=300)
+            bms, by = bound_ms("gru_sequence_kernel", a, masked=False)
+            print(f"  {'gru_sequence_kernel (chain decode)':28s} L=1 H={H} "
+                  f"B={B:2d} T= 1: device {ms * 1e3:8.2f} us (per call "
+                  f"{call * 1e3:7.2f})  plain {plain * 1e3:9.2f} us  bound "
+                  f"{bms * 1e6:7.2f} ns ({by})", flush=True)
     print("  library_ms: null -- no single PyTorch call computes the v1 "
-          "(paper) GRU recurrence these kernels run, in fp32 or on int8 "
-          "weight rows", flush=True)
+          "(paper) GRU recurrence or step these kernels run, in fp32 or on "
+          "int8 weight rows", flush=True)
     return rows
 
 
@@ -647,15 +840,26 @@ def main() -> None:
           "cuda_fused_q8")
     q8_launches, q8_report = run_q8_path(torch, dev, cfgs, params, streams)
     launches.update(q8_launches)
-    phase("6. timing (CUDA events: device via graph replay, and per call)")
+    ccfgs, cparams = chain_configs(torch, dev, cfgs, params)
+    phase("6. per-layer chain: serve both configs and a heterogeneous stack "
+          "through cuda_chain")
+    chain_launches, chain_report = run_chain_path(torch, dev, ccfgs, cparams)
+    phase("7. int8 per-layer chain: the same through cuda_chain_q8")
+    cq8_launches, cq8_report = run_chain_q8_path(torch, dev, ccfgs, cparams)
+    for k, n in list(chain_launches.items()) + list(cq8_launches.items()):
+        launches[k] = launches.get(k, 0) + n
+    phase("8. timing (CUDA events: device via graph replay, and per call)")
     rows = time_kernels(torch, dev, err, launches)
-    report["profile_gru_jet_deep_decode"] = profile_decode(torch, dev,
-                                                           "cuda")
-    q8_report["profile_gru_jet_deep_decode"] = profile_decode(
-        torch, dev, "cuda_fused_q8")
+    for rep, backend in ((report, "cuda"), (q8_report, "cuda_fused_q8"),
+                         (chain_report, "cuda_chain"),
+                         (cq8_report, "cuda_chain_q8")):
+        rep["profile_gru_jet_deep_decode"] = profile_decode(torch, dev,
+                                                            backend)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the JAX package was imported")
-    print(json.dumps({"serve": report, "serve_q8": q8_report}))
+    print(json.dumps({"serve": report, "serve_q8": q8_report,
+                      "serve_chain": chain_report,
+                      "serve_chain_q8": cq8_report}))
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,7 +38,8 @@ class GRUConfig:
     layer_matvec_modes: Tuple[str, ...] = ()  # per-layer matvec_mode overrides
     family: str = "gru"
     quant: str = ""                  # "" (f32) | "int8": makes the q8
-                                     # backends (cuda_fused_q8) candidates,
+                                     # backends (cuda_fused_q8,
+                                     # cuda_chain_q8) candidates,
                                      # chosen without a pin only when the
                                      # quant accuracy gate is open
 

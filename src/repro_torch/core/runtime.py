@@ -19,18 +19,27 @@ JAX name             port name          what runs
 ``pallas`` (pref)    ``cuda`` (pref)    the ``cuda*`` backends
 ``pallas_fused``     ``cuda_fused``     the fused CUDA kernels (one launch
                                         per prefill, one per decode step)
+``pallas_chain``     ``cuda_chain``     the depth-1 CUDA sequence kernel
+                                        once per layer, prefill and decode
+                                        (T=1); any ``layer_dims``
 ``pallas_fused_q8``  ``cuda_fused_q8``  the fused int8 CUDA kernels, on the
                                         weight rows ``prepare`` quantizes
                                         once
+``pallas_chain_q8``  ``cuda_chain_q8``  per layer: the depth-1 int8
+                                        sequence kernel (prefill) or the
+                                        int8 step kernel (decode); float32
+                                        inter-layer projections
 ===================  =================  ======================================
 
 Capability table for ``family="gru"`` (``cost`` is the static preference,
-lower = preferred)::
+lower = preferred; the costs are the JAX table's)::
 
     backend        mask  hetero  cost
     cuda_fused     yes   no      10
+    cuda_chain     yes   yes     20
     eager          yes   yes     30
     cuda_fused_q8  yes   no      150
+    cuda_chain_q8  yes   yes     160
 
 All serve sequences (prefill) and decode steps, with ``return_all``.
 
@@ -38,16 +47,19 @@ All serve sequences (prefill) and decode steps, with ``return_all``.
 in the JAX config) and ``"cuda"`` pin their family when legal, an exact
 backend name pins that backend, and ``"auto"`` picks the cheapest legal
 one. An illegal preference falls through to the cheapest legal backend.
+So heterogeneous ``layer_dims`` under ``"cuda"``, or under a ``cuda_fused``
+or ``cuda_fused_q8`` pin, run ``cuda_chain``, as the JAX runtime falls to
+``pallas_chain``.
 
 The q8 backends (names ending ``_q8``) change the numerics, so they are
 gated as in the JAX runtime: one is a candidate only under an exact-name
 pin, or when ``cfg.quant == "int8"`` and the recorded accuracy artifact
 (``BENCH_quant_accuracy.json``, or ``$REPRO_GRU_QUANT_ACC``; see
 :func:`load_quant_accuracy`) passed. Its static cost keeps ``auto`` off it
-even then. The measured CostModel, mesh placements and the sharded and
-chain backends are not ported yet. On CPU tensors the ``cuda*`` backends
-run the kernels' plain PyTorch versions (see
-``repro_torch.kernels.gru_sequence``).
+even then. The measured CostModel, mesh placements and the sharded
+backends are not ported yet. On CPU tensors the ``cuda*`` backends run the
+kernels' plain PyTorch versions (see ``repro_torch.kernels.gru_sequence``
+and ``repro_torch.kernels.gru_cell``).
 """
 from __future__ import annotations
 

@@ -1,112 +1,40 @@
-// Fused int8 (q8) GRU recurrences for Hopper (sm_90a).
+// Int8 (q8) GRU recurrences for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of the q8 datapath in
+// Replaces three Pallas TPU kernels of the q8 datapath in
 // src/repro/kernels/gru_sequence/kernel.py:
 //   gru_stack_sequence_q8_k  <- gru_stack_sequence_q8_kernel  (masked prefill)
 //   gru_stack_decode_q8_k    <- gru_stack_decode_q8_kernel    (one token)
-// Both run one shared routine, run_stack_q8(), which computes
-// _gate_math_q8 for every layer, v1 (two phases) or v3, with the deep
-// layers' input projection in int8 too.
-//
-// The arithmetic. Weights are int8 ROWS, u_q (L, 3H, H): one contiguous
-// row per output element, per-row dequant scale eff (activation scale
-// folded in). Activations use the fixed scale 127: q = clip(rint(a * 127),
-// -127, 127), rounding half to even as jnp.round/torch.round do (rintf,
-// not roundf). Dot products accumulate in int32 with __dp4a, exact in any
-// order. Dequant is acc * eff + b. The state h stays float32.
-//
-// Rounding. One float32 ulp in h can move rint(h * 127) across a half and
-// change a gate pre-activation by max|row| / 127, so every float32
-// expression that feeds a quantization or the state is written with
-// __fmul_rn / __fadd_rn / __fsub_rn: nvcc never contracts those into an
-// fma, and each op rounds on its own as in the JAX kernel and the plain
-// PyTorch version (acc * eff + b; r * h before * 127; (1 - z) * h + z * ht;
-// v3's x + r * ua). expf/tanhf without fast math.
+//   gru_sequence_q8_k        <- gru_sequence_q8_kernel        (depth 1, masked)
+// The two fused kernels run one shared routine, run_stack_q8(), which
+// computes _gate_math_q8 for every layer, v1 (two phases) or v3, with the
+// deep layers' input projection in int8 too. The depth-1 kernel is one
+// layer of the per-layer chain (cuda_chain_q8 prefill): its own (3H, H)
+// rows, no deep projection, its input projection float32 from outside.
+// Every layer-step is cell_update_q8() of gru_q8_math.cuh, which holds the
+// arithmetic and its rounding discipline for all the port's q8 kernels.
 //
 // Translation, as in gru_sequence.cu: the time and layer loops run inside
 // one block; the grid is over independent batch tiles of `bt` rows. Each
 // block copies the int8 U and deep W, eff and b into shared memory once
-// (gru-jet-deep: 9,216 + 6,144 B of int8, 3 KB of scales and bias). Rows
-// are padded to a whole number of 4-byte words for __dp4a, and the row
-// stride in words is made odd so the 32 threads of a warp, each on its own
-// row, read 32 different banks. The per-layer h lives in shared memory;
-// layer l+1 reads layer l's new (masked) h from there.
+// (gru-jet-deep: 9,216 + 6,144 B of int8, 3 KB of scales and bias; one
+// chain layer of H=32: 3,456 B of int8 rows). The per-layer h lives in
+// shared memory; layer l+1 reads layer l's new (masked) h from there. The
+// optional time-major mask is double-buffered by step parity.
 //
 // Bound on an H100 (SXM): a few tens of KB of inputs (3.35 TB/s) and
 // int8 MACs (1,979 TOP/s on the tensor cores) take tens of nanoseconds at
-// the serving shapes; the kernel is bound by latency: the launch, the
+// the serving shapes; the kernels are bound by latency: the launch, the
 // one-time weight copy and the __syncthreads() chain of each layer-step.
 // Tensor-core IMMA (mma.sync s8) and a shorter chain are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gru_q8_math.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr size_t kDefaultSmem = 48 * 1024;
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Fixed-scale activation quantization (_q8_act): f32 in [-1, 1] -> int8.
-__device__ __forceinline__ int8_t q8_act(float a) {
-  const float v = rintf(__fmul_rn(a, 127.0f));
-  return (int8_t)(int)fminf(fmaxf(v, -127.0f), 127.0f);
-}
-
-// acc * eff + b, each op rounded on its own
-__device__ __forceinline__ float dequant(int acc, float eff, float b) {
-  return __fadd_rn(__fmul_rn((float)acc, eff), b);
-}
-
-// int32 dot product of two int8 rows packed four to a word
-__device__ __forceinline__ int dot_q8(const int* a, const int* w, int nw) {
-  int acc = 0;
-  for (int k = 0; k < nw; ++k) acc = __dp4a(a[k], w[k], acc);
-  return acc;
-}
-
-__device__ __forceinline__ int words(int H) { return (H + 3) / 4; }
-
-// Row stride of the resident weights in words: odd, so rows j..j+31 start
-// in 32 different banks.
-__device__ __host__ __forceinline__ int weight_ld(int H) {
-  return ((H + 3) / 4) | 1;
-}
-
-// Copy int8 rows (n, H) from device memory into shared rows of `ld` words,
-// zero-padded. One word per thread and iteration, its four bytes loaded
-// independently (rows of H bytes need not be word-aligned), and unrolled,
-// so the loads of several iterations are in flight together: a loop of
-// one dependent byte load per iteration waited a device-memory latency
-// per iteration (10 us of a 24 us gru-jet-deep decode).
-__device__ void load_rows(const int8_t* src, int n, int H, int* dst, int ld) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < n * ld; i += blockDim.x) {
-    const int row = i / ld;
-    const int k = 4 * (i - row * ld);
-    const uint8_t* s = reinterpret_cast<const uint8_t*>(src) + (size_t)row * H;
-    uint32_t w = 0;
-    for (int j = 0; j < 4; ++j) {
-      if (k + j < H) w |= (uint32_t)s[k + j] << (8 * j);
-    }
-    dst[i] = (int)w;
-  }
-}
-
-// Quantize h (bt, H) f32 into packed int8 rows of `nw` words.
-__device__ void quantize_rows(const float* h, int bt, int H, int* q, int nw) {
-  int8_t* d = reinterpret_cast<int8_t*>(q);
-  for (int i = threadIdx.x; i < bt * H; i += blockDim.x) {
-    const int r = i / H;
-    const int c = i - r * H;
-    d[r * 4 * nw + c] = q8_act(h[i]);
-  }
-}
-
-// The shared routine of both kernels. Layouts (row-major):
+// The shared routine of the two fused kernels. Layouts (row-major):
 //   h0     (L, B, H) f32        initial per-layer states
 //   xp     (T, B, 3H) f32       layer-0 input projection, time-major
 //   uq     (L, 3H, H) int8      recurrent weight rows, gates [z | r | h]
@@ -163,7 +91,7 @@ __device__ void run_stack_q8(const float* h0, const float* xp,
     // double-buffered: step t+1 writes the other half while step t's last
     // epilogue may still read this one
     float* sm = sm2 + (t & 1) * bt;
-    if (tid < bt) {
+    if (tid < bt) {               // bt <= kThreads (the wrapper checks)
       sm[tid] = tid >= nrow ? 0.0f
                 : mask == nullptr ? 1.0f
                 : mask[(size_t)t * B + row0 + tid];
@@ -176,62 +104,8 @@ __device__ void run_stack_q8(const float* h0, const float* xp,
       const float* bl = sb + l * H3;
       const float* xin = l == 0 ? xp_t : sx;    // row stride 3H either way
       __syncthreads();  // weights, h, sm and sx in place; sqh free
-      quantize_rows(hl, bt, H, sqh, nw);
-      __syncthreads();
-      if (v3) {
-        for (int i = tid; i < bt * H; i += nt) {
-          const int r = i / H;
-          const int c = i - r * H;
-          if (r >= nrow) continue;
-          const int* a = sqh + r * nw;
-          const float* x = xin + r * H3;
-          const float gz = dequant(dot_q8(a, ul + c * ld, nw), el[c], bl[c]);
-          const float gr = dequant(dot_q8(a, ul + (H + c) * ld, nw),
-                                   el[H + c], bl[H + c]);
-          const float gh = dequant(dot_q8(a, ul + (2 * H + c) * ld, nw),
-                                   el[2 * H + c], bl[2 * H + c]);
-          const float z = sigmoid_f(__fadd_rn(x[c], gz));
-          const float rr = sigmoid_f(__fadd_rn(x[H + c], gr));
-          const float ht = tanhf(__fadd_rn(x[2 * H + c], __fmul_rn(rr, gh)));
-          const float hold = hl[i];
-          const float hn = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), hold),
-                                     __fmul_rn(z, ht));
-          hl[i] = sm[r] != 0.0f ? hn : hold;
-        }
-      } else {
-        // phase 1: z and r, and r*h quantized for the candidate
-        for (int i = tid; i < bt * H; i += nt) {
-          const int r = i / H;
-          const int c = i - r * H;
-          if (r >= nrow) continue;
-          const int* a = sqh + r * nw;
-          const float* x = xin + r * H3;
-          const float gz = dequant(dot_q8(a, ul + c * ld, nw), el[c], bl[c]);
-          const float gr = dequant(dot_q8(a, ul + (H + c) * ld, nw),
-                                   el[H + c], bl[H + c]);
-          sz[i] = sigmoid_f(__fadd_rn(x[c], gz));
-          const float rr = sigmoid_f(__fadd_rn(x[H + c], gr));
-          reinterpret_cast<int8_t*>(sqr + r * nw)[c] =
-              q8_act(__fmul_rn(rr, hl[i]));
-        }
-        __syncthreads();
-        // phase 2: candidate from q8(r*h), then the update
-        for (int i = tid; i < bt * H; i += nt) {
-          const int r = i / H;
-          const int c = i - r * H;
-          if (r >= nrow) continue;
-          const float* x = xin + r * H3;
-          const float cand =
-              dequant(dot_q8(sqr + r * nw, ul + (2 * H + c) * ld, nw),
-                      el[2 * H + c], bl[2 * H + c]);
-          const float ht = tanhf(__fadd_rn(x[2 * H + c], cand));
-          const float z = sz[i];
-          const float hold = hl[i];
-          const float hn = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), hold),
-                                     __fmul_rn(z, ht));
-          hl[i] = sm[r] != 0.0f ? hn : hold;
-        }
-      }
+      cell_update_q8(hl, xin, ul, el, bl, sm, sqh, sqr, sz, nullptr, bt,
+                     nrow, H, v3);
       if (l + 1 < L) {
         // next layer's input projection, same step: q8(h_l) against the
         // int8 rows of W_{l+1}, scaled (no bias: b enters at the gates)
@@ -300,25 +174,76 @@ size_t smem_bytes_q8(int L, int H, int bt) {
   return 4 * w;
 }
 
-// Above 48 KB a block's shared memory must be opted into per kernel and
-// device; `configured` remembers the size already allowed on each device.
-constexpr int kMaxDevices = 64;
+// Depth-1 q8 sequence: one layer of the chain over T steps. Layouts
+// (row-major):
+//   h0    (B, H) f32          initial state
+//   xp    (T, B, 3H) f32      this layer's input projection, time-major
+//   uq    (3H, H) int8        recurrent weight rows, gates [z | r | h]
+//   ueff  (3H) f32            their dequant scales
+//   b     (3H) f32
+//   mask  (T, B) f32 or null  nonzero = live step
+//   out   (T, B, H)           the state after every step
+// Each new state goes to `out` from the update itself, so a step costs
+// the update's barriers and no separate output pass.
+__global__ void __launch_bounds__(kThreads)
+gru_sequence_q8_k(const float* h0, const float* xp, const int8_t* uq,
+                  const float* ueff, const float* b, const float* mask,
+                  float* out, int T, int B, int H, int v3, int bt) {
+  extern __shared__ int smem_seq_q8[];
+  const int H3 = 3 * H;
+  const int nw = words(H);
+  const int ld = weight_ld(H);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  int* su = smem_seq_q8;                               // (3H, ld) int8
+  float* seff = reinterpret_cast<float*>(su + H3 * ld);  // (3H)
+  float* sb = seff + H3;                               // (3H)
+  float* sh = sb + H3;                                 // (bt, H) state
+  float* sz = sh + bt * H;                             // (bt, H) v1 z gate
+  int* sqh = reinterpret_cast<int*>(sz + bt * H);      // (bt, nw) q8(h)
+  int* sqr = sqh + bt * nw;                            // (bt, nw) q8(r*h)
+  float* sm2 = reinterpret_cast<float*>(sqr + bt * nw);  // (2, bt) liveness
 
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes, size_t* configured) {
-  if (bytes <= kDefaultSmem) return 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < kMaxDevices && configured[dev] >= bytes) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
-  if (e == cudaSuccess && dev < kMaxDevices) configured[dev] = bytes;
-  return (int)e;
+  const int row0 = blockIdx.x * bt;
+  const int nrow = min(bt, B - row0);
+
+  load_rows(uq, H3, H, su, ld);
+  for (int i = tid; i < H3; i += nt) seff[i] = ueff[i];
+  for (int i = tid; i < H3; i += nt) sb[i] = b[i];
+  for (int i = tid; i < bt * H; i += nt) {
+    const int r = i / H;
+    sh[i] = r < nrow ? h0[(size_t)row0 * H + i] : 0.0f;
+  }
+  // the pad bytes of each quantized row stay 0 for the whole launch
+  for (int i = tid; i < 2 * bt * nw; i += nt) sqh[i] = 0;
+
+  for (int t = 0; t < T; ++t) {
+    // double-buffered: step t+1 writes the other half while step t's
+    // update may still read this one
+    float* sm = sm2 + (t & 1) * bt;
+    if (tid < bt) {               // bt <= kThreads (the wrapper checks)
+      sm[tid] = tid >= nrow ? 0.0f
+                : mask == nullptr ? 1.0f
+                : mask[(size_t)t * B + row0 + tid];
+    }
+    const size_t tile = (size_t)t * B + row0;
+    __syncthreads();  // weights, h and sm in place; sqh free
+    cell_update_q8(sh, xp + tile * H3, su, seff, sb, sm, sqh, sqr, sz,
+                   out + tile * H, bt, nrow, H, v3);
+  }
+}
+
+size_t smem_bytes_seq_q8(int H, int bt) {
+  const size_t H3 = 3 * (size_t)H;
+  const size_t nw = words(H);
+  const size_t w = H3 * weight_ld(H) + 2 * H3 + 2 * (size_t)bt * H +
+                   2 * (size_t)bt * nw + 2 * (size_t)bt;
+  return 4 * w;
 }
 
 size_t stack_smem[kMaxDevices];
 size_t decode_smem[kMaxDevices];
+size_t seq_smem[kMaxDevices];
 
 }  // namespace
 
@@ -348,5 +273,19 @@ extern "C" int gru_stack_decode_q8_launch(
   gru_stack_decode_q8_k<<<(B + bt - 1) / bt, kThreads, bytes,
                           (cudaStream_t)stream>>>(
       h, xp, uq, ueff, wdq, wdeff, b, out, B, H, L, v3, bt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gru_sequence_q8_launch(const float* h0, const float* xp,
+                                      const int8_t* uq, const float* ueff,
+                                      const float* b, const float* mask,
+                                      float* out, int T, int B, int H, int v3,
+                                      int bt, void* stream) {
+  const size_t bytes = smem_bytes_seq_q8(H, bt);
+  int err = allow_smem(gru_sequence_q8_k, bytes, seq_smem);
+  if (err) return err;
+  gru_sequence_q8_k<<<(B + bt - 1) / bt, kThreads, bytes,
+                      (cudaStream_t)stream>>>(h0, xp, uq, ueff, b, mask, out,
+                                              T, B, H, v3, bt);
   return (int)cudaGetLastError();
 }

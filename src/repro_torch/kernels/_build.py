@@ -7,7 +7,8 @@ interface. At first use it is compiled with::
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
 into ``build/repro_torch/`` at the repository root, keyed by a hash of the
-source and the flags, and loaded with ``ctypes``. ``-Xptxas -v``'s report
+source, of every header under ``csrc`` it includes (``#include "..."``,
+followed through headers) and of the flags, and loaded with ``ctypes``. ``-Xptxas -v``'s report
 (registers, shared memory, spills) is kept beside the library
 (:func:`build_log`). A missing ``nvcc`` or a failed build raises; nothing
 falls back. Several libraries build in parallel (:func:`build`).
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIBRARIES = ("gru_sequence", "gru_sequence_q8")
+LIBRARIES = ("gru_sequence", "gru_sequence_q8", "gru_cell_q8")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -52,9 +54,30 @@ def _source(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _inputs(path: Path, seen=None) -> list:
+    """``path`` and the local headers it includes, transitively, in a fixed
+    order (each file once)."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        header = path.parent / inc.decode()
+        if header.exists():
+            _inputs(header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where the built library for the current source and flags lives."""
-    h = hashlib.sha256(_source(name).read_bytes())
+    """Where the built library for the current source, its headers and the
+    flags lives: editing a header gives a new path, never a stale build."""
+    h = hashlib.sha256()
+    for path in _inputs(_source(name)):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,0 +1,94 @@
+"""What every kernel wrapper of the port shares: argument checks, the batch
+tile and its shared-memory check, the current stream, binding a launcher
+of a built library with ``ctypes``, and raising on a refused launch.
+
+A wrapper checks device, dtype, shape and contiguity and raises on
+anything its kernel does not take. For CPU tensors it returns the plain
+PyTorch version; for CUDA tensors it launches on the current stream and
+raises if the launch was refused. Nothing falls back from the card to the
+plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+
+SMEM_LIMIT = 232448           # bytes of shared memory one H100 block may use
+THREADS = 256                 # threads per block (kThreads in csrc/)
+DEFAULT_BATCH_BLOCK = 4
+VARIANTS = ("v1", "v3")
+P = ctypes.c_void_p           # a pointer or the stream
+I = ctypes.c_int
+
+_BOUND: Dict[str, Callable] = {}
+
+
+def launcher(library: str, name: str, argtypes: Sequence) -> Callable:
+    """The C entry point ``name`` of ``library`` (built and loaded at first
+    use), returning the launch's CUDA error code."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        fn = getattr(_build.load(library), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _BOUND[name] = fn
+    return fn
+
+
+def check(name: str, t, shape: tuple, device: torch.device,
+          dtype: torch.dtype = torch.float32) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def batch_tile(variant: str, B: int, T: int, H: int, L: int,
+               batch_block: int, device: torch.device,
+               smem: Callable[[int, int, int], int]) -> int:
+    """Check the problem and return the batch tile of one block; raises if
+    the tile has more rows than the block has threads (each of the first
+    ``tile`` threads writes its row's liveness) or the block's shared
+    memory (``smem(L, H, tile)``) exceeds a Hopper block's."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    if B < 1 or T < 1 or H < 1 or L < 1:
+        raise ValueError(f"empty problem: B={B} T={T} H={H} L={L}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    bt = batch_block or min(B, DEFAULT_BATCH_BLOCK)
+    if not 1 <= bt <= THREADS:
+        raise ValueError(f"batch_block {batch_block}: a tile takes 1 to "
+                         f"{THREADS} rows")
+    need = smem(L, H, bt)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"L={L} H={H} batch_block={bt} needs {need} bytes of shared "
+            f"memory per block; a Hopper block has {SMEM_LIMIT}")
+    return bt
+
+
+def stream(device: torch.device) -> int:
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {device} but the current CUDA device "
+                         f"is {torch.cuda.current_device()}")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()

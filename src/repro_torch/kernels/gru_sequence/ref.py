@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the three fused GRU kernels, with the kernels'
-raw-array interface (all fp32):
+"""Plain PyTorch versions of the GRU sequence kernels, with the kernels'
+raw-array interface (fp32 unless ``_q8``):
 
 * ``x_proj`` time-major (T, B, 3H) (decode: (B, 3H)), the layer-0 ``W.x``;
 * ``u`` (L, H, 3H), ``w_deep`` (L-1, H, 3H), ``b`` (L, 3H); depth-1
@@ -12,22 +12,25 @@ The wrappers in ``kernel.py`` call these for CPU tensors; the tests and
 follows the kernels' order of additions (``x + (U.h + b)``, and for the v1
 candidate ``(x + U.(r*h)) + b``).
 
-The ``*_q8`` versions are the plain versions of the fused q8 kernels
-(int8 weight rows ``u_q`` (L,3H,H) with per-row scales ``u_eff``, deep
-layers' ``wd_q``/``wd_eff`` likewise, fixed activation scale 127; see
-``repro_torch.core.params.quantize_rows_int8``). They keep quantized
-activations as integer-valued float32, so their float32 products sum the
-kernels' int32 dot products exactly while ``H * 127 * 127 < 2**24``
-(:data:`Q8_EXACT_MAX_H`). Every other operation is a separate, rounded
-float32 op in the order of ``_gate_math_q8`` in the JAX kernels
-(``x + (acc * eff + b)``), which the CUDA kernel repeats without
-contracting any multiply-add.
+The ``*_q8`` versions are the plain versions of the q8 kernels: the fused
+stack kernels (int8 weight rows ``u_q`` (L,3H,H) with per-row scales
+``u_eff``, deep layers' ``wd_q``/``wd_eff`` likewise, fixed activation
+scale 127; see ``repro_torch.core.params.quantize_rows_int8``) and the
+chain's depth-1 ``gru_sequence_q8_ref`` (one layer's ``u_q`` (3H,H), its
+input projection float32). All are built on the q8 step of
+``repro_torch.kernels.gru_cell.ref``: integer-valued float32 activations,
+exact sums while ``H * 127 * 127 < 2**24`` (its ``Q8_EXACT_MAX_H``), and
+every other operation a separate, rounded float32 op in the order of
+``_gate_math_q8`` in the JAX kernels (``x + (acc * eff + b)``), which the
+CUDA kernels repeat without contracting any multiply-add.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.gru_cell.ref import _q8_act, _q8_dot, gru_step_q8_ref
 
 
 def gru_step_ref(h: torch.Tensor, xp: torch.Tensor, u: torch.Tensor,
@@ -102,45 +105,24 @@ def gru_stack_decode_ref(h: torch.Tensor, x_proj: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# q8: int8 weight rows, fixed-scale activations
+# q8: int8 weight rows, fixed-scale activations (the step's plain version
+# lives in repro_torch.kernels.gru_cell.ref)
 # ---------------------------------------------------------------------------
 
-Q8_EXACT_MAX_H = 1039    # H * 127 * 127 < 2**24: float32 sums stay exact
-
-
-def _q8_act(a: torch.Tensor) -> torch.Tensor:
-    """Fixed-scale activation quantization kept in float32: round half to
-    even, then clip to [-127, 127] (integer-valued result)."""
-    return torch.clamp(torch.round(a * 127.0), -127.0, 127.0)
-
-
-def _q8_dot(aq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """aq (B,K) integer-valued float32 against int8 rows wq (N,K) -> (B,N),
-    exact in float32 at K <= Q8_EXACT_MAX_H."""
-    return aq @ wq.to(torch.float32).t()
-
-
-def gru_step_q8_ref(h: torch.Tensor, xp: torch.Tensor, u_q: torch.Tensor,
-                    u_eff: torch.Tensor, b: torch.Tensor,
-                    variant: str = "v1") -> torch.Tensor:
-    """One q8 cell update: h (B,H) float32 state, xp (B,3H) float32, u_q
-    (3H,H) int8 rows, u_eff (3H,), b (3H,) -> (B,H) float32."""
-    H = h.shape[-1]
-    xz, xr, xh = xp[..., :H], xp[..., H:2 * H], xp[..., 2 * H:]
-    hq = _q8_act(h)
-    if variant == "v3":
-        ua = _q8_dot(hq, u_q) * u_eff + b
-        z = torch.sigmoid(xz + ua[..., :H])
-        r = torch.sigmoid(xr + ua[..., H:2 * H])
-        ht = torch.tanh(xh + r * ua[..., 2 * H:])
-    else:
-        zr = _q8_dot(hq, u_q[:2 * H]) * u_eff[:2 * H] + b[:2 * H]
-        z = torch.sigmoid(xz + zr[..., :H])
-        r = torch.sigmoid(xr + zr[..., H:])
-        cand = (_q8_dot(_q8_act(r * h), u_q[2 * H:]) * u_eff[2 * H:]
-                + b[2 * H:])
-        ht = torch.tanh(xh + cand)
-    return (1.0 - z) * h + z * ht
+def gru_sequence_q8_ref(h0: torch.Tensor, x_proj: torch.Tensor,
+                        u_q: torch.Tensor, u_eff: torch.Tensor,
+                        b: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                        variant: str = "v1") -> torch.Tensor:
+    """Depth-1 q8 sequence: h0 (B,H), x_proj (T,B,3H) float32, u_q (3H,H)
+    int8 rows, u_eff (3H,), b (3H,) -> all states (T,B,H). A dead step
+    keeps the row's pre-step h."""
+    h, out = h0, []
+    for t in range(x_proj.shape[0]):
+        h2 = gru_step_q8_ref(h, x_proj[t], u_q, u_eff, b, variant)
+        live = _live(mask, t)
+        h = h2 if live is None else torch.where(live, h2, h)
+        out.append(h)
+    return torch.stack(out, dim=0)
 
 
 def _deep_xp_q8(h: torch.Tensor, wd_q: torch.Tensor,

@@ -8,9 +8,11 @@ async front-end or autotuner).
 Give more requests than ``--slots`` to exercise mid-wave admit and retire.
 ``--gru-backend`` sets the executor preference: ``eager`` (plain PyTorch),
 ``cuda`` (the fused CUDA kernels, one launch per prefill and per decode
-step), ``auto`` (cheapest legal backend), or an exact backend name:
-``cuda_fused``, or ``cuda_fused_q8`` (the int8 datapath; a pin serves it
-whatever the accuracy gate says)::
+step; the per-layer chain for heterogeneous ``layer_dims``), ``auto``
+(cheapest legal backend), or an exact backend name: ``cuda_fused``,
+``cuda_chain`` (one depth-1 kernel launch per layer), or ``cuda_fused_q8``
+and ``cuda_chain_q8`` (the int8 datapath, fused or per layer; a pin serves
+it whatever the accuracy gate says)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet-deep \
         --gru-backend cuda_fused_q8 --requests 12 --slots 8 --vary-prompt
@@ -60,12 +62,13 @@ def main(argv=None):
     p.add_argument("--max-new", type=int, default=16)
     p.add_argument("--gru-backend",
                    choices=("eager", "cuda", "auto", "cuda_fused",
-                            "cuda_fused_q8"),
+                            "cuda_chain", "cuda_fused_q8", "cuda_chain_q8"),
                    default=None,
                    help="executor backend preference (default: the "
                         "config's, eager); an exact name pins that "
-                        "backend, and the cuda_fused_q8 pin serves the "
-                        "int8 datapath whatever the accuracy gate says")
+                        "backend, and the cuda_fused_q8 and cuda_chain_q8 "
+                        "pins serve the int8 datapath whatever the "
+                        "accuracy gate says")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")

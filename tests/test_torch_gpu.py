@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.core.params import init_params, quantize_gru_cells
+from repro_torch.kernels.gru_cell import kernel as CK
+from repro_torch.kernels.gru_cell import ref as cref
 from repro_torch.kernels.gru_sequence import kernel as K
 from repro_torch.kernels.gru_sequence import ref
 from repro_torch.models import gru_lm
@@ -201,3 +203,87 @@ def test_engine_streams_q8_card_equal_cpu(cuda_device, arch):
     assert streams["cuda"] == streams["cpu"]
     assert all(k.launches > 0 for k in K.Q8_KERNELS)
     assert all(k.launches == 0 for k in K.KERNELS)
+
+
+CHAIN_CASES = list(itertools.product((20, 32), (1, 8, 64), (8, 32),
+                                     ("v1", "v3"), (False, True)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,B,T,variant,masked", CHAIN_CASES)
+def test_chain_q8_sequence_kernel_matches_plain(cuda_device, H, B, T,
+                                                variant, masked):
+    a = _inputs(1, H, B, T, cuda_device, seed=B + T + H)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    m = a["mask"] if masked else None
+    K.reset_launch_counts()
+    got = K.gru_sequence_q8_kernel(a["h0"][0], a["xp"], u_q, u_eff, b, m,
+                                   variant=variant)
+    want = ref.gru_sequence_q8_ref(a["h0"][0], a["xp"], u_q, u_eff, b, m,
+                                   variant)
+    assert _max_err([(got, want)]) <= TOL
+    assert [k.launches for k in K.CHAIN_Q8_KERNELS] == [1, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", (20, 32))
+@pytest.mark.parametrize("B", (1, 5, 64))
+@pytest.mark.parametrize("variant", ("v1", "v3"))
+def test_step_q8_kernel_matches_plain(cuda_device, H, B, variant):
+    a = _inputs(1, H, B, 1, cuda_device, seed=B + H)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    K.reset_launch_counts()
+    got = CK.gru_step_q8(a["h0"][0], a["xp"][0], u_q, u_eff, b,
+                         variant=variant)
+    want = cref.gru_step_q8_ref(a["h0"][0], a["xp"][0], u_q, u_eff, b,
+                                variant)
+    assert _max_err([(got, want)]) <= TOL
+    assert [k.launches for k in K.CHAIN_Q8_KERNELS] == [0, 1]
+
+
+def _chain_cfg(arch, layer_dims, backend):
+    cfg = get_config(arch)
+    gru = dataclasses.replace(cfg.gru, backend=backend)
+    if layer_dims:
+        gru = dataclasses.replace(gru, layer_dims=layer_dims)
+    return cfg.replace(gru=gru)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layer_dims", (("gru-jet", ()),
+                                             ("gru-jet-deep", ()),
+                                             ("gru-jet-deep", (32, 32, 20))))
+def test_chain_backends_launch_per_layer(cuda_device, arch, layer_dims):
+    """Both chains on the card: L launches per prefill and per step, no
+    other kernel; fp32 streams equal the eager engine's, q8 streams equal
+    the CPU run of the same pin."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.normal(size=(int(rng.integers(1, 21)), 5))
+               .astype(np.float32) for _ in range(6)]
+    streams = {}
+    for backend in ("eager", "cuda_chain", "cuda_chain_q8"):
+        cfg = _chain_cfg(arch, layer_dims, backend)
+        L = cfg.gru.resolved_num_layers
+        params = init_params(gru_lm.lm_specs(cfg), seed=0, device="cpu")
+        for dev in ((cuda_device, "cpu") if backend == "cuda_chain_q8"
+                    else (cuda_device,)):
+            K.reset_launch_counts()
+            eng = ServeEngine(cfg, params, max_batch=4, device=dev)
+            streams[backend, str(dev)] = [r.out for r in eng.generate(
+                [Request(prompt=p, max_new_tokens=5) for p in prompts])]
+            if dev == "cpu" or backend == "eager":
+                continue
+            prefills = len(eng.prefill_backends)
+            steps = eng.latency_stats()["steps"] + 1
+            assert set(eng.prefill_backends) == {backend}
+            counts = {k.__name__: k.launches
+                      for k in K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS}
+            want = dict.fromkeys(counts, 0)
+            if backend == "cuda_chain":
+                want["gru_sequence_kernel"] = L * (prefills + steps)
+            else:
+                want["gru_sequence_q8_kernel"] = L * prefills
+                want["gru_step_q8"] = L * steps
+            assert counts == want
+    assert streams["cuda_chain", "cuda"] == streams["eager", "cuda"]
+    assert streams["cuda_chain_q8", "cuda"] == streams["cuda_chain_q8", "cpu"]

@@ -241,16 +241,18 @@ def test_runtime_preference_rules():
     assert pick(backend="cuda") == ("cuda_fused", "cuda_fused")
     assert pick(backend="cuda_fused") == ("cuda_fused", "cuda_fused")
     assert pick(backend="auto") == ("cuda_fused", "cuda_fused")  # cost 10
-    # heterogeneous dims: the fused kernels cannot serve, fall through
-    assert pick(backend="cuda", layer_dims=(8, 16)) == ("eager", "eager")
+    # heterogeneous dims: the fused kernels cannot serve, fall through to
+    # the per-layer chain (JAX: pallas_chain)
+    assert pick(backend="cuda", layer_dims=(8, 16)) == ("cuda_chain",
+                                                        "cuda_chain")
     # the q8 datapath: only an exact pin serves it while the accuracy gate
     # is closed (no artifact); the quant flag alone never does
     assert pick(backend="cuda_fused_q8") == ("cuda_fused_q8",
                                              "cuda_fused_q8")
     assert pick(backend="auto", quant="int8") == ("cuda_fused", "cuda_fused")
     assert pick(backend="cuda", quant="int8") == ("cuda_fused", "cuda_fused")
-    assert pick(backend="cuda_fused_q8", layer_dims=(8, 16)) == ("eager",
-                                                                "eager")
+    assert pick(backend="cuda_fused_q8", layer_dims=(8, 16)) == (
+        "cuda_chain", "cuda_chain")
     assert runtime.compile(TCfg(), batch=2) is runtime.compile(TCfg(), batch=2)
     with pytest.raises(runtime.UnknownCellFamily):
         runtime.compile(TCfg(family="slstm"), batch=2)

@@ -42,6 +42,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import gru as tgru
 from repro_torch.core import runtime
 from repro_torch.core.params import quantize_gru_cells, quantize_rows_int8
+from repro_torch.kernels.gru_cell.ref import Q8_EXACT_MAX_H
 from repro_torch.kernels.gru_sequence import kernel as K
 from repro_torch.kernels.gru_sequence import ref
 from repro_torch.models import gru_lm
@@ -196,7 +197,7 @@ def test_stack_decode_q8_plain_matches_jax_ref(L, variant):
 
 
 def test_q8_plain_path_refuses_inexact_widths():
-    L, Hbig = 1, ref.Q8_EXACT_MAX_H + 1
+    L, Hbig = 1, Q8_EXACT_MAX_H + 1
     with pytest.raises(ValueError, match="exact"):
         K.gru_stack_decode_q8_kernel(
             torch.zeros(L, 1, Hbig), torch.zeros(1, 3 * Hbig),
@@ -262,9 +263,11 @@ def test_exact_pin_bypasses_the_gate():
     assert not runtime.quant_gate_open()
     assert _backends(backend="cuda_fused_q8") == ("cuda_fused_q8",) * 2
     # heterogeneous dims: the fused q8 kernels cannot serve, fall through
+    # to the float32 chain (JAX: pallas_chain; the q8 chain needs its own
+    # pin or an open gate)
     exe = runtime.compile(TCfg(input_dim=X, layer_dims=(8, 16),
                                backend="cuda_fused_q8"), batch=B)
-    assert exe.decode_backend == "eager"
+    assert exe.decode_backend == "cuda_chain"
 
 
 @pytest.mark.parametrize("pref", ("auto", "cuda", "eager"))
