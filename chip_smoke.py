@@ -8,15 +8,18 @@ Run from the repository root on a machine with one CUDA card::
 Phases (any failure exits non-zero, before the result lines):
 
 1. the device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
-2. build the CUDA kernels (``gru_sequence``, ``gru_sequence_q8`` and
-   ``gru_cell_q8``, one ``nvcc`` each, started together) and print
-   ``-Xptxas -v``'s report;
+2. build the CUDA kernels (``gru_sequence``, ``gru_sequence_q8``,
+   ``gru_cell_q8`` and ``slstm_cell``, one ``nvcc`` each, started
+   together) and print ``-Xptxas -v``'s report and each kernel's dynamic
+   shared memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (gru-jet L=1 H=20, gru-jet-deep L=3 H=32, and the
    chain's depth-1 layers of H=20 and H=32; B in {1, 8, 64}; T in {8, 16,
    32}; v1 and v3; masked and not): largest absolute error at most 1e-5,
-   for the three fp32 kernels, the two fused q8 kernels and the q8
-   chain's two kernels (int8 weight rows quantized on the card);
+   for the three fp32 kernels, the two fused q8 kernels, the q8 chain's
+   two kernels (int8 weight rows quantized on the card) and the two sLSTM
+   kernels (slstm-jet L=1 H=20 and L=3 H=32; a fully masked row, whose
+   leaves, ``m = M_INIT`` included, must come out bit for bit);
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
@@ -43,14 +46,23 @@ Phases (any failure exits non-zero, before the result lines):
    must launch L times per prefill and ``gru_step_q8`` L times per step,
    no other kernel and no plain version may run, and the class streams and
    prefill logits must equal the CPU run of the same pin;
-8. time each kernel and its plain version with CUDA events, on the device
+8. serve the sLSTM family: slstm-jet and slstm-jet with ``num_layers=3,
+   hidden_dim=32`` through ``ServeEngine`` with ``backend="cuda"``, with
+   the counters zeroed just before: every prefill and step attributed to
+   ``cuda_fused``, the sequence kernel launched once per prefill and the
+   decode kernel once per step, no GRU kernel and no plain version run,
+   class streams equal to the ``eager`` engine's on the card, prefill
+   logits within 1e-5 of the dense reference; every GRU phase above
+   counts the sLSTM kernels among its other kernels (none may run);
+9. time each kernel and its plain version with CUDA events, on the device
    (calls captured in a CUDA graph and replayed, so the host's per-call
    cost is left out) and per call from Python; the bound is the bytes over
    3.35 TB/s or the operations over their type's peak (67 TFLOP/s fp32,
    1,979 TOP/s int8), whichever is larger; and profile a served decode
    step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
-   ``cuda_chain`` and ``cuda_chain_q8``. The engine's decode-step p50/p99
-   come from phases 4-7 (host clock).
+   ``cuda_chain`` and ``cuda_chain_q8``, and of slstm-jet through
+   ``cuda_fused``. The engine's decode-step p50/p99 come from phases 4-8
+   (host clock).
 
 Then it prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -81,6 +93,8 @@ KERNEL_SOURCE = {
     "gru_stack_decode_q8_kernel": "src/repro_torch/csrc/gru_sequence_q8.cu",
     "gru_sequence_q8_kernel": "src/repro_torch/csrc/gru_sequence_q8.cu",
     "gru_step_q8": "src/repro_torch/csrc/gru_cell_q8.cu",
+    "slstm_stack_sequence_kernel": "src/repro_torch/csrc/slstm_cell.cu",
+    "slstm_stack_decode_kernel": "src/repro_torch/csrc/slstm_cell.cu",
 }
 REPLACES = {
     "gru_sequence_kernel": "src/repro/kernels/gru_sequence/kernel.py:125",
@@ -92,13 +106,17 @@ REPLACES = {
         "src/repro/kernels/gru_sequence/kernel.py:575",
     "gru_sequence_q8_kernel": "src/repro/kernels/gru_sequence/kernel.py:420",
     "gru_step_q8": "src/repro/kernels/gru_cell/kernel.py:179",
+    "slstm_stack_sequence_kernel":
+        "src/repro/kernels/slstm_cell/kernel.py:130",
+    "slstm_stack_decode_kernel": "src/repro/kernels/slstm_cell/kernel.py:215",
 }
 Q8 = ("gru_stack_sequence_q8_kernel", "gru_stack_decode_q8_kernel",
       "gru_sequence_q8_kernel", "gru_step_q8")
 DECODE = ("gru_stack_decode_kernel", "gru_stack_decode_q8_kernel",
-          "gru_step_q8")
+          "gru_step_q8", "slstm_stack_decode_kernel")
 STEP_TOO = ("gru_sequence_kernel",)  # also at T=1 unmasked: chain decode
 CHAIN_Q8 = ("gru_sequence_q8_kernel", "gru_step_q8")
+SLSTM = ("slstm_stack_sequence_kernel", "slstm_stack_decode_kernel")
 
 
 def fail(msg: str) -> None:
@@ -154,6 +172,7 @@ def build_kernels():
                 print(f"  ptxas[{name}]: {line.strip()}")
     # all shared memory is dynamic, so ptxas does not report it
     from repro_torch.kernels.gru_cell import kernel as CK
+    from repro_torch.kernels.slstm_cell import kernel as SK
     bt = K.DEFAULT_BATCH_BLOCK
     for cfg_name, L, H in (("gru-jet", 1, 20), ("gru-jet-deep", 3, 32)):
         print(f"  dynamic shared memory per block, {cfg_name} (L={L} H={H}, "
@@ -162,6 +181,10 @@ def build_kernels():
               f"{K.smem_bytes(1, H, bt)} fp32, "
               f"{K.smem_bytes_seq_q8(H, bt)} q8 sequence, "
               f"{CK.smem_bytes_step_q8(H, bt)} q8 step "
+              f"(limit {K.SMEM_LIMIT})")
+    for cfg_name, L, H in (("slstm-jet", 1, 20), ("slstm L=3 H=32", 3, 32)):
+        print(f"  dynamic shared memory per block, {cfg_name} ({bt}-row "
+              f"tile): {SK.smem_bytes(L, H, bt)} bytes, both sLSTM kernels "
               f"(limit {K.SMEM_LIMIT})")
 
 
@@ -193,9 +216,54 @@ def make_inputs(torch, L, H, B, T, seed, dev):
     return a
 
 
+def make_slstm_inputs(torch, L, H, B, T, seed, dev):
+    """The sLSTM kernels' operands: a mid-sequence state (n > 0) with row
+    0 at the engine's initial state (c = n = h = 0, m = M_INIT), and a
+    ragged left-padded (T,B) mask whose row 0 is fully masked when B > 1
+    (an empty slot), so its leaves must come out bit for bit."""
+    from repro_torch.core.slstm import M_INIT
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+    leaves = [rand(L, B, H, scale=0.5), rand(L, B, H).abs() + 0.5,
+              rand(L, B, H), rand(L, B, H, scale=0.5)]
+    for k, v in enumerate((0.0, 0.0, M_INIT, 0.0)):
+        leaves[k][:, 0] = v
+    mask = torch.ones(T, B)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    for i in range(B):
+        mask[: T - int(lens[i]), i] = 0.0
+    if B > 1:
+        mask[:, 0] = 0.0
+    leaves = [x.to(dev) for x in leaves]
+    return dict(leaves=leaves, h0=leaves[3], xp=rand(T, B, 4 * H).to(dev),
+                u=rand(L, H, 4 * H, scale=H ** -0.5).to(dev),
+                wd=(rand(L - 1, H, 4 * H, scale=H ** -0.5) if L > 1
+                    else torch.zeros(1, 1, 4 * H)).to(dev),
+                b=rand(L, 4 * H, scale=0.3).to(dev), mask=mask.to(dev))
+
+
+def run_slstm_kernel(name, a, masked, plain):
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.kernels.slstm_cell import ref as sref
+    w = (a["u"], a["wd"], a["b"])
+    if name == "slstm_stack_decode_kernel":
+        args = (*a["leaves"], a["xp"][0], *w)
+        if plain:
+            return sref.slstm_stack_decode_ref(*args)
+        return SK.slstm_stack_decode_kernel(*args)
+    args = (*a["leaves"], a["xp"], *w, a["mask"] if masked else None)
+    if plain:
+        return sref.slstm_stack_sequence_ref(*args)
+    return SK.slstm_stack_sequence_kernel(*args)
+
+
 def run_kernel(K, ref, name, a, variant, masked, plain):
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.gru_cell import ref as cref
+    if name in SLSTM:
+        return run_slstm_kernel(name, a, masked, plain)
     m = a["mask"] if masked else None
     if name in CHAIN_Q8:              # one layer's own int8 rows (L = 1)
         u_q, u_eff, _, _, b = (x[0] for x in a["q8"])
@@ -243,7 +311,15 @@ MAIN_SHAPES = {                    # kernel -> (L, H) on the main path
     "gru_stack_decode_q8_kernel": BOTH,          # both configs' q8 decode
     "gru_sequence_q8_kernel": [(1, 20), (1, 32)],  # q8 chain prefill layers
     "gru_step_q8": [(1, 20), (1, 32)],             # q8 chain decode layers
+    "slstm_stack_sequence_kernel": BOTH,         # slstm-jet; L=3 H=32
+    "slstm_stack_decode_kernel": BOTH,
 }
+
+
+def inputs_for(torch, name, L, H, B, T, seed, dev):
+    if name in SLSTM:
+        return make_slstm_inputs(torch, L, H, B, T, seed, dev)
+    return make_inputs(torch, L, H, B, T, seed, dev)
 
 
 def check_kernels(torch, dev):
@@ -252,6 +328,7 @@ def check_kernels(torch, dev):
     err = {n: 0.0 for n in REPLACES}
     checks = {n: 0 for n in REPLACES}
     err_step = {n: 0.0 for n in STEP_TOO}    # the T=1 unmasked cases alone
+    frozen_rows = {n: 0 for n in SLSTM}      # fully masked rows held bitwise
     for name, shapes in MAIN_SHAPES.items():
         Ts = ((1,) if name in DECODE else (8, 16, 32))
         if name in STEP_TOO:
@@ -259,9 +336,10 @@ def check_kernels(torch, dev):
         for (L, H) in shapes:
             for B in (1, 8, 64):
                 for T in Ts:
-                    a = make_inputs(torch, L, H, B, T, seed=B * 100 + T,
-                                    dev=dev)
-                    for variant in ("v1", "v3"):
+                    a = inputs_for(torch, name, L, H, B, T, B * 100 + T,
+                                   dev)
+                    for variant in ((None,) if name in SLSTM
+                                    else ("v1", "v3")):
                         for masked in ((False,) if T == 1 else (False, True)):
                             got = run_kernel(K, ref, name, a, variant,
                                              masked, plain=False)
@@ -278,6 +356,14 @@ def check_kernels(torch, dev):
                                 check(e <= TOL, f"{name} L={L} H={H} B={B} "
                                       f"T={T} {variant} masked={masked}: "
                                       f"max |err| {e:.3g} > {TOL}")
+                            if name in SLSTM and masked and B > 1:
+                                frozen_rows[name] += 1
+                                for k, leaf in enumerate(a["leaves"]):
+                                    check(torch.equal(got[1 + k][:, 0],
+                                                      leaf[:, 0]),
+                                          f"{name} L={L} H={H} B={B} T={T}:"
+                                          f" the fully masked row's leaf {k}"
+                                          f" moved")
                             checks[name] += 1
     for n, e in err.items():
         print(f"  {n}: max |kernel - plain| = {e:.3g} (<= {TOL}) over "
@@ -285,6 +371,9 @@ def check_kernels(torch, dev):
     for n, e in err_step.items():
         print(f"  {n} at T=1 unmasked (the fp32 chain's decode layer): "
               f"max |kernel - plain| = {e:.3g} (<= {TOL})")
+    print(f"  slstm_stack_sequence_kernel: the fully masked row (m = M_INIT)"
+          f" kept all four leaves bit for bit in "
+          f"{frozen_rows['slstm_stack_sequence_kernel']} masked comparisons")
     print(f"  {sum(checks.values())} kernel/plain comparisons passed",
           flush=True)
     return err
@@ -302,6 +391,8 @@ PLAIN = {                  # module of plain versions -> names the wrappers call
         "gru_stack_sequence_q8_ref", "gru_stack_decode_q8_ref",
         "gru_sequence_q8_ref"),
     "repro_torch.kernels.gru_cell.ref": ("gru_step_q8_ref",),
+    "repro_torch.kernels.slstm_cell.ref": ("slstm_stack_sequence_ref",
+                                           "slstm_stack_decode_ref"),
 }
 
 
@@ -357,9 +448,11 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
             after = [k.launches for k in kernels]
             per_arch[a] = [x - y for x, y in zip(after, before)]
             before = after
+    from repro_torch.kernels.slstm_cell import kernel as SK
     launches = dict(zip((k.__name__ for k in kernels), before))
     others = {k.__name__: k.launches
-              for k in K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
+              for k in (K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
+                        + SK.SLSTM_KERNELS)
               if k not in kernels}
     print(f"  launches: {launches}; other kernels {others}; "
           f"plain versions {plain}", flush=True)
@@ -610,7 +703,73 @@ def run_chain_q8_path(torch, dev, cfgs, params):
 
 
 # ---------------------------------------------------------------------------
-# 8. timing
+# 8. the sLSTM family: serve slstm-jet and a deep stack through cuda_fused
+# ---------------------------------------------------------------------------
+
+SLSTM_ARCHS = ("slstm-jet", "slstm-jet L=3 H=32")
+
+
+def run_slstm_path(torch, dev):
+    """slstm-jet and its uniform deep stack (``num_layers=3,
+    hidden_dim=32``) under ``backend="cuda"``: one sequence launch per
+    prefill, one decode launch per step, class streams equal to the eager
+    engine's, prefill logits against the dense reference."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import slstm as slstm_core
+    from repro_torch.core.params import init_params
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.models import slstm_lm
+    base = get_config("slstm-jet")
+    cfgs = {SLSTM_ARCHS[0]: base,
+            SLSTM_ARCHS[1]: base.replace(gru=dataclasses.replace(
+                base.gru, num_layers=3, hidden_dim=32))}
+    params = {a: init_params(slstm_lm.lm_specs(c), seed=0, device=dev)
+              for a, c in cfgs.items()}
+    engines, streams, per_arch, launches = serve_all(
+        K, cfgs, params, "cuda", dev, SK.SLSTM_KERNELS)
+    report = {}
+    for a, cfg in cfgs.items():
+        st, prefills, steps_run = check_served(
+            a, engines[a], "cuda_fused", per_arch[a], lambda p, s: [p, s])
+        _, eager_streams = serve(cfg, params[a], "eager", dev)
+        check(streams[a] == eager_streams,
+              f"{a}: class streams differ from the eager engine")
+        check(all(len(x) == MAX_NEW for x in streams[a]),
+              f"{a}: stream lengths {[len(x) for x in streams[a]]}")
+        g = torch.Generator().manual_seed(5)
+        xs = torch.randn(3, 7, cfg.gru.input_dim, generator=g).to(dev)
+        cfg_c = cfg.replace(gru=dataclasses.replace(cfg.gru, backend="cuda"))
+        logits, _ = slstm_lm.prefill(engines[a].params, cfg_c,
+                                     {"features": xs})
+        finals, _ = slstm_core.slstm_stack_reference(
+            params[a]["cells"],
+            slstm_core.stack_state0(cfg.gru, 3, device=dev), xs)
+        want_logits = (finals[-1] @ params[a]["head"]["w"]
+                       + params[a]["head"]["b"])
+        check(tuple(logits.shape) == (3, cfg.gru.num_classes)
+              and bool(torch.isfinite(logits).all()), f"{a}: bad logits")
+        e = (logits - want_logits).abs().max().item()
+        check(e <= TOL, f"{a}: prefill logits vs reference {e:.3g}")
+        report[a] = {"prefills": prefills, "decode_steps": steps_run,
+                     "launches": per_arch[a],
+                     "decode_p50_ms": st["p50_s"] * 1e3,
+                     "decode_p99_ms": st["p99_s"] * 1e3,
+                     "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+                     "logits_err_vs_reference": e,
+                     "streams_equal_eager": True}
+        print(f"  {a}: {prefills} prefills, {steps_run} decode steps, all "
+              f"cuda_fused; launches {per_arch[a]} = ({prefills}, "
+              f"{steps_run}); decode p50 {st['p50_s'] * 1e3:.4f} ms p99 "
+              f"{st['p99_s'] * 1e3:.4f} ms (host clock, synchronized); "
+              f"streams == eager; logits vs reference {e:.3g}", flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the sLSTM path never launched: {launches}")
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
+# 9. timing
 # ---------------------------------------------------------------------------
 
 def call_time_ms(torch, fn, iters: int, warmup: int = 5) -> float:
@@ -666,28 +825,30 @@ def bound_ms(name, a, masked=None):
     decode = name in DECODE
     T = 1 if decode else a["xp"].shape[0]
     masked = not decode if masked is None else masked
-    H3 = 3 * H
+    # gate columns, state leaves per layer, elementwise flops per unit
+    G, S, E = (4 * H, 4, 32) if name in SLSTM else (3 * H, 1, 14)
     live = float(a["mask"].sum().item()) if masked else B
     # weights, scales and bias: fp32 U, W_deep, b; q8 int8 rows + f32 eff
-    w_bytes = (4 * (L * H * H3 + (L - 1) * H * H3 + L * H3)
+    w_bytes = (4 * (L * H * G + (L - 1) * H * G + L * G)
                if name not in Q8 else
-               (L * H3 * H + (L - 1) * H3 * H) + 4 * (L * H3 + (L - 1) * H3
-                                                      + L * H3))
-    n_in = L * B * H + T * B * H3 + (T * B if masked else 0)
+               (L * G * H + (L - 1) * G * H) + 4 * (L * G + (L - 1) * G
+                                                    + L * G))
+    n_in = S * L * B * H + T * B * G + (T * B if masked else 0)
     n_out = {"gru_sequence_kernel": T * B * H,
              "gru_sequence_q8_kernel": T * B * H}.get(
-        name, L * B * H if decode else T * B * H + L * B * H)
+        name, S * L * B * H if decode else T * B * H + S * L * B * H)
     nbytes = w_bytes + 4 * (n_in + n_out)
-    # per live (row, step): the U matvecs 2*H*3H per layer and the next
-    # layer's W matvec 2*H*3H below the top; elementwise 14*H per layer
-    # (q8 adds the dequant 6H, two activation quantizations 8H per layer
-    # and the deep projection's 3H + 4H)
-    mac_ops = live * (L * 6 * H * H + (L - 1) * 6 * H * H)
+    # per live (row, step): the U matvecs 2*H*G per layer and the next
+    # layer's W matvec 2*H*G below the top; elementwise E*H per layer (GRU
+    # 14, sLSTM 32 counting each exp, log1p, tanh and division as one; q8
+    # adds the dequant 6H, two activation quantizations 8H per layer and
+    # the deep projection's 3H + 4H)
+    mac_ops = live * (L * 2 * H * G + (L - 1) * 2 * H * G)
     if name in Q8:
         f32_ops = live * (L * 28 * H + (L - 1) * 7 * H)
         t_ops = (mac_ops / INT8_OP_PER_S + f32_ops / FP32_FLOP_PER_S) * 1e3
     else:
-        t_ops = (mac_ops + live * L * 14 * H) / FP32_FLOP_PER_S * 1e3
+        t_ops = (mac_ops + live * L * E * H) / FP32_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -703,14 +864,18 @@ TIMED = (("gru_sequence_kernel", (1, 20)),
          ("gru_sequence_q8_kernel", (1, 32)),
          ("gru_sequence_q8_kernel", (1, 20)),
          ("gru_step_q8", (1, 32)),
-         ("gru_step_q8", (1, 20)))
+         ("gru_step_q8", (1, 20)),
+         ("slstm_stack_sequence_kernel", (1, 20)),
+         ("slstm_stack_sequence_kernel", (3, 32)),
+         ("slstm_stack_decode_kernel", (1, 20)),
+         ("slstm_stack_decode_kernel", (3, 32)))
 
 
 def time_kernels(torch, dev, err, launches):
     """Kernel, plain-version and bound times at the main path's shapes;
     the JSON rows are the 8-slot shapes (gru-jet fp32 prefill, gru-jet-deep
     for the others: L=3 for the fused kernels, one H=32 layer for the q8
-    chain's)."""
+    chain's; slstm-jet, L=1 H=20, for the sLSTM kernels)."""
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
     rows = []
@@ -719,7 +884,7 @@ def time_kernels(torch, dev, err, launches):
         for B in (1, SLOTS, 64):
             decode = name in DECODE
             T = 1 if decode else 16
-            a = make_inputs(torch, L, H, B, T, seed=7, dev=dev)
+            a = inputs_for(torch, name, L, H, B, T, 7, dev)
 
             def kern():
                 return run_kernel(K, ref, name, a, "v1", not decode,
@@ -738,8 +903,10 @@ def time_kernels(torch, dev, err, launches):
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
                   f"  bound {bms * 1e6:7.2f} ns ({by})", flush=True)
-            if B == SLOTS and (name == "gru_sequence_kernel" or L == 3
-                               or (name in CHAIN_Q8 and H == 32)):
+            if B == SLOTS and (
+                    (name in SLSTM and L == 1) or (name not in SLSTM and (
+                        name == "gru_sequence_kernel" or L == 3
+                        or (name in CHAIN_Q8 and H == 32)))):
                 rows.append({
                     "name": name, "route": "cuda",
                     "source": KERNEL_SOURCE[name],
@@ -749,7 +916,7 @@ def time_kernels(torch, dev, err, launches):
                     "bound_by": by, "library_ms": None,
                     "call_ms": call, "plain_call_ms": plain_call,
                     "shape": {"L": L, "H": H, "B": B, "T": T,
-                              "variant": "v1"}})
+                              "variant": None if name in SLSTM else "v1"}})
     # the fp32 chain's decode layer: the depth-1 sequence kernel at T=1,
     # unmasked (a row of PERF.md, not of the JSON line)
     for H in (32, 20):
@@ -769,23 +936,25 @@ def time_kernels(torch, dev, err, launches):
                   f"{bms * 1e6:7.2f} ns ({by})", flush=True)
     print("  library_ms: null -- no single PyTorch call computes the v1 "
           "(paper) GRU recurrence or step these kernels run, in fp32 or on "
-          "int8 weight rows", flush=True)
+          "int8 weight rows; nor the exponential-gated sLSTM (torch.nn.LSTM "
+          "has neither its exponential gates nor its stabilizer)",
+          flush=True)
     return rows
 
 
-def profile_decode(torch, dev, backend):
+def profile_decode(torch, dev, backend, arch="gru-jet-deep"):
     """Device busy share of the served decode step: ``torch.profiler`` over
-    20 warm steps of a full 8-slot gru-jet-deep wave through ``backend``;
+    20 warm steps of a full 8-slot ``arch`` wave through ``backend``;
     busy = the kernels' summed device time over the steps' wall time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.core.params import init_params
     from repro_torch.launch.serve import make_requests
-    from repro_torch.models import gru_lm
+    from repro_torch.models import api
     from repro_torch.serve.engine import ServeEngine
-    cfg = get_config("gru-jet-deep")
+    cfg = get_config(arch)
     cfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend=backend))
-    params = init_params(gru_lm.lm_specs(cfg), seed=0, device=dev)
+    params = init_params(api.get_api(cfg).specs(cfg), seed=0, device=dev)
     eng = ServeEngine(cfg, params, max_batch=SLOTS, device=dev)
     eng.gru_wave_begin(make_requests(cfg, SLOTS, 10, False, 64, seed=1))
     for _ in range(10):
@@ -809,7 +978,7 @@ def profile_decode(torch, dev, backend):
         print("  profiler: no device time recorded -> busy share not "
               "measured", flush=True)
         return None
-    print(f"  decode step (gru-jet-deep, {backend}, {SLOTS} slots, 20 "
+    print(f"  decode step ({arch}, {backend}, {SLOTS} slots, 20 "
           f"steps): wall {wall / 20 * 1e3:.4f} ms/step, device busy "
           f"{busy / 20 * 1e3:.4f} ms/step = {busy / wall:.3%} (idle "
           f"{1 - busy / wall:.3%})", flush=True)
@@ -848,18 +1017,25 @@ def main() -> None:
     cq8_launches, cq8_report = run_chain_q8_path(torch, dev, ccfgs, cparams)
     for k, n in list(chain_launches.items()) + list(cq8_launches.items()):
         launches[k] = launches.get(k, 0) + n
-    phase("8. timing (CUDA events: device via graph replay, and per call)")
+    phase("8. sLSTM: serve slstm-jet and an L=3 H=32 stack through "
+          "cuda_fused")
+    slstm_launches, slstm_report = run_slstm_path(torch, dev)
+    launches.update(slstm_launches)
+    phase("9. timing (CUDA events: device via graph replay, and per call)")
     rows = time_kernels(torch, dev, err, launches)
     for rep, backend in ((report, "cuda"), (q8_report, "cuda_fused_q8"),
                          (chain_report, "cuda_chain"),
                          (cq8_report, "cuda_chain_q8")):
         rep["profile_gru_jet_deep_decode"] = profile_decode(torch, dev,
                                                             backend)
+    slstm_report["profile_slstm_jet_decode"] = profile_decode(
+        torch, dev, "cuda_fused", "slstm-jet")
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the JAX package was imported")
     print(json.dumps({"serve": report, "serve_q8": q8_report,
                       "serve_chain": chain_report,
-                      "serve_chain_q8": cq8_report}))
+                      "serve_chain_q8": cq8_report,
+                      "serve_slstm": slstm_report}))
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""PyTorch port of the GRU serving path, for one NVIDIA H100.
+"""PyTorch port of the recurrent serving path (the paper's GRU and the
+sLSTM cell family), for one NVIDIA H100.
 
 The package mirrors ``repro`` (the JAX reference) module for module:
 ``configs/``, ``core/``, ``kernels/``, ``models/``, ``serve/``,

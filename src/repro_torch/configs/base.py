@@ -1,6 +1,7 @@
-"""Config system for the port: the GRU stack config and the GRU part of the
-model config, copied from ``repro.configs.base`` (the port imports nothing
-of ``repro``).
+"""Config system for the port: the recurrent stack config and the
+recurrent part of the model config, copied from ``repro.configs.base``
+(the port imports nothing of ``repro``). One config type serves both cell
+families, the GRU and the sLSTM.
 
 Backend preferences are the port's names (see ``repro_torch.core.runtime``):
 ``"eager"`` (default, the JAX ``"xla"``), ``"cuda"`` (the JAX ``"pallas"``),
@@ -17,12 +18,12 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class GRUConfig:
-    """The paper's model family: a depth-L GRU stack.
+    """A depth-L recurrent stack: the paper's GRU, or another cell family.
 
     Layer 0 consumes ``input_dim``; layer ``l`` consumes the previous
     layer's hidden size. ``layer_matvec_modes`` optionally overrides
-    ``matvec_mode`` per layer. ``family`` names the cell recurrence
-    (``repro_torch.core.cells``); only ``"gru"`` is ported.
+    ``matvec_mode`` per layer (GRU). ``family`` names the cell recurrence
+    (``repro_torch.core.cells``): ``"gru"`` or ``"slstm"``.
     """
     input_dim: int = 5
     hidden_dim: int = 20
@@ -69,9 +70,9 @@ class GRUConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The GRU fields of ``repro.configs.base.ModelConfig``."""
+    """The recurrent-model fields of ``repro.configs.base.ModelConfig``."""
     name: str
-    family: str                      # "gru"
+    family: str                      # "gru" | "slstm"
     gru: Optional[GRUConfig] = None
     param_dtype: str = "float32"
 
@@ -82,6 +83,7 @@ class ModelConfig:
 _REGISTRY = {
     "gru-jet": "gru_jet",
     "gru-jet-deep": "gru_jet_deep",
+    "slstm-jet": "slstm_jet",
 }
 
 ALL_ARCHS = list(_REGISTRY)

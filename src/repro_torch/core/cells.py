@@ -1,11 +1,17 @@
-"""Cell-family registry (counterpart of ``repro.core.cells``), GRU family
-only; sLSTM comes in a later slice.
+"""Cell-family registry (counterpart of ``repro.core.cells``): the GRU and
+the sLSTM.
 
 A :class:`CellFamily` tells the executor (``repro_torch.core.runtime``)
-how to normalize a family's parameter layouts and build its fused kernels'
-weight views; backends register against a ``(family, backend)`` key. A
-stack's runtime state is a flat tuple of per-layer leaves, each (B, H);
-GRU has one leaf per layer (``h``).
+how to normalize a family's parameter layouts, lay out its state and build
+its fused kernels' weight views; backends register against a
+``(family, backend)`` key. A stack's runtime state is a flat tuple of
+per-layer leaves, layer-major, each (B, H): the GRU has one leaf per layer
+(``h``), the sLSTM four (``c, n, m, h``: cell, normalizer, stabilizer,
+hidden), so the executor's signatures, the engine's slot scatter and the
+cache specs are the same for both.
+
+Families register on import of their home module; :func:`ensure_families`
+imports the in-tree ones, so a lookup never depends on import order.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 __all__ = ["CellFamily", "UnknownCellFamily", "register_family",
-           "get_family", "cfg_family"]
+           "get_family", "ensure_families", "cfg_family"]
 
 
 class UnknownCellFamily(KeyError):
@@ -33,13 +39,25 @@ class UnknownCellFamily(KeyError):
 class CellFamily:
     """One recurrence family, as the executor sees it.
 
-    ``normalize(params, cfg)``: any accepted parameter layout -> per-layer
-    ``({"w","u","b"}, ...)``. ``stacked_views(cells)``: the fused kernels'
-    weight stacks (None: the family has no fused backend)."""
+    ``gates``: gate columns per hidden unit (each layer's ``w`` is
+    ``(X, gates*H)``, ``u`` ``(H, gates*H)``, ``b`` ``(gates*H,)``).
+    ``state_leaves``/``state_names``/``h_leaf``: the flat per-layer state
+    layout. ``init_state(cfg, batch, dtype, device)``: the flat initial
+    state. ``normalize(params, cfg)``: any accepted parameter layout ->
+    per-layer ``({"w","u","b"}, ...)``. ``stacked_views(cells)``: the
+    fused kernels' weight stacks (None: the family has no fused backend).
+    ``supports_quant``: whether ``prepare`` may build int8 weight views
+    for this family."""
     name: str
+    gates: int
+    state_leaves: int
+    state_names: tuple
+    h_leaf: int
     normalize: Callable = dataclasses.field(repr=False)
+    init_state: Callable = dataclasses.field(repr=False)
     stacked_views: Optional[Callable] = dataclasses.field(repr=False,
                                                           default=None)
+    supports_quant: bool = False
 
 
 _FAMILIES: Dict[str, CellFamily] = {}
@@ -49,7 +67,15 @@ def register_family(family: CellFamily) -> None:
     _FAMILIES[family.name] = family
 
 
+def ensure_families() -> None:
+    """Import the in-tree families so registration never depends on import
+    order."""
+    if "slstm" not in _FAMILIES:
+        from repro_torch.core import slstm  # noqa: F401 (registers on import)
+
+
 def get_family(name: str) -> CellFamily:
+    ensure_families()
     fam = _FAMILIES.get(name)
     if fam is None:
         raise UnknownCellFamily(name, known=_FAMILIES)
@@ -68,8 +94,11 @@ def _gru_family() -> CellFamily:
         from repro_torch.kernels.gru_sequence import ops as seq_ops
         return seq_ops.prepare_stacked_cells(cells)
 
-    return CellFamily(name="gru", normalize=gru_core.stack_cell_params,
-                      stacked_views=stacked_views)
+    return CellFamily(name="gru", gates=3, state_leaves=1,
+                      state_names=("h",), h_leaf=0,
+                      normalize=gru_core.stack_cell_params,
+                      init_state=gru_core.stack_h0,
+                      stacked_views=stacked_views, supports_quant=True)
 
 
 register_family(_gru_family())

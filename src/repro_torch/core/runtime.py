@@ -1,6 +1,6 @@
 """The recurrent-stack executor: compile/execute over capability-dispatched
 backends keyed by ``(cell family, backend)`` (counterpart of
-``repro.core.runtime``).
+``repro.core.runtime``); families ``gru`` and ``slstm``.
 
 * ``compile(cfg, batch=..., seq=..., mask=...) -> GRUExecutable``
   resolves which backend serves each op; executables are memoized, so the
@@ -42,6 +42,14 @@ lower = preferred; the costs are the JAX table's)::
     cuda_chain_q8  yes   yes     160
 
 All serve sequences (prefill) and decode steps, with ``return_all``.
+
+Capability table for ``family="slstm"`` (JAX: ``xla`` and
+``pallas_fused``; no q8 or chain backends, so a ``*_q8`` or chain pin
+falls through to the cheapest legal one)::
+
+    backend        mask  hetero  cost
+    cuda_fused     yes   no      10
+    eager          yes   yes     30
 
 ``cfg.backend`` is a preference: ``"eager"`` (the default, as ``"xla"`` is
 in the JAX config) and ``"cuda"`` pin their family when legal, an exact
@@ -93,9 +101,11 @@ class Capabilities:
 class BackendSpec:
     """One registered execution strategy.
 
-    ``sequence_fn(sp, h0s, xs, *, cfg, return_all, mask)`` returns
-    ``(per-layer finals, last layer's states | None)``;
-    ``decode_fn(sp, hs, x, *, cfg)`` returns the per-layer new states.
+    ``sequence_fn(sp, state0, xs, *, cfg, return_all, mask)`` returns
+    ``(flat finals, last layer's h sequence | None)``;
+    ``decode_fn(sp, state, x, *, cfg)`` returns the flat new state. A
+    state is the family's flat tuple of per-layer leaves (GRU: one ``h``
+    per layer; sLSTM: ``c, n, m, h`` per layer).
     ``views`` names the weight views the backend reads besides the cells:
     ``"stacked"`` (``StackParams.stacked``), ``"quant"``
     (``StackParams.quant``) or ``""``."""
@@ -116,18 +126,26 @@ def register_backend(spec: BackendSpec) -> None:
 
 
 def _ensure_backends() -> None:
+    """Register every family's backends on first use, whatever was
+    imported before."""
     if ("gru", "cuda_fused") not in _REGISTRY:
         from repro_torch.kernels.gru_sequence import ops as seq_ops
         seq_ops.register_runtime_backends()
+    if ("slstm", "eager") not in _REGISTRY:
+        from repro_torch.core import slstm as slstm_core
+        slstm_core.register_runtime_backends()
+    if ("slstm", "cuda_fused") not in _REGISTRY:
+        from repro_torch.kernels.slstm_cell import ops as slstm_ops
+        slstm_ops.register_runtime_backends()
 
 
-def _eager_sequence(sp, h0s, xs, *, cfg, return_all, mask):
-    return gru_core.gru_stack_sequence_eager(sp.cells, h0s, xs, cfg=cfg,
+def _eager_sequence(sp, state0, xs, *, cfg, return_all, mask):
+    return gru_core.gru_stack_sequence_eager(sp.cells, state0, xs, cfg=cfg,
                                              return_all=return_all, mask=mask)
 
 
-def _eager_decode(sp, hs, x, *, cfg):
-    return gru_core.gru_stack_decode_eager(sp.cells, hs, x, cfg=cfg)
+def _eager_decode(sp, state, x, *, cfg):
+    return gru_core.gru_stack_decode_eager(sp.cells, state, x, cfg=cfg)
 
 
 register_backend(BackendSpec(
@@ -184,7 +202,7 @@ def _stack_params(params, cfg: GRUConfig, want_stacked: bool,
             and family.stacked_views is not None
             and all(d == dims[0] for d in dims)):
         sp = dataclasses.replace(sp, stacked=family.stacked_views(sp.cells))
-    if want_quant and sp.quant is None:
+    if want_quant and sp.quant is None and family.supports_quant:
         sp = dataclasses.replace(sp, quant=quantize_gru_cells(sp.cells))
     return sp
 
@@ -196,8 +214,9 @@ def prepare(params, cfg: GRUConfig, *, device="cuda",
     precomputed ``"stacked_cells"`` and ``"quant_cells"``), place it on
     ``device`` and build the fused kernels' weight stacks once (uniform
     stacks only). When ``cfg`` asks for the q8 datapath (``quant="int8"``
-    or a ``*_q8`` pin) the int8 weight views are built here too, on
-    ``device``, so no execute call quantizes weights."""
+    or a ``*_q8`` pin) and its family has one (the GRU), the int8 weight
+    views are built here too, on ``device``, so no execute call quantizes
+    weights."""
     dev = resolve_device(device)
     sp = _stack_params(params, cfg, want_stacked=False)
     cells = tuple({k: v.to(dev) for k, v in c.items()} for c in sp.cells)
@@ -294,13 +313,15 @@ def backend_dtype(name: Optional[str]) -> str:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class GRUExecutable:
-    """A compiled GRU workload: resolved backends + stable callables.
+    """A compiled recurrent workload: resolved backends + stable callables.
 
-    ``sequence(params, h0s, xs, *, return_all=False, mask=None)`` returns
-    ``(per-layer finals, last layer's states | None)``; ``prefill`` is its
-    finals-only view; ``decode(params, hs, x)`` returns the per-layer new
-    states. ``params`` may be any layout ``prepare`` accepts; pass
-    ``prepare``'s output on hot paths so no call restacks weights."""
+    ``sequence(params, state0, xs, *, return_all=False, mask=None)``
+    returns ``(flat finals, last layer's h sequence | None)``; ``prefill``
+    is its finals-only view; ``decode(params, state, x)`` returns the flat
+    new state. A state is the family's flat tuple of per-layer leaves
+    (GRU: ``h`` per layer; sLSTM: ``c, n, m, h`` per layer). ``params`` may
+    be any layout ``prepare`` accepts; pass ``prepare``'s output on hot
+    paths so no call restacks weights."""
     cfg: GRUConfig
     batch: Optional[int]
     seq: Optional[int]
@@ -355,11 +376,11 @@ _EXEC_CACHE: Dict[tuple, GRUExecutable] = {}
 
 def compile(cfg: GRUConfig, *, batch: Optional[int] = None,
             seq: Optional[int] = None, mask: bool = False) -> GRUExecutable:
-    """Resolve the backends for a GRU workload at these shapes. ``mask``
-    declares whether sequence calls carry a (B, T) length mask (decode
-    steps carry none). Memoized on (cfg, shapes, mask): the same key
-    returns the same object. An unregistered ``cfg.family`` raises
-    ``UnknownCellFamily``."""
+    """Resolve the backends for a recurrent workload of ``cfg.family`` at
+    these shapes. ``mask`` declares whether sequence calls carry a (B, T)
+    length mask (decode steps carry none). Memoized on (cfg, shapes,
+    mask): the same key returns the same object. An unregistered
+    ``cfg.family`` raises ``UnknownCellFamily``."""
     _ensure_backends()
     cell_families.get_family(cell_families.cfg_family(cfg))
     masked = bool(mask)
@@ -370,22 +391,22 @@ def compile(cfg: GRUConfig, *, batch: Optional[int] = None,
     seq_spec = _select(cfg, masked=masked)
     dec_spec = _select(cfg, masked=False)
 
-    def run_sequence(params, h0s, xs, *, return_all=False, mask=None):
+    def run_sequence(params, state0, xs, *, return_all=False, mask=None):
         if mask is not None and not masked:
             raise ValueError("executable was compiled with mask=False; "
                              "re-compile with mask=True to pass a mask")
         sp = _stack_params(params, cfg, seq_spec.views == "stacked",
                            seq_spec.views == "quant")
-        return seq_spec.sequence_fn(sp, tuple(h0s), xs, cfg=cfg,
+        return seq_spec.sequence_fn(sp, tuple(state0), xs, cfg=cfg,
                                     return_all=return_all, mask=mask)
 
-    def run_prefill(params, h0s, xs, *, mask=None):
-        return run_sequence(params, h0s, xs, mask=mask)[0]
+    def run_prefill(params, state0, xs, *, mask=None):
+        return run_sequence(params, state0, xs, mask=mask)[0]
 
-    def run_decode(params, hs, x):
+    def run_decode(params, state, x):
         sp = _stack_params(params, cfg, dec_spec.views == "stacked",
                            dec_spec.views == "quant")
-        return dec_spec.decode_fn(sp, tuple(hs), x, cfg=cfg)
+        return dec_spec.decode_fn(sp, tuple(state), x, cfg=cfg)
 
     exe = GRUExecutable(
         cfg=cfg, batch=batch, seq=seq, masked=masked,

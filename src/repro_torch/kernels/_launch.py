@@ -53,14 +53,16 @@ def check(name: str, t, shape: tuple, device: torch.device,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def batch_tile(variant: str, B: int, T: int, H: int, L: int,
+def batch_tile(variant: Optional[str], B: int, T: int, H: int, L: int,
                batch_block: int, device: torch.device,
                smem: Callable[[int, int, int], int]) -> int:
     """Check the problem and return the batch tile of one block; raises if
     the tile has more rows than the block has threads (each of the first
     ``tile`` threads writes its row's liveness) or the block's shared
-    memory (``smem(L, H, tile)``) exceeds a Hopper block's."""
-    if variant not in VARIANTS:
+    memory (``smem(L, H, tile)``) exceeds a Hopper block's. ``variant``
+    is the GRU gate math (``v1``/``v3``); None for a family with one gate
+    math, whose kernels take no variant."""
+    if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     if B < 1 or T < 1 or H < 1 or L < 1:
         raise ValueError(f"empty problem: B={B} T={T} H={H} L={L}")

@@ -31,7 +31,8 @@ Launch counters come in three tuples: :data:`KERNELS` (the three fp32
 kernels), :data:`Q8_KERNELS` (the fused q8 pair) and
 :data:`CHAIN_Q8_KERNELS` (the q8 chain's pair: :func:`gru_sequence_q8_kernel`
 and ``repro_torch.kernels.gru_cell.kernel.gru_step_q8``);
-:func:`reset_launch_counts` zeroes all three.
+:func:`reset_launch_counts` zeroes all three and the sLSTM's
+``SLSTM_KERNELS`` (``repro_torch.kernels.slstm_cell.kernel``).
 
 A thread block takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows
 (the decode kernel's ``batch_block`` sets it, as in the JAX signature);
@@ -55,6 +56,7 @@ from repro_torch.kernels._launch import stream as _stream
 from repro_torch.kernels.gru_cell.kernel import gru_step_q8
 from repro_torch.kernels.gru_cell.ref import check_q8_width
 from repro_torch.kernels.gru_sequence import ref
+from repro_torch.kernels.slstm_cell.kernel import SLSTM_KERNELS
 
 _SIGNATURES = {        # launcher -> (library, argtypes)
     # h0, xp, u, b, mask, out, T, B, H, v3, bt, stream
@@ -330,9 +332,9 @@ CHAIN_Q8_KERNELS = (gru_sequence_q8_kernel, gru_step_q8)
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's ``launches`` counter (fp32, fused q8 and chain
-    q8) to 0."""
-    for fn in KERNELS + Q8_KERNELS + CHAIN_Q8_KERNELS:
+    """Set every wrapper's ``launches`` counter (fp32, fused q8, chain q8
+    and the sLSTM's :data:`SLSTM_KERNELS`) to 0."""
+    for fn in KERNELS + Q8_KERNELS + CHAIN_Q8_KERNELS + SLSTM_KERNELS:
         fn.launches = 0
 
 

@@ -36,7 +36,7 @@ from repro_torch.kernels.gru_sequence.kernel import (
     gru_stack_sequence_q8_kernel)
 
 
-def _time_major_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+def time_major_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """(B, T) bool/float -> (T, B) float32, contiguous."""
     if mask is None:
         return None
@@ -44,15 +44,16 @@ def _time_major_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def prepare_stacked_cells(cells) -> dict:
-    """The fused kernels' weight stacks, built once: ``{"u" (L,H,3H),
-    "w_deep" (L-1,H,3H) or (1,1,3H) zeros for L=1, "b" (L,3H)}``."""
+    """The fused kernels' weight stacks, built once: ``{"u" (L,H,G),
+    "w_deep" (L-1,H,G) or (1,1,G) zeros for L=1, "b" (L,G)}``, G the gate
+    columns (3H for the GRU, 4H for the sLSTM)."""
     cells = tuple(cells)
     u = torch.stack([c["u"] for c in cells], 0).contiguous()
     if len(cells) > 1:
         w_deep = torch.stack([c["w"] for c in cells[1:]], 0).contiguous()
     else:
-        H = cells[0]["u"].shape[0]
-        w_deep = torch.zeros((1, 1, 3 * H), dtype=u.dtype, device=u.device)
+        w_deep = torch.zeros((1, 1, u.shape[-1]), dtype=u.dtype,
+                             device=u.device)
     b = torch.stack([c["b"] for c in cells], 0).contiguous()
     return {"u": u, "w_deep": w_deep, "b": b}
 
@@ -62,7 +63,7 @@ def gru_sequence_cuda(params: dict, h0: torch.Tensor, xs: torch.Tensor, *,
     """One cell over xs (B,T,X) -> (h_T, optionally (B,T,H))."""
     xp = (xs @ params["w"]).transpose(0, 1).contiguous()     # (T,B,3H)
     hs = gru_sequence_kernel(h0.contiguous(), xp, params["u"].contiguous(),
-                             params["b"].contiguous(), _time_major_mask(mask),
+                             params["b"].contiguous(), time_major_mask(mask),
                              variant=cfg.variant)
     return hs[-1], (hs.transpose(0, 1) if return_all else None)
 
@@ -81,7 +82,7 @@ def gru_stack_sequence_cuda(params: tuple, h0s: tuple, xs: torch.Tensor, *,
     h0 = torch.stack(tuple(h0s), 0)                          # (L,B,H)
     hs, hT = gru_stack_sequence_kernel(h0, xp, stacked["u"],
                                        stacked["w_deep"], stacked["b"],
-                                       _time_major_mask(mask),
+                                       time_major_mask(mask),
                                        variant=cfg.variant)
     return tuple(hT.unbind(0)), (hs.transpose(0, 1) if return_all else None)
 
@@ -109,7 +110,7 @@ def gru_stack_sequence_cuda_q8(params: tuple, h0s: tuple, xs: torch.Tensor,
     h0 = torch.stack(tuple(h0s), 0)                          # (L,B,H)
     hs, hT = gru_stack_sequence_q8_kernel(
         h0, xp, st["u_q"], st["u_eff"], st["wd_q"], st["wd_eff"], st["b"],
-        _time_major_mask(mask), variant=cfg.variant)
+        time_major_mask(mask), variant=cfg.variant)
     return tuple(hT.unbind(0)), (hs.transpose(0, 1) if return_all else None)
 
 
@@ -137,7 +138,7 @@ def gru_sequence_cuda_q8(params: dict, qcell: dict, h0: torch.Tensor,
     xp = (xs @ params["w"]).transpose(0, 1).contiguous()     # (T,B,3H)
     hs = gru_sequence_q8_kernel(h0.contiguous(), xp, qcell["u_q"],
                                 qcell["u_eff"], params["b"].contiguous(),
-                                _time_major_mask(mask), variant=cfg.variant)
+                                time_major_mask(mask), variant=cfg.variant)
     return hs[-1], (hs.transpose(0, 1) if return_all else None)
 
 
@@ -150,7 +151,7 @@ def _chain_sequence(params: tuple, h0s: tuple, xs: torch.Tensor,
     whose rows round alike at any T, so a masked bucketed prefill stays
     bitwise equal to the unpadded prompt (a transposed (B,T,H) view broke
     that on the CPU). Returns (per-layer finals, optionally (B,T,H))."""
-    m = _time_major_mask(mask)
+    m = time_major_mask(mask)
     xp = (xs @ params[0]["w"]).transpose(0, 1).contiguous()  # (T,B,3H)
     finals = []
     for l in range(len(params)):

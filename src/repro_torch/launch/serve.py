@@ -17,6 +17,14 @@ it whatever the accuracy gate says)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet-deep \
         --gru-backend cuda_fused_q8 --requests 12 --slots 8 --vary-prompt
 
+``--arch slstm-jet`` serves the sLSTM family the same way: ``cuda`` and
+``cuda_fused`` run its fused kernels (one launch per prefill and per
+decode step), ``eager`` plain PyTorch; it has no chain or int8 backend, so
+those pins fall through to ``cuda_fused``::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch slstm-jet \
+        --gru-backend cuda --requests 12 --slots 8 --vary-prompt
+
 The run is on the card unless ``--device cpu`` is given. Prints each
 request's class stream, the decode latency statistics, the served dtype
 and the backends that served prefill and decode.

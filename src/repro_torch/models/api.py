@@ -1,29 +1,29 @@
-"""Uniform model API (the cell-family part of ``repro.models.api``):
-downstream code (the serving engine, the CLI) talks to models only through
-:func:`get_api`."""
+"""Uniform model API (the cell-family part of ``repro.models.api``, for the
+GRU and the sLSTM): downstream code (the serving engine, the CLI) talks to
+models only through :func:`get_api`."""
 from __future__ import annotations
 
 from types import SimpleNamespace
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cells import UnknownCellFamily
-from repro_torch.models import gru_lm
+from repro_torch.models import gru_lm, slstm_lm
 
 
-def _gru_api() -> SimpleNamespace:
+def _api(mod) -> SimpleNamespace:
     return SimpleNamespace(
-        specs=gru_lm.lm_specs,
-        prepare_params=gru_lm.prepare_params,      # one-time serving prep
-        executable=gru_lm.serve_executable,        # compiled-plan introspection
-        forward=gru_lm.forward,
-        prefill=gru_lm.prefill,
-        decode_step=gru_lm.decode_step,
-        cache_specs=gru_lm.cache_specs,
-        init_cache=gru_lm.init_cache,
+        specs=mod.lm_specs,
+        prepare_params=mod.prepare_params,         # one-time serving prep
+        executable=mod.serve_executable,           # compiled-plan introspection
+        forward=mod.forward,
+        prefill=mod.prefill,
+        decode_step=mod.decode_step,
+        cache_specs=mod.cache_specs,
+        init_cache=mod.init_cache,
     )
 
 
-_FAMS = {"gru": _gru_api}
+_FAMS = {"gru": gru_lm, "slstm": slstm_lm}
 
 
 def get_api(cfg: ModelConfig) -> SimpleNamespace:
@@ -31,4 +31,4 @@ def get_api(cfg: ModelConfig) -> SimpleNamespace:
     :class:`UnknownCellFamily`."""
     if cfg.family not in _FAMS:
         raise UnknownCellFamily(cfg.family, known=set(_FAMS))
-    return _FAMS[cfg.family]()
+    return _api(_FAMS[cfg.family])

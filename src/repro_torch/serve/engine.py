@@ -1,5 +1,8 @@
-"""Serving engine for the GRU family: bucketed prefill + continuous-batching
-decode over fixed slots (the GRU wave path of ``repro.serve.engine``).
+"""Serving engine for the recurrent cell families (GRU and sLSTM):
+bucketed prefill + continuous-batching decode over fixed slots (the
+cell-family wave path of ``repro.serve.engine``). A family's cache is its
+flat tuple of per-layer state leaves (one per layer for the GRU, four for
+the sLSTM); the admit scatter copies it leaf by leaf.
 
 The figure of merit is the per-step latency of the sequential decode path
 (the paper's deadline per feature vector); throughput comes from batching
@@ -7,7 +10,7 @@ requests into a fixed number of slots.
 
 * **Prompt-length buckets**: prompts are left-padded to the next power of
   two (>= ``BUCKET_MIN``) with a (B, T) length mask; masked steps freeze
-  the hidden state, so a bucketed prompt gives its unpadded result.
+  the recurrent state, so a bucketed prompt gives its unpadded result.
 * **Fixed slots**: prefill and decode always run at ``max_batch`` rows;
   empty slots carry zero features and fully masked prompts.
 * **Continuous batching**: ``generate`` takes more requests than slots.
@@ -72,7 +75,7 @@ def bucket_len(S: int, minimum: int = BUCKET_MIN) -> int:
 
 @dataclass
 class _Slot:
-    """One live decode lane of a GRU wave."""
+    """One live decode lane of a wave."""
     req: Request
     last_feat: np.ndarray            # free-running fallback feature vector
     step: int = 0                    # per-request decode step (stream index)

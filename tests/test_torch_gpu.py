@@ -24,7 +24,9 @@ from repro_torch.kernels.gru_cell import kernel as CK
 from repro_torch.kernels.gru_cell import ref as cref
 from repro_torch.kernels.gru_sequence import kernel as K
 from repro_torch.kernels.gru_sequence import ref
-from repro_torch.models import gru_lm
+from repro_torch.kernels.slstm_cell import kernel as SK
+from repro_torch.kernels.slstm_cell import ref as sref
+from repro_torch.models import gru_lm, slstm_lm
 from repro_torch.serve.engine import Request, ServeEngine
 
 TOL = 1e-5
@@ -287,3 +289,111 @@ def test_chain_backends_launch_per_layer(cuda_device, arch, layer_dims):
             assert counts == want
     assert streams["cuda_chain", "cuda"] == streams["eager", "cuda"]
     assert streams["cuda_chain_q8", "cuda"] == streams["cuda_chain_q8", "cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the fused sLSTM kernels
+# ---------------------------------------------------------------------------
+
+def _slstm_inputs(L, H, B, T, dev, seed=0):
+    """A mid-sequence state (n > 0), and row 0 at the engine's initial
+    state (c = n = h = 0, m = M_INIT); a ragged left-padded mask whose
+    row 0 is fully masked when B > 1, so M_INIT is carried through."""
+    from repro_torch.core.slstm import M_INIT
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+    leaves = [rand(L, B, H, scale=0.5), rand(L, B, H).abs() + 0.5,
+              rand(L, B, H), rand(L, B, H, scale=0.5)]
+    for k, v in enumerate((0.0, 0.0, M_INIT, 0.0)):
+        leaves[k][:, 0] = v
+    mask = torch.ones(T, B)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    for i in range(B):
+        mask[:T - int(lens[i]), i] = 0.0
+    if B > 1:
+        mask[:, 0] = 0.0
+    a = dict(leaves=[x.to(dev) for x in leaves],
+             xp=rand(T, B, 4 * H).to(dev),
+             u=rand(L, H, 4 * H, scale=H ** -0.5).to(dev),
+             wd=(rand(L - 1, H, 4 * H, scale=H ** -0.5) if L > 1
+                 else torch.zeros(1, 1, 4 * H)).to(dev),
+             b=rand(L, 4 * H, scale=0.3).to(dev), mask=mask.to(dev))
+    return a
+
+
+SLSTM_CASES = list(itertools.product(((1, 20), (3, 32)), (1, 8, 64),
+                                     (8, 32), (False, True)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH,B,T,masked", SLSTM_CASES)
+def test_slstm_sequence_kernel_matches_plain(cuda_device, LH, B, T, masked):
+    L, H = LH
+    a = _slstm_inputs(L, H, B, T, cuda_device, seed=B + T)
+    m = a["mask"] if masked else None
+    args = (*a["leaves"], a["xp"], a["u"], a["wd"], a["b"], m)
+    K.reset_launch_counts()
+    got = SK.slstm_stack_sequence_kernel(*args)
+    want = sref.slstm_stack_sequence_ref(*args)
+    assert _max_err(zip(got, want)) <= TOL
+    if masked and B > 1:        # the fully masked row keeps all four leaves
+        for k in range(4):
+            assert torch.equal(got[1 + k][:, 0], a["leaves"][k][:, 0])
+    assert [k.launches for k in SK.SLSTM_KERNELS] == [1, 0]
+    assert all(k.launches == 0 for k in K.KERNELS + K.Q8_KERNELS
+               + K.CHAIN_Q8_KERNELS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH", ((1, 20), (3, 32)))
+@pytest.mark.parametrize("B", (1, 5, 64))
+@pytest.mark.parametrize("batch_block", (0, 1, 8))
+def test_slstm_decode_kernel_matches_plain(cuda_device, LH, B, batch_block):
+    L, H = LH
+    a = _slstm_inputs(L, H, B, 1, cuda_device, seed=B)
+    args = (*a["leaves"], a["xp"][0], a["u"], a["wd"], a["b"])
+    K.reset_launch_counts()
+    got = SK.slstm_stack_decode_kernel(*args, batch_block=batch_block)
+    want = sref.slstm_stack_decode_ref(*args)
+    assert _max_err(zip(got, want)) <= TOL
+    assert [k.launches for k in SK.SLSTM_KERNELS] == [0, 1]
+
+
+@pytest.mark.gpu
+def test_slstm_wrappers_raise_on_device_mix(cuda_device):
+    a = _slstm_inputs(3, 32, 2, 1, cuda_device)
+    with pytest.raises(ValueError):
+        SK.slstm_stack_decode_kernel(*a["leaves"], a["xp"][0].cpu(), a["u"],
+                                     a["wd"], a["b"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers", ((), (3, 32)), ids=("slstm-jet", "deep"))
+def test_slstm_engine_launches_and_streams(cuda_device, layers):
+    """``cuda`` on the card: one sequence launch per prefill, one decode
+    launch per step, no GRU kernel; class streams equal the eager
+    engine's on the card."""
+    cfg = get_config("slstm-jet")
+    if layers:
+        cfg = cfg.replace(gru=dataclasses.replace(
+            cfg.gru, num_layers=layers[0], hidden_dim=layers[1]))
+    params = init_params(slstm_lm.lm_specs(cfg), seed=0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.normal(size=(int(rng.integers(1, 21)), 5))
+               .astype(np.float32) for _ in range(6)]
+    streams = {}
+    for backend in ("eager", "cuda"):
+        c = cfg.replace(gru=dataclasses.replace(cfg.gru, backend=backend))
+        K.reset_launch_counts()
+        eng = ServeEngine(c, params, max_batch=4, device=cuda_device)
+        streams[backend] = [r.out for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=5) for p in prompts])]
+    prefills = len(eng.prefill_backends)
+    steps = eng.latency_stats()["steps"] + 1
+    assert set(eng.prefill_backends) == {"cuda_fused"}
+    assert [k.launches for k in SK.SLSTM_KERNELS] == [prefills, steps]
+    assert all(k.launches == 0 for k in K.KERNELS + K.Q8_KERNELS
+               + K.CHAIN_Q8_KERNELS)
+    assert streams["cuda"] == streams["eager"]

@@ -255,4 +255,4 @@ def test_runtime_preference_rules():
         "cuda_chain", "cuda_chain")
     assert runtime.compile(TCfg(), batch=2) is runtime.compile(TCfg(), batch=2)
     with pytest.raises(runtime.UnknownCellFamily):
-        runtime.compile(TCfg(family="slstm"), batch=2)
+        runtime.compile(TCfg(family="convgru"), batch=2)
