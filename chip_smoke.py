@@ -9,9 +9,10 @@ Phases (any failure exits non-zero, before the result lines):
 
 1. the device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
 2. build the CUDA kernels (``gru_sequence``, ``gru_sequence_q8``,
-   ``gru_cell_q8`` and ``slstm_cell``, one ``nvcc`` each, started
-   together) and print ``-Xptxas -v``'s report and each kernel's dynamic
-   shared memory;
+   ``gru_cell_q8``, ``slstm_cell``, ``flash_attn`` and ``decode_attn``,
+   one ``nvcc`` each, started together) and print ``-Xptxas -v``'s report
+   and each kernel's dynamic shared memory (the attention kernels' as the
+   wrappers compute it and as the CUDA sources do, which must agree);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (gru-jet L=1 H=20, gru-jet-deep L=3 H=32, and the
    chain's depth-1 layers of H=20 and H=32; B in {1, 8, 64}; T in {8, 16,
@@ -53,16 +54,36 @@ Phases (any failure exits non-zero, before the result lines):
    decode kernel once per step, no GRU kernel and no plain version run,
    class streams equal to the ``eager`` engine's on the card, prefill
    logits within 1e-5 of the dense reference; every GRU phase above
-   counts the sLSTM kernels among its other kernels (none may run);
-9. time each kernel and its plain version with CUDA events, on the device
+   counts the sLSTM and attention kernels among its other kernels (none
+   may run);
+9. hold the dense LM's attention kernels against their plain versions on
+   the card, in fp32 (at most 1e-5) and bf16 (flash attention, whose
+   output is bf16: within rtol = atol = 2**-7, one bf16 ulp; flash decode,
+   whose output is fp32: at most 1e-5): qwen3-0.6b's heads (Hq 16, Hkv 8,
+   D 128) at S = 12, 128 and 2048, a window, Sq and Sk off the tiles,
+   rows with no valid key (exactly 0); decode with C = S + 64, a wrapped
+   ring, a window, empty slots and a fully masked cache (exactly 0);
+10. serve qwen3-0.6b at full width (28 layers, d_model 1024, vocab
+   151,936; fp32 params from seed 0, bf16 compute, ``attn_impl="cuda"``)
+   through ``ServeEngine.generate``: two waves of 4 requests (prompt
+   lengths 12, and 128 and 12), 16 new tokens each, with the counters
+   zeroed just before: flash attention must launch 28 times per prefill
+   and flash decode 28 times per decode step, no plain version and no
+   recurrent kernel may run; then the same waves in fp32 through
+   ``attn_impl="chunked"``: logits along the served tokens within
+   ``LM_LOGIT_TOL`` of the bf16 run, and the token streams equal or,
+   where they part, the fp32 run's two top logits within that tolerance;
+11. time each kernel and its plain version with CUDA events, on the device
    (calls captured in a CUDA graph and replayed, so the host's per-call
    cost is left out) and per call from Python; the bound is the bytes over
    3.35 TB/s or the operations over their type's peak (67 TFLOP/s fp32,
-   1,979 TOP/s int8), whichever is larger; and profile a served decode
-   step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
-   ``cuda_chain`` and ``cuda_chain_q8``, and of slstm-jet through
-   ``cuda_fused``. The engine's decode-step p50/p99 come from phases 4-8
-   (host clock).
+   989 TFLOP/s bf16, 1,979 TOP/s int8), whichever is larger; the attention
+   kernels beside one ``scaled_dot_product_attention`` call on the same
+   inputs (timed only; the port never calls it); and profile a served
+   decode step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
+   ``cuda_chain`` and ``cuda_chain_q8``, of slstm-jet through
+   ``cuda_fused``, and of qwen3-0.6b through ``attn_impl="cuda"``. The
+   engine's decode-step p50/p99 come from phases 4-8 and 10 (host clock).
 
 Then it prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -79,11 +100,15 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 INT8_OP_PER_S = 1979e12            # H100 SXM int8, dense (tensor cores)
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16, dense (tensor cores)
 TOL = 1e-5
+BF16_TOL = 2.0 ** -7               # one bf16 ulp of an output near 1
 SLOTS, REQUESTS, MAX_PROMPT, MAX_NEW = 8, 12, 20, 16
 KERNEL_SOURCE = {
     "gru_sequence_kernel": "src/repro_torch/csrc/gru_sequence.cu",
@@ -95,6 +120,8 @@ KERNEL_SOURCE = {
     "gru_step_q8": "src/repro_torch/csrc/gru_cell_q8.cu",
     "slstm_stack_sequence_kernel": "src/repro_torch/csrc/slstm_cell.cu",
     "slstm_stack_decode_kernel": "src/repro_torch/csrc/slstm_cell.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attn.cu",
+    "flash_decode": "src/repro_torch/csrc/decode_attn.cu",
 }
 REPLACES = {
     "gru_sequence_kernel": "src/repro/kernels/gru_sequence/kernel.py:125",
@@ -109,6 +136,8 @@ REPLACES = {
     "slstm_stack_sequence_kernel":
         "src/repro/kernels/slstm_cell/kernel.py:130",
     "slstm_stack_decode_kernel": "src/repro/kernels/slstm_cell/kernel.py:215",
+    "flash_attention": "src/repro/kernels/flash_attn/kernel.py:81",
+    "flash_decode": "src/repro/kernels/decode_attn/kernel.py:59",
 }
 Q8 = ("gru_stack_sequence_q8_kernel", "gru_stack_decode_q8_kernel",
       "gru_sequence_q8_kernel", "gru_step_q8")
@@ -117,6 +146,7 @@ DECODE = ("gru_stack_decode_kernel", "gru_stack_decode_q8_kernel",
 STEP_TOO = ("gru_sequence_kernel",)  # also at T=1 unmasked: chain decode
 CHAIN_Q8 = ("gru_sequence_q8_kernel", "gru_step_q8")
 SLSTM = ("slstm_stack_sequence_kernel", "slstm_stack_decode_kernel")
+ATTN = ("flash_attention", "flash_decode")
 
 
 def fail(msg: str) -> None:
@@ -186,6 +216,22 @@ def build_kernels():
         print(f"  dynamic shared memory per block, {cfg_name} ({bt}-row "
               f"tile): {SK.smem_bytes(L, H, bt)} bytes, both sLSTM kernels "
               f"(limit {K.SMEM_LIMIT})")
+    import ctypes
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.flash_attn import kernel as FK
+    fa = _build.load("flash_attn").flash_attention_smem_bytes
+    fd = _build.load("decode_attn").flash_decode_smem_bytes
+    fa.argtypes, fd.argtypes = [ctypes.c_int], [ctypes.c_int, ctypes.c_int]
+    for D in (16, 64, 128):
+        check(fa(D) == FK.smem_bytes(D), f"flash_attention smem D={D}: "
+              f"CUDA {fa(D)} != wrapper {FK.smem_bytes(D)}")
+        for G in (1, 2, 16):
+            check(fd(G, D) == DK.smem_bytes(G, D), f"flash_decode smem G={G} "
+                  f"D={D}: CUDA {fd(G, D)} != wrapper {DK.smem_bytes(G, D)}")
+    print(f"  dynamic shared memory per block, qwen3-0.6b heads (D=128, "
+          f"G=2): flash_attention {FK.smem_bytes(128)} bytes (32 query rows,"
+          f" 64 keys), flash_decode {DK.smem_bytes(2, 128)} bytes (64 slots)"
+          f" (limit {K.SMEM_LIMIT}); CUDA sources agree")
 
 
 # ---------------------------------------------------------------------------
@@ -325,8 +371,8 @@ def inputs_for(torch, name, L, H, B, T, seed, dev):
 def check_kernels(torch, dev):
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
-    err = {n: 0.0 for n in REPLACES}
-    checks = {n: 0 for n in REPLACES}
+    err = {n: 0.0 for n in MAIN_SHAPES}
+    checks = {n: 0 for n in MAIN_SHAPES}
     err_step = {n: 0.0 for n in STEP_TOO}    # the T=1 unmasked cases alone
     frozen_rows = {n: 0 for n in SLSTM}      # fully masked rows held bitwise
     for name, shapes in MAIN_SHAPES.items():
@@ -393,6 +439,8 @@ PLAIN = {                  # module of plain versions -> names the wrappers call
     "repro_torch.kernels.gru_cell.ref": ("gru_step_q8_ref",),
     "repro_torch.kernels.slstm_cell.ref": ("slstm_stack_sequence_ref",
                                            "slstm_stack_decode_ref"),
+    "repro_torch.kernels.flash_attn.ref": ("flash_attention_plain",),
+    "repro_torch.kernels.decode_attn.ref": ("flash_decode_plain",),
 }
 
 
@@ -452,7 +500,7 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
     launches = dict(zip((k.__name__ for k in kernels), before))
     others = {k.__name__: k.launches
               for k in (K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
-                        + SK.SLSTM_KERNELS)
+                        + SK.SLSTM_KERNELS + K.ATTN_KERNELS)
               if k not in kernels}
     print(f"  launches: {launches}; other kernels {others}; "
           f"plain versions {plain}", flush=True)
@@ -769,7 +817,267 @@ def run_slstm_path(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# 9. timing
+# 9. the dense LM's attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+LM_SLOTS, LM_NEW = 4, 16
+LM_WAVES = ((12, 12, 12, 12), (128, 12, 128, 12))   # prompt lengths
+LM_LOGIT_TOL = 0.25       # |bf16 cuda - fp32 chunked| logits, 28 layers
+HQ, HKV, HD = 16, 8, 128                            # qwen3-0.6b's heads
+# (B, Sq, Sk, causal, window): the served prefills (S = 12, 128), S = 2048,
+# a window, Sq and Sk off the 32-row / 64-key tiles, Sq > Sk under a
+# window (rows with no valid key)
+FLASH_CHECKS = ((4, 12, 12, True, 0), (4, 128, 128, True, 0),
+                (1, 2048, 2048, True, 0), (2, 200, 200, True, 64),
+                (2, 77, 45, False, 0), (1, 300, 40, True, 16))
+# (B, C, written positions (first, last) or None, pos, window): the
+# served caches (C = S + 64 after prefill and the first decode write), S =
+# 2048, a wrapped ring, a window over it, empty slots, a fully masked
+# cache
+DECODE_CHECKS = ((4, 76, (0, 12), 12, 0), (4, 192, (0, 128), 128, 0),
+                 (1, 2112, (0, 2048), 2048, 0), (4, 192, (100, 400), 400, 0),
+                 (4, 192, (100, 400), 400, 100), (4, 192, (0, 50), 50, 0),
+                 (2, 76, None, 0, 0))
+
+
+def attn_inputs(torch, B, Sq, Sk, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(*shape, generator=g).to(dev).to(dtype)
+                 for shape in ((B, HQ, Sq, HD), (B, HKV, Sk, HD),
+                               (B, HKV, Sk, HD)))
+
+
+def decode_inputs(torch, B, C, written, pos, window, dtype, seed, dev):
+    from repro_torch.kernels.decode_attn.ops import valid_slots
+    g = torch.Generator().manual_seed(seed)
+    q, kc, vc = (torch.randn(*shape, generator=g).to(dev).to(dtype)
+                 for shape in ((B, HKV, HQ // HKV, HD), (B, HKV, C, HD),
+                               (B, HKV, C, HD)))
+    slot_pos = torch.full((C,), -1, dtype=torch.int32)
+    if written is not None:
+        for p in range(written[0], written[1] + 1):
+            slot_pos[p % C] = p
+    return q, kc, vc, valid_slots(slot_pos.to(dev), pos, window)
+
+
+def check_attention_kernels(torch, dev):
+    """Both attention kernels against their plain versions on the card, in
+    fp32 and bf16; returns {kernel: {dtype name: max |err|}}."""
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ref as dref
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as fref
+    err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in ATTN}
+    n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        tol = TOL if dtype == torch.float32 else BF16_TOL
+        for (B, Sq, Sk, causal, window) in FLASH_CHECKS:
+            q, k, v = attn_inputs(torch, B, Sq, Sk, dtype, Sq + Sk, dev)
+            got = FK.flash_attention(q, k, v, causal=causal, window=window)
+            want = fref.flash_attention_plain(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                  f"flash_attention {dn} S={Sq}/{Sk}: bad output")
+            e = (got.float() - want.float()).abs().max().item()
+            err["flash_attention"][dn] = max(err["flash_attention"][dn], e)
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash_attention {dn} B={B} Sq={Sq} Sk={Sk} causal="
+                  f"{causal} window={window}: max |err| {e:.3g} (tol {tol})")
+            no_key = ~fref._mask(Sq, 0, Sk, causal, window, dev).any(-1)
+            check(int(torch.count_nonzero(got[:, :, no_key])) == 0,
+                  f"flash_attention S={Sq}/{Sk}: a row with no valid key "
+                  f"is not 0")
+            print(f"  flash_attention {dn:8s} B={B} Hq={HQ} Hkv={HKV} D={HD}"
+                  f" Sq={Sq:4d} Sk={Sk:4d} causal={causal!s:5} window="
+                  f"{window:3d}: max |kernel - plain| {e:.3g} (rows without "
+                  f"a key: {int(no_key.sum())}, exactly 0)", flush=True)
+            n_checks += 1
+        for (B, C, written, pos, window) in DECODE_CHECKS:
+            q, kc, vc, mask = decode_inputs(torch, B, C, written, pos, window,
+                                            dtype, C + pos, dev)
+            got = DK.flash_decode(q, kc, vc, mask)
+            want = dref.flash_decode_plain(q, kc, vc, mask)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            err["flash_decode"][dn] = max(err["flash_decode"][dn], e)
+            check(got.dtype == torch.float32 and e <= TOL,
+                  f"flash_decode {dn} B={B} C={C} written={written} pos="
+                  f"{pos} window={window}: max |err| {e:.3g} (tol {TOL})")
+            if written is None:
+                check(int(torch.count_nonzero(got)) == 0,
+                      "flash_decode: a fully masked cache is not 0")
+            print(f"  flash_decode    {dn:8s} B={B} Hkv={HKV} G={HQ // HKV} "
+                  f"D={HD} C={C:4d} valid={int(mask.sum()):4d} window="
+                  f"{window:3d}: max |kernel - plain| {e:.3g}", flush=True)
+            n_checks += 1
+    print(f"  {n_checks} attention kernel/plain comparisons passed; fp32 "
+          f"tol {TOL}, bf16 tol {BF16_TOL:.4g} (flash_attention, bf16 "
+          f"output) and {TOL} (flash_decode, fp32 output)", flush=True)
+    return err
+
+
+# ---------------------------------------------------------------------------
+# 10. the dense LM: serve qwen3-0.6b at full width
+# ---------------------------------------------------------------------------
+
+def lm_requests(cfg, wave: int):
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(100 + wave)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=LM_NEW)
+            for n in LM_WAVES[wave]]
+
+
+def record_logits(eng):
+    """Route ``eng``'s model calls through recorders: returns the list that
+    collects each prefill's and decode step's fp32 logits, in call order."""
+    from types import SimpleNamespace
+    log = []
+    api = eng.api
+
+    def prefill(p, cfg, batch):
+        out = api.prefill(p, cfg, batch)
+        log.append(out[0].float().clone())
+        return out
+
+    def decode_step(p, cfg, cache, tok):
+        out = api.decode_step(p, cfg, cache, tok)
+        log.append(out[0].float().clone())
+        return out
+    eng.api = SimpleNamespace(**dict(vars(api), prefill=prefill,
+                                     decode_step=decode_step))
+    return log
+
+
+def serve_lm(eng, cfg):
+    """Both waves through one engine; returns streams per wave."""
+    return [[r.out for r in eng.generate(lm_requests(cfg, w))]
+            for w in range(len(LM_WAVES))]
+
+
+def compare_lm_runs(streams_a, logs_a, streams_b, logs_b):
+    """Hold run a (bf16, cuda) against run b (fp32, chunked) per request:
+    the logits that chose each token while both streams agree (index t of
+    a wave's log chose token t), and at the first token where they part,
+    run b's top-2 gap. Returns (max |logit diff|, parted list)."""
+    worst, parted = 0.0, []
+    for w in range(len(LM_WAVES)):
+        wave_logs_a = logs_a[w * (LM_NEW + 1):(w + 1) * (LM_NEW + 1)]
+        wave_logs_b = logs_b[w * (LM_NEW + 1):(w + 1) * (LM_NEW + 1)]
+        for i, (sa, sb) in enumerate(zip(streams_a[w], streams_b[w])):
+            d = next((t for t, (x, y) in enumerate(zip(sa, sb)) if x != y),
+                     None)
+            last = len(sa) - 1 if d is None else d
+            for t in range(last + 1):
+                e = (wave_logs_a[t][i] - wave_logs_b[t][i]).abs().max().item()
+                worst = max(worst, e)
+            if d is not None:
+                top2 = wave_logs_b[d][i].topk(2).values
+                gap = (top2[0] - top2[1]).item()
+                parted.append({"wave": w, "request": i, "token": d,
+                               "fp32_top2_gap": gap})
+    return worst, parted
+
+
+def run_lm_path(torch, dev, cfg=None):
+    """qwen3-0.6b at full width through ``ServeEngine.generate`` (``cfg``:
+    a smaller same-family config for a CPU rehearsal)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.params import init_params
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg or get_config(LM_ARCH)
+    check(cfg.attn_impl == "cuda" and cfg.dtype == "bfloat16"
+          and cfg.param_dtype == "float32", f"{LM_ARCH}: config {cfg}")
+    L = cfg.num_layers
+    t0 = time.monotonic()
+    params = init_params(transformer.lm_specs(cfg), seed=0, device=dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim}, "
+          f"vocab {cfg.vocab_size}: {n_params} parameters (fp32) made from "
+          f"seed 0 in {time.monotonic() - t0:.1f} s", flush=True)
+    eng = ServeEngine(cfg, params, max_batch=LM_SLOTS, device=dev)
+    K.reset_launch_counts()                                  # the LM path
+    with plain_calls() as plain:
+        streams = serve_lm(eng, cfg)
+    launches = {k.__name__: k.launches for k in K.ATTN_KERNELS}
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    others = {k.__name__: k.launches for k in
+              K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
+              + SK.SLSTM_KERNELS}
+    st = eng.latency_stats()
+    prefills, steps_run = st["prefills"], st["steps"] + 1   # one decode key
+    print(f"  launches: {launches}; other kernels {others}; plain versions "
+          f"{plain}", flush=True)
+    check(not any(plain.values()), f"{LM_ARCH}: plain versions ran {plain}")
+    check(not any(others.values()), f"{LM_ARCH}: other kernels ran {others}")
+    check(launches == {"flash_attention": L * prefills,
+                       "flash_decode": L * steps_run},
+          f"{LM_ARCH}: launches {launches} != {L} x ({prefills} prefills, "
+          f"{steps_run} steps)")
+    check(all(len(s) == LM_NEW for w in streams for s in w),
+          f"{LM_ARCH}: stream lengths {[[len(s) for s in w] for w in streams]}")
+    check(st["served_dtype"] == "bfloat16", f"served {st['served_dtype']}")
+    print(f"  {LM_ARCH}: {prefills} prefills (S = "
+          f"{[max(w) for w in LM_WAVES]}, {LM_SLOTS} requests each), "
+          f"{steps_run} decode steps; flash_attention {L} per prefill, "
+          f"flash_decode {L} per step; prefill mean "
+          f"{st['prefill_mean_s'] * 1e3:.4f} ms, decode p50 "
+          f"{st['p50_s'] * 1e3:.4f} ms p99 {st['p99_s'] * 1e3:.4f} ms "
+          f"(host clock, synchronized)", flush=True)
+    # the same waves, recorded, in bf16 through the kernels and in fp32
+    # through the plain chunked attention
+    log_a = record_logits(eng)
+    again = serve_lm(eng, cfg)
+    check(again == streams, f"{LM_ARCH}: a second bf16 run gave other "
+          f"streams")
+    cfg32 = cfg.replace(dtype="float32", attn_impl="chunked")
+    eng32 = ServeEngine(cfg32, params, max_batch=LM_SLOTS, device=dev)
+    log_b = record_logits(eng32)
+    streams32 = serve_lm(eng32, cfg32)
+    for log in (log_a, log_b):
+        check(all(bool(torch.isfinite(x).all()) and
+                  tuple(x.shape) == (LM_SLOTS, cfg.vocab_size) for x in log),
+              f"{LM_ARCH}: non-finite or misshapen logits")
+    worst, parted = compare_lm_runs(streams, log_a, streams32, log_b)
+    check(worst <= LM_LOGIT_TOL, f"{LM_ARCH}: bf16 cuda logits differ from "
+          f"fp32 chunked by {worst:.4g} > {LM_LOGIT_TOL}")
+    check(all(p["fp32_top2_gap"] <= LM_LOGIT_TOL for p in parted),
+          f"{LM_ARCH}: streams part where fp32's top two logits are more "
+          f"than {LM_LOGIT_TOL} apart: {parted}")
+    equal = not parted
+    print(f"  bf16 cuda vs fp32 chunked: logits along the served tokens "
+          f"within {worst:.4g} (tol {LM_LOGIT_TOL}); token streams "
+          + ("equal" if equal else
+             f"part in {len(parted)} of {LM_SLOTS * len(LM_WAVES)} requests,"
+             f" each where fp32's top two logits are within "
+             f"{max(p['fp32_top2_gap'] for p in parted):.4g}: {parted}"),
+          flush=True)
+    report = {"arch": LM_ARCH, "layers": L, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size, "params": n_params,
+              "prefills": prefills, "decode_steps": steps_run,
+              "launches": launches,
+              "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+              "decode_p50_ms": st["p50_s"] * 1e3,
+              "decode_p99_ms": st["p99_s"] * 1e3,
+              "logits_vs_fp32_chunked": worst, "streams_equal": equal,
+              "parted": parted}
+    return launches, report, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+# 11. timing
 # ---------------------------------------------------------------------------
 
 def call_time_ms(torch, fn, iters: int, warmup: int = 5) -> float:
@@ -942,6 +1250,178 @@ def time_kernels(torch, dev, err, launches):
     return rows
 
 
+# the attention kernels' timing rows: (B, Sq/Sk or C, ...) at the served
+# shapes (S = 12 and 128, 4 requests) and at S = 2048, bf16 (the served
+# compute dtype); the JSON row is the S = 128 wave's
+ATTN_TIMED = (("flash_attention", (4, 12, 12, True, 0)),
+              ("flash_attention", (4, 128, 128, True, 0)),
+              ("flash_attention", (1, 2048, 2048, True, 0)),
+              ("flash_decode", (4, 76, (0, 12), 12, 0)),
+              ("flash_decode", (4, 192, (0, 128), 128, 0)),
+              ("flash_decode", (1, 2112, (0, 2048), 2048, 0)))
+ATTN_ROW = {"flash_attention": (4, 128, 128, True, 0),
+            "flash_decode": (4, 192, (0, 128), 128, 0)}
+
+
+def attn_bound_ms(name, shape, itemsize, valid=None):
+    """Least time: q, k, v read once and the output written once over
+    3.35 TB/s, or 4*D flops per valid (query, key) pair and head over the
+    peak of the inputs' type (bf16 989, fp32 67 TFLOP/s), the larger.
+    Flash decode counts only the valid slots' K and V (what this cache's
+    data needs), its byte mask and its fp32 output."""
+    from repro_torch.kernels.flash_attn import ref as fref
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    if name == "flash_attention":
+        B, Sq, Sk, causal, window = shape
+        pairs = int(fref._mask(Sq, 0, Sk, causal, window, "cpu").sum())
+        flops = 4 * HD * pairs * B * HQ
+        nbytes = itemsize * (2 * B * HQ * Sq * HD + 2 * B * HKV * Sk * HD)
+    else:
+        B, C = shape[:2]
+        flops = 4 * HD * valid * B * HQ
+        nbytes = (itemsize * (B * HQ * HD + 2 * B * HKV * valid * HD) + C
+                  + 4 * B * HQ * HD)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_attention(torch, dev, err, launches):
+    """Kernel, plain-version, library and bound times of the two attention
+    kernels; returns the two JSON rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ref as dref
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as fref
+    rows = []
+    for name, shape in ATTN_TIMED:
+        dtype = torch.bfloat16
+        if name == "flash_attention":
+            B, Sq, Sk, causal, window = shape
+            q, k, v = attn_inputs(torch, B, Sq, Sk, dtype, 11, dev)
+            valid = None
+
+            def kern():
+                return FK.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+
+            def plain_fn():
+                return fref.flash_attention_plain(q, k, v, causal, window)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+            label = f"B={B} Sq={Sq:4d} Sk={Sk:4d}"
+        else:
+            B, C, written, pos, window = shape
+            q, kc, vc, mask = decode_inputs(torch, B, C, written, pos, window,
+                                            dtype, 11, dev)
+            valid = int(mask.sum())
+            qh = q.reshape(B, HQ, 1, HD)
+            amask = mask[None, None, None, :]
+
+            def kern():
+                return DK.flash_decode(q, kc, vc, mask)
+
+            def plain_fn():
+                return dref.flash_decode_plain(q, kc, vc, mask)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qh, kc, vc, attn_mask=amask, enable_gqa=True)
+            label = f"B={B} C={C:4d} valid={valid:4d}"
+        lib_out, want = library(), plain_fn()
+        lib_err = (lib_out.float().reshape(want.shape)
+                   - want.float()).abs().max().item()
+        ms = device_time_ms(torch, kern, per_graph=50)
+        plain = device_time_ms(torch, plain_fn, per_graph=2)
+        lib = device_time_ms(torch, library, per_graph=50)
+        call = call_time_ms(torch, kern, iters=200)
+        bms, by = attn_bound_ms(name, shape, 2, valid)
+        print(f"  {name:15s} bf16 {label}: device {ms * 1e3:9.2f} us (per "
+              f"call {call * 1e3:8.2f})  plain {plain * 1e3:10.2f} us  "
+              f"sdpa {lib * 1e3:8.2f} us (|sdpa - plain| {lib_err:.3g})  "
+              f"bound {bms * 1e3:8.3f} us ({by})", flush=True)
+        if shape == ATTN_ROW[name]:
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": KERNEL_SOURCE[name], "replaces": REPLACES[name],
+                "launches": launches[name],
+                "max_abs_err": err[name]["float32"],
+                "max_abs_err_bf16": err[name]["bfloat16"],
+                "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                "bound_by": by, "library_ms": lib, "call_ms": call,
+                "shape": {"heads": [HQ, HKV, HD], "shape": list(shape),
+                          "dtype": "bfloat16"}})
+    print("  library_ms: torch.nn.functional.scaled_dot_product_attention "
+          "(enable_gqa; is_causal for prefill, the validity mask for "
+          "decode) on the same inputs, timed only", flush=True)
+    return rows
+
+
+def device_kernels(prof) -> dict:
+    """Device time (us) by name of what ran on the card (kernels, copies),
+    from a profile: only the device entries, since a host op's entry
+    carries the device time of the kernels it launched too."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and getattr(e, "device_type", None) == DeviceType.CUDA:
+            out[e.key] = us
+    return out
+
+
+def profile_lm_decode(torch, dev, params):
+    """Device busy share of a served qwen3-0.6b decode step: two profiled
+    waves of 4 requests (12-token prompts) through ``attn_impl="cuda"``,
+    one with 1 new token and one with 41, so their difference is 40
+    decode steps (the prefill cancels); busy = the kernels' summed device
+    time, over the host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(LM_ARCH)
+    eng = ServeEngine(cfg, params, max_batch=LM_SLOTS, device=dev)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, size=12).astype(np.int32)
+               for _ in range(LM_SLOTS)]
+
+    def wave(new):
+        return [Request(prompt=p, max_new_tokens=new) for p in prompts]
+    eng.generate(wave(4))                        # warm
+    torch.cuda.synchronize()
+    runs = {}
+    for new in (1, 41):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            eng.generate(wave(new))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        kernels = device_kernels(prof)
+        runs[new] = (wall, sum(kernels.values()) / 1e6, kernels)
+    if not runs[41][2]:
+        print("  profiler: no device time recorded -> busy share not "
+              "measured", flush=True)
+        return None
+    steps = 40
+    wall = (runs[41][0] - runs[1][0]) / steps
+    busy = (runs[41][1] - runs[1][1]) / steps
+    print(f"  decode step ({LM_ARCH}, cuda, {LM_SLOTS} requests, 40 steps "
+          f"by difference): wall {wall * 1e3:.4f} ms/step, device busy "
+          f"{busy * 1e3:.4f} ms/step = {busy / wall:.3%} (idle "
+          f"{1 - busy / wall:.3%})", flush=True)
+    k41, k1 = runs[41][2], runs[1][2]
+    diff = {k: (us - k1.get(k, 0.0)) / steps for k, us in k41.items()}
+    for k, us in sorted(diff.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {us:9.2f} us/step  {k[:90]}")
+    return {"wall_ms_per_step": wall * 1e3,
+            "device_busy_ms_per_step": busy * 1e3,
+            "device_idle_share": 1 - busy / wall}
+
+
 def profile_decode(torch, dev, backend, arch="gru-jet-deep"):
     """Device busy share of the served decode step: ``torch.profiler`` over
     20 warm steps of a full 8-slot ``arch`` wave through ``backend``;
@@ -967,17 +1447,18 @@ def profile_decode(torch, dev, backend, arch="gru-jet-deep"):
             eng.gru_wave_step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us > 0:
-            kernels[e.key] = us
+    kernels = device_kernels(prof)
     busy = sum(kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     if not kernels:
         print("  profiler: no device time recorded -> busy share not "
               "measured", flush=True)
         return None
+    every_key = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in prof.key_averages()) / 1e6
+    print(f"  (summing every profiler key, the host ops' device time "
+          f"beside their kernels' as PRs 11-15 did: {every_key / 20 * 1e3:.4f}"
+          f" ms/step)", flush=True)
     print(f"  decode step ({arch}, {backend}, {SLOTS} slots, 20 "
           f"steps): wall {wall / 20 * 1e3:.4f} ms/step, device busy "
           f"{busy / 20 * 1e3:.4f} ms/step = {busy / wall:.3%} (idle "
@@ -1021,8 +1502,15 @@ def main() -> None:
           "cuda_fused")
     slstm_launches, slstm_report = run_slstm_path(torch, dev)
     launches.update(slstm_launches)
-    phase("9. timing (CUDA events: device via graph replay, and per call)")
+    phase("9. attention kernels vs plain versions (qwen3-0.6b heads)")
+    attn_err = check_attention_kernels(torch, dev)
+    phase("10. dense LM: serve qwen3-0.6b at full width through the "
+          "attention kernels")
+    lm_launches, lm_report, lm_params = run_lm_path(torch, dev)
+    launches.update(lm_launches)
+    phase("11. timing (CUDA events: device via graph replay, and per call)")
     rows = time_kernels(torch, dev, err, launches)
+    rows += time_attention(torch, dev, attn_err, launches)
     for rep, backend in ((report, "cuda"), (q8_report, "cuda_fused_q8"),
                          (chain_report, "cuda_chain"),
                          (cq8_report, "cuda_chain_q8")):
@@ -1030,12 +1518,13 @@ def main() -> None:
                                                             backend)
     slstm_report["profile_slstm_jet_decode"] = profile_decode(
         torch, dev, "cuda_fused", "slstm-jet")
+    lm_report["profile_decode"] = profile_lm_decode(torch, dev, lm_params)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the JAX package was imported")
     print(json.dumps({"serve": report, "serve_q8": q8_report,
                       "serve_chain": chain_report,
                       "serve_chain_q8": cq8_report,
-                      "serve_slstm": slstm_report}))
+                      "serve_slstm": slstm_report, "serve_lm": lm_report}))
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

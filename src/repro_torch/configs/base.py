@@ -1,7 +1,9 @@
-"""Config system for the port: the recurrent stack config and the
-recurrent part of the model config, copied from ``repro.configs.base``
-(the port imports nothing of ``repro``). One config type serves both cell
-families, the GRU and the sLSTM.
+"""Config system for the port: the recurrent stack config and the model
+config, copied from ``repro.configs.base`` (the port imports nothing of
+``repro``). One config type serves the cell families (the GRU and the
+sLSTM) and the dense transformer LM (``qwen3-0.6b``); the sub-configs of
+the other LM families (``moe``, ``ssm``, ``xlstm``, ``encoder``,
+``vision``) are not ported yet.
 
 Backend preferences are the port's names (see ``repro_torch.core.runtime``):
 ``"eager"`` (default, the JAX ``"xla"``), ``"cuda"`` (the JAX ``"pallas"``),
@@ -70,20 +72,76 @@ class GRUConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The recurrent-model fields of ``repro.configs.base.ModelConfig``."""
+    """The fields of ``repro.configs.base.ModelConfig`` that the port's
+    families read: the recurrent stack (``gru``) for the cell families,
+    the dense transformer's fields for ``family="dense"``.
+
+    ``attn_impl`` takes the port's names: ``"naive"`` (dense score
+    matrix, the oracle; JAX ``"naive"``), ``"chunked"`` (the plain chunked
+    online softmax; JAX ``"xla_flash"``) and ``"cuda"`` (the two CUDA
+    kernels, flash attention for prefill and flash decode; JAX
+    ``"pallas"``). The default differs from JAX's (``"xla_flash"``) on
+    purpose: the port's entry points run its kernels on the card (and
+    their plain versions on CPU tensors). ``attn_chunk`` is the kv chunk
+    of ``"chunked"``; the kernels choose their own tiles.
+    ``scan_layers`` and ``remat`` are XLA compile knobs: the port accepts
+    them and they change nothing (it runs its layers eagerly).
+    """
     name: str
-    family: str                      # "gru" | "slstm"
+    family: str                      # "gru" | "slstm" | "dense"
     gru: Optional[GRUConfig] = None
     param_dtype: str = "float32"
+    # --- the dense transformer LM (zero for the cell families) ---
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    out_bias: bool = False
+    mlp_bias: bool = False
+    rope_theta: float = 10_000.0
+    rope: bool = True
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    mlp: str = "swiglu"              # swiglu | gelu
+    parallel_block: bool = False     # cohere-style attn || mlp
+    tie_embeddings: bool = False
+    sliding_window: int = 0          # 0 = full attention
+    dtype: str = "bfloat16"          # activation/compute dtype
+    scan_layers: bool = True         # accepted; changes nothing here
+    remat: bool = True               # accepted; changes nothing here
+    attn_impl: str = "cuda"          # "cuda" | "chunked" | "naive"
+    attn_chunk: int = 1024           # kv chunk of "chunked"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count of the dense LM (embedding + blocks +
+        head), as ``repro.configs.base.ModelConfig.param_count`` counts a
+        config without experts or encoder."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        attn = d * hd * n_q + 2 * d * hd * n_kv + hd * n_q * d
+        mlp = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff
+        total = self.num_layers * (attn + mlp + 2 * d) + self.vocab_size * d
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        return total
 
 
 _REGISTRY = {
     "gru-jet": "gru_jet",
     "gru-jet-deep": "gru_jet_deep",
     "slstm-jet": "slstm_jet",
+    "qwen3-0.6b": "qwen3_0_6b",
 }
 
 ALL_ARCHS = list(_REGISTRY)
@@ -94,3 +152,11 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
     mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[arch]}")
     return mod.CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[arch]}")
+    return mod.SMOKE

@@ -12,3 +12,5 @@ CONFIG = ModelConfig(
                   matvec_mode="rowwise", fused_gates=True, decoupled_wx=True),
     param_dtype="float32",
 )
+
+SMOKE = CONFIG  # already CPU-sized

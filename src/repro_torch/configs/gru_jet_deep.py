@@ -11,3 +11,5 @@ CONFIG = ModelConfig(
                   fused_gates=True, decoupled_wx=True),
     param_dtype="float32",
 )
+
+SMOKE = CONFIG  # already CPU-sized

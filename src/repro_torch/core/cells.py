@@ -19,7 +19,7 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 __all__ = ["CellFamily", "UnknownCellFamily", "register_family",
-           "get_family", "ensure_families", "cfg_family"]
+           "get_family", "ensure_families", "cfg_family", "is_cell_family"]
 
 
 class UnknownCellFamily(KeyError):
@@ -80,6 +80,12 @@ def get_family(name: str) -> CellFamily:
     if fam is None:
         raise UnknownCellFamily(name, known=_FAMILIES)
     return fam
+
+
+def is_cell_family(name: str) -> bool:
+    """Whether ``name`` is a registered cell family (not an LM family)."""
+    ensure_families()
+    return name in _FAMILIES
 
 
 def cfg_family(cfg) -> str:

@@ -6,6 +6,8 @@ nested dict/tuple of :class:`Spec` leaves, and :func:`init_params` turns
 that tree into tensors, seeded per path with a ``torch.Generator`` (the
 numbers differ from ``jax.random``'s; tests that compare the two
 frameworks carry the JAX tree over with :func:`params_from_numpy`).
+:func:`stack_specs` gives a block's specs a leading layer axis, as the
+transformer stacks its blocks ``(L, ...)``.
 """
 from __future__ import annotations
 
@@ -18,14 +20,22 @@ import torch
 
 from repro_torch import resolve_device
 
-_DTYPES = {"float32": torch.float32, "int32": torch.int32}
+_DTYPES = {"float32": torch.float32, "int32": torch.int32,
+           "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name (``"bfloat16"``, ...)."""
+    return _DTYPES[{"bf16": "bfloat16", "fp32": "float32",
+                    "fp16": "float16"}.get(name, name)]
 
 
 @dataclass(frozen=True)
 class Spec:
     """Declaration of one parameter tensor."""
     shape: Tuple[int, ...]
-    init: str = "fan_in"        # fan_in | recurrent | zeros
+    init: str = "fan_in"        # fan_in | recurrent | zeros | ones | embed
+    scale: float = 1.0
     dtype: Optional[str] = None  # None -> model param_dtype
 
 
@@ -40,21 +50,25 @@ def _path_seed(seed: int, path_s: str) -> int:
 
 def _init_one(spec: Spec, seed: int, path_s: str, param_dtype: str,
               device: torch.device) -> torch.Tensor:
-    dtype = _DTYPES[spec.dtype or param_dtype]
+    dtype = torch_dtype(spec.dtype or param_dtype)
     shape = tuple(spec.shape)
     if spec.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init == "embed":
+        std = spec.scale
+    elif spec.init == "fan_in":
+        std = spec.scale / np.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
+    elif spec.init == "recurrent":
+        std = spec.scale / np.sqrt(shape[-1])
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
     # drawn on the CPU generator so a seed gives the same weights on every
     # device, then moved
     gen = torch.Generator().manual_seed(_path_seed(seed, path_s))
     noise = torch.randn(shape, generator=gen, dtype=torch.float32)
-    if spec.init == "fan_in":
-        std = 1.0 / np.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
-    elif spec.init == "recurrent":
-        std = 1.0 / np.sqrt(shape[-1])
-    else:
-        raise ValueError(f"unknown init {spec.init!r}")
-    return (std * noise).to(dtype=dtype, device=device)
+    return noise.mul_(std).to(dtype=dtype, device=device)
 
 
 def _map_tree(fn, tree, path=()):
@@ -65,6 +79,13 @@ def _map_tree(fn, tree, path=()):
         return type(tree)(_map_tree(fn, v, path + (str(i),))
                           for i, v in enumerate(tree))
     return fn(path, tree)
+
+
+def stack_specs(spec_tree, n: int):
+    """Prepend a layer axis of size ``n`` to every Spec in the tree."""
+    return _map_tree(lambda _path, s: Spec((n,) + tuple(s.shape), init=s.init,
+                                           scale=s.scale, dtype=s.dtype)
+                     if is_spec(s) else s, spec_tree)
 
 
 def init_params(specs, seed: int = 0, param_dtype: str = "float32", *,
@@ -80,13 +101,20 @@ def init_params(specs, seed: int = 0, param_dtype: str = "float32", *,
 def params_from_numpy(tree, device="cuda"):
     """Carry a parameter (or cache) tree of numpy arrays into the port with
     the same layout: ``{"cell": ...}`` at depth 1, ``{"cells": (...)}``
-    deeper, tuples stay tuples (a cache's per-layer ``h``). Leaves that are
-    not arrays (ints, strings, None) pass through."""
+    deeper, tuples stay tuples (a cache's per-layer ``h``); the LM tree as
+    it is (``embed`` (V, D), blocks stacked ``(L, ...)``, the KV cache
+    ``(L, B, Hkv, C, hd)``). bfloat16 arrays (numpy's ``ml_dtypes``
+    extension type) arrive as ``torch.bfloat16`` bit for bit. Leaves that
+    are not arrays (ints, strings, None) pass through."""
     dev = resolve_device(device)
 
     def leaf(_path, x):
         if isinstance(x, (np.ndarray, np.generic)):
-            return torch.from_numpy(np.array(x)).to(dev)
+            a = np.array(x)
+            if a.dtype.name == "bfloat16":
+                return torch.from_numpy(a.view(np.uint16)).view(
+                    torch.bfloat16).to(dev)
+            return torch.from_numpy(a).to(dev)
         return x
     return _map_tree(leaf, tree)
 

@@ -59,6 +59,16 @@ So heterogeneous ``layer_dims`` under ``"cuda"``, or under a ``cuda_fused``
 or ``cuda_fused_q8`` pin, run ``cuda_chain``, as the JAX runtime falls to
 ``pallas_chain``.
 
+Shape is part of legality: each kernel backend declares (``fits``, from
+its wrappers' ``smem_bytes*``) which stacks its kernels take at the
+compiled batch's tile (``min(batch, 4)`` rows; 4 when the batch is not
+given): weights and state must fit the 232,448 bytes of shared memory a
+Hopper block may use. A stack too wide for a kernel makes its backend
+illegal for that op, so it falls through like any illegal preference
+(``cuda_fused`` -> ``cuda_chain`` -> ``eager``, the same on the CPU and on
+the card), where JAX's Pallas backends serve it. The thread-block-cluster
+row split that would keep such stacks on the kernels is not ported yet.
+
 The q8 backends (names ending ``_q8``) change the numerics, so they are
 gated as in the JAX runtime: one is a candidate only under an exact-name
 pin, or when ``cfg.quant == "int8"`` and the recorded accuracy artifact
@@ -108,7 +118,9 @@ class BackendSpec:
     per layer; sLSTM: ``c, n, m, h`` per layer).
     ``views`` names the weight views the backend reads besides the cells:
     ``"stacked"`` (``StackParams.stacked``), ``"quant"``
-    (``StackParams.quant``) or ``""``."""
+    (``StackParams.quant``) or ``""``. ``fits(cfg, batch, op)`` says
+    whether the backend's kernels take this stack for ``op``
+    (``"sequence"`` or ``"decode"``) at this batch (None: any shape)."""
     name: str
     caps: Capabilities
     cost: int
@@ -116,6 +128,7 @@ class BackendSpec:
     decode_fn: Callable
     family: str = "gru"
     views: str = ""
+    fits: Optional[Callable] = None
 
 
 _REGISTRY: Dict[Tuple[str, str], BackendSpec] = {}
@@ -358,16 +371,18 @@ def _q8_allowed(spec: BackendSpec, cfg: GRUConfig) -> bool:
     return cfg.quant == "int8" and quant_gate_open()
 
 
-def _select(cfg: GRUConfig, *, masked: bool) -> BackendSpec:
-    """The preferred legal backend of ``cfg``'s family (``eager`` serves
-    every call, so there always is one)."""
+def _select(cfg: GRUConfig, *, masked: bool, batch: Optional[int] = None,
+            op: str = "sequence") -> BackendSpec:
+    """The preferred legal backend of ``cfg``'s family for ``op`` at this
+    batch (``eager`` serves every call, so there always is one)."""
     hetero = _hetero(cfg)
     fam = cell_families.cfg_family(cfg)
     legal = [s for s in _REGISTRY.values()
              if s.family == fam
              and (s.caps.supports_mask or not masked)
              and (s.caps.supports_hetero_dims or not hetero)
-             and _q8_allowed(s, cfg)]
+             and _q8_allowed(s, cfg)
+             and (s.fits is None or s.fits(cfg, batch, op))]
     return min(legal, key=lambda s: _rank(s, cfg))
 
 
@@ -388,8 +403,8 @@ def compile(cfg: GRUConfig, *, batch: Optional[int] = None,
     hit = _EXEC_CACHE.get(key)
     if hit is not None:
         return hit
-    seq_spec = _select(cfg, masked=masked)
-    dec_spec = _select(cfg, masked=False)
+    seq_spec = _select(cfg, masked=masked, batch=batch, op="sequence")
+    dec_spec = _select(cfg, masked=False, batch=batch, op="decode")
 
     def run_sequence(params, state0, xs, *, return_all=False, mask=None):
         if mask is not None and not masked:

@@ -80,6 +80,17 @@ def batch_tile(variant: Optional[str], B: int, T: int, H: int, L: int,
     return bt
 
 
+def fits_smem(smem: Callable[[int, int, int], int], L: int, H: int,
+              batch: Optional[int]) -> bool:
+    """Whether a stack of depth ``L`` and width ``H`` fits one block's
+    shared memory (``smem(L, H, tile)``) at the batch tile a wrapper picks
+    for ``batch`` rows (``min(batch, DEFAULT_BATCH_BLOCK)``; the default
+    tile when the batch is not known): what dispatch checks before it
+    routes a stack to a kernel backend."""
+    bt = min(batch or DEFAULT_BATCH_BLOCK, DEFAULT_BATCH_BLOCK)
+    return smem(L, H, bt) <= SMEM_LIMIT
+
+
 def stream(device: torch.device) -> int:
     if device.index is not None and device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {device} but the current CUDA device "

@@ -1,0 +1,27 @@
+"""Public wrapper of the flash-decode kernel (counterpart of
+``repro.kernels.decode_attn.ops``): the shapes the dense LM's
+``decode_attend`` uses under ``attn_impl="cuda"``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attn.kernel import flash_decode
+
+
+def valid_slots(slot_pos: torch.Tensor, pos, window: int = 0) -> torch.Tensor:
+    """(C,) bool: slots written (``slot_pos >= 0``), not after ``pos``, and
+    within the window when ``window > 0``."""
+    valid = slot_pos >= 0
+    if window > 0:
+        valid = valid & (slot_pos > pos - window)
+    return valid & (slot_pos <= pos)
+
+
+def decode_attend_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, slot_pos: torch.Tensor, pos,
+                       window: int = 0) -> torch.Tensor:
+    """q: (B, Hkv, G, D); caches (B, Hkv, C, D); slot_pos (C,) absolute
+    positions (-1 empty) -> (B, Hkv, G, D) fp32. The validity mask is built
+    here, on the tensors' device, before the kernel."""
+    return flash_decode(q.contiguous(), k_cache, v_cache,
+                        valid_slots(slot_pos, pos, window))

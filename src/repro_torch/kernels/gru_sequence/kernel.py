@@ -31,8 +31,11 @@ Launch counters come in three tuples: :data:`KERNELS` (the three fp32
 kernels), :data:`Q8_KERNELS` (the fused q8 pair) and
 :data:`CHAIN_Q8_KERNELS` (the q8 chain's pair: :func:`gru_sequence_q8_kernel`
 and ``repro_torch.kernels.gru_cell.kernel.gru_step_q8``);
-:func:`reset_launch_counts` zeroes all three and the sLSTM's
-``SLSTM_KERNELS`` (``repro_torch.kernels.slstm_cell.kernel``).
+:func:`reset_launch_counts` zeroes all three, the sLSTM's
+``SLSTM_KERNELS`` (``repro_torch.kernels.slstm_cell.kernel``) and the dense
+LM's attention kernels, :data:`ATTN_KERNELS` (``flash_attention`` and
+``flash_decode`` of ``repro_torch.kernels.flash_attn`` and
+``repro_torch.kernels.decode_attn``).
 
 A thread block takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows
 (the decode kernel's ``batch_block`` sets it, as in the JAX signature);
@@ -56,6 +59,8 @@ from repro_torch.kernels._launch import stream as _stream
 from repro_torch.kernels.gru_cell.kernel import gru_step_q8
 from repro_torch.kernels.gru_cell.ref import check_q8_width
 from repro_torch.kernels.gru_sequence import ref
+from repro_torch.kernels.decode_attn.kernel import flash_decode
+from repro_torch.kernels.flash_attn.kernel import flash_attention
 from repro_torch.kernels.slstm_cell.kernel import SLSTM_KERNELS
 
 _SIGNATURES = {        # launcher -> (library, argtypes)
@@ -329,12 +334,15 @@ KERNELS = (gru_sequence_kernel, gru_stack_sequence_kernel,
            gru_stack_decode_kernel)
 Q8_KERNELS = (gru_stack_sequence_q8_kernel, gru_stack_decode_q8_kernel)
 CHAIN_Q8_KERNELS = (gru_sequence_q8_kernel, gru_step_q8)
+ATTN_KERNELS = (flash_attention, flash_decode)
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's ``launches`` counter (fp32, fused q8, chain q8
-    and the sLSTM's :data:`SLSTM_KERNELS`) to 0."""
-    for fn in KERNELS + Q8_KERNELS + CHAIN_Q8_KERNELS + SLSTM_KERNELS:
+    """Set every wrapper's ``launches`` counter (fp32, fused q8, chain q8,
+    the sLSTM's :data:`SLSTM_KERNELS` and the dense LM's
+    :data:`ATTN_KERNELS`) to 0."""
+    for fn in (KERNELS + Q8_KERNELS + CHAIN_Q8_KERNELS + SLSTM_KERNELS
+               + ATTN_KERNELS):
         fn.launches = 0
 
 

@@ -29,11 +29,14 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.kernels._launch import fits_smem
+from repro_torch.kernels.gru_cell.kernel import smem_bytes_step_q8
 from repro_torch.kernels.gru_cell.ops import gru_step_q8_cuda
 from repro_torch.kernels.gru_sequence.kernel import (
     gru_sequence_kernel, gru_sequence_q8_kernel, gru_stack_decode_kernel,
     gru_stack_decode_q8_kernel, gru_stack_sequence_kernel,
-    gru_stack_sequence_q8_kernel)
+    gru_stack_sequence_q8_kernel, smem_bytes, smem_bytes_q8,
+    smem_bytes_seq_q8)
 
 
 def time_major_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -223,9 +226,30 @@ def gru_stack_decode_cuda_chain_q8(params: tuple, hs: tuple,
     return _chain_decode(params, hs, x, step)
 
 
+def _fused_fits(smem):
+    """``fits`` of a fused backend: the whole uniform stack in one block."""
+    def fits(cfg, batch, op):
+        dims = cfg.resolved_layer_dims
+        return fits_smem(smem, len(dims), max(dims), batch)
+    return fits
+
+
+def _chain_fits(seq_smem, step_smem):
+    """``fits`` of a chain backend: every layer alone in one block, with
+    the sequence kernel's (prefill) or the step kernel's (decode) shared
+    memory."""
+    def fits(cfg, batch, op):
+        smem = seq_smem if op == "sequence" else step_smem
+        return all(fits_smem(smem, 1, H, batch)
+                   for H in cfg.resolved_layer_dims)
+    return fits
+
+
 def register_runtime_backends() -> None:
     """Register ``cuda_fused``, ``cuda_chain``, ``cuda_fused_q8`` and
-    ``cuda_chain_q8`` with the GRU executor (idempotent)."""
+    ``cuda_chain_q8`` with the GRU executor (idempotent), each with the
+    shapes its kernels take (``fits``, from the wrappers' shared-memory
+    sizes)."""
     from repro_torch.core import runtime
 
     def fused_seq(sp, h0s, xs, *, cfg, return_all, mask):
@@ -268,13 +292,15 @@ def register_runtime_backends() -> None:
         caps=runtime.Capabilities(supports_mask=True,
                                   supports_hetero_dims=False),
         cost=10,
-        sequence_fn=fused_seq, decode_fn=fused_dec, views="stacked"))
+        sequence_fn=fused_seq, decode_fn=fused_dec, views="stacked",
+        fits=_fused_fits(smem_bytes)))
     runtime.register_backend(runtime.BackendSpec(
         name="cuda_chain",
         caps=runtime.Capabilities(supports_mask=True,
                                   supports_hetero_dims=True),
         cost=20,
-        sequence_fn=chain_seq, decode_fn=chain_dec))
+        sequence_fn=chain_seq, decode_fn=chain_dec,
+        fits=_chain_fits(smem_bytes, smem_bytes)))
     # costs 150 and 160, as in the JAX table: under the static costs the
     # q8 datapath never wins dispatch, it runs under an exact-name pin
     runtime.register_backend(runtime.BackendSpec(
@@ -282,10 +308,13 @@ def register_runtime_backends() -> None:
         caps=runtime.Capabilities(supports_mask=True,
                                   supports_hetero_dims=False),
         cost=150,
-        sequence_fn=fused_seq_q8, decode_fn=fused_dec_q8, views="quant"))
+        sequence_fn=fused_seq_q8, decode_fn=fused_dec_q8, views="quant",
+        fits=_fused_fits(smem_bytes_q8)))
     runtime.register_backend(runtime.BackendSpec(
         name="cuda_chain_q8",
         caps=runtime.Capabilities(supports_mask=True,
                                   supports_hetero_dims=True),
         cost=160,
-        sequence_fn=chain_seq_q8, decode_fn=chain_dec_q8, views="quant"))
+        sequence_fn=chain_seq_q8, decode_fn=chain_dec_q8, views="quant",
+        fits=_chain_fits(lambda _L, H, bt: smem_bytes_seq_q8(H, bt),
+                         lambda _L, H, bt: smem_bytes_step_q8(H, bt))))

@@ -20,8 +20,10 @@ from repro_torch.core.slstm import STATE_LEAVES, flatten_states, group_states
 # 4H gate columns (re-exported for the family's stacked views)
 from repro_torch.kernels.gru_sequence.ops import (  # noqa: F401
     prepare_stacked_cells, time_major_mask)
+from repro_torch.kernels._launch import fits_smem
 from repro_torch.kernels.slstm_cell.kernel import (slstm_stack_decode_kernel,
-                                                   slstm_stack_sequence_kernel)
+                                                   slstm_stack_sequence_kernel,
+                                                   smem_bytes)
 
 
 def _leaf_stacks(state: tuple, L: int) -> tuple:
@@ -67,7 +69,8 @@ def slstm_stack_decode_cuda(params: tuple, state: tuple, x: torch.Tensor, *,
 def register_runtime_backends() -> None:
     """Register ``(slstm, cuda_fused)`` with the executor (idempotent):
     mask yes, heterogeneous stacks no, cost 10, as JAX's
-    ``(slstm, pallas_fused)``."""
+    ``(slstm, pallas_fused)``; it takes the stacks whose weights and state
+    fit one block's shared memory (``fits``)."""
     from repro_torch.core import runtime
 
     def fused_seq(sp, state0, xs, *, cfg, return_all, mask):
@@ -84,4 +87,7 @@ def register_runtime_backends() -> None:
         caps=runtime.Capabilities(supports_mask=True,
                                   supports_hetero_dims=False),
         cost=10, sequence_fn=fused_seq, decode_fn=fused_dec,
-        views="stacked"))
+        views="stacked",
+        fits=lambda cfg, batch, op: fits_smem(
+            smem_bytes, cfg.resolved_num_layers,
+            max(cfg.resolved_layer_dims), batch)))

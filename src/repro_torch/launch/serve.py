@@ -1,6 +1,7 @@
-"""Serving driver: a wave of feature-vector requests through the port's
-ServeEngine (the single-engine path of ``repro.launch.serve``; no fleet,
-async front-end or autotuner).
+"""Serving driver: a wave of requests through the port's ServeEngine (the
+single-engine path of ``repro.launch.serve``; no fleet, async front-end or
+autotuner): feature-vector requests for the cell families, token prompts
+for the dense LM.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet \\
         --gru-backend cuda --requests 12 --slots 8 --vary-prompt
@@ -25,9 +26,23 @@ those pins fall through to ``cuda_fused``::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch slstm-jet \
         --gru-backend cuda --requests 12 --slots 8 --vary-prompt
 
+``--arch qwen3-0.6b`` serves the dense LM: ``--requests`` random token
+prompts of ``--prompt-len`` tokens from ``--seed`` (one aligned wave, so
+``--slots`` must not be below ``--requests``), random weights from the
+same seed, greedy decoding of ``--max-new`` tokens; attention runs the
+CUDA kernels (flash attention for prefill, flash decode per step).
+``--smoke`` takes the config's reduced same-family ``SMOKE`` size (the
+cell configs are already small)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --requests 4 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --smoke --device cpu
+
 The run is on the card unless ``--device cpu`` is given. Prints each
-request's class stream, the decode latency statistics, the served dtype
-and the backends that served prefill and decode.
+request's class or token stream, the decode latency statistics, the
+served dtype and, for the cell families, the backends that served prefill
+and decode.
 """
 from __future__ import annotations
 
@@ -37,7 +52,8 @@ import dataclasses
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ALL_ARCHS, get_config
+from repro_torch.configs.base import ALL_ARCHS, get_config, get_smoke_config
+from repro_torch.core import cells as cell_families
 from repro_torch.core.params import init_params
 from repro_torch.models import api as mapi
 from repro_torch.serve.engine import Request, ServeEngine
@@ -45,9 +61,15 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def make_requests(cfg, n: int, prompt_len: int, vary: bool, max_new: int,
                   seed: int):
-    """``n`` seeded feature-vector requests; ``vary`` draws each prompt's
-    length uniformly from 1..prompt_len."""
+    """``n`` seeded requests. Cell families: feature-vector prompts,
+    ``vary`` draws each prompt's length uniformly from 1..prompt_len. The
+    dense LM: token prompts of ``prompt_len`` tokens in ``[0, vocab)``
+    (``vary`` ignored, as in the JAX CLI)."""
     rng = np.random.default_rng(seed)
+    if not cell_families.is_cell_family(cfg.family):
+        return [Request(prompt=rng.integers(0, cfg.vocab_size,
+                                            size=prompt_len).astype(np.int32),
+                        max_new_tokens=max_new) for _ in range(n)]
     reqs = []
     for _ in range(n):
         S = int(rng.integers(1, prompt_len + 1)) if vary else prompt_len
@@ -60,6 +82,8 @@ def make_requests(cfg, n: int, prompt_len: int, vary: bool, max_new: int,
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True, choices=ALL_ARCHS)
+    p.add_argument("--smoke", action="store_true",
+                   help="the config's reduced SMOKE size")
     p.add_argument("--requests", type=int, default=4)
     p.add_argument("--slots", type=int, default=0,
                    help="decode batch slots (0 = --requests); requests "
@@ -83,8 +107,9 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.gru_backend:
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    is_cell = cell_families.is_cell_family(cfg.family)
+    if args.gru_backend and is_cell:
         cfg = cfg.replace(gru=dataclasses.replace(cfg.gru,
                                                   backend=args.gru_backend))
     api = mapi.get_api(cfg)
@@ -96,8 +121,12 @@ def main(argv=None):
                          device=device)
     done = engine.generate(reqs)
     for i, r in enumerate(done):
-        print(f"req{i}: prompt {len(r.prompt)} -> {len(r.out)} classes "
-              f"{r.out}")
+        if is_cell:
+            print(f"req{i}: prompt {len(r.prompt)} -> {len(r.out)} classes "
+                  f"{r.out}")
+        else:
+            print(f"req{i}: prompt {len(r.prompt)} -> {len(r.out)} tokens "
+                  f"{r.out[:8]}...")
     stats = engine.latency_stats()
     print(f"decode latency ({stats['device']}): "
           f"mean={stats['mean_s'] * 1e3:.4f}ms "
@@ -107,6 +136,10 @@ def main(argv=None):
           f"{stats['served_dtype']}); "
           f"prefill mean={stats['prefill_mean_s'] * 1e3:.4f}ms "
           f"({stats['prefills']} prefills)")
+    if not is_cell:
+        print(f"attention: {cfg.attn_impl} ({cfg.num_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size})")
+        return done
     steps = stats["decode_backend_steps"]
     attributed = ",".join(f"{k}:{v}" for k, v in sorted(steps.items()))
     print(f"executor: prefill={'/'.join(sorted(set(engine.prefill_backends)))} "

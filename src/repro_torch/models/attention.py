@@ -1,0 +1,200 @@
+"""Attention of the dense LM: GQA + RoPE + qk-norm + sliding window, three
+implementations (counterpart of ``repro.models.attention``):
+
+* ``naive``   — the dense score matrix (the oracle; small shapes only);
+* ``chunked`` — the chunked online softmax over KV blocks (JAX's
+  ``xla_flash``), plain PyTorch, fp32 running stats, probabilities
+  rounded to the compute dtype before the P.V product as in JAX;
+* ``cuda``    — the CUDA kernels: flash attention for prefill
+  (``repro_torch.kernels.flash_attn``) and flash decode for the decode
+  step (``repro_torch.kernels.decode_attn``); on CPU tensors their plain
+  versions.
+
+Decode-step attention runs against a ring-buffer KV cache. Under ``naive``
+and ``chunked`` it is JAX's einsum path (fp32 scores from the cache's
+dtype, probabilities rounded to the cache's dtype).
+
+Not here yet: ``_banded_attention`` (the O(S*2W) sliding-window path, for
+windowed configs; ``chunked`` computes the same attention) and the
+scan-over-layers ``decode_attention`` (JAX uses it only above 48 layers).
+``ShardCtx`` and ``constrain`` are the identity on one device; they are
+left out of the signatures until the multi-GPU work brings them.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.params import Spec
+from repro_torch.models import layers
+from repro_torch.models.layers import dense_apply, dense_specs, head_rmsnorm
+
+NEG_INF = -1e30
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    s = {"wq": dense_specs(d, cfg.num_heads * hd, cfg.qkv_bias),
+         "wk": dense_specs(d, cfg.num_kv_heads * hd, cfg.qkv_bias),
+         "wv": dense_specs(d, cfg.num_kv_heads * hd, cfg.qkv_bias),
+         "wo": dense_specs(cfg.num_heads * hd, d, cfg.out_bias)}
+    if cfg.qk_norm:
+        s["q_norm"] = Spec((hd,), init="ones")
+        s["k_norm"] = Spec((hd,), init="ones")
+    return s
+
+
+def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B,S,D) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = dense_apply(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    k = dense_apply(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    v = dense_apply(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(p["q_norm"], q)
+        k = head_rmsnorm(p["k_norm"], k)
+    if cfg.rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# full-sequence attention (prefill)
+# ---------------------------------------------------------------------------
+
+def _heads_major(*xs):
+    """(B,S,H,D) -> (B,H,S,D) contiguous."""
+    return tuple(x.transpose(1, 2).contiguous() for x in xs)
+
+
+def _naive_attention(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """(B,S,Hq,Dh) layout in, dense scores (oracle path)."""
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    o = attention_ref(*_heads_major(q, k, v), causal=causal, window=window)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, causal: bool, window: int,
+                       chunk: int) -> torch.Tensor:
+    """Chunked online softmax over KV; (B,S,H,D) layout; fp32 running
+    stats (JAX's ``_xla_flash``)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    ck = min(chunk, Sk)
+    qf = q.reshape(B, Sq, Hkv, G, D).float() * (1.0 / (D ** 0.5))
+    # probabilities materialize in the compute dtype, as in JAX
+    pdt = q.dtype
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, device=q.device)
+    l = torch.zeros((B, Sq, Hkv, G), device=q.device)
+    acc = torch.zeros((B, Sq, Hkv, G, D), device=q.device)
+    for k0 in range(0, Sk, ck):
+        kb, vb = k[:, k0:k0 + ck], v[:, k0:k0 + ck]
+        k_pos = torch.arange(k0, k0 + kb.shape[1], device=q.device)[None, :]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb.float())
+        mask = torch.ones((Sq, kb.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        if window > 0:
+            mask = mask & (q_pos - k_pos < window)
+        mask = mask[None, :, None, None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, torch.zeros_like(p))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        # bf16 x bf16 products are exact in fp32: fp32 accumulation of the
+        # rounded operands, as preferred_element_type=float32 in JAX
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(pdt).float(), vb.to(pdt).float())
+        m = m_new
+    o = acc / l[..., None].clamp_min(1e-30)
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _cuda_attention(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    o = fa_ops.attention(*_heads_major(q, k, v), causal=causal,
+                         window=window)
+    return o.transpose(1, 2)
+
+
+def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              window: int = 0, positions: Optional[torch.Tensor] = None):
+    """Causal self-attention over the sequence. Returns (out (B,S,D),
+    (k, v) for caching, each (B,S,Hkv,Dh)). The JAX signature's ``causal``
+    and ``kv`` (cross-attention) serve the encoder-decoder families, not
+    ported yet."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    impl = cfg.attn_impl
+    if impl == "naive":
+        o = _naive_attention(q, k, v, True, window)
+    elif impl == "cuda":
+        o = _cuda_attention(q, k, v, True, window)
+    elif impl == "chunked":
+        o = _chunked_attention(q, k, v, True, window, cfg.attn_chunk)
+    else:
+        raise ValueError(f"attn_impl {impl!r}: the port's names are "
+                         f"'cuda', 'chunked' and 'naive'")
+    return dense_apply(p["wo"], o.reshape(B, S, -1)), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# decode-step attention vs a ring-buffer cache
+# ---------------------------------------------------------------------------
+
+def init_cache_specs(cfg: ModelConfig, batch: int, capacity: int,
+                     layers_axis: int = 0) -> dict:
+    """KV ring buffer spec for one layer group. ``slot_pos`` holds the
+    absolute position written into each slot (-1 = empty, set by
+    ``init_cache``), shared across the batch."""
+    hd = cfg.resolved_head_dim
+    shape_kv = (batch, cfg.num_kv_heads, capacity, hd)
+    slot_shape = (capacity,)
+    if layers_axis:
+        shape_kv = (layers_axis,) + shape_kv
+        slot_shape = (layers_axis, capacity)
+    return {"k": Spec(shape_kv, init="zeros", dtype=cfg.dtype),
+            "v": Spec(shape_kv, init="zeros", dtype=cfg.dtype),
+            "slot_pos": Spec(slot_shape, init="zeros", dtype="int32")}
+
+
+def decode_attend(p: dict, cfg: ModelConfig, q: torch.Tensor, k_cache,
+                  v_cache, slot_pos, pos, *, window: int = 0) -> torch.Tensor:
+    """Attend one query token (B, Hq*Dh or (B,Hq,Dh)) against a
+    (B,Hkv,C,Dh) cache slice; returns (B,1,D).
+
+    ``attn_impl="cuda"`` runs the flash-decode kernel (scores and
+    probabilities never leave the block); the others JAX's einsum path."""
+    B = q.shape[0]
+    hd = cfg.resolved_head_dim
+    G = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(B, cfg.num_kv_heads, G, hd)
+    if cfg.attn_impl == "cuda":
+        from repro_torch.kernels.decode_attn import ops as da_ops
+        o = da_ops.decode_attend_cuda(qg.to(k_cache.dtype), k_cache,
+                                      v_cache, slot_pos, pos, window)
+        return dense_apply(p["wo"], o.reshape(B, 1, cfg.num_heads * hd)
+                           .to(q.dtype))
+    from repro_torch.kernels.decode_attn.ops import valid_slots
+    valid = valid_slots(slot_pos, pos, window)
+    s = torch.einsum("bhgd,bhcd->bhgc", qg.to(k_cache.dtype).float(),
+                     k_cache.float()) / (hd ** 0.5)
+    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgc,bhcd->bhgd", w.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return dense_apply(p["wo"], o.reshape(B, 1, cfg.num_heads * hd)
+                       .to(q.dtype))

@@ -1,0 +1,128 @@
+"""Shared building blocks of the dense LM: norms, dense, RoPE, MLPs,
+embeddings (counterpart of ``repro.models.layers``).
+
+Everything is functional: ``*_specs`` returns a Spec tree; ``*_apply``
+consumes the matching params. Compute dtype discipline, as in JAX: params
+may be fp32 masters; activations run in ``cfg.dtype``; norms accumulate in
+fp32; logits are fp32. ``softmax_xent`` waits for the training path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.params import Spec, torch_dtype
+
+
+def cdtype(cfg) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+# --- norms -----------------------------------------------------------------
+
+def norm_specs(d: int, kind: str = "rmsnorm") -> dict:
+    s = {"scale": Spec((d,), init="ones")}
+    if kind == "layernorm":
+        s["bias"] = Spec((d,), init="zeros")
+    return s
+
+
+def norm_apply(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if kind == "layernorm":
+        xf = xf - xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    if kind == "layernorm":
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Per-head qk-norm (qwen3): x (..., D_head), scale (D_head,)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# --- dense -----------------------------------------------------------------
+
+def dense_specs(d_in: int, d_out: int, bias: bool = False,
+                init: str = "fan_in", scale: float = 1.0) -> dict:
+    s = {"w": Spec((d_in, d_out), init=init, scale=scale)}
+    if bias:
+        s["b"] = Spec((d_out,), init="zeros")
+    return s
+
+
+def dense_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w (+ b)`` in x's dtype (a no-op cast once ``prepare_params``
+    has cast the weights to the compute dtype)."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+# --- rotary embeddings ------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) or (..., S, D); positions: (..., S) int. The
+    split-half convention: the first and second halves of D rotate as one
+    complex pair per frequency."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, x.device)                   # (D/2,)
+    ang = positions[..., None].float() * freqs                # (..., S, D/2)
+    if x.dim() == ang.dim() + 1:                              # head axis
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- MLP --------------------------------------------------------------------
+
+def mlp_specs(d_model: int, d_ff: int, kind: str = "swiglu",
+              bias: bool = False) -> dict:
+    if kind == "swiglu":
+        return {"wg": dense_specs(d_model, d_ff, bias),
+                "wu": dense_specs(d_model, d_ff, bias),
+                "wd": dense_specs(d_ff, d_model, bias)}
+    return {"w1": dense_specs(d_model, d_ff, bias),
+            "w2": dense_specs(d_ff, d_model, bias)}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    if kind == "swiglu":
+        h = torch.nn.functional.silu(dense_apply(p["wg"], x)) \
+            * dense_apply(p["wu"], x)
+        return dense_apply(p["wd"], h)
+    # jax.nn.gelu defaults to the tanh approximation
+    return dense_apply(p["w2"], torch.nn.functional.gelu(
+        dense_apply(p["w1"], x), approximate="tanh"))
+
+
+# --- embedding / unembedding -------------------------------------------------
+
+def embed_specs(vocab: int, d_model: int) -> Spec:
+    return Spec((vocab, d_model), init="embed", scale=0.02)
+
+
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return table[tokens.long()].to(dtype)
+
+
+def unembed_apply(table_or_w: torch.Tensor, x: torch.Tensor,
+                  tied: bool) -> torch.Tensor:
+    """Logits in fp32."""
+    w = table_or_w.to(x.dtype)
+    return (x @ w.t() if tied else x @ w).float()

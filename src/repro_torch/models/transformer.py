@@ -1,0 +1,199 @@
+"""Decoder-only transformer LM, dense blocks with GQA attention
+(counterpart of ``repro.models.transformer``; the MoE block, ``loss_fn``
+and ``chunked_ce`` wait for their families and the training path).
+
+Blocks are stacked ``(L, ...)`` as in JAX and run as a Python loop over
+the layer index; ``cfg.scan_layers`` and ``cfg.remat`` are XLA compile
+knobs, accepted and without effect here. The KV cache keeps JAX's layout:
+``{"layers": {"k", "v": (L, B, Hkv, C, hd), "slot_pos": (L, C)}, "pos":
+()}``, with ``headroom`` empty slots after the prompt. ``decode_step``
+writes the new token's K/V and position into slot ``pos % C`` IN PLACE
+(``index_copy_`` on the cache's own storage, no restacking), so the cache
+passed in is the cache returned, updated.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.params import Spec, init_params, stack_specs
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers
+from repro_torch.models.layers import cdtype
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+def block_specs(cfg: ModelConfig) -> dict:
+    s = {"ln1": layers.norm_specs(cfg.d_model, cfg.norm),
+         "attn": attn_mod.attn_specs(cfg)}
+    if not cfg.parallel_block:
+        s["ln2"] = layers.norm_specs(cfg.d_model, cfg.norm)
+    s["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.mlp_bias)
+    return s
+
+
+def lm_specs(cfg: ModelConfig) -> dict:
+    s = {"embed": layers.embed_specs(cfg.vocab_size, cfg.d_model),
+         "blocks": stack_specs(block_specs(cfg), cfg.num_layers),
+         "final_norm": layers.norm_specs(cfg.d_model, cfg.norm)}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = Spec((cfg.d_model, cfg.vocab_size), init="fan_in")
+    return s
+
+
+def layer_params(blocks: dict, i: int) -> dict:
+    """Layer ``i``'s view of the stacked ``(L, ...)`` block tree."""
+    if isinstance(blocks, dict):
+        return {k: layer_params(v, i) for k, v in blocks.items()}
+    return blocks[i]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _mlp_residual(p: dict, cfg: ModelConfig, x, h, a):
+    """The block after attention: parallel (x + a + mlp(h)) or sequential
+    (x + a, then + mlp(norm(x + a)))."""
+    if cfg.parallel_block:
+        return x + a + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+    x = x + a
+    h2 = layers.norm_apply(p["ln2"], x, cfg.norm)
+    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp)
+
+
+def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, collect_kv: bool = False):
+    """One transformer block. Returns (x, kv-or-None)."""
+    h = layers.norm_apply(p["ln1"], x, cfg.norm)
+    a, kv = attn_mod.attention(p["attn"], cfg, h, window=cfg.sliding_window,
+                               positions=positions)
+    return _mlp_residual(p, cfg, x, h, a), (kv if collect_kv else None)
+
+
+def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  collect_kv: bool = False):
+    """tokens (B,S) -> (h (B,S,D), per-layer [(k, v)] or None); k and v
+    (B,S,Hkv,hd) in the compute dtype, after RoPE. (JAX's
+    ``inputs_embeds`` serves the vision-language family, not ported.)"""
+    B, S = tokens.shape
+    x = layers.embed_apply(params["embed"], tokens, cdtype(cfg))
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    kvs = []
+    for i in range(cfg.num_layers):
+        x, kv = block_apply(layer_params(params["blocks"], i), cfg, x,
+                            positions, collect_kv=collect_kv)
+        kvs.append(kv)
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm)
+    return x, (kvs if collect_kv else None)
+
+
+def _unembed_table(params: dict, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return params["embed"], True
+    return params["lm_head"], False
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """Full logits (B,S,V) in fp32: smoke tests and small vocabularies."""
+    h, _ = hidden_states(params, cfg, tokens)
+    table, tied = _unembed_table(params, cfg)
+    return layers.unembed_apply(table, h, tied)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """One-time serving prep: every weight a dense layer reads (``w``,
+    ``b``, the embedding table, ``lm_head``) cast to the compute dtype and
+    put on ``device``; norm scales keep the param dtype (the norms compute
+    in fp32 from them). Numerically what ``dense_apply``'s per-call cast
+    does, done once."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    ct = cdtype(cfg)
+
+    def walk(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if key in ("w", "b", "embed", "lm_head"):
+            return tree.to(device=dev, dtype=ct)
+        return tree.to(dev)
+    return walk(params)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
+    return {"layers": attn_mod.init_cache_specs(cfg, batch, capacity,
+                                                layers_axis=cfg.num_layers),
+            "pos": Spec((), init="zeros", dtype="int32")}
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device="cuda") -> dict:
+    """An empty cache: slots marked -1, ``pos = -1`` so the first decode
+    writes position 0."""
+    c = init_params(cache_specs(cfg, batch, capacity), device=device)
+    c["layers"]["slot_pos"] -= 1
+    c["pos"] -= 1
+    return c
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            headroom: int = 64):
+    """tokens (B,S) -> (last-token logits (B,V) fp32, filled cache).
+
+    ``headroom`` empty slots follow the prompt so decode steps never wrap
+    onto it (full-attention semantics)."""
+    B, S = tokens.shape
+    h, kvs = hidden_states(params, cfg, tokens, collect_kv=True)
+    table, tied = _unembed_table(params, cfg)
+    logits = layers.unembed_apply(table, h[:, -1], tied)
+    L, hd, C = cfg.num_layers, cfg.resolved_head_dim, S + headroom
+    k0 = kvs[0][0]
+    shape = (L, B, cfg.num_kv_heads, C, hd)
+    cache_k = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
+    cache_v = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
+    for i, (k, v) in enumerate(kvs):
+        cache_k[i, :, :, :S] = k.transpose(1, 2)
+        cache_v[i, :, :, :S] = v.transpose(1, 2)
+    slot = torch.full((C,), -1, dtype=torch.int32, device=k0.device)
+    slot[:S] = torch.arange(S, dtype=torch.int32, device=k0.device)
+    cache = {"layers": {"k": cache_k, "v": cache_v,
+                        "slot_pos": slot[None].repeat(L, 1)},
+             "pos": torch.tensor(S - 1, dtype=torch.int32, device=k0.device)}
+    return logits, cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict,
+                tokens: torch.Tensor):
+    """One decode step, layers unrolled (JAX's path up to 48 layers).
+    tokens (B,) -> (logits (B,V) fp32, the cache updated in place)."""
+    B = tokens.shape[0]
+    pos = cache["pos"] + 1
+    x = layers.embed_apply(params["embed"], tokens[:, None], cdtype(cfg))
+    lc = cache["layers"]
+    positions = pos.reshape(1, 1).expand(B, 1)
+    C = lc["k"].shape[3]
+    slot = (pos % C).long().reshape(1)
+    pos1 = pos.reshape(1)
+    for i in range(cfg.num_layers):
+        p = layer_params(params["blocks"], i)
+        h = layers.norm_apply(p["ln1"], x, cfg.norm)
+        q, k_new, v_new = attn_mod._project_qkv(p["attn"], cfg, h, positions)
+        k_l, v_l, sp_l = lc["k"][i], lc["v"][i], lc["slot_pos"][i]
+        k_l.index_copy_(2, slot, k_new.transpose(1, 2).to(k_l.dtype))
+        v_l.index_copy_(2, slot, v_new.transpose(1, 2).to(v_l.dtype))
+        sp_l.index_copy_(0, slot, pos1)
+        a = attn_mod.decode_attend(p["attn"], cfg, q[:, 0], k_l, v_l, sp_l,
+                                   pos, window=cfg.sliding_window)
+        x = _mlp_residual(p, cfg, x, h, a)
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm)
+    table, tied = _unembed_table(params, cfg)
+    logits = layers.unembed_apply(table, x[:, 0], tied)
+    return logits, {"layers": lc, "pos": pos}

@@ -1,12 +1,12 @@
-"""Serving engine for the recurrent cell families (GRU and sLSTM):
-bucketed prefill + continuous-batching decode over fixed slots (the
-cell-family wave path of ``repro.serve.engine``). A family's cache is its
-flat tuple of per-layer state leaves (one per layer for the GRU, four for
-the sLSTM); the admit scatter copies it leaf by leaf.
+"""Serving engine (counterpart of ``repro.serve.engine``): bucketed prefill
++ continuous-batching decode over fixed slots for the recurrent cell
+families (GRU and sLSTM), and one aligned wave for the dense LM.
 
-The figure of merit is the per-step latency of the sequential decode path
-(the paper's deadline per feature vector); throughput comes from batching
-requests into a fixed number of slots.
+Cell families. A family's cache is its flat tuple of per-layer state
+leaves (one per layer for the GRU, four for the sLSTM); the admit scatter
+copies it leaf by leaf. The figure of merit is the per-step latency of the
+sequential decode path (the paper's deadline per feature vector);
+throughput comes from batching requests into a fixed number of slots.
 
 * **Prompt-length buckets**: prompts are left-padded to the next power of
   two (>= ``BUCKET_MIN``) with a (B, T) length mask; masked steps freeze
@@ -18,11 +18,21 @@ requests into a fixed number of slots.
   step share one bucketed prefill, whose rows are copied into the freed
   slots of the live cache in place (``index_copy_``).
 
-A request's ``prompt`` is a float (S, X) feature window; each decode step
-pushes one feature vector (the request's ``stream``, else the last prompt
-vector again) and emits the running class prediction. The engine records
-the executor backend of every prefill (``prefill_backends``) and of every
-recorded decode step (``decode_backends``, aligned with ``step_times``).
+A cell request's ``prompt`` is a float (S, X) feature window; each decode
+step pushes one feature vector (the request's ``stream``, else the last
+prompt vector again) and emits the running class prediction. A lane
+retires at ``max_new_tokens`` or when its class equals ``eos_id``. The
+engine records the executor backend of every prefill
+(``prefill_backends``) and of every recorded decode step
+(``decode_backends``, aligned with ``step_times``).
+
+The dense LM (``family="dense"``): ``generate`` serves one wave of at most
+``max_batch`` token prompts, left-padded with token 0 to the longest
+prompt. The pad tokens are attended: there is no pad mask and positions
+run 0..S-1 over the padded row, exactly as in the JAX engine. Decoding is
+greedy (argmax); a request ends at ``eos_id`` or at ``max_new_tokens``,
+and the wave at the longest budget or when every request has ended.
+
 Steps and prefills are timed with the engine clock around work that ends
 in ``torch.cuda.synchronize()`` on the card; each decode key's first step
 is excluded from the step statistics, as in the JAX engine.
@@ -38,6 +48,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cells as cell_families
 from repro_torch.core import runtime
 from repro_torch.models import api as mapi
 from repro_torch.serve.clock import Clock, SystemClock
@@ -47,12 +58,16 @@ BUCKET_MIN = 8      # shortest prefill bucket
 
 @dataclass
 class Request:
-    prompt: np.ndarray               # (S, X) float features
+    prompt: np.ndarray               # (S,) int tokens | (S, X) float features
     max_new_tokens: int = 16
-    stream: Optional[np.ndarray] = None  # (>=max_new, X) decode features
+    eos_id: int = -1                 # -1 = never
+    stream: Optional[np.ndarray] = None  # cells: (>=max_new, X) features
     out: List[int] = field(default_factory=list)
     done: bool = False
-    t_submit: Optional[float] = None     # engine clock
+    # lifecycle timestamps (engine clock): submit -> admit is the queue
+    # wait, submit -> finish the end-to-end time
+    t_submit: Optional[float] = None
+    t_admit: Optional[float] = None
     t_finish: Optional[float] = None
 
 
@@ -118,21 +133,88 @@ class ServeEngine:
 
     # -- waves ---------------------------------------------------------------
 
+    def _is_cell(self) -> bool:
+        return cell_families.is_cell_family(self.cfg.family)
+
     def generate(self, requests: Sequence[Request]) -> List[Request]:
-        """Serve any number of requests by continuous batching."""
+        """Serve a wave of requests: any number by continuous batching for
+        a cell family, one aligned batch of at most ``max_batch`` for the
+        dense LM."""
         reqs = list(requests)
         if not reqs:
             return []
+        if not self._is_cell():
+            return self._generate_lm(reqs)
         self.gru_wave_begin(reqs)
         while self.gru_wave_active():
             self.gru_wave_step()
         self._wave = None
         return reqs
 
+    def _admitted(self, r: Request, now: float) -> None:
+        r.t_admit = now
+        self.queue_waits.append(now - r.t_submit)
+
+    def _generate_lm(self, reqs: List[Request]) -> List[Request]:
+        """The dense LM's wave (JAX ``ServeEngine.generate``'s LM path):
+        left-pad with token 0, one prefill, greedy decode steps until every
+        request has its budget or its ``eos_id``."""
+        if len(reqs) > self.max_batch:
+            raise ValueError(f"{len(reqs)} requests > max_batch "
+                             f"{self.max_batch}: an LM wave is one batch")
+        B = len(reqs)
+        now = self.clock.now()
+        for r in reqs:
+            if r.t_submit is None:
+                r.t_submit = now
+        S = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((B, S), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, S - len(r.prompt):] = r.prompt      # left-pad alignment
+        t0 = self.clock.now()
+        logits, cache = self.api.prefill(
+            self.params, self.cfg,
+            {"tokens": torch.from_numpy(toks).to(self.device)})
+        self._sync()
+        self._record_prefill(S, self.clock.now() - t0)
+        now = self.clock.now()
+        for r in reqs:
+            self._admitted(r, now)
+        max_new = max(r.max_new_tokens for r in reqs)
+        next_tok = logits.argmax(-1)
+        key = tuple(next_tok.shape)
+        finished = np.zeros(B, bool)
+        for _ in range(max_new):
+            t0 = self.clock.now()
+            logits, cache = self.api.decode_step(self.params, self.cfg, cache,
+                                                 next_tok)
+            self._sync()
+            self._record_step(key, self.clock.now() - t0, None)
+            tok_np = next_tok.cpu().numpy()
+            for i, r in enumerate(reqs):
+                if not finished[i]:
+                    r.out.append(int(tok_np[i]))
+                    if (int(tok_np[i]) == r.eos_id
+                            or len(r.out) >= r.max_new_tokens):
+                        finished[i] = True
+                        self._finish(r)
+            if finished.all():
+                break
+            next_tok = logits.argmax(-1)
+        for r in reqs:
+            if not r.done:
+                self._finish(r)
+        return reqs
+
     def _finish(self, r: Request) -> None:
         r.done = True
         r.t_finish = self.clock.now()
         self.e2e_times.append(r.t_finish - r.t_submit)
+
+    def _record_prefill(self, S: int, dt: float) -> None:
+        """Record one prefill latency (the first of every bucket included:
+        no retune invalidates anything in the port yet)."""
+        self.prefill_times.append(dt)
 
     def _gru_prefill_batch(self, prompts: List[np.ndarray], Sb: int):
         """Left-pad prompts into the fixed (max_batch, Sb, X) slot shape
@@ -163,7 +245,7 @@ class ServeEngine:
                  "mask": torch.from_numpy(mask).to(self.device)}
         _, cache = self.api.prefill(self.params, self.cfg, batch)
         self._sync()
-        self.prefill_times.append(self.clock.now() - t0)
+        self._record_prefill(Sb, self.clock.now() - t0)
         return cache
 
     def _make_slot(self, r: Request) -> _Slot:
@@ -172,7 +254,10 @@ class ServeEngine:
         return _Slot(req=r, last_feat=p[-1])
 
     def gru_wave_begin(self, requests: Sequence[Request] = ()) -> None:
-        """Start a fresh continuous-batching wave."""
+        """Start a fresh continuous-batching wave (cell families only)."""
+        if not self._is_cell():
+            raise ValueError(f"family {self.cfg.family!r}: the stepwise wave "
+                             f"API serves the cell families only")
         X = self.cfg.gru.input_dim
         Bs = self.max_batch
         self._wave = _GruWave(slots=[None] * Bs,
@@ -199,7 +284,7 @@ class ServeEngine:
         admits = [self._make_slot(w.pending.popleft()) for _ in range(k)]
         now = self.clock.now()
         for s in admits:
-            self.queue_waits.append(now - s.req.t_submit)
+            self._admitted(s.req, now)
         fresh = self._gru_prefill(
             [np.asarray(s.req.prompt, np.float32).reshape(-1, X)
              for s in admits])
@@ -247,7 +332,7 @@ class ServeEngine:
             r = s.req
             r.out.append(int(cls[j]))
             s.step += 1
-            if len(r.out) >= r.max_new_tokens:
+            if int(cls[j]) == r.eos_id or len(r.out) >= r.max_new_tokens:
                 self._finish(r)
                 w.slots[j] = None                       # retire mid-wave
                 finished.append(r)
@@ -256,6 +341,8 @@ class ServeEngine:
     # -- stats ---------------------------------------------------------------
 
     def _decode_backend_for(self, key: tuple) -> Optional[str]:
+        if not self._is_cell():
+            return None
         if key not in self._decode_backends_by_key:
             self._decode_backends_by_key[key] = self.api.executable(
                 self.cfg, batch=key[0]).decode_backend
@@ -276,9 +363,9 @@ class ServeEngine:
         """Per-step decode latency distribution (the paper's constraint is
         a deadline, so tails matter), prefill timings, per-request queue
         wait and end-to-end time, recorded steps per backend and the
-        served dtype (int8 for the ``*_q8`` backends, float32 otherwise,
-        of the latest resolved decode backend). Empty histories report
-        NaN."""
+        served dtype (cells: int8 for the ``*_q8`` backends, float32
+        otherwise, of the latest resolved decode backend; the dense LM:
+        its compute dtype). Empty histories report NaN."""
         ts, pf = self.step_times, self.prefill_times
         qw, ee = self.queue_waits, self.e2e_times
         per_backend: Dict[str, int] = {}
@@ -294,7 +381,8 @@ class ServeEngine:
                 "e2e_mean_s": _mean(ee),
                 "e2e_p50_s": _pct(ee, 50),
                 "e2e_p99_s": _pct(ee, 99),
-                "served_dtype": runtime.backend_dtype(self.decode_backend),
+                "served_dtype": (runtime.backend_dtype(self.decode_backend)
+                                 if self._is_cell() else self.cfg.dtype),
                 "mean_s": _mean(ts),
                 "p50_s": _pct(ts, 50),
                 "p90_s": _pct(ts, 90),

@@ -39,7 +39,10 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys; import repro_torch.serve.engine, "
-            "repro_torch.launch.serve, repro_torch.kernels.gru_sequence.ops; "
+            "repro_torch.launch.serve, repro_torch.kernels.gru_sequence.ops, "
+            "repro_torch.models.transformer, "
+            "repro_torch.kernels.flash_attn.ops, "
+            "repro_torch.kernels.decode_attn.ops; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

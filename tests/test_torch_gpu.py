@@ -397,3 +397,133 @@ def test_slstm_engine_launches_and_streams(cuda_device, layers):
     assert all(k.launches == 0 for k in K.KERNELS + K.Q8_KERNELS
                + K.CHAIN_Q8_KERNELS)
     assert streams["cuda"] == streams["eager"]
+
+
+# ---------------------------------------------------------------------------
+# the dense LM's attention kernels: flash attention (prefill), flash decode
+# ---------------------------------------------------------------------------
+#
+# fp32: within 1e-5 of the plain versions (other summation orders). bf16
+# inputs: both compute in fp32 from the same bf16 values; flash decode
+# returns fp32 (within 1e-5 again), flash attention rounds its output to
+# bf16, so the two may differ by one bf16 ulp (2**-8 relative): within
+# rtol = atol = 2**-7.
+
+from repro_torch.kernels.decode_attn import kernel as DK  # noqa: E402
+from repro_torch.kernels.decode_attn import ref as dref  # noqa: E402
+from repro_torch.kernels.flash_attn import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attn import ref as fref  # noqa: E402
+
+BF16_TOL = 2.0 ** -7
+# (B, Hq, Hkv, Sq, Sk, D, causal, window): qwen3's heads at the served
+# lengths, off-tile lengths, a window, causal off, Sq > Sk (rows with no
+# valid key), GQA 4, small head dims
+ATTN_CASES = [
+    (4, 16, 8, 12, 12, 128, True, 0),
+    (4, 16, 8, 128, 128, 128, True, 0),
+    (1, 16, 8, 300, 300, 128, True, 0),
+    (2, 16, 8, 200, 200, 128, True, 48),
+    (1, 8, 2, 45, 77, 64, False, 0),
+    (1, 4, 4, 40, 8, 16, True, 4),
+    (2, 8, 2, 33, 33, 32, False, 7),
+    (1, 4, 2, 50, 50, 18, True, 0),     # D off the 4- and 8-value vectors
+]
+
+
+def _rand(shape, g, dev, dtype):
+    return torch.randn(*shape, generator=g).to(dev).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, Hq, Hkv,
+                                              Sq, Sk, D, causal, window):
+    g = torch.Generator().manual_seed(Sq + Sk + D)
+    q = _rand((B, Hq, Sq, D), g, cuda_device, dtype)
+    k = _rand((B, Hkv, Sk, D), g, cuda_device, dtype)
+    v = _rand((B, Hkv, Sk, D), g, cuda_device, dtype)
+    K.reset_launch_counts()
+    got = FK.flash_attention(q, k, v, causal=causal, window=window)
+    want = fref.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and FK.flash_attention.launches == 1
+    assert bool(torch.isfinite(got).all())
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # rows with no valid key give exactly 0
+    no_key = ~fref._mask(Sq, 0, Sk, causal, window, "cpu").any(-1)
+    assert torch.count_nonzero(got[:, :, no_key.to(cuda_device)]) == 0
+
+
+# (B, Hkv, G, C, D, written positions (from, to), pos, window)
+DECODE_ATTN_CASES = [
+    (4, 8, 2, 76, 128, (0, 12), 12, 0),          # served: S=12 + 64 slots
+    (4, 8, 2, 192, 128, (0, 143), 143, 0),       # served: S=128 + 64
+    (2, 8, 2, 100, 128, (30, 250), 250, 0),      # wrapped ring, full
+    (2, 8, 2, 100, 128, (30, 250), 250, 37),     # wrapped ring, window
+    (1, 2, 4, 50, 64, (0, 20), 20, 0),           # empty (-1) slots
+    (1, 2, 2, 16, 16, None, 0, 0),               # fully masked cache
+    (1, 2, 3, 70, 18, (0, 69), 69, 0),           # D off the vectors
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("B,Hkv,G,C,D,written,pos,window", DECODE_ATTN_CASES)
+def test_flash_decode_kernel_matches_plain(cuda_device, dtype, B, Hkv, G, C,
+                                           D, written, pos, window):
+    from repro_torch.kernels.decode_attn.ops import valid_slots
+    g = torch.Generator().manual_seed(C + pos + D)
+    q = _rand((B, Hkv, G, D), g, cuda_device, dtype)
+    kc = _rand((B, Hkv, C, D), g, cuda_device, dtype)
+    vc = _rand((B, Hkv, C, D), g, cuda_device, dtype)
+    slot_pos = torch.full((C,), -1, dtype=torch.int32)
+    if written is not None:
+        for p in range(written[0], written[1] + 1):
+            slot_pos[p % C] = p
+    mask = valid_slots(slot_pos.to(cuda_device), pos, window)
+    K.reset_launch_counts()
+    got = DK.flash_decode(q, kc, vc, mask)
+    want = dref.flash_decode_plain(q, kc, vc, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and DK.flash_decode.launches == 1
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    if written is None:
+        assert torch.count_nonzero(got) == 0
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_raise_on_device_mix(cuda_device):
+    q = torch.zeros(1, 2, 4, 16, device=cuda_device)
+    with pytest.raises(ValueError):
+        FK.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):
+        DK.flash_decode(q, q, q, torch.ones(4, dtype=torch.bool))
+
+
+@pytest.mark.gpu
+def test_lm_engine_launches_and_streams(cuda_device):
+    """qwen3-0.6b at SMOKE size in fp32 on the card: ``cuda`` launches
+    flash attention once per layer and prefill and flash decode once per
+    layer and step, and its token streams equal ``chunked``'s."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer
+    base = get_smoke_config("qwen3-0.6b").replace(dtype="float32")
+    params = init_params(transformer.lm_specs(base), seed=0,
+                         device=cuda_device)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, base.vocab_size, size=n).astype(np.int32)
+               for n in (3, 9, 5)]
+    streams = {}
+    for impl in ("chunked", "cuda"):
+        K.reset_launch_counts()
+        eng = ServeEngine(base.replace(attn_impl=impl), params, max_batch=4,
+                          device=cuda_device)
+        streams[impl] = [r.out for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts])]
+    steps = eng.latency_stats()["steps"] + 1
+    L = base.num_layers
+    assert [FK.flash_attention.launches, DK.flash_decode.launches] == \
+        [L, L * steps]
+    assert streams["cuda"] == streams["chunked"]

@@ -178,3 +178,37 @@ def test_cli_main_on_cpu(arch, capsys):
     out = capsys.readouterr().out
     assert "decode latency (cpu)" in out
     assert "executor: prefill=cuda_fused decode=cuda_fused" in out
+
+
+@pytest.mark.parametrize("backend", ("eager", "cuda"))
+def test_eos_ends_class_streams_like_jax(backend):
+    """A lane retires when its class equals ``eos_id`` (JAX engine
+    :628-629), not only at ``max_new_tokens``: gru-jet, 4 slots, 6
+    requests of 12 new tokens, ``eos_id=4``; the streams equal JAX's, and
+    ``t_admit`` times the queue wait."""
+    jcfg = jax_get_config("gru-jet")
+    p = numpy_params(jax_api.get_api(jcfg).specs(jcfg), seed=0)
+    work = [(pr, s) for pr, _, s in _workload(seed=1, n=6)]
+    jeng = JServeEngine(jcfg, to_jax(p), ShardCtx(), max_batch=4)
+    want = [r.out for r in jeng.generate(
+        [JRequest(prompt=pr, max_new_tokens=12, stream=s, eos_id=4)
+         for pr, s in work])]
+    class Ticking(ManualClock):         # every reading one second later
+        def now(self):
+            return self.advance(1.0)
+
+    eng = ServeEngine(_with_backend(get_config("gru-jet"), backend),
+                      to_torch(p), max_batch=4, clock=Ticking(),
+                      device="cpu")
+    reqs = [Request(prompt=pr, max_new_tokens=12, stream=s, eos_id=4)
+            for pr, s in work]
+    done = eng.generate(reqs)
+    assert [r.out for r in done] == want
+    assert [len(r.out) for r in done] == [2, 1, 12, 6, 12, 12]
+    for r in done:       # 4 ends a stream, and only as its last class
+        assert 4 not in r.out[:-1]
+        assert r.out[-1] == 4 or len(r.out) == 12
+        assert r.done and r.t_submit < r.t_admit < r.t_finish
+    assert eng.queue_waits == [r.t_admit - r.t_submit for r in
+                               sorted(done, key=lambda r: r.t_admit)]
+    assert eng.latency_stats()["requests"] == 6
