@@ -9,10 +9,11 @@ Phases (any failure exits non-zero, before the result lines):
 
 1. the device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
 2. build the CUDA kernels (``gru_sequence``, ``gru_sequence_q8``,
-   ``gru_cell_q8``, ``slstm_cell``, ``flash_attn`` and ``decode_attn``,
-   one ``nvcc`` each, started together) and print ``-Xptxas -v``'s report
-   and each kernel's dynamic shared memory (the attention kernels' as the
-   wrappers compute it and as the CUDA sources do, which must agree);
+   ``gru_cell_q8``, ``slstm_cell``, ``flash_attn``, ``decode_attn``,
+   ``gru_cell`` and ``rowwise_matvec``, one ``nvcc`` each, started
+   together) and print ``-Xptxas -v``'s report and each kernel's dynamic
+   shared memory (the attention and row-wise kernels' as the wrappers
+   compute it and as the CUDA sources do, which must agree);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (gru-jet L=1 H=20, gru-jet-deep L=3 H=32, and the
    chain's depth-1 layers of H=20 and H=32; B in {1, 8, 64}; T in {8, 16,
@@ -73,13 +74,27 @@ Phases (any failure exits non-zero, before the result lines):
    ``attn_impl="chunked"``: logits along the served tokens within
    ``LM_LOGIT_TOL`` of the bf16 run, and the token streams equal or,
    where they part, the fp32 run's two top logits within that tolerance;
-11. time each kernel and its plain version with CUDA events, on the device
+11. the paper's row-wise primitives through their entry points, with the
+   counters zeroed just before: ``gru_step_cuda`` at gru-jet's H=20 and
+   gru-jet-deep's H=32 (B 1 and 8, v1 and v3, fp32 and bf16 u), at
+   H=1024 and 2048 v1 (fp32; bf16 at 2048), at H=1024 v3 and H=1000 v1;
+   ``rowwise`` and ``cascade`` at JAX's test shapes, the paper's matvec
+   (B=8, K=32, N=96; also a 1-D x) and qwen3-0.6b's MLP matvecs (B=4, K
+   1024 -> N 3072 and 3072 -> 1024), fp32 and bf16. Each call must launch
+   exactly the kernel JAX's dispatch rule names (``gru_step_fused`` or
+   ``gru_step_blocked``; ``rowwise_matmul``, ``cascade_matmul``), no plain
+   version and no other kernel may run; then each output is held against
+   its plain version on the card (step: fp32 1e-5, bf16 u 1e-2; matmuls
+   rtol = atol 2e-4 fp32, 2e-2 bf16);
+12. time each kernel and its plain version with CUDA events, on the device
    (calls captured in a CUDA graph and replayed, so the host's per-call
    cost is left out) and per call from Python; the bound is the bytes over
    3.35 TB/s or the operations over their type's peak (67 TFLOP/s fp32,
    989 TFLOP/s bf16, 1,979 TOP/s int8), whichever is larger; the attention
    kernels beside one ``scaled_dot_product_attention`` call on the same
-   inputs (timed only; the port never calls it); and profile a served
+   inputs and the matmuls beside one ``torch.matmul`` (TF32 off) where it
+   computes the same function (timed only; the port never calls either);
+   and profile a served
    decode step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
    ``cuda_chain`` and ``cuda_chain_q8``, of slstm-jet through
    ``cuda_fused``, and of qwen3-0.6b through ``attn_impl="cuda"``. The
@@ -122,6 +137,10 @@ KERNEL_SOURCE = {
     "slstm_stack_decode_kernel": "src/repro_torch/csrc/slstm_cell.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attn.cu",
     "flash_decode": "src/repro_torch/csrc/decode_attn.cu",
+    "gru_step_fused": "src/repro_torch/csrc/gru_cell.cu",
+    "gru_step_blocked": "src/repro_torch/csrc/gru_cell.cu",
+    "rowwise_matmul": "src/repro_torch/csrc/rowwise_matvec.cu",
+    "cascade_matmul": "src/repro_torch/csrc/rowwise_matvec.cu",
 }
 REPLACES = {
     "gru_sequence_kernel": "src/repro/kernels/gru_sequence/kernel.py:125",
@@ -138,6 +157,10 @@ REPLACES = {
     "slstm_stack_decode_kernel": "src/repro/kernels/slstm_cell/kernel.py:215",
     "flash_attention": "src/repro/kernels/flash_attn/kernel.py:81",
     "flash_decode": "src/repro/kernels/decode_attn/kernel.py:59",
+    "gru_step_fused": "src/repro/kernels/gru_cell/kernel.py:58",
+    "gru_step_blocked": "src/repro/kernels/gru_cell/kernel.py:105",
+    "rowwise_matmul": "src/repro/kernels/rowwise_matvec/kernel.py:37",
+    "cascade_matmul": "src/repro/kernels/rowwise_matvec/kernel.py:74",
 }
 Q8 = ("gru_stack_sequence_q8_kernel", "gru_stack_decode_q8_kernel",
       "gru_sequence_q8_kernel", "gru_step_q8")
@@ -147,6 +170,8 @@ STEP_TOO = ("gru_sequence_kernel",)  # also at T=1 unmasked: chain decode
 CHAIN_Q8 = ("gru_sequence_q8_kernel", "gru_step_q8")
 SLSTM = ("slstm_stack_sequence_kernel", "slstm_stack_decode_kernel")
 ATTN = ("flash_attention", "flash_decode")
+ROWWISE = ("gru_step_fused", "gru_step_blocked", "rowwise_matmul",
+           "cascade_matmul")
 
 
 def fail(msg: str) -> None:
@@ -232,6 +257,30 @@ def build_kernels():
           f"G=2): flash_attention {FK.smem_bytes(128)} bytes (32 query rows,"
           f" 64 keys), flash_decode {DK.smem_bytes(2, 128)} bytes (64 slots)"
           f" (limit {K.SMEM_LIMIT}); CUDA sources agree")
+    from repro_torch.kernels.rowwise_matvec import kernel as MK
+    gs = _build.load("gru_cell").gru_cell_smem_bytes
+    ms = _build.load("rowwise_matvec").rowwise_smem_bytes
+    gs.argtypes, ms.argtypes = [ctypes.c_int] * 4, [ctypes.c_int] * 3
+    gs.restype = ms.restype = ctypes.c_size_t
+    for code, kind in enumerate(("v1", "v3", "blocked")):
+        for H in (20, 32, 1000, 1024, 2048):
+            for bt in (1, 2, 4, 8):
+                for ct in (8, 16, 32):
+                    want = CK.smem_bytes_step(kind, H, bt, ct)
+                    check(gs(code, H, bt, ct) == want, f"gru_cell smem "
+                          f"{kind} H={H} bt={bt} ct={ct}: CUDA "
+                          f"{gs(code, H, bt, ct)} != wrapper {want}")
+    for kc in (32, 1024, 2048):
+        for bt in (1, 4, 8):
+            for ct in (8, 16):
+                check(ms(kc, bt, ct) == MK.smem_bytes(kc, bt, ct),
+                      f"rowwise_matvec smem kc={kc} bt={bt} ct={ct}")
+    print(f"  dynamic shared memory per block, gru_step_fused v1 H=32 8 rows:"
+          f" {CK.smem_bytes_step('v1', 32, 8, 32)} bytes; "
+          f"gru_step_blocked H=2048 8 rows: "
+          f"{CK.smem_bytes_step('blocked', 2048, 8, 8)} bytes; "
+          f"rowwise/cascade K=3072 4 rows bf16: "
+          f"{MK.smem_bytes(2048, 4, 16)} bytes; CUDA sources agree")
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +485,9 @@ PLAIN = {                  # module of plain versions -> names the wrappers call
         "gru_sequence_ref", "gru_stack_sequence_ref", "gru_stack_decode_ref",
         "gru_stack_sequence_q8_ref", "gru_stack_decode_q8_ref",
         "gru_sequence_q8_ref"),
-    "repro_torch.kernels.gru_cell.ref": ("gru_step_q8_ref",),
+    "repro_torch.kernels.gru_cell.ref": ("gru_step_q8_ref", "gru_step_ref"),
+    "repro_torch.kernels.rowwise_matvec.ref": ("rowwise_matmul_ref",
+                                               "cascade_matmul_ref"),
     "repro_torch.kernels.slstm_cell.ref": ("slstm_stack_sequence_ref",
                                            "slstm_stack_decode_ref"),
     "repro_torch.kernels.flash_attn.ref": ("flash_attention_plain",),
@@ -500,7 +551,8 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
     launches = dict(zip((k.__name__ for k in kernels), before))
     others = {k.__name__: k.launches
               for k in (K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
-                        + SK.SLSTM_KERNELS + K.ATTN_KERNELS)
+                        + SK.SLSTM_KERNELS + K.ATTN_KERNELS
+                        + K.ROWWISE_KERNELS)
               if k not in kernels}
     print(f"  launches: {launches}; other kernels {others}; "
           f"plain versions {plain}", flush=True)
@@ -1009,7 +1061,7 @@ def run_lm_path(torch, dev, cfg=None):
     from repro_torch.kernels.slstm_cell import kernel as SK
     others = {k.__name__: k.launches for k in
               K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
-              + SK.SLSTM_KERNELS}
+              + SK.SLSTM_KERNELS + K.ROWWISE_KERNELS}
     st = eng.latency_stats()
     prefills, steps_run = st["prefills"], st["steps"] + 1   # one decode key
     print(f"  launches: {launches}; other kernels {others}; plain versions "
@@ -1077,7 +1129,138 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# 11. timing
+# 11. the paper's row-wise primitives through their entry points
+# ---------------------------------------------------------------------------
+
+STEP_BF16_TOL = 1e-2    # bf16 u: r*h may round to the other bf16 neighbour
+MM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# (B, H, variant, u dtype, the kernel JAX's dispatch rule names): the
+# paper's configs (gru-jet H=20, gru-jet-deep H=32), the widths JAX's
+# 12 MiB rule sends to the blocked kernel, v3 and an H that block_n = 256
+# does not divide (fused at any width)
+STEP_SHAPES = (
+    [(B, H, v, dt, "gru_step_fused") for B in (1, 8) for H in (20, 32)
+     for v in ("v1", "v3") for dt in ("float32", "bfloat16")]
+    + [(B, H, "v1", "float32", "gru_step_blocked") for B in (1, 8)
+       for H in (1024, 2048)]
+    + [(B, 2048, "v1", "bfloat16", "gru_step_blocked") for B in (1, 8)]
+    + [(B, 1024, "v3", "float32", "gru_step_fused") for B in (1, 8)]
+    + [(B, 1000, "v1", "float32", "gru_step_fused") for B in (1, 8)])
+# (B, K, N, dtype, 1-D x): JAX's test shapes, the paper's matvec (also as
+# a 1-D x), qwen3-0.6b's MLP up and down matvecs at 4 requests
+MATMUL_SHAPES = (
+    [(B, K_, N, dt, False) for (B, K_, N) in ((1, 16, 32), (4, 96, 256),
+                                              (8, 128, 128), (2, 64, 512))
+     for dt in ("float32", "bfloat16")]
+    + [(8, 32, 96, "float32", False), (1, 32, 96, "float32", True)]
+    + [(4, K_, N, dt, False) for (K_, N) in ((1024, 3072), (3072, 1024))
+       for dt in ("bfloat16", "float32")])
+
+
+def step_inputs(torch, B, H, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, H, generator=g).to(dev),
+            torch.randn(B, 3 * H, generator=g).to(dev),
+            (torch.randn(H, 3 * H, generator=g) * H ** -0.5).to(dev)
+            .to(getattr(torch, dtype)),
+            (0.1 * torch.randn(3 * H, generator=g)).to(dev))
+
+
+def mm_inputs(torch, B, K_, N, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return (torch.randn(B, K_, generator=g).to(dev).to(dt),
+            (torch.randn(K_, N, generator=g) * K_ ** -0.5).to(dev).to(dt))
+
+
+def run_rowwise_path(torch, dev):
+    """Every shape through ``gru_step_cuda``, ``rowwise`` and ``cascade``
+    with the counters zeroed just before: each call must raise exactly its
+    kernel's counter by one (the kernel JAX's rule names), no plain version
+    and no other kernel may run; then every output is held against its
+    plain version on the card. Returns the launches and {kernel: {dtype:
+    max |err|}}."""
+    from repro_torch.kernels.gru_cell import ops as cops
+    from repro_torch.kernels.gru_cell import ref as cref
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.rowwise_matvec import ops as mops
+    from repro_torch.kernels.rowwise_matvec import ref as mref
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    steps = [(c, step_inputs(torch, c[0], c[1], c[3], i, dev))
+             for i, c in enumerate(STEP_SHAPES)]
+    mms = []
+    for i, c in enumerate(MATMUL_SHAPES):
+        x, w = mm_inputs(torch, c[0], c[1], c[2], c[3], 100 + i, dev)
+        mms.append((c, (x[0] if c[4] else x, w)))
+    counters = {k.__name__: k for k in K.ROWWISE_KERNELS}
+
+    def call(fn, want):
+        before = {n: k.launches for n, k in counters.items()}
+        out = fn()
+        delta = {n: k.launches - before[n] for n, k in counters.items()}
+        check(delta == {n: int(n == want) for n in counters},
+              f"{want}: launches {delta}")
+        return out
+    K.reset_launch_counts()                          # the row-wise path
+    got = []
+    with plain_calls() as plain:
+        for (B, H, v, dt, kern), a in steps:
+            got.append(call(lambda: cops.gru_step_cuda(*a, v), kern))
+        for c, (x, w) in mms:
+            got.append((call(lambda: mops.rowwise(x, w), "rowwise_matmul"),
+                        call(lambda: mops.cascade(x, w), "cascade_matmul")))
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in counters.items()}
+    others = {k.__name__: k.launches
+              for k in (K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
+                        + SK.SLSTM_KERNELS + K.ATTN_KERNELS)}
+    print(f"  launches: {launches}; other kernels {others}; plain versions "
+          f"{plain}", flush=True)
+    check(not any(plain.values()), f"row-wise path: plain versions ran "
+          f"{plain}")
+    check(not any(others.values()), f"row-wise path: other kernels ran "
+          f"{others}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the row-wise path never launched: {launches}")
+    err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in ROWWISE}
+    for ((B, H, v, dt, kern), a), y in zip(steps, got):
+        want = cref.gru_step_ref(*a, v)
+        tol = TOL if dt == "float32" else STEP_BF16_TOL
+        e = (y - want).abs().max().item()
+        err[kern][dt] = max(err[kern][dt], e)
+        check(y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+              and torch.allclose(y, want, rtol=tol, atol=tol),
+              f"{kern} B={B} H={H} {v} u {dt}: max |err| {e:.3g} (tol {tol})")
+        print(f"  gru_step_cuda B={B} H={H:4d} {v} u {dt:8s} -> {kern}: max "
+              f"|kernel - plain| {e:.3g}", flush=True)
+    for ((B, K_, N, dt, vec), (x, w)), (yr, yc) in zip(mms, got[len(steps):]):
+        x2 = x[None] if vec else x
+        bk = mops.auto_blocks(x2.shape[0], K_, N, x2.element_size())[2]
+        es = []
+        for name, y, want in (
+                ("rowwise_matmul", yr, mref.rowwise_matmul_ref(x2, w)),
+                ("cascade_matmul", yc,
+                 mref.cascade_matmul_ref(x2, w, bk).to(x.dtype))):
+            y = y[None] if vec else y
+            e = (y.float() - want.float()).abs().max().item()
+            err[name][dt] = max(err[name][dt], e)
+            es.append(e)
+            check(y.dtype == x.dtype and bool(torch.isfinite(y.float()).all())
+                  and torch.allclose(y.float(), want.float(),
+                                     rtol=MM_TOL[dt], atol=MM_TOL[dt]),
+                  f"{name} B={B} K={K_} N={N} {dt}: max |err| {e:.3g}")
+        print(f"  rowwise / cascade B={B} K={K_:4d} N={N:4d} {dt:8s}"
+              f"{' (1-D x)' if vec else ''}: max |kernel - plain| "
+              f"{es[0]:.3g} / {es[1]:.3g}", flush=True)
+    print(f"  {len(steps)} steps and {len(mms)} x 2 matmuls, each on the "
+          f"kernel JAX's rule names, within tolerance of its plain version "
+          f"(step fp32 {TOL}, bf16 u {STEP_BF16_TOL}; matmuls {MM_TOL})",
+          flush=True)
+    return launches, err
+
+
+# ---------------------------------------------------------------------------
+# 12. timing
 # ---------------------------------------------------------------------------
 
 def call_time_ms(torch, fn, iters: int, warmup: int = 5) -> float:
@@ -1360,6 +1543,132 @@ def time_attention(torch, dev, err, launches):
     return rows
 
 
+# the row-wise primitives' timing rows: (kernel, (B, H or K, N or None,
+# variant or None, dtype)); the JSON rows are marked
+ROWWISE_TIMED = (
+    ("gru_step_fused", (8, 20, None, "v1", "float32")),
+    ("gru_step_fused", (8, 32, None, "v1", "float32")),     # JSON row
+    ("gru_step_fused", (8, 32, None, "v3", "float32")),
+    ("gru_step_fused", (8, 32, None, "v1", "bfloat16")),
+    ("gru_step_fused", (1, 1000, None, "v1", "float32")),
+    ("gru_step_fused", (8, 1024, None, "v3", "float32")),
+    ("gru_step_blocked", (1, 1024, None, "v1", "float32")),
+    ("gru_step_blocked", (8, 1024, None, "v1", "float32")),  # JSON row
+    ("gru_step_blocked", (8, 2048, None, "v1", "float32")),
+    ("gru_step_blocked", (8, 2048, None, "v1", "bfloat16")),
+    ("rowwise_matmul", (8, 32, 96, None, "float32")),
+    ("rowwise_matmul", (4, 1024, 3072, None, "bfloat16")),   # JSON row
+    ("rowwise_matmul", (4, 1024, 3072, None, "float32")),
+    ("rowwise_matmul", (4, 3072, 1024, None, "bfloat16")),
+    ("rowwise_matmul", (4, 3072, 1024, None, "float32")),
+    ("cascade_matmul", (8, 32, 96, None, "float32")),
+    ("cascade_matmul", (4, 1024, 3072, None, "float32")),    # JSON row
+    ("cascade_matmul", (4, 1024, 3072, None, "bfloat16")),
+    ("cascade_matmul", (4, 3072, 1024, None, "float32")),
+    ("cascade_matmul", (4, 3072, 1024, None, "bfloat16")))
+ROWWISE_ROW = {"gru_step_fused": (8, 32, None, "v1", "float32"),
+               "gru_step_blocked": (8, 1024, None, "v1", "float32"),
+               "rowwise_matmul": (4, 1024, 3072, None, "bfloat16"),
+               "cascade_matmul": (4, 1024, 3072, None, "float32")}
+
+
+def rowwise_bound_ms(name, shape):
+    """Least time: every input read once and the output written once over
+    3.35 TB/s, or the products over the peak of the weights' type (bf16's
+    989 TFLOP/s on the tensor cores, fp32's 67) plus the step's 14
+    elementwise flops per unit at 67 TFLOP/s, whichever is larger."""
+    B, n, N, _, dtype = shape
+    item = 2 if dtype == "bfloat16" else 4
+    peak = BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
+    if name in ("gru_step_fused", "gru_step_blocked"):
+        H = n                  # u (H,3H); h, x_proj, b and out float32
+        nbytes = item * 3 * H * H + 4 * (B * H + 3 * B * H + 3 * H + B * H)
+        t_ops = (2 * B * 3 * H * H / peak + 14 * B * H / FP32_FLOP_PER_S)
+    else:
+        K_ = n                 # x (B,K), w (K,N); rowwise out in x's dtype
+        out_item = item if name == "rowwise_matmul" else 4
+        nbytes = item * (B * K_ + K_ * N) + out_item * B * N
+        t_ops = 2 * B * K_ * N / peak
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops *= 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_rowwise(torch, dev, err, launches):
+    """Kernel, plain-version, library and bound times of the four row-wise
+    primitives, each kernel called through its wrapper with the blocks its
+    entry point picks; returns the four JSON rows."""
+    from repro_torch.kernels.gru_cell import kernel as CK
+    from repro_torch.kernels.gru_cell import ref as cref
+    from repro_torch.kernels.rowwise_matvec import kernel as MK
+    from repro_torch.kernels.rowwise_matvec import ops as mops
+    from repro_torch.kernels.rowwise_matvec import ref as mref
+    rows = []
+    for name, shape in ROWWISE_TIMED:
+        B, n, N, v, dtype = shape
+        library = None
+        if name.startswith("gru_step"):
+            h, xp, u, b = step_inputs(torch, B, n, dtype, 13, dev)
+            if name == "gru_step_fused":
+                def kern():
+                    return CK.gru_step_fused(h, xp, u, b, variant=v)
+            else:
+                def kern():
+                    return CK.gru_step_blocked(h, xp, u, b, block_n=256)
+
+            def plain_fn():
+                return cref.gru_step_ref(h, xp, u, b, v)
+            label = f"B={B} H={n:4d} {v} u {dtype}"
+        else:
+            x, w = mm_inputs(torch, B, n, N, dtype, 13, dev)
+            bb, bn, bk = mops.auto_blocks(B, n, N, x.element_size())
+            if name == "rowwise_matmul":
+                def kern():
+                    return MK.rowwise_matmul(x, w, block_b=bb, block_n=bn)
+
+                def plain_fn():
+                    return mref.rowwise_matmul_ref(x, w)
+            else:
+                def kern():
+                    return MK.cascade_matmul(x, w, block_b=bb, block_n=bn,
+                                             block_k=bk)
+
+                def plain_fn():
+                    return mref.cascade_matmul_ref(x, w, bk)
+            # one torch.matmul computes the same function, except for the
+            # bf16 cascade (fp32 output; a bf16 matmul rounds to bf16)
+            if name == "rowwise_matmul" or dtype == "float32":
+                def library():
+                    return torch.matmul(x, w)
+            label = f"B={B} K={n:4d} N={N:4d} {dtype}"
+        ms = device_time_ms(torch, kern, per_graph=50)
+        plain = device_time_ms(torch, plain_fn, per_graph=10)
+        lib = (device_time_ms(torch, library, per_graph=50)
+               if library is not None else None)
+        call = call_time_ms(torch, kern, iters=200)
+        bms, by = rowwise_bound_ms(name, shape)
+        lib_s = f"{lib * 1e3:8.2f} us" if lib is not None else "    n/a"
+        print(f"  {name:16s} {label}: device {ms * 1e3:9.2f} us (per call "
+              f"{call * 1e3:8.2f})  plain {plain * 1e3:9.2f} us  matmul "
+              f"{lib_s}  bound {bms * 1e3:8.4f} us ({by})", flush=True)
+        if shape == ROWWISE_ROW[name]:
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": KERNEL_SOURCE[name], "replaces": REPLACES[name],
+                "launches": launches[name],
+                "max_abs_err": err[name]["float32"],
+                "max_abs_err_bf16": err[name]["bfloat16"],
+                "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                "bound_by": by, "library_ms": lib, "call_ms": call,
+                "shape": {"B": B, ("H" if N is None else "K"): n, "N": N,
+                          "variant": v, "dtype": dtype}})
+    print("  library_ms: torch.matmul on the same inputs (TF32 off) where it "
+          "computes the same function (rowwise; fp32 cascade); null for the "
+          "GRU steps -- torch.nn.GRUCell computes neither v1 nor JAX's v3 "
+          "from a given x_proj", flush=True)
+    return rows
+
+
 def device_kernels(prof) -> dict:
     """Device time (us) by name of what ran on the card (kernels, copies),
     from a profile: only the device entries, since a host op's entry
@@ -1508,9 +1817,14 @@ def main() -> None:
           "attention kernels")
     lm_launches, lm_report, lm_params = run_lm_path(torch, dev)
     launches.update(lm_launches)
-    phase("11. timing (CUDA events: device via graph replay, and per call)")
+    phase("11. the paper's row-wise primitives through gru_step_cuda, "
+          "rowwise and cascade")
+    rw_launches, rw_err = run_rowwise_path(torch, dev)
+    launches.update(rw_launches)
+    phase("12. timing (CUDA events: device via graph replay, and per call)")
     rows = time_kernels(torch, dev, err, launches)
     rows += time_attention(torch, dev, attn_err, launches)
+    rows += time_rowwise(torch, dev, rw_err, launches)
     for rep, backend in ((report, "cuda"), (q8_report, "cuda_fused_q8"),
                          (chain_report, "cuda_chain"),
                          (cq8_report, "cuda_chain_q8")):
@@ -1524,7 +1838,8 @@ def main() -> None:
     print(json.dumps({"serve": report, "serve_q8": q8_report,
                       "serve_chain": chain_report,
                       "serve_chain_q8": cq8_report,
-                      "serve_slstm": slstm_report, "serve_lm": lm_report}))
+                      "serve_slstm": slstm_report, "serve_lm": lm_report,
+                      "rowwise_launches": rw_launches}))
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,14 @@
-"""Plain PyTorch version of the q8 single-step kernel (counterpart of
-``repro.kernels.gru_cell.ref``'s ``gru_step_q8_ref``), with the kernel's
+"""Plain PyTorch versions of the single-step kernels (counterparts of
+``repro.kernels.gru_cell.ref``).
+
+:func:`gru_step_ref` is the fp32/bf16 step of ``gru_step_fused`` and
+``gru_step_blocked``, in JAX's layouts: h (B,H), x_proj (B,3H), u (H,3H)
+with gate columns [z | r | h] contracted as ``h @ u``, b (3H,). Like the
+Pallas kernels (and unlike JAX's fp32 oracle, which it equals for fp32
+``u``) it rounds h and r*h to u's dtype before each product; products and
+sums are fp32.
+
+:func:`gru_step_q8_ref` is the q8 single-step kernel's, with the kernel's
 raw-array interface: h (B,H) float32 state, xp (B,3H) float32 input
 projection, u_q (3H,H) int8 weight rows with per-row dequant scales u_eff
 (3H,) (activation scale folded in; see
@@ -63,3 +72,33 @@ def gru_step_q8_ref(h: torch.Tensor, xp: torch.Tensor, u_q: torch.Tensor,
                 + b[2 * H:])
         ht = torch.tanh(xh + cand)
     return (1.0 - z) * h + z * ht
+
+
+def _as_operand(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """a rounded to u's dtype, back in float32: the cast before a product."""
+    return a.to(u.dtype).to(torch.float32)
+
+
+def gru_step_ref(h: torch.Tensor, x_proj: torch.Tensor, u: torch.Tensor,
+                 b: torch.Tensor, variant: str = "v1") -> torch.Tensor:
+    """One GRU step: h (B,H), x_proj (B,3H), u (H,3H) float32 or bfloat16,
+    b (3H,) -> (B,H) in h's dtype. v1 is the paper's two-phase math (z and
+    r from h, the candidate from r*h); v3 the single stacked matvec."""
+    hf = h.to(torch.float32)
+    xp = x_proj.to(torch.float32)
+    uf = u.to(torch.float32)
+    bf = b.to(torch.float32)
+    H = h.shape[-1]
+    xz, xr, xh = xp[..., :H], xp[..., H:2 * H], xp[..., 2 * H:]
+    if variant == "v3":
+        ua = _as_operand(hf, u) @ uf + bf
+        z = torch.sigmoid(xz + ua[..., :H])
+        r = torch.sigmoid(xr + ua[..., H:2 * H])
+        ht = torch.tanh(xh + r * ua[..., 2 * H:])
+    else:
+        zr = _as_operand(hf, u) @ uf[:, :2 * H] + bf[:2 * H]
+        z = torch.sigmoid(xz + zr[..., :H])
+        r = torch.sigmoid(xr + zr[..., H:])
+        ht = torch.tanh(xh + _as_operand(r * hf, u) @ uf[:, 2 * H:]
+                        + bf[2 * H:])
+    return ((1.0 - z) * hf + z * ht).to(h.dtype)

@@ -32,10 +32,13 @@ kernels), :data:`Q8_KERNELS` (the fused q8 pair) and
 :data:`CHAIN_Q8_KERNELS` (the q8 chain's pair: :func:`gru_sequence_q8_kernel`
 and ``repro_torch.kernels.gru_cell.kernel.gru_step_q8``);
 :func:`reset_launch_counts` zeroes all three, the sLSTM's
-``SLSTM_KERNELS`` (``repro_torch.kernels.slstm_cell.kernel``) and the dense
+``SLSTM_KERNELS`` (``repro_torch.kernels.slstm_cell.kernel``), the dense
 LM's attention kernels, :data:`ATTN_KERNELS` (``flash_attention`` and
 ``flash_decode`` of ``repro_torch.kernels.flash_attn`` and
-``repro_torch.kernels.decode_attn``).
+``repro_torch.kernels.decode_attn``), and the paper's row-wise primitives,
+:data:`ROWWISE_KERNELS` (``gru_step_fused`` and ``gru_step_blocked`` of
+``repro_torch.kernels.gru_cell.kernel``, ``rowwise_matmul`` and
+``cascade_matmul`` of ``repro_torch.kernels.rowwise_matvec.kernel``).
 
 A thread block takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows
 (the decode kernel's ``batch_block`` sets it, as in the JAX signature);
@@ -56,11 +59,12 @@ from repro_torch.kernels._launch import check as _check
 from repro_torch.kernels._launch import ptr as _ptr
 from repro_torch.kernels._launch import raise_on as _raise_on
 from repro_torch.kernels._launch import stream as _stream
-from repro_torch.kernels.gru_cell.kernel import gru_step_q8
+from repro_torch.kernels.gru_cell.kernel import STEP_KERNELS, gru_step_q8
 from repro_torch.kernels.gru_cell.ref import check_q8_width
 from repro_torch.kernels.gru_sequence import ref
 from repro_torch.kernels.decode_attn.kernel import flash_decode
 from repro_torch.kernels.flash_attn.kernel import flash_attention
+from repro_torch.kernels.rowwise_matvec.kernel import MATVEC_KERNELS
 from repro_torch.kernels.slstm_cell.kernel import SLSTM_KERNELS
 
 _SIGNATURES = {        # launcher -> (library, argtypes)
@@ -335,14 +339,15 @@ KERNELS = (gru_sequence_kernel, gru_stack_sequence_kernel,
 Q8_KERNELS = (gru_stack_sequence_q8_kernel, gru_stack_decode_q8_kernel)
 CHAIN_Q8_KERNELS = (gru_sequence_q8_kernel, gru_step_q8)
 ATTN_KERNELS = (flash_attention, flash_decode)
+ROWWISE_KERNELS = STEP_KERNELS + MATVEC_KERNELS
 
 
 def reset_launch_counts() -> None:
     """Set every wrapper's ``launches`` counter (fp32, fused q8, chain q8,
-    the sLSTM's :data:`SLSTM_KERNELS` and the dense LM's
-    :data:`ATTN_KERNELS`) to 0."""
+    the sLSTM's :data:`SLSTM_KERNELS`, the dense LM's :data:`ATTN_KERNELS`
+    and :data:`ROWWISE_KERNELS`) to 0."""
     for fn in (KERNELS + Q8_KERNELS + CHAIN_Q8_KERNELS + SLSTM_KERNELS
-               + ATTN_KERNELS):
+               + ATTN_KERNELS + ROWWISE_KERNELS):
         fn.launches = 0
 
 

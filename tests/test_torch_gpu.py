@@ -527,3 +527,104 @@ def test_lm_engine_launches_and_streams(cuda_device):
     assert [FK.flash_attention.launches, DK.flash_decode.launches] == \
         [L, L * steps]
     assert streams["cuda"] == streams["chunked"]
+
+
+# ---------------------------------------------------------------------------
+# The paper's row-wise primitives: the single GRU step (fused and blocked)
+# through gru_step_cuda, and the row-wise / cascade matmuls through
+# rowwise / cascade, at the widths chip_smoke.py drives.
+# Tolerances: fp32 1e-5 (step) and rtol=atol=2e-4 (matmuls), as the CPU
+# parity tests; a bf16 u rounds h and r*h to bf16 before each product, and
+# a summation-order difference in r can move r*h across a bf16 rounding
+# boundary (one bf16 ulp of one operand), so the bf16 step is held to
+# 1e-2; bf16 matmul outputs round to bf16: rtol=atol=2e-2.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.gru_cell import ops as cops  # noqa: E402
+from repro_torch.kernels.rowwise_matvec import kernel as MK  # noqa: E402
+from repro_torch.kernels.rowwise_matvec import ops as mops  # noqa: E402
+from repro_torch.kernels.rowwise_matvec import ref as mref  # noqa: E402
+
+STEP_BF16_TOL = 1e-2
+# (B, H, variant, u dtype, the kernel JAX's dispatch rule picks)
+STEP_CASES = (
+    [(B, H, v, dt, "gru_step_fused") for B in (1, 8) for H in (20, 32)
+     for v in ("v1", "v3") for dt in ("float32", "bfloat16")]
+    + [(B, H, "v1", "float32", "gru_step_blocked") for B in (1, 8)
+       for H in (1024, 2048)]
+    + [(B, 2048, "v1", "bfloat16", "gru_step_blocked") for B in (1, 8)]
+    + [(B, 1024, "v3", "float32", "gru_step_fused") for B in (1, 8)]
+    + [(B, 1000, "v1", "float32", "gru_step_fused") for B in (1, 8)])
+
+
+def _step_inputs(B, H, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, H, generator=g).to(dev),
+            torch.randn(B, 3 * H, generator=g).to(dev),
+            (torch.randn(H, 3 * H, generator=g) * H ** -0.5).to(dev)
+            .to(dtype),
+            (0.1 * torch.randn(3 * H, generator=g)).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,variant,dtype,kernel", STEP_CASES)
+def test_step_kernels_match_plain(cuda_device, B, H, variant, dtype,
+                                  kernel):
+    h, xp, u, b = _step_inputs(B, H, getattr(torch, dtype), cuda_device,
+                               B + H)
+    K.reset_launch_counts()
+    got = cops.gru_step_cuda(h, xp, u, b, variant)
+    want = cref.gru_step_ref(h, xp, u, b, variant)
+    torch.cuda.synchronize()
+    assert {f.__name__: f.launches for f in CK.STEP_KERNELS} == {
+        n: int(n == kernel) for n in ("gru_step_fused", "gru_step_blocked")}
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    tol = TOL if dtype == "float32" else STEP_BF16_TOL
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+# (B, K, N): JAX's test shapes, the paper's matvec, qwen3-0.6b's MLP
+MATMUL_CASES = ((1, 16, 32), (4, 96, 256), (8, 128, 128), (2, 64, 512),
+                (8, 32, 96), (4, 1024, 3072), (4, 3072, 1024))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("B,Kc,N", MATMUL_CASES)
+@pytest.mark.parametrize("vector", (False, True), ids=("2d", "1d"))
+def test_matmul_kernels_match_plain(cuda_device, dtype, B, Kc, N, vector):
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(Kc + N)
+    x = torch.randn(B, Kc, generator=g).to(cuda_device).to(dt)
+    w = (torch.randn(Kc, N, generator=g) * Kc ** -0.5).to(cuda_device).to(dt)
+    if vector:
+        x = x[0]
+    K.reset_launch_counts()
+    got_r, got_c = mops.rowwise(x, w), mops.cascade(x, w)
+    x2 = x[None] if vector else x
+    bk = mops.auto_blocks(x2.shape[0], Kc, N, x2.element_size())[2]
+    want_r = mref.rowwise_matmul_ref(x2, w)
+    want_c = mref.cascade_matmul_ref(x2, w, bk).to(dt)
+    torch.cuda.synchronize()
+    assert [f.launches for f in MK.MATVEC_KERNELS] == [1, 1]
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for got, want in ((got_r, want_r), (got_c, want_c)):
+        got = got[None] if vector else got
+        assert got.dtype == dt and bool(torch.isfinite(got.float()).all())
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+def test_rowwise_wrappers_raise_on_device_mix(cuda_device):
+    h, xp, u, b = _step_inputs(2, 32, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError):
+        CK.gru_step_fused(h, xp.cpu(), u, b)
+    with pytest.raises(ValueError):
+        CK.gru_step_blocked(h, xp, u, b.cpu(), block_n=16)
+    x = torch.zeros(2, 32, device=cuda_device)
+    with pytest.raises(ValueError):
+        MK.rowwise_matmul(x, torch.zeros(32, 8))
+    with pytest.raises(TypeError):
+        MK.cascade_matmul(x, torch.zeros(32, 8, device=cuda_device,
+                                         dtype=torch.bfloat16))
