@@ -10,8 +10,8 @@ Phases (any failure exits non-zero, before the result lines):
 1. the device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
 2. build the CUDA kernels (``gru_sequence``, ``gru_sequence_q8``,
    ``gru_cell_q8``, ``slstm_cell``, ``flash_attn``, ``decode_attn``,
-   ``gru_cell`` and ``rowwise_matvec``, one ``nvcc`` each, started
-   together) and print ``-Xptxas -v``'s report and each kernel's dynamic
+   ``gru_cell``, ``rowwise_matvec`` and ``gru_shard``, one ``nvcc`` each,
+   started together) and print ``-Xptxas -v``'s report and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree);
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -22,6 +22,11 @@ Phases (any failure exits non-zero, before the result lines):
    two kernels (int8 weight rows quantized on the card) and the two sLSTM
    kernels (slstm-jet L=1 H=20 and L=3 H=32; a fully masked row, whose
    leaves, ``m = M_INIT`` included, must come out bit for bit);
+3b. hold the seven shard kernels (the ``cuda_sharded`` backend's per-rank
+   steps) against their plain versions on the card at gru-jet's (H=20)
+   and gru-jet-deep's (H=32) shard widths over 1, 2 and 4 ranks (Hl = H,
+   H/2, H/4), B 1 and 8, with the mesh path's row-strided gate slices:
+   largest absolute error at most 1e-5;
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
@@ -86,6 +91,24 @@ Phases (any failure exits non-zero, before the result lines):
    version and no other kernel may run; then each output is held against
    its plain version on the card (step: fp32 1e-5, bf16 u 1e-2; matmuls
    rtol = atol 2e-4 fp32, 2e-2 bf16);
+11b. the mesh path: after the build, the script starts itself once per
+   rank (``--mesh-rank``) for a 2-rank and a 4-rank mesh on the one card
+   (gloo, since NCCL refuses two ranks on one device; the collectives go
+   through the host) and a 1-rank NCCL group; each rank serves gru-jet-deep
+   and its v3 twin through ``ServeEngine(..., ctx=ShardCtx(mesh))`` pinned
+   to ``cuda_sharded`` (12 requests over 8 slots, ragged prompts of 1-20
+   vectors, 16 decode steps; counters zeroed just before): every prefill
+   and step attributed to ``cuda_sharded``; per step each v1 row-wise
+   layer launches the z/r and candidate kernels once, the v1 cascade layer
+   the matvec, its middle phase and its update once, a v3 row-wise layer
+   the step kernel once, the v3 cascade layer the matvec and its gates
+   once, a prefill T times that; no plain version and no other kernel;
+   only this rank's slices on the card; streams equal to the ``eager``
+   engine's and across ranks; prefill logits within 1e-5 of the dense
+   reference (v3: the eager stack). Then once under ``backend="cuda"``:
+   prefill on ``cuda_sharded``, decode on ``cuda_fused``. Each mesh also
+   profiles a served ``cuda_sharded`` decode step (reported in phase 12).
+   A rank that fails fails the script;
 12. time each kernel and its plain version with CUDA events, on the device
    (calls captured in a CUDA graph and replayed, so the host's per-call
    cost is left out) and per call from Python; the bound is the bytes over
@@ -94,7 +117,11 @@ Phases (any failure exits non-zero, before the result lines):
    kernels beside one ``scaled_dot_product_attention`` call on the same
    inputs and the matmuls beside one ``torch.matmul`` (TF32 off) where it
    computes the same function (timed only; the port never calls either);
-   and profile a served
+   the shard kernels at the mesh path's shapes (``torch.matmul`` beside
+   the matvec); the served ``cuda_sharded`` decode step on a one-rank mesh
+   without a group (no collective) beside phase 11b's meshes, split into
+   the shard kernels' device time and the host time in the collectives
+   (one card's: no measure of NCCL across cards); and profile a served
    decode step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
    ``cuda_chain`` and ``cuda_chain_q8``, of slstm-jet through
    ``cuda_fused``, and of qwen3-0.6b through ``attn_impl="cuda"``. The
@@ -141,6 +168,13 @@ KERNEL_SOURCE = {
     "gru_step_blocked": "src/repro_torch/csrc/gru_cell.cu",
     "rowwise_matmul": "src/repro_torch/csrc/rowwise_matvec.cu",
     "cascade_matmul": "src/repro_torch/csrc/rowwise_matvec.cu",
+    "gru_rowwise_shard_step": "src/repro_torch/csrc/gru_shard.cu",
+    "gru_rowwise_shard_zr": "src/repro_torch/csrc/gru_shard.cu",
+    "gru_rowwise_shard_candidate": "src/repro_torch/csrc/gru_shard.cu",
+    "gru_shard_matvec": "src/repro_torch/csrc/gru_shard.cu",
+    "gru_cascade_shard_gates": "src/repro_torch/csrc/gru_shard.cu",
+    "gru_cascade_shard_zr": "src/repro_torch/csrc/gru_shard.cu",
+    "gru_cascade_shard_update": "src/repro_torch/csrc/gru_shard.cu",
 }
 REPLACES = {
     "gru_sequence_kernel": "src/repro/kernels/gru_sequence/kernel.py:125",
@@ -161,6 +195,15 @@ REPLACES = {
     "gru_step_blocked": "src/repro/kernels/gru_cell/kernel.py:105",
     "rowwise_matmul": "src/repro/kernels/rowwise_matvec/kernel.py:37",
     "cascade_matmul": "src/repro/kernels/rowwise_matvec/kernel.py:74",
+    "gru_rowwise_shard_step": "src/repro/kernels/gru_sequence/kernel.py:702",
+    "gru_rowwise_shard_zr": "src/repro/kernels/gru_sequence/kernel.py:714",
+    "gru_rowwise_shard_candidate":
+        "src/repro/kernels/gru_sequence/kernel.py:723",
+    "gru_shard_matvec": "src/repro/kernels/gru_sequence/kernel.py:733",
+    "gru_cascade_shard_gates": "src/repro/kernels/gru_sequence/kernel.py:741",
+    "gru_cascade_shard_zr": "src/repro/kernels/gru_sequence/kernel.py:749",
+    "gru_cascade_shard_update":
+        "src/repro/kernels/gru_sequence/kernel.py:759",
 }
 Q8 = ("gru_stack_sequence_q8_kernel", "gru_stack_decode_q8_kernel",
       "gru_sequence_q8_kernel", "gru_step_q8")
@@ -172,6 +215,10 @@ SLSTM = ("slstm_stack_sequence_kernel", "slstm_stack_decode_kernel")
 ATTN = ("flash_attention", "flash_decode")
 ROWWISE = ("gru_step_fused", "gru_step_blocked", "rowwise_matmul",
            "cascade_matmul")
+SHARD = ("gru_rowwise_shard_step", "gru_rowwise_shard_zr",
+         "gru_rowwise_shard_candidate", "gru_shard_matvec",
+         "gru_cascade_shard_gates", "gru_cascade_shard_zr",
+         "gru_cascade_shard_update")
 
 
 def fail(msg: str) -> None:
@@ -475,6 +522,98 @@ def check_kernels(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# 3b. the shard kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (H, ranks): gru-jet's and gru-jet-deep's widths over 1, 2 and 4 ranks
+# (Hl = 20, 10, 5 and 32, 16, 8)
+SHARD_SHAPES = tuple((H, n) for H in (20, 32) for n in (1, 2, 4))
+
+
+def shard_inputs(torch, H, n, B, seed, dev):
+    """One rank's operands of the shard kernels as the mesh path passes
+    them: the last rank (idx = n - 1), so the local slices sit off 0; the
+    row-wise operands as gate slices of the shard's (B,3Hl) projection and
+    (H,3Hl) rows of U (row-strided views), h_local a column slice of h."""
+    g = torch.Generator().manual_seed(seed)
+    Hl = H // n
+    idx = n - 1
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+    h_full = rand(B, H, scale=0.5)
+    a = dict(H=H, Hl=Hl, B=B, h_full=h_full, h_local=h_full[:, idx * Hl:
+                                                            (idx + 1) * Hl],
+             rh_full=rand(B, H, scale=0.5), xp=rand(B, 3 * Hl),
+             u=rand(H, 3 * Hl, scale=H ** -0.5), b=rand(3 * Hl, scale=0.3),
+             z=torch.sigmoid(rand(B, Hl)), h_shard=rand(B, Hl, scale=0.5),
+             u_rows=rand(Hl, 3 * H, scale=H ** -0.5), g=rand(B, 3 * Hl),
+             zr=rand(B, 2 * Hl), xp2=rand(B, 2 * Hl), ht_in=rand(B, Hl))
+    return a
+
+
+def shard_args(name, a, N=None):
+    """The operands of shard kernel ``name`` (``N``: the matvec's width,
+    3H (v3) or 2H (v1, a strided slice))."""
+    Hl, H = a["Hl"], a["H"]
+    if name == "gru_rowwise_shard_step":
+        return (a["h_full"], a["h_local"], a["xp"], a["u"], a["b"])
+    if name == "gru_rowwise_shard_zr":
+        return (a["h_full"], a["h_local"], a["xp"][:, :2 * Hl],
+                a["u"][:, :2 * Hl], a["b"][:2 * Hl])
+    if name == "gru_rowwise_shard_candidate":
+        return (a["rh_full"], a["h_local"], a["z"], a["xp"][:, 2 * Hl:],
+                a["u"][:, 2 * Hl:], a["b"][2 * Hl:])
+    if name == "gru_shard_matvec":
+        return (a["h_shard"], a["u_rows"][:, :N or 3 * H])
+    if name == "gru_cascade_shard_gates":
+        return (a["g"], a["xp"], a["h_shard"])
+    if name == "gru_cascade_shard_zr":
+        return (a["zr"], a["xp2"], a["h_shard"], a["u_rows"][:, 2 * H:])
+    return (a["z"], a["ht_in"], a["h_shard"])
+
+
+def run_shard_kernel(name, args, plain):
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.gru_sequence import ref
+    fn = getattr(ref, name + "_ref") if plain else getattr(K, name)
+    out = fn(*args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def check_shard_kernels(torch, dev):
+    """The seven shard kernels against their plain versions on the card at
+    the mesh path's shard shapes (B 1 and 8; the matvec at N = 3H and 2H);
+    returns {kernel: max |err|}."""
+    err = {n: 0.0 for n in SHARD}
+    n_checks = 0
+    for (H, n) in SHARD_SHAPES:
+        for B in (1, 8):
+            a = shard_inputs(torch, H, n, B, 1000 * n + H + B, dev)
+            for name in SHARD:
+                for N in ((3 * H, 2 * H) if name == "gru_shard_matvec"
+                          else (None,)):
+                    args = shard_args(name, a, N)
+                    got = run_shard_kernel(name, args, plain=False)
+                    want = run_shard_kernel(name, args, plain=True)
+                    torch.cuda.synchronize()
+                    for g_, w_ in zip(got, want):
+                        check(g_.shape == w_.shape
+                              and bool(torch.isfinite(g_).all()),
+                              f"{name} H={H} n={n} B={B}: bad output")
+                        e = (g_ - w_).abs().max().item()
+                        err[name] = max(err[name], e)
+                        check(e <= TOL, f"{name} H={H} ranks={n} B={B} "
+                              f"N={N}: max |err| {e:.3g} > {TOL}")
+                    n_checks += 1
+    for name, e in err.items():
+        print(f"  {name}: max |kernel - plain| = {e:.3g} (<= {TOL})")
+    print(f"  {n_checks} shard kernel/plain comparisons passed (H 20 and "
+          f"32 over 1, 2, 4 ranks; B 1 and 8)", flush=True)
+    return err
+
+
+# ---------------------------------------------------------------------------
 # 4. the main path: serve both configs through the kernels
 # ---------------------------------------------------------------------------
 
@@ -552,7 +691,7 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
     others = {k.__name__: k.launches
               for k in (K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
                         + SK.SLSTM_KERNELS + K.ATTN_KERNELS
-                        + K.ROWWISE_KERNELS)
+                        + K.ROWWISE_KERNELS + K.SHARD_KERNELS)
               if k not in kernels}
     print(f"  launches: {launches}; other kernels {others}; "
           f"plain versions {plain}", flush=True)
@@ -1061,7 +1200,7 @@ def run_lm_path(torch, dev, cfg=None):
     from repro_torch.kernels.slstm_cell import kernel as SK
     others = {k.__name__: k.launches for k in
               K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
-              + SK.SLSTM_KERNELS + K.ROWWISE_KERNELS}
+              + SK.SLSTM_KERNELS + K.ROWWISE_KERNELS + K.SHARD_KERNELS}
     st = eng.latency_stats()
     prefills, steps_run = st["prefills"], st["steps"] + 1   # one decode key
     print(f"  launches: {launches}; other kernels {others}; plain versions "
@@ -1213,7 +1352,8 @@ def run_rowwise_path(torch, dev):
     launches = {n: k.launches for n, k in counters.items()}
     others = {k.__name__: k.launches
               for k in (K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
-                        + SK.SLSTM_KERNELS + K.ATTN_KERNELS)}
+                        + SK.SLSTM_KERNELS + K.ATTN_KERNELS
+                        + K.SHARD_KERNELS)}
     print(f"  launches: {launches}; other kernels {others}; plain versions "
           f"{plain}", flush=True)
     check(not any(plain.values()), f"row-wise path: plain versions ran "
@@ -1257,6 +1397,345 @@ def run_rowwise_path(torch, dev):
           f"(step fp32 {TOL}, bf16 u {STEP_BF16_TOL}; matmuls {MM_TOL})",
           flush=True)
     return launches, err
+
+
+# ---------------------------------------------------------------------------
+# 11b. the mesh path: gru-jet-deep split across ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESHES = ((2, "gloo"), (4, "gloo"), (1, "nccl"))   # (ranks, backend)
+MESH_ARCHS = ("gru-jet-deep", "gru-jet-deep v3")
+MESH_TIMEOUT_S = 420
+# shard kernel launches per step of gru-jet-deep (row-wise, cascade,
+# row-wise): v1 row-wise layers run the z/r and candidate kernels, the v1
+# cascade layer the matvec, its middle phase and its update; v3 row-wise
+# layers one step kernel, the v3 cascade layer the matvec and its gates
+PER_STEP = {
+    "gru-jet-deep": {"gru_rowwise_shard_zr": 2,
+                     "gru_rowwise_shard_candidate": 2,
+                     "gru_shard_matvec": 1, "gru_cascade_shard_zr": 1,
+                     "gru_cascade_shard_update": 1},
+    "gru-jet-deep v3": {"gru_rowwise_shard_step": 2, "gru_shard_matvec": 1,
+                        "gru_cascade_shard_gates": 1},
+}
+
+
+def mesh_configs():
+    from repro_torch.configs.base import get_config
+    deep = get_config("gru-jet-deep")
+    return {MESH_ARCHS[0]: deep,
+            MESH_ARCHS[1]: deep.replace(gru=dataclasses.replace(
+                deep.gru, variant="v3"))}
+
+
+def all_kernels():
+    """Every kernel wrapper of the port, by name."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    return {k.__name__: k for k in (
+        K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS + SK.SLSTM_KERNELS
+        + K.ATTN_KERNELS + K.ROWWISE_KERNELS + K.SHARD_KERNELS)}
+
+
+def serve_on_mesh(torch, cfg, params, backend, dev, ctx):
+    """One wave through ``ServeEngine`` on this rank, with every counter
+    zeroed just before: (engine, streams, launches by kernel, plain calls,
+    prefill buckets)."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend=backend))
+    eng = ServeEngine(cfg, params, max_batch=SLOTS, device=dev, ctx=ctx)
+    buckets = []
+    record = eng._record_prefill
+
+    def recording(S, dt):
+        buckets.append(S)
+        record(S, dt)
+    eng._record_prefill = recording
+    reqs = make_requests(cfg, REQUESTS, MAX_PROMPT, True, MAX_NEW, seed=3)
+    K.reset_launch_counts()                         # the mesh path
+    with plain_calls() as plain:
+        done = eng.generate(reqs)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in all_kernels().items()}
+    return eng, [r.out for r in done], launches, dict(plain), buckets
+
+
+def time_collectives(mesh_cls, torch):
+    """Host time spent in the mesh's collectives (each synchronized on
+    return) while the block runs: a dict that fills as it goes."""
+    spent = {"s": 0.0, "calls": 0}
+    saved = (mesh_cls.all_gather, mesh_cls.psum)
+
+    def timed(fn):
+        def wrapped(self, *args):
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+        return wrapped
+    mesh_cls.all_gather, mesh_cls.psum = map(timed, saved)
+    return spent, saved
+
+
+def profile_mesh_decode(torch, cfg, params, dev, ctx):
+    """A served cuda_sharded decode step of gru-jet-deep on this rank, 8
+    slots, after 10 warm steps: 20 steps timed on the host clock with the
+    host time inside the collectives summed (each synchronized on return),
+    then 20 under ``torch.profiler`` for the device time (the profiler
+    slows the collectives, so it times none). Every rank runs it; the
+    collectives keep the ranks in step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg.replace(gru=dataclasses.replace(cfg.gru,
+                                              backend="cuda_sharded"))
+    eng = ServeEngine(cfg, params, max_batch=SLOTS, device=dev, ctx=ctx)
+    eng.gru_wave_begin(make_requests(cfg, SLOTS, 10, False, 64, seed=1))
+    for _ in range(10):
+        eng.gru_wave_step()
+    torch.cuda.synchronize()
+    spent, saved = time_collectives(Mesh, torch)
+    try:
+        t0 = time.monotonic()
+        for _ in range(20):
+            eng.gru_wave_step()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) / 20
+    finally:
+        Mesh.all_gather, Mesh.psum = saved
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            eng.gru_wave_step()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    shard = {k: us for k, us in kernels.items() if "shard" in k}
+    mesh = ctx.mesh
+    route = ("none (one rank, no group: identities)" if mesh.group is None
+             else f"{dist_backend(mesh)}, {mesh.size} rank(s) on one card"
+             + (" (through the host)" if dist_backend(mesh) == "gloo"
+                else ""))
+    busy = sum(kernels.values()) / 20 / 1e6
+    return {"wall_ms_per_step": wall * 1e3,
+            "shard_kernels_ms_per_step": sum(shard.values()) / 20 / 1e3,
+            "device_busy_ms_per_step": busy * 1e3,
+            "device_idle_share": 1 - busy / wall,
+            "collectives_ms_per_step": spent["s"] / 20 * 1e3,
+            "collectives_per_step": spent["calls"] / 20,
+            "collective_route": route,
+            "top_device": sorted(((k[:60], us / 20) for k, us in
+                                  kernels.items()), key=lambda kv: -kv[1])[:6]}
+
+
+def dist_backend(mesh) -> str:
+    import torch.distributed as dist
+    return str(dist.get_backend(mesh.group))
+
+
+def mesh_rank_main(rank: int, n: int, backend: str, store: str,
+                   out: str) -> None:
+    """One rank of the mesh path (``chip_smoke.py --mesh-rank``): serve
+    gru-jet-deep v1 and v3 pinned to ``cuda_sharded`` through
+    ``ServeEngine(..., ctx=ShardCtx(mesh))`` and check this rank's
+    launches, attribution, streams (against the replicated eager engine on
+    the card) and prefill logits; then once under ``backend="cuda"``.
+    Writes this rank's results to ``out`` as JSON; any failure exits
+    non-zero."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import gru as gru_core
+    from repro_torch.core.params import init_params
+    from repro_torch.distributed import ShardCtx, init_mesh
+    from repro_torch.models import gru_lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = init_mesh(n, rank, init_file=store, device=dev, backend=backend,
+                     timeout_s=120)
+    ctx = ShardCtx(mesh)
+    who = f"rank {rank}/{n} ({backend})"
+    result = {"rank": rank, "ranks": n, "backend": backend, "runs": {}}
+    cpu = torch.device("cpu")
+    for a, cfg in mesh_configs().items():
+        # made on the host: a pinned mesh engine puts only this rank's
+        # slices on the card
+        params = init_params(gru_lm.lm_specs(cfg), seed=0, device=cpu)
+        eng, streams, launches, plain, buckets = serve_on_mesh(
+            torch, cfg, params, "cuda_sharded", dev, ctx)
+        st = eng.latency_stats()
+        steps_run = st["steps"] + 1
+        check(set(eng.prefill_backends) == {"cuda_sharded"},
+              f"{who} {a}: prefill backends {set(eng.prefill_backends)}")
+        check(st["decode_backend_steps"] == {"cuda_sharded": st["steps"]},
+              f"{who} {a}: decode steps {st['decode_backend_steps']}")
+        check(all(t.device == cpu for c in eng.params["cells"]
+                  for t in c.values())
+              and all(t.device == dev for c in eng.params["placed_cells"]
+                      for t in c.values()),
+              f"{who} {a}: the full cells went to the card")
+        per_step = PER_STEP[a]
+        want = {k: per_step.get(k, 0) * (sum(buckets) + steps_run)
+                for k in launches}
+        check(launches == want, f"{who} {a}: launches {launches} != {want} "
+              f"(buckets {buckets}, {steps_run} steps)")
+        check(not any(plain.values()), f"{who} {a}: plain versions ran "
+              f"{plain}")
+        params = to_device(params, dev)
+        _, eager = serve(cfg, params, "eager", dev)
+        check(streams == eager, f"{who} {a}: streams differ from the eager "
+              f"engine")
+        # prefill logits against the dense v1 oracle (v3: the eager stack)
+        g = torch.Generator().manual_seed(5)
+        xs = torch.randn(3, 7, cfg.gru.input_dim, generator=g).to(dev)
+        cfg_s = cfg.replace(gru=dataclasses.replace(cfg.gru,
+                                                    backend="cuda_sharded"))
+        logits, _ = gru_lm.prefill(eng.params, cfg_s, {"features": xs},
+                                   ctx=ctx)
+        h0s = gru_core.stack_h0(cfg.gru, 3, device=dev)
+        cells = gru_core.stack_cell_params(params)
+        if cfg.gru.variant == "v1":
+            finals, _ = gru_core.gru_stack_reference(cells, h0s, xs)
+        else:
+            finals, _ = gru_core.gru_stack_sequence_eager(cells, h0s, xs,
+                                                          cfg=cfg.gru)
+        want_logits = finals[-1] @ params["head"]["w"] + params["head"]["b"]
+        e = (logits - want_logits).abs().max().item()
+        check(tuple(logits.shape) == (3, cfg.gru.num_classes)
+              and bool(torch.isfinite(logits).all()) and e <= TOL,
+              f"{who} {a}: prefill logits vs reference {e:.3g}")
+        result["runs"][a] = {
+            "streams": streams, "buckets": buckets, "steps_run": steps_run,
+            "launches": {k: v for k, v in launches.items() if v},
+            "logits_err_vs_reference": e,
+            "decode_p50_ms": st["p50_s"] * 1e3,
+            "decode_p99_ms": st["p99_s"] * 1e3,
+            "prefill_mean_ms": st["prefill_mean_s"] * 1e3}
+    # backend="cuda" under the mesh: the split serves prefill, decode stays
+    # replicated on the fused kernel (decode_cost), as JAX's rule has it
+    a, cfg = MESH_ARCHS[0], mesh_configs()[MESH_ARCHS[0]]
+    params = init_params(gru_lm.lm_specs(cfg), seed=0, device=cpu)
+    eng, streams, launches, plain, buckets = serve_on_mesh(
+        torch, cfg, params, "cuda", dev, ctx)
+    st = eng.latency_stats()
+    steps_run = st["steps"] + 1
+    check(set(eng.prefill_backends) == {"cuda_sharded"},
+          f"{who} cuda: prefill backends {set(eng.prefill_backends)}")
+    check(st["decode_backend_steps"] == {"cuda_fused": st["steps"]},
+          f"{who} cuda: decode steps {st['decode_backend_steps']}")
+    want = {k: PER_STEP[a].get(k, 0) * sum(buckets) for k in launches}
+    want["gru_stack_decode_kernel"] = steps_run
+    check(launches == want, f"{who} cuda: launches {launches} != {want}")
+    check(not any(plain.values()), f"{who} cuda: plain versions ran {plain}")
+    check(streams == result["runs"][a]["streams"],
+          f"{who} cuda: streams differ from the cuda_sharded run")
+    result["cuda_run"] = {"launches": {k: v for k, v in launches.items()
+                                       if v}, "buckets": buckets,
+                          "steps_run": steps_run}
+    result["profile"] = profile_mesh_decode(torch, cfg, params, dev, ctx)
+    check("jax" not in sys.modules and "repro" not in sys.modules,
+          f"{who}: the JAX package was imported")
+    Path(out).write_text(json.dumps(result))
+    dist.destroy_process_group()
+
+
+def profile_mesh_steps(torch, dev, mesh_report):
+    """The served cuda_sharded decode step of gru-jet-deep: on a one-rank
+    mesh without a group (this process; the collectives are identities)
+    and, from phase 11b's rank 0, over a 1-rank NCCL group and 2- and
+    4-rank gloo meshes sharing the card. Returns the profiles by mesh."""
+    from repro_torch.core.params import init_params
+    from repro_torch.distributed import ShardCtx, local_mesh
+    from repro_torch.models import gru_lm
+    cfg = mesh_configs()[MESH_ARCHS[0]]
+    params = init_params(gru_lm.lm_specs(cfg), seed=0,
+                         device=torch.device("cpu"))
+    out = {"local": profile_mesh_decode(torch, cfg, params, dev,
+                                        ShardCtx(local_mesh(dev)))}
+    for n, backend in MESHES:
+        out[f"{n}x{backend}"] = mesh_report[f"{n}x{backend}"]["profile"]
+    for name, pr in out.items():
+        print(f"  decode step (gru-jet-deep v1, cuda_sharded, {SLOTS} slots,"
+              f" mesh {name}, rank 0, 20 steps): wall "
+              f"{pr['wall_ms_per_step']:.4f} ms/step; shard kernels "
+              f"{pr['shard_kernels_ms_per_step']:.4f} ms/step, all device "
+              f"work {pr['device_busy_ms_per_step']:.4f} ms/step (idle "
+              f"{pr['device_idle_share']:.3%}); host time in the "
+              f"collectives {pr['collectives_ms_per_step']:.4f} ms/step over"
+              f" {pr['collectives_per_step']:.0f} calls; route: "
+              f"{pr['collective_route']}", flush=True)
+        for k, us in pr["top_device"]:
+            print(f"    {us:9.2f} us/step  {k}")
+    print("  the collectives' times are one card's (gloo through the host, "
+          "or a one-rank NCCL group): no measure of NCCL across cards",
+          flush=True)
+    return out
+
+
+def run_mesh_path(torch):
+    """Spawn each mesh of ``MESHES`` on the one card (the libraries are
+    built), wait for its ranks, and hold them against each other: every
+    rank exits 0, and all ranks of all meshes serve the same streams.
+    Returns (launches summed over the pinned runs of every rank, the
+    report)."""
+    import tempfile
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    report, launches, streams = {}, {n: 0 for n in SHARD}, None
+    for n, backend in MESHES:
+        t0 = time.monotonic()
+        procs = []
+        try:
+            for r in range(n):
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--mesh-rank", str(r), str(n), backend,
+                     str(work / f"store{n}{backend}"),
+                     str(work / f"rank{n}{backend}{r}.json")]))
+            deadline = time.monotonic() + MESH_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            fail(f"mesh of {n} ({backend}): a rank did not end within "
+                 f"{MESH_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        codes = [p.returncode for p in procs]
+        check(codes == [0] * n, f"mesh of {n} ({backend}): rank exit codes "
+              f"{codes}")
+        ranks = [json.loads((work / f"rank{n}{backend}{r}.json").read_text())
+                 for r in range(n)]
+        for res in ranks:
+            got = {a: res["runs"][a]["streams"] for a in MESH_ARCHS}
+            streams = streams or got
+            check(got == streams, f"mesh of {n}: rank {res['rank']}'s "
+                  f"streams differ from rank 0 of the first mesh")
+            for a in MESH_ARCHS:
+                for k, v in res["runs"][a]["launches"].items():
+                    launches[k] += v
+        r0 = ranks[0]
+        print(f"  mesh of {n} ranks ({backend}, one card): every rank exit "
+              f"0 in {time.monotonic() - t0:.1f} s; streams equal across "
+              f"ranks and to the eager engine", flush=True)
+        for a in MESH_ARCHS:
+            run = r0["runs"][a]
+            print(f"    {a}: buckets {run['buckets']}, {run['steps_run']} "
+                  f"steps, rank 0 launches {run['launches']}; logits vs "
+                  f"reference {run['logits_err_vs_reference']:.3g}; decode "
+                  f"p50 {run['decode_p50_ms']:.4f} ms p99 "
+                  f"{run['decode_p99_ms']:.4f} ms (host clock)", flush=True)
+        print(f"    backend=cuda: prefill cuda_sharded, decode cuda_fused; "
+              f"rank 0 launches {r0['cuda_run']['launches']}", flush=True)
+        report[f"{n}x{backend}"] = r0
+    check(all(v > 0 for v in launches.values()),
+          f"a shard kernel never launched on the mesh path: {launches}")
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -1669,6 +2148,85 @@ def time_rowwise(torch, dev, err, launches):
     return rows
 
 
+# elementwise operations per output unit of each shard kernel (a sigmoid
+# or tanh counted as one): the bodies' adds, products, nonlinearities and
+# the convex update
+SHARD_ELEMENTWISE = {"gru_rowwise_shard_step": 14, "gru_rowwise_shard_zr": 7,
+                     "gru_rowwise_shard_candidate": 7, "gru_shard_matvec": 0,
+                     "gru_cascade_shard_gates": 11,
+                     "gru_cascade_shard_zr": 5,
+                     "gru_cascade_shard_update": 5}
+# (H, ranks) timed; the JSON rows are gru-jet-deep's at 2 ranks, 8 slots
+SHARD_TIMED = ((32, 2), (32, 4), (32, 1), (20, 2), (20, 4))
+SHARD_ROW = (32, 2)
+
+
+def shard_bound_ms(name, args, outs):
+    """Least time: every operand read once and every output written once
+    over 3.35 TB/s, or the products (2 B K N for each matvec) plus the
+    elementwise operations over fp32's 67 TFLOP/s, the larger. A strided
+    gate slice counts only its own elements."""
+    nbytes = 4 * (sum(a.numel() for a in args) + sum(o.numel() for o in
+                                                     outs))
+    B, Hl = outs[0].shape[0], outs[0].shape[-1]
+    ops = SHARD_ELEMENTWISE[name] * B * Hl
+    if name.startswith("gru_rowwise"):
+        x, u = args[0], args[3]
+        ops += 2 * B * x.shape[1] * u.shape[1]
+    elif name in ("gru_shard_matvec", "gru_cascade_shard_zr"):
+        w = args[-1]
+        ops += 2 * B * w.shape[0] * w.shape[1]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_shard_kernels(torch, dev, err, launches):
+    """Device, per-call, plain-version and bound times of the seven shard
+    kernels at the mesh path's shard shapes (8 slots; the matvec at v1's
+    N = 2H); ``torch.matmul`` beside the matvec (TF32 off), the one
+    kernel a single PyTorch call computes. Returns the seven JSON rows."""
+    rows = []
+    for (H, n) in SHARD_TIMED:
+        a = shard_inputs(torch, H, n, SLOTS, 77, dev)
+        for name in SHARD:
+            args = shard_args(name, a, 2 * H)
+
+            def kern():
+                return run_shard_kernel(name, args, plain=False)
+
+            def plain_fn():
+                return run_shard_kernel(name, args, plain=True)
+            library = None
+            if name == "gru_shard_matvec":
+                def library():
+                    return torch.matmul(*args)
+            ms = device_time_ms(torch, kern, per_graph=200)
+            plain = device_time_ms(torch, plain_fn, per_graph=50)
+            lib = (device_time_ms(torch, library, per_graph=200)
+                   if library is not None else None)
+            call = call_time_ms(torch, kern, iters=300)
+            bms, by = shard_bound_ms(name, args, kern())
+            lib_s = f"{lib * 1e3:7.2f} us" if lib is not None else "    n/a"
+            print(f"  {name:28s} H={H} ranks={n} Hl={H // n:2d} B={SLOTS}: "
+                  f"device {ms * 1e3:6.2f} us (per call {call * 1e3:6.2f})  "
+                  f"plain {plain * 1e3:7.2f} us  matmul {lib_s}  bound "
+                  f"{bms * 1e6:6.2f} ns ({by})", flush=True)
+            if (H, n) == SHARD_ROW:
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "source": KERNEL_SOURCE[name],
+                    "replaces": REPLACES[name],
+                    "launches": launches[name], "max_abs_err": err[name],
+                    "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                    "bound_by": by, "library_ms": lib, "call_ms": call,
+                    "shape": {"H": H, "ranks": n, "Hl": H // n, "B": SLOTS}})
+    print("  library_ms: torch.matmul on the matvec's operands (TF32 off); "
+          "null for the other six -- no single PyTorch call computes a "
+          "shard step's gate math", flush=True)
+    return rows
+
+
 def device_kernels(prof) -> dict:
     """Device time (us) by name of what ran on the card (kernels, copies),
     from a profile: only the device entries, since a host op's entry
@@ -1780,6 +2338,10 @@ def profile_decode(torch, dev, backend, arch="gru-jet-deep"):
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        rank, n, backend, store, out = sys.argv[2:7]
+        mesh_rank_main(int(rank), int(n), backend, store, out)
+        return
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     phase("1. device")
@@ -1793,6 +2355,9 @@ def main() -> None:
     build_kernels()
     phase("3. kernels vs plain versions")
     err = check_kernels(torch, dev)
+    phase("3b. shard kernels vs plain versions (gru-jet, gru-jet-deep over "
+          "1, 2, 4 ranks)")
+    shard_err = check_shard_kernels(torch, dev)
     phase("4. main path: serve gru-jet and gru-jet-deep through cuda_fused")
     launches, report, cfgs, params, streams = run_main_path(torch, dev)
     phase("5. int8 path: serve gru-jet and gru-jet-deep through "
@@ -1821,10 +2386,15 @@ def main() -> None:
           "rowwise and cascade")
     rw_launches, rw_err = run_rowwise_path(torch, dev)
     launches.update(rw_launches)
+    phase("11b. mesh path: gru-jet-deep v1 and v3 through cuda_sharded on "
+          "2 and 4 ranks (gloo) and 1 rank (NCCL), one card")
+    mesh_launches, mesh_report = run_mesh_path(torch)
+    launches.update(mesh_launches)
     phase("12. timing (CUDA events: device via graph replay, and per call)")
     rows = time_kernels(torch, dev, err, launches)
     rows += time_attention(torch, dev, attn_err, launches)
     rows += time_rowwise(torch, dev, rw_err, launches)
+    rows += time_shard_kernels(torch, dev, shard_err, launches)
     for rep, backend in ((report, "cuda"), (q8_report, "cuda_fused_q8"),
                          (chain_report, "cuda_chain"),
                          (cq8_report, "cuda_chain_q8")):
@@ -1833,13 +2403,15 @@ def main() -> None:
     slstm_report["profile_slstm_jet_decode"] = profile_decode(
         torch, dev, "cuda_fused", "slstm-jet")
     lm_report["profile_decode"] = profile_lm_decode(torch, dev, lm_params)
+    mesh_report["profiles"] = profile_mesh_steps(torch, dev, mesh_report)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the JAX package was imported")
     print(json.dumps({"serve": report, "serve_q8": q8_report,
                       "serve_chain": chain_report,
                       "serve_chain_q8": cq8_report,
                       "serve_slstm": slstm_report, "serve_lm": lm_report,
-                      "rowwise_launches": rw_launches}))
+                      "rowwise_launches": rw_launches,
+                      "serve_mesh": mesh_report}))
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

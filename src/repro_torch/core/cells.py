@@ -47,7 +47,9 @@ class CellFamily:
     per-layer ``({"w","u","b"}, ...)``. ``stacked_views(cells)``: the
     fused kernels' weight stacks (None: the family has no fused backend).
     ``supports_quant``: whether ``prepare`` may build int8 weight views
-    for this family."""
+    for this family. ``supports_placement``: whether it has mesh backends
+    (``prepare`` builds placed views of a rank's part for it; a family
+    without them runs replicated under a mesh)."""
     name: str
     gates: int
     state_leaves: int
@@ -58,6 +60,7 @@ class CellFamily:
     stacked_views: Optional[Callable] = dataclasses.field(repr=False,
                                                           default=None)
     supports_quant: bool = False
+    supports_placement: bool = False
 
 
 _FAMILIES: Dict[str, CellFamily] = {}
@@ -104,7 +107,8 @@ def _gru_family() -> CellFamily:
                       state_names=("h",), h_leaf=0,
                       normalize=gru_core.stack_cell_params,
                       init_state=gru_core.stack_h0,
-                      stacked_views=stacked_views, supports_quant=True)
+                      stacked_views=stacked_views, supports_quant=True,
+                      supports_placement=True)
 
 
 register_family(_gru_family())

@@ -1,0 +1,349 @@
+// The per-shard GRU step kernels for Hopper (sm_90a), fp32: the compute of
+// one rank of the row-wise / cascade split, between two collectives.
+//
+// Replaces the seven shard kernels of src/repro/kernels/gru_sequence/
+// kernel.py (each a whole-block pallas_call, _shard_call :622):
+//   rowwise_shard_k<kStep> <- gru_rowwise_shard_step      :702 (body :632)
+//   rowwise_shard_k<kZr>   <- gru_rowwise_shard_zr        :714 (body :646)
+//   rowwise_shard_k<kCand> <- gru_rowwise_shard_candidate :723 (body :658)
+//   shard_matvec_k         <- gru_shard_matvec            :733 (body :667)
+//   cascade_gates_k        <- gru_cascade_shard_gates     :741 (body :673)
+//   cascade_zr_k           <- gru_cascade_shard_zr        :749 (body :685)
+//   cascade_update_k       <- gru_cascade_shard_update    :759 (body :697)
+// Layouts are JAX's: B batch rows, H the full width, Hl = H / n this
+// rank's rows; a row-wise shard's u is (H, G*Hl), gate-major ([z | r | h]
+// of its own rows), a cascade shard's u rows are (Hl, 3H). 2-D operands
+// may be row-strided views (the callers pass gate slices); each takes its
+// row stride (ld*), columns are unit-stride.
+//
+// Translation. On the TPU each kernel is one grid step whose operands sit
+// whole in VMEM. Here the matvec kernels are col_tile.cuh's column tile: a
+// block owns `ct` output columns (of every gate it needs) and a batch tile
+// of at most 8 rows, stages its operand rows in shared memory, streams
+// the shard's u from device memory once, and applies the gate epilogue to
+// its finished columns. The grid runs over column tiles and batch tiles;
+// at the paper's widths (Hl = 5..32) that is one to a few blocks. The
+// cascade's middle phase computes z and r*h of its batch tile in the
+// block (elementwise, from the psum'd pre-activations) into shared memory
+// as the operand of its product, so the partial product needs no round
+// trip through device memory. The two epilogue-only kernels (v3 cascade
+// gates, v1 cascade update) are elementwise grid-stride loops.
+//
+// Bound on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): a shard's operands
+// are a few KB at these widths, so every kernel's bound is a few
+// nanoseconds (bytes); the kernels are bound by latency instead: the
+// launch, one pass of loads, a barrier and the butterfly, 1-5 us. The
+// collectives around them cost more.
+//
+// Numerics: expf/tanhf, no fast math; fma on the CUDA cores, no TF32. The
+// epilogues add in the plain versions' order (x + U.h, then + b).
+
+#include "col_tile.cuh"
+
+namespace {
+
+using namespace coltile;
+
+enum { kStep = 0, kZr = 1, kCand = 2 };
+
+// The (K, BT) operand and the warps' sums of G gates.
+size_t shard_smem(int K, int bt, int G, int ct) {
+  return 4 * ((size_t)K * bt + red_floats(G, bt, ct));
+}
+
+// Row-wise shard: x (B, H) replicated (h_full, or the gathered r*h for
+// kCand) against u's gate columns of this rank's rows. kStep (v3): h' of
+// the local rows; kZr (v1 phase 1): z into out0, r*h_local into out1;
+// kCand (v1 phase 2): h' from the candidate and zin.
+template <int MODE, int BT>
+__global__ void __launch_bounds__(kThreads)
+rowwise_shard_k(const float* __restrict__ x, const float* __restrict__ hl,
+                int ldhl, const float* __restrict__ zin,
+                const float* __restrict__ xp, int ldxp,
+                const float* __restrict__ u, int ldu,
+                const float* __restrict__ b, float* __restrict__ out0,
+                float* __restrict__ out1, int B, int H, int Hl, int ct,
+                int vec) {
+  constexpr int G = MODE == kStep ? 3 : MODE == kZr ? 2 : 1;
+  extern __shared__ float4 smem_rowwise[];
+  float* sx = reinterpret_cast<float*>(smem_rowwise);  // (H, BT) x
+  float* red = sx + (size_t)H * BT;
+  const Tile t = make_tile(ct);
+  const int row0 = blockIdx.y * BT;
+  const int nrow = min(BT, B - row0);
+  const int tile = blockIdx.x;
+
+  load_operand<BT, float>(sx, x, H, row0, nrow, 0, H);
+  __syncthreads();
+  const int j = tile * ct + kVec * t.cg;
+  int col[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) col[g] = g * Hl + j;
+  float acc[G][BT][kVec] = {};
+  accumulate<G, BT>(acc, sx, u, ldu, col, Hl - j, vec, 0, H, t);
+  reduce_warps<G, BT>(acc, red, t);
+  __syncthreads();
+  for (int o = threadIdx.x; o < BT * ct; o += kThreads) {
+    const int r = o / ct;
+    const int c = o - r * ct;
+    const int jj = tile * ct + c;
+    if (r >= nrow || jj >= Hl) continue;
+    const size_t row = row0 + r;
+    const float* xr = xp + row * ldxp;
+    const float hv = hl[row * ldhl + jj];
+    const size_t o_at = row * Hl + jj;
+    if constexpr (MODE == kStep) {
+      const float z =
+          sigmoid_f((xr[jj] + tile_sum<G, BT>(red, ct, 0, r, c)) + b[jj]);
+      const float rg = sigmoid_f(
+          (xr[Hl + jj] + tile_sum<G, BT>(red, ct, 1, r, c)) + b[Hl + jj]);
+      const float ht = tanhf(
+          xr[2 * Hl + jj]
+          + rg * (tile_sum<G, BT>(red, ct, 2, r, c) + b[2 * Hl + jj]));
+      out0[o_at] = (1.0f - z) * hv + z * ht;
+    } else if constexpr (MODE == kZr) {
+      const float z =
+          sigmoid_f((xr[jj] + tile_sum<G, BT>(red, ct, 0, r, c)) + b[jj]);
+      const float rg = sigmoid_f(
+          (xr[Hl + jj] + tile_sum<G, BT>(red, ct, 1, r, c)) + b[Hl + jj]);
+      out0[o_at] = z;
+      out1[o_at] = rg * hv;
+    } else {
+      const float ht =
+          tanhf((xr[jj] + tile_sum<G, BT>(red, ct, 0, r, c)) + b[jj]);
+      const float z = zin[o_at];
+      out0[o_at] = (1.0f - z) * hv + z * ht;
+    }
+  }
+}
+
+// The cascade's partial product: out (B, N) = x (B, K) @ w (K, N), K = Hl.
+template <int BT>
+__global__ void __launch_bounds__(kThreads)
+shard_matvec_k(const float* __restrict__ x, int ldx,
+               const float* __restrict__ w, int ldw, float* __restrict__ out,
+               int B, int K, int N, int ct, int vec) {
+  extern __shared__ float4 smem_matvec[];
+  float* sx = reinterpret_cast<float*>(smem_matvec);   // (K, BT) x
+  float* red = sx + (size_t)K * BT;
+  const Tile t = make_tile(ct);
+  const int row0 = blockIdx.y * BT;
+  const int nrow = min(BT, B - row0);
+  const int tile = blockIdx.x;
+
+  load_operand<BT, float>(sx, x, ldx, row0, nrow, 0, K);
+  __syncthreads();
+  const int j = tile * ct + kVec * t.cg;
+  const int col[1] = {j};
+  float acc[1][BT][kVec] = {};
+  accumulate<1, BT>(acc, sx, w, ldw, col, N - j, vec, 0, K, t);
+  reduce_warps<1, BT>(acc, red, t);
+  __syncthreads();
+  for (int o = threadIdx.x; o < BT * ct; o += kThreads) {
+    const int r = o / ct;
+    const int c = o - r * ct;
+    const int jj = tile * ct + c;
+    if (r >= nrow || jj >= N) continue;
+    out[(size_t)(row0 + r) * N + jj] = tile_sum<1, BT>(red, ct, 0, r, c);
+  }
+}
+
+// v1 cascade middle phase: z and r from the local slices of the psum'd
+// z,r pre-activations zr (B, 2Hl) and xp (B, 2Hl); r*h of the block's batch
+// tile staged in shared memory as the operand of p (B, N) = (r*h) @ u
+// (Hl, N). Blocks of column tile 0 write z.
+template <int BT>
+__global__ void __launch_bounds__(kThreads)
+cascade_zr_k(const float* __restrict__ zr, const float* __restrict__ xp,
+             const float* __restrict__ h, const float* __restrict__ u,
+             int ldu, float* __restrict__ zout, float* __restrict__ p, int B,
+             int Hl, int N, int ct, int vec) {
+  extern __shared__ float4 smem_czr[];
+  float* sx = reinterpret_cast<float*>(smem_czr);      // (Hl, BT) r*h
+  float* red = sx + (size_t)Hl * BT;
+  const Tile t = make_tile(ct);
+  const int row0 = blockIdx.y * BT;
+  const int nrow = min(BT, B - row0);
+  const int tile = blockIdx.x;
+  const size_t w2 = 2 * (size_t)Hl;
+
+  for (int i = threadIdx.x; i < Hl * BT; i += kThreads) {
+    const int k = i / BT;
+    const int r = i - k * BT;
+    float v = 0.0f;
+    if (r < nrow) {
+      const size_t row = row0 + r;
+      const float rg = sigmoid_f(xp[row * w2 + Hl + k] + zr[row * w2 + Hl + k]);
+      v = rg * h[row * Hl + k];
+      if (tile == 0)
+        zout[row * Hl + k] = sigmoid_f(xp[row * w2 + k] + zr[row * w2 + k]);
+    }
+    sx[i] = v;
+  }
+  __syncthreads();
+  const int j = tile * ct + kVec * t.cg;
+  const int col[1] = {j};
+  float acc[1][BT][kVec] = {};
+  accumulate<1, BT>(acc, sx, u, ldu, col, N - j, vec, 0, Hl, t);
+  reduce_warps<1, BT>(acc, red, t);
+  __syncthreads();
+  for (int o = threadIdx.x; o < BT * ct; o += kThreads) {
+    const int r = o / ct;
+    const int c = o - r * ct;
+    const int jj = tile * ct + c;
+    if (r >= nrow || jj >= N) continue;
+    p[(size_t)(row0 + r) * N + jj] = tile_sum<1, BT>(red, ct, 0, r, c);
+  }
+}
+
+// v3 cascade epilogue: g, xp (B, 3Hl) local gate slices, h (B, Hl).
+__global__ void __launch_bounds__(kThreads)
+cascade_gates_k(const float* __restrict__ g, const float* __restrict__ xp,
+                const float* __restrict__ h, float* __restrict__ out, int B,
+                int Hl) {
+  const size_t n = (size_t)B * Hl;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kThreads) {
+    const size_t row = i / Hl;
+    const int c = (int)(i - row * Hl);
+    const float* gr = g + row * 3 * Hl;
+    const float* xr = xp + row * 3 * Hl;
+    const float z = sigmoid_f(xr[c] + gr[c]);
+    const float rg = sigmoid_f(xr[Hl + c] + gr[Hl + c]);
+    const float ht = tanhf(xr[2 * Hl + c] + rg * gr[2 * Hl + c]);
+    out[i] = (1.0f - z) * h[i] + z * ht;
+  }
+}
+
+// v1 cascade epilogue: (1 - z) h + z tanh(ht_in), all (B, Hl).
+__global__ void __launch_bounds__(kThreads)
+cascade_update_k(const float* __restrict__ z, const float* __restrict__ ht,
+                 const float* __restrict__ h, float* __restrict__ out,
+                 size_t n) {
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kThreads) {
+    out[i] = (1.0f - z[i]) * h[i] + z[i] * tanhf(ht[i]);
+  }
+}
+
+dim3 tiles(int ncols, int B, int bt, int ct) {
+  return dim3((ncols + ct - 1) / ct, (B + bt - 1) / bt);
+}
+
+int elementwise_blocks(size_t n) {
+  const size_t blocks = (n + kThreads - 1) / kThreads;
+  return (int)(blocks < 1024 ? (blocks > 0 ? blocks : 1) : 1024);
+}
+
+template <int MODE, int BT>
+int launch_rowwise(const float* x, const float* hl, int ldhl,
+                   const float* zin, const float* xp, int ldxp,
+                   const float* u, int ldu, const float* b, float* out0,
+                   float* out1, int B, int H, int Hl, int ct, int vec,
+                   cudaStream_t stream) {
+  static size_t configured[kMaxDevices];
+  constexpr int G = MODE == kStep ? 3 : MODE == kZr ? 2 : 1;
+  const size_t bytes = shard_smem(H, BT, G, ct);
+  int err = allow_smem(rowwise_shard_k<MODE, BT>, bytes, configured);
+  if (err) return err;
+  rowwise_shard_k<MODE, BT><<<tiles(Hl, B, BT, ct), kThreads, bytes,
+                              stream>>>(x, hl, ldhl, zin, xp, ldxp, u, ldu,
+                                        b, out0, out1, B, H, Hl, ct, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes. bt in {1, 2, 4, 8} rows per block; ct
+// columns per tile (valid_ct); vec: the gate offsets and row strides are
+// multiples of 4 and u (w) is 16-byte aligned. Each launches on `stream`
+// and returns cudaGetLastError() (0 = launched).
+
+// Dynamic shared memory of one matvec block: a (K, bt) operand and the
+// warps' sums of G gates at ct columns.
+extern "C" size_t gru_shard_smem_bytes(int K, int bt, int G, int ct) {
+  return shard_smem(K, bt, G, ct);
+}
+
+// mode 0: gru_rowwise_shard_step, 1: gru_rowwise_shard_zr (out1 = r*h),
+// 2: gru_rowwise_shard_candidate (x = the gathered r*h, zin = z).
+extern "C" int gru_rowwise_shard_launch(int mode, const float* x,
+                                        const float* hl, int ldhl,
+                                        const float* zin, const float* xp,
+                                        int ldxp, const float* u, int ldu,
+                                        const float* b, float* out0,
+                                        float* out1, int B, int H, int Hl,
+                                        int bt, int ct, int vec,
+                                        void* stream) {
+  if (!valid_ct(ct) || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return by_tile(bt, [&](auto tile) {
+    constexpr int BT = decltype(tile)::value;
+    switch (mode) {
+      case kStep:
+        return launch_rowwise<kStep, BT>(x, hl, ldhl, zin, xp, ldxp, u, ldu,
+                                         b, out0, out1, B, H, Hl, ct, vec, s);
+      case kZr:
+        return launch_rowwise<kZr, BT>(x, hl, ldhl, zin, xp, ldxp, u, ldu, b,
+                                       out0, out1, B, H, Hl, ct, vec, s);
+      default:
+        return launch_rowwise<kCand, BT>(x, hl, ldhl, zin, xp, ldxp, u, ldu,
+                                         b, out0, out1, B, H, Hl, ct, vec, s);
+    }
+  });
+}
+
+extern "C" int gru_shard_matvec_launch(const float* x, int ldx,
+                                       const float* w, int ldw, float* out,
+                                       int B, int K, int N, int bt, int ct,
+                                       int vec, void* stream) {
+  if (!valid_ct(ct)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return by_tile(bt, [&](auto tile) {
+    constexpr int BT = decltype(tile)::value;
+    static size_t configured[kMaxDevices];
+    const size_t bytes = shard_smem(K, BT, 1, ct);
+    int err = allow_smem(shard_matvec_k<BT>, bytes, configured);
+    if (err) return err;
+    shard_matvec_k<BT><<<tiles(N, B, BT, ct), kThreads, bytes, s>>>(
+        x, ldx, w, ldw, out, B, K, N, ct, vec);
+    return (int)cudaGetLastError();
+  });
+}
+
+extern "C" int gru_cascade_shard_zr_launch(const float* zr, const float* xp,
+                                           const float* h, const float* u,
+                                           int ldu, float* z, float* p, int B,
+                                           int Hl, int N, int bt, int ct,
+                                           int vec, void* stream) {
+  if (!valid_ct(ct)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return by_tile(bt, [&](auto tile) {
+    constexpr int BT = decltype(tile)::value;
+    static size_t configured[kMaxDevices];
+    const size_t bytes = shard_smem(Hl, BT, 1, ct);
+    int err = allow_smem(cascade_zr_k<BT>, bytes, configured);
+    if (err) return err;
+    cascade_zr_k<BT><<<tiles(N, B, BT, ct), kThreads, bytes, s>>>(
+        zr, xp, h, u, ldu, z, p, B, Hl, N, ct, vec);
+    return (int)cudaGetLastError();
+  });
+}
+
+extern "C" int gru_cascade_shard_gates_launch(const float* g, const float* xp,
+                                              const float* h, float* out,
+                                              int B, int Hl, void* stream) {
+  cascade_gates_k<<<elementwise_blocks((size_t)B * Hl), kThreads, 0,
+                    (cudaStream_t)stream>>>(g, xp, h, out, B, Hl);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gru_cascade_shard_update_launch(const float* z,
+                                               const float* ht,
+                                               const float* h, float* out,
+                                               int B, int Hl, void* stream) {
+  const size_t n = (size_t)B * Hl;
+  cascade_update_k<<<elementwise_blocks(n), kThreads, 0,
+                     (cudaStream_t)stream>>>(z, ht, h, out, n);
+  return (int)cudaGetLastError();
+}

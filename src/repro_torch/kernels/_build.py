@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIBRARIES = ("gru_sequence", "gru_sequence_q8", "gru_cell_q8",
              "slstm_cell", "flash_attn", "decode_attn", "gru_cell",
-             "rowwise_matvec")
+             "rowwise_matvec", "gru_shard")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

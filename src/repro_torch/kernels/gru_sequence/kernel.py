@@ -18,6 +18,15 @@ Same names and array interface as the Pallas kernels in
 * :func:`gru_sequence_q8_kernel` — the depth-1 q8 sequence of one chain
   layer: h0 (B,H), x_proj (T,B,3H), u_q (3H,H) int8, u_eff (3H,), b (3H,),
   optional mask (T,B) -> (T,B,H).
+* the seven shard kernels (``repro_torch/csrc/gru_shard.cu``), one
+  rank's compute between two collectives of the row-wise/cascade split
+  (``repro_torch.core.rowparallel``), fp32, B rows, H the full width, Hl
+  = H / ranks: :func:`gru_rowwise_shard_step` (v3), :func:`gru_rowwise_
+  shard_zr` and :func:`gru_rowwise_shard_candidate` (v1, around the
+  gather of r*h), :func:`gru_shard_matvec` (the cascade's partial
+  product), :func:`gru_cascade_shard_gates` (v3), :func:`gru_cascade_
+  shard_zr` and :func:`gru_cascade_shard_update` (v1). Their gate-slice
+  operands may be row-strided views (unit-stride columns).
 
 Every wrapper checks device, dtype (float32; int8 weight rows for q8),
 shapes and contiguity and raises on anything the kernel does not take
@@ -27,7 +36,7 @@ with ``torch.empty``, launches the kernel on the current stream, raises if
 the launch was refused, and adds one to its ``launches`` counter. Nothing
 falls back from the card to the plain version.
 
-Launch counters come in three tuples: :data:`KERNELS` (the three fp32
+Launch counters come in tuples: :data:`KERNELS` (the three fp32
 kernels), :data:`Q8_KERNELS` (the fused q8 pair) and
 :data:`CHAIN_Q8_KERNELS` (the q8 chain's pair: :func:`gru_sequence_q8_kernel`
 and ``repro_torch.kernels.gru_cell.kernel.gru_step_q8``);
@@ -38,7 +47,8 @@ LM's attention kernels, :data:`ATTN_KERNELS` (``flash_attention`` and
 ``repro_torch.kernels.decode_attn``), and the paper's row-wise primitives,
 :data:`ROWWISE_KERNELS` (``gru_step_fused`` and ``gru_step_blocked`` of
 ``repro_torch.kernels.gru_cell.kernel``, ``rowwise_matmul`` and
-``cascade_matmul`` of ``repro_torch.kernels.rowwise_matvec.kernel``).
+``cascade_matmul`` of ``repro_torch.kernels.rowwise_matvec.kernel``),
+and the shard kernels, :data:`SHARD_KERNELS`.
 
 A thread block takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows
 (the decode kernel's ``batch_block`` sets it, as in the JAX signature);
@@ -334,6 +344,281 @@ def gru_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# shard-shaped step kernels (csrc/gru_shard.cu): the cuda_sharded backend's
+# per-shard compute between two collectives
+# ---------------------------------------------------------------------------
+
+# mode, x, hl, ldhl, zin, xp, ldxp, u, ldu, b, out0, out1, B, H, Hl, bt, ct,
+# vec, stream
+_ROWWISE_ARGS = [I, P, P, I, P, P, I, P, I, P, P, P] + [I] * 6 + [P]
+# x, ldx, w, ldw, out, B, K, N, bt, ct, vec, stream
+_MATVEC_ARGS = [P, I, P, I, P] + [I] * 6 + [P]
+# zr, xp, h, u, ldu, z, p, B, Hl, N, bt, ct, vec, stream
+_CZR_ARGS = [P] * 4 + [I, P, P] + [I] * 6 + [P]
+# in, in, in, out, B, Hl, stream
+_ELEMENTWISE_ARGS = [P] * 4 + [I, I, P]
+SHARD_MAX_ROWS = 8           # rows of one block's batch tile
+
+
+def _shard_launcher(name: str, argtypes):
+    return _launch.launcher("gru_shard", name, argtypes)
+
+
+def smem_bytes_shard(K: int, bt: int, G: int, ct: int) -> int:
+    """Dynamic shared memory of one shard matvec block (mirrors
+    ``gru_shard_smem_bytes`` in the CUDA source): the (K, bt) operand and
+    the warps' sums of G gates at ct columns."""
+    return 4 * (K * bt + (_launch.THREADS // 32) * G * bt * ct)
+
+
+def shard_tiles(B: int, K: int, G: int, ncols: int):
+    """(batch tile, column tile) of a shard matvec: the narrowest column
+    tile of 4, 8, 16 or 32 that covers ``ncols`` output columns per gate
+    (32 beyond), and the smallest power of two >= B rows, at most
+    :data:`SHARD_MAX_ROWS`, halved until the block's shared memory fits;
+    raises if one row does not fit."""
+    ct = next(c for c in (4, 8, 16, 32) if c >= min(ncols, 32))
+    bt = min(SHARD_MAX_ROWS, 1 << max(B - 1, 0).bit_length())
+    while bt > 1 and smem_bytes_shard(K, bt, G, ct) > SMEM_LIMIT:
+        bt //= 2
+    need = smem_bytes_shard(K, bt, G, ct)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"K={K}: a shard matvec needs {need} bytes of "
+                         f"shared memory for one row; a Hopper block has "
+                         f"{SMEM_LIMIT}")
+    return bt, ct
+
+
+def _rows(name: str, t, shape: tuple, dev: torch.device) -> int:
+    """Check a float32 2-D operand whose rows may be strided (a gate slice)
+    but whose columns are unit-stride and whose rows do not overlap;
+    returns its row stride."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 2:
+        raise ValueError(f"{name}: expected a 2-D tensor {shape}, got "
+                         f"{getattr(t, 'shape', type(t))}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes "
+                        f"torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, expected {dev}")
+    if shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: columns must be unit-stride")
+    if shape[0] == 1:
+        return shape[1]
+    if t.stride(0) < shape[1]:
+        raise ValueError(f"{name}: row stride {t.stride(0)} is less than "
+                         f"the row width {shape[1]} (an expanded or "
+                         f"overlapping view)")
+    return t.stride(0)
+
+
+def _vector(t: torch.Tensor, ld: int, gate_cols: int) -> int:
+    """Whether four neighbouring columns of every gate of ``t`` load as one
+    aligned 16-byte vector."""
+    return int(ld % 4 == 0 and gate_cols % 4 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _shard_dims(h_full, h_local):
+    if (not isinstance(h_full, torch.Tensor) or h_full.dim() != 2
+            or not isinstance(h_local, torch.Tensor) or h_local.dim() != 2):
+        raise ValueError("h_full (B,H) and h_local (B,Hl) expected")
+    B, H = h_full.shape
+    Hl = h_local.shape[1]
+    if B < 1 or H < 1 or Hl < 1:
+        raise ValueError(f"empty problem: B={B} H={H} Hl={Hl}")
+    return B, H, Hl, h_full.device
+
+
+def _rowwise_checks(x_name: str, x, h_local, z, xp, u, b, G: int) -> tuple:
+    """Check a row-wise shard kernel's operands (x the replicated (B,H)
+    operand, G gates of Hl local columns); returns (B, H, Hl, device,
+    ldhl, ldxp, ldu)."""
+    B, H, Hl, dev = _shard_dims(x, h_local)
+    _check(x_name, x, (B, H), dev)
+    ldhl = _rows("h_local", h_local, (B, Hl), dev)
+    ldxp = _rows("xp", xp, (B, G * Hl), dev)
+    ldu = _rows("u", u, (H, G * Hl), dev)
+    _check("b", b, (G * Hl,), dev)
+    if z is not None:
+        _check("z_local", z, (B, Hl), dev)
+    return B, H, Hl, dev, ldhl, ldxp, ldu
+
+
+def _rowwise_launch(mode: int, G: int, dims: tuple, x, h_local, z, xp, u,
+                    b):
+    """Launch mode ``mode`` of the row-wise shard kernel; returns (error,
+    out0, out1)."""
+    B, H, Hl, dev, ldhl, ldxp, ldu = dims
+    bt, ct = shard_tiles(B, H, G, Hl)
+    out0 = torch.empty((B, Hl), dtype=torch.float32, device=dev)
+    out1 = (torch.empty((B, Hl), dtype=torch.float32, device=dev)
+            if mode == 1 else None)
+    err = _shard_launcher("gru_rowwise_shard_launch", _ROWWISE_ARGS)(
+        mode, _ptr(x), _ptr(h_local), ldhl, _ptr(z), _ptr(xp), ldxp,
+        _ptr(u), ldu, _ptr(b), _ptr(out0), _ptr(out1), B, H, Hl, bt, ct,
+        _vector(u, ldu, Hl), _stream(dev))
+    return err, out0, out1
+
+
+def gru_rowwise_shard_step(h_full: torch.Tensor, h_local: torch.Tensor,
+                           xp: torch.Tensor, u: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """v3 row-wise shard step: h_full (B,H) replicated, h_local (B,Hl) this
+    shard's rows, xp (B,3Hl) / u (H,3Hl) / b (3Hl,) this shard's gate-major
+    slices -> new local rows (B,Hl)."""
+    dims = _rowwise_checks("h_full", h_full, h_local, None, xp, u, b, 3)
+    if dims[3].type == "cpu":
+        return ref.gru_rowwise_shard_step_ref(h_full, h_local, xp, u, b)
+    err, out, _ = _rowwise_launch(0, 3, dims, h_full, h_local, None, xp, u,
+                                  b)
+    _raise_on(err, "gru_rowwise_shard_step")
+    gru_rowwise_shard_step.launches += 1
+    return out
+
+
+def gru_rowwise_shard_zr(h_full: torch.Tensor, h_local: torch.Tensor,
+                         xp_zr: torch.Tensor, u_zr: torch.Tensor,
+                         b_zr: torch.Tensor):
+    """v1 row-wise phase 1: xp_zr (B,2Hl), u_zr (H,2Hl), b_zr (2Hl,) ->
+    (z_local (B,Hl), r*h_local (B,Hl))."""
+    dims = _rowwise_checks("h_full", h_full, h_local, None, xp_zr, u_zr,
+                           b_zr, 2)
+    if dims[3].type == "cpu":
+        return ref.gru_rowwise_shard_zr_ref(h_full, h_local, xp_zr, u_zr,
+                                            b_zr)
+    err, z, rh = _rowwise_launch(1, 2, dims, h_full, h_local, None, xp_zr,
+                                 u_zr, b_zr)
+    _raise_on(err, "gru_rowwise_shard_zr")
+    gru_rowwise_shard_zr.launches += 1
+    return z, rh
+
+
+def gru_rowwise_shard_candidate(rh_full: torch.Tensor, h_local: torch.Tensor,
+                                z_local: torch.Tensor, xp_h: torch.Tensor,
+                                u_h: torch.Tensor,
+                                b_h: torch.Tensor) -> torch.Tensor:
+    """v1 row-wise phase 2: the gathered rh_full (B,H), z_local (B,Hl), xp_h
+    (B,Hl), u_h (H,Hl), b_h (Hl,) -> new local rows (B,Hl)."""
+    dims = _rowwise_checks("rh_full", rh_full, h_local, z_local, xp_h, u_h,
+                           b_h, 1)
+    if dims[3].type == "cpu":
+        return ref.gru_rowwise_shard_candidate_ref(rh_full, h_local, z_local,
+                                                   xp_h, u_h, b_h)
+    err, out, _ = _rowwise_launch(2, 1, dims, rh_full, h_local, z_local,
+                                  xp_h, u_h, b_h)
+    _raise_on(err, "gru_rowwise_shard_candidate")
+    gru_rowwise_shard_candidate.launches += 1
+    return out
+
+
+def gru_shard_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Cascade partial product: x (B,Hl) @ w (Hl,N) -> (B,N) float32."""
+    if (not isinstance(x, torch.Tensor) or x.dim() != 2
+            or not isinstance(w, torch.Tensor) or w.dim() != 2):
+        raise ValueError("x (B,K) and w (K,N) expected")
+    B, K = x.shape
+    N = w.shape[1]
+    dev = x.device
+    ldx = _rows("x", x, (B, K), dev)
+    ldw = _rows("w", w, (K, N), dev)
+    if B < 1 or K < 1 or N < 1:
+        raise ValueError(f"empty problem: B={B} K={K} N={N}")
+    bt, ct = shard_tiles(B, K, 1, N)
+    if dev.type == "cpu":
+        return ref.gru_shard_matvec_ref(x, w)
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    err = _shard_launcher("gru_shard_matvec_launch", _MATVEC_ARGS)(
+        _ptr(x), ldx, _ptr(w), ldw, _ptr(out), B, K, N, bt, ct,
+        _vector(w, ldw, N), _stream(dev))
+    _raise_on(err, "gru_shard_matvec")
+    gru_shard_matvec.launches += 1
+    return out
+
+
+def _cascade_dims(h_shard):
+    if not isinstance(h_shard, torch.Tensor) or h_shard.dim() != 2:
+        raise ValueError("h_shard (B,Hl) expected")
+    B, Hl = h_shard.shape
+    if B < 1 or Hl < 1:
+        raise ValueError(f"empty problem: B={B} Hl={Hl}")
+    return B, Hl, h_shard.device
+
+
+def gru_cascade_shard_gates(g_local: torch.Tensor, xp_local: torch.Tensor,
+                            h_shard: torch.Tensor) -> torch.Tensor:
+    """v3 cascade epilogue: local (B,3Hl) gate slices -> new h shard."""
+    B, Hl, dev = _cascade_dims(h_shard)
+    _check("g_local", g_local, (B, 3 * Hl), dev)
+    _check("xp_local", xp_local, (B, 3 * Hl), dev)
+    _check("h_shard", h_shard, (B, Hl), dev)
+    if dev.type == "cpu":
+        return ref.gru_cascade_shard_gates_ref(g_local, xp_local, h_shard)
+    out = torch.empty((B, Hl), dtype=torch.float32, device=dev)
+    err = _shard_launcher("gru_cascade_shard_gates_launch",
+                          _ELEMENTWISE_ARGS)(
+        _ptr(g_local), _ptr(xp_local), _ptr(h_shard), _ptr(out), B, Hl,
+        _stream(dev))
+    _raise_on(err, "gru_cascade_shard_gates")
+    gru_cascade_shard_gates.launches += 1
+    return out
+
+
+def gru_cascade_shard_zr(zr_local: torch.Tensor, xp_local: torch.Tensor,
+                         h_shard: torch.Tensor, u_h_rows: torch.Tensor):
+    """v1 cascade middle phase -> (z_local (B,Hl), ht_partial (B,H)):
+    u_h_rows (Hl,H) is this shard's rows of the candidate's U."""
+    B, Hl, dev = _cascade_dims(h_shard)
+    _check("zr_local", zr_local, (B, 2 * Hl), dev)
+    _check("xp_local", xp_local, (B, 2 * Hl), dev)
+    _check("h_shard", h_shard, (B, Hl), dev)
+    if not isinstance(u_h_rows, torch.Tensor) or u_h_rows.dim() != 2:
+        raise ValueError("u_h_rows (Hl,H) expected")
+    N = u_h_rows.shape[1]
+    ldu = _rows("u_h_rows", u_h_rows, (Hl, N), dev)
+    bt, ct = shard_tiles(B, Hl, 1, N)
+    if dev.type == "cpu":
+        return ref.gru_cascade_shard_zr_ref(zr_local, xp_local, h_shard,
+                                            u_h_rows)
+    z = torch.empty((B, Hl), dtype=torch.float32, device=dev)
+    p = torch.empty((B, N), dtype=torch.float32, device=dev)
+    err = _shard_launcher("gru_cascade_shard_zr_launch", _CZR_ARGS)(
+        _ptr(zr_local), _ptr(xp_local), _ptr(h_shard), _ptr(u_h_rows), ldu,
+        _ptr(z), _ptr(p), B, Hl, N, bt, ct, _vector(u_h_rows, ldu, N),
+        _stream(dev))
+    _raise_on(err, "gru_cascade_shard_zr")
+    gru_cascade_shard_zr.launches += 1
+    return z, p
+
+
+def gru_cascade_shard_update(z_local: torch.Tensor, ht_in_local: torch.Tensor,
+                             h_shard: torch.Tensor) -> torch.Tensor:
+    """v1 cascade epilogue: pre-activated local candidate -> new h shard."""
+    B, Hl, dev = _cascade_dims(h_shard)
+    for name, t in (("z_local", z_local), ("ht_in_local", ht_in_local),
+                    ("h_shard", h_shard)):
+        _check(name, t, (B, Hl), dev)
+    if dev.type == "cpu":
+        return ref.gru_cascade_shard_update_ref(z_local, ht_in_local,
+                                                h_shard)
+    out = torch.empty((B, Hl), dtype=torch.float32, device=dev)
+    err = _shard_launcher("gru_cascade_shard_update_launch",
+                          _ELEMENTWISE_ARGS)(
+        _ptr(z_local), _ptr(ht_in_local), _ptr(h_shard), _ptr(out), B, Hl,
+        _stream(dev))
+    _raise_on(err, "gru_cascade_shard_update")
+    gru_cascade_shard_update.launches += 1
+    return out
+
+
+SHARD_KERNELS = (gru_rowwise_shard_step, gru_rowwise_shard_zr,
+                 gru_rowwise_shard_candidate, gru_shard_matvec,
+                 gru_cascade_shard_gates, gru_cascade_shard_zr,
+                 gru_cascade_shard_update)
+
 KERNELS = (gru_sequence_kernel, gru_stack_sequence_kernel,
            gru_stack_decode_kernel)
 Q8_KERNELS = (gru_stack_sequence_q8_kernel, gru_stack_decode_q8_kernel)
@@ -344,10 +629,11 @@ ROWWISE_KERNELS = STEP_KERNELS + MATVEC_KERNELS
 
 def reset_launch_counts() -> None:
     """Set every wrapper's ``launches`` counter (fp32, fused q8, chain q8,
-    the sLSTM's :data:`SLSTM_KERNELS`, the dense LM's :data:`ATTN_KERNELS`
-    and :data:`ROWWISE_KERNELS`) to 0."""
+    the sLSTM's :data:`SLSTM_KERNELS`, the dense LM's :data:`ATTN_KERNELS`,
+    :data:`ROWWISE_KERNELS` and the shard kernels, :data:`SHARD_KERNELS`)
+    to 0."""
     for fn in (KERNELS + Q8_KERNELS + CHAIN_Q8_KERNELS + SLSTM_KERNELS
-               + ATTN_KERNELS + ROWWISE_KERNELS):
+               + ATTN_KERNELS + ROWWISE_KERNELS + SHARD_KERNELS):
         fn.launches = 0
 
 

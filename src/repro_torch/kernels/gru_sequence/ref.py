@@ -170,3 +170,78 @@ def gru_stack_decode_q8_ref(h: torch.Tensor, x_proj: torch.Tensor,
         if l + 1 < L:
             xp = _deep_xp_q8(h_new, wd_q[l], wd_eff[l])
     return torch.stack(out, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# shard-shaped step kernels (the cuda_sharded backend's per-shard compute):
+# each body repeats the expressions of the JAX Pallas body and of the
+# port's eager shard step (``repro_torch.core.rowparallel``) op for op, so
+# on the CPU ``cuda_sharded`` equals ``sharded`` bit for bit. B batch rows,
+# H the full width, Hl = H / n a shard's rows; gate-major slices.
+# ---------------------------------------------------------------------------
+
+def gru_rowwise_shard_step_ref(h_full: torch.Tensor, h_local: torch.Tensor,
+                               xp: torch.Tensor, u: torch.Tensor,
+                               b: torch.Tensor) -> torch.Tensor:
+    """v3 row-wise step of one shard: h_full (B,H), h_local (B,Hl), xp
+    (B,3Hl), u (H,3Hl), b (3Hl,) -> new local rows (B,Hl)."""
+    Hl = h_local.shape[-1]
+    z = torch.sigmoid(xp[:, :Hl] + h_full @ u[:, :Hl] + b[:Hl])
+    r = torch.sigmoid(xp[:, Hl:2 * Hl] + h_full @ u[:, Hl:2 * Hl]
+                      + b[Hl:2 * Hl])
+    ht = torch.tanh(xp[:, 2 * Hl:] + r * (h_full @ u[:, 2 * Hl:]
+                                          + b[2 * Hl:]))
+    return (1 - z) * h_local + z * ht
+
+
+def gru_rowwise_shard_zr_ref(h_full: torch.Tensor, h_local: torch.Tensor,
+                             xp_zr: torch.Tensor, u_zr: torch.Tensor,
+                             b_zr: torch.Tensor):
+    """v1 row-wise phase 1: xp_zr (B,2Hl), u_zr (H,2Hl), b_zr (2Hl,) ->
+    (z (B,Hl), r*h_local (B,Hl))."""
+    Hl = h_local.shape[-1]
+    z = torch.sigmoid(xp_zr[:, :Hl] + h_full @ u_zr[:, :Hl] + b_zr[:Hl])
+    r = torch.sigmoid(xp_zr[:, Hl:] + h_full @ u_zr[:, Hl:] + b_zr[Hl:])
+    return z, r * h_local
+
+
+def gru_rowwise_shard_candidate_ref(rh_full: torch.Tensor,
+                                    h_local: torch.Tensor, z: torch.Tensor,
+                                    xp_h: torch.Tensor, u_h: torch.Tensor,
+                                    b_h: torch.Tensor) -> torch.Tensor:
+    """v1 row-wise phase 2: the gathered rh_full (B,H), xp_h (B,Hl), u_h
+    (H,Hl), b_h (Hl,) -> new local rows (B,Hl)."""
+    ht = torch.tanh(xp_h + rh_full @ u_h + b_h)
+    return (1 - z) * h_local + z * ht
+
+
+def gru_shard_matvec_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The cascade's partial product: x (B,Hl) @ w (Hl,N) -> (B,N)."""
+    return x @ w
+
+
+def gru_cascade_shard_gates_ref(g: torch.Tensor, xp: torch.Tensor,
+                                h: torch.Tensor) -> torch.Tensor:
+    """v3 cascade epilogue on local gate slices: g, xp (B,3Hl), h (B,Hl)
+    -> new h shard (B,Hl)."""
+    Hl = h.shape[-1]
+    z = torch.sigmoid(xp[:, :Hl] + g[:, :Hl])
+    r = torch.sigmoid(xp[:, Hl:2 * Hl] + g[:, Hl:2 * Hl])
+    ht = torch.tanh(xp[:, 2 * Hl:] + r * g[:, 2 * Hl:])
+    return (1 - z) * h + z * ht
+
+
+def gru_cascade_shard_zr_ref(zr: torch.Tensor, xp: torch.Tensor,
+                             h: torch.Tensor, u_h_rows: torch.Tensor):
+    """v1 cascade middle phase: zr, xp (B,2Hl) local slices, h (B,Hl),
+    u_h_rows (Hl,H) -> (z (B,Hl), (r*h) @ u_h_rows (B,H))."""
+    Hl = h.shape[-1]
+    z = torch.sigmoid(xp[:, :Hl] + zr[:, :Hl])
+    r = torch.sigmoid(xp[:, Hl:] + zr[:, Hl:])
+    return z, (r * h) @ u_h_rows
+
+
+def gru_cascade_shard_update_ref(z: torch.Tensor, ht_in: torch.Tensor,
+                                 h: torch.Tensor) -> torch.Tensor:
+    """v1 cascade epilogue: (1-z) h + z tanh(ht_in), all (B,Hl)."""
+    return (1 - z) * h + z * torch.tanh(ht_in)

@@ -18,6 +18,12 @@ it whatever the accuracy gate says)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet-deep \
         --gru-backend cuda_fused_q8 --requests 12 --slots 8 --vary-prompt
 
+The mesh backends (``sharded``, ``cuda_sharded``, ``sharded_decode``)
+need a mesh of ranks, which this single-process CLI does not make (nor
+does JAX's): pinned here they fall through to the cheapest legal backend,
+``cuda_fused``. A sharded server runs ``ServeEngine(..., ctx=ShardCtx(
+mesh))`` on every rank (``repro_torch.distributed``).
+
 ``--arch slstm-jet`` serves the sLSTM family the same way: ``cuda`` and
 ``cuda_fused`` run its fused kernels (one launch per prefill and per
 decode step), ``eager`` plain PyTorch; it has no chain or int8 backend, so
@@ -94,13 +100,18 @@ def main(argv=None):
     p.add_argument("--max-new", type=int, default=16)
     p.add_argument("--gru-backend",
                    choices=("eager", "cuda", "auto", "cuda_fused",
-                            "cuda_chain", "cuda_fused_q8", "cuda_chain_q8"),
+                            "cuda_chain", "sharded", "cuda_sharded",
+                            "sharded_decode", "cuda_fused_q8",
+                            "cuda_chain_q8"),
                    default=None,
                    help="executor backend preference (default: the "
                         "config's, eager); an exact name pins that "
-                        "backend, and the cuda_fused_q8 and cuda_chain_q8 "
-                        "pins serve the int8 datapath whatever the "
-                        "accuracy gate says")
+                        "backend: the mesh-requiring ones [sharded, "
+                        "cuda_sharded, sharded_decode] need a sharded "
+                        "launch (ServeEngine(..., ctx=ShardCtx(mesh)) on "
+                        "every rank) and fall through here, and the "
+                        "cuda_fused_q8 and cuda_chain_q8 pins serve the "
+                        "int8 datapath whatever the accuracy gate says")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")

@@ -7,16 +7,23 @@ paper's latency path; the cache carries one hidden state per layer. All
 GRU execution goes through the executor (``repro_torch.core.runtime``):
 ``prefill``/``decode_step`` ask ``compile()`` for the memoized executable,
 and ``serve_executable`` exposes it so the engine can record which backend
-ran.
+ran. Under a mesh (``ctx=ShardCtx(mesh)``) the mesh becomes the
+executable's ``Placement``: every rank serves the same requests SPMD, and
+prefill runs the row-wise/cascade split (``cuda_sharded`` under
+``"cuda"``) unless pinned otherwise. JAX's sharding constraints on the
+cache (``constrain``) have no counterpart here: the states come back
+replicated from the split, as the constraint asks.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import gru as gru_core
 from repro_torch.core import runtime
 from repro_torch.core.params import Spec, init_params
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
@@ -32,27 +39,48 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return gru_core.gru_classify(params, batch["features"], cfg=cfg.gru)
 
 
-def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:
+def _placement(ctx: ShardCtx) -> runtime.Placement:
+    """The ctx's mesh as an executor Placement (the host if none)."""
+    return runtime._as_placement(ctx.mesh)
+
+
+def prepare_params(params: dict, cfg: ModelConfig, device="cuda", *,
+                   ctx: ShardCtx = NO_SHARD) -> dict:
     """One-time serving prep: the cells on ``device`` plus the fused
     kernels' weight stacks (``"stacked_cells"``), so no step restacks, and
     when the config asks for the q8 datapath (``cfg.gru.quant`` or a
     ``*_q8`` pin) the int8 weight views (``"quant_cells"``), so no step
-    quantizes weights."""
-    sp = runtime.prepare(params, cfg.gru, device=device)
+    quantizes weights. Under a mesh, what the serving executable's
+    backends read: this rank's part of every layer on the mesh's device
+    (``"placed_cells"``, with its ``"placement"``) for a mesh backend, the
+    full cells on ``device`` only for a replicated one (``cfg.gru.backend
+    = "cuda"`` decodes on ``cuda_fused``)."""
+    pl = _placement(ctx)
+    if pl.is_host:
+        sp = runtime.prepare(params, cfg.gru, device=device)
+    else:
+        sp = runtime.compile(cfg.gru, mask=True, placement=pl).prepare(
+            params, device=device)
     out = {"cells": sp.cells,
-           "head": {k: v.to(sp.device) for k, v in params["head"].items()}}
+           "head": {k: v.to(resolve_device(device))
+                    for k, v in params["head"].items()}}
     if sp.stacked is not None:
         out["stacked_cells"] = sp.stacked
     if sp.quant is not None:
         out["quant_cells"] = sp.quant
+    if sp.placed is not None:
+        out["placed_cells"] = sp.placed
+        out["placement"] = sp.placement
     return out
 
 
 def serve_executable(cfg: ModelConfig, *, batch: int, seq: int = None,
-                     masked: bool = False) -> runtime.GRUExecutable:
+                     masked: bool = False,
+                     mesh=None) -> runtime.GRUExecutable:
     """The executable a serving call with these shapes uses (the same
     memoized object ``prefill``/``decode_step`` resolve)."""
-    return runtime.compile(cfg.gru, batch=batch, seq=seq, mask=masked)
+    return runtime.compile(cfg.gru, batch=batch, seq=seq, mask=masked,
+                           placement=mesh)
 
 
 def cache_specs(cfg: ModelConfig, batch: int) -> dict:
@@ -69,15 +97,17 @@ def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                x: torch.Tensor):
+                x: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
     """One recurrent step through the stack: x (B,X) features ->
     (class logits, new cache)."""
-    exe = runtime.compile(cfg.gru, batch=x.shape[0])
+    exe = runtime.compile(cfg.gru, batch=x.shape[0],
+                          placement=_placement(ctx))
     hs = exe.decode(params, cache["h"], x)
     return _logits(params, hs[-1]), {"h": hs, "pos": cache["pos"] + 1}
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict):
+def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """Run the full sequence; return (logits, per-layer cache).
 
     ``batch["mask"]`` (B, T) bool, optional: False steps freeze the
@@ -88,7 +118,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict):
     mask = batch.get("mask")
     h0s = gru_core.stack_h0(cfg.gru, B, xs.dtype, xs.device)
     exe = runtime.compile(cfg.gru, batch=B, seq=xs.shape[1],
-                          mask=mask is not None)
+                          mask=mask is not None, placement=_placement(ctx))
     finals = exe.prefill(params, h0s, xs, mask=mask)
     cache = {"h": tuple(h.float() for h in finals),
              "pos": torch.tensor(xs.shape[1] - 1, dtype=torch.int32,

@@ -20,9 +20,11 @@ from repro_torch.core import runtime
 from repro_torch.core import slstm as slstm_core
 from repro_torch.core.gru import stack_cell_params
 from repro_torch.core.params import Spec
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx
 # family-generic (runtime.prepare and runtime.compile dispatch on
 # cfg.gru.family), so the GRU's serve as they are
-from repro_torch.models.gru_lm import (prepare_params,  # noqa: F401
+from repro_torch.models.gru_lm import (_placement,
+                                       prepare_params,  # noqa: F401
                                        serve_executable)
 
 
@@ -70,15 +72,18 @@ def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                x: torch.Tensor):
+                x: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
     """One recurrent step through the stack: x (B,X) features ->
-    (class logits, new cache); all four leaves of every layer advance."""
-    exe = runtime.compile(cfg.gru, batch=x.shape[0])
+    (class logits, new cache); all four leaves of every layer advance.
+    The family has no mesh backend: under a mesh it runs replicated."""
+    exe = runtime.compile(cfg.gru, batch=x.shape[0],
+                          placement=_placement(ctx))
     state = exe.decode(params, cache["h"], x)
     return _logits(params, state[-1]), {"h": state, "pos": cache["pos"] + 1}
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict):
+def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """Run the full sequence; return (logits, flat recurrent state).
 
     ``batch["mask"]`` (B, T) bool, optional: False steps freeze all four
@@ -89,7 +94,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict):
     mask = batch.get("mask")
     state0 = slstm_core.stack_state0(cfg.gru, B, xs.dtype, xs.device)
     exe = runtime.compile(cfg.gru, batch=B, seq=xs.shape[1],
-                          mask=mask is not None)
+                          mask=mask is not None, placement=_placement(ctx))
     finals = exe.prefill(params, state0, xs, mask=mask)
     cache = {"h": tuple(s.float() for s in finals),
              "pos": torch.tensor(xs.shape[1] - 1, dtype=torch.int32,

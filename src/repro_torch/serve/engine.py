@@ -33,6 +33,12 @@ run 0..S-1 over the padded row, exactly as in the JAX engine. Decoding is
 greedy (argmax); a request ends at ``eos_id`` or at ``max_new_tokens``,
 and the wave at the longest budget or when every request has ended.
 
+Under a mesh (``ctx=ShardCtx(mesh)``, cell families) every rank runs an
+engine over the same requests, SPMD: the model calls and the executables
+the engine records take the ctx's placement, so a prefill or step is
+attributed to the mesh backend that served it (``cuda_sharded`` under
+``"cuda"`` for prefill) and the ranks' streams are equal.
+
 Steps and prefills are timed with the engine clock around work that ends
 in ``torch.cuda.synchronize()`` on the card; each decode key's first step
 is excluded from the step statistics, as in the JAX engine.
@@ -50,6 +56,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cells as cell_families
 from repro_torch.core import runtime
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx
 from repro_torch.models import api as mapi
 from repro_torch.serve.clock import Clock, SystemClock
 
@@ -108,13 +115,25 @@ class _GruWave:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
-                 clock: Optional[Clock] = None, device="cuda"):
+                 clock: Optional[Clock] = None, device="cuda",
+                 ctx: ShardCtx = NO_SHARD):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.clock = clock or SystemClock()
         self.api = mapi.get_api(cfg)
-        self.params = self.api.prepare_params(params, cfg, self.device)
+        self.ctx = ctx
+        if ctx.mesh is not None:
+            if not self._is_cell():
+                raise NotImplementedError(
+                    f"family {cfg.family!r} has no mesh path in the port "
+                    f"yet; the cell families serve under a mesh")
+            if ctx.mesh.device != self.device:
+                raise ValueError(f"engine on {self.device} but this rank's "
+                                 f"mesh device is {ctx.mesh.device}")
+        self._kw = {"ctx": ctx} if self._is_cell() else {}
+        self.params = self.api.prepare_params(params, cfg, self.device,
+                                              **self._kw)
         self._decode_backends_by_key: Dict[tuple, Optional[str]] = {}
         self._decode_warm = set()        # keys whose first step has passed
         self._prefill_backends_by_bucket: Dict[int, Optional[str]] = {}
@@ -231,8 +250,8 @@ class ServeEngine:
     def _prefill_backend_for(self, Sb: int) -> Optional[str]:
         if Sb not in self._prefill_backends_by_bucket:
             self._prefill_backends_by_bucket[Sb] = self.api.executable(
-                self.cfg, batch=self.max_batch, seq=Sb,
-                masked=True).sequence_backend
+                self.cfg, batch=self.max_batch, seq=Sb, masked=True,
+                mesh=self.ctx.mesh).sequence_backend
         return self._prefill_backends_by_bucket[Sb]
 
     def _gru_prefill(self, prompts: List[np.ndarray]) -> dict:
@@ -243,7 +262,7 @@ class ServeEngine:
         t0 = self.clock.now()
         batch = {"features": torch.from_numpy(feats).to(self.device),
                  "mask": torch.from_numpy(mask).to(self.device)}
-        _, cache = self.api.prefill(self.params, self.cfg, batch)
+        _, cache = self.api.prefill(self.params, self.cfg, batch, **self._kw)
         self._sync()
         self._record_prefill(Sb, self.clock.now() - t0)
         return cache
@@ -321,7 +340,7 @@ class ServeEngine:
         t0 = self.clock.now()
         x = torch.from_numpy(w.nxt).to(self.device)
         logits, w.cache = self.api.decode_step(self.params, self.cfg,
-                                               w.cache, x)
+                                               w.cache, x, **self._kw)
         self._sync()
         self._record_step(w.key, self.clock.now() - t0, backend)
         cls = logits.argmax(-1).cpu().numpy()
@@ -345,7 +364,7 @@ class ServeEngine:
             return None
         if key not in self._decode_backends_by_key:
             self._decode_backends_by_key[key] = self.api.executable(
-                self.cfg, batch=key[0]).decode_backend
+                self.cfg, batch=key[0], mesh=self.ctx.mesh).decode_backend
         self.decode_backend = self._decode_backends_by_key[key]
         return self.decode_backend
 

@@ -1,7 +1,14 @@
 """Helpers shared by the ``test_torch_*`` parity tests: parameters made once
 by the JAX package's ``init_params`` (with random, nonzero biases), carried
-to both frameworks as numpy arrays."""
+to both frameworks as numpy arrays; and :func:`run_ranks`, which runs a
+script as the ranks of a CPU mesh."""
 from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,3 +51,42 @@ def close(actual, expected, tol: float = TOL) -> None:
         actual = actual.detach().cpu().numpy()
     np.testing.assert_allclose(np.asarray(actual), np.asarray(expected),
                                rtol=tol, atol=tol)
+
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def run_ranks(body: str, n: int, workdir, timeout: float = 240.0) -> None:
+    """Run ``body`` (a python script) as ``n`` SPMD ranks, each in its own
+    process: ``python -c body n rank store workdir``, where ``store`` is a
+    file the ranks meet in (``repro_torch.distributed.init_mesh``; no
+    port, so parallel test workers cannot collide). Each rank's output
+    goes to ``workdir/rank<r>.log``. A rank that fails, or does not end
+    within ``timeout`` seconds, fails the caller; every rank is stopped
+    before this returns."""
+    workdir = Path(workdir)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    store = workdir / f"store{n}"
+    procs, logs = [], []
+    try:
+        for r in range(n):
+            logs.append(open(workdir / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", body, str(n), str(r), str(store),
+                 str(workdir)], stdout=logs[-1], stderr=subprocess.STDOUT,
+                env=env))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, (
+            f"rank {r} of {n} exited {p.returncode}:\n"
+            + (workdir / f"rank{r}.log").read_text()[-4000:])

@@ -628,3 +628,86 @@ def test_rowwise_wrappers_raise_on_device_mix(cuda_device):
     with pytest.raises(TypeError):
         MK.cascade_matmul(x, torch.zeros(32, 8, device=cuda_device,
                                          dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the shard kernels (the cuda_sharded backend's per-rank steps)
+# ---------------------------------------------------------------------------
+
+def _shard_operands(H, n, B, dev, seed):
+    """The last rank's operands, with the mesh path's row-strided gate
+    slices of xp and u and a column slice of h as h_local."""
+    g = torch.Generator().manual_seed(seed)
+    Hl = H // n
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+    h = rand(B, H, scale=0.5)
+    xp, u, b = rand(B, 3 * Hl), rand(H, 3 * Hl, scale=H ** -0.5), rand(3 * Hl)
+    u_rows, h_shard = rand(Hl, 3 * H, scale=H ** -0.5), rand(B, Hl)
+    z, xp2 = torch.sigmoid(rand(B, Hl)), rand(B, 2 * Hl)
+    h_local = h[:, (n - 1) * Hl:]
+    return {
+        "gru_rowwise_shard_step": (h, h_local, xp, u, b),
+        "gru_rowwise_shard_zr": (h, h_local, xp[:, :2 * Hl], u[:, :2 * Hl],
+                                 b[:2 * Hl]),
+        "gru_rowwise_shard_candidate": (rand(B, H), h_local, z,
+                                        xp[:, 2 * Hl:], u[:, 2 * Hl:],
+                                        b[2 * Hl:]),
+        "gru_shard_matvec": (h_shard, u_rows[:, :2 * H]),
+        "gru_cascade_shard_gates": (rand(B, 3 * Hl), xp, h_shard),
+        "gru_cascade_shard_zr": (rand(B, 2 * Hl), xp2, h_shard,
+                                 u_rows[:, 2 * H:]),
+        "gru_cascade_shard_update": (z, rand(B, Hl), h_shard),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,n", tuple(itertools.product((20, 32),
+                                                        (1, 2, 4))))
+@pytest.mark.parametrize("B", (1, 8, 64))
+def test_shard_kernels_match_plain(cuda_device, H, n, B):
+    ops_ = _shard_operands(H, n, B, cuda_device, H * 100 + n * 10 + B)
+    K.reset_launch_counts()
+    pairs = []
+    for fn in K.SHARD_KERNELS:
+        args = ops_[fn.__name__]
+        got, want = fn(*args), getattr(ref, fn.__name__ + "_ref")(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        pairs += list(zip(got, want))
+    assert all(f.launches == 1 for f in K.SHARD_KERNELS)
+    assert _max_err(pairs) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ("v1", "v3"))
+def test_one_rank_mesh_runs_the_shard_kernels(cuda_device, variant):
+    """gru-jet-deep on a one-rank mesh of the card (no process group):
+    cuda_sharded prefill and decode launch the shard kernels and agree
+    with the eager stack."""
+    from repro_torch.core import gru as gru_core
+    from repro_torch.core import runtime
+    from repro_torch.distributed import local_mesh
+    cfg = dataclasses.replace(get_config("gru-jet-deep").gru,
+                              backend="cuda_sharded", variant=variant)
+    params = init_params({"cells": gru_core.gru_stack_specs(cfg)}, seed=0,
+                         device=cuda_device)
+    g = torch.Generator().manual_seed(1)
+    xs = torch.randn(8, 6, cfg.input_dim, generator=g).to(cuda_device)
+    h0s = gru_core.stack_h0(cfg, 8, device=cuda_device)
+    exe = runtime.compile(cfg, batch=8, seq=6,
+                          placement=local_mesh(cuda_device))
+    assert (exe.sequence_backend, exe.decode_backend) == ("cuda_sharded",
+                                                          "cuda_sharded")
+    sp = exe.prepare(params, device=cuda_device)
+    K.reset_launch_counts()
+    finals = exe.prefill(sp, h0s, xs)
+    hs = exe.decode(sp, finals, xs[:, 0])
+    torch.cuda.synchronize()
+    assert sum(f.launches for f in K.SHARD_KERNELS) > 0
+    assert all(f.launches == 0 for f in K.KERNELS)
+    want = gru_core.gru_stack_sequence_eager(sp.cells, h0s, xs, cfg=cfg)[0]
+    want_hs = gru_core.gru_stack_decode_eager(sp.cells, want, xs[:, 0],
+                                              cfg=cfg)
+    assert _max_err(list(zip(finals, want)) + list(zip(hs, want_hs))) <= TOL
