@@ -265,7 +265,9 @@ def build_kernels():
     from repro_torch.kernels.gru_sequence import kernel as K
     t0 = time.monotonic()
     paths = _build.build()
-    print(f"built {sorted(paths)} in {time.monotonic() - t0:.1f} s",
+    print(f"built {sorted(paths)} in {time.monotonic() - t0:.1f} s (nvcc "
+          f"wall seconds each, in parallel: "
+          f"{ {n: round(t, 1) for n, t in _build.BUILD_SECONDS.items()} })",
           flush=True)
     for name in paths:
         for line in _build.build_log(name).splitlines():
@@ -293,17 +295,34 @@ def build_kernels():
     from repro_torch.kernels.flash_attn import kernel as FK
     fa = _build.load("flash_attn").flash_attention_smem_bytes
     fd = _build.load("decode_attn").flash_decode_smem_bytes
-    fa.argtypes, fd.argtypes = [ctypes.c_int], [ctypes.c_int, ctypes.c_int]
-    for D in (16, 64, 128):
-        check(fa(D) == FK.smem_bytes(D), f"flash_attention smem D={D}: "
-              f"CUDA {fa(D)} != wrapper {FK.smem_bytes(D)}")
-        for G in (1, 2, 16):
-            check(fd(G, D) == DK.smem_bytes(G, D), f"flash_decode smem G={G} "
-                  f"D={D}: CUDA {fd(G, D)} != wrapper {DK.smem_bytes(G, D)}")
+    fa.argtypes = [ctypes.c_int] * 2
+    fd.argtypes = [ctypes.c_int] * 2
+    import torch
+    for bf16, dt in ((0, torch.float32), (1, torch.bfloat16)):
+        for D in (16, 18, 64, 65, 128):
+            check(fa(D, bf16) == FK.smem_bytes(D, dt), f"flash_attention "
+                  f"smem {dt} D={D}: CUDA {fa(D, bf16)} != wrapper "
+                  f"{FK.smem_bytes(D, dt)}")
+            check(fd(D, bf16) == DK.smem_bytes(D, dt), f"flash_decode smem "
+                  f"{dt} D={D}: CUDA {fd(D, bf16)} != wrapper "
+                  f"{DK.smem_bytes(D, dt)}")
+    b16, f32 = torch.bfloat16, torch.float32
     print(f"  dynamic shared memory per block, qwen3-0.6b heads (D=128, "
-          f"G=2): flash_attention {FK.smem_bytes(128)} bytes (32 query rows,"
-          f" 64 keys), flash_decode {DK.smem_bytes(2, 128)} bytes (64 slots)"
-          f" (limit {K.SMEM_LIMIT}); CUDA sources agree")
+          f"G=2): flash_attention {FK.smem_bytes(128, b16)} bytes bf16 (64 "
+          f"query rows, 2 stages of 64 keys), "
+          f"{FK.smem_bytes(128, f32)} fp32 (32 rows, 64 keys); "
+          f"flash_decode {DK.smem_bytes(128, b16)} bytes bf16 (3 stages of "
+          f"64 slots), {DK.smem_bytes(128, f32)} fp32 (3 stages) (limit "
+          f"{K.SMEM_LIMIT}); CUDA sources agree")
+    sass = _build.sass("flash_attn")
+    hgmma = {name: body.count("HGMMA") for name, body in sass.items()}
+    tc = {n: c for n, c in hgmma.items() if "flash_attention_tc" in n}
+    check(len(tc) == 2 and all(tc.values()), f"flash_attention bf16: no "
+          f"tensor-core (HGMMA) instructions in its SASS: {hgmma}")
+    print(f"  flash_attention bf16 kernels on the tensor cores: HGMMA "
+          f"instructions in the SASS {sorted(tc.values())} (D <= 64, "
+          f"D <= 128); fp32 kernel "
+          f"{sum(c for n, c in hgmma.items() if n not in tc)}", flush=True)
     from repro_torch.kernels.rowwise_matvec import kernel as MK
     gs = _build.load("gru_cell").gru_cell_smem_bytes
     ms = _build.load("rowwise_matvec").rowwise_smem_bytes
@@ -1016,20 +1035,22 @@ LM_SLOTS, LM_NEW = 4, 16
 LM_WAVES = ((12, 12, 12, 12), (128, 12, 128, 12))   # prompt lengths
 LM_LOGIT_TOL = 0.25       # |bf16 cuda - fp32 chunked| logits, 28 layers
 HQ, HKV, HD = 16, 8, 128                            # qwen3-0.6b's heads
-# (B, Sq, Sk, causal, window): the served prefills (S = 12, 128), S = 2048,
-# a window, Sq and Sk off the 32-row / 64-key tiles, Sq > Sk under a
-# window (rows with no valid key)
+# (B, Sq, Sk, causal, window): the served prefills (S = 12, 128), S = 2048
+# with and without a window, a window, Sq and Sk off the 64-key and the
+# 32- and 64-row tiles, Sq > Sk under a window (rows with no valid key)
 FLASH_CHECKS = ((4, 12, 12, True, 0), (4, 128, 128, True, 0),
-                (1, 2048, 2048, True, 0), (2, 200, 200, True, 64),
-                (2, 77, 45, False, 0), (1, 300, 40, True, 16))
+                (1, 2048, 2048, True, 0), (1, 2048, 2048, True, 256),
+                (2, 200, 200, True, 64), (2, 77, 45, False, 0),
+                (1, 300, 40, True, 16))
 # (B, C, written positions (first, last) or None, pos, window): the
 # served caches (C = S + 64 after prefill and the first decode write), S =
 # 2048, a wrapped ring, a window over it, empty slots, a fully masked
-# cache
+# cache, C just above one tile, valid slots only in the last split
 DECODE_CHECKS = ((4, 76, (0, 12), 12, 0), (4, 192, (0, 128), 128, 0),
                  (1, 2112, (0, 2048), 2048, 0), (4, 192, (100, 400), 400, 0),
                  (4, 192, (100, 400), 400, 100), (4, 192, (0, 50), 50, 0),
-                 (2, 76, None, 0, 0))
+                 (2, 76, None, 0, 0), (2, 65, (0, 64), 64, 0),
+                 (1, 2112, (1990, 2100), 2100, 0))
 
 
 def attn_inputs(torch, B, Sq, Sk, dtype, seed, dev):
@@ -1068,9 +1089,12 @@ def check_attention_kernels(torch, dev):
             q, k, v = attn_inputs(torch, B, Sq, Sk, dtype, Sq + Sk, dev)
             got = FK.flash_attention(q, k, v, causal=causal, window=window)
             want = fref.flash_attention_plain(q, k, v, causal, window)
+            again = FK.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             check(got.dtype == dtype and bool(torch.isfinite(got).all()),
                   f"flash_attention {dn} S={Sq}/{Sk}: bad output")
+            check(torch.equal(got, again), f"flash_attention {dn} S={Sq}/"
+                  f"{Sk}: two launches gave different bits")
             e = (got.float() - want.float()).abs().max().item()
             err["flash_attention"][dn] = max(err["flash_attention"][dn], e)
             check(torch.allclose(got.float(), want.float(), rtol=tol,
@@ -1084,14 +1108,18 @@ def check_attention_kernels(torch, dev):
             print(f"  flash_attention {dn:8s} B={B} Hq={HQ} Hkv={HKV} D={HD}"
                   f" Sq={Sq:4d} Sk={Sk:4d} causal={causal!s:5} window="
                   f"{window:3d}: max |kernel - plain| {e:.3g} (rows without "
-                  f"a key: {int(no_key.sum())}, exactly 0)", flush=True)
+                  f"a key: {int(no_key.sum())}, exactly 0; two launches "
+                  f"bitwise equal)", flush=True)
             n_checks += 1
         for (B, C, written, pos, window) in DECODE_CHECKS:
             q, kc, vc, mask = decode_inputs(torch, B, C, written, pos, window,
                                             dtype, C + pos, dev)
             got = DK.flash_decode(q, kc, vc, mask)
             want = dref.flash_decode_plain(q, kc, vc, mask)
+            again = DK.flash_decode(q, kc, vc, mask)
             torch.cuda.synchronize()
+            check(torch.equal(got, again), f"flash_decode {dn} C={C}: two "
+                  f"launches gave different bits")
             e = (got - want).abs().max().item()
             err["flash_decode"][dn] = max(err["flash_decode"][dn], e)
             check(got.dtype == torch.float32 and e <= TOL,
@@ -1100,10 +1128,16 @@ def check_attention_kernels(torch, dev):
             if written is None:
                 check(int(torch.count_nonzero(got)) == 0,
                       "flash_decode: a fully masked cache is not 0")
+            splits = DK.num_splits(B, HKV, C, DK.sm_count(dev))
             print(f"  flash_decode    {dn:8s} B={B} Hkv={HKV} G={HQ // HKV} "
                   f"D={HD} C={C:4d} valid={int(mask.sum()):4d} window="
-                  f"{window:3d}: max |kernel - plain| {e:.3g}", flush=True)
+                  f"{window:3d}: max |kernel - plain| {e:.3g} ({splits} "
+                  f"splits, {B * HKV * splits} blocks; two launches "
+                  f"bitwise equal)", flush=True)
             n_checks += 1
+    check(HKV * DK.num_splits(1, HKV, 2112, DK.sm_count(dev)) > HKV,
+          "flash_decode at B=1 "
+          "C=2112 runs no more blocks than (b, kv-head) pairs")
     print(f"  {n_checks} attention kernel/plain comparisons passed; fp32 "
           f"tol {TOL}, bf16 tol {BF16_TOL:.4g} (flash_attention, bf16 "
           f"output) and {TOL} (flash_decode, fp32 output)", flush=True)
@@ -1203,8 +1237,13 @@ def run_lm_path(torch, dev, cfg=None):
               + SK.SLSTM_KERNELS + K.ROWWISE_KERNELS + K.SHARD_KERNELS}
     st = eng.latency_stats()
     prefills, steps_run = st["prefills"], st["steps"] + 1   # one decode key
+    from repro_torch.kernels.decode_attn import kernel as DK
+    splits = {C: DK.num_splits(LM_SLOTS, cfg.num_kv_heads, C,
+                               DK.sm_count(dev))
+              for C in sorted({max(w) + 64 for w in LM_WAVES})}
     print(f"  launches: {launches}; other kernels {others}; plain versions "
-          f"{plain}", flush=True)
+          f"{plain}; flash_decode splits at the served caches (C = S + "
+          f"64): {splits}", flush=True)
     check(not any(plain.values()), f"{LM_ARCH}: plain versions ran {plain}")
     check(not any(others.values()), f"{LM_ARCH}: other kernels ran {others}")
     check(launches == {"flash_attention": L * prefills,
@@ -1925,6 +1964,59 @@ ATTN_ROW = {"flash_attention": (4, 128, 128, True, 0),
             "flash_decode": (4, 192, (0, 128), 128, 0)}
 
 
+def decode_ops_per_call(torch, fn, B):
+    """What one warm call of the flash-decode wrapper ``fn`` puts on the
+    card, read from a ``torch.profiler`` trace of that call: the count of
+    its CUDA kernels (``flash_decode_k`` and any other), memsets and copies,
+    and the grid of each ``flash_decode_k`` launch (blocks = x * y). Checks
+    that ``flash_decode_k`` ran exactly once and, at B = 1, on more blocks
+    than (b, kv-head) pairs. Counts are None where the profiler recorded
+    no device activity."""
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memset", "gpu_memcpy")]
+    if not dev_ev:
+        return {"counts": None, "text": "device ops per call not measured "
+                "(the profiler recorded no device activity)"}
+    kernels = [e for e in dev_ev if e["cat"] == "kernel"]
+    ours = [e for e in kernels if "flash_decode_k" in e["name"]]
+    grids = [e.get("args", {}).get("grid") for e in ours]
+    blocks = [g[0] * g[1] * g[2] if g else None for g in grids]
+    counts = {"cuda_kernels": len(kernels),
+              "flash_decode_k": len(ours),
+              "other_kernels": sorted(e["name"][:60] for e in kernels
+                                      if e not in ours),
+              "memsets": sum(e["cat"] == "gpu_memset" for e in dev_ev),
+              "copies": sum(e["cat"] == "gpu_memcpy" for e in dev_ev),
+              "grids": grids, "blocks": blocks}
+    check(len(ours) == 1, f"flash_decode: {len(ours)} flash_decode_k "
+          f"launches in one wrapper call")
+    if B == 1 and blocks[0] is not None:
+        check(blocks[0] > HKV, f"flash_decode at B=1 ran {blocks[0]} "
+              f"blocks, no more than its {HKV} (b, kv-head) pairs")
+    text = (f"device ops per call (profiler): {len(kernels)} CUDA "
+            f"kernel(s) ({len(ours)} flash_decode_k, grid {grids[0]}, "
+            f"{blocks[0]} blocks"
+            + (f"; others {counts['other_kernels']}"
+               if counts["other_kernels"] else "")
+            + f"), {counts['memsets']} memset(s), {counts['copies']} "
+            f"copies")
+    return {"counts": counts, "text": text}
+
+
 def attn_bound_ms(name, shape, itemsize, valid=None):
     """Least time: q, k, v read once and the output written once over
     3.35 TB/s, or 4*D flops per valid (query, key) pair and head over the
@@ -1950,63 +2042,79 @@ def attn_bound_ms(name, shape, itemsize, valid=None):
 
 def time_attention(torch, dev, err, launches):
     """Kernel, plain-version, library and bound times of the two attention
-    kernels; returns the two JSON rows."""
+    kernels at every ``ATTN_TIMED`` shape, bf16 then fp32; returns the two
+    JSON rows (bf16, the S = 128 wave, with the fp32 times beside)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.decode_attn import ref as dref
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn import ref as fref
-    rows = []
+    rows, fp32_at_row, ops_at = [], {}, {}
     for name, shape in ATTN_TIMED:
-        dtype = torch.bfloat16
-        if name == "flash_attention":
-            B, Sq, Sk, causal, window = shape
-            q, k, v = attn_inputs(torch, B, Sq, Sk, dtype, 11, dev)
-            valid = None
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = "bf16" if dtype == torch.bfloat16 else "fp32"
+            extra = ""
+            if name == "flash_attention":
+                B, Sq, Sk, causal, window = shape
+                q, k, v = attn_inputs(torch, B, Sq, Sk, dtype, 11, dev)
+                valid = None
 
-            def kern():
-                return FK.flash_attention(q, k, v, causal=causal,
-                                          window=window)
+                def kern():
+                    return FK.flash_attention(q, k, v, causal=causal,
+                                              window=window)
 
-            def plain_fn():
-                return fref.flash_attention_plain(q, k, v, causal, window)
+                def plain_fn():
+                    return fref.flash_attention_plain(q, k, v, causal,
+                                                      window)
 
-            def library():
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True)
-            label = f"B={B} Sq={Sq:4d} Sk={Sk:4d}"
-        else:
-            B, C, written, pos, window = shape
-            q, kc, vc, mask = decode_inputs(torch, B, C, written, pos, window,
-                                            dtype, 11, dev)
-            valid = int(mask.sum())
-            qh = q.reshape(B, HQ, 1, HD)
-            amask = mask[None, None, None, :]
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True)
+                label = f"B={B} Sq={Sq:4d} Sk={Sk:4d}"
+            else:
+                B, C, written, pos, window = shape
+                q, kc, vc, mask = decode_inputs(torch, B, C, written, pos,
+                                                window, dtype, 11, dev)
+                valid = int(mask.sum())
+                qh = q.reshape(B, HQ, 1, HD)
+                amask = mask[None, None, None, :]
 
-            def kern():
-                return DK.flash_decode(q, kc, vc, mask)
+                def kern():
+                    return DK.flash_decode(q, kc, vc, mask)
 
-            def plain_fn():
-                return dref.flash_decode_plain(q, kc, vc, mask)
+                def plain_fn():
+                    return dref.flash_decode_plain(q, kc, vc, mask)
 
-            def library():
-                return F.scaled_dot_product_attention(
-                    qh, kc, vc, attn_mask=amask, enable_gqa=True)
-            label = f"B={B} C={C:4d} valid={valid:4d}"
-        lib_out, want = library(), plain_fn()
-        lib_err = (lib_out.float().reshape(want.shape)
-                   - want.float()).abs().max().item()
-        ms = device_time_ms(torch, kern, per_graph=50)
-        plain = device_time_ms(torch, plain_fn, per_graph=2)
-        lib = device_time_ms(torch, library, per_graph=50)
-        call = call_time_ms(torch, kern, iters=200)
-        bms, by = attn_bound_ms(name, shape, 2, valid)
-        print(f"  {name:15s} bf16 {label}: device {ms * 1e3:9.2f} us (per "
-              f"call {call * 1e3:8.2f})  plain {plain * 1e3:10.2f} us  "
-              f"sdpa {lib * 1e3:8.2f} us (|sdpa - plain| {lib_err:.3g})  "
-              f"bound {bms * 1e3:8.3f} us ({by})", flush=True)
-        if shape == ATTN_ROW[name]:
-            rows.append({
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qh, kc, vc, attn_mask=amask, enable_gqa=True)
+                label = f"B={B} C={C:4d} valid={valid:4d}"
+                sp = DK.num_splits(B, HKV, C, DK.sm_count(dev))
+                ops = decode_ops_per_call(torch, kern, B)
+                extra = f"  splits {sp}; {ops['text']}"
+                if dtype == torch.bfloat16:
+                    ops_at[f"B={B} C={C}"] = ops["counts"]
+            lib_out, want = library(), plain_fn()
+            lib_err = (lib_out.float().reshape(want.shape)
+                       - want.float()).abs().max().item()
+            ms = device_time_ms(torch, kern, per_graph=50)
+            plain = device_time_ms(torch, plain_fn, per_graph=2)
+            lib = device_time_ms(torch, library, per_graph=50)
+            call = call_time_ms(torch, kern, iters=200)
+            bms, by = attn_bound_ms(name, shape, dtype.itemsize, valid)
+            print(f"  {name:15s} {dn} {label}: device {ms * 1e3:9.2f} us "
+                  f"(per call {call * 1e3:8.2f})  plain {plain * 1e3:10.2f} "
+                  f"us  sdpa {lib * 1e3:8.2f} us (|sdpa - plain| "
+                  f"{lib_err:.3g})  bound {bms * 1e3:8.3f} us ({by})"
+                  + extra, flush=True)
+            if shape != ATTN_ROW[name]:
+                continue
+            if dtype == torch.float32:
+                fp32_at_row[name] = {"ms_fp32": ms, "plain_ms_fp32": plain,
+                                     "library_ms_fp32": lib,
+                                     "bound_ms_fp32": bms}
+                continue
+            row = {
                 "name": name, "route": "cuda",
                 "source": KERNEL_SOURCE[name], "replaces": REPLACES[name],
                 "launches": launches[name],
@@ -2015,7 +2123,13 @@ def time_attention(torch, dev, err, launches):
                 "ms": ms, "plain_ms": plain, "bound_ms": bms,
                 "bound_by": by, "library_ms": lib, "call_ms": call,
                 "shape": {"heads": [HQ, HKV, HD], "shape": list(shape),
-                          "dtype": "bfloat16"}})
+                          "dtype": "bfloat16"}}
+            rows.append(row)
+    for row in rows:
+        row.update(fp32_at_row[row["name"]])
+        if row["name"] == "flash_decode":
+            # measured by the profiler at every timed shape (bf16)
+            row["device_ops_per_call"] = ops_at
     print("  library_ms: torch.nn.functional.scaled_dot_product_attention "
           "(enable_gqa; is_causal for prefill, the validity mask for "
           "decode) on the same inputs, timed only", flush=True)
@@ -2284,9 +2398,12 @@ def profile_lm_decode(torch, dev, params):
     diff = {k: (us - k1.get(k, 0.0)) / steps for k, us in k41.items()}
     for k, us in sorted(diff.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us:9.2f} us/step  {k[:90]}")
+    decode_us = sum(us for k, us in diff.items() if "flash_decode_k" in k)
+    print(f"    flash_decode_k: {decode_us:.2f} us/step", flush=True)
     return {"wall_ms_per_step": wall * 1e3,
             "device_busy_ms_per_step": busy * 1e3,
-            "device_idle_share": 1 - busy / wall}
+            "device_idle_share": 1 - busy / wall,
+            "flash_decode_us_per_step": decode_us}
 
 
 def profile_decode(torch, dev, backend, arch="gru-jet-deep"):

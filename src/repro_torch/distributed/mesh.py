@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import resolve_device
+
 AXIS = "model"
 
 
@@ -75,9 +77,11 @@ class Mesh:
         return out
 
 
-def local_mesh(device="cpu") -> Mesh:
-    """A one-rank mesh without a process group (JAX's one-device mesh)."""
-    return Mesh(group=None, size=1, rank=0, device=torch.device(device))
+def local_mesh(device="cuda") -> Mesh:
+    """A one-rank mesh without a process group (JAX's one-device mesh), on
+    the card unless the caller asks for the CPU (``resolve_device``: it
+    raises when there is no card)."""
+    return Mesh(group=None, size=1, rank=0, device=resolve_device(device))
 
 
 def init_mesh(world_size: int, rank: int, *, init_file: str, device,

@@ -22,6 +22,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -34,6 +35,7 @@ LIBRARIES = ("gru_sequence", "gru_sequence_q8", "gru_cell_q8",
              "rowwise_matvec", "gru_shard")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: Dict[str, float] = {}     # library -> nvcc wall seconds
 _LOCK = threading.Lock()
 
 
@@ -92,29 +94,54 @@ def build_log(name: str) -> str:
 
 def build(names: Iterable[str] = LIBRARIES) -> Dict[str, Path]:
     """Build every library in ``names`` that is not built yet, one ``nvcc``
-    per source, all started together. Returns name -> library path."""
+    per source, all started together. Returns name -> library path; each
+    build's wall seconds go to :data:`BUILD_SECONDS`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
-    procs = {}
+    results = {}
+
+    def run(n, cmd, tmp):
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        results[n] = (proc, tmp, cmd, time.monotonic() - t0)
+
+    threads = []
     for n, path in paths.items():
         if path.exists():
             continue
         tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_source(n))]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, cmd)
+        threads.append(threading.Thread(target=run, args=(n, cmd, tmp)))
+        threads[-1].start()
+    for t in threads:
+        t.join()
     failures = []
-    for n, (proc, tmp, cmd) in procs.items():
-        out, _ = proc.communicate()
+    for n, (proc, tmp, cmd, seconds) in results.items():
         if proc.returncode != 0:
-            failures.append(f"{' '.join(cmd)}\n{out}")
+            failures.append(f"{' '.join(cmd)}\n{proc.stdout}")
             continue
-        paths[n].with_suffix(".log").write_text(out)
+        BUILD_SECONDS[n] = seconds
+        paths[n].with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, paths[n])           # atomic: readers see whole files
     if failures:
         raise RuntimeError("nvcc build failed:\n" + "\n".join(failures))
     return paths
+
+
+def sass(name: str) -> Dict[str, str]:
+    """The SASS of each kernel of the built library ``name``
+    (``cuobjdump -sass``, from the toolkit beside ``nvcc``): mangled
+    function name -> its instructions."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(nvcc_path()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-sass", str(build([name])[name])],
+                         capture_output=True, text=True, check=True).stdout
+    functions = {}
+    for part in out.split("Function : ")[1:]:
+        head, _, body = part.partition("\n")
+        functions[head.strip()] = body
+    return functions
 
 
 def load(name: str) -> ctypes.CDLL:

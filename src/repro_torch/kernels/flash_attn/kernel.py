@@ -4,9 +4,10 @@ Same name and array interface as the Pallas kernel
 ``repro.kernels.flash_attn.kernel.flash_attention``: q ``(B, Hq, Sq, D)``,
 k and v ``(B, Hkv, Sk, D)``, float32 or bfloat16 (all three alike),
 contiguous, ``Hq % Hkv == 0``, ``D <= 128``; Sq and Sk take any length.
-Returns ``(B, Hq, Sq, D)`` in q's dtype, computed in fp32. The TPU
-kernel's ``block_q``/``block_k`` are TPU tiling; the CUDA kernel picks its
-own tiles (32 query rows, 64 keys).
+Returns ``(B, Hq, Sq, D)`` in q's dtype, with fp32 sums. The TPU
+kernel's ``block_q``/``block_k`` are TPU tiling; the CUDA source picks its
+own tiles: bfloat16 runs on the tensor cores (64 query rows, 64 keys),
+float32 on the CUDA cores (32 query rows, 64 keys).
 
 It checks device, dtype, shape and contiguity and raises on anything the
 kernel does not take, and checks the block's shared memory
@@ -30,16 +31,20 @@ from repro_torch.kernels._launch import stream as _stream
 from repro_torch.kernels.flash_attn import ref
 
 MAX_D = 128
-BLOCK_Q, BLOCK_K = 32, 64          # kBQ, kBK in the CUDA source
+BLOCK_Q, BLOCK_K = 32, 64           # the fp32 kernel's kBQ, kBK
 DTYPES = (torch.float32, torch.bfloat16)
 # q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, window, scale, bf16, stream
 _ARGS = [P] * 4 + [I] * 8 + [ctypes.c_float, I, P]
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one block (mirrors the CUDA source): the
+def smem_bytes(D: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block (mirrors the CUDA source).
+    bfloat16: the q tile and a ring of two K and V tiles, each 64 rows of
+    64 (D <= 64) or 128 values, and 1024 bytes to align them. float32: the
     scaled q tile and the k tile at Dp + 4 words a row (Dp = D rounded up
     to 4), the v tile at Dp, and the score/P tile at 72 words a row."""
+    if dtype == torch.bfloat16:
+        return 1024 + 5 * 64 * (64 if D <= 64 else 128) * 2
     Dp = (D + 3) // 4 * 4
     return 4 * ((BLOCK_Q + BLOCK_K) * (Dp + 4) + BLOCK_K * Dp
                 + BLOCK_Q * (BLOCK_K + 8))
@@ -70,9 +75,10 @@ def check_attention(q, k, v) -> None:
     if D > MAX_D:
         raise ValueError(f"head dim {D} > {MAX_D}: the kernel takes at most "
                          f"{MAX_D}")
-    if smem_bytes(D) > SMEM_LIMIT:
-        raise ValueError(f"D={D} needs {smem_bytes(D)} bytes of shared "
-                         f"memory per block; a Hopper block has {SMEM_LIMIT}")
+    need = smem_bytes(D, q.dtype)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"D={D} needs {need} bytes of shared memory per "
+                         f"block; a Hopper block has {SMEM_LIMIT}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
 

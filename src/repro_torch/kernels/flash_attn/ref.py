@@ -78,3 +78,4 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
         m = m_new
     o = acc / torch.where(l == 0.0, torch.ones_like(l), l)
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
+

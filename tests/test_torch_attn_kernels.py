@@ -204,6 +204,16 @@ def test_wrappers_check_operands_and_launch_nothing_on_cpu():
 
 
 def test_shared_memory_at_qwen3_head_dim():
-    assert FK.smem_bytes(128) == 92672 <= SMEM_LIMIT
-    assert DK.smem_bytes(2, 128) == 67352 <= SMEM_LIMIT
-    assert DK.smem_bytes(16, 128) <= SMEM_LIMIT
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # flash attention: bf16 on the tensor cores, the q tile and two stages
+    # of K and V (64 rows of 128 bf16 each) and 1024 bytes of alignment;
+    # fp32 keeps the CUDA-core kernel's layout
+    assert FK.smem_bytes(128, bf16) == 82944 <= SMEM_LIMIT
+    assert FK.smem_bytes(64, bf16) == 41984
+    assert FK.smem_bytes(128, fp32) == 92672 <= SMEM_LIMIT
+    # flash decode: a ring of three stages of K and V tiles of 64 slots in
+    # the input type (rows padded by 16 bytes); queries and running state
+    # live in registers, whatever G
+    assert DK.smem_bytes(128, bf16) == 104448 <= SMEM_LIMIT
+    assert DK.smem_bytes(128, fp32) == 202752 <= SMEM_LIMIT
+    assert DK.smem_bytes(18, bf16) == 3 * 2 * 64 * 32 * 2

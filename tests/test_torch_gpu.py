@@ -427,6 +427,8 @@ ATTN_CASES = [
     (1, 4, 4, 40, 8, 16, True, 4),
     (2, 8, 2, 33, 33, 32, False, 7),
     (1, 4, 2, 50, 50, 18, True, 0),     # D off the 4- and 8-value vectors
+    (1, 16, 8, 2048, 2048, 128, True, 0),     # long prefill, causal
+    (1, 16, 8, 2048, 2048, 128, True, 256),   # long prefill, a window
 ]
 
 
@@ -465,6 +467,11 @@ DECODE_ATTN_CASES = [
     (1, 2, 4, 50, 64, (0, 20), 20, 0),           # empty (-1) slots
     (1, 2, 2, 16, 16, None, 0, 0),               # fully masked cache
     (1, 2, 3, 70, 18, (0, 69), 69, 0),           # D off the vectors
+    (1, 8, 2, 2112, 128, (0, 2048), 2048, 0),    # long cache, 16 splits
+    (2, 8, 2, 65, 128, (0, 64), 64, 0),          # C just above one tile
+    (1, 8, 2, 2112, 128, (1990, 2100), 2100, 0), # valid only in the last split
+    (1, 2, 8, 130, 64, (0, 129), 129, 0),        # G = 8 (8 warps)
+    (1, 1, 16, 300, 128, (0, 299), 299, 0),      # G = 16, split and merged
 ]
 
 
@@ -491,6 +498,42 @@ def test_flash_decode_kernel_matches_plain(cuda_device, dtype, B, Hkv, G, C,
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     if written is None:
         assert torch.count_nonzero(got) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_attention_kernels_are_deterministic(cuda_device, dtype):
+    """Two launches on the same inputs give the same bits: no atomics, a
+    fixed merge order over the decode splits."""
+    g = torch.Generator().manual_seed(5)
+    q = _rand((1, 16, 2048, 128), g, cuda_device, dtype)
+    k = _rand((1, 8, 2048, 128), g, cuda_device, dtype)
+    v = _rand((1, 8, 2048, 128), g, cuda_device, dtype)
+    a = FK.flash_attention(q, k, v, causal=True)
+    b = FK.flash_attention(q, k, v, causal=True)
+    qd = _rand((1, 8, 2, 128), g, cuda_device, dtype)
+    kc = _rand((1, 8, 2112, 128), g, cuda_device, dtype)
+    vc = _rand((1, 8, 2112, 128), g, cuda_device, dtype)
+    mask = torch.rand(2112, generator=g).to(cuda_device) < 0.9
+    c = DK.flash_decode(qd, kc, vc, mask)
+    d = DK.flash_decode(qd, kc, vc, mask)
+    torch.cuda.synchronize()
+    assert DK.num_splits(1, 8, 2112, DK.sm_count(cuda_device)) > 1
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+@pytest.mark.gpu
+def test_bf16_flash_attention_runs_on_the_tensor_cores(cuda_device):
+    """The bf16 kernel of the built library issues wgmma (HGMMA in its
+    SASS); the fp32 kernel stays on the CUDA cores."""
+    from repro_torch.kernels import _build
+    functions = _build.sass("flash_attn")
+    tc = [body for name, body in functions.items()
+          if "flash_attention_tc" in name]
+    assert len(tc) == 2                          # D <= 64 and D <= 128
+    assert all("HGMMA" in body for body in tc)
+    assert not any("HGMMA" in body for name, body in functions.items()
+                   if "flash_attention_k" in name)
 
 
 @pytest.mark.gpu

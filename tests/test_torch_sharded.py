@@ -557,6 +557,17 @@ def test_dispatch_matches_jax_runtime(pref, dims, masked, family, mesh_on):
         PORT_NAME[jexe.sequence_backend], PORT_NAME[jexe.decode_backend])
 
 
+def test_local_mesh_defaults_to_the_card(monkeypatch):
+    """``local_mesh()`` runs on the card like every entry point: without
+    one it raises; the CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        local_mesh()
+    mesh = local_mesh("cpu")
+    assert (mesh.device, mesh.size, mesh.rank, mesh.group) == (
+        torch.device("cpu"), 1, 0, None)
+
+
 def test_one_rank_mesh_matches_jax_xla():
     """On a one-rank mesh (no process group: the collectives are
     identities) the split runs in this process."""
