@@ -13,7 +13,10 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_cell``, ``rowwise_matvec`` and ``gru_shard``, one ``nvcc`` each,
    started together) and print ``-Xptxas -v``'s report and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
-   compute it and as the CUDA sources do, which must agree);
+   compute it and as the CUDA sources do, which must agree), the row-wise
+   matmuls' launch plans at qwen3-0.6b's shapes, and check that the bf16
+   ``flash_attention`` and row-wise/cascade kernels' SASS holds tensor-core
+   instructions (HGMMA, HMMA) and the fp32 matmuls' none;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (gru-jet L=1 H=20, gru-jet-deep L=3 H=32, and the
    chain's depth-1 layers of H=20 and H=32; B in {1, 8, 64}; T in {8, 16,
@@ -84,11 +87,14 @@ Phases (any failure exits non-zero, before the result lines):
    gru-jet-deep's H=32 (B 1 and 8, v1 and v3, fp32 and bf16 u), at
    H=1024 and 2048 v1 (fp32; bf16 at 2048), at H=1024 v3 and H=1000 v1;
    ``rowwise`` and ``cascade`` at JAX's test shapes, the paper's matvec
-   (B=8, K=32, N=96; also a 1-D x) and qwen3-0.6b's MLP matvecs (B=4, K
-   1024 -> N 3072 and 3072 -> 1024), fp32 and bf16. Each call must launch
-   exactly the kernel JAX's dispatch rule names (``gru_step_fused`` or
-   ``gru_step_blocked``; ``rowwise_matmul``, ``cascade_matmul``), no plain
-   version and no other kernel may run; then each output is held against
+   (B=8, K=32, N=96; also a 1-D x), qwen3-0.6b's MLP matvecs (B=4, K
+   1024 -> N 3072 and 3072 -> 1024), fp32 and bf16, and ragged shapes
+   (bf16 N = 20 and 100, fp32 K = 1000). Each call must launch exactly the
+   kernel JAX's dispatch rule names (``gru_step_fused`` or
+   ``gru_step_blocked``; ``rowwise_matmul``, ``cascade_matmul``) on the
+   route its plan names (plain loads exactly where TMA cannot read the
+   operands), no plain version and no other kernel may run; then each
+   output is held against
    its plain version on the card (step: fp32 1e-5, bf16 u 1e-2; matmuls
    rtol = atol 2e-4 fp32, 2e-2 bf16);
 11b. the mesh path: after the build, the script starts itself once per
@@ -116,7 +122,8 @@ Phases (any failure exits non-zero, before the result lines):
    989 TFLOP/s bf16, 1,979 TOP/s int8), whichever is larger; the attention
    kernels beside one ``scaled_dot_product_attention`` call on the same
    inputs and the matmuls beside one ``torch.matmul`` (TF32 off) where it
-   computes the same function (timed only; the port never calls either);
+   computes the same function, ``torch.mm(..., out_dtype=float32)`` for
+   the bf16 cascade (timed only; the port never calls either);
    the shard kernels at the mesh path's shapes (``torch.matmul`` beside
    the matvec); the served ``cuda_sharded`` decode step on a one-rank mesh
    without a group (no collective) beside phase 11b's meshes, split into
@@ -326,7 +333,7 @@ def build_kernels():
     from repro_torch.kernels.rowwise_matvec import kernel as MK
     gs = _build.load("gru_cell").gru_cell_smem_bytes
     ms = _build.load("rowwise_matvec").rowwise_smem_bytes
-    gs.argtypes, ms.argtypes = [ctypes.c_int] * 4, [ctypes.c_int] * 3
+    gs.argtypes, ms.argtypes = [ctypes.c_int] * 4, [ctypes.c_int] * 8
     gs.restype = ms.restype = ctypes.c_size_t
     for code, kind in enumerate(("v1", "v3", "blocked")):
         for H in (20, 32, 1000, 1024, 2048):
@@ -336,17 +343,43 @@ def build_kernels():
                     check(gs(code, H, bt, ct) == want, f"gru_cell smem "
                           f"{kind} H={H} bt={bt} ct={ct}: CUDA "
                           f"{gs(code, H, bt, ct)} != wrapper {want}")
-    for kc in (32, 1024, 2048):
-        for bt in (1, 4, 8):
-            for ct in (8, 16):
-                check(ms(kc, bt, ct) == MK.smem_bytes(kc, bt, ct),
-                      f"rowwise_matvec smem kc={kc} bt={bt} ct={ct}")
+    for bf16, dt in ((0, torch.float32), (1, torch.bfloat16)):
+        for B, K_, bk in ((1, 32, 32), (3, 1000, 8), (4, 3072, 512),
+                          (8, 3072, 3072), (12, 384, 96)):
+            for ct in MK.COLUMN_TILES:
+                for warps in (1, 4, 8):
+                    kc = MK.stage_rows(dt, bk)
+                    for stages in (1, 8, 48):
+                        want = MK.smem_bytes(dt, B, K_, bk, ct, kc, stages,
+                                             warps)
+                        got = ms(bf16, B, K_, bk, ct, kc, stages, warps)
+                        check(got == want, f"rowwise_matvec smem {dt} B={B} "
+                              f"K={K_} bk={bk} ct={ct} warps={warps} "
+                              f"stages={stages}: CUDA {got} != wrapper {want}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt in (torch.bfloat16, torch.float32):
+        for K_, N in ((1024, 3072), (3072, 1024)):
+            x, w = (torch.empty(4, K_, dtype=dt, device="cuda"),
+                    torch.empty(K_, N, dtype=dt, device="cuda"))
+            print(f"  rowwise/cascade plan B=4 K={K_} N={N} {dt}: "
+                  f"{MK.plan(x, w, K_, sms)}")
     print(f"  dynamic shared memory per block, gru_step_fused v1 H=32 8 rows:"
           f" {CK.smem_bytes_step('v1', 32, 8, 32)} bytes; "
           f"gru_step_blocked H=2048 8 rows: "
-          f"{CK.smem_bytes_step('blocked', 2048, 8, 8)} bytes; "
-          f"rowwise/cascade K=3072 4 rows bf16: "
-          f"{MK.smem_bytes(2048, 4, 16)} bytes; CUDA sources agree")
+          f"{CK.smem_bytes_step('blocked', 2048, 8, 8)} bytes; CUDA sources "
+          f"agree", flush=True)
+    sass = _build.sass("rowwise_matvec")
+    hmma = {name: body.count("HMMA") for name, body in sass.items()
+            if "matmul_k" in name}
+    bf16_k = {n: c for n, c in hmma.items() if "nv_bfloat16" in n}
+    check(len(bf16_k) == 8 and all(bf16_k.values()), f"rowwise/cascade "
+          f"bf16: no tensor-core (HMMA) instructions in its SASS: {hmma}")
+    check(not any(c for n, c in hmma.items() if n not in bf16_k),
+          f"rowwise/cascade fp32 kernels issue HMMA: {hmma}")
+    print(f"  rowwise/cascade bf16 kernels on the tensor cores: HMMA "
+          f"instructions in the SASS of all {len(bf16_k)} "
+          f"({sorted(bf16_k.values())}); fp32 kernels "
+          f"{len(hmma) - len(bf16_k)}, none", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1325,14 +1358,18 @@ STEP_SHAPES = (
     + [(B, 1024, "v3", "float32", "gru_step_fused") for B in (1, 8)]
     + [(B, 1000, "v1", "float32", "gru_step_fused") for B in (1, 8)])
 # (B, K, N, dtype, 1-D x): JAX's test shapes, the paper's matvec (also as
-# a 1-D x), qwen3-0.6b's MLP up and down matvecs at 4 requests
+# a 1-D x), qwen3-0.6b's MLP up and down matvecs at 4 requests, and ragged
+# shapes whose rows 16-byte copies cannot read (bf16 N = 20 and 100: the
+# plain-load route)
 MATMUL_SHAPES = (
     [(B, K_, N, dt, False) for (B, K_, N) in ((1, 16, 32), (4, 96, 256),
                                               (8, 128, 128), (2, 64, 512))
      for dt in ("float32", "bfloat16")]
     + [(8, 32, 96, "float32", False), (1, 32, 96, "float32", True)]
     + [(4, K_, N, dt, False) for (K_, N) in ((1024, 3072), (3072, 1024))
-       for dt in ("bfloat16", "float32")])
+       for dt in ("bfloat16", "float32")]
+    + [(3, 40, 20, "bfloat16", False), (5, 1000, 100, "bfloat16", False),
+       (1, 1000, 20, "float32", False)])
 
 
 def step_inputs(torch, B, H, dtype, seed, dev):
@@ -1361,6 +1398,7 @@ def run_rowwise_path(torch, dev):
     from repro_torch.kernels.gru_cell import ops as cops
     from repro_torch.kernels.gru_cell import ref as cref
     from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.rowwise_matvec import kernel as MK
     from repro_torch.kernels.rowwise_matvec import ops as mops
     from repro_torch.kernels.rowwise_matvec import ref as mref
     from repro_torch.kernels.slstm_cell import kernel as SK
@@ -1386,7 +1424,9 @@ def run_rowwise_path(torch, dev):
             got.append(call(lambda: cops.gru_step_cuda(*a, v), kern))
         for c, (x, w) in mms:
             got.append((call(lambda: mops.rowwise(x, w), "rowwise_matmul"),
-                        call(lambda: mops.cascade(x, w), "cascade_matmul")))
+                        call(lambda: mops.cascade(x, w), "cascade_matmul"),
+                        (MK.rowwise_matmul.last_plan.route,
+                         MK.cascade_matmul.last_plan.route)))
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in counters.items()}
     others = {k.__name__: k.launches
@@ -1412,7 +1452,8 @@ def run_rowwise_path(torch, dev):
               f"{kern} B={B} H={H} {v} u {dt}: max |err| {e:.3g} (tol {tol})")
         print(f"  gru_step_cuda B={B} H={H:4d} {v} u {dt:8s} -> {kern}: max "
               f"|kernel - plain| {e:.3g}", flush=True)
-    for ((B, K_, N, dt, vec), (x, w)), (yr, yc) in zip(mms, got[len(steps):]):
+    for ((B, K_, N, dt, vec), (x, w)), (yr, yc, routes) in zip(
+            mms, got[len(steps):]):
         x2 = x[None] if vec else x
         bk = mops.auto_blocks(x2.shape[0], K_, N, x2.element_size())[2]
         es = []
@@ -1428,9 +1469,15 @@ def run_rowwise_path(torch, dev):
                   and torch.allclose(y.float(), want.float(),
                                      rtol=MM_TOL[dt], atol=MM_TOL[dt]),
                   f"{name} B={B} K={K_} N={N} {dt}: max |err| {e:.3g}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        want = (MK.plan(x2, w, K_, sms).route, MK.plan(x2, w, bk, sms).route)
+        check(routes == want and ((routes[0] == "plain")
+                                  == (not MK.aligned(x2, w))),
+              f"rowwise / cascade B={B} K={K_} N={N} {dt}: routes {routes}, "
+              f"expected {want}, plain loads exactly where unaligned")
         print(f"  rowwise / cascade B={B} K={K_:4d} N={N:4d} {dt:8s}"
               f"{' (1-D x)' if vec else ''}: max |kernel - plain| "
-              f"{es[0]:.3g} / {es[1]:.3g}", flush=True)
+              f"{es[0]:.3g} / {es[1]:.3g} ({routes[0]})", flush=True)
     print(f"  {len(steps)} steps and {len(mms)} x 2 matmuls, each on the "
           f"kernel JAX's rule names, within tolerance of its plain version "
           f"(step fp32 {TOL}, bf16 u {STEP_BF16_TOL}; matmuls {MM_TOL})",
@@ -2228,11 +2275,21 @@ def time_rowwise(torch, dev, err, launches):
 
                 def plain_fn():
                     return mref.cascade_matmul_ref(x, w, bk)
-            # one torch.matmul computes the same function, except for the
-            # bf16 cascade (fp32 output; a bf16 matmul rounds to bf16)
+            # one torch.matmul computes the same function; for the bf16
+            # cascade (fp32 output) torch.mm with out_dtype=float32
+            # (aten::mm.dtype), where the card's torch has it
             if name == "rowwise_matmul" or dtype == "float32":
                 def library():
                     return torch.matmul(x, w)
+            else:
+                def library():
+                    return torch.mm(x, w, out_dtype=torch.float32)
+                try:
+                    library()
+                except (TypeError, RuntimeError) as e:
+                    print(f"  torch.mm(..., out_dtype=torch.float32) "
+                          f"refused: {type(e).__name__}: {e}", flush=True)
+                    library = None
             label = f"B={B} K={n:4d} N={N:4d} {dtype}"
         ms = device_time_ms(torch, kern, per_graph=50)
         plain = device_time_ms(torch, plain_fn, per_graph=10)
@@ -2241,9 +2298,14 @@ def time_rowwise(torch, dev, err, launches):
         call = call_time_ms(torch, kern, iters=200)
         bms, by = rowwise_bound_ms(name, shape)
         lib_s = f"{lib * 1e3:8.2f} us" if lib is not None else "    n/a"
+        plan = ""
+        if name.endswith("matmul"):
+            p = getattr(MK, name).last_plan
+            plan = (f"  [{p.route} ct={p.ct} kc={p.kc} stages={p.stages} "
+                    f"warps={p.warps} grid={p.grid}]")
         print(f"  {name:16s} {label}: device {ms * 1e3:9.2f} us (per call "
               f"{call * 1e3:8.2f})  plain {plain * 1e3:9.2f} us  matmul "
-              f"{lib_s}  bound {bms * 1e3:8.4f} us ({by})", flush=True)
+              f"{lib_s}  bound {bms * 1e3:8.4f} us ({by}){plan}", flush=True)
         if shape == ROWWISE_ROW[name]:
             rows.append({
                 "name": name, "route": "cuda",
@@ -2256,9 +2318,10 @@ def time_rowwise(torch, dev, err, launches):
                 "shape": {"B": B, ("H" if N is None else "K"): n, "N": N,
                           "variant": v, "dtype": dtype}})
     print("  library_ms: torch.matmul on the same inputs (TF32 off) where it "
-          "computes the same function (rowwise; fp32 cascade); null for the "
-          "GRU steps -- torch.nn.GRUCell computes neither v1 nor JAX's v3 "
-          "from a given x_proj", flush=True)
+          "computes the same function (rowwise; fp32 cascade), torch.mm with "
+          "out_dtype=float32 for the bf16 cascade; null for the GRU steps -- "
+          "torch.nn.GRUCell computes neither v1 nor JAX's v3 from a given "
+          "x_proj", flush=True)
     return rows
 
 

@@ -14,20 +14,29 @@ x and w are both float32 or both bfloat16; sums are fp32. ``block_b`` and
 ``block_n`` (and ``block_k``) must divide B and N (and K) as JAX asserts
 (``block_b`` 0 means B; ``block_n`` and ``block_k`` are capped at N and K);
 the wrappers raise ``ValueError`` there. They are TPU tiling and do not
-reach the CUDA kernels, which pick their own tiles (8 fp32 or 16 bf16
-columns and at most 8 rows a block, fewer rows where the grid would
-leave SMs idle: :func:`batch_tile`); ``block_k`` is the cascade's
-summation structure and does.
+reach the CUDA kernels, which take their own :class:`Plan`
+(:func:`plan`): ``ct`` output columns and all of the batch (up to 8 rows)
+per block, chunks of ``kc`` contraction rows that each of ``warps``
+consumer warps loads into its own shared-memory stages by TMA, or by
+plain loads where w's or x's alignment or row stride rules TMA out
+(:func:`aligned`); an fp32 problem of one chunk goes straight to
+registers. ``block_k`` is the cascade's
+summation structure and reaches the kernel.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything its kernel does not take. For CPU tensors it returns the plain
 version (``ref.py``); for CUDA tensors it allocates the output with
 ``torch.empty``, launches on the current stream, raises if the launch was
-refused, and adds one to its ``launches`` counter (:data:`MATVEC_KERNELS`,
-zeroed by ``repro_torch.kernels.gru_sequence.kernel.reset_launch_counts``).
-Nothing falls back from the card to the plain version.
+refused, adds one to its ``launches`` counter (:data:`MATVEC_KERNELS`,
+zeroed by ``repro_torch.kernels.gru_sequence.kernel.reset_launch_counts``)
+and keeps the plan it launched as ``last_plan`` (``last_plan.route``
+names the copy path). Nothing falls back from the card to the plain
+version.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -36,24 +45,146 @@ from repro_torch.kernels._launch import I, P
 from repro_torch.kernels.rowwise_matvec import ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_ROWS = 8                # rows of one block's batch tile
-MAX_CHUNK = 2048            # k's of x one block stages in shared memory
-# x, w, y, B, K, N, bf16, bt, ct, kc, vec, stream
-_ROWWISE_ARGS = [P] * 3 + [I] * 8 + [P]
-# x, w, y, B, K, N, bk, bf16, bt, ct, kc, vec, stream
-_CASCADE_ARGS = [P] * 3 + [I] * 9 + [P]
+MAX_ROWS = 8                # batch rows of one block (mma's N)
+COLUMN_TILES = (8, 16, 32, 64)
+MAX_WARPS = 16              # consumer warps (kMaxWarps in the CUDA source)
+SLOTS = 4                   # partial-sum slots (kSlots)
+ALIGN = 1024                # stage alignment: the 128-byte swizzle's period
+STAGE_ROWS = {torch.bfloat16: 64, torch.float32: 64}   # kc at most
+RING_BYTES = 96 * 1024      # the stages' budget of shared memory
+# the C `route` argument's codes: the copy path of each chunk into shared
+# memory (plain loads, TMA), or fp32 registers straight from device memory
+# for a problem of one chunk
+ROUTES = ("plain", "tma", "direct")
+ALIGNED_ROUTE = "tma"       # where TMA can read the operands
+MAX_ROW_BYTES = 64          # widest column tile: bytes of one row of w
+GRID_SHARE = 0.7            # least share of the SMs the grid should cover
+CHUNKS_PER_WARP = 4         # chunks each consumer warp takes, at least
+# x, w, y, B, K, N, bf16, ct, kc, stages, warps, route, stream
+_ROWWISE_ARGS = [P] * 3 + [I] * 9 + [P]
+# x, w, y, B, K, N, bk, bf16, ct, kc, stages, warps, route, stream
+_CASCADE_ARGS = [P] * 3 + [I] * 10 + [P]
 
 
-def column_tile(dtype: torch.dtype) -> int:
-    """Output columns of one block: one 32-byte sector of each row of w."""
-    return 16 if dtype == torch.bfloat16 else 8
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of the row-wise/cascade kernel: ``route`` one of
+    :data:`ROUTES`, ``ct`` output columns and ``rows`` batch rows per
+    block (x's box), ``kc`` contraction rows per chunk, ``stages`` stages
+    (``stages / warps`` for each consumer warp, which loads its own
+    chunks), ``warps`` consumer warps, ``bk`` the k-block (K for rowwise),
+    ``chunks`` per block, ``smem`` dynamic shared memory per block
+    (:func:`smem_bytes`) and ``grid``."""
+    route: str
+    ct: int
+    rows: int
+    kc: int
+    stages: int
+    warps: int
+    bk: int
+    chunks: int
+    smem: int
+    grid: tuple
 
 
-def smem_bytes(kc: int, bt: int, ct: int) -> int:
+def tile_rows(dtype: torch.dtype, B: int) -> int:
+    """Batch rows of one block: 8 in bf16 (mma's N, padded with zeros),
+    else the smallest power of two >= B, at most :data:`MAX_ROWS`."""
+    if dtype == torch.bfloat16 or B >= MAX_ROWS:
+        return MAX_ROWS
+    return 1 << (B - 1).bit_length()
+
+
+def stage_rows(dtype: torch.dtype, bk: int) -> int:
+    """Contraction rows of a stage (kc): a power of two, :data:`STAGE_ROWS`
+    or the smallest that holds a shorter k-block (a chunk never straddles
+    a k-block), at least 16 in bf16 (the mma takes 16 rows; x's box row,
+    kc * 2 bytes, is one swizzle span) and 4 in fp32 (16-byte rows)."""
+    kc, least = STAGE_ROWS[dtype], 16 if dtype == torch.bfloat16 else 4
+    while kc > least and kc // 2 >= bk:
+        kc //= 2
+    return kc
+
+
+def smem_bytes(dtype: torch.dtype, B: int, K: int, bk: int, ct: int,
+               kc: int, stages: int, warps: int) -> int:
     """Dynamic shared memory of one block (mirrors ``rowwise_smem_bytes``
-    in the CUDA source): the (kc, bt) chunk of x and the 8 warps' partial
-    sums."""
-    return 4 * (kc * bt + 8 * bt * ct)
+    in the CUDA source): 1024 bytes of alignment slack; ``stages`` stages
+    of w's (kc, ct) box and x's (rows, kc) box, each rounded up to 1024
+    bytes; the partial-sum ring, slots of one fp32 (rows, ct) part per
+    consumer taking part in a block (min(ceil(bk/kc), warps)), as many
+    slots as the smallest multiple of ``warps`` >= SLOTS but at most K/bk;
+    and 8 bytes per mbarrier (one per stage, two per slot)."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    rows = tile_rows(dtype, B)
+    nblk, cpb = K // bk, -(-bk // kc)
+    nc, slots = min(cpb, warps), min(nblk, -(-SLOTS // warps) * warps)
+    w_stage = -(-kc * ct * item // ALIGN) * ALIGN
+    x_stage = -(-kc * rows * item // ALIGN) * ALIGN
+    return (ALIGN + stages * (w_stage + x_stage) + slots * nc * rows * ct * 4
+            + 8 * (stages + 2 * slots))
+
+
+def aligned(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether TMA boxes (16-byte copies) can read the operands:
+    w and x 16-byte aligned, w's row of N and, for more than one row, x's
+    row of K a multiple of 16 bytes."""
+    item = x.element_size()
+    B, K = x.shape
+    N = w.shape[1]
+    return (w.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+            and N * item % 16 == 0 and (B == 1 or K * item % 16 == 0))
+
+
+def column_tile(dtype: torch.dtype, B: int, N: int, sms: int) -> int:
+    """Output columns of one block: the widest tile of at most
+    :data:`MAX_ROW_BYTES` a row of w whose grid (N/ct column tiles times
+    the batch tiles) still covers :data:`GRID_SHARE` of the card's SMs,
+    else the narrowest. Read off ``tools/rowwise_tiles.py`` at qwen3-0.6b's
+    shapes (PERF.md's findings)."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    tiles = -(-B // tile_rows(dtype, B))
+    fits = [ct for ct in COLUMN_TILES if ct * item <= MAX_ROW_BYTES
+            and -(-N // ct) * tiles >= GRID_SHARE * sms]
+    return max(fits) if fits else COLUMN_TILES[0]
+
+
+def consumer_warps(chunks: int) -> int:
+    """Consumer warps of one block: one for each :data:`CHUNKS_PER_WARP`
+    chunks, at least one and at most :data:`MAX_WARPS` (each warp's chunks
+    are a serial chain of wait, products and reload)."""
+    return max(1, min(MAX_WARPS, chunks // CHUNKS_PER_WARP))
+
+
+def plan(x: torch.Tensor, w: torch.Tensor, bk: int, sms: int) -> Plan:
+    """The launch the wrappers make for x (B, K) @ w (K, N) with k-blocks
+    of ``bk`` rows (K for rowwise) on a card of ``sms`` SMs. The route:
+    "direct" for an fp32 problem of one chunk, else :data:`ALIGNED_ROUTE`
+    where the operands are :func:`aligned`, else "plain"."""
+    return _plan(*x.shape, w.shape[1], x.dtype, bk, sms, aligned(x, w))
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(B: int, K: int, N: int, dtype: torch.dtype, bk: int, sms: int,
+          is_aligned: bool) -> Plan:
+    """:func:`plan` of the shapes (cached: the wrappers call it per launch)."""
+    ct = column_tile(dtype, B, N, sms)
+    kc = stage_rows(dtype, bk)
+    chunks = (K // bk) * -(-bk // kc)
+    rows = tile_rows(dtype, B)
+    item = 2 if dtype == torch.bfloat16 else 4
+    per_stage = (-(-kc * ct * item // ALIGN) + -(-kc * rows * item // ALIGN))
+    # each consumer warp has its own stages: all of its chunks where they
+    # fit the ring's budget
+    warps = consumer_warps(chunks)
+    per = max(1, min(-(-chunks // warps),
+                     RING_BYTES // (per_stage * ALIGN * warps)))
+    stages = per * warps
+    way = ("direct" if dtype == torch.float32 and chunks == 1
+           else ALIGNED_ROUTE if is_aligned else "plain")
+    return Plan(way, ct, rows, kc, stages, warps, bk, chunks,
+                smem_bytes(dtype, B, K, bk, ct, kc, stages, warps),
+                (-(-N // ct), -(-B // rows)))
 
 
 def _check(x, w, block_b: int, block_n: int, block_k=None):
@@ -88,24 +219,24 @@ def _check(x, w, block_b: int, block_n: int, block_k=None):
     return B, K, N
 
 
-def batch_tile(B: int, N: int, ct: int, sms: int) -> int:
-    """Rows of one block: the smallest power of two >= B, at most
-    :data:`MAX_ROWS`, halved while the grid (N/ct column tiles times the
-    batch tiles) has fewer blocks than the card has SMs: a narrow w (N of
-    1024 in bf16 gives 64 column tiles) then reads its weights from more
-    SMs at once, the extra reads of w coming from L2."""
-    bt = min(MAX_ROWS, 1 << (B - 1).bit_length())
-    while bt > 1 and -(-N // ct) * -(-B // bt) < sms:
-        bt //= 2
-    return bt
-
-
+@functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _vec(N: int, w: torch.Tensor) -> int:
-    return int(N % 4 == 0 and w.data_ptr() % (4 * w.element_size()) == 0)
+def _launch_plan(name, args, x, w, y, bk, extra):
+    """Launch the plan for (x, w, bk) through the C entry ``name``."""
+    p = plan(x, w, bk, _sms(x.device))
+    if p.smem > _launch.SMEM_LIMIT:
+        raise ValueError(f"{name}: {p} needs more shared memory than a "
+                         f"Hopper block has ({_launch.SMEM_LIMIT})")
+    B, K = x.shape
+    err = _launch.launcher("rowwise_matvec", f"{name}_launch", args)(
+        _launch.ptr(x), _launch.ptr(w), _launch.ptr(y), B, K, w.shape[1],
+        *extra, int(x.dtype == torch.bfloat16), p.ct, p.kc, p.stages,
+        p.warps, ROUTES.index(p.route), _launch.stream(x.device))
+    _launch.raise_on(err, name)
+    return p
 
 
 def rowwise_matmul(x: torch.Tensor, w: torch.Tensor, *, block_b: int = 0,
@@ -115,15 +246,9 @@ def rowwise_matmul(x: torch.Tensor, w: torch.Tensor, *, block_b: int = 0,
     B, K, N = _check(x, w, block_b, block_n)
     if x.device.type == "cpu":
         return ref.rowwise_matmul_ref(x, w)
-    ct = column_tile(x.dtype)
-    bt = batch_tile(B, N, ct, _sms(x.device))
     y = torch.empty((B, N), dtype=x.dtype, device=x.device)
-    err = _launch.launcher("rowwise_matvec", "rowwise_matmul_launch",
-                           _ROWWISE_ARGS)(
-        _launch.ptr(x), _launch.ptr(w), _launch.ptr(y), B, K, N,
-        int(x.dtype == torch.bfloat16), bt, ct, min(K, MAX_CHUNK), _vec(N, w),
-        _launch.stream(x.device))
-    _launch.raise_on(err, "rowwise_matmul")
+    rowwise_matmul.last_plan = _launch_plan(
+        "rowwise_matmul", _ROWWISE_ARGS, x, w, y, K, ())
     rowwise_matmul.launches += 1
     return y
 
@@ -136,19 +261,15 @@ def cascade_matmul(x: torch.Tensor, w: torch.Tensor, *, block_b: int = 0,
     bk = min(block_k, K)
     if x.device.type == "cpu":
         return ref.cascade_matmul_ref(x, w, bk)
-    ct = column_tile(x.dtype)
-    bt = batch_tile(B, N, ct, _sms(x.device))
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    err = _launch.launcher("rowwise_matvec", "cascade_matmul_launch",
-                           _CASCADE_ARGS)(
-        _launch.ptr(x), _launch.ptr(w), _launch.ptr(y), B, K, N, bk,
-        int(x.dtype == torch.bfloat16), bt, ct, min(bk, MAX_CHUNK),
-        _vec(N, w), _launch.stream(x.device))
-    _launch.raise_on(err, "cascade_matmul")
+    cascade_matmul.last_plan = _launch_plan(
+        "cascade_matmul", _CASCADE_ARGS, x, w, y, bk, (bk,))
     cascade_matmul.launches += 1
     return y
 
 
 rowwise_matmul.launches = 0
 cascade_matmul.launches = 0
+rowwise_matmul.last_plan = None
+cascade_matmul.last_plan = None
 MATVEC_KERNELS = (rowwise_matmul, cascade_matmul)

@@ -626,9 +626,14 @@ def test_step_kernels_match_plain(cuda_device, B, H, variant, dtype,
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-# (B, K, N): JAX's test shapes, the paper's matvec, qwen3-0.6b's MLP
+# (B, K, N): JAX's test shapes, the paper's matvec, qwen3-0.6b's MLP, and
+# ragged shapes: N = 20 and 100 (in bf16 rows of w that 16-byte copies
+# cannot read: the plain-load route), K = 1000 and 3000 (auto_blocks'
+# block_k of 8: a k-block shorter than a 16-row mma step), B = 1, 3, 5, 8
 MATMUL_CASES = ((1, 16, 32), (4, 96, 256), (8, 128, 128), (2, 64, 512),
-                (8, 32, 96), (4, 1024, 3072), (4, 3072, 1024))
+                (8, 32, 96), (4, 1024, 3072), (4, 3072, 1024),
+                (1, 1000, 20), (3, 3000, 100), (5, 1000, 100),
+                (8, 3000, 20))
 
 
 @pytest.mark.gpu
@@ -643,7 +648,9 @@ def test_matmul_kernels_match_plain(cuda_device, dtype, B, Kc, N, vector):
     if vector:
         x = x[0]
     K.reset_launch_counts()
-    got_r, got_c = mops.rowwise(x, w), mops.cascade(x, w)
+    got_r = mops.rowwise(x, w)
+    assert [f.launches for f in MK.MATVEC_KERNELS] == [1, 0]
+    got_c = mops.cascade(x, w)
     x2 = x[None] if vector else x
     bk = mops.auto_blocks(x2.shape[0], Kc, N, x2.element_size())[2]
     want_r = mref.rowwise_matmul_ref(x2, w)
@@ -656,6 +663,95 @@ def test_matmul_kernels_match_plain(cuda_device, dtype, B, Kc, N, vector):
         assert got.dtype == dt and bool(torch.isfinite(got.float()).all())
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+def _mm_operands(B, Kc, N, dtype, dev, seed, w_offset=0):
+    """x (B, Kc) and w (Kc, N) on the card; w a contiguous view that starts
+    ``w_offset`` elements into its storage."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, Kc, generator=g).to(dev).to(dtype)
+    flat = torch.zeros(Kc * N + w_offset, device=dev, dtype=dtype)
+    flat[w_offset:] = (torch.randn(Kc * N, generator=g) * Kc ** -0.5).to(
+        dev).to(dtype)
+    return x, flat[w_offset:].view(Kc, N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("block_k", (16, 32, 64, 96, 24))
+def test_cascade_block_k_matches_plain(cuda_device, dtype, block_k):
+    """Explicit k-blocks: 16, 32 and 64 rows, 96 (two stages in bf16 and
+    fp32, the second half full) and 24 (a k-block that ends inside a
+    16-row mma step and inside a stage)."""
+    x, w = _mm_operands(4, 384, 256, dtype, cuda_device, block_k)
+    K.reset_launch_counts()
+    got = MK.cascade_matmul(x, w, block_k=block_k)
+    want = mref.cascade_matmul_ref(x, w, block_k)
+    torch.cuda.synchronize()
+    assert MK.cascade_matmul.launches == 1
+    assert got.dtype == torch.float32
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("B,Kc,N", ((4, 256, 128), (3, 1000, 100)))
+def test_matmul_kernels_take_a_misaligned_w(cuda_device, dtype, B, Kc, N):
+    """A view of w that starts one element into its storage: 16-byte copies
+    cannot read it, so both kernels take the plain-load route, and agree
+    with their plain versions."""
+    x, w = _mm_operands(B, Kc, N, dtype, cuda_device, Kc, w_offset=1)
+    assert w.is_contiguous() and w.data_ptr() % 16 != 0
+    K.reset_launch_counts()
+    got_r = MK.rowwise_matmul(x, w)
+    got_c = MK.cascade_matmul(x, w, block_k=Kc)
+    torch.cuda.synchronize()
+    assert MK.rowwise_matmul.last_plan.route == "plain"
+    assert MK.cascade_matmul.last_plan.route == "plain"
+    assert [f.launches for f in MK.MATVEC_KERNELS] == [1, 1]
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got_r.float(),
+                               mref.rowwise_matmul_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(got_c, mref.cascade_matmul_ref(x, w, Kc),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("B,Kc,N,block_k", ((4, 1024, 3072, 512),
+                                            (4, 3072, 1024, 512),
+                                            (8, 32, 96, 32),
+                                            (3, 3000, 100, 8)))
+def test_matmul_kernels_are_deterministic(cuda_device, dtype, B, Kc, N,
+                                          block_k):
+    """Two launches on the same inputs give the same bits (fixed warp,
+    butterfly and k-block orders; no atomics), each raising its counter by
+    exactly one."""
+    x, w = _mm_operands(B, Kc, N, dtype, cuda_device, N)
+    K.reset_launch_counts()
+    r1 = MK.rowwise_matmul(x, w)
+    r2 = MK.rowwise_matmul(x, w)
+    c1 = MK.cascade_matmul(x, w, block_k=block_k)
+    c2 = MK.cascade_matmul(x, w, block_k=block_k)
+    torch.cuda.synchronize()
+    assert [f.launches for f in MK.MATVEC_KERNELS] == [2, 2]
+    assert torch.equal(r1, r2) and torch.equal(c1, c2)
+
+
+@pytest.mark.gpu
+def test_bf16_matmuls_run_on_the_tensor_cores(cuda_device):
+    """Every bf16 instantiation of the row-wise/cascade kernel issues
+    mma.sync (HMMA in its SASS); the fp32 ones stay on the CUDA cores."""
+    from repro_torch.kernels import _build
+    functions = {n: b for n, b in _build.sass("rowwise_matvec").items()
+                 if "matmul_k" in n}
+    bf16 = [b for n, b in functions.items() if "nv_bfloat16" in n]
+    assert len(bf16) == 8                # rowwise and cascade, 4 tiles
+    assert all("HMMA" in b for b in bf16)
+    assert not any("HMMA" in b for n, b in functions.items()
+                   if "nv_bfloat16" not in n)
 
 
 @pytest.mark.gpu

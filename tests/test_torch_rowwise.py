@@ -326,3 +326,172 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         MK.rowwise_matmul(x, w.t().contiguous().t())
     with pytest.raises(ValueError):
         MK.rowwise_matmul(x[0], w)
+
+
+# (e) the redesigned kernels' launch plan (rowwise_matvec.cu), on the CPU:
+# legal at every shape chip_smoke.py and the card tests drive, 16-byte
+# copies exactly where the operands allow them, the shared memory of the
+# documented formula, and the schedule's invariants
+
+SMS = (132, 114)                 # H100 SXM, H100 PCIe
+GPU_MATMUL_CASES = [(1, 16, 32), (4, 96, 256), (8, 128, 128), (2, 64, 512),
+                    (8, 32, 96), (4, 1024, 3072), (4, 3072, 1024),
+                    (1, 1000, 20), (3, 3000, 100), (5, 1000, 100),
+                    (8, 3000, 20), (4, 384, 256)]
+
+
+def _smoke_shapes():
+    """(B, K, N) of chip_smoke.py's phase-11 and phase-12 matmuls."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    shapes = {c[:3] for c in cs.MATMUL_SHAPES}
+    shapes |= {s[:3] for n, s in cs.ROWWISE_TIMED if n.endswith("matmul")}
+    return sorted(shapes)
+
+
+def _block_ks(B, K_, N, itemsize):
+    """The k-blocks a cascade call can take here: auto_blocks', K, and the
+    explicit block_k of the card tests that divide K."""
+    return sorted({K_, mops.auto_blocks(B, K_, N, itemsize)[2]}
+                  | {b for b in (16, 24, 32, 64, 96) if K_ % b == 0})
+
+
+def _operands(B, K_, N, dtype, w_offset=0, x_offset=0):
+    """Empty CPU operands; an offset makes a contiguous view that starts
+    that many elements into its storage."""
+    tdt = DTYPES[dtype][0]
+    x = torch.empty(B * K_ + x_offset, dtype=tdt)[x_offset:].view(B, K_)
+    w = torch.empty(K_ * N + w_offset, dtype=tdt)[w_offset:].view(K_, N)
+    return x, w
+
+
+def _check_plan(p, x, w, bk, sms):
+    B, K_ = x.shape
+    N = w.shape[1]
+    item = x.element_size()
+    assert p.ct in MK.COLUMN_TILES and p.rows == MK.tile_rows(x.dtype, B)
+    assert p.grid == (-(-N // p.ct), -(-B // p.rows))
+    assert p.kc & (p.kc - 1) == 0 and 4 <= p.kc <= 256
+    if x.dtype == torch.bfloat16:
+        assert 16 <= p.kc <= 64          # x's box row is one swizzle span
+    assert p.chunks == (K_ // bk) * -(-bk // p.kc)
+    assert p.stages % p.warps == 0       # each consumer's own stages
+    assert 1 <= p.stages // p.warps <= -(-p.chunks // p.warps)
+    assert 1 <= p.warps <= MK.MAX_WARPS
+    assert p.smem == MK.smem_bytes(x.dtype, B, K_, bk, p.ct, p.kc, p.stages,
+                                   p.warps)
+    assert p.smem <= _launch_limit()
+    assert p.route in MK.ROUTES
+    assert (p.route == "direct") == (x.dtype == torch.float32
+                                     and p.chunks == 1)
+    if p.route == "tma":                 # TMA boxes
+        assert w.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+        assert N * item % 16 == 0 and (B == 1 or K_ * item % 16 == 0)
+        assert p.ct * item % 16 == 0 and p.kc * item % 16 == 0
+        assert max(p.ct, p.kc, p.rows) <= 256          # box dimensions
+        if x.dtype == torch.bfloat16:    # swizzled rows: one span at most
+            assert p.ct * item in (16, 32, 64, 128)
+            assert p.kc * item in (32, 64, 128)
+
+
+def _launch_limit():
+    from repro_torch.kernels import _launch
+    return _launch.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B,K_,N", sorted(set(_smoke_shapes())
+                                          | set(GPU_MATMUL_CASES)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_is_legal_at_every_driven_shape(B, K_, N, dtype):
+    for b in (B, 1):                     # 2-D x and the 1-D entry's row
+        x, w = _operands(b, K_, N, dtype)
+        for bk in [K_] + _block_ks(b, K_, N, x.element_size()):
+            for sms in SMS:
+                _check_plan(MK.plan(x, w, bk, sms), x, w, bk, sms)
+
+
+@pytest.mark.parametrize("dtype,B,K_,N,w_off,x_off,aligned", [
+    ("bfloat16", 4, 1024, 3072, 0, 0, True),
+    ("float32", 4, 3072, 1024, 0, 0, True),
+    ("float32", 8, 32, 96, 0, 0, True),
+    ("bfloat16", 1, 1000, 20, 0, 0, False),    # a row of w: 40 bytes
+    ("float32", 1, 1000, 20, 0, 0, True),      # 80 bytes
+    ("bfloat16", 3, 3000, 100, 0, 0, False),   # 200 bytes
+    ("float32", 3, 3000, 100, 0, 0, True),     # 400 bytes
+    ("float32", 2, 5, 32, 0, 0, False),        # a row of x: 20 bytes
+    ("float32", 1, 5, 32, 0, 0, True),         # one row: its stride unread
+    ("bfloat16", 4, 256, 128, 1, 0, False),    # w one element in
+    ("float32", 4, 256, 128, 1, 0, False),
+    ("float32", 4, 256, 128, 0, 1, False),     # x one element in
+    ("bfloat16", 4, 256, 128, 8, 0, True),     # 16 bytes in: aligned
+])
+def test_route_is_plain_exactly_where_tma_cannot_read(
+        dtype, B, K_, N, w_off, x_off, aligned):
+    x, w = _operands(B, K_, N, dtype, w_off, x_off)
+    assert MK.aligned(x, w) == aligned
+    for bk in (K_, _block_ks(B, K_, N, x.element_size())[0]):
+        p = MK.plan(x, w, bk, 132)
+        # an fp32 problem of one chunk reads w and x straight into registers
+        one = x.dtype == torch.float32 and p.chunks == 1
+        assert p.route == ("direct" if one else MK.ALIGNED_ROUTE if aligned
+                           else "plain")
+        _check_plan(p, x, w, bk, 132)
+
+
+@pytest.mark.parametrize("dtype,B,K_,bk,ct,kc,stages,warps,want", [
+    # 1024 slack + stages * (w box + x box, each rounded up to 1024)
+    # + slots * parts * rows * ct * 4 + 8 * (stages + 2 * slots)
+    ("bfloat16", 4, 1024, 1024, 16, 64, 16, 4,
+     1024 + 16 * (2048 + 1024) + 1 * 4 * 8 * 16 * 4 + 8 * (16 + 2)),
+    ("bfloat16", 4, 3072, 512, 8, 64, 48, 4,
+     1024 + 48 * (1024 + 1024) + 4 * 4 * 8 * 8 * 4 + 8 * (48 + 8)),
+    ("float32", 4, 3072, 512, 8, 64, 32, 4,
+     1024 + 32 * (2048 + 1024) + 4 * 4 * 4 * 8 * 4 + 8 * (32 + 8)),
+    ("float32", 8, 32, 32, 8, 32, 4, 4,
+     1024 + 4 * (1024 + 1024) + 1 * 1 * 8 * 8 * 4 + 8 * (4 + 2)),
+    ("float32", 1, 3000, 8, 8, 8, 48, 8,      # slots: a multiple of warps
+     1024 + 48 * (1024 + 1024) + 8 * 1 * 1 * 8 * 4 + 8 * (48 + 16)),
+    ("bfloat16", 3, 96, 96, 64, 64, 2, 1,     # 2 chunks, one consumer
+     1024 + 2 * (8192 + 1024) + 1 * 1 * 8 * 64 * 4 + 8 * (2 + 2)),
+])
+def test_smem_bytes_follows_the_formula(dtype, B, K_, bk, ct, kc, stages,
+                                        warps, want):
+    assert MK.smem_bytes(DTYPES[dtype][0], B, K_, bk, ct, kc, stages,
+                         warps) == want
+
+
+def _schedule(K_, bk, kc):
+    """The kernel's chunk schedule, as the CUDA source walks it: chunk i
+    is chunk m of k-block j, rows [j*bk + m*kc, + min(kc, bk - m*kc)),
+    taken by consumer i % warps; a block's parts go to slot j % slots."""
+    nblk, cpb = K_ // bk, -(-bk // kc)
+    chunks = [(i // cpb, i % cpb) for i in range(nblk * cpb)]
+    rows = [(j * bk + m * kc, min(kc, bk - m * kc)) for j, m in chunks]
+    return nblk, cpb, chunks, rows
+
+
+@pytest.mark.parametrize("K_,bk,kc", [(1024, 1024, 64), (3072, 512, 64),
+                                      (3072, 16, 16), (3000, 8, 8),
+                                      (384, 96, 64), (96, 24, 32),
+                                      (32, 32, 32), (1000, 1000, 64)])
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_schedule_covers_each_row_once_in_k_order(K_, bk, kc, warps):
+    nblk, cpb, chunks, rows = _schedule(K_, bk, kc)
+    covered = [k for k0, n in rows for k in range(k0, k0 + n)]
+    assert covered == list(range(K_))          # each row once, in k order
+    for (j, _), (k0, n) in zip(chunks, rows):  # no chunk straddles a block
+        assert j * bk <= k0 and k0 + n <= (j + 1) * bk and 0 < n <= kc
+    # each slot of the partial-sum ring is always written by the same
+    # consumers (each stage is a consumer's own): what makes the kernel's
+    # parity waits sound
+    slots = min(nblk, -(-MK.SLOTS // warps) * warps)
+    parts = {}
+    for i, (j, _) in enumerate(chunks):
+        parts.setdefault(j, set()).add(i % warps)
+    for j, who in parts.items():
+        assert len(who) == min(cpb, warps)
+        assert who == parts[j % slots]
