@@ -27,9 +27,11 @@ Phases (any failure exits non-zero, before the result lines):
    leaves, ``m = M_INIT`` included, must come out bit for bit);
 3b. hold the seven shard kernels (the ``cuda_sharded`` backend's per-rank
    steps) against their plain versions on the card at gru-jet's (H=20)
-   and gru-jet-deep's (H=32) shard widths over 1, 2 and 4 ranks (Hl = H,
-   H/2, H/4), B 1 and 8, with the mesh path's row-strided gate slices:
-   largest absolute error at most 1e-5;
+   and gru-jet-deep's (H=32) shard widths and at wide shards (H 64, 256,
+   512) over 1, 2 and 4 ranks (Hl = H, H/2, H/4), B 1 and 8, with the mesh
+   path's row-strided gate slices: largest absolute error at most 1e-5;
+   the redesigned pair (``gru_rowwise_shard_step``, ``gru_shard_matvec``)
+   must launch the route ``shard_plan`` names (direct or column tile);
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
@@ -125,8 +127,9 @@ Phases (any failure exits non-zero, before the result lines):
    computes the same function, ``torch.mm(..., out_dtype=float32)`` for
    the bf16 cascade (timed only; the port never calls either);
    the shard kernels at the mesh path's shapes (``torch.matmul`` beside
-   the matvec); the served ``cuda_sharded`` decode step on a one-rank mesh
-   without a group (no collective) beside phase 11b's meshes, split into
+   the matvec; each kernel's route printed); the served ``cuda_sharded``
+   decode step on a one-rank mesh without a group (no collective; v1 and
+   v3) beside phase 11b's meshes, split into
    the shard kernels' device time and the host time in the collectives
    (one card's: no measure of NCCL across cards); and profile a served
    decode step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
@@ -578,8 +581,12 @@ def check_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 
 # (H, ranks): gru-jet's and gru-jet-deep's widths over 1, 2 and 4 ranks
-# (Hl = 20, 10, 5 and 32, 16, 8)
-SHARD_SHAPES = tuple((H, n) for H in (20, 32) for n in (1, 2, 4))
+# (Hl = 20, 10, 5 and 32, 16, 8), and wide shards (H 64, 256, 512: the
+# step's contraction of 512 and the matvec's of 256 and 512 take the
+# column tile, the rest the direct route)
+SHARD_SHAPES = tuple((H, n) for H in (20, 32, 64, 256, 512)
+                     for n in (1, 2, 4))
+REDESIGNED = ("gru_rowwise_shard_step", "gru_shard_matvec")
 
 
 def shard_inputs(torch, H, n, B, seed, dev):
@@ -635,9 +642,12 @@ def run_shard_kernel(name, args, plain):
 
 def check_shard_kernels(torch, dev):
     """The seven shard kernels against their plain versions on the card at
-    the mesh path's shard shapes (B 1 and 8; the matvec at N = 3H and 2H);
-    returns {kernel: max |err|}."""
+    the mesh path's shard shapes and wide ones (B 1 and 8; the matvec at N
+    = 3H and 2H); the redesigned pair must launch the route the CPU rule
+    (``shard_plan``) names. Returns {kernel: max |err|}."""
+    from repro_torch.kernels.gru_sequence import kernel as K
     err = {n: 0.0 for n in SHARD}
+    routes = {n: {} for n in REDESIGNED}
     n_checks = 0
     for (H, n) in SHARD_SHAPES:
         for B in (1, 8):
@@ -647,6 +657,13 @@ def check_shard_kernels(torch, dev):
                           else (None,)):
                     args = shard_args(name, a, N)
                     got = run_shard_kernel(name, args, plain=False)
+                    if name in REDESIGNED:
+                        p = getattr(K, name).last_plan
+                        check(p == planned(K, name, args), f"{name} H={H} "
+                              f"n={n} B={B}: launched {p}, the rule names "
+                              f"{planned(K, name, args)}")
+                        routes[name][p.route] = routes[name].get(
+                            p.route, 0) + 1
                     want = run_shard_kernel(name, args, plain=True)
                     torch.cuda.synchronize()
                     for g_, w_ in zip(got, want):
@@ -659,10 +676,23 @@ def check_shard_kernels(torch, dev):
                               f"N={N}: max |err| {e:.3g} > {TOL}")
                     n_checks += 1
     for name, e in err.items():
-        print(f"  {name}: max |kernel - plain| = {e:.3g} (<= {TOL})")
-    print(f"  {n_checks} shard kernel/plain comparisons passed (H 20 and "
-          f"32 over 1, 2, 4 ranks; B 1 and 8)", flush=True)
+        print(f"  {name}: max |kernel - plain| = {e:.3g} (<= {TOL})"
+              + (f"; routes launched {routes[name]}" if name in routes
+                 else ""))
+    print(f"  {n_checks} shard kernel/plain comparisons passed (H 20, 32, "
+          f"64, 256, 512 over 1, 2, 4 ranks; B 1 and 8)", flush=True)
     return err
+
+
+def planned(K, name, args):
+    """The launch ``shard_plan`` names for redesigned kernel ``name``."""
+    if name == "gru_shard_matvec":
+        x, w = args
+        return K.shard_plan(x.shape[0], x.shape[1], 1, w.shape[1],
+                            K._vector(w, w.stride(0), w.shape[1]))
+    h, h_local, _, u, _ = args
+    return K.shard_plan(h.shape[0], h.shape[1], 3, h_local.shape[1],
+                        K._vector(u, u.stride(0), h_local.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -713,6 +743,30 @@ def plain_calls():
             setattr(mod, n, fn)
 
 
+# gru_sequence_kernel's served calls (phases 4 and 6) by (T, B, H): the
+# gru-jet prefills and the fp32 chain's layers, for phase 12's split of
+# its launches by shape
+SEQ_SHAPES: dict = {}
+
+
+@contextlib.contextmanager
+def sequence_shapes(counts):
+    """Count the calls of ``gru_sequence_kernel`` that the serving path
+    makes through its ops module, by (T, B, H), while the block runs."""
+    from repro_torch.kernels.gru_sequence import ops
+    fn = ops.gru_sequence_kernel
+
+    def recording(h0, x_proj, *args, **kw):
+        key = tuple(x_proj.shape[:2]) + (h0.shape[-1],)
+        counts[key] = counts.get(key, 0) + 1
+        return fn(h0, x_proj, *args, **kw)
+    ops.gru_sequence_kernel = recording
+    try:
+        yield counts
+    finally:
+        ops.gru_sequence_kernel = fn
+
+
 def serve(cfg, params, backend, dev):
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve.engine import ServeEngine
@@ -731,7 +785,7 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
     K.reset_launch_counts()
     engines, streams, per_arch = {}, {}, {}
     before = [0] * len(kernels)
-    with plain_calls() as plain:
+    with plain_calls() as plain, sequence_shapes(SEQ_SHAPES):
         for a in cfgs:
             b = (backends or {}).get(a, backend)
             engines[a], streams[a] = serve(cfgs[a], params[a], b, dev)
@@ -1600,7 +1654,8 @@ def profile_mesh_decode(torch, cfg, params, dev, ctx):
             eng.gru_wave_step()
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
-    shard = {k: us for k, us in kernels.items() if "shard" in k}
+    shard = {k: us for k, us in kernels.items()      # gru_shard.cu's
+             if "shard" in k or "cascade_" in k}
     mesh = ctx.mesh
     route = ("none (one rank, no group: identities)" if mesh.group is None
              else f"{dist_backend(mesh)}, {mesh.size} rank(s) on one card"
@@ -1731,22 +1786,25 @@ def mesh_rank_main(rank: int, n: int, backend: str, store: str,
 
 def profile_mesh_steps(torch, dev, mesh_report):
     """The served cuda_sharded decode step of gru-jet-deep: on a one-rank
-    mesh without a group (this process; the collectives are identities)
-    and, from phase 11b's rank 0, over a 1-rank NCCL group and 2- and
+    mesh without a group (this process; the collectives are identities),
+    v1 and its v3 twin (whose row-wise layers run the step kernel), and,
+    from phase 11b's rank 0 (v1), over a 1-rank NCCL group and 2- and
     4-rank gloo meshes sharing the card. Returns the profiles by mesh."""
     from repro_torch.core.params import init_params
     from repro_torch.distributed import ShardCtx, local_mesh
     from repro_torch.models import gru_lm
-    cfg = mesh_configs()[MESH_ARCHS[0]]
-    params = init_params(gru_lm.lm_specs(cfg), seed=0,
-                         device=torch.device("cpu"))
-    out = {"local": profile_mesh_decode(torch, cfg, params, dev,
-                                        ShardCtx(local_mesh(dev)))}
+    out = {}
+    for a, cfg in mesh_configs().items():     # v1, then v3 (the step kernel)
+        params = init_params(gru_lm.lm_specs(cfg), seed=0,
+                             device=torch.device("cpu"))
+        out["local" + a[len(MESH_ARCHS[0]):]] = profile_mesh_decode(
+            torch, cfg, params, dev, ShardCtx(local_mesh(dev)))
     for n, backend in MESHES:
         out[f"{n}x{backend}"] = mesh_report[f"{n}x{backend}"]["profile"]
     for name, pr in out.items():
-        print(f"  decode step (gru-jet-deep v1, cuda_sharded, {SLOTS} slots,"
-              f" mesh {name}, rank 0, 20 steps): wall "
+        variant = "v3" if name.endswith("v3") else "v1"
+        print(f"  decode step (gru-jet-deep {variant}, cuda_sharded, {SLOTS} "
+              f"slots, mesh {name}, rank 0, 20 steps): wall "
               f"{pr['wall_ms_per_step']:.4f} ms/step; shard kernels "
               f"{pr['shard_kernels_ms_per_step']:.4f} ms/step, all device "
               f"work {pr['device_busy_ms_per_step']:.4f} ms/step (idle "
@@ -1990,6 +2048,26 @@ def time_kernels(torch, dev, err, launches):
                   f"B={B:2d} T= 1: device {ms * 1e3:8.2f} us (per call "
                   f"{call * 1e3:7.2f})  plain {plain * 1e3:9.2f} us  bound "
                   f"{bms * 1e6:7.2f} ns ({by})", flush=True)
+    # row 1's served launches by shape (phases 4 and 6: the gru-jet
+    # prefills, the chain's layers by T): device time, bound, and the
+    # launches times the gap summed over the shapes
+    check(sum(SEQ_SHAPES.values()) == launches["gru_sequence_kernel"],
+          f"gru_sequence_kernel: served calls by shape {SEQ_SHAPES} do not "
+          f"sum to its {launches['gru_sequence_kernel']} launches")
+    gap_us = 0.0
+    for (T, B, H), count in sorted(SEQ_SHAPES.items()):
+        a = make_inputs(torch, 1, H, B, T, seed=7, dev=dev)
+        ms = device_time_ms(torch, lambda: run_kernel(
+            K, ref, "gru_sequence_kernel", a, "v1", T > 1, plain=False),
+            per_graph=50)
+        bms, _ = bound_ms("gru_sequence_kernel", a, masked=T > 1)
+        gap_us += count * (ms - bms) * 1e3
+        print(f"  gru_sequence_kernel served T={T:2d} B={B} H={H}: {count:3d} "
+              f"launches, device {ms * 1e3:7.2f} us, bound {bms * 1e6:6.2f} "
+              f"ns", flush=True)
+    print(f"  gru_sequence_kernel: launches x (device - bound) over its "
+          f"{sum(SEQ_SHAPES.values())} served launches = {gap_us:.0f} us",
+          flush=True)
     print("  library_ms: null -- no single PyTorch call computes the v1 "
           "(paper) GRU recurrence or step these kernels run, in fp32 or on "
           "int8 weight rows; nor the exponential-gated sLSTM (torch.nn.LSTM "
@@ -2358,6 +2436,21 @@ def shard_bound_ms(name, args, outs):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def shard_route(name) -> str:
+    """The route of a shard kernel's last launch: the redesigned pair's
+    plan (``last_plan``), the column tile for the other matvec kernels, a
+    grid-stride loop for the two elementwise ones."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    if name in REDESIGNED:
+        p = getattr(K, name).last_plan
+        return (f"direct S={p.slices} R={p.rows} warps={p.warps} grid="
+                f"{p.grid}" if p.route == "direct" else
+                f"tile bt={p.rows} ct={p.ct} grid={p.grid}")
+    if name in ("gru_cascade_shard_gates", "gru_cascade_shard_update"):
+        return "elementwise"
+    return "tile (unchanged)"
+
+
 def time_shard_kernels(torch, dev, err, launches):
     """Device, per-call, plain-version and bound times of the seven shard
     kernels at the mesh path's shard shapes (8 slots; the matvec at v1's
@@ -2384,11 +2477,12 @@ def time_shard_kernels(torch, dev, err, launches):
                    if library is not None else None)
             call = call_time_ms(torch, kern, iters=300)
             bms, by = shard_bound_ms(name, args, kern())
+            plan = shard_route(name)
             lib_s = f"{lib * 1e3:7.2f} us" if lib is not None else "    n/a"
             print(f"  {name:28s} H={H} ranks={n} Hl={H // n:2d} B={SLOTS}: "
                   f"device {ms * 1e3:6.2f} us (per call {call * 1e3:6.2f})  "
                   f"plain {plain * 1e3:7.2f} us  matmul {lib_s}  bound "
-                  f"{bms * 1e6:6.2f} ns ({by})", flush=True)
+                  f"{bms * 1e6:6.2f} ns ({by})  route {plan}", flush=True)
             if (H, n) == SHARD_ROW:
                 rows.append({
                     "name": name, "route": "cuda",
@@ -2397,6 +2491,7 @@ def time_shard_kernels(torch, dev, err, launches):
                     "launches": launches[name], "max_abs_err": err[name],
                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
                     "bound_by": by, "library_ms": lib, "call_ms": call,
+                    "plan": plan,
                     "shape": {"H": H, "ranks": n, "Hl": H // n, "B": SLOTS}})
     print("  library_ms: torch.matmul on the matvec's operands (TF32 off); "
           "null for the other six -- no single PyTorch call computes a "

@@ -3,10 +3,12 @@
 //
 // Replaces the seven shard kernels of src/repro/kernels/gru_sequence/
 // kernel.py (each a whole-block pallas_call, _shard_call :622):
-//   rowwise_shard_k<kStep> <- gru_rowwise_shard_step      :702 (body :632)
+//   rowwise_shard_step_direct_k (direct route),
+//   rowwise_shard_k<kStep> (tile) <- gru_rowwise_shard_step :702 (body :632)
 //   rowwise_shard_k<kZr>   <- gru_rowwise_shard_zr        :714 (body :646)
 //   rowwise_shard_k<kCand> <- gru_rowwise_shard_candidate :723 (body :658)
-//   shard_matvec_k         <- gru_shard_matvec            :733 (body :667)
+//   shard_matvec_direct_k (direct route),
+//   shard_matvec_k (tile)  <- gru_shard_matvec            :733 (body :667)
 //   cascade_gates_k        <- gru_cascade_shard_gates     :741 (body :673)
 //   cascade_zr_k           <- gru_cascade_shard_zr        :749 (body :685)
 //   cascade_update_k       <- gru_cascade_shard_update    :759 (body :697)
@@ -17,26 +19,40 @@
 // row stride (ld*), columns are unit-stride.
 //
 // Translation. On the TPU each kernel is one grid step whose operands sit
-// whole in VMEM. Here the matvec kernels are col_tile.cuh's column tile: a
-// block owns `ct` output columns (of every gate it needs) and a batch tile
-// of at most 8 rows, stages its operand rows in shared memory, streams
-// the shard's u from device memory once, and applies the gate epilogue to
-// its finished columns. The grid runs over column tiles and batch tiles;
-// at the paper's widths (Hl = 5..32) that is one to a few blocks. The
-// cascade's middle phase computes z and r*h of its batch tile in the
-// block (elementwise, from the psum'd pre-activations) into shared memory
-// as the operand of its product, so the partial product needs no round
-// trip through device memory. The two epilogue-only kernels (v3 cascade
-// gates, v1 cascade update) are elementwise grid-stride loops.
+// whole in VMEM. Here two routes, picked by shape in Python (shard_plan in
+// kernels/gru_sequence/kernel.py):
+// - "direct" (the v3 row-wise step and the cascade's partial product at
+//   the paper's widths, where the contraction is short): each output
+//   (row, column) belongs to one thread, or to S lanes of one warp that
+//   split K and meet in one fixed butterfly over the G x R values they
+//   own. Every global load goes out at entry, the step's epilogue operands
+//   (xp's three gates, h_local, b) included: no shared memory, no barrier.
+//   Lanes of a slice read neighbouring columns of u (coalesced whatever the
+//   alignment), x is a broadcast; blocks of a few warps spread the outputs
+//   over the SMs.
+// - "tile" (long contractions, and the other matvec kernels): col_tile.cuh's
+//   column tile. A block owns `ct` output columns (of every gate it needs)
+//   and a batch tile of at most 8 rows, stages its operand rows in shared
+//   memory, streams the shard's u from device memory once, and applies the
+//   gate epilogue to its finished columns. The cascade's middle phase
+//   computes z and r*h of its batch tile in the block (elementwise, from
+//   the psum'd pre-activations) into shared memory as the operand of its
+//   product, so the partial product needs no round trip through device
+//   memory.
+// The two epilogue-only kernels (v3 cascade gates, v1 cascade update) are
+// elementwise grid-stride loops.
 //
 // Bound on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): a shard's operands
 // are a few KB at these widths, so every kernel's bound is a few
 // nanoseconds (bytes); the kernels are bound by latency instead: the
-// launch, one pass of loads, a barrier and the butterfly, 1-5 us. The
-// collectives around them cost more.
+// launch, the trips to memory and the dependent chain after them, 1-5 us.
+// The collectives around them cost more.
 //
 // Numerics: expf/tanhf, no fast math; fma on the CUDA cores, no TF32. The
-// epilogues add in the plain versions' order (x + U.h, then + b).
+// epilogues add in the plain versions' order (x + U.h, then + b). A direct
+// route's sum: each lane's k = s, s + S, s + 2S, ... in order by fma from
+// 0, then the butterfly adds the slices pairwise (slice s with s ^ 1, then
+// s ^ 2, ...). Every sum is taken in the same order on every run.
 
 #include "col_tile.cuh"
 
@@ -226,6 +242,166 @@ cascade_update_k(const float* __restrict__ z, const float* __restrict__ ht,
   }
 }
 
+// --- the direct route ------------------------------------------------------
+
+constexpr int kLaneK = 8;   // k's each lane loads per chunk of the contraction
+
+// acc[g][r] += x[row0 + r][k] * w[k][col[g]] over this lane's k's of [0, K):
+// k = s, s + S, ... in chunks of kLaneK, each chunk's loads all issued
+// before its first product (one chunk where K <= S * kLaneK). `live`: the
+// lane's column is inside the matrix; rows nrow..R-1 read nothing.
+template <int G, int S, int R>
+__device__ __forceinline__ void direct_dot(float (&acc)[G][R],
+                                           const float* __restrict__ x,
+                                           size_t ldx, int row0, int nrow,
+                                           const float* __restrict__ w,
+                                           size_t ldw, const int (&col)[G],
+                                           bool live, int K, int s) {
+  for (int k0 = s; k0 < K; k0 += S * kLaneK) {
+    float wv[kLaneK][G];
+    float xv[kLaneK][R];
+#pragma unroll
+    for (int i = 0; i < kLaneK; ++i) {
+      const int k = k0 + i * S;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        wv[i][g] = live && k < K ? __ldg(w + (size_t)k * ldw + col[g]) : 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        xv[i][r] = k < K && r < nrow
+                       ? __ldg(x + (size_t)(row0 + r) * ldx + k) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLaneK; ++i)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (k0 + i * S < K) acc[g][r] = fmaf(xv[i][r], wv[i][g], acc[g][r]);
+  }
+}
+
+// Sum the S slices of each column: a butterfly over the lanes that share
+// it (lane = s * (32 / S) + c), so every slice ends with the same sums.
+template <int G, int S, int R>
+__device__ __forceinline__ void slice_sum(float (&acc)[G][R]) {
+#pragma unroll
+  for (int off = 32 / S; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[g][r] += __shfl_xor_sync(0xffffffffu, acc[g][r], off);
+}
+
+// A direct-route thread's place: a warp covers 32 / S neighbouring columns
+// of R batch rows with S slices of K each; a block's warps take
+// neighbouring column groups, the grid's y the batch rows.
+struct Lane {
+  int s;      // slice of K
+  int j;      // column
+  int row0;   // first batch row
+  int nrow;   // batch rows inside the matrix (<= R)
+};
+
+template <int S, int R>
+__device__ __forceinline__ Lane direct_lane(int B) {
+  constexpr int CW = 32 / S;
+  const int lane = threadIdx.x & 31;
+  Lane l;
+  l.s = lane / CW;
+  l.j = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * CW
+        + lane % CW;
+  l.row0 = blockIdx.y * R;
+  l.nrow = min(R, B - l.row0);
+  return l;
+}
+
+// The cascade's partial product on the direct route: out (B, N) = x (B, K)
+// @ w (K, N).
+template <int S, int R>
+__global__ void __launch_bounds__(kThreads)
+shard_matvec_direct_k(const float* __restrict__ x, int ldx,
+                      const float* __restrict__ w, int ldw,
+                      float* __restrict__ out, int B, int K, int N) {
+  const Lane l = direct_lane<S, R>(B);
+  const int col[1] = {l.j};
+  float acc[1][R] = {};
+  direct_dot<1, S, R>(acc, x, ldx, l.row0, l.nrow, w, ldw, col, l.j < N, K,
+                      l.s);
+  slice_sum<1, S, R>(acc);
+  if (l.s != 0 || l.j >= N) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < l.nrow) out[(size_t)(l.row0 + r) * N + l.j] = acc[0][r];
+}
+
+// The v3 row-wise step on the direct route: h' of the local rows from
+// h_full (B, H) against u's three gate columns; the epilogue's operands
+// are loaded at entry, beside the first chunk of the contraction.
+template <int S, int R>
+__global__ void __launch_bounds__(kThreads)
+rowwise_shard_step_direct_k(const float* __restrict__ h,
+                            const float* __restrict__ hl, int ldhl,
+                            const float* __restrict__ xp, int ldxp,
+                            const float* __restrict__ u, int ldu,
+                            const float* __restrict__ b,
+                            float* __restrict__ out, int B, int H, int Hl) {
+  const Lane l = direct_lane<S, R>(B);
+  const bool live = l.j < Hl;
+  float xg[3][R], hv[R], bg[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) bg[g] = live ? __ldg(b + g * Hl + l.j) : 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool in = live && r < l.nrow;
+    const size_t row = l.row0 + r;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      xg[g][r] = in ? __ldg(xp + row * ldxp + g * Hl + l.j) : 0.0f;
+    hv[r] = in ? __ldg(hl + row * ldhl + l.j) : 0.0f;
+  }
+  const int col[3] = {l.j, Hl + l.j, 2 * Hl + l.j};
+  float acc[3][R] = {};
+  direct_dot<3, S, R>(acc, h, H, l.row0, l.nrow, u, ldu, col, live, H, l.s);
+  slice_sum<3, S, R>(acc);
+  if (l.s != 0 || !live) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= l.nrow) continue;
+    const float z = sigmoid_f((xg[0][r] + acc[0][r]) + bg[0]);
+    const float rg = sigmoid_f((xg[1][r] + acc[1][r]) + bg[1]);
+    const float ht = tanhf(xg[2][r] + rg * (acc[2][r] + bg[2]));
+    out[(size_t)(l.row0 + r) * Hl + l.j] = (1.0f - z) * hv[r] + z * ht;
+  }
+}
+
+// f(std::integral_constant<int, S>) for the slices of K, s in {1, 2, 4,
+// 8, 16, 32}.
+template <typename F>
+int by_slices(int s, F&& f) {
+  switch (s) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Grid of the direct route: blocks of `warps` warps over ncols columns
+// (32 / S a warp) and B rows (R a thread).
+dim3 direct_grid(int ncols, int B, int slices, int rows, int warps) {
+  const int cols = warps * (32 / slices);
+  return dim3((ncols + cols - 1) / cols, (B + rows - 1) / rows);
+}
+
+bool valid_direct(int warps) { return warps >= 1 && warps <= kWarps; }
+
+// --- the tile route and the elementwise kernels' launches --------------------
+
 dim3 tiles(int ncols, int B, int bt, int ct) {
   return dim3((ncols + ct - 1) / ct, (B + bt - 1) / bt);
 }
@@ -308,6 +484,45 @@ extern "C" int gru_shard_matvec_launch(const float* x, int ldx,
     shard_matvec_k<BT><<<tiles(N, B, BT, ct), kThreads, bytes, s>>>(
         x, ldx, w, ldw, out, B, K, N, ct, vec);
     return (int)cudaGetLastError();
+  });
+}
+
+// The direct route (rows of R in {1, 2, 4, 8}, slices S in {1, 2, 4, 8,
+// 16, 32}, `warps` warps of 32 a block, at most 8): the cascade's partial
+// product out (B, N) = x (B, K) @ w (K, N) ...
+extern "C" int gru_shard_matvec_direct_launch(const float* x, int ldx,
+                                              const float* w, int ldw,
+                                              float* out, int B, int K, int N,
+                                              int slices, int rows, int warps,
+                                              void* stream) {
+  if (!valid_direct(warps)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return by_slices(slices, [&](auto sc) {
+    return by_tile(rows, [&](auto rc) {
+      constexpr int S = decltype(sc)::value, R = decltype(rc)::value;
+      shard_matvec_direct_k<S, R><<<direct_grid(N, B, S, R, warps),
+                                    32 * warps, 0, st>>>(x, ldx, w, ldw, out,
+                                                         B, K, N);
+      return (int)cudaGetLastError();
+    });
+  });
+}
+
+// ... and the v3 row-wise step (gru_rowwise_shard_step's operands).
+extern "C" int gru_rowwise_shard_step_direct_launch(
+    const float* h, const float* hl, int ldhl, const float* xp, int ldxp,
+    const float* u, int ldu, const float* b, float* out, int B, int H, int Hl,
+    int slices, int rows, int warps, void* stream) {
+  if (!valid_direct(warps)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return by_slices(slices, [&](auto sc) {
+    return by_tile(rows, [&](auto rc) {
+      constexpr int S = decltype(sc)::value, R = decltype(rc)::value;
+      rowwise_shard_step_direct_k<S, R><<<direct_grid(Hl, B, S, R, warps),
+                                          32 * warps, 0, st>>>(
+          h, hl, ldhl, xp, ldxp, u, ldu, b, out, B, H, Hl);
+      return (int)cudaGetLastError();
+    });
   });
 }
 

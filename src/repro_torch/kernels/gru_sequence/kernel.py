@@ -26,7 +26,10 @@ Same names and array interface as the Pallas kernels in
   gather of r*h), :func:`gru_shard_matvec` (the cascade's partial
   product), :func:`gru_cascade_shard_gates` (v3), :func:`gru_cascade_
   shard_zr` and :func:`gru_cascade_shard_update` (v1). Their gate-slice
-  operands may be row-strided views (unit-stride columns).
+  operands may be row-strided views (unit-stride columns). The step and
+  the matvec launch the route :func:`shard_plan` picks by shape (the
+  direct route where the contraction is short, else the column tile) and
+  keep it as ``last_plan``.
 
 Every wrapper checks device, dtype (float32; int8 weight rows for q8),
 shapes and contiguity and raises on anything the kernel does not take
@@ -58,6 +61,8 @@ block may use.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -353,8 +358,12 @@ def gru_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
 # mode, x, hl, ldhl, zin, xp, ldxp, u, ldu, b, out0, out1, B, H, Hl, bt, ct,
 # vec, stream
 _ROWWISE_ARGS = [I, P, P, I, P, P, I, P, I, P, P, P] + [I] * 6 + [P]
-# x, ldx, w, ldw, out, B, K, N, bt, ct, vec, stream
+# x, ldx, w, ldw, out, B, K, N, bt, ct, vec, stream (the direct route's:
+# ..., N, slices, rows, warps, stream)
 _MATVEC_ARGS = [P, I, P, I, P] + [I] * 6 + [P]
+# h, hl, ldhl, xp, ldxp, u, ldu, b, out, B, H, Hl, slices, rows, warps,
+# stream
+_STEP_DIRECT_ARGS = [P, P, I, P, I, P, I, P, P] + [I] * 6 + [P]
 # zr, xp, h, u, ldu, z, p, B, Hl, N, bt, ct, vec, stream
 _CZR_ARGS = [P] * 4 + [I, P, P] + [I] * 6 + [P]
 # in, in, in, out, B, Hl, stream
@@ -389,6 +398,102 @@ def shard_tiles(B: int, K: int, G: int, ncols: int):
                          f"shared memory for one row; a Hopper block has "
                          f"{SMEM_LIMIT}")
     return bt, ct
+
+
+# The rule below was read off tools/shard_tiles.py on an H100 (PERF.md's
+# findings): the direct route's fastest launches give each lane about
+# SLICE_K of K's k's, at most MAX_SLICES lanes to a column (more leave a
+# warp one or two columns, whose loads do not coalesce), two batch rows to
+# a thread of the step and four to one of a wide matvec, and blocks of a
+# few warps; past DIRECT_MAX_K the column tile is faster, at a tile whose
+# grid nearly fills the SMs once.
+SLICES = (1, 2, 4, 8, 16, 32)   # lanes that split K (the C entry takes)
+DIRECT_ROWS = (1, 2, 4, 8)   # batch rows of a direct-route thread (same)
+DIRECT_MAX_WARPS = _launch.THREADS // 32
+SLICE_K = 4                  # k's of one lane's slice the rule aims for
+MAX_SLICES = 16
+DIRECT_MAX_K = {1: 128, 3: 256}   # gates -> longest K on the direct route
+WIDE_N = 512                 # a matvec this wide takes 4 rows a thread
+DIRECT_WARPS = {1: 4, 3: 2}  # gates -> warps of a direct-route block
+TILE_COLUMNS = (16, 8)       # the tile route's column tiles, widest first
+SHARD_SMS = 132              # an H100's SMs: one wave of the tile's grid
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """One launch of :func:`gru_shard_matvec` or :func:`gru_rowwise_shard_
+    step`: ``route`` "direct" or "tile". Direct: ``slices`` lanes
+    split K, each thread owns one column of ``rows`` batch rows, ``warps``
+    warps a block. Tile: ``rows`` is the batch tile, ``ct`` the column
+    tile, 8 warps a block, ``vec`` whether u loads as 16-byte vectors.
+    ``grid`` (x, y), ``threads`` per block, ``smem`` dynamic bytes."""
+    route: str
+    slices: int
+    rows: int
+    warps: int
+    ct: int
+    vec: int
+    grid: tuple
+    threads: int
+    smem: int
+
+
+def _pow2(n: int) -> int:
+    """The smallest power of two >= n (>= 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def direct_slices(K: int) -> int:
+    """Lanes that split a contraction of K on the direct route: the fewest
+    (a power of two) that leave each about :data:`SLICE_K` k's, at most
+    :data:`MAX_SLICES`."""
+    return min(MAX_SLICES, _pow2(-(-K // SLICE_K)))
+
+
+def direct_plan(B: int, N: int, slices: int, rows: int,
+                warps: int) -> ShardPlan:
+    """The direct-route launch at explicit knobs (``N`` columns a gate)."""
+    cols = warps * (32 // slices)
+    return ShardPlan("direct", slices, rows, warps, 0, 0,
+                     (-(-N // cols), -(-B // rows)), 32 * warps, 0)
+
+
+def tile_plan(B: int, K: int, G: int, N: int, vec: int, bt: int,
+              ct: int) -> ShardPlan:
+    """The column-tile launch at explicit knobs."""
+    return ShardPlan("tile", 0, bt, _launch.THREADS // 32, ct, vec,
+                     (-(-N // ct), -(-B // bt)), _launch.THREADS,
+                     smem_bytes_shard(K, bt, G, ct))
+
+
+@functools.lru_cache(maxsize=512)
+def shard_plan(B: int, K: int, G: int, N: int, vec: int) -> ShardPlan:
+    """The launch of a shard matvec of B rows, a contraction of K and G
+    gates of N columns each (the matvec: G = 1; the v3 step: G = 3, N =
+    Hl); ``vec``: u loads as aligned 16-byte vectors (the tile route
+    only). The direct route where K <= :data:`DIRECT_MAX_K` [G], with
+    :func:`direct_slices`, two rows a thread for the step (four for a
+    matvec of at least :data:`WIDE_N` columns, else one) and
+    :data:`DIRECT_WARPS` [G] warps a block. Else the column tile: of
+    :data:`TILE_COLUMNS` and batch tiles 1-8, the largest grid within
+    :data:`SHARD_SMS` blocks whose shared memory fits (the fewest blocks
+    if none is that small); :func:`shard_tiles`'s tile, which raises where
+    one row does not fit a block, if neither column tile fits."""
+    if K <= DIRECT_MAX_K[G]:
+        slices = direct_slices(K)
+        rows = 2 if G == 3 else 4 if N >= WIDE_N else 1
+        col_warps = -(-N // (32 // slices))
+        return direct_plan(B, N, slices, min(rows, _pow2(B)),
+                           min(DIRECT_WARPS[G], _pow2(col_warps)))
+    fits = [tile_plan(B, K, G, N, vec, bt, ct) for ct in TILE_COLUMNS
+            for bt in (1, 2, 4, SHARD_MAX_ROWS)
+            if bt <= _pow2(B) and smem_bytes_shard(K, bt, G, ct)
+            <= SMEM_LIMIT]
+    if not fits:
+        return tile_plan(B, K, G, N, vec, *shard_tiles(B, K, G, N))
+    blocks = [p.grid[0] * p.grid[1] for p in fits]
+    one_wave = [b for b in blocks if b <= SHARD_SMS]
+    return fits[blocks.index(max(one_wave) if one_wave else min(blocks))]
 
 
 def _rows(name: str, t, shape: tuple, dev: torch.device) -> int:
@@ -449,11 +554,12 @@ def _rowwise_checks(x_name: str, x, h_local, z, xp, u, b, G: int) -> tuple:
 
 
 def _rowwise_launch(mode: int, G: int, dims: tuple, x, h_local, z, xp, u,
-                    b):
-    """Launch mode ``mode`` of the row-wise shard kernel; returns (error,
+                    b, tile=None):
+    """Launch mode ``mode`` of the row-wise shard kernel at ``tile`` (batch
+    tile, column tile; :func:`shard_tiles`'s by default); returns (error,
     out0, out1)."""
     B, H, Hl, dev, ldhl, ldxp, ldu = dims
-    bt, ct = shard_tiles(B, H, G, Hl)
+    bt, ct = tile or shard_tiles(B, H, G, Hl)
     out0 = torch.empty((B, Hl), dtype=torch.float32, device=dev)
     out1 = (torch.empty((B, Hl), dtype=torch.float32, device=dev)
             if mode == 1 else None)
@@ -469,14 +575,26 @@ def gru_rowwise_shard_step(h_full: torch.Tensor, h_local: torch.Tensor,
                            b: torch.Tensor) -> torch.Tensor:
     """v3 row-wise shard step: h_full (B,H) replicated, h_local (B,Hl) this
     shard's rows, xp (B,3Hl) / u (H,3Hl) / b (3Hl,) this shard's gate-major
-    slices -> new local rows (B,Hl)."""
+    slices -> new local rows (B,Hl). Launches :func:`shard_plan`'s route
+    and keeps the plan as ``last_plan``."""
     dims = _rowwise_checks("h_full", h_full, h_local, None, xp, u, b, 3)
-    if dims[3].type == "cpu":
+    B, H, Hl, dev, ldhl, ldxp, ldu = dims
+    p = shard_plan(B, H, 3, Hl, _vector(u, ldu, Hl))
+    if dev.type == "cpu":
         return ref.gru_rowwise_shard_step_ref(h_full, h_local, xp, u, b)
-    err, out, _ = _rowwise_launch(0, 3, dims, h_full, h_local, None, xp, u,
-                                  b)
+    if p.route == "tile":
+        err, out, _ = _rowwise_launch(0, 3, dims, h_full, h_local, None, xp,
+                                      u, b, (p.rows, p.ct))
+    else:
+        out = torch.empty((B, Hl), dtype=torch.float32, device=dev)
+        err = _shard_launcher("gru_rowwise_shard_step_direct_launch",
+                              _STEP_DIRECT_ARGS)(
+            _ptr(h_full), _ptr(h_local), ldhl, _ptr(xp), ldxp, _ptr(u), ldu,
+            _ptr(b), _ptr(out), B, H, Hl, p.slices, p.rows, p.warps,
+            _stream(dev))
     _raise_on(err, "gru_rowwise_shard_step")
     gru_rowwise_shard_step.launches += 1
+    gru_rowwise_shard_step.last_plan = p
     return out
 
 
@@ -527,15 +645,22 @@ def gru_shard_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ldw = _rows("w", w, (K, N), dev)
     if B < 1 or K < 1 or N < 1:
         raise ValueError(f"empty problem: B={B} K={K} N={N}")
-    bt, ct = shard_tiles(B, K, 1, N)
+    p = shard_plan(B, K, 1, N, _vector(w, ldw, N))
     if dev.type == "cpu":
         return ref.gru_shard_matvec_ref(x, w)
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    err = _shard_launcher("gru_shard_matvec_launch", _MATVEC_ARGS)(
-        _ptr(x), ldx, _ptr(w), ldw, _ptr(out), B, K, N, bt, ct,
-        _vector(w, ldw, N), _stream(dev))
+    if p.route == "tile":
+        err = _shard_launcher("gru_shard_matvec_launch", _MATVEC_ARGS)(
+            _ptr(x), ldx, _ptr(w), ldw, _ptr(out), B, K, N, p.rows, p.ct,
+            p.vec, _stream(dev))
+    else:
+        err = _shard_launcher("gru_shard_matvec_direct_launch",
+                              _MATVEC_ARGS)(
+            _ptr(x), ldx, _ptr(w), ldw, _ptr(out), B, K, N, p.slices, p.rows,
+            p.warps, _stream(dev))
     _raise_on(err, "gru_shard_matvec")
     gru_shard_matvec.launches += 1
+    gru_shard_matvec.last_plan = p
     return out
 
 
@@ -638,3 +763,5 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
+gru_rowwise_shard_step.last_plan = None
+gru_shard_matvec.last_plan = None

@@ -850,3 +850,92 @@ def test_one_rank_mesh_runs_the_shard_kernels(cuda_device, variant):
     want_hs = gru_core.gru_stack_decode_eager(sp.cells, want, xs[:, 0],
                                               cfg=cfg)
     assert _max_err(list(zip(finals, want)) + list(zip(hs, want_hs))) <= TOL
+
+
+# the redesigned pair (rows 12 and 15): the direct route at the paper's
+# widths, the column tile where the contraction is long (shard_plan)
+REDESIGNED = ("gru_rowwise_shard_step", "gru_shard_matvec")
+
+
+def _planned(name, args):
+    """The plan the CPU rule gives ``name`` on ``args``."""
+    if name == "gru_shard_matvec":
+        x, w = args
+        return K.shard_plan(x.shape[0], x.shape[1], 1, w.shape[1],
+                            K._vector(w, w.stride(0), w.shape[1]))
+    h, h_local, _, u, _ = args
+    return K.shard_plan(h.shape[0], h.shape[1], 3, h_local.shape[1],
+                        K._vector(u, u.stride(0), h_local.shape[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,n", tuple(itertools.product((64, 256, 512),
+                                                        (1, 2, 4))))
+@pytest.mark.parametrize("B", (1, 8))
+def test_wide_shard_kernels_match_plain(cuda_device, H, n, B):
+    """Wide shards: the step's contraction of H = 512 and the matvec's of
+    256 and 512 take the column tile, the rest the direct route; the
+    matvec also at v3's N = 3H."""
+    ops_ = _shard_operands(H, n, B, cuda_device, H * 100 + n * 10 + B)
+    w3 = torch.randn(H // n, 3 * H, generator=torch.Generator().manual_seed(
+        H + n + B)).to(cuda_device) * H ** -0.5
+    ops_["gru_shard_matvec 3H"] = (ops_["gru_shard_matvec"][0], w3)
+    pairs = []
+    for key, args in ops_.items():
+        name = key.split()[0]
+        got = getattr(K, name)(*args)
+        want = getattr(ref, name + "_ref")(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        pairs += list(zip(got, want))
+        if name in REDESIGNED:
+            assert getattr(K, name).last_plan == _planned(name, args)
+    assert _max_err(pairs) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", (3, 8))
+def test_redesigned_shard_kernels_take_misaligned_views(cuda_device, B):
+    """Hl = 5 (gru-jet over 4 ranks): gate offsets off 16 bytes, and u and
+    w as views one float into their storage (no 16-byte address)."""
+    H, n = 20, 4
+    Hl = H // n
+    g = torch.Generator().manual_seed(B)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(cuda_device)
+    h = rand(B, H, scale=0.5)
+    u = rand(H, 3 * Hl + 1, scale=H ** -0.5)[:, 1:]
+    w = rand(Hl, 3 * H + 1, scale=H ** -0.5)[:, 1:2 * H + 1]
+    x = rand(B, Hl + 3, scale=0.5)[:, 3:]
+    assert u.data_ptr() % 16 and w.data_ptr() % 16 and x.data_ptr() % 16
+    args = {"gru_rowwise_shard_step": (h, h[:, 3 * Hl:], rand(B, 3 * Hl),
+                                       u, rand(3 * Hl)),
+            "gru_shard_matvec": (x, w)}
+    for name in REDESIGNED:
+        got = getattr(K, name)(*args[name])
+        want = getattr(ref, name + "_ref")(*args[name])
+        assert getattr(K, name).last_plan == _planned(name, args[name])
+        assert getattr(K, name).last_plan.route == "direct"
+        assert _max_err([(got, want)]) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,n,B", ((32, 2, 8), (20, 4, 3), (32, 1, 64),
+                                   (512, 1, 8), (256, 4, 1)))
+def test_redesigned_shard_kernels_are_deterministic(cuda_device, H, n, B):
+    """Two calls on the same inputs give the same bits (no atomics), on
+    either route; each call raises only its own counter, and ``last_plan``
+    is the route the CPU rule names."""
+    ops_ = _shard_operands(H, n, B, cuda_device, 7 * H + n + B)
+    for name in REDESIGNED:
+        fn, args = getattr(K, name), ops_[name]
+        K.reset_launch_counts()
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        assert fn.launches == 2
+        assert all(k.launches == 0 for k in K.SHARD_KERNELS if k is not fn)
+        assert fn.last_plan == _planned(name, args)
+    assert K.gru_rowwise_shard_step.last_plan.route == (
+        "tile" if H > K.DIRECT_MAX_K[3] else "direct")

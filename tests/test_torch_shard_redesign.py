@@ -1,0 +1,226 @@
+"""The redesigned shard kernels' structure, on the CPU: the launch plan of
+``gru_shard_matvec`` and ``gru_rowwise_shard_step``
+(``repro_torch.kernels.gru_sequence.kernel.shard_plan``) and the direct
+route's summation order.
+
+* Legality of the plan at every shape the card runs (``chip_smoke.py``
+  phases 3b and 12, the ``gpu`` tests) and at H 64-512 over 1, 2 and 4
+  ranks, B 1, 3, 8 and 64, the matvec at N = 2H and 3H: the grid and the
+  kernels' index arithmetic (mirrored here) store every output exactly
+  once, the slices of a direct-route column read every k exactly once, a
+  block stays within 1024 threads and a Hopper block's shared memory, and
+  the route is the direct one exactly where the rule says.
+* The direct route's order of summation, emulated in numpy
+  (:func:`direct_matvec`: each slice's k's in order by fma from 0, then
+  the fixed butterfly over the slices) and the v3 epilogue in the kernel's
+  order, against JAX's Pallas ``gru_shard_matvec`` and
+  ``gru_rowwise_shard_step`` in interpret mode within ``SHARD_TOL``, at
+  every slice count. No CUDA kernel runs here: this is the one check of
+  the new order that does not need the card.
+"""
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from _torch_parity import close
+from repro.kernels.gru_sequence import kernel as JK
+from repro_torch.kernels._launch import SMEM_LIMIT
+from repro_torch.kernels.gru_sequence import kernel as K
+
+SHARD_TOL = 1e-6
+MAX_THREADS = 1024
+RANKS = (1, 2, 4)
+# (H, B) the card runs: phase 3b (B 1, 8), phase 12 (8 slots), the gpu
+# tests (B 1, 8, 64; the wide shards at B 1 and 8; B = 3 at Hl = 5)
+DRIVEN = ([(H, B) for H in (20, 32) for B in (1, 3, 8, 64)]
+          + [(H, B) for H in (64, 256, 512) for B in (1, 8)])
+WIDE = [(H, B) for H in (64, 128, 256, 512) for B in (1, 3, 8, 64)]
+
+
+def _problems(H, n, B):
+    """(B, K, G, N) of the two redesigned kernels on one rank of n: the
+    matvec at v3's N = 3H and v1's 2H (K = Hl), the step (K = H, N = Hl)."""
+    Hl = H // n
+    return [(B, Hl, 1, 3 * H), (B, Hl, 1, 2 * H), (B, H, 3, Hl)]
+
+
+SHAPES = sorted({p for H, B in DRIVEN + WIDE for n in RANKS
+                 for p in _problems(H, n, B)})
+
+
+def _stores(p, B, N):
+    """How often the launch ``p`` stores each output (B, N) of one gate,
+    from the kernels' index arithmetic."""
+    hits = np.zeros((B, N), dtype=np.int64)
+    gx, gy = p.grid
+    if p.route == "direct":
+        cw = 32 // p.slices
+        lane = np.arange(32)
+        for bx, by, warp in itertools.product(range(gx), range(gy),
+                                              range(p.warps)):
+            j = (bx * p.warps + warp) * cw + lane % cw
+            j = j[(lane // cw == 0) & (j < N)]         # slice 0 stores
+            for r in range(p.rows):
+                if by * p.rows + r < B:
+                    np.add.at(hits[by * p.rows + r], j, 1)
+        return hits
+    o = np.arange(p.rows * p.ct)                      # the epilogue's loop
+    r, c = o // p.ct, o % p.ct
+    for tile, by in itertools.product(range(gx), range(gy)):
+        jj, row = tile * p.ct + c, by * p.rows + r
+        keep = (row < B) & (jj < N)
+        np.add.at(hits, (row[keep], jj[keep]), 1)
+    return hits
+
+
+@pytest.mark.parametrize("B,Kc,G,N", SHAPES)
+def test_shard_plan_is_legal(B, Kc, G, N):
+    for vec in (0, 1):
+        p = K.shard_plan(B, Kc, G, N, vec)
+        assert p.route == ("direct" if Kc <= K.DIRECT_MAX_K[G] else "tile")
+        assert p.threads <= MAX_THREADS and p.smem <= SMEM_LIMIT
+        assert (_stores(p, B, N) == 1).all()
+        if p.route == "direct":
+            assert p.slices in K.SLICES and p.rows in K.DIRECT_ROWS
+            assert 1 <= p.warps <= K.DIRECT_MAX_WARPS
+            assert p.threads == 32 * p.warps and p.smem == 0
+            # every k read by exactly one slice; about SLICE_K k's a lane
+            ks = np.concatenate([np.arange(s, Kc, p.slices)
+                                 for s in range(p.slices)])
+            assert sorted(ks) == list(range(Kc))
+            assert p.slices == K.direct_slices(Kc) <= K.MAX_SLICES
+            assert (-(-Kc // p.slices) <= K.SLICE_K
+                    or p.slices == K.MAX_SLICES)
+            assert p.rows == min(2 if G == 3 else 4 if N >= K.WIDE_N else 1,
+                                 K._pow2(B))
+        else:
+            assert p.ct in K.TILE_COLUMNS and p.rows in (1, 2, 4, 8)
+            assert p.smem == K.smem_bytes_shard(Kc, p.rows, G, p.ct)
+            assert p.vec == vec
+            # the largest grid within one wave of the SMs
+            grids = [-(-N // ct) * -(-B // bt) for ct in K.TILE_COLUMNS
+                     for bt in (1, 2, 4, 8) if bt <= K._pow2(B)
+                     and K.smem_bytes_shard(Kc, bt, G, ct) <= SMEM_LIMIT]
+            blocks = p.grid[0] * p.grid[1]
+            wave = [g for g in grids if g <= K.SHARD_SMS]
+            assert blocks == (max(wave) if wave else min(grids))
+
+
+def test_shard_plan_spreads_the_paper_shapes_over_sms():
+    """gru-jet-deep's 2-rank shard at 8 slots: the direct route with one
+    block per (row, column group) or more, never one block for all."""
+    for B, K_, G, N in _problems(32, 2, 8):
+        p = K.shard_plan(B, K_, G, N, 0)
+        assert p.route == "direct"
+        assert p.grid[0] * p.grid[1] >= B
+
+
+def test_shard_plan_raises_where_no_route_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        K.shard_plan(1, 100_000, 3, 64, 0)
+
+
+# ---------------------------------------------------------------------------
+# the direct route's summation order against JAX
+# ---------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    """fmaf of float32 arrays: the product is exact in float64, one
+    rounding to float32 after the add (as close to a single rounding as
+    numpy goes; a double rounding is off by one ulp at most, rarely)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def direct_matvec(x, w, slices):
+    """x (B,K) @ w (K,N) summed as a direct-route column is: slice s takes
+    k = s, s + S, ... in order by fma from 0; then the butterfly adds
+    slice s and s ^ 1, then s ^ 2, ..., and slice 0's sum is stored."""
+    B, K_ = x.shape
+    part = []
+    for s in range(slices):
+        acc = np.zeros((B, w.shape[1]), dtype=np.float32)
+        for k in range(s, K_, slices):
+            acc = _fma(x[:, k:k + 1], w[k:k + 1], acc)
+        part.append(acc)
+    off = 1
+    while off < slices:
+        part = [part[s] + part[s ^ off] for s in range(slices)]
+        off *= 2
+    return part[0]
+
+
+def _sigmoid(v):
+    return np.float32(1) / (np.float32(1) + np.exp(-v))
+
+
+def direct_step(h_full, h_local, xp, u, b, slices):
+    """The v3 row-wise step as the direct kernel computes it: the three
+    gate sums by :func:`direct_matvec`, then z, r and the candidate with
+    the plain version's adds, (xp + sum) + b and xp + r (sum + b)."""
+    Hl = h_local.shape[1]
+    a = [direct_matvec(h_full, u[:, g * Hl:(g + 1) * Hl], slices)
+         for g in range(3)]
+    z = _sigmoid((xp[:, :Hl] + a[0]) + b[:Hl])
+    r = _sigmoid((xp[:, Hl:2 * Hl] + a[1]) + b[Hl:2 * Hl])
+    ht = np.tanh(xp[:, 2 * Hl:] + r * (a[2] + b[2 * Hl:]))
+    return (np.float32(1) - z) * h_local + z * ht
+
+
+def _f32(rng, *shape, scale=1.0):
+    return (scale * rng.normal(size=shape)).astype(np.float32)
+
+
+def _operands(H, n, B, seed):
+    """The last rank's operands (numpy), as the mesh path passes them."""
+    rng = np.random.default_rng(seed)
+    Hl = H // n
+    h = _f32(rng, B, H, scale=0.5)
+    return dict(h_full=h, h_local=h[:, (n - 1) * Hl:], xp=_f32(rng, B, 3 * Hl),
+                u=_f32(rng, H, 3 * Hl, scale=H ** -0.5),
+                b=_f32(rng, 3 * Hl, scale=0.3),
+                h_shard=_f32(rng, B, Hl, scale=0.5),
+                u_rows=_f32(rng, Hl, 3 * H, scale=H ** -0.5))
+
+
+# (H, ranks) on the direct route: the paper's widths and two wider ones
+ORDER_SHAPES = tuple(itertools.product((20, 32, 64, 128), RANKS))
+
+
+@pytest.mark.parametrize("H,n", ORDER_SHAPES)
+@pytest.mark.parametrize("N", ("3H", "2H"))
+def test_direct_matvec_order_matches_pallas(H, n, N):
+    a = _operands(H, n, 8, seed=H * 10 + n)
+    w = a["u_rows"][:, :3 * H if N == "3H" else 2 * H]
+    p = K.shard_plan(8, H // n, 1, w.shape[1], 0)
+    assert p.route == "direct"
+    want = JK.gru_shard_matvec(jnp.asarray(a["h_shard"]), jnp.asarray(w),
+                               interpret=True)
+    close(direct_matvec(a["h_shard"], w, p.slices), want, tol=SHARD_TOL)
+
+
+@pytest.mark.parametrize("H,n", ORDER_SHAPES)
+def test_direct_step_order_matches_pallas(H, n):
+    a = _operands(H, n, 8, seed=H * 10 + n + 1)
+    args = (a["h_full"], a["h_local"], a["xp"], a["u"], a["b"])
+    p = K.shard_plan(8, H, 3, H // n, 0)
+    assert p.route == "direct"
+    want = JK.gru_rowwise_shard_step(*map(jnp.asarray, args), interpret=True)
+    close(direct_step(*args, p.slices), want, tol=SHARD_TOL)
+
+
+@pytest.mark.parametrize("slices", K.SLICES)
+def test_every_slice_count_sums_within_tolerance(slices):
+    """Each slice count the sweep may force (tools/shard_tiles.py), at
+    gru-jet-deep's widths, B = 3: the butterfly of 1 to 32 slices."""
+    a = _operands(32, 2, 3, seed=slices)
+    args = (a["h_full"], a["h_local"], a["xp"], a["u"], a["b"])
+    close(direct_step(*args, slices),
+          JK.gru_rowwise_shard_step(*map(jnp.asarray, args), interpret=True),
+          tol=SHARD_TOL)
+    w = a["u_rows"][:, :64]
+    close(direct_matvec(a["h_shard"], w, slices),
+          JK.gru_shard_matvec(jnp.asarray(a["h_shard"]), jnp.asarray(w),
+                              interpret=True), tol=SHARD_TOL)

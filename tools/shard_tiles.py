@@ -1,0 +1,203 @@
+#!/usr/bin/env python3
+"""Route and tile sweep of the port's two redesigned shard kernels on one
+CUDA card: ``gru_shard_matvec`` (the cascade's partial product) and
+``gru_rowwise_shard_step`` (the v3 row-wise step), ``csrc/gru_shard.cu``.
+
+Forces every route and knob through the C entry points, with explicit
+arguments: the direct route at each slice count S (lanes that split K),
+rows a thread R and warps a block; the column tile at each batch tile and
+column tile. Shapes: ``chip_smoke.py``'s ``SHARD_TIMED`` (gru-jet-deep
+H=32 over 2, 4 and 1 ranks; gru-jet H=20 over 2 and 4) and wide shards (H
+64, 128, 256, 512 over 1, 2 and 4 ranks), 8 slots; the paper's 2-rank
+shard also at B 1 and 64. Each forced launch is held against the plain
+version (largest absolute error at most 1e-5) before it is timed. Device
+time per call comes from ``chip_smoke.device_time_ms`` (50 calls captured
+in a CUDA graph, CUDA events around 5 replays); ``torch.matmul`` (TF32
+off) is timed beside the matvec. Each shape's lines end with the fastest
+launch of each route and the wrapper's plan (``kernel.shard_plan``), so
+the plan's rule can be read off the table.
+
+Then the served ``cuda_sharded`` decode step of gru-jet-deep v1 and v3 on
+a one-rank mesh without a group (``chip_smoke.profile_mesh_decode``),
+once with the wrapper's plans and once with both kernels forced to the
+column tile (the device code they ran before the direct route), in turns
+tile, plan, plan, tile. It prints ``-Xptxas -v``'s lines for the direct
+route's kernels first. The table also goes to ``--out``.
+
+Run from the repository root on a machine with a card::
+
+    python3 tools/shard_tiles.py [--out build/shard_tiles.txt]
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+TOL = 1e-5
+CTS = (4, 8, 16, 32)
+BTS = (1, 2, 4, 8)
+WARPS = (1, 2, 4, 8)
+WIDE = tuple(itertools.product((64, 128, 256, 512), (1, 2, 4)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/shard_tiles.txt",
+                    help="file for the sweep's lines")
+    args = ap.parse_args()
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, _launch
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.gru_sequence import ref
+    if not torch.cuda.is_available():
+        sys.exit("shard_tiles: no CUDA card")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    lines = []
+
+    def say(line):
+        print(line, flush=True)
+        lines.append(line)
+    say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True).stdout.strip())
+    _build.build(["gru_shard"])
+    log = _build.build_log("gru_shard").splitlines()
+    for i, line in enumerate(log):        # ptxas: the function, then its use
+        fn = re.search(r"function '([^']*_direct_k[^']*)'", line)
+        if fn and "Compiling" in line:
+            use = " | ".join(x.strip() for x in log[i + 1:i + 4]
+                             if "registers" in x or "spill" in x)
+            say(f"ptxas: {fn.group(1)}: {use}")
+
+    def launch(name, a, out_, knobs):
+        """A C-entry call of ``name`` on ``a`` into ``out_`` at ``knobs``
+        (("direct", S, R, warps) or ("tile", bt, ct)); reads the current
+        stream at each call, so a graph capture records it."""
+        route = knobs[0]
+        if name == "gru_shard_matvec":
+            x, w = a
+            ld = (x.stride(0), w.stride(0))
+            head = [x.data_ptr(), ld[0], w.data_ptr(), ld[1],
+                    out_.data_ptr(), x.shape[0], x.shape[1], w.shape[1]]
+            if route == "direct":
+                fn = _launch.launcher("gru_shard",
+                                      "gru_shard_matvec_direct_launch",
+                                      K._MATVEC_ARGS)
+                return lambda: fn(*head, *knobs[1:], _launch.stream(dev))
+            fn = _launch.launcher("gru_shard", "gru_shard_matvec_launch",
+                                  K._MATVEC_ARGS)
+            vec = K._vector(w, ld[1], w.shape[1])
+            return lambda: fn(*head, *knobs[1:], vec, _launch.stream(dev))
+        h, hl, xp, u, b = a
+        B, H, Hl = h.shape[0], h.shape[1], hl.shape[1]
+        if route == "direct":
+            fn = _launch.launcher("gru_shard",
+                                  "gru_rowwise_shard_step_direct_launch",
+                                  K._STEP_DIRECT_ARGS)
+            return lambda: fn(h.data_ptr(), hl.data_ptr(), hl.stride(0),
+                              xp.data_ptr(), xp.stride(0), u.data_ptr(),
+                              u.stride(0), b.data_ptr(), out_.data_ptr(), B,
+                              H, Hl, *knobs[1:], _launch.stream(dev))
+        fn = _launch.launcher("gru_shard", "gru_rowwise_shard_launch",
+                              K._ROWWISE_ARGS)
+        vec = K._vector(u, u.stride(0), Hl)
+        return lambda: fn(0, h.data_ptr(), hl.data_ptr(), hl.stride(0), None,
+                          xp.data_ptr(), xp.stride(0), u.data_ptr(),
+                          u.stride(0), b.data_ptr(), out_.data_ptr(), None,
+                          B, H, Hl, *knobs[1:], vec, _launch.stream(dev))
+
+    def sweep(name, H, n, B):
+        a = cs.shard_inputs(torch, H, n, B, 11 * H + n + B, dev)
+        args_ = cs.shard_args(name, a, 2 * H)
+        want = getattr(ref, name + "_ref")(*args_)
+        out_ = torch.empty_like(want)
+        Kc = args_[0].shape[1]
+        G, N = ((1, want.shape[1]) if name == "gru_shard_matvec"
+                else (3, want.shape[1]))
+        head = (f"{name:22s} H={H:3d} ranks={n} B={B:2d} K={Kc:3d} "
+                f"N={N:4d}")
+        plan = cs.planned(K, name, args_)
+        best = {}
+
+        def one(knobs):
+            call = launch(name, args_, out_, knobs)
+            out_.fill_(float("nan"))
+            if call() != 0:
+                sys.exit(f"shard_tiles: {head} {knobs}: launch refused")
+            torch.cuda.synchronize()
+            e = (out_ - want).abs().max().item()
+            if not e <= TOL:
+                sys.exit(f"shard_tiles: {head} {knobs}: max |err| {e:.3g} "
+                         f"> {TOL}")
+            t = cs.device_time_ms(torch, call, per_graph=50)
+            mark = ""
+            if plan.route == knobs[0] and (
+                    knobs[1:] == (plan.slices, plan.rows, plan.warps)
+                    or knobs[1:] == (plan.rows, plan.ct)):
+                mark = "  <- the wrapper's plan"
+            say(f"{head} {' '.join(map(str, knobs)):18s} {t * 1e3:7.2f} us"
+                f"{mark}")
+            if t < best.get(knobs[0], (1e9,))[0]:
+                best[knobs[0]] = (t, knobs)
+        for S, R, w in itertools.product(K.SLICES, K.DIRECT_ROWS, WARPS):
+            if R == 1 or R <= B:
+                one(("direct", S, R, w))
+        for bt, ct in itertools.product(BTS, CTS):
+            if K.smem_bytes_shard(Kc, bt, G, ct) <= K.SMEM_LIMIT:
+                one(("tile", bt, ct))
+        if name == "gru_shard_matvec":
+            lib = cs.device_time_ms(torch, lambda: torch.matmul(*args_),
+                                    per_graph=50)
+            say(f"{head} torch.matmul       {lib * 1e3:7.2f} us")
+        for route, (t, knobs) in sorted(best.items()):
+            say(f"{head} fastest {route}: {knobs} {t * 1e3:.2f} us")
+        say(f"{head} plan: {plan}")
+
+    shapes = [(H, n, 8) for H, n in cs.SHARD_TIMED]
+    shapes += [(32, 2, 1), (32, 2, 64)] + [(H, n, 8) for H, n in WIDE]
+    for H, n, B in shapes:
+        for name in cs.REDESIGNED:
+            sweep(name, H, n, B)
+
+    # the served step, one rank: the wrapper's plans against the column tile
+    from repro_torch.core.params import init_params
+    from repro_torch.distributed import ShardCtx, local_mesh
+    from repro_torch.models import gru_lm
+    planner = K.shard_plan
+
+    def tile_plan(B, Kc, G, N, vec):    # the launches before the direct route
+        return K.tile_plan(B, Kc, G, N, vec, *K.shard_tiles(B, Kc, G, N))
+    for arch, cfg in cs.mesh_configs().items():
+        params = init_params(gru_lm.lm_specs(cfg), seed=0,
+                             device=torch.device("cpu"))
+        for which in ("tile", "plan", "plan", "tile"):
+            K.shard_plan = tile_plan if which == "tile" else planner
+            try:
+                pr = cs.profile_mesh_decode(torch, cfg, params, dev,
+                                            ShardCtx(local_mesh(dev)))
+            finally:
+                K.shard_plan = planner
+            say(f"served step {arch} (cuda_sharded, one rank, {cs.SLOTS} "
+                f"slots, 20 steps) with {which:4s}: wall "
+                f"{pr['wall_ms_per_step']:.4f} ms/step, shard kernels "
+                f"{pr['shard_kernels_ms_per_step']:.4f} ms/step, device "
+                f"busy {pr['device_busy_ms_per_step']:.4f} ms/step (idle "
+                f"{pr['device_idle_share']:.3%})")
+            for k, us in pr["top_device"]:
+                say(f"    {us:9.2f} us/step  {k}")
+    out.write_text("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()
