@@ -11,7 +11,8 @@ Phases (any failure exits non-zero, before the result lines):
 2. build the CUDA kernels (``gru_sequence``, ``gru_sequence_q8``,
    ``gru_cell_q8``, ``slstm_cell``, ``flash_attn``, ``decode_attn``,
    ``gru_cell``, ``rowwise_matvec`` and ``gru_shard``, one ``nvcc`` each,
-   started together) and print ``-Xptxas -v``'s report and each kernel's dynamic
+   started together) and print ``-Xptxas -v``'s report (``gru_shard``'s
+   functions must not spill) and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree), the row-wise
    matmuls' launch plans at qwen3-0.6b's shapes, and check that the bf16
@@ -30,8 +31,10 @@ Phases (any failure exits non-zero, before the result lines):
    and gru-jet-deep's (H=32) shard widths and at wide shards (H 64, 256,
    512) over 1, 2 and 4 ranks (Hl = H, H/2, H/4), B 1 and 8, with the mesh
    path's row-strided gate slices: largest absolute error at most 1e-5;
-   the redesigned pair (``gru_rowwise_shard_step``, ``gru_shard_matvec``)
-   must launch the route ``shard_plan`` names (direct or column tile);
+   the four redesigned kernels (``gru_rowwise_shard_step``,
+   ``gru_rowwise_shard_zr``, ``gru_rowwise_shard_candidate``,
+   ``gru_shard_matvec``) must launch the route ``shard_plan`` names
+   (direct or column tile);
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
@@ -284,6 +287,13 @@ def build_kernels():
             if any(k in line for k in ("registers", "spill", "Compiling",
                                        "smem")):
                 print(f"  ptxas[{name}]: {line.strip()}")
+    frames = [ln for ln in _build.build_log("gru_shard").splitlines()
+              if "spill stores" in ln]
+    spills = [ln.strip() for ln in frames
+              if "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    check(frames and not spills, f"gru_shard: ptxas reports spills: "
+          f"{spills[:3]}")
+    print(f"  gru_shard: {len(frames)} functions, no spills (ptxas)")
     # all shared memory is dynamic, so ptxas does not report it
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.slstm_cell import kernel as SK
@@ -586,7 +596,8 @@ def check_kernels(torch, dev):
 # column tile, the rest the direct route)
 SHARD_SHAPES = tuple((H, n) for H in (20, 32, 64, 256, 512)
                      for n in (1, 2, 4))
-REDESIGNED = ("gru_rowwise_shard_step", "gru_shard_matvec")
+REDESIGNED = ("gru_rowwise_shard_step", "gru_rowwise_shard_zr",
+              "gru_rowwise_shard_candidate", "gru_shard_matvec")
 
 
 def shard_inputs(torch, H, n, B, seed, dev):
@@ -643,8 +654,8 @@ def run_shard_kernel(name, args, plain):
 def check_shard_kernels(torch, dev):
     """The seven shard kernels against their plain versions on the card at
     the mesh path's shard shapes and wide ones (B 1 and 8; the matvec at N
-    = 3H and 2H); the redesigned pair must launch the route the CPU rule
-    (``shard_plan``) names. Returns {kernel: max |err|}."""
+    = 3H and 2H); the four redesigned kernels must launch the route the
+    CPU rule (``shard_plan``) names. Returns {kernel: max |err|}."""
     from repro_torch.kernels.gru_sequence import kernel as K
     err = {n: 0.0 for n in SHARD}
     routes = {n: {} for n in REDESIGNED}
@@ -689,10 +700,12 @@ def planned(K, name, args):
     if name == "gru_shard_matvec":
         x, w = args
         return K.shard_plan(x.shape[0], x.shape[1], 1, w.shape[1],
-                            K._vector(w, w.stride(0), w.shape[1]))
-    h, h_local, _, u, _ = args
-    return K.shard_plan(h.shape[0], h.shape[1], 3, h_local.shape[1],
-                        K._vector(u, u.stride(0), h_local.shape[1]))
+                            K._vector(w, w.stride(0), w.shape[1]), "matvec")
+    kind = K._ROWWISE_MODES[name][1]
+    G = K.KIND_GATES[kind]
+    x, h_local, u = args[0], args[1], args[-2]
+    return K.shard_plan(x.shape[0], x.shape[1], G, h_local.shape[1],
+                        K._vector(u, u.stride(0), h_local.shape[1]), kind)
 
 
 # ---------------------------------------------------------------------------
@@ -2437,9 +2450,9 @@ def shard_bound_ms(name, args, outs):
 
 
 def shard_route(name) -> str:
-    """The route of a shard kernel's last launch: the redesigned pair's
-    plan (``last_plan``), the column tile for the other matvec kernels, a
-    grid-stride loop for the two elementwise ones."""
+    """The route of a shard kernel's last launch: the four redesigned
+    kernels' plan (``last_plan``), the column tile for the cascade's
+    middle phase, a grid-stride loop for the two elementwise ones."""
     from repro_torch.kernels.gru_sequence import kernel as K
     if name in REDESIGNED:
         p = getattr(K, name).last_plan

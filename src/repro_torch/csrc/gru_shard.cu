@@ -3,10 +3,11 @@
 //
 // Replaces the seven shard kernels of src/repro/kernels/gru_sequence/
 // kernel.py (each a whole-block pallas_call, _shard_call :622):
-//   rowwise_shard_step_direct_k (direct route),
-//   rowwise_shard_k<kStep> (tile) <- gru_rowwise_shard_step :702 (body :632)
-//   rowwise_shard_k<kZr>   <- gru_rowwise_shard_zr        :714 (body :646)
-//   rowwise_shard_k<kCand> <- gru_rowwise_shard_candidate :723 (body :658)
+//   rowwise_shard_direct_k<MODE> (direct route) and
+//   rowwise_shard_k<MODE> (tile), MODE =
+//     kStep <- gru_rowwise_shard_step      :702 (body :632), v3
+//     kZr   <- gru_rowwise_shard_zr        :714 (body :646), v1 phase 1
+//     kCand <- gru_rowwise_shard_candidate :723 (body :658), v1 phase 2
 //   shard_matvec_direct_k (direct route),
 //   shard_matvec_k (tile)  <- gru_shard_matvec            :733 (body :667)
 //   cascade_gates_k        <- gru_cascade_shard_gates     :741 (body :673)
@@ -14,31 +15,36 @@
 //   cascade_update_k       <- gru_cascade_shard_update    :759 (body :697)
 // Layouts are JAX's: B batch rows, H the full width, Hl = H / n this
 // rank's rows; a row-wise shard's u is (H, G*Hl), gate-major ([z | r | h]
-// of its own rows), a cascade shard's u rows are (Hl, 3H). 2-D operands
-// may be row-strided views (the callers pass gate slices); each takes its
-// row stride (ld*), columns are unit-stride.
+// of its own rows; the v1 pair gets the [z | r] and [h] column slices), a
+// cascade shard's u rows are (Hl, 3H). 2-D operands may be row-strided
+// views (the callers pass gate slices, the candidate's 2Hl floats into
+// the shard's columns: not 16-byte aligned at Hl = 5 or 10); each takes
+// its row stride (ld*), columns are unit-stride.
 //
 // Translation. On the TPU each kernel is one grid step whose operands sit
-// whole in VMEM. Here two routes, picked by shape in Python (shard_plan in
-// kernels/gru_sequence/kernel.py):
-// - "direct" (the v3 row-wise step and the cascade's partial product at
-//   the paper's widths, where the contraction is short): each output
+// whole in VMEM. Here two routes, picked by shape and kernel in Python
+// (shard_plan in kernels/gru_sequence/kernel.py):
+// - "direct" (the three row-wise modes and the cascade's partial product
+//   at the paper's widths, where the contraction is short): each output
 //   (row, column) belongs to one thread, or to S lanes of one warp that
 //   split K and meet in one fixed butterfly over the G x R values they
-//   own. Every global load goes out at entry, the step's epilogue operands
-//   (xp's three gates, h_local, b) included: no shared memory, no barrier.
-//   Lanes of a slice read neighbouring columns of u (coalesced whatever the
-//   alignment), x is a broadcast; blocks of a few warps spread the outputs
-//   over the SMs.
-// - "tile" (long contractions, and the other matvec kernels): col_tile.cuh's
+//   own. Every global load goes out at entry, the epilogue's operands
+//   (xp's G gates, b's, h_local and the candidate's z) included: no shared
+//   memory, no barrier, no atomics. Lanes of a slice read neighbouring
+//   columns of u with scalar loads (coalesced whatever the alignment), x
+//   is a broadcast; blocks of a few warps spread the outputs over the SMs.
+//   The candidate's x is the gather of every rank's r*h, so its
+//   contraction cannot start before the gather; only its epilogue's
+//   operands are fetched beside the first chunk.
+// - "tile" (long contractions, and the cascade's middle phase): col_tile.cuh's
 //   column tile. A block owns `ct` output columns (of every gate it needs)
 //   and a batch tile of at most 8 rows, stages its operand rows in shared
 //   memory, streams the shard's u from device memory once, and applies the
-//   gate epilogue to its finished columns. The cascade's middle phase
-//   computes z and r*h of its batch tile in the block (elementwise, from
-//   the psum'd pre-activations) into shared memory as the operand of its
-//   product, so the partial product needs no round trip through device
-//   memory.
+//   gate epilogue to its finished columns after a second barrier. The
+//   cascade's middle phase computes z and r*h of its batch tile in the
+//   block (elementwise, from the psum'd pre-activations) into shared memory
+//   as the operand of its product, so the partial product needs no round
+//   trip through device memory.
 // The two epilogue-only kernels (v3 cascade gates, v1 cascade update) are
 // elementwise grid-stride loops.
 //
@@ -46,7 +52,10 @@
 // are a few KB at these widths, so every kernel's bound is a few
 // nanoseconds (bytes); the kernels are bound by latency instead: the
 // launch, the trips to memory and the dependent chain after them, 1-5 us.
-// The collectives around them cost more.
+// The direct route makes that chain one trip to memory (the contraction's
+// and the epilogue's loads together), the butterfly and the gate math;
+// the tile's is three trips and two barriers. The collectives around
+// them cost more.
 //
 // Numerics: expf/tanhf, no fast math; fma on the CUDA cores, no TF32. The
 // epilogues add in the plain versions' order (x + U.h, then + b). A direct
@@ -61,6 +70,11 @@ namespace {
 using namespace coltile;
 
 enum { kStep = 0, kZr = 1, kCand = 2 };
+
+// Gate columns a row-wise mode contracts: z, r, h; z, r; h.
+__host__ __device__ constexpr int gates(int mode) {
+  return mode == kStep ? 3 : mode == kZr ? 2 : 1;
+}
 
 // The (K, BT) operand and the warps' sums of G gates.
 size_t shard_smem(int K, int bt, int G, int ct) {
@@ -80,7 +94,7 @@ rowwise_shard_k(const float* __restrict__ x, const float* __restrict__ hl,
                 const float* __restrict__ b, float* __restrict__ out0,
                 float* __restrict__ out1, int B, int H, int Hl, int ct,
                 int vec) {
-  constexpr int G = MODE == kStep ? 3 : MODE == kZr ? 2 : 1;
+  constexpr int G = gates(MODE);
   extern __shared__ float4 smem_rowwise[];
   float* sx = reinterpret_cast<float*>(smem_rowwise);  // (H, BT) x
   float* red = sx + (size_t)H * BT;
@@ -336,43 +350,63 @@ shard_matvec_direct_k(const float* __restrict__ x, int ldx,
     if (r < l.nrow) out[(size_t)(l.row0 + r) * N + l.j] = acc[0][r];
 }
 
-// The v3 row-wise step on the direct route: h' of the local rows from
-// h_full (B, H) against u's three gate columns; the epilogue's operands
-// are loaded at entry, beside the first chunk of the contraction.
-template <int S, int R>
+// The row-wise modes on the direct route: x (B, H) replicated (h_full, or
+// the gathered r*h for kCand) against u's G gate columns of the lane's
+// column j. Every operand of the epilogue (xp's G gates, b's, h_local and,
+// for kCand, z) is loaded at entry, beside the first chunk of the
+// contraction; kCand's x cannot be fetched any earlier, since it is the
+// gather's result. Slice 0's lanes store, in the plain versions' order:
+// kStep h'; kZr z into out0 and r*h_local into out1; kCand h' from the
+// candidate and zin.
+template <int MODE, int S, int R>
 __global__ void __launch_bounds__(kThreads)
-rowwise_shard_step_direct_k(const float* __restrict__ h,
-                            const float* __restrict__ hl, int ldhl,
-                            const float* __restrict__ xp, int ldxp,
-                            const float* __restrict__ u, int ldu,
-                            const float* __restrict__ b,
-                            float* __restrict__ out, int B, int H, int Hl) {
+rowwise_shard_direct_k(const float* __restrict__ x,
+                       const float* __restrict__ hl, int ldhl,
+                       const float* __restrict__ zin,
+                       const float* __restrict__ xp, int ldxp,
+                       const float* __restrict__ u, int ldu,
+                       const float* __restrict__ b, float* __restrict__ out0,
+                       float* __restrict__ out1, int B, int H, int Hl) {
+  constexpr int G = gates(MODE);
   const Lane l = direct_lane<S, R>(B);
   const bool live = l.j < Hl;
-  float xg[3][R], hv[R], bg[3];
+  float xg[G][R], hv[R], zv[MODE == kCand ? R : 1], bg[G];
 #pragma unroll
-  for (int g = 0; g < 3; ++g) bg[g] = live ? __ldg(b + g * Hl + l.j) : 0.0f;
+  for (int g = 0; g < G; ++g) bg[g] = live ? __ldg(b + g * Hl + l.j) : 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const bool in = live && r < l.nrow;
     const size_t row = l.row0 + r;
 #pragma unroll
-    for (int g = 0; g < 3; ++g)
+    for (int g = 0; g < G; ++g)
       xg[g][r] = in ? __ldg(xp + row * ldxp + g * Hl + l.j) : 0.0f;
     hv[r] = in ? __ldg(hl + row * ldhl + l.j) : 0.0f;
+    if constexpr (MODE == kCand)
+      zv[r] = in ? __ldg(zin + row * Hl + l.j) : 0.0f;
   }
-  const int col[3] = {l.j, Hl + l.j, 2 * Hl + l.j};
-  float acc[3][R] = {};
-  direct_dot<3, S, R>(acc, h, H, l.row0, l.nrow, u, ldu, col, live, H, l.s);
-  slice_sum<3, S, R>(acc);
+  int col[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) col[g] = g * Hl + l.j;
+  float acc[G][R] = {};
+  direct_dot<G, S, R>(acc, x, H, l.row0, l.nrow, u, ldu, col, live, H, l.s);
+  slice_sum<G, S, R>(acc);
   if (l.s != 0 || !live) return;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r >= l.nrow) continue;
-    const float z = sigmoid_f((xg[0][r] + acc[0][r]) + bg[0]);
-    const float rg = sigmoid_f((xg[1][r] + acc[1][r]) + bg[1]);
-    const float ht = tanhf(xg[2][r] + rg * (acc[2][r] + bg[2]));
-    out[(size_t)(l.row0 + r) * Hl + l.j] = (1.0f - z) * hv[r] + z * ht;
+    const size_t o_at = (size_t)(l.row0 + r) * Hl + l.j;
+    if constexpr (MODE == kStep) {
+      const float z = sigmoid_f((xg[0][r] + acc[0][r]) + bg[0]);
+      const float rg = sigmoid_f((xg[1][r] + acc[1][r]) + bg[1]);
+      const float ht = tanhf(xg[2][r] + rg * (acc[2][r] + bg[2]));
+      out0[o_at] = (1.0f - z) * hv[r] + z * ht;
+    } else if constexpr (MODE == kZr) {
+      out0[o_at] = sigmoid_f((xg[0][r] + acc[0][r]) + bg[0]);
+      out1[o_at] = sigmoid_f((xg[1][r] + acc[1][r]) + bg[1]) * hv[r];
+    } else {
+      const float ht = tanhf((xg[0][r] + acc[0][r]) + bg[0]);
+      out0[o_at] = (1.0f - zv[r]) * hv[r] + zv[r] * ht;
+    }
   }
 }
 
@@ -418,7 +452,7 @@ int launch_rowwise(const float* x, const float* hl, int ldhl,
                    float* out1, int B, int H, int Hl, int ct, int vec,
                    cudaStream_t stream) {
   static size_t configured[kMaxDevices];
-  constexpr int G = MODE == kStep ? 3 : MODE == kZr ? 2 : 1;
+  constexpr int G = gates(MODE);
   const size_t bytes = shard_smem(H, BT, G, ct);
   int err = allow_smem(rowwise_shard_k<MODE, BT>, bytes, configured);
   if (err) return err;
@@ -508,19 +542,33 @@ extern "C" int gru_shard_matvec_direct_launch(const float* x, int ldx,
   });
 }
 
-// ... and the v3 row-wise step (gru_rowwise_shard_step's operands).
-extern "C" int gru_rowwise_shard_step_direct_launch(
-    const float* h, const float* hl, int ldhl, const float* xp, int ldxp,
-    const float* u, int ldu, const float* b, float* out, int B, int H, int Hl,
-    int slices, int rows, int warps, void* stream) {
-  if (!valid_direct(warps)) return (int)cudaErrorInvalidValue;
+// ... and the three row-wise modes (gru_rowwise_shard_launch's operands and
+// modes).
+extern "C" int gru_rowwise_shard_direct_launch(
+    int mode, const float* x, const float* hl, int ldhl, const float* zin,
+    const float* xp, int ldxp, const float* u, int ldu, const float* b,
+    float* out0, float* out1, int B, int H, int Hl, int slices, int rows,
+    int warps, void* stream) {
+  if (!valid_direct(warps) || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return by_slices(slices, [&](auto sc) {
     return by_tile(rows, [&](auto rc) {
       constexpr int S = decltype(sc)::value, R = decltype(rc)::value;
-      rowwise_shard_step_direct_k<S, R><<<direct_grid(Hl, B, S, R, warps),
-                                          32 * warps, 0, st>>>(
-          h, hl, ldhl, xp, ldxp, u, ldu, b, out, B, H, Hl);
+      const dim3 grid = direct_grid(Hl, B, S, R, warps);
+      switch (mode) {
+        case kStep:
+          rowwise_shard_direct_k<kStep, S, R><<<grid, 32 * warps, 0, st>>>(
+              x, hl, ldhl, zin, xp, ldxp, u, ldu, b, out0, out1, B, H, Hl);
+          break;
+        case kZr:
+          rowwise_shard_direct_k<kZr, S, R><<<grid, 32 * warps, 0, st>>>(
+              x, hl, ldhl, zin, xp, ldxp, u, ldu, b, out0, out1, B, H, Hl);
+          break;
+        default:
+          rowwise_shard_direct_k<kCand, S, R><<<grid, 32 * warps, 0, st>>>(
+              x, hl, ldhl, zin, xp, ldxp, u, ldu, b, out0, out1, B, H, Hl);
+      }
       return (int)cudaGetLastError();
     });
   });

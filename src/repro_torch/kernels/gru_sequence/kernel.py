@@ -26,10 +26,10 @@ Same names and array interface as the Pallas kernels in
   gather of r*h), :func:`gru_shard_matvec` (the cascade's partial
   product), :func:`gru_cascade_shard_gates` (v3), :func:`gru_cascade_
   shard_zr` and :func:`gru_cascade_shard_update` (v1). Their gate-slice
-  operands may be row-strided views (unit-stride columns). The step and
-  the matvec launch the route :func:`shard_plan` picks by shape (the
-  direct route where the contraction is short, else the column tile) and
-  keep it as ``last_plan``.
+  operands may be row-strided views (unit-stride columns). The three
+  row-wise kernels and the matvec launch the route :func:`shard_plan`
+  picks by kernel and shape (the direct route where the contraction is
+  short, else the column tile) and keep it as ``last_plan``.
 
 Every wrapper checks device, dtype (float32; int8 weight rows for q8),
 shapes and contiguity and raises on anything the kernel does not take
@@ -356,14 +356,11 @@ def gru_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # mode, x, hl, ldhl, zin, xp, ldxp, u, ldu, b, out0, out1, B, H, Hl, bt, ct,
-# vec, stream
+# vec, stream (the direct route's: ..., Hl, slices, rows, warps, stream)
 _ROWWISE_ARGS = [I, P, P, I, P, P, I, P, I, P, P, P] + [I] * 6 + [P]
 # x, ldx, w, ldw, out, B, K, N, bt, ct, vec, stream (the direct route's:
 # ..., N, slices, rows, warps, stream)
 _MATVEC_ARGS = [P, I, P, I, P] + [I] * 6 + [P]
-# h, hl, ldhl, xp, ldxp, u, ldu, b, out, B, H, Hl, slices, rows, warps,
-# stream
-_STEP_DIRECT_ARGS = [P, P, I, P, I, P, I, P, P] + [I] * 6 + [P]
 # zr, xp, h, u, ldu, z, p, B, Hl, N, bt, ct, vec, stream
 _CZR_ARGS = [P] * 4 + [I, P, P] + [I] * 6 + [P]
 # in, in, in, out, B, Hl, stream
@@ -403,30 +400,40 @@ def shard_tiles(B: int, K: int, G: int, ncols: int):
 # The rule below was read off tools/shard_tiles.py on an H100 (PERF.md's
 # findings): the direct route's fastest launches give each lane about
 # SLICE_K of K's k's, at most MAX_SLICES lanes to a column (more leave a
-# warp one or two columns, whose loads do not coalesce), two batch rows to
-# a thread of the step and four to one of a wide matvec, and blocks of a
-# few warps; past DIRECT_MAX_K the column tile is faster, at a tile whose
-# grid nearly fills the SMs once.
+# warp one or two columns, whose loads do not coalesce), a few rows a
+# thread and blocks of a few warps, both set per kernel; past the kernel's
+# DIRECT_MAX_K the column tile is faster, at a tile whose grid nearly fills
+# the SMs once. A kernel is its "kind": "matvec" (gru_shard_matvec, one
+# gate, K = Hl), "step" (the v3 row-wise step, three gates), "zr" and
+# "candidate" (the v1 pair: two gates, and one gate with the update), the
+# last three at K = H and N = Hl.
 SLICES = (1, 2, 4, 8, 16, 32)   # lanes that split K (the C entry takes)
 DIRECT_ROWS = (1, 2, 4, 8)   # batch rows of a direct-route thread (same)
 DIRECT_MAX_WARPS = _launch.THREADS // 32
 SLICE_K = 4                  # k's of one lane's slice the rule aims for
 MAX_SLICES = 16
-DIRECT_MAX_K = {1: 128, 3: 256}   # gates -> longest K on the direct route
+KIND_GATES = {"matvec": 1, "step": 3, "zr": 2, "candidate": 1}
+# kind -> the longest K on the direct route
+DIRECT_MAX_K = {"matvec": 128, "step": 256, "zr": 256, "candidate": 256}
+# kind -> warps of a direct-route block, and batch rows of its thread (the
+# one-gate kernels: more warps of one row; the two- and three-gate ones:
+# fewer warps of two rows)
+DIRECT_WARPS = {"matvec": 4, "step": 2, "zr": 2, "candidate": 4}
+THREAD_ROWS = {"matvec": 1, "step": 2, "zr": 2, "candidate": 1}
 WIDE_N = 512                 # a matvec this wide takes 4 rows a thread
-DIRECT_WARPS = {1: 4, 3: 2}  # gates -> warps of a direct-route block
 TILE_COLUMNS = (16, 8)       # the tile route's column tiles, widest first
 SHARD_SMS = 132              # an H100's SMs: one wave of the tile's grid
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
-    """One launch of :func:`gru_shard_matvec` or :func:`gru_rowwise_shard_
-    step`: ``route`` "direct" or "tile". Direct: ``slices`` lanes
-    split K, each thread owns one column of ``rows`` batch rows, ``warps``
-    warps a block. Tile: ``rows`` is the batch tile, ``ct`` the column
-    tile, 8 warps a block, ``vec`` whether u loads as 16-byte vectors.
-    ``grid`` (x, y), ``threads`` per block, ``smem`` dynamic bytes."""
+    """One launch of a redesigned shard kernel (:func:`gru_shard_matvec`
+    and the three row-wise ones): ``route`` "direct" or "tile". Direct:
+    ``slices`` lanes split K, each thread owns one column of ``rows``
+    batch rows, ``warps`` warps a block. Tile: ``rows`` is the batch tile,
+    ``ct`` the column tile, 8 warps a block, ``vec`` whether u loads as
+    16-byte vectors. ``grid`` (x, y), ``threads`` per block, ``smem``
+    dynamic bytes."""
     route: str
     slices: int
     rows: int
@@ -466,25 +473,38 @@ def tile_plan(B: int, K: int, G: int, N: int, vec: int, bt: int,
                      smem_bytes_shard(K, bt, G, ct))
 
 
+def shard_kind(G: int, kind: str = None) -> str:
+    """``kind``, or the kind G gates name when it is None: "matvec" (1),
+    "zr" (2), "step" (3); the candidate is one gate too, so it is named."""
+    kind = kind or {1: "matvec", 2: "zr", 3: "step"}[G]
+    if KIND_GATES[kind] != G:
+        raise ValueError(f"a {kind} shard kernel has {KIND_GATES[kind]} "
+                         f"gates, not {G}")
+    return kind
+
+
 @functools.lru_cache(maxsize=512)
-def shard_plan(B: int, K: int, G: int, N: int, vec: int) -> ShardPlan:
+def shard_plan(B: int, K: int, G: int, N: int, vec: int,
+               kind: str = None) -> ShardPlan:
     """The launch of a shard matvec of B rows, a contraction of K and G
-    gates of N columns each (the matvec: G = 1; the v3 step: G = 3, N =
-    Hl); ``vec``: u loads as aligned 16-byte vectors (the tile route
-    only). The direct route where K <= :data:`DIRECT_MAX_K` [G], with
-    :func:`direct_slices`, two rows a thread for the step (four for a
-    matvec of at least :data:`WIDE_N` columns, else one) and
-    :data:`DIRECT_WARPS` [G] warps a block. Else the column tile: of
+    gates of N columns each, for kernel ``kind`` (:func:`shard_kind`: the
+    matvec G = 1; the row-wise "step" G = 3, "zr" G = 2 and "candidate" G
+    = 1, each at N = Hl); ``vec``: u loads as aligned 16-byte vectors (the
+    tile route only). The direct route where K <= :data:`DIRECT_MAX_K`
+    [kind], with :func:`direct_slices`, :data:`THREAD_ROWS` [kind] rows a
+    thread (four for a matvec of at least :data:`WIDE_N` columns) and
+    :data:`DIRECT_WARPS` [kind] warps a block. Else the column tile: of
     :data:`TILE_COLUMNS` and batch tiles 1-8, the largest grid within
     :data:`SHARD_SMS` blocks whose shared memory fits (the fewest blocks
     if none is that small); :func:`shard_tiles`'s tile, which raises where
     one row does not fit a block, if neither column tile fits."""
-    if K <= DIRECT_MAX_K[G]:
+    kind = shard_kind(G, kind)
+    if K <= DIRECT_MAX_K[kind]:
         slices = direct_slices(K)
-        rows = 2 if G == 3 else 4 if N >= WIDE_N else 1
+        rows = 4 if kind == "matvec" and N >= WIDE_N else THREAD_ROWS[kind]
         col_warps = -(-N // (32 // slices))
         return direct_plan(B, N, slices, min(rows, _pow2(B)),
-                           min(DIRECT_WARPS[G], _pow2(col_warps)))
+                           min(DIRECT_WARPS[kind], _pow2(col_warps)))
     fits = [tile_plan(B, K, G, N, vec, bt, ct) for ct in TILE_COLUMNS
             for bt in (1, 2, 4, SHARD_MAX_ROWS)
             if bt <= _pow2(B) and smem_bytes_shard(K, bt, G, ct)
@@ -553,21 +573,43 @@ def _rowwise_checks(x_name: str, x, h_local, z, xp, u, b, G: int) -> tuple:
     return B, H, Hl, dev, ldhl, ldxp, ldu
 
 
-def _rowwise_launch(mode: int, G: int, dims: tuple, x, h_local, z, xp, u,
-                    b, tile=None):
-    """Launch mode ``mode`` of the row-wise shard kernel at ``tile`` (batch
-    tile, column tile; :func:`shard_tiles`'s by default); returns (error,
-    out0, out1)."""
-    B, H, Hl, dev, ldhl, ldxp, ldu = dims
-    bt, ct = tile or shard_tiles(B, H, G, Hl)
+# the row-wise kernels: their C entries' mode and their kind
+_ROWWISE_MODES = {"gru_rowwise_shard_step": (0, "step"),
+                  "gru_rowwise_shard_zr": (1, "zr"),
+                  "gru_rowwise_shard_candidate": (2, "candidate")}
+
+
+def _rowwise_run(fn, x_name: str, x, h_local, z, xp, u, b):
+    """The row-wise shard kernel ``fn`` (one of :data:`_ROWWISE_MODES`) on
+    checked operands: its plain version on the CPU; on the card the launch
+    :func:`shard_plan` names, kept as ``fn.last_plan``, with ``fn``'s
+    counter raised. Returns (out0, out1); out1 (r*h) only for zr."""
+    mode, kind = _ROWWISE_MODES[fn.__name__]
+    G = KIND_GATES[kind]
+    B, H, Hl, dev, ldhl, ldxp, ldu = _rowwise_checks(x_name, x, h_local, z,
+                                                     xp, u, b, G)
+    vec = _vector(u, ldu, Hl)
+    p = shard_plan(B, H, G, Hl, vec, kind)
+    if dev.type == "cpu":
+        plain = getattr(ref, fn.__name__ + "_ref")
+        out = plain(x, h_local, *(() if z is None else (z,)), xp, u, b)
+        return out if isinstance(out, tuple) else (out, None)
     out0 = torch.empty((B, Hl), dtype=torch.float32, device=dev)
     out1 = (torch.empty((B, Hl), dtype=torch.float32, device=dev)
             if mode == 1 else None)
-    err = _shard_launcher("gru_rowwise_shard_launch", _ROWWISE_ARGS)(
-        mode, _ptr(x), _ptr(h_local), ldhl, _ptr(z), _ptr(xp), ldxp,
-        _ptr(u), ldu, _ptr(b), _ptr(out0), _ptr(out1), B, H, Hl, bt, ct,
-        _vector(u, ldu, Hl), _stream(dev))
-    return err, out0, out1
+    head = (mode, _ptr(x), _ptr(h_local), ldhl, _ptr(z), _ptr(xp), ldxp,
+            _ptr(u), ldu, _ptr(b), _ptr(out0), _ptr(out1), B, H, Hl)
+    if p.route == "tile":
+        err = _shard_launcher("gru_rowwise_shard_launch", _ROWWISE_ARGS)(
+            *head, p.rows, p.ct, vec, _stream(dev))
+    else:
+        err = _shard_launcher("gru_rowwise_shard_direct_launch",
+                              _ROWWISE_ARGS)(
+            *head, p.slices, p.rows, p.warps, _stream(dev))
+    _raise_on(err, fn.__name__)
+    fn.launches += 1
+    fn.last_plan = p
+    return out0, out1
 
 
 def gru_rowwise_shard_step(h_full: torch.Tensor, h_local: torch.Tensor,
@@ -577,42 +619,18 @@ def gru_rowwise_shard_step(h_full: torch.Tensor, h_local: torch.Tensor,
     shard's rows, xp (B,3Hl) / u (H,3Hl) / b (3Hl,) this shard's gate-major
     slices -> new local rows (B,Hl). Launches :func:`shard_plan`'s route
     and keeps the plan as ``last_plan``."""
-    dims = _rowwise_checks("h_full", h_full, h_local, None, xp, u, b, 3)
-    B, H, Hl, dev, ldhl, ldxp, ldu = dims
-    p = shard_plan(B, H, 3, Hl, _vector(u, ldu, Hl))
-    if dev.type == "cpu":
-        return ref.gru_rowwise_shard_step_ref(h_full, h_local, xp, u, b)
-    if p.route == "tile":
-        err, out, _ = _rowwise_launch(0, 3, dims, h_full, h_local, None, xp,
-                                      u, b, (p.rows, p.ct))
-    else:
-        out = torch.empty((B, Hl), dtype=torch.float32, device=dev)
-        err = _shard_launcher("gru_rowwise_shard_step_direct_launch",
-                              _STEP_DIRECT_ARGS)(
-            _ptr(h_full), _ptr(h_local), ldhl, _ptr(xp), ldxp, _ptr(u), ldu,
-            _ptr(b), _ptr(out), B, H, Hl, p.slices, p.rows, p.warps,
-            _stream(dev))
-    _raise_on(err, "gru_rowwise_shard_step")
-    gru_rowwise_shard_step.launches += 1
-    gru_rowwise_shard_step.last_plan = p
-    return out
+    return _rowwise_run(gru_rowwise_shard_step, "h_full", h_full, h_local,
+                        None, xp, u, b)[0]
 
 
 def gru_rowwise_shard_zr(h_full: torch.Tensor, h_local: torch.Tensor,
                          xp_zr: torch.Tensor, u_zr: torch.Tensor,
                          b_zr: torch.Tensor):
     """v1 row-wise phase 1: xp_zr (B,2Hl), u_zr (H,2Hl), b_zr (2Hl,) ->
-    (z_local (B,Hl), r*h_local (B,Hl))."""
-    dims = _rowwise_checks("h_full", h_full, h_local, None, xp_zr, u_zr,
-                           b_zr, 2)
-    if dims[3].type == "cpu":
-        return ref.gru_rowwise_shard_zr_ref(h_full, h_local, xp_zr, u_zr,
-                                            b_zr)
-    err, z, rh = _rowwise_launch(1, 2, dims, h_full, h_local, None, xp_zr,
-                                 u_zr, b_zr)
-    _raise_on(err, "gru_rowwise_shard_zr")
-    gru_rowwise_shard_zr.launches += 1
-    return z, rh
+    (z_local (B,Hl), r*h_local (B,Hl)). Launches :func:`shard_plan`'s
+    route and keeps the plan as ``last_plan``."""
+    return _rowwise_run(gru_rowwise_shard_zr, "h_full", h_full, h_local,
+                        None, xp_zr, u_zr, b_zr)
 
 
 def gru_rowwise_shard_candidate(rh_full: torch.Tensor, h_local: torch.Tensor,
@@ -620,17 +638,10 @@ def gru_rowwise_shard_candidate(rh_full: torch.Tensor, h_local: torch.Tensor,
                                 u_h: torch.Tensor,
                                 b_h: torch.Tensor) -> torch.Tensor:
     """v1 row-wise phase 2: the gathered rh_full (B,H), z_local (B,Hl), xp_h
-    (B,Hl), u_h (H,Hl), b_h (Hl,) -> new local rows (B,Hl)."""
-    dims = _rowwise_checks("rh_full", rh_full, h_local, z_local, xp_h, u_h,
-                           b_h, 1)
-    if dims[3].type == "cpu":
-        return ref.gru_rowwise_shard_candidate_ref(rh_full, h_local, z_local,
-                                                   xp_h, u_h, b_h)
-    err, out, _ = _rowwise_launch(2, 1, dims, rh_full, h_local, z_local,
-                                  xp_h, u_h, b_h)
-    _raise_on(err, "gru_rowwise_shard_candidate")
-    gru_rowwise_shard_candidate.launches += 1
-    return out
+    (B,Hl), u_h (H,Hl), b_h (Hl,) -> new local rows (B,Hl). Launches
+    :func:`shard_plan`'s route and keeps the plan as ``last_plan``."""
+    return _rowwise_run(gru_rowwise_shard_candidate, "rh_full", rh_full,
+                        h_local, z_local, xp_h, u_h, b_h)[0]
 
 
 def gru_shard_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -645,7 +656,7 @@ def gru_shard_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ldw = _rows("w", w, (K, N), dev)
     if B < 1 or K < 1 or N < 1:
         raise ValueError(f"empty problem: B={B} K={K} N={N}")
-    p = shard_plan(B, K, 1, N, _vector(w, ldw, N))
+    p = shard_plan(B, K, 1, N, _vector(w, ldw, N), "matvec")
     if dev.type == "cpu":
         return ref.gru_shard_matvec_ref(x, w)
     out = torch.empty((B, N), dtype=torch.float32, device=dev)
@@ -763,5 +774,7 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
-gru_rowwise_shard_step.last_plan = None
-gru_shard_matvec.last_plan = None
+for _fn in (gru_rowwise_shard_step, gru_rowwise_shard_zr,
+            gru_rowwise_shard_candidate, gru_shard_matvec):
+    _fn.last_plan = None
+del _fn

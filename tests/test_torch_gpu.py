@@ -852,9 +852,10 @@ def test_one_rank_mesh_runs_the_shard_kernels(cuda_device, variant):
     assert _max_err(list(zip(finals, want)) + list(zip(hs, want_hs))) <= TOL
 
 
-# the redesigned pair (rows 12 and 15): the direct route at the paper's
+# the redesigned kernels (rows 12-15): the direct route at the paper's
 # widths, the column tile where the contraction is long (shard_plan)
-REDESIGNED = ("gru_rowwise_shard_step", "gru_shard_matvec")
+REDESIGNED = ("gru_rowwise_shard_step", "gru_rowwise_shard_zr",
+              "gru_rowwise_shard_candidate", "gru_shard_matvec")
 
 
 def _planned(name, args):
@@ -862,10 +863,16 @@ def _planned(name, args):
     if name == "gru_shard_matvec":
         x, w = args
         return K.shard_plan(x.shape[0], x.shape[1], 1, w.shape[1],
-                            K._vector(w, w.stride(0), w.shape[1]))
-    h, h_local, _, u, _ = args
-    return K.shard_plan(h.shape[0], h.shape[1], 3, h_local.shape[1],
-                        K._vector(u, u.stride(0), h_local.shape[1]))
+                            K._vector(w, w.stride(0), w.shape[1]), "matvec")
+    kind = K._ROWWISE_MODES[name][1]
+    G = K.KIND_GATES[kind]
+    x, h_local, u = args[0], args[1], args[-2]
+    return K.shard_plan(x.shape[0], x.shape[1], G, h_local.shape[1],
+                        K._vector(u, u.stride(0), h_local.shape[1]), kind)
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
 @pytest.mark.gpu
@@ -897,7 +904,9 @@ def test_wide_shard_kernels_match_plain(cuda_device, H, n, B):
 @pytest.mark.parametrize("B", (3, 8))
 def test_redesigned_shard_kernels_take_misaligned_views(cuda_device, B):
     """Hl = 5 (gru-jet over 4 ranks): gate offsets off 16 bytes, and u and
-    w as views one float into their storage (no 16-byte address)."""
+    w as views one float into their storage (no 16-byte address); the v1
+    pair's candidate slices (u_h, xp_h) 2Hl floats into the shard's
+    columns, its zr slices of row stride 3Hl."""
     H, n = 20, 4
     Hl = H // n
     g = torch.Generator().manual_seed(B)
@@ -908,16 +917,23 @@ def test_redesigned_shard_kernels_take_misaligned_views(cuda_device, B):
     u = rand(H, 3 * Hl + 1, scale=H ** -0.5)[:, 1:]
     w = rand(Hl, 3 * H + 1, scale=H ** -0.5)[:, 1:2 * H + 1]
     x = rand(B, Hl + 3, scale=0.5)[:, 3:]
+    xp, b = rand(B, 3 * Hl), rand(3 * Hl)
     assert u.data_ptr() % 16 and w.data_ptr() % 16 and x.data_ptr() % 16
-    args = {"gru_rowwise_shard_step": (h, h[:, 3 * Hl:], rand(B, 3 * Hl),
-                                       u, rand(3 * Hl)),
+    assert u[:, 2 * Hl:].data_ptr() % 16 and xp[:, 2 * Hl:].data_ptr() % 16
+    args = {"gru_rowwise_shard_step": (h, h[:, 3 * Hl:], xp, u, b),
+            "gru_rowwise_shard_zr": (h, h[:, 3 * Hl:], xp[:, :2 * Hl],
+                                     u[:, :2 * Hl], b[:2 * Hl]),
+            "gru_rowwise_shard_candidate": (
+                rand(B, H, scale=0.5), h[:, 3 * Hl:],
+                torch.sigmoid(rand(B, Hl)), xp[:, 2 * Hl:], u[:, 2 * Hl:],
+                b[2 * Hl:]),
             "gru_shard_matvec": (x, w)}
     for name in REDESIGNED:
-        got = getattr(K, name)(*args[name])
-        want = getattr(ref, name + "_ref")(*args[name])
+        got = _outs(getattr(K, name)(*args[name]))
+        want = _outs(getattr(ref, name + "_ref")(*args[name]))
         assert getattr(K, name).last_plan == _planned(name, args[name])
         assert getattr(K, name).last_plan.route == "direct"
-        assert _max_err([(got, want)]) <= TOL
+        assert _max_err(list(zip(got, want))) <= TOL
 
 
 @pytest.mark.gpu
@@ -931,11 +947,14 @@ def test_redesigned_shard_kernels_are_deterministic(cuda_device, H, n, B):
     for name in REDESIGNED:
         fn, args = getattr(K, name), ops_[name]
         K.reset_launch_counts()
-        first, second = fn(*args), fn(*args)
+        first, second = _outs(fn(*args)), _outs(fn(*args))
         torch.cuda.synchronize()
-        assert torch.equal(first, second)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
         assert fn.launches == 2
         assert all(k.launches == 0 for k in K.SHARD_KERNELS if k is not fn)
         assert fn.last_plan == _planned(name, args)
-    assert K.gru_rowwise_shard_step.last_plan.route == (
-        "tile" if H > K.DIRECT_MAX_K[3] else "direct")
+    for name, kind in (("gru_rowwise_shard_step", "step"),
+                       ("gru_rowwise_shard_zr", "zr"),
+                       ("gru_rowwise_shard_candidate", "candidate")):
+        assert getattr(K, name).last_plan.route == (
+            "tile" if H > K.DIRECT_MAX_K[kind] else "direct")

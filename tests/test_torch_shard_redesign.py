@@ -1,6 +1,8 @@
 """The redesigned shard kernels' structure, on the CPU: the launch plan of
-``gru_shard_matvec`` and ``gru_rowwise_shard_step``
-(``repro_torch.kernels.gru_sequence.kernel.shard_plan``) and the direct
+``gru_shard_matvec`` and the three row-wise kernels,
+``gru_rowwise_shard_step`` (v3), ``gru_rowwise_shard_zr`` and
+``gru_rowwise_shard_candidate`` (the v1 pair)
+(``repro_torch.kernels.gru_sequence.kernel.shard_plan``), and the direct
 route's summation order.
 
 * Legality of the plan at every shape the card runs (``chip_smoke.py``
@@ -9,13 +11,15 @@ route's summation order.
   kernels' index arithmetic (mirrored here) store every output exactly
   once, the slices of a direct-route column read every k exactly once, a
   block stays within 1024 threads and a Hopper block's shared memory, and
-  the route is the direct one exactly where the rule says.
+  the route is the direct one exactly where the rule says; the v1 pair's
+  plans (K = H, N = Hl) likewise, z and r*h each stored once.
 * The direct route's order of summation, emulated in numpy
   (:func:`direct_matvec`: each slice's k's in order by fma from 0, then
-  the fixed butterfly over the slices) and the v3 epilogue in the kernel's
-  order, against JAX's Pallas ``gru_shard_matvec`` and
-  ``gru_rowwise_shard_step`` in interpret mode within ``SHARD_TOL``, at
-  every slice count. No CUDA kernel runs here: this is the one check of
+  the fixed butterfly over the slices) and the three row-wise epilogues in
+  the kernel's order, against JAX's Pallas ``gru_shard_matvec``,
+  ``gru_rowwise_shard_step``, ``gru_rowwise_shard_zr`` and
+  ``gru_rowwise_shard_candidate`` in interpret mode within ``SHARD_TOL``,
+  at every slice count. No CUDA kernel runs here: this is the one check of
   the new order that does not need the card.
 """
 import itertools
@@ -48,11 +52,18 @@ def _problems(H, n, B):
 
 SHAPES = sorted({p for H, B in DRIVEN + WIDE for n in RANKS
                  for p in _problems(H, n, B)})
+# the v1 pair's (kind, gates, outputs a launch stores)
+V1_KINDS = (("zr", 2, 2), ("candidate", 1, 1))
+V1_SHAPES = sorted({(B, H, H // n) for H, B in DRIVEN + WIDE for n in RANKS})
 
 
-def _stores(p, B, N):
+def _stores(p, B, N, outputs=1):
     """How often the launch ``p`` stores each output (B, N) of one gate,
-    from the kernels' index arithmetic."""
+    from the kernels' index arithmetic; with ``outputs`` = 2 (the zr
+    kernel's z and r*h, both stored where one is) an (outputs, B, N)
+    count."""
+    if outputs > 1:
+        return np.stack([_stores(p, B, N) for _ in range(outputs)])
     hits = np.zeros((B, N), dtype=np.int64)
     gx, gy = p.grid
     if p.route == "direct":
@@ -79,7 +90,8 @@ def _stores(p, B, N):
 def test_shard_plan_is_legal(B, Kc, G, N):
     for vec in (0, 1):
         p = K.shard_plan(B, Kc, G, N, vec)
-        assert p.route == ("direct" if Kc <= K.DIRECT_MAX_K[G] else "tile")
+        assert p.route == ("direct" if Kc <= K.DIRECT_MAX_K[K.shard_kind(G)]
+                           else "tile")
         assert p.threads <= MAX_THREADS and p.smem <= SMEM_LIMIT
         assert (_stores(p, B, N) == 1).all()
         if p.route == "direct":
@@ -108,6 +120,39 @@ def test_shard_plan_is_legal(B, Kc, G, N):
             assert blocks == (max(wave) if wave else min(grids))
 
 
+@pytest.mark.parametrize("kind,G,outputs", V1_KINDS)
+@pytest.mark.parametrize("B,H,Hl", V1_SHAPES)
+def test_v1_pair_plan_is_legal(kind, G, outputs, B, H, Hl):
+    """The zr and candidate kernels' plans: K = H, N = Hl; the direct route
+    exactly up to their own DIRECT_MAX_K, the kind's rows and warps."""
+    for vec in (0, 1):
+        p = K.shard_plan(B, H, G, Hl, vec, kind)
+        assert p.route == ("direct" if H <= K.DIRECT_MAX_K[kind] else "tile")
+        assert p.threads <= MAX_THREADS and p.smem <= SMEM_LIMIT
+        assert (_stores(p, B, Hl, outputs) == 1).all()
+        if p.route == "direct":
+            assert p.slices == K.direct_slices(H) and p.smem == 0
+            assert p.rows == min(K.THREAD_ROWS[kind], K._pow2(B))
+            assert p.warps == min(K.DIRECT_WARPS[kind],
+                                  K._pow2(-(-Hl // (32 // p.slices))))
+            assert p.threads == 32 * p.warps
+        else:
+            assert p.smem == K.smem_bytes_shard(H, p.rows, G, p.ct)
+            assert p.vec == vec
+
+
+def test_shard_plan_names_the_kind():
+    """G alone names the matvec, zr and step kinds; the candidate (one gate,
+    like the matvec) is named, and a kind with the wrong gates raises."""
+    assert [K.shard_kind(G) for G in (1, 2, 3)] == ["matvec", "zr", "step"]
+    assert K.shard_kind(1, "candidate") == "candidate"
+    with pytest.raises(ValueError, match="gates"):
+        K.shard_plan(8, 32, 3, 16, 0, "candidate")
+    # K = 256: past the matvec's direct route, within the candidate's
+    assert K.shard_plan(8, 256, 1, 64, 0).route == "tile"
+    assert K.shard_plan(8, 256, 1, 64, 0, "candidate").route == "direct"
+
+
 def test_shard_plan_spreads_the_paper_shapes_over_sms():
     """gru-jet-deep's 2-rank shard at 8 slots: the direct route with one
     block per (row, column group) or more, never one block for all."""
@@ -115,6 +160,10 @@ def test_shard_plan_spreads_the_paper_shapes_over_sms():
         p = K.shard_plan(B, K_, G, N, 0)
         assert p.route == "direct"
         assert p.grid[0] * p.grid[1] >= B
+    for kind, G, _ in V1_KINDS:
+        p = K.shard_plan(8, 32, G, 16, 0, kind)
+        assert p.route == "direct"
+        assert p.grid[0] * p.grid[1] >= 8
 
 
 def test_shard_plan_raises_where_no_route_fits():
@@ -169,6 +218,45 @@ def direct_step(h_full, h_local, xp, u, b, slices):
     return (np.float32(1) - z) * h_local + z * ht
 
 
+def direct_zr(h_full, h_local, xp, u, b, slices):
+    """The v1 phase 1 as the direct kernel computes it: z and r from
+    (xp + sum) + b, then z and r * h_local."""
+    Hl = h_local.shape[1]
+    a = [direct_matvec(h_full, u[:, g * Hl:(g + 1) * Hl], slices)
+         for g in range(2)]
+    z = _sigmoid((xp[:, :Hl] + a[0]) + b[:Hl])
+    r = _sigmoid((xp[:, Hl:] + a[1]) + b[Hl:])
+    return z, r * h_local
+
+
+def direct_candidate(rh_full, h_local, z, xp, u, b, slices):
+    """The v1 phase 2 as the direct kernel computes it: tanh((xp + sum) +
+    b), then the convex update."""
+    ht = np.tanh((xp + direct_matvec(rh_full, u, slices)) + b)
+    return (np.float32(1) - z) * h_local + z * ht
+
+
+def _v1_args(a, Hl):
+    """The v1 pair's operands as the mesh path passes them: [z | r] and [h]
+    column slices of the shard's (B,3Hl) projection and (H,3Hl) U."""
+    zr = (a["h_full"], a["h_local"], a["xp"][:, :2 * Hl], a["u"][:, :2 * Hl],
+          a["b"][:2 * Hl])
+    cand = (a["rh_full"], a["h_local"], a["z"], a["xp"][:, 2 * Hl:],
+            a["u"][:, 2 * Hl:], a["b"][2 * Hl:])
+    return zr, cand
+
+
+def _close_v1(a, Hl, slices):
+    """Both v1 kernels' emulations against JAX's interpret-mode kernels."""
+    zr, cand = _v1_args(a, Hl)
+    want = JK.gru_rowwise_shard_zr(*map(jnp.asarray, zr), interpret=True)
+    for got, w in zip(direct_zr(*zr, slices), want):
+        close(got, w, tol=SHARD_TOL)
+    close(direct_candidate(*cand, slices),
+          JK.gru_rowwise_shard_candidate(*map(jnp.asarray, cand),
+                                         interpret=True), tol=SHARD_TOL)
+
+
 def _f32(rng, *shape, scale=1.0):
     return (scale * rng.normal(size=shape)).astype(np.float32)
 
@@ -182,7 +270,9 @@ def _operands(H, n, B, seed):
                 u=_f32(rng, H, 3 * Hl, scale=H ** -0.5),
                 b=_f32(rng, 3 * Hl, scale=0.3),
                 h_shard=_f32(rng, B, Hl, scale=0.5),
-                u_rows=_f32(rng, Hl, 3 * H, scale=H ** -0.5))
+                u_rows=_f32(rng, Hl, 3 * H, scale=H ** -0.5),
+                rh_full=_f32(rng, B, H, scale=0.5),
+                z=(1 / (1 + np.exp(-_f32(rng, B, Hl)))).astype(np.float32))
 
 
 # (H, ranks) on the direct route: the paper's widths and two wider ones
@@ -211,10 +301,20 @@ def test_direct_step_order_matches_pallas(H, n):
     close(direct_step(*args, p.slices), want, tol=SHARD_TOL)
 
 
+@pytest.mark.parametrize("H,n", ORDER_SHAPES)
+def test_direct_v1_pair_order_matches_pallas(H, n):
+    a = _operands(H, n, 8, seed=H * 10 + n + 2)
+    for kind, G, _ in V1_KINDS:
+        p = K.shard_plan(8, H, G, H // n, 0, kind)
+        assert p.route == "direct"
+    _close_v1(a, H // n, K.direct_slices(H))
+
+
 @pytest.mark.parametrize("slices", K.SLICES)
 def test_every_slice_count_sums_within_tolerance(slices):
     """Each slice count the sweep may force (tools/shard_tiles.py), at
-    gru-jet-deep's widths, B = 3: the butterfly of 1 to 32 slices."""
+    gru-jet-deep's widths, B = 3: the butterfly of 1 to 32 slices, for
+    the matvec and the three row-wise kernels."""
     a = _operands(32, 2, 3, seed=slices)
     args = (a["h_full"], a["h_local"], a["xp"], a["u"], a["b"])
     close(direct_step(*args, slices),
@@ -224,3 +324,4 @@ def test_every_slice_count_sums_within_tolerance(slices):
     close(direct_matvec(a["h_shard"], w, slices),
           JK.gru_shard_matvec(jnp.asarray(a["h_shard"]), jnp.asarray(w),
                               interpret=True), tol=SHARD_TOL)
+    _close_v1(a, 16, slices)

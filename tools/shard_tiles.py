@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Route and tile sweep of the port's two redesigned shard kernels on one
-CUDA card: ``gru_shard_matvec`` (the cascade's partial product) and
-``gru_rowwise_shard_step`` (the v3 row-wise step), ``csrc/gru_shard.cu``.
+"""Route and tile sweep of the port's four redesigned shard kernels on
+one CUDA card, ``csrc/gru_shard.cu``: ``gru_shard_matvec`` (the cascade's
+partial product), ``gru_rowwise_shard_step`` (the v3 row-wise step), and
+``gru_rowwise_shard_zr`` and ``gru_rowwise_shard_candidate`` (the v1
+row-wise pair, around the gather of r*h).
 
 Forces every route and knob through the C entry points, with explicit
 arguments: the direct route at each slice count S (lanes that split K),
@@ -19,10 +21,15 @@ the plan's rule can be read off the table.
 
 Then the served ``cuda_sharded`` decode step of gru-jet-deep v1 and v3 on
 a one-rank mesh without a group (``chip_smoke.profile_mesh_decode``),
-once with the wrapper's plans and once with both kernels forced to the
-column tile (the device code they ran before the direct route), in turns
-tile, plan, plan, tile. It prints ``-Xptxas -v``'s lines for the direct
-route's kernels first. The table also goes to ``--out``.
+once with the wrapper's plans and once with all four kernels forced to
+the column tile at ``kernel.shard_tiles``'s tile (the device code they
+ran before the direct route), in turns tile, plan, plan, tile. It prints
+``-Xptxas -v``'s lines for the direct route's kernels first. The table
+also goes to ``--out``.
+
+Each shape's lines mark the wrapper's plan and the old tile (the launch
+each kernel made before its redesign), so "before" and "after" come from
+one run.
 
 Run from the repository root on a machine with a card::
 
@@ -81,7 +88,8 @@ def main() -> None:
             say(f"ptxas: {fn.group(1)}: {use}")
 
     def launch(name, a, out_, knobs):
-        """A C-entry call of ``name`` on ``a`` into ``out_`` at ``knobs``
+        """A C-entry call of ``name`` on ``a`` into the outputs ``out_`` (a
+        tuple: the zr kernel's z and r*h, one for the others) at ``knobs``
         (("direct", S, R, warps) or ("tile", bt, ct)); reads the current
         stream at each call, so a graph capture records it."""
         route = knobs[0]
@@ -89,7 +97,7 @@ def main() -> None:
             x, w = a
             ld = (x.stride(0), w.stride(0))
             head = [x.data_ptr(), ld[0], w.data_ptr(), ld[1],
-                    out_.data_ptr(), x.shape[0], x.shape[1], w.shape[1]]
+                    out_[0].data_ptr(), x.shape[0], x.shape[1], w.shape[1]]
             if route == "direct":
                 fn = _launch.launcher("gru_shard",
                                       "gru_shard_matvec_direct_launch",
@@ -99,44 +107,49 @@ def main() -> None:
                                   K._MATVEC_ARGS)
             vec = K._vector(w, ld[1], w.shape[1])
             return lambda: fn(*head, *knobs[1:], vec, _launch.stream(dev))
-        h, hl, xp, u, b = a
-        B, H, Hl = h.shape[0], h.shape[1], hl.shape[1]
+        x, hl, xp, u, b = a[0], a[1], a[-3], a[-2], a[-1]
+        z = a[2] if len(a) == 6 else None
+        mode = K._ROWWISE_MODES[name][0]
+        B, H, Hl = x.shape[0], x.shape[1], hl.shape[1]
+        head = [mode, x.data_ptr(), hl.data_ptr(), hl.stride(0),
+                None if z is None else z.data_ptr(), xp.data_ptr(),
+                xp.stride(0), u.data_ptr(), u.stride(0), b.data_ptr(),
+                out_[0].data_ptr(),
+                out_[1].data_ptr() if len(out_) > 1 else None, B, H, Hl]
         if route == "direct":
             fn = _launch.launcher("gru_shard",
-                                  "gru_rowwise_shard_step_direct_launch",
-                                  K._STEP_DIRECT_ARGS)
-            return lambda: fn(h.data_ptr(), hl.data_ptr(), hl.stride(0),
-                              xp.data_ptr(), xp.stride(0), u.data_ptr(),
-                              u.stride(0), b.data_ptr(), out_.data_ptr(), B,
-                              H, Hl, *knobs[1:], _launch.stream(dev))
+                                  "gru_rowwise_shard_direct_launch",
+                                  K._ROWWISE_ARGS)
+            return lambda: fn(*head, *knobs[1:], _launch.stream(dev))
         fn = _launch.launcher("gru_shard", "gru_rowwise_shard_launch",
                               K._ROWWISE_ARGS)
         vec = K._vector(u, u.stride(0), Hl)
-        return lambda: fn(0, h.data_ptr(), hl.data_ptr(), hl.stride(0), None,
-                          xp.data_ptr(), xp.stride(0), u.data_ptr(),
-                          u.stride(0), b.data_ptr(), out_.data_ptr(), None,
-                          B, H, Hl, *knobs[1:], vec, _launch.stream(dev))
+        return lambda: fn(*head, *knobs[1:], vec, _launch.stream(dev))
 
     def sweep(name, H, n, B):
         a = cs.shard_inputs(torch, H, n, B, 11 * H + n + B, dev)
         args_ = cs.shard_args(name, a, 2 * H)
         want = getattr(ref, name + "_ref")(*args_)
-        out_ = torch.empty_like(want)
+        want = want if isinstance(want, tuple) else (want,)
+        out_ = tuple(torch.empty_like(w) for w in want)
         Kc = args_[0].shape[1]
-        G, N = ((1, want.shape[1]) if name == "gru_shard_matvec"
-                else (3, want.shape[1]))
-        head = (f"{name:22s} H={H:3d} ranks={n} B={B:2d} K={Kc:3d} "
+        G = (1 if name == "gru_shard_matvec"
+             else K.KIND_GATES[K._ROWWISE_MODES[name][1]])
+        N = want[0].shape[1]
+        head = (f"{name:27s} H={H:3d} ranks={n} B={B:2d} K={Kc:3d} "
                 f"N={N:4d}")
         plan = cs.planned(K, name, args_)
+        old = ("tile",) + K.shard_tiles(B, Kc, G, N)    # before the redesign
         best = {}
 
         def one(knobs):
             call = launch(name, args_, out_, knobs)
-            out_.fill_(float("nan"))
+            for o in out_:
+                o.fill_(float("nan"))
             if call() != 0:
                 sys.exit(f"shard_tiles: {head} {knobs}: launch refused")
             torch.cuda.synchronize()
-            e = (out_ - want).abs().max().item()
+            e = max((o - w).abs().max().item() for o, w in zip(out_, want))
             if not e <= TOL:
                 sys.exit(f"shard_tiles: {head} {knobs}: max |err| {e:.3g} "
                          f"> {TOL}")
@@ -146,6 +159,8 @@ def main() -> None:
                     knobs[1:] == (plan.slices, plan.rows, plan.warps)
                     or knobs[1:] == (plan.rows, plan.ct)):
                 mark = "  <- the wrapper's plan"
+            if knobs == old:
+                mark += "  <- the old tile"
             say(f"{head} {' '.join(map(str, knobs)):18s} {t * 1e3:7.2f} us"
                 f"{mark}")
             if t < best.get(knobs[0], (1e9,))[0]:
@@ -176,7 +191,8 @@ def main() -> None:
     from repro_torch.models import gru_lm
     planner = K.shard_plan
 
-    def tile_plan(B, Kc, G, N, vec):    # the launches before the direct route
+    def tile_plan(B, Kc, G, N, vec, kind=None):
+        """The launches before the direct route: the old tile."""
         return K.tile_plan(B, Kc, G, N, vec, *K.shard_tiles(B, Kc, G, N))
     for arch, cfg in cs.mesh_configs().items():
         params = init_params(gru_lm.lm_specs(cfg), seed=0,
