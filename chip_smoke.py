@@ -12,7 +12,8 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_cell_q8``, ``slstm_cell``, ``flash_attn``, ``decode_attn``,
    ``gru_cell``, ``rowwise_matvec`` and ``gru_shard``, one ``nvcc`` each,
    started together) and print ``-Xptxas -v``'s report (``gru_shard``'s
-   functions must not spill) and each kernel's dynamic
+   functions and ``gru_sequence_kernel``'s, both routes, must not spill)
+   and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree), the row-wise
    matmuls' launch plans at qwen3-0.6b's shapes, and check that the bf16
@@ -26,15 +27,19 @@ Phases (any failure exits non-zero, before the result lines):
    two kernels (int8 weight rows quantized on the card) and the two sLSTM
    kernels (slstm-jet L=1 H=20 and L=3 H=32; a fully masked row, whose
    leaves, ``m = M_INIT`` included, must come out bit for bit);
+   ``gru_sequence_kernel`` must launch the route ``seq_plan`` names (the
+   warp route at these widths), and its block route, forced through the C
+   entry at every shape beside it, must agree with the plain version too;
+   the largest difference between the two routes is reported;
 3b. hold the seven shard kernels (the ``cuda_sharded`` backend's per-rank
    steps) against their plain versions on the card at gru-jet's (H=20)
    and gru-jet-deep's (H=32) shard widths and at wide shards (H 64, 256,
    512) over 1, 2 and 4 ranks (Hl = H, H/2, H/4), B 1 and 8, with the mesh
    path's row-strided gate slices: largest absolute error at most 1e-5;
-   the four redesigned kernels (``gru_rowwise_shard_step``,
+   the five redesigned kernels (``gru_rowwise_shard_step``,
    ``gru_rowwise_shard_zr``, ``gru_rowwise_shard_candidate``,
-   ``gru_shard_matvec``) must launch the route ``shard_plan`` names
-   (direct or column tile);
+   ``gru_shard_matvec``, ``gru_cascade_shard_zr``) must launch the route
+   ``shard_plan`` names (direct or column tile);
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
@@ -56,7 +61,8 @@ Phases (any failure exits non-zero, before the result lines):
    step must be attributed to ``cuda_chain``, ``gru_sequence_kernel`` must
    launch L times per prefill and L times per step, no other kernel and no
    plain version may run, and the class streams must equal the ``eager``
-   engine's on the card;
+   engine's on the card; every served call of ``gru_sequence_kernel``
+   (phases 4 and 6) must launch the warp route;
 7. the same three pinned to ``cuda_chain_q8``: ``gru_sequence_q8_kernel``
    must launch L times per prefill and ``gru_step_q8`` L times per step,
    no other kernel and no plain version may run, and the class streams and
@@ -129,6 +135,10 @@ Phases (any failure exits non-zero, before the result lines):
    inputs and the matmuls beside one ``torch.matmul`` (TF32 off) where it
    computes the same function, ``torch.mm(..., out_dtype=float32)`` for
    the bf16 cascade (timed only; the port never calls either);
+   ``gru_sequence_kernel`` beside its block route forced at the same
+   shapes (its served shapes split by launches) and beside one
+   ``torch.nn.GRU`` (cuDNN) call on the v3 unmasked work at T=32 B=8 H=32,
+   ``gru_cascade_shard_zr`` beside its old column tile (timed only);
    the shard kernels at the mesh path's shapes (``torch.matmul`` beside
    the matvec; each kernel's route printed); the served ``cuda_sharded``
    decode step on a one-rank mesh without a group (no collective; v1 and
@@ -287,13 +297,20 @@ def build_kernels():
             if any(k in line for k in ("registers", "spill", "Compiling",
                                        "smem")):
                 print(f"  ptxas[{name}]: {line.strip()}")
-    frames = [ln for ln in _build.build_log("gru_shard").splitlines()
-              if "spill stores" in ln]
-    spills = [ln.strip() for ln in frames
-              if "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    check(frames and not spills, f"gru_shard: ptxas reports spills: "
+    frames = spill_frames("gru_shard")
+    spills = [f for f, ln in frames if not no_spill(ln)]
+    check(frames and not spills, f"gru_shard: ptxas reports spills in "
           f"{spills[:3]}")
     print(f"  gru_shard: {len(frames)} functions, no spills (ptxas)")
+    # row 1's two routes (the block route's kernel, gru_sequence_k, and
+    # every gru_sequence_warp_k instance)
+    frames = [(f, ln) for f, ln in spill_frames("gru_sequence")
+              if "gru_sequence_warp_k" in f or "14gru_sequence_k" in f]
+    spills = [f for f, ln in frames if not no_spill(ln)]
+    check(len(frames) > 1 and not spills, f"gru_sequence: ptxas reports "
+          f"spills in row 1's kernels {spills[:3]}")
+    print(f"  gru_sequence: row 1's {len(frames)} functions (block route "
+          f"and warp route instances), no spills (ptxas)")
     # all shared memory is dynamic, so ptxas does not report it
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.slstm_cell import kernel as SK
@@ -393,6 +410,24 @@ def build_kernels():
           f"instructions in the SASS of all {len(bf16_k)} "
           f"({sorted(bf16_k.values())}); fp32 kernels "
           f"{len(hmma) - len(bf16_k)}, none", flush=True)
+
+
+def spill_frames(library):
+    """(function, ptxas's stack/spill line) of each kernel of ``library``'s
+    build log."""
+    from repro_torch.kernels import _build
+    out, fn = [], None
+    for ln in _build.build_log(library).splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "spill stores" in ln and fn is not None:
+            out.append((fn, ln.strip()))
+            fn = None
+    return out
+
+
+def no_spill(line) -> bool:
+    return "0 bytes spill stores, 0 bytes spill loads" in line
 
 
 # ---------------------------------------------------------------------------
@@ -529,6 +564,41 @@ def inputs_for(torch, name, L, H, B, T, seed, dev):
     return make_inputs(torch, L, H, B, T, seed, dev)
 
 
+def seq_route_fn(torch, a, variant, masked, plan):
+    """A call of the depth-1 sequence kernel's C entry on ``a`` (the L = 1
+    operands of :func:`make_inputs`) at an explicit plan
+    (``kernel.warp_plan`` or ``kernel.block_plan``): the route forced, for
+    phase 3's check of both routes and the before/after times of phase 12
+    and ``tools/seq_tiles.py``. Reads the current stream at each call, so a
+    CUDA-graph capture records it; raises if the launch is refused."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.gru_sequence import kernel as K
+    h0, xp, u, b = a["h0"][0], a["xp"], a["u"][0], a["b"][0]
+    T, B, H = xp.shape[0], xp.shape[1], h0.shape[1]
+    out = torch.empty(T, B, H, device=xp.device)
+    head = (h0.data_ptr(), xp.data_ptr(), u.data_ptr(), b.data_ptr(),
+            a["mask"].data_ptr() if masked else None, out.data_ptr(), T, B,
+            H, int(variant == "v3"))
+    if plan.route == "warp":
+        fn = K._launcher("gru_sequence_warp_launch")
+        tail = (plan.rows, plan.warps, plan.depth)
+    else:
+        fn = K._launcher("gru_sequence_launch")
+        tail = (plan.rows,)
+
+    def call():
+        _launch.raise_on(fn(*head, *tail, _launch.stream(xp.device)),
+                         f"gru_sequence forced {plan}")
+        return out
+    return call
+
+
+def block_route(K, B, H):
+    """The block route (``run_stack``) at the tile the wrapper gave it
+    before the warp route: ``min(B, DEFAULT_BATCH_BLOCK)`` rows."""
+    return K.block_plan(B, H, min(B, K.DEFAULT_BATCH_BLOCK))
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
@@ -536,6 +606,8 @@ def check_kernels(torch, dev):
     checks = {n: 0 for n in MAIN_SHAPES}
     err_step = {n: 0.0 for n in STEP_TOO}    # the T=1 unmasked cases alone
     frozen_rows = {n: 0 for n in SLSTM}      # fully masked rows held bitwise
+    # row 1: the route each call launched, the block route forced beside it
+    seq_routes, err_block, route_diff, same_bits = {}, 0.0, 0.0, 0
     for name, shapes in MAIN_SHAPES.items():
         Ts = ((1,) if name in DECODE else (8, 16, 32))
         if name in STEP_TOO:
@@ -563,6 +635,25 @@ def check_kernels(torch, dev):
                                 check(e <= TOL, f"{name} L={L} H={H} B={B} "
                                       f"T={T} {variant} masked={masked}: "
                                       f"max |err| {e:.3g} > {TOL}")
+                            if name == "gru_sequence_kernel":
+                                p = K.gru_sequence_kernel.last_plan
+                                check(p == K.seq_plan(B, T, H, variant),
+                                      f"{name} B={B} T={T} H={H}: launched "
+                                      f"{p}, seq_plan names "
+                                      f"{K.seq_plan(B, T, H, variant)}")
+                                seq_routes[p.route] = seq_routes.get(
+                                    p.route, 0) + 1
+                                blk = seq_route_fn(torch, a, variant, masked,
+                                                   block_route(K, B, H))()
+                                torch.cuda.synchronize()
+                                e = (blk - want[0]).abs().max().item()
+                                err_block = max(err_block, e)
+                                check(e <= TOL, f"{name} block route L={L} "
+                                      f"H={H} B={B} T={T} {variant} masked="
+                                      f"{masked}: max |err| {e:.3g} > {TOL}")
+                                route_diff = max(route_diff, (
+                                    got[0] - blk).abs().max().item())
+                                same_bits += int(torch.equal(got[0], blk))
                             if name in SLSTM and masked and B > 1:
                                 frozen_rows[name] += 1
                                 for k, leaf in enumerate(a["leaves"]):
@@ -578,6 +669,12 @@ def check_kernels(torch, dev):
     for n, e in err_step.items():
         print(f"  {n} at T=1 unmasked (the fp32 chain's decode layer): "
               f"max |kernel - plain| = {e:.3g} (<= {TOL})")
+    n_seq = checks["gru_sequence_kernel"]
+    print(f"  gru_sequence_kernel: routes launched {seq_routes} (seq_plan's);"
+          f" the block route forced beside each call: max |block - plain| ="
+          f" {err_block:.3g} (<= {TOL}); max |warp - block| = "
+          f"{route_diff:.3g}, bit for bit in {same_bits} of {n_seq} "
+          f"comparisons")
     print(f"  slstm_stack_sequence_kernel: the fully masked row (m = M_INIT)"
           f" kept all four leaves bit for bit in "
           f"{frozen_rows['slstm_stack_sequence_kernel']} masked comparisons")
@@ -597,7 +694,8 @@ def check_kernels(torch, dev):
 SHARD_SHAPES = tuple((H, n) for H in (20, 32, 64, 256, 512)
                      for n in (1, 2, 4))
 REDESIGNED = ("gru_rowwise_shard_step", "gru_rowwise_shard_zr",
-              "gru_rowwise_shard_candidate", "gru_shard_matvec")
+              "gru_rowwise_shard_candidate", "gru_shard_matvec",
+              "gru_cascade_shard_zr")
 
 
 def shard_inputs(torch, H, n, B, seed, dev):
@@ -701,6 +799,11 @@ def planned(K, name, args):
         x, w = args
         return K.shard_plan(x.shape[0], x.shape[1], 1, w.shape[1],
                             K._vector(w, w.stride(0), w.shape[1]), "matvec")
+    if name == "gru_cascade_shard_zr":
+        h, u = args[2], args[3]
+        return K.shard_plan(h.shape[0], h.shape[1], 1, u.shape[1],
+                            K._vector(u, u.stride(0), u.shape[1]),
+                            "cascade_zr")
     kind = K._ROWWISE_MODES[name][1]
     G = K.KIND_GATES[kind]
     x, h_local, u = args[0], args[1], args[-2]
@@ -758,21 +861,26 @@ def plain_calls():
 
 # gru_sequence_kernel's served calls (phases 4 and 6) by (T, B, H): the
 # gru-jet prefills and the fp32 chain's layers, for phase 12's split of
-# its launches by shape
+# its launches by shape; and the routes they launched, by shape
 SEQ_SHAPES: dict = {}
+SEQ_ROUTES: dict = {}
 
 
 @contextlib.contextmanager
 def sequence_shapes(counts):
     """Count the calls of ``gru_sequence_kernel`` that the serving path
-    makes through its ops module, by (T, B, H), while the block runs."""
+    makes through its ops module, by (T, B, H), while the block runs, and
+    note the route each launched (:data:`SEQ_ROUTES`)."""
     from repro_torch.kernels.gru_sequence import ops
     fn = ops.gru_sequence_kernel
 
     def recording(h0, x_proj, *args, **kw):
         key = tuple(x_proj.shape[:2]) + (h0.shape[-1],)
         counts[key] = counts.get(key, 0) + 1
-        return fn(h0, x_proj, *args, **kw)
+        out = fn(h0, x_proj, *args, **kw)
+        if x_proj.is_cuda:
+            SEQ_ROUTES.setdefault(key, set()).add(fn.last_plan.route)
+        return out
     ops.gru_sequence_kernel = recording
     try:
         yield counts
@@ -1008,6 +1116,11 @@ def run_chain_path(torch, dev, cfgs, params):
               f"(host clock, synchronized); streams == eager", flush=True)
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the chain never launched: {launches}")
+    check(set(SEQ_ROUTES) == set(SEQ_SHAPES) and all(
+        r == {"warp"} for r in SEQ_ROUTES.values()), f"gru_sequence_kernel:"
+          f" served shapes launched routes {SEQ_ROUTES}, not the warp route")
+    print(f"  gru_sequence_kernel: the warp route at every served shape "
+          f"(phases 4 and 6): {sorted(SEQ_SHAPES)}", flush=True)
     return launches, report
 
 
@@ -1980,6 +2093,37 @@ def bound_ms(name, a, masked=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def cudnn_gru_ms(torch, dev, T=32, B=SLOTS, H=32):
+    """Device time (graph replay) of one ``torch.nn.GRU`` call (cuDNN) on
+    row 1's v3 unmasked work at (T, B, H): a yardstick, timed here only
+    (the port never calls it; it has no v1). The kernel's operands mapped
+    as ROADMAP's ground rules say: torch's gate order r, z, n; its z is 1 -
+    v3's z, so the z rows of its weights and bias are negated; U and b go
+    to ``weight_hh`` and ``bias_hh``, ``bias_ih`` is 0; x_proj is its
+    input, through a ``weight_ih`` that is an exact signed permutation (so
+    cuDNN does one (T*B, 3H) x (3H, 3H) product more than the kernel).
+    Its output is first held against the plain v3 version within TOL."""
+    from repro_torch.kernels.gru_sequence import ref
+    a = make_inputs(torch, 1, H, B, T, seed=7, dev=dev)
+    h0, xp, u, b = a["h0"][0], a["xp"], a["u"][0], a["b"][0]
+    eye, zero = torch.eye(H, device=dev), torch.zeros(H, H, device=dev)
+    gru = torch.nn.GRU(3 * H, H).to(dev)
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(torch.cat([torch.cat([zero, eye, zero], 1),
+                                          torch.cat([-eye, zero, zero], 1),
+                                          torch.cat([zero, zero, eye], 1)]))
+        gru.weight_hh_l0.copy_(torch.cat([u[:, H:2 * H].T, -u[:, :H].T,
+                                          u[:, 2 * H:].T]))
+        gru.bias_ih_l0.zero_()
+        gru.bias_hh_l0.copy_(torch.cat([b[H:2 * H], -b[:H], b[2 * H:]]))
+        out, _ = gru(xp, h0[None])
+        want = ref.gru_sequence_ref(h0, xp, u, b, None, "v3")
+        e = (out - want).abs().max().item()
+        check(e <= TOL, f"torch.nn.GRU mapping: max |GRU - plain v3| "
+              f"{e:.3g} > {TOL}")
+        return device_time_ms(torch, lambda: gru(xp, h0[None]), per_graph=50)
+
+
 TIMED = (("gru_sequence_kernel", (1, 20)),
          ("gru_stack_sequence_kernel", (3, 32)),
          ("gru_stack_decode_kernel", (3, 32)),
@@ -2026,10 +2170,17 @@ def time_kernels(torch, dev, err, launches):
             call = call_time_ms(torch, kern, iters=300)
             plain_call = call_time_ms(torch, plain_fn, iters=10)
             bms, by = bound_ms(name, a)
+            before = ""
+            if name == "gru_sequence_kernel":
+                blk = device_time_ms(torch, seq_route_fn(
+                    torch, a, "v1", True, block_route(K, B, H)),
+                    per_graph=200)
+                before = (f"  block route {blk * 1e3:8.2f} us; plan "
+                          f"{K.gru_sequence_kernel.last_plan}")
             print(f"  {name:28s} L={L} H={H} B={B:2d} T={T:2d}: device "
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
-                  f"  bound {bms * 1e6:7.2f} ns ({by})", flush=True)
+                  f"  bound {bms * 1e6:7.2f} ns ({by}){before}", flush=True)
             if B == SLOTS and (
                     (name in SLSTM and L == 1) or (name not in SLSTM and (
                         name == "gru_sequence_kernel" or L == 3
@@ -2044,6 +2195,9 @@ def time_kernels(torch, dev, err, launches):
                     "call_ms": call, "plain_call_ms": plain_call,
                     "shape": {"L": L, "H": H, "B": B, "T": T,
                               "variant": None if name in SLSTM else "v1"}})
+                if name == "gru_sequence_kernel":
+                    rows[-1]["plan"] = str(K.gru_sequence_kernel.last_plan)
+                    rows[-1]["block_route_ms"] = blk
     # the fp32 chain's decode layer: the depth-1 sequence kernel at T=1,
     # unmasked (a row of PERF.md, not of the JSON line)
     for H in (32, 20):
@@ -2056,31 +2210,42 @@ def time_kernels(torch, dev, err, launches):
             ms = device_time_ms(torch, lambda: step(False), per_graph=200)
             plain = device_time_ms(torch, lambda: step(True), per_graph=50)
             call = call_time_ms(torch, lambda: step(False), iters=300)
+            blk = device_time_ms(torch, seq_route_fn(
+                torch, a, "v1", False, block_route(K, B, H)), per_graph=200)
             bms, by = bound_ms("gru_sequence_kernel", a, masked=False)
             print(f"  {'gru_sequence_kernel (chain decode)':28s} L=1 H={H} "
                   f"B={B:2d} T= 1: device {ms * 1e3:8.2f} us (per call "
                   f"{call * 1e3:7.2f})  plain {plain * 1e3:9.2f} us  bound "
-                  f"{bms * 1e6:7.2f} ns ({by})", flush=True)
+                  f"{bms * 1e6:7.2f} ns ({by})  block route "
+                  f"{blk * 1e3:8.2f} us", flush=True)
     # row 1's served launches by shape (phases 4 and 6: the gru-jet
     # prefills, the chain's layers by T): device time, bound, and the
     # launches times the gap summed over the shapes
     check(sum(SEQ_SHAPES.values()) == launches["gru_sequence_kernel"],
           f"gru_sequence_kernel: served calls by shape {SEQ_SHAPES} do not "
           f"sum to its {launches['gru_sequence_kernel']} launches")
-    gap_us = 0.0
+    gap_us = gap_block_us = 0.0
     for (T, B, H), count in sorted(SEQ_SHAPES.items()):
         a = make_inputs(torch, 1, H, B, T, seed=7, dev=dev)
         ms = device_time_ms(torch, lambda: run_kernel(
             K, ref, "gru_sequence_kernel", a, "v1", T > 1, plain=False),
             per_graph=50)
+        plan = K.gru_sequence_kernel.last_plan
+        blk = device_time_ms(torch, seq_route_fn(
+            torch, a, "v1", T > 1, block_route(K, B, H)), per_graph=50)
         bms, _ = bound_ms("gru_sequence_kernel", a, masked=T > 1)
         gap_us += count * (ms - bms) * 1e3
+        gap_block_us += count * (blk - bms) * 1e3
         print(f"  gru_sequence_kernel served T={T:2d} B={B} H={H}: {count:3d} "
-              f"launches, device {ms * 1e3:7.2f} us, bound {bms * 1e6:6.2f} "
-              f"ns", flush=True)
+              f"launches, device {ms * 1e3:7.2f} us ({plan.route} rows="
+              f"{plan.rows} warps={plan.warps} depth={plan.depth}), block "
+              f"route {blk * 1e3:7.2f} us, bound {bms * 1e6:6.2f} ns",
+              flush=True)
     print(f"  gru_sequence_kernel: launches x (device - bound) over its "
-          f"{sum(SEQ_SHAPES.values())} served launches = {gap_us:.0f} us",
-          flush=True)
+          f"{sum(SEQ_SHAPES.values())} served launches = {gap_us:.0f} us "
+          f"(block route forced: {gap_block_us:.0f} us)", flush=True)
+    print(f"  torch.nn.GRU (cuDNN) yardstick, v3 T=32 B={SLOTS} H=32: "
+          f"{cudnn_gru_ms(torch, dev) * 1e3:.2f} us", flush=True)
     print("  library_ms: null -- no single PyTorch call computes the v1 "
           "(paper) GRU recurrence or step these kernels run, in fp32 or on "
           "int8 weight rows; nor the exponential-gated sLSTM (torch.nn.LSTM "
@@ -2449,19 +2614,39 @@ def shard_bound_ms(name, args, outs):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def czr_tile_fn(torch, args):
+    """A call of ``gru_cascade_shard_zr``'s column-tile C entry on ``args``
+    at ``kernel.shard_tiles``'s tile (its launch before the direct route),
+    into fresh outputs; reads the current stream at each call."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.gru_sequence import kernel as K
+    zr, xp, h, u = args
+    B, Hl, N = h.shape[0], h.shape[1], u.shape[1]
+    z = torch.empty(B, Hl, device=h.device)
+    p = torch.empty(B, N, device=h.device)
+    fn = K._shard_launcher("gru_cascade_shard_zr_launch", K._CZR_ARGS)
+    head = (zr.data_ptr(), xp.data_ptr(), h.data_ptr(), u.data_ptr(),
+            u.stride(0), z.data_ptr(), p.data_ptr(), B, Hl, N,
+            *K.shard_tiles(B, Hl, 1, N), K._vector(u, u.stride(0), N))
+
+    def call():
+        _launch.raise_on(fn(*head, _launch.stream(h.device)),
+                         "gru_cascade_shard_zr old tile")
+        return z, p
+    return call
+
+
 def shard_route(name) -> str:
-    """The route of a shard kernel's last launch: the four redesigned
-    kernels' plan (``last_plan``), the column tile for the cascade's
-    middle phase, a grid-stride loop for the two elementwise ones."""
+    """The route of a shard kernel's last launch: the five redesigned
+    kernels' plan (``last_plan``), a grid-stride loop for the two
+    elementwise ones."""
     from repro_torch.kernels.gru_sequence import kernel as K
     if name in REDESIGNED:
         p = getattr(K, name).last_plan
         return (f"direct S={p.slices} R={p.rows} warps={p.warps} grid="
                 f"{p.grid}" if p.route == "direct" else
                 f"tile bt={p.rows} ct={p.ct} grid={p.grid}")
-    if name in ("gru_cascade_shard_gates", "gru_cascade_shard_update"):
-        return "elementwise"
-    return "tile (unchanged)"
+    return "elementwise"
 
 
 def time_shard_kernels(torch, dev, err, launches):
@@ -2492,10 +2677,16 @@ def time_shard_kernels(torch, dev, err, launches):
             bms, by = shard_bound_ms(name, args, kern())
             plan = shard_route(name)
             lib_s = f"{lib * 1e3:7.2f} us" if lib is not None else "    n/a"
+            old = ""
+            if name == "gru_cascade_shard_zr":    # its launch before the
+                tile = device_time_ms(torch, czr_tile_fn(torch, args),
+                                      per_graph=200)   # direct route
+                old = f"  old tile {tile * 1e3:6.2f} us"
             print(f"  {name:28s} H={H} ranks={n} Hl={H // n:2d} B={SLOTS}: "
                   f"device {ms * 1e3:6.2f} us (per call {call * 1e3:6.2f})  "
                   f"plain {plain * 1e3:7.2f} us  matmul {lib_s}  bound "
-                  f"{bms * 1e6:6.2f} ns ({by})  route {plan}", flush=True)
+                  f"{bms * 1e6:6.2f} ns ({by})  route {plan}{old}",
+                  flush=True)
             if (H, n) == SHARD_ROW:
                 rows.append({
                     "name": name, "route": "cuda",
@@ -2506,6 +2697,8 @@ def time_shard_kernels(torch, dev, err, launches):
                     "bound_by": by, "library_ms": lib, "call_ms": call,
                     "plan": plan,
                     "shape": {"H": H, "ranks": n, "Hl": H // n, "B": SLOTS}})
+                if name == "gru_cascade_shard_zr":
+                    rows[-1]["old_tile_ms"] = tile
     print("  library_ms: torch.matmul on the matvec's operands (TF32 off); "
           "null for the other six -- no single PyTorch call computes a "
           "shard step's gate math", flush=True)

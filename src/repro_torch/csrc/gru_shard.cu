@@ -11,7 +11,8 @@
 //   shard_matvec_direct_k (direct route),
 //   shard_matvec_k (tile)  <- gru_shard_matvec            :733 (body :667)
 //   cascade_gates_k        <- gru_cascade_shard_gates     :741 (body :673)
-//   cascade_zr_k           <- gru_cascade_shard_zr        :749 (body :685)
+//   cascade_zr_direct_k (direct route),
+//   cascade_zr_k (tile)    <- gru_cascade_shard_zr        :749 (body :685)
 //   cascade_update_k       <- gru_cascade_shard_update    :759 (body :697)
 // Layouts are JAX's: B batch rows, H the full width, Hl = H / n this
 // rank's rows; a row-wise shard's u is (H, G*Hl), gate-major ([z | r | h]
@@ -24,20 +25,22 @@
 // Translation. On the TPU each kernel is one grid step whose operands sit
 // whole in VMEM. Here two routes, picked by shape and kernel in Python
 // (shard_plan in kernels/gru_sequence/kernel.py):
-// - "direct" (the three row-wise modes and the cascade's partial product
-//   at the paper's widths, where the contraction is short): each output
-//   (row, column) belongs to one thread, or to S lanes of one warp that
-//   split K and meet in one fixed butterfly over the G x R values they
-//   own. Every global load goes out at entry, the epilogue's operands
+// - "direct" (the three row-wise modes, the cascade's partial product and
+//   its v1 middle phase at the paper's widths, where the contraction is
+//   short): each output (row, column) belongs to one thread, or to S
+//   lanes of one warp that split K and meet in one fixed butterfly over
+//   the G x R values they own. Every global load goes out at entry, the epilogue's operands
 //   (xp's G gates, b's, h_local and the candidate's z) included: no shared
 //   memory, no barrier, no atomics. Lanes of a slice read neighbouring
 //   columns of u with scalar loads (coalesced whatever the alignment), x
 //   is a broadcast; blocks of a few warps spread the outputs over the SMs.
 //   The candidate's x is the gather of every rank's r*h, so its
 //   contraction cannot start before the gather; only its epilogue's
-//   operands are fetched beside the first chunk.
-// - "tile" (long contractions, and the cascade's middle phase): col_tile.cuh's
-//   column tile. A block owns `ct` output columns (of every gate it needs)
+//   operands are fetched beside the first chunk. The cascade's middle
+//   phase forms its operand r*h = sigmoid(xp + zr) * h in the lane that
+//   reads it, from loads of its own k's, and stores z from the lanes of
+//   its first Hl columns.
+// - "tile" (long contractions): col_tile.cuh's column tile. A block owns `ct` output columns (of every gate it needs)
 //   and a batch tile of at most 8 rows, stages its operand rows in shared
 //   memory, streams the shard's u from device memory once, and applies the
 //   gate epilogue to its finished columns after a second barrier. The
@@ -53,8 +56,8 @@
 // nanoseconds (bytes); the kernels are bound by latency instead: the
 // launch, the trips to memory and the dependent chain after them, 1-5 us.
 // The direct route makes that chain one trip to memory (the contraction's
-// and the epilogue's loads together), the butterfly and the gate math;
-// the tile's is three trips and two barriers. The collectives around
+// and the epilogue's loads together, the cascade's r*h operands too), the
+// butterfly and the gate math; the tile's is three trips and two barriers. The collectives around
 // them cost more.
 //
 // Numerics: expf/tanhf, no fast math; fma on the CUDA cores, no TF32. The
@@ -295,6 +298,46 @@ __device__ __forceinline__ void direct_dot(float (&acc)[G][R],
   }
 }
 
+// direct_dot for an operand each lane forms from loads (the cascade's r*h:
+// a sigmoid a k): x.load(r, k, in) loads what row r's operand at k is made
+// of (a zero operand where `in` is false: k past K or r past nrow),
+// x.value(raw) makes it, for k < K only, after all of the chunk's loads
+// have gone out, so that no arithmetic (and no branch of the division)
+// sits between them. A loop of its own: folding direct_dot's plain
+// loads into this form made the row-wise zr kernel 15 % slower on an
+// H100 (ptxas scheduled it otherwise).
+template <int G, int S, int R, typename X>
+__device__ __forceinline__ void direct_dot_formed(float (&acc)[G][R],
+                                                  const X& x, int nrow,
+                                                  const float* __restrict__ w,
+                                                  size_t ldw,
+                                                  const int (&col)[G],
+                                                  bool live, int K, int s) {
+  for (int k0 = s; k0 < K; k0 += S * kLaneK) {
+    float wv[kLaneK][G];
+    typename X::Raw xv[kLaneK][R];
+#pragma unroll
+    for (int i = 0; i < kLaneK; ++i) {
+      const int k = k0 + i * S;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        wv[i][g] = live && k < K ? __ldg(w + (size_t)k * ldw + col[g]) : 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) xv[i][r] = x.load(r, k, k < K && r < nrow);
+    }
+#pragma unroll
+    for (int i = 0; i < kLaneK; ++i) {
+      if (k0 + i * S >= K) continue;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float v = x.value(xv[i][r]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[g][r] = fmaf(v, wv[i][g], acc[g][r]);
+      }
+    }
+  }
+}
+
 // Sum the S slices of each column: a butterfly over the lanes that share
 // it (lane = s * (32 / S) + c), so every slice ends with the same sums.
 template <int G, int S, int R>
@@ -410,6 +453,88 @@ rowwise_shard_direct_k(const float* __restrict__ x,
   }
 }
 
+// A read-only load that the compiler issues where it stands (asm
+// volatile: not moved after other code or into a branch).
+__device__ __forceinline__ float load_in_place(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// The loads of one (row, k) of the cascade's operand: the r gate's xp and
+// psum'd pre-activation zr, and h.
+struct CascadeRaw {
+  float xp, zr, h;
+};
+
+// The cascade's operand r*h = sigmoid(xp + zr) * h at (row0 + r, k), in the
+// plain version's order; zr and xp of row stride 2Hl, the r gate Hl in.
+// Its loads are issued whether or not they are needed, at a clamped (row,
+// k), and kept in program order (load_in_place), so that no branch and no
+// sigmoid sits between them: the same loads under `in ? ... : 0` made
+// ptxas spill in 5 of the 18 instances (a stack frame beside the
+// division's slow-path call).
+struct CascadeRh {
+  using Raw = CascadeRaw;
+  const float* zr;
+  const float* xp;
+  const float* h;
+  int Hl;
+  int row0;
+  int nrow;
+  __device__ __forceinline__ CascadeRaw load(int r, int k, bool in) const {
+    const size_t row = row0 + min(r, nrow - 1);
+    const int kk = min(k, Hl - 1);
+    const size_t at = row * 2 * Hl + Hl + kk;
+    const CascadeRaw v = {load_in_place(xp + at), load_in_place(zr + at),
+                          load_in_place(h + row * Hl + kk)};
+    return in ? v : CascadeRaw{};
+  }
+  __device__ __forceinline__ float value(const CascadeRaw& v) const {
+    return sigmoid_f(v.xp + v.zr) * v.h;
+  }
+};
+
+// The v1 cascade's middle phase on the direct route: p (B, N) = (r*h) (B,
+// Hl) @ u (Hl, N), K = Hl. Each lane forms the r*h of its own k's from
+// their loads (zr, xp of the r gate, h), in the plain version's order
+// sigmoid(xp + zr) * h, as the operand of its chunk (all loads first, z's
+// too): no staging, no barrier. Slice 0 of the lanes of columns j < Hl
+// stores z (the grid covers max(N, Hl) columns), those of columns j < N
+// the product.
+template <int S, int R>
+__global__ void __launch_bounds__(kThreads)
+cascade_zr_direct_k(const float* __restrict__ zr,
+                    const float* __restrict__ xp,
+                    const float* __restrict__ h, const float* __restrict__ u,
+                    int ldu, float* __restrict__ zout, float* __restrict__ p,
+                    int B, int Hl, int N) {
+  const Lane l = direct_lane<S, R>(B);
+  const size_t w2 = 2 * (size_t)Hl;
+  const bool zcol = l.s == 0 && l.j < Hl;
+  float zx[R], zz[R];          // z's loads at entry, its sigmoid at the end
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t at = (l.row0 + r) * w2 + l.j;
+    const bool in = zcol && r < l.nrow;
+    zx[r] = in ? __ldg(xp + at) : 0.0f;
+    zz[r] = in ? __ldg(zr + at) : 0.0f;
+  }
+  const int col[1] = {l.j};
+  float acc[1][R] = {};
+  direct_dot_formed<1, S, R>(acc, CascadeRh{zr, xp, h, Hl, l.row0, l.nrow},
+                             l.nrow, u, ldu, col, l.j < N, Hl, l.s);
+  slice_sum<1, S, R>(acc);
+  if (l.s != 0) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= l.nrow) continue;
+    const size_t row = l.row0 + r;
+    if (l.j < Hl) zout[row * Hl + l.j] = sigmoid_f(zx[r] + zz[r]);
+    if (l.j < N) p[row * N + l.j] = acc[0][r];
+  }
+}
+
 // f(std::integral_constant<int, S>) for the slices of K, s in {1, 2, 4,
 // 8, 16, 32}.
 template <typename F>
@@ -421,6 +546,18 @@ int by_slices(int s, F&& f) {
     case 8: return f(std::integral_constant<int, 8>());
     case 16: return f(std::integral_constant<int, 16>());
     case 32: return f(std::integral_constant<int, 32>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// f(std::integral_constant<int, R>) for a direct-route thread's batch rows,
+// r in {1, 2, 4} (8 never won a sweep of tools/shard_tiles.py: PERF.md).
+template <typename F>
+int by_rows(int r, F&& f) {
+  switch (r) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -521,7 +658,7 @@ extern "C" int gru_shard_matvec_launch(const float* x, int ldx,
   });
 }
 
-// The direct route (rows of R in {1, 2, 4, 8}, slices S in {1, 2, 4, 8,
+// The direct route (rows of R in {1, 2, 4}, slices S in {1, 2, 4, 8,
 // 16, 32}, `warps` warps of 32 a block, at most 8): the cascade's partial
 // product out (B, N) = x (B, K) @ w (K, N) ...
 extern "C" int gru_shard_matvec_direct_launch(const float* x, int ldx,
@@ -532,7 +669,7 @@ extern "C" int gru_shard_matvec_direct_launch(const float* x, int ldx,
   if (!valid_direct(warps)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return by_slices(slices, [&](auto sc) {
-    return by_tile(rows, [&](auto rc) {
+    return by_rows(rows, [&](auto rc) {
       constexpr int S = decltype(sc)::value, R = decltype(rc)::value;
       shard_matvec_direct_k<S, R><<<direct_grid(N, B, S, R, warps),
                                     32 * warps, 0, st>>>(x, ldx, w, ldw, out,
@@ -553,7 +690,7 @@ extern "C" int gru_rowwise_shard_direct_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return by_slices(slices, [&](auto sc) {
-    return by_tile(rows, [&](auto rc) {
+    return by_rows(rows, [&](auto rc) {
       constexpr int S = decltype(sc)::value, R = decltype(rc)::value;
       const dim3 grid = direct_grid(Hl, B, S, R, warps);
       switch (mode) {
@@ -590,6 +727,26 @@ extern "C" int gru_cascade_shard_zr_launch(const float* zr, const float* xp,
     cascade_zr_k<BT><<<tiles(N, B, BT, ct), kThreads, bytes, s>>>(
         zr, xp, h, u, ldu, z, p, B, Hl, N, ct, vec);
     return (int)cudaGetLastError();
+  });
+}
+
+// ... and the v1 cascade's middle phase (gru_cascade_shard_zr_launch's
+// operands).
+extern "C" int gru_cascade_shard_zr_direct_launch(
+    const float* zr, const float* xp, const float* h, const float* u, int ldu,
+    float* z, float* p, int B, int Hl, int N, int slices, int rows, int warps,
+    void* stream) {
+  if (!valid_direct(warps)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return by_slices(slices, [&](auto sc) {
+    return by_rows(rows, [&](auto rc) {
+      constexpr int S = decltype(sc)::value, R = decltype(rc)::value;
+      cascade_zr_direct_k<S, R><<<direct_grid(N > Hl ? N : Hl, B, S, R,
+                                              warps),
+                                  32 * warps, 0, st>>>(zr, xp, h, u, ldu, z,
+                                                       p, B, Hl, N);
+      return (int)cudaGetLastError();
+    });
   });
 }
 

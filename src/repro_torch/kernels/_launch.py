@@ -53,21 +53,34 @@ def check(name: str, t, shape: tuple, device: torch.device,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def check_problem(variant: Optional[str], B: int, T: int, H: int,
+                  L: int) -> None:
+    """Raise on a gate math other than :data:`VARIANTS` (None: a family
+    with one gate math) or an empty problem."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    if B < 1 or T < 1 or H < 1 or L < 1:
+        raise ValueError(f"empty problem: B={B} T={T} H={H} L={L}")
+
+
+def check_device(device: torch.device) -> None:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+
+
 def batch_tile(variant: Optional[str], B: int, T: int, H: int, L: int,
-               batch_block: int, device: torch.device,
+               batch_block: int, device: Optional[torch.device],
                smem: Callable[[int, int, int], int]) -> int:
     """Check the problem and return the batch tile of one block; raises if
     the tile has more rows than the block has threads (each of the first
     ``tile`` threads writes its row's liveness) or the block's shared
     memory (``smem(L, H, tile)``) exceeds a Hopper block's. ``variant``
     is the GRU gate math (``v1``/``v3``); None for a family with one gate
-    math, whose kernels take no variant."""
-    if variant is not None and variant not in VARIANTS:
-        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
-    if B < 1 or T < 1 or H < 1 or L < 1:
-        raise ValueError(f"empty problem: B={B} T={T} H={H} L={L}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
+    math, whose kernels take no variant. ``device`` None: a plan made
+    from shapes alone, checked by its wrapper."""
+    check_problem(variant, B, T, H, L)
+    if device is not None:
+        check_device(device)
     bt = batch_block or min(B, DEFAULT_BATCH_BLOCK)
     if not 1 <= bt <= THREADS:
         raise ValueError(f"batch_block {batch_block}: a tile takes 1 to "

@@ -5,7 +5,10 @@ Same names and array interface as the Pallas kernels in
 ``repro.kernels.gru_sequence.kernel``:
 
 * :func:`gru_sequence_kernel` — depth-1 sequence, h0 (B,H), x_proj
-  (T,B,3H), u (H,3H), b (3H,), optional mask (T,B) -> (T,B,H);
+  (T,B,3H), u (H,3H), b (3H,), optional mask (T,B) -> (T,B,H); it
+  launches the route :func:`seq_plan` picks (one warp per batch row where
+  H <= 32, else the block route of the other two) and keeps it as
+  ``last_plan``;
 * :func:`gru_stack_sequence_kernel` — fused depth-L sequence, h0 (L,B,H),
   u (L,H,3H), w_deep (L-1,H,3H) ((1,1,3H) for L=1, unused), b (L,3H)
   -> ((T,B,H) last layer, (L,B,H) finals);
@@ -27,9 +30,10 @@ Same names and array interface as the Pallas kernels in
   product), :func:`gru_cascade_shard_gates` (v3), :func:`gru_cascade_
   shard_zr` and :func:`gru_cascade_shard_update` (v1). Their gate-slice
   operands may be row-strided views (unit-stride columns). The three
-  row-wise kernels and the matvec launch the route :func:`shard_plan`
-  picks by kernel and shape (the direct route where the contraction is
-  short, else the column tile) and keep it as ``last_plan``.
+  row-wise kernels, the matvec and the cascade's middle phase launch the
+  route :func:`shard_plan` picks by kernel and shape (the direct route
+  where the contraction is short, else the column tile) and keep it as
+  ``last_plan``.
 
 Every wrapper checks device, dtype (float32; int8 weight rows for q8),
 shapes and contiguity and raises on anything the kernel does not take
@@ -53,11 +57,11 @@ LM's attention kernels, :data:`ATTN_KERNELS` (``flash_attention`` and
 ``cascade_matmul`` of ``repro_torch.kernels.rowwise_matvec.kernel``),
 and the shard kernels, :data:`SHARD_KERNELS`.
 
-A thread block takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows
-(the decode kernel's ``batch_block`` sets it, as in the JAX signature);
-the grid is ``ceil(B / tile)`` blocks. U, the deep layers' W, b and the
-per-layer h of one tile must fit the 227 KB of shared memory a Hopper
-block may use.
+A block of the fused kernels (and of the depth-1 kernel's block route)
+takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows (the decode
+kernel's ``batch_block`` sets it, as in the JAX signature); the grid is
+``ceil(B / tile)`` blocks. U, the deep layers' W, b and the per-layer h of
+one tile must fit the 227 KB of shared memory a Hopper block may use.
 """
 from __future__ import annotations
 
@@ -85,6 +89,8 @@ from repro_torch.kernels.slstm_cell.kernel import SLSTM_KERNELS
 _SIGNATURES = {        # launcher -> (library, argtypes)
     # h0, xp, u, b, mask, out, T, B, H, v3, bt, stream
     "gru_sequence_launch": ("gru_sequence", [P] * 6 + [I] * 5 + [P]),
+    # h0, xp, u, b, mask, out, T, B, H, v3, rows, warps, depth, stream
+    "gru_sequence_warp_launch": ("gru_sequence", [P] * 6 + [I] * 7 + [P]),
     # h0, xp, u, wd, b, mask, out, finals, T, B, H, L, v3, bt, stream
     "gru_stack_sequence_launch": ("gru_sequence", [P] * 8 + [I] * 6 + [P]),
     # h, xp, u, wd, b, out, B, H, L, v3, bt, stream
@@ -134,17 +140,79 @@ def _w_deep_shape(L: int, H: int) -> tuple:
     return (L - 1, H, 3 * H) if L > 1 else (1, 1, 3 * H)
 
 
+# The warp route's knobs, read off tools/seq_tiles.py on an H100 (PERF.md's
+# findings): one row a warp (two rows a lane took 1.2-1.75x as
+# long: one warp's issue slots run both rows' shuffles and fmas); 1-4
+# warps a block within 1 % of each other, 8 slower by 15-20 %; xp and the
+# mask 4 steps ahead, 4-10 % faster than 1-2 ahead at T >= 16, the same
+# at T=1. The block route past WARP_MAX_H.
+WARP_MAX_H = 32              # one output column a lane (kWarpMaxH)
+WARP_ROW_CHOICES = (1, 2)    # rows a warp the C entry takes
+WARP_DEPTHS = (1, 2, 4, 8)   # prefetch depths the C entry takes
+WARP_ROWS = 1
+WARP_WARPS = 2
+WARP_DEPTH = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqPlan:
+    """One launch of :func:`gru_sequence_kernel`: ``route`` "warp" (one warp
+    per ``rows`` batch rows, ``warps`` warps a block, xp and the mask
+    ``depth`` steps ahead) or "block" (``rows`` the batch tile of a block of
+    :data:`THREADS` threads, ``depth`` 0). ``grid`` blocks, ``threads`` per
+    block, ``smem`` dynamic bytes."""
+    route: str
+    rows: int
+    warps: int
+    depth: int
+    grid: int
+    threads: int
+    smem: int
+
+
+def warp_plan(B: int, rows: int, warps: int, depth: int) -> SeqPlan:
+    """The warp-route launch at explicit knobs."""
+    nwarps = -(-B // rows)
+    return SeqPlan("warp", rows, warps, depth, -(-nwarps // warps), 32 * warps,
+                   0)
+
+
+def block_plan(B: int, H: int, bt: int) -> SeqPlan:
+    """The block-route launch (``run_stack``) at batch tile ``bt``."""
+    return SeqPlan("block", bt, _launch.THREADS // 32, 0, -(-B // bt),
+                   _launch.THREADS, smem_bytes(1, H, bt))
+
+
+@functools.lru_cache(maxsize=512)
+def seq_plan(B: int, T: int, H: int, variant: str) -> SeqPlan:
+    """The launch of the depth-1 sequence kernel: the warp route where H <=
+    :data:`WARP_MAX_H` (:data:`WARP_ROWS` rows a warp, at most
+    :data:`WARP_WARPS` warps a block, no more than the rows need; xp
+    :data:`WARP_DEPTH` steps ahead), else the block route at
+    :func:`_launch.batch_tile`'s tile (which raises where one block's
+    shared memory does not fit)."""
+    _launch.check_problem(variant, B, T, H, 1)
+    if H > WARP_MAX_H:
+        return block_plan(B, H, _launch.batch_tile(
+            variant, B, T, H, 1, 0, None, smem_bytes))
+    nwarps = -(-B // WARP_ROWS)
+    return warp_plan(B, WARP_ROWS, min(WARP_WARPS, _pow2(nwarps)),
+                     WARP_DEPTH)
+
+
 def gru_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                         u: torch.Tensor, b: torch.Tensor,
                         mask: Optional[torch.Tensor] = None, *,
                         variant: str = "v1") -> torch.Tensor:
-    """Depth-1 GRU over T steps -> all hidden states (T,B,H)."""
+    """Depth-1 GRU over T steps -> all hidden states (T,B,H). Launches
+    :func:`seq_plan`'s route and keeps the plan as ``last_plan``."""
     if x_proj.dim() != 3:
         raise ValueError(f"x_proj: expected (T,B,3H), got {tuple(x_proj.shape)}")
     T, B, H3 = x_proj.shape
     H = H3 // 3
     dev = x_proj.device
-    bt = _launch.batch_tile(variant, B, T, H, 1, 0, dev, smem_bytes)
+    _launch.check_device(dev)
+    p = seq_plan(B, T, H, variant)
     _check("h0", h0, (B, H), dev)
     _check("x_proj", x_proj, (T, B, 3 * H), dev)
     _check("u", u, (H, 3 * H), dev)
@@ -154,11 +222,16 @@ def gru_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
     if dev.type == "cpu":
         return ref.gru_sequence_ref(h0, x_proj, u, b, mask, variant)
     out = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    err = _launcher("gru_sequence_launch")(
-        _ptr(h0), _ptr(x_proj), _ptr(u), _ptr(b), _ptr(mask), _ptr(out),
-        T, B, H, int(variant == "v3"), bt, _stream(dev))
+    head = (_ptr(h0), _ptr(x_proj), _ptr(u), _ptr(b), _ptr(mask), _ptr(out),
+            T, B, H, int(variant == "v3"))
+    if p.route == "warp":
+        err = _launcher("gru_sequence_warp_launch")(
+            *head, p.rows, p.warps, p.depth, _stream(dev))
+    else:
+        err = _launcher("gru_sequence_launch")(*head, p.rows, _stream(dev))
     _raise_on(err, "gru_sequence_kernel")
     gru_sequence_kernel.launches += 1
+    gru_sequence_kernel.last_plan = p
     return out
 
 
@@ -361,7 +434,8 @@ _ROWWISE_ARGS = [I, P, P, I, P, P, I, P, I, P, P, P] + [I] * 6 + [P]
 # x, ldx, w, ldw, out, B, K, N, bt, ct, vec, stream (the direct route's:
 # ..., N, slices, rows, warps, stream)
 _MATVEC_ARGS = [P, I, P, I, P] + [I] * 6 + [P]
-# zr, xp, h, u, ldu, z, p, B, Hl, N, bt, ct, vec, stream
+# zr, xp, h, u, ldu, z, p, B, Hl, N, bt, ct, vec, stream (the direct
+# route's: ..., N, slices, rows, warps, stream)
 _CZR_ARGS = [P] * 4 + [I, P, P] + [I] * 6 + [P]
 # in, in, in, out, B, Hl, stream
 _ELEMENTWISE_ARGS = [P] * 4 + [I, I, P]
@@ -406,20 +480,32 @@ def shard_tiles(B: int, K: int, G: int, ncols: int):
 # the SMs once. A kernel is its "kind": "matvec" (gru_shard_matvec, one
 # gate, K = Hl), "step" (the v3 row-wise step, three gates), "zr" and
 # "candidate" (the v1 pair: two gates, and one gate with the update), the
-# last three at K = H and N = Hl.
+# last three at K = H and N = Hl; "cascade_zr" (gru_cascade_shard_zr, the
+# v1 cascade's middle phase: one gate, K = Hl, N = H, z's Hl columns
+# beside it), whose lanes make a sigmoid for each of their k's: it is
+# fastest at 2 k's a lane, one row a thread and 4 warps, and on the
+# column tile from K = 128.
 SLICES = (1, 2, 4, 8, 16, 32)   # lanes that split K (the C entry takes)
-DIRECT_ROWS = (1, 2, 4, 8)   # batch rows of a direct-route thread (same)
+DIRECT_ROWS = (1, 2, 4)      # batch rows of a direct-route thread (same)
 DIRECT_MAX_WARPS = _launch.THREADS // 32
-SLICE_K = 4                  # k's of one lane's slice the rule aims for
+SLICE_K = 4                  # k's of one lane's slice the rule aims for,
+# by kind: the cascade's middle phase forms its operand (a sigmoid each k)
+# in the lane, one after another, so it gains from 2 k's a lane
+DIRECT_SLICE_K = {"matvec": SLICE_K, "step": SLICE_K, "zr": SLICE_K,
+                  "candidate": SLICE_K, "cascade_zr": 2}
 MAX_SLICES = 16
-KIND_GATES = {"matvec": 1, "step": 3, "zr": 2, "candidate": 1}
+KIND_GATES = {"matvec": 1, "step": 3, "zr": 2, "candidate": 1,
+              "cascade_zr": 1}
 # kind -> the longest K on the direct route
-DIRECT_MAX_K = {"matvec": 128, "step": 256, "zr": 256, "candidate": 256}
+DIRECT_MAX_K = {"matvec": 128, "step": 256, "zr": 256, "candidate": 256,
+                "cascade_zr": 64}
 # kind -> warps of a direct-route block, and batch rows of its thread (the
 # one-gate kernels: more warps of one row; the two- and three-gate ones:
 # fewer warps of two rows)
-DIRECT_WARPS = {"matvec": 4, "step": 2, "zr": 2, "candidate": 4}
-THREAD_ROWS = {"matvec": 1, "step": 2, "zr": 2, "candidate": 1}
+DIRECT_WARPS = {"matvec": 4, "step": 2, "zr": 2, "candidate": 4,
+                "cascade_zr": 4}
+THREAD_ROWS = {"matvec": 1, "step": 2, "zr": 2, "candidate": 1,
+               "cascade_zr": 1}
 WIDE_N = 512                 # a matvec this wide takes 4 rows a thread
 TILE_COLUMNS = (16, 8)       # the tile route's column tiles, widest first
 SHARD_SMS = 132              # an H100's SMs: one wave of the tile's grid
@@ -427,8 +513,9 @@ SHARD_SMS = 132              # an H100's SMs: one wave of the tile's grid
 
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
-    """One launch of a redesigned shard kernel (:func:`gru_shard_matvec`
-    and the three row-wise ones): ``route`` "direct" or "tile". Direct:
+    """One launch of a redesigned shard kernel (:func:`gru_shard_matvec`,
+    the three row-wise ones and :func:`gru_cascade_shard_zr`): ``route``
+    "direct" or "tile". Direct:
     ``slices`` lanes split K, each thread owns one column of ``rows``
     batch rows, ``warps`` warps a block. Tile: ``rows`` is the batch tile,
     ``ct`` the column tile, 8 warps a block, ``vec`` whether u loads as
@@ -450,11 +537,11 @@ def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def direct_slices(K: int) -> int:
+def direct_slices(K: int, slice_k: int = SLICE_K) -> int:
     """Lanes that split a contraction of K on the direct route: the fewest
-    (a power of two) that leave each about :data:`SLICE_K` k's, at most
+    (a power of two) that leave each about ``slice_k`` k's, at most
     :data:`MAX_SLICES`."""
-    return min(MAX_SLICES, _pow2(-(-K // SLICE_K)))
+    return min(MAX_SLICES, _pow2(-(-K // slice_k)))
 
 
 def direct_plan(B: int, N: int, slices: int, rows: int,
@@ -489,9 +576,12 @@ def shard_plan(B: int, K: int, G: int, N: int, vec: int,
     """The launch of a shard matvec of B rows, a contraction of K and G
     gates of N columns each, for kernel ``kind`` (:func:`shard_kind`: the
     matvec G = 1; the row-wise "step" G = 3, "zr" G = 2 and "candidate" G
-    = 1, each at N = Hl); ``vec``: u loads as aligned 16-byte vectors (the
+    = 1, each at N = Hl; "cascade_zr" G = 1, K = Hl, whose direct grid
+    covers max(N, K) columns, since its lanes of columns j < K store z);
+    ``vec``: u loads as aligned 16-byte vectors (the
     tile route only). The direct route where K <= :data:`DIRECT_MAX_K`
-    [kind], with :func:`direct_slices`, :data:`THREAD_ROWS` [kind] rows a
+    [kind], with :func:`direct_slices` at :data:`DIRECT_SLICE_K` [kind]
+    k's a lane, :data:`THREAD_ROWS` [kind] rows a
     thread (four for a matvec of at least :data:`WIDE_N` columns) and
     :data:`DIRECT_WARPS` [kind] warps a block. Else the column tile: of
     :data:`TILE_COLUMNS` and batch tiles 1-8, the largest grid within
@@ -500,10 +590,11 @@ def shard_plan(B: int, K: int, G: int, N: int, vec: int,
     one row does not fit a block, if neither column tile fits."""
     kind = shard_kind(G, kind)
     if K <= DIRECT_MAX_K[kind]:
-        slices = direct_slices(K)
+        slices = direct_slices(K, DIRECT_SLICE_K[kind])
         rows = 4 if kind == "matvec" and N >= WIDE_N else THREAD_ROWS[kind]
-        col_warps = -(-N // (32 // slices))
-        return direct_plan(B, N, slices, min(rows, _pow2(B)),
+        ncols = max(N, K) if kind == "cascade_zr" else N
+        col_warps = -(-ncols // (32 // slices))
+        return direct_plan(B, ncols, slices, min(rows, _pow2(B)),
                            min(DIRECT_WARPS[kind], _pow2(col_warps)))
     fits = [tile_plan(B, K, G, N, vec, bt, ct) for ct in TILE_COLUMNS
             for bt in (1, 2, 4, SHARD_MAX_ROWS)
@@ -706,7 +797,9 @@ def gru_cascade_shard_gates(g_local: torch.Tensor, xp_local: torch.Tensor,
 def gru_cascade_shard_zr(zr_local: torch.Tensor, xp_local: torch.Tensor,
                          h_shard: torch.Tensor, u_h_rows: torch.Tensor):
     """v1 cascade middle phase -> (z_local (B,Hl), ht_partial (B,H)):
-    u_h_rows (Hl,H) is this shard's rows of the candidate's U."""
+    u_h_rows (Hl,H) is this shard's rows of the candidate's U (row-strided
+    view allowed). Launches :func:`shard_plan`'s route (kind "cascade_zr")
+    and keeps the plan as ``last_plan``."""
     B, Hl, dev = _cascade_dims(h_shard)
     _check("zr_local", zr_local, (B, 2 * Hl), dev)
     _check("xp_local", xp_local, (B, 2 * Hl), dev)
@@ -715,19 +808,26 @@ def gru_cascade_shard_zr(zr_local: torch.Tensor, xp_local: torch.Tensor,
         raise ValueError("u_h_rows (Hl,H) expected")
     N = u_h_rows.shape[1]
     ldu = _rows("u_h_rows", u_h_rows, (Hl, N), dev)
-    bt, ct = shard_tiles(B, Hl, 1, N)
+    vec = _vector(u_h_rows, ldu, N)
+    p = shard_plan(B, Hl, 1, N, vec, "cascade_zr")
     if dev.type == "cpu":
         return ref.gru_cascade_shard_zr_ref(zr_local, xp_local, h_shard,
                                             u_h_rows)
     z = torch.empty((B, Hl), dtype=torch.float32, device=dev)
-    p = torch.empty((B, N), dtype=torch.float32, device=dev)
-    err = _shard_launcher("gru_cascade_shard_zr_launch", _CZR_ARGS)(
-        _ptr(zr_local), _ptr(xp_local), _ptr(h_shard), _ptr(u_h_rows), ldu,
-        _ptr(z), _ptr(p), B, Hl, N, bt, ct, _vector(u_h_rows, ldu, N),
-        _stream(dev))
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    head = (_ptr(zr_local), _ptr(xp_local), _ptr(h_shard), _ptr(u_h_rows),
+            ldu, _ptr(z), _ptr(out), B, Hl, N)
+    if p.route == "tile":
+        err = _shard_launcher("gru_cascade_shard_zr_launch", _CZR_ARGS)(
+            *head, p.rows, p.ct, vec, _stream(dev))
+    else:
+        err = _shard_launcher("gru_cascade_shard_zr_direct_launch",
+                              _CZR_ARGS)(
+            *head, p.slices, p.rows, p.warps, _stream(dev))
     _raise_on(err, "gru_cascade_shard_zr")
     gru_cascade_shard_zr.launches += 1
-    return z, p
+    gru_cascade_shard_zr.last_plan = p
+    return z, out
 
 
 def gru_cascade_shard_update(z_local: torch.Tensor, ht_in_local: torch.Tensor,
@@ -774,7 +874,8 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
-for _fn in (gru_rowwise_shard_step, gru_rowwise_shard_zr,
-            gru_rowwise_shard_candidate, gru_shard_matvec):
+for _fn in (gru_sequence_kernel, gru_rowwise_shard_step,
+            gru_rowwise_shard_zr, gru_rowwise_shard_candidate,
+            gru_shard_matvec, gru_cascade_shard_zr):
     _fn.last_plan = None
 del _fn

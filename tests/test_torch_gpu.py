@@ -85,6 +85,103 @@ def test_sequence_kernels_match_plain(cuda_device, LH, B, T, variant,
     assert [k.launches for k in K.KERNELS] == [int(L == 1), int(L > 1), 0]
 
 
+# the depth-1 sequence kernel's warp route (H <= 32) and block route
+SEQ_WARP_CASES = list(itertools.product((1, 5, 20, 31, 32), (1, 8, 64),
+                                        (1, 8, 32, 33), ("v1", "v3"),
+                                        (False, True)))
+
+
+def _seq_forced(h0, xp, u, b, m, variant, plan):
+    """The depth-1 sequence kernel's C entry at an explicit plan (the route
+    forced, as chip_smoke.py and tools/seq_tiles.py force it)."""
+    from repro_torch.kernels import _launch
+    T, B, H = xp.shape[0], xp.shape[1], h0.shape[1]
+    out = torch.empty(T, B, H, device=xp.device)
+    head = (h0.data_ptr(), xp.data_ptr(), u.data_ptr(), b.data_ptr(),
+            None if m is None else m.data_ptr(), out.data_ptr(), T, B, H,
+            int(variant == "v3"))
+    if plan.route == "warp":
+        err = K._launcher("gru_sequence_warp_launch")(
+            *head, plan.rows, plan.warps, plan.depth,
+            _launch.stream(xp.device))
+    else:
+        err = K._launcher("gru_sequence_launch")(*head, plan.rows,
+                                                 _launch.stream(xp.device))
+    assert err == 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,B,T,variant,masked", SEQ_WARP_CASES)
+def test_sequence_warp_route_matches_plain_and_block(cuda_device, H, B, T,
+                                                     variant, masked):
+    """The wrapper launches seq_plan's warp route at H <= 32; it agrees with
+    the plain version and with the block route forced on the same
+    inputs."""
+    a = _inputs(1, H, B, T, cuda_device, seed=H * 1000 + B * 10 + T)
+    args = (a["h0"][0], a["xp"], a["u"][0], a["b"][0],
+            a["mask"] if masked else None)
+    K.reset_launch_counts()
+    got = K.gru_sequence_kernel(*args, variant=variant)
+    assert K.gru_sequence_kernel.last_plan == K.seq_plan(B, T, H, variant)
+    assert K.gru_sequence_kernel.last_plan.route == "warp"
+    assert K.gru_sequence_kernel.launches == 1
+    want = ref.gru_sequence_ref(*args, variant)
+    blk = _seq_forced(*args, variant, K.block_plan(B, H, min(B, 4)))
+    assert _max_err([(got, want), (blk, want), (got, blk)]) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,warps,depth", ((2, 1, 1), (1, 8, 8),
+                                              (2, 4, 2), (1, 1, 4)))
+def test_sequence_warp_route_takes_every_knob(cuda_device, rows, warps,
+                                              depth):
+    """Knobs the plan does not pick today but the sweep forces: B = 13 and
+    T = 9 leave a ragged last warp and a ragged ring."""
+    a = _inputs(1, 20, 13, 9, cuda_device, seed=rows * 100 + warps + depth)
+    for variant in ("v1", "v3"):
+        args = (a["h0"][0], a["xp"], a["u"][0], a["b"][0], a["mask"])
+        got = _seq_forced(*args, variant,
+                          K.warp_plan(13, rows, warps, depth))
+        assert _max_err([(got, ref.gru_sequence_ref(*args, variant))]) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", (20, 32))
+@pytest.mark.parametrize("variant", ("v1", "v3"))
+def test_sequence_warp_route_left_padding_is_bitwise(cuda_device, H,
+                                                     variant):
+    """A left-padded masked prefill (ragged prompts in a T=32 bucket) ends
+    bit for bit where each row's unpadded prompt ends, on the warp
+    route."""
+    B, T = 8, 32
+    a = _inputs(1, H, B, T, cuda_device, seed=H)
+    lens = [1, 5, 9, 16, 20, 31, 32, 3]
+    mask = torch.ones(T, B, device=cuda_device)
+    for i, n in enumerate(lens):
+        mask[:T - n, i] = 0.0
+    h0, xp, u, b = a["h0"][0], a["xp"], a["u"][0], a["b"][0]
+    padded = K.gru_sequence_kernel(h0, xp, u, b, mask, variant=variant)
+    assert K.gru_sequence_kernel.last_plan.route == "warp"
+    for i, n in enumerate(lens):
+        alone = K.gru_sequence_kernel(h0, xp[T - n:].contiguous(), u, b,
+                                      variant=variant)
+        assert torch.equal(padded[-1, i], alone[-1, i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", (33, 40, 64))
+@pytest.mark.parametrize("B", (1, 8))
+def test_sequence_block_route_past_warp_width(cuda_device, H, B):
+    """Past WARP_MAX_H the wrapper launches the block route."""
+    a = _inputs(1, H, B, 8, cuda_device, seed=H + B)
+    for variant in ("v1", "v3"):
+        args = (a["h0"][0], a["xp"], a["u"][0], a["b"][0], a["mask"])
+        got = K.gru_sequence_kernel(*args, variant=variant)
+        assert K.gru_sequence_kernel.last_plan.route == "block"
+        assert _max_err([(got, ref.gru_sequence_ref(*args, variant))]) <= TOL
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("LH", ((1, 20), (3, 32)))
 @pytest.mark.parametrize("B", (1, 5, 64))
@@ -852,10 +949,12 @@ def test_one_rank_mesh_runs_the_shard_kernels(cuda_device, variant):
     assert _max_err(list(zip(finals, want)) + list(zip(hs, want_hs))) <= TOL
 
 
-# the redesigned kernels (rows 12-15): the direct route at the paper's
-# widths, the column tile where the contraction is long (shard_plan)
+# the redesigned kernels (rows 12-15 and 17): the direct route at the
+# paper's widths, the column tile where the contraction is long
+# (shard_plan)
 REDESIGNED = ("gru_rowwise_shard_step", "gru_rowwise_shard_zr",
-              "gru_rowwise_shard_candidate", "gru_shard_matvec")
+              "gru_rowwise_shard_candidate", "gru_shard_matvec",
+              "gru_cascade_shard_zr")
 
 
 def _planned(name, args):
@@ -864,6 +963,11 @@ def _planned(name, args):
         x, w = args
         return K.shard_plan(x.shape[0], x.shape[1], 1, w.shape[1],
                             K._vector(w, w.stride(0), w.shape[1]), "matvec")
+    if name == "gru_cascade_shard_zr":
+        h, u = args[2], args[3]
+        return K.shard_plan(h.shape[0], h.shape[1], 1, u.shape[1],
+                            K._vector(u, u.stride(0), u.shape[1]),
+                            "cascade_zr")
     kind = K._ROWWISE_MODES[name][1]
     G = K.KIND_GATES[kind]
     x, h_local, u = args[0], args[1], args[-2]
@@ -906,7 +1010,8 @@ def test_redesigned_shard_kernels_take_misaligned_views(cuda_device, B):
     """Hl = 5 (gru-jet over 4 ranks): gate offsets off 16 bytes, and u and
     w as views one float into their storage (no 16-byte address); the v1
     pair's candidate slices (u_h, xp_h) 2Hl floats into the shard's
-    columns, its zr slices of row stride 3Hl."""
+    columns, its zr slices of row stride 3Hl; the cascade's u_h_rows a
+    view 2H + 1 floats into rows of 3H + 1."""
     H, n = 20, 4
     Hl = H // n
     g = torch.Generator().manual_seed(B)
@@ -918,7 +1023,9 @@ def test_redesigned_shard_kernels_take_misaligned_views(cuda_device, B):
     w = rand(Hl, 3 * H + 1, scale=H ** -0.5)[:, 1:2 * H + 1]
     x = rand(B, Hl + 3, scale=0.5)[:, 3:]
     xp, b = rand(B, 3 * Hl), rand(3 * Hl)
+    uh_rows = rand(Hl, 3 * H + 1, scale=H ** -0.5)[:, 2 * H + 1:]
     assert u.data_ptr() % 16 and w.data_ptr() % 16 and x.data_ptr() % 16
+    assert uh_rows.data_ptr() % 16
     assert u[:, 2 * Hl:].data_ptr() % 16 and xp[:, 2 * Hl:].data_ptr() % 16
     args = {"gru_rowwise_shard_step": (h, h[:, 3 * Hl:], xp, u, b),
             "gru_rowwise_shard_zr": (h, h[:, 3 * Hl:], xp[:, :2 * Hl],
@@ -927,7 +1034,9 @@ def test_redesigned_shard_kernels_take_misaligned_views(cuda_device, B):
                 rand(B, H, scale=0.5), h[:, 3 * Hl:],
                 torch.sigmoid(rand(B, Hl)), xp[:, 2 * Hl:], u[:, 2 * Hl:],
                 b[2 * Hl:]),
-            "gru_shard_matvec": (x, w)}
+            "gru_shard_matvec": (x, w),
+            "gru_cascade_shard_zr": (rand(B, 2 * Hl), rand(B, 2 * Hl),
+                                     x.contiguous(), uh_rows)}
     for name in REDESIGNED:
         got = _outs(getattr(K, name)(*args[name]))
         want = _outs(getattr(ref, name + "_ref")(*args[name]))
@@ -953,8 +1062,9 @@ def test_redesigned_shard_kernels_are_deterministic(cuda_device, H, n, B):
         assert fn.launches == 2
         assert all(k.launches == 0 for k in K.SHARD_KERNELS if k is not fn)
         assert fn.last_plan == _planned(name, args)
-    for name, kind in (("gru_rowwise_shard_step", "step"),
-                       ("gru_rowwise_shard_zr", "zr"),
-                       ("gru_rowwise_shard_candidate", "candidate")):
+    for name, kind, Kc in (("gru_rowwise_shard_step", "step", H),
+                           ("gru_rowwise_shard_zr", "zr", H),
+                           ("gru_rowwise_shard_candidate", "candidate", H),
+                           ("gru_cascade_shard_zr", "cascade_zr", H // n)):
         assert getattr(K, name).last_plan.route == (
-            "tile" if H > K.DIRECT_MAX_K[kind] else "direct")
+            "tile" if Kc > K.DIRECT_MAX_K[kind] else "direct")

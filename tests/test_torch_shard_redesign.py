@@ -1,7 +1,8 @@
 """The redesigned shard kernels' structure, on the CPU: the launch plan of
-``gru_shard_matvec`` and the three row-wise kernels,
+``gru_shard_matvec``, the three row-wise kernels,
 ``gru_rowwise_shard_step`` (v3), ``gru_rowwise_shard_zr`` and
-``gru_rowwise_shard_candidate`` (the v1 pair)
+``gru_rowwise_shard_candidate`` (the v1 pair), and the v1 cascade's middle
+phase ``gru_cascade_shard_zr``
 (``repro_torch.kernels.gru_sequence.kernel.shard_plan``), and the direct
 route's summation order.
 
@@ -12,13 +13,16 @@ route's summation order.
   once, the slices of a direct-route column read every k exactly once, a
   block stays within 1024 threads and a Hopper block's shared memory, and
   the route is the direct one exactly where the rule says; the v1 pair's
-  plans (K = H, N = Hl) likewise, z and r*h each stored once.
+  plans (K = H, N = Hl) likewise, z and r*h each stored once; the
+  cascade's middle phase (K = Hl, N = H, and N < Hl) likewise, each z and
+  each element of its product stored once.
 * The direct route's order of summation, emulated in numpy
   (:func:`direct_matvec`: each slice's k's in order by fma from 0, then
   the fixed butterfly over the slices) and the three row-wise epilogues in
-  the kernel's order, against JAX's Pallas ``gru_shard_matvec``,
-  ``gru_rowwise_shard_step``, ``gru_rowwise_shard_zr`` and
-  ``gru_rowwise_shard_candidate`` in interpret mode within ``SHARD_TOL``,
+  the kernel's order, and the cascade's r*h formed as its lanes form it,
+  against JAX's Pallas ``gru_shard_matvec``, ``gru_rowwise_shard_step``,
+  ``gru_rowwise_shard_zr``, ``gru_rowwise_shard_candidate`` and
+  ``gru_cascade_shard_zr`` in interpret mode within ``SHARD_TOL``,
   at every slice count. No CUDA kernel runs here: this is the one check of
   the new order that does not need the card.
 """
@@ -141,6 +145,48 @@ def test_v1_pair_plan_is_legal(kind, G, outputs, B, H, Hl):
             assert p.vec == vec
 
 
+# the cascade's middle phase: (B, K = Hl, N = H) on one rank of n, and two
+# shapes whose product is narrower than z (the grid must still cover z)
+CZR_SHAPES = sorted({(B, H // n, H) for H, B in DRIVEN + WIDE for n in RANKS}
+                    | {(8, 16, 3), (3, 5, 2), (64, 160, 7)})
+
+
+def _czr_tile_z_stores(p, B, Hl):
+    """How often the column tile stores each z: the blocks of column tile
+    0 walk the Hl x bt elements of their batch tile."""
+    hits = np.zeros((B, Hl), dtype=np.int64)
+    for by in range(p.grid[1]):
+        i = np.arange(Hl * p.rows)
+        row, k = by * p.rows + i % p.rows, i // p.rows
+        keep = row < B
+        np.add.at(hits, (row[keep], k[keep]), 1)
+    return hits
+
+
+@pytest.mark.parametrize("B,Hl,N", CZR_SHAPES)
+def test_cascade_zr_plan_is_legal(B, Hl, N):
+    """The v1 cascade's middle phase: the direct route up to its own
+    DIRECT_MAX_K over max(N, Hl) columns, z (Hl columns) and the product
+    (N) each stored exactly once on either route."""
+    for vec in (0, 1):
+        p = K.shard_plan(B, Hl, 1, N, vec, "cascade_zr")
+        assert p.route == ("direct" if Hl <= K.DIRECT_MAX_K["cascade_zr"]
+                           else "tile")
+        assert p.threads <= MAX_THREADS and p.smem <= SMEM_LIMIT
+        assert (_stores(p, B, N) == 1).all()
+        if p.route == "direct":
+            assert (_stores(p, B, Hl) == 1).all()
+            assert p.slices == K.direct_slices(
+                Hl, K.DIRECT_SLICE_K["cascade_zr"]) and p.smem == 0
+            assert p.rows == min(K.THREAD_ROWS["cascade_zr"], K._pow2(B))
+            assert p.warps == min(K.DIRECT_WARPS["cascade_zr"], K._pow2(
+                -(-max(N, Hl) // (32 // p.slices))))
+        else:
+            assert (_czr_tile_z_stores(p, B, Hl) == 1).all()
+            assert p.smem == K.smem_bytes_shard(Hl, p.rows, 1, p.ct)
+            assert p.vec == vec
+
+
 def test_shard_plan_names_the_kind():
     """G alone names the matvec, zr and step kinds; the candidate (one gate,
     like the matvec) is named, and a kind with the wrong gates raises."""
@@ -246,6 +292,26 @@ def _v1_args(a, Hl):
     return zr, cand
 
 
+def direct_cascade_zr(zr, xp, h, u, slices):
+    """The v1 cascade's middle phase as the direct kernel computes it: z =
+    sigmoid(xp + zr) of the z gate; each lane's operand r*h =
+    sigmoid(xp + zr) * h of the r gate at its k's, summed by
+    :func:`direct_matvec`."""
+    Hl = h.shape[1]
+    z = _sigmoid(xp[:, :Hl] + zr[:, :Hl])
+    rh = _sigmoid(xp[:, Hl:] + zr[:, Hl:]) * h
+    return z, direct_matvec(rh, u, slices)
+
+
+def _close_cascade_zr(a, H, slices):
+    """The cascade's middle phase's emulation against JAX's interpret-mode
+    kernel, on the mesh path's (Hl, H) view of u's candidate rows."""
+    args = (a["zr"], a["xp2"], a["h_shard"], a["u_rows"][:, 2 * H:])
+    want = JK.gru_cascade_shard_zr(*map(jnp.asarray, args), interpret=True)
+    for got, w in zip(direct_cascade_zr(*args, slices), want):
+        close(got, w, tol=SHARD_TOL)
+
+
 def _close_v1(a, Hl, slices):
     """Both v1 kernels' emulations against JAX's interpret-mode kernels."""
     zr, cand = _v1_args(a, Hl)
@@ -272,7 +338,8 @@ def _operands(H, n, B, seed):
                 h_shard=_f32(rng, B, Hl, scale=0.5),
                 u_rows=_f32(rng, Hl, 3 * H, scale=H ** -0.5),
                 rh_full=_f32(rng, B, H, scale=0.5),
-                z=(1 / (1 + np.exp(-_f32(rng, B, Hl)))).astype(np.float32))
+                z=(1 / (1 + np.exp(-_f32(rng, B, Hl)))).astype(np.float32),
+                zr=_f32(rng, B, 2 * Hl), xp2=_f32(rng, B, 2 * Hl))
 
 
 # (H, ranks) on the direct route: the paper's widths and two wider ones
@@ -310,11 +377,25 @@ def test_direct_v1_pair_order_matches_pallas(H, n):
     _close_v1(a, H // n, K.direct_slices(H))
 
 
+@pytest.mark.parametrize("H,n", ORDER_SHAPES)
+def test_direct_cascade_zr_order_matches_pallas(H, n):
+    """At the slices the plan gives the direct route (Hl = 128 plans the
+    column tile; the sweep forces the direct route there too)."""
+    a = _operands(H, n, 8, seed=H * 10 + n + 3)
+    Hl = H // n
+    p = K.shard_plan(8, Hl, 1, H, 0, "cascade_zr")
+    assert p.route == ("direct" if Hl <= K.DIRECT_MAX_K["cascade_zr"]
+                       else "tile")
+    _close_cascade_zr(a, H, K.direct_slices(
+        Hl, K.DIRECT_SLICE_K["cascade_zr"]))
+
+
 @pytest.mark.parametrize("slices", K.SLICES)
 def test_every_slice_count_sums_within_tolerance(slices):
     """Each slice count the sweep may force (tools/shard_tiles.py), at
     gru-jet-deep's widths, B = 3: the butterfly of 1 to 32 slices, for
-    the matvec and the three row-wise kernels."""
+    the matvec, the three row-wise kernels and the cascade's middle
+    phase."""
     a = _operands(32, 2, 3, seed=slices)
     args = (a["h_full"], a["h_local"], a["xp"], a["u"], a["b"])
     close(direct_step(*args, slices),
@@ -325,3 +406,4 @@ def test_every_slice_count_sums_within_tolerance(slices):
           JK.gru_shard_matvec(jnp.asarray(a["h_shard"]), jnp.asarray(w),
                               interpret=True), tol=SHARD_TOL)
     _close_v1(a, 16, slices)
+    _close_cascade_zr(a, 32, slices)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Route and tile sweep of the port's four redesigned shard kernels on
+"""Route and tile sweep of the port's five redesigned shard kernels on
 one CUDA card, ``csrc/gru_shard.cu``: ``gru_shard_matvec`` (the cascade's
-partial product), ``gru_rowwise_shard_step`` (the v3 row-wise step), and
+partial product), ``gru_rowwise_shard_step`` (the v3 row-wise step),
 ``gru_rowwise_shard_zr`` and ``gru_rowwise_shard_candidate`` (the v1
-row-wise pair, around the gather of r*h).
+row-wise pair, around the gather of r*h), and ``gru_cascade_shard_zr``
+(the v1 cascade's middle phase).
 
 Forces every route and knob through the C entry points, with explicit
 arguments: the direct route at each slice count S (lanes that split K),
@@ -21,7 +22,7 @@ the plan's rule can be read off the table.
 
 Then the served ``cuda_sharded`` decode step of gru-jet-deep v1 and v3 on
 a one-rank mesh without a group (``chip_smoke.profile_mesh_decode``),
-once with the wrapper's plans and once with all four kernels forced to
+once with the wrapper's plans and once with all five kernels forced to
 the column tile at ``kernel.shard_tiles``'s tile (the device code they
 ran before the direct route), in turns tile, plan, plan, tile. It prints
 ``-Xptxas -v``'s lines for the direct route's kernels first. The table
@@ -93,6 +94,20 @@ def main() -> None:
         (("direct", S, R, warps) or ("tile", bt, ct)); reads the current
         stream at each call, so a graph capture records it."""
         route = knobs[0]
+        if name == "gru_cascade_shard_zr":
+            zr, xp2, h, u = a
+            head = [zr.data_ptr(), xp2.data_ptr(), h.data_ptr(), u.data_ptr(),
+                    u.stride(0), out_[0].data_ptr(), out_[1].data_ptr(),
+                    h.shape[0], h.shape[1], u.shape[1]]
+            if route == "direct":
+                fn = _launch.launcher("gru_shard",
+                                      "gru_cascade_shard_zr_direct_launch",
+                                      K._CZR_ARGS)
+                return lambda: fn(*head, *knobs[1:], _launch.stream(dev))
+            fn = _launch.launcher("gru_shard", "gru_cascade_shard_zr_launch",
+                                  K._CZR_ARGS)
+            vec = K._vector(u, u.stride(0), u.shape[1])
+            return lambda: fn(*head, *knobs[1:], vec, _launch.stream(dev))
         if name == "gru_shard_matvec":
             x, w = a
             ld = (x.stride(0), w.stride(0))
@@ -132,10 +147,10 @@ def main() -> None:
         want = getattr(ref, name + "_ref")(*args_)
         want = want if isinstance(want, tuple) else (want,)
         out_ = tuple(torch.empty_like(w) for w in want)
-        Kc = args_[0].shape[1]
-        G = (1 if name == "gru_shard_matvec"
+        Kc = args_[2 if name == "gru_cascade_shard_zr" else 0].shape[1]
+        G = (1 if name in ("gru_shard_matvec", "gru_cascade_shard_zr")
              else K.KIND_GATES[K._ROWWISE_MODES[name][1]])
-        N = want[0].shape[1]
+        N = want[-1].shape[1]     # the cascade's p, not its z
         head = (f"{name:27s} H={H:3d} ranks={n} B={B:2d} K={Kc:3d} "
                 f"N={N:4d}")
         plan = cs.planned(K, name, args_)
