@@ -12,7 +12,8 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_cell_q8``, ``slstm_cell``, ``flash_attn``, ``decode_attn``,
    ``gru_cell``, ``rowwise_matvec`` and ``gru_shard``, one ``nvcc`` each,
    started together) and print ``-Xptxas -v``'s report (``gru_shard``'s
-   functions and ``gru_sequence_kernel``'s, both routes, must not spill)
+   functions, row 16's among them, ``gru_sequence_kernel``'s, both
+   routes, and ``gru_step_q8``'s warp route must not spill)
    and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree), the row-wise
@@ -31,6 +32,9 @@ Phases (any failure exits non-zero, before the result lines):
    warp route at these widths), and its block route, forced through the C
    entry at every shape beside it, must agree with the plain version too;
    the largest difference between the two routes is reported;
+   ``gru_step_q8`` likewise must launch the route ``step_q8_plan`` names
+   (the warp route at these widths), and its block route, forced beside
+   it, must agree with the plain version and equal it bit for bit;
 3b. hold the seven shard kernels (the ``cuda_sharded`` backend's per-rank
    steps) against their plain versions on the card at gru-jet's (H=20)
    and gru-jet-deep's (H=32) shard widths and at wide shards (H 64, 256,
@@ -40,6 +44,10 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_rowwise_shard_zr``, ``gru_rowwise_shard_candidate``,
    ``gru_shard_matvec``, ``gru_cascade_shard_zr``) must launch the route
    ``shard_plan`` names (direct or column tile);
+   ``gru_cascade_shard_gates`` runs as the mesh step calls it (gate views
+   of the full (B,3H) gates and projection, b's view) and must equal the
+   sequence it replaced (+ b, two slice copies, the contiguous call) bit
+   for bit;
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
@@ -66,7 +74,8 @@ Phases (any failure exits non-zero, before the result lines):
 7. the same three pinned to ``cuda_chain_q8``: ``gru_sequence_q8_kernel``
    must launch L times per prefill and ``gru_step_q8`` L times per step,
    no other kernel and no plain version may run, and the class streams and
-   prefill logits must equal the CPU run of the same pin;
+   prefill logits must equal the CPU run of the same pin; every served
+   call of ``gru_step_q8`` must launch the warp route;
 8. serve the sLSTM family: slstm-jet and slstm-jet with ``num_layers=3,
    hidden_dim=32`` through ``ServeEngine`` with ``backend="cuda"``, with
    the counters zeroed just before: every prefill and step attributed to
@@ -122,7 +131,10 @@ Phases (any failure exits non-zero, before the result lines):
    once, a prefill T times that; no plain version and no other kernel;
    only this rank's slices on the card; streams equal to the ``eager``
    engine's and across ranks; prefill logits within 1e-5 of the dense
-   reference (v3: the eager stack). Then once under ``backend="cuda"``:
+   reference (v3: the eager stack); the v3 cascade layer's step, 20 calls
+   under ``torch.profiler`` on each rank, must launch the matvec and
+   ``gru_cascade_shard_gates`` once a call and no cat or add kernel
+   around them. Then once under ``backend="cuda"``:
    prefill on ``cuda_sharded``, decode on ``cuda_fused``. Each mesh also
    profiles a served ``cuda_sharded`` decode step (reported in phase 12).
    A rank that fails fails the script;
@@ -139,6 +151,12 @@ Phases (any failure exits non-zero, before the result lines):
    shapes (its served shapes split by launches) and beside one
    ``torch.nn.GRU`` (cuDNN) call on the v3 unmasked work at T=32 B=8 H=32,
    ``gru_cascade_shard_zr`` beside its old column tile (timed only);
+   ``gru_step_q8`` beside its block route forced at the same shapes (its
+   served shapes split by launches), ``gru_cascade_shard_gates`` beside
+   the epilogue it replaced (+ b, two slice copies, the kernel) and the
+   kernel on contiguous slices; the served gru-jet-deep ``cuda_chain_q8``
+   decode step and its v3 twin's one-rank ``cuda_sharded`` step with the
+   old route forced and the new, in turns (profiler);
    the shard kernels at the mesh path's shapes (``torch.matmul`` beside
    the matvec; each kernel's route printed); the served ``cuda_sharded``
    decode step on a one-rank mesh without a group (no collective; v1 and
@@ -301,7 +319,8 @@ def build_kernels():
     spills = [f for f, ln in frames if not no_spill(ln)]
     check(frames and not spills, f"gru_shard: ptxas reports spills in "
           f"{spills[:3]}")
-    print(f"  gru_shard: {len(frames)} functions, no spills (ptxas)")
+    print(f"  gru_shard: {len(frames)} functions (row 16's cascade_gates_k "
+          f"among them), no spills (ptxas)")
     # row 1's two routes (the block route's kernel, gru_sequence_k, and
     # every gru_sequence_warp_k instance)
     frames = [(f, ln) for f, ln in spill_frames("gru_sequence")
@@ -311,6 +330,15 @@ def build_kernels():
           f"spills in row 1's kernels {spills[:3]}")
     print(f"  gru_sequence: row 1's {len(frames)} functions (block route "
           f"and warp route instances), no spills (ptxas)")
+    # row 7's warp route: its four instances (v1/v3, word/byte loads)
+    frames = [(f, ln) for f, ln in spill_frames("gru_cell_q8")
+              if "gru_step_q8_warp_k" in f]
+    spills = [f for f, ln in frames if not no_spill(ln)]
+    check(len(frames) == 4 and not spills, f"gru_cell_q8: ptxas reports "
+          f"spills in row 7's warp route {spills[:3]} ({len(frames)} "
+          f"instances)")
+    print(f"  gru_cell_q8: row 7's {len(frames)} warp-route instances, no "
+          f"spills (ptxas)")
     # all shared memory is dynamic, so ptxas does not report it
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.slstm_cell import kernel as SK
@@ -510,7 +538,7 @@ def run_kernel(K, ref, name, a, variant, masked, plain):
     if name in CHAIN_Q8:              # one layer's own int8 rows (L = 1)
         u_q, u_eff, _, _, b = (x[0] for x in a["q8"])
         if name == "gru_step_q8":
-            args = (a["h0"][0], a["xp"][0], u_q, u_eff, b)
+            args = q8_step_args(a)
             if plain:
                 return (cref.gru_step_q8_ref(*args, variant),)
             return (CK.gru_step_q8(*args, variant=variant),)
@@ -599,6 +627,53 @@ def block_route(K, B, H):
     return K.block_plan(B, H, min(B, K.DEFAULT_BATCH_BLOCK))
 
 
+def step_q8_route_fn(torch, step, variant, plan, vec=None):
+    """A call of the q8 step's C entry on ``step`` (h, xp, u_q, u_eff, b) at
+    an explicit plan (``kernel.step_q8_warp_plan`` or
+    ``kernel.step_q8_block_plan``; ``vec``: the warp route's word loads of
+    U, None for the wrapper's choice), into a fresh output: the route
+    forced, for phase 3's check of both routes, the before/after times of
+    phase 12 and ``tools/step_q8_tiles.py``. Reads the current stream at
+    each call, so a CUDA-graph capture records it; raises if the launch is
+    refused."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.gru_cell import kernel as CK
+    h, xp, u_q, u_eff, b = step
+    B, H = h.shape
+    out = torch.empty(B, H, device=h.device)
+    head = (h.data_ptr(), xp.data_ptr(), u_q.data_ptr(), u_eff.data_ptr(),
+            b.data_ptr(), out.data_ptr(), B, H, int(variant == "v3"))
+    if plan.route == "warp":
+        fn = _launch.launcher("gru_cell_q8", "gru_step_q8_warp_launch",
+                              CK._WARP_ARGS)
+        tail = (plan.warps, CK.q8_words(H, u_q) if vec is None else vec)
+    else:
+        fn = _launch.launcher("gru_cell_q8", "gru_step_q8_launch",
+                              CK._ARGTYPES)
+        tail = (plan.rows,)
+
+    def call():
+        _launch.raise_on(fn(*head, *tail, _launch.stream(h.device)),
+                         f"gru_step_q8 forced {plan}")
+        return out
+    return call
+
+
+def step_q8_block_route(B, H):
+    """The q8 step's block route at the tile the wrapper gave it before the
+    warp route: ``min(B, DEFAULT_BATCH_BLOCK)`` rows."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.gru_cell import kernel as CK
+    return CK.step_q8_block_plan(B, H, min(B, _launch.DEFAULT_BATCH_BLOCK))
+
+
+def q8_step_args(a):
+    """The q8 step's operands from :func:`make_inputs` (L = 1): h, xp of the
+    first step, the layer's int8 rows, scales and bias."""
+    u_q, u_eff, _, _, b = (x[0] for x in a["q8"])
+    return (a["h0"][0], a["xp"][0], u_q, u_eff, b)
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
@@ -608,6 +683,9 @@ def check_kernels(torch, dev):
     frozen_rows = {n: 0 for n in SLSTM}      # fully masked rows held bitwise
     # row 1: the route each call launched, the block route forced beside it
     seq_routes, err_block, route_diff, same_bits = {}, 0.0, 0.0, 0
+    # row 7 likewise; its two routes must agree bit for bit
+    q8_routes, err_q8_block, q8_same = {}, 0.0, 0
+    from repro_torch.kernels.gru_cell import kernel as CK
     for name, shapes in MAIN_SHAPES.items():
         Ts = ((1,) if name in DECODE else (8, 16, 32))
         if name in STEP_TOO:
@@ -654,6 +732,27 @@ def check_kernels(torch, dev):
                                 route_diff = max(route_diff, (
                                     got[0] - blk).abs().max().item())
                                 same_bits += int(torch.equal(got[0], blk))
+                            if name == "gru_step_q8":
+                                p = CK.gru_step_q8.last_plan
+                                check(p == CK.step_q8_plan(B, H, variant),
+                                      f"{name} B={B} H={H}: launched {p}, "
+                                      f"step_q8_plan names "
+                                      f"{CK.step_q8_plan(B, H, variant)}")
+                                q8_routes[p.route] = q8_routes.get(
+                                    p.route, 0) + 1
+                                blk = step_q8_route_fn(
+                                    torch, q8_step_args(a), variant,
+                                    step_q8_block_route(B, H))()
+                                torch.cuda.synchronize()
+                                e = (blk - want[0]).abs().max().item()
+                                err_q8_block = max(err_q8_block, e)
+                                check(e <= TOL, f"{name} block route H={H} "
+                                      f"B={B} {variant}: max |err| {e:.3g} "
+                                      f"> {TOL}")
+                                check(torch.equal(got[0], blk), f"{name} "
+                                      f"H={H} B={B} {variant}: the {p.route}"
+                                      f" route differs from the block route")
+                                q8_same += 1
                             if name in SLSTM and masked and B > 1:
                                 frozen_rows[name] += 1
                                 for k, leaf in enumerate(a["leaves"]):
@@ -675,6 +774,10 @@ def check_kernels(torch, dev):
           f" {err_block:.3g} (<= {TOL}); max |warp - block| = "
           f"{route_diff:.3g}, bit for bit in {same_bits} of {n_seq} "
           f"comparisons")
+    print(f"  gru_step_q8: routes launched {q8_routes} (step_q8_plan's); "
+          f"the block route forced beside each call: max |block - plain| = "
+          f"{err_q8_block:.3g} (<= {TOL}); equal to the launched route bit "
+          f"for bit in {q8_same} of {checks['gru_step_q8']} comparisons")
     print(f"  slstm_stack_sequence_kernel: the fully masked row (m = M_INIT)"
           f" kept all four leaves bit for bit in "
           f"{frozen_rows['slstm_stack_sequence_kernel']} masked comparisons")
@@ -702,7 +805,9 @@ def shard_inputs(torch, H, n, B, seed, dev):
     """One rank's operands of the shard kernels as the mesh path passes
     them: the last rank (idx = n - 1), so the local slices sit off 0; the
     row-wise operands as gate slices of the shard's (B,3Hl) projection and
-    (H,3Hl) rows of U (row-strided views), h_local a column slice of h."""
+    (H,3Hl) rows of U (row-strided views), h_local a column slice of h; the
+    v3 cascade epilogue's psum'd gates, projection and bias at full width
+    (B,3H), (3H,), read through gate views."""
     g = torch.Generator().manual_seed(seed)
     Hl = H // n
     idx = n - 1
@@ -710,14 +815,35 @@ def shard_inputs(torch, H, n, B, seed, dev):
     def rand(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=g)).to(dev)
     h_full = rand(B, H, scale=0.5)
-    a = dict(H=H, Hl=Hl, B=B, h_full=h_full, h_local=h_full[:, idx * Hl:
-                                                            (idx + 1) * Hl],
+    a = dict(H=H, Hl=Hl, B=B, idx=idx, h_full=h_full,
+             h_local=h_full[:, idx * Hl:(idx + 1) * Hl],
              rh_full=rand(B, H, scale=0.5), xp=rand(B, 3 * Hl),
              u=rand(H, 3 * Hl, scale=H ** -0.5), b=rand(3 * Hl, scale=0.3),
              z=torch.sigmoid(rand(B, Hl)), h_shard=rand(B, Hl, scale=0.5),
-             u_rows=rand(Hl, 3 * H, scale=H ** -0.5), g=rand(B, 3 * Hl),
+             u_rows=rand(Hl, 3 * H, scale=H ** -0.5), g_full=rand(B, 3 * H),
+             xp_full=rand(B, 3 * H), b_full=rand(3 * H, scale=0.3),
              zr=rand(B, 2 * Hl), xp2=rand(B, 2 * Hl), ht_in=rand(B, Hl))
     return a
+
+
+def old_epilogue(g, xp_full, b_full, h, idx):
+    """The v3 cascade epilogue as the mesh step ran it before row 16 read
+    its gates in place: g + b at full width (an add kernel), this rank's
+    slices of g and xp copied out (``_local_gates``: two cat kernels),
+    then the kernel on the contiguous slices."""
+    from repro_torch.core import rowparallel as rp
+    from repro_torch.kernels.gru_sequence import kernel as K
+    H, Hl = xp_full.shape[-1] // 3, h.shape[1]
+    return K.gru_cascade_shard_gates(
+        rp._local_gates(g + b_full, 3, H, idx, Hl),
+        rp._local_gates(xp_full, 3, H, idx, Hl), h)
+
+
+def old_gates_fn(a):
+    """:func:`old_epilogue` on :func:`shard_inputs`' operands, as a call
+    (phase 3b's bitwise check and phase 12's "before")."""
+    return lambda: old_epilogue(a["g_full"], a["xp_full"], a["b_full"],
+                                a["h_shard"], a["idx"])
 
 
 def shard_args(name, a, N=None):
@@ -734,8 +860,11 @@ def shard_args(name, a, N=None):
                 a["u"][:, 2 * Hl:], a["b"][2 * Hl:])
     if name == "gru_shard_matvec":
         return (a["h_shard"], a["u_rows"][:, :N or 3 * H])
-    if name == "gru_cascade_shard_gates":
-        return (a["g"], a["xp"], a["h_shard"])
+    if name == "gru_cascade_shard_gates":     # in place, as the step calls it
+        from repro_torch.core import rowparallel as rp
+        views = [rp._gate_view(a[k], 3, H, a["idx"], Hl)
+                 for k in ("g_full", "xp_full", "b_full")]
+        return (views[0], views[1], a["h_shard"], views[2])
     if name == "gru_cascade_shard_zr":
         return (a["zr"], a["xp2"], a["h_shard"], a["u_rows"][:, 2 * H:])
     return (a["z"], a["ht_in"], a["h_shard"])
@@ -757,7 +886,7 @@ def check_shard_kernels(torch, dev):
     from repro_torch.kernels.gru_sequence import kernel as K
     err = {n: 0.0 for n in SHARD}
     routes = {n: {} for n in REDESIGNED}
-    n_checks = 0
+    n_checks = gates_same = 0
     for (H, n) in SHARD_SHAPES:
         for B in (1, 8):
             a = shard_inputs(torch, H, n, B, 1000 * n + H + B, dev)
@@ -774,6 +903,13 @@ def check_shard_kernels(torch, dev):
                         routes[name][p.route] = routes[name].get(
                             p.route, 0) + 1
                     want = run_shard_kernel(name, args, plain=True)
+                    if name == "gru_cascade_shard_gates":
+                        old = old_gates_fn(a)()
+                        torch.cuda.synchronize()
+                        check(torch.equal(got[0], old), f"{name} H={H} n={n}"
+                              f" B={B}: the in-place call differs from the "
+                              f"old sequence (+ b, slices, contiguous call)")
+                        gates_same += 1
                     torch.cuda.synchronize()
                     for g_, w_ in zip(got, want):
                         check(g_.shape == w_.shape
@@ -788,6 +924,10 @@ def check_shard_kernels(torch, dev):
         print(f"  {name}: max |kernel - plain| = {e:.3g} (<= {TOL})"
               + (f"; routes launched {routes[name]}" if name in routes
                  else ""))
+    print(f"  gru_cascade_shard_gates: the in-place call (gate views of g, "
+          f"xp and b) equals the old sequence (+ b, two slice copies, the "
+          f"contiguous call) bit for bit in {gates_same} of {gates_same} "
+          f"comparisons")
     print(f"  {n_checks} shard kernel/plain comparisons passed (H 20, 32, "
           f"64, 256, 512 over 1, 2, 4 ranks; B 1 and 8)", flush=True)
     return err
@@ -886,6 +1026,35 @@ def sequence_shapes(counts):
         yield counts
     finally:
         ops.gru_sequence_kernel = fn
+
+
+# gru_step_q8's served calls (phase 7) by (B, H), for phase 12's launches
+# x gap, and the routes they launched, by shape
+STEP_Q8_SHAPES: dict = {}
+STEP_Q8_ROUTES: dict = {}
+
+
+@contextlib.contextmanager
+def step_q8_calls():
+    """Count the calls of ``gru_step_q8`` that the serving path makes
+    through its ops module, by (B, H), while the block runs
+    (:data:`STEP_Q8_SHAPES`), and note the route each launched
+    (:data:`STEP_Q8_ROUTES`)."""
+    from repro_torch.kernels.gru_cell import ops
+    fn = ops.gru_step_q8
+
+    def recording(h, *args, **kw):
+        key = tuple(h.shape)
+        STEP_Q8_SHAPES[key] = STEP_Q8_SHAPES.get(key, 0) + 1
+        out = fn(h, *args, **kw)
+        if h.is_cuda:
+            STEP_Q8_ROUTES.setdefault(key, set()).add(fn.last_plan.route)
+        return out
+    ops.gru_step_q8 = recording
+    try:
+        yield
+    finally:
+        ops.gru_step_q8 = fn
 
 
 def serve(cfg, params, backend, dev):
@@ -1129,8 +1298,18 @@ def run_chain_q8_path(torch, dev, cfgs, params):
     streams and prefill logits held against the CPU run of the same pin."""
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.models import gru_lm
-    engines, streams, per_arch, launches = serve_all(
-        K, cfgs, params, "cuda_chain_q8", dev, K.CHAIN_Q8_KERNELS)
+    with step_q8_calls():
+        engines, streams, per_arch, launches = serve_all(
+            K, cfgs, params, "cuda_chain_q8", dev, K.CHAIN_Q8_KERNELS)
+    check(sum(STEP_Q8_SHAPES.values()) == launches["gru_step_q8"]
+          and set(STEP_Q8_ROUTES) == set(STEP_Q8_SHAPES)
+          and all(r == {"warp"} for r in STEP_Q8_ROUTES.values()),
+          f"gru_step_q8: served calls {STEP_Q8_SHAPES} ({launches} "
+          f"launches) launched routes {STEP_Q8_ROUTES}, not the warp route "
+          f"every time")
+    print(f"  gru_step_q8: the warp route at every served call "
+          f"({sum(STEP_Q8_SHAPES.values())}; (B, H): {STEP_Q8_SHAPES})",
+          flush=True)
     cpu = torch.device("cpu")
     report = {}
     for a in cfgs:
@@ -1799,6 +1978,59 @@ def profile_mesh_decode(torch, cfg, params, dev, ctx):
                                   kernels.items()), key=lambda kv: -kv[1])[:6]}
 
 
+def cascade_layer_kernels(torch, cfg, params, dev, mesh, steps=20):
+    """What the v3 cascade layer's step puts on the card on this rank:
+    ``rowparallel._cascade_step_cuda`` at gru-jet-deep v3's cascade layer
+    (this rank's placed views, 8 slots), ``steps`` calls under
+    ``torch.profiler``. Checks that each step launches the partial product
+    (row 15) and the gates epilogue (row 16) once and no cat or add kernel
+    (the slice copies and the bias add that ran around row 16 before); the
+    psum's own entries (its copy, NCCL's kernel, gloo's memcpys) may run.
+    Returns the device entries' counts by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import gru as gru_core
+    from repro_torch.core import rowparallel as rp
+    gcfg = cfg.gru
+    layers = rp.prepare_sharded_layers(gru_core.stack_cell_params(params),
+                                       gcfg, mesh=mesh)
+    l = next(i for i in range(len(layers))
+             if gcfg.layer_matvec_mode(i) == "cascade")
+    a = layers[l]
+    H = a["w"].shape[1] // 3
+    g = torch.Generator().manual_seed(9)
+    h = (0.5 * torch.randn(SLOTS, H // mesh.size, generator=g)).to(dev)
+    xp = torch.randn(SLOTS, 3 * H, generator=g).to(dev)
+
+    def step():
+        return rp._cascade_step_cuda(h, xp, a["u"], a["b"], mesh.rank,
+                                     mesh=mesh, variant="v3")
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and e.count}
+    who = f"rank {mesh.rank}/{mesh.size}"
+    check(counts, f"{who}: the profiler recorded no device entry of the v3 "
+          f"cascade layer")
+
+    def launched(part):
+        return sum(c for k, c in counts.items() if part in k)
+    check(launched("cascade_gates_k") == steps
+          and launched("shard_matvec") == steps,
+          f"{who}: the v3 cascade layer's {steps} steps launched {counts}, "
+          f"not the matvec and the gates kernel once a step")
+    around = [k for k in counts if "cat" in k.lower() or "add" in k.lower()]
+    check(not around, f"{who}: cat or add kernels around row 16 in the v3 "
+          f"cascade layer: {around}")
+    return counts
+
+
 def dist_backend(mesh) -> str:
     import torch.distributed as dist
     return str(dist.get_backend(mesh.group))
@@ -1875,6 +2107,9 @@ def mesh_rank_main(rank: int, n: int, backend: str, store: str,
         check(tuple(logits.shape) == (3, cfg.gru.num_classes)
               and bool(torch.isfinite(logits).all()) and e <= TOL,
               f"{who} {a}: prefill logits vs reference {e:.3g}")
+        if cfg.gru.variant == "v3":
+            result["cascade_layer_v3"] = cascade_layer_kernels(
+                torch, cfg, params, dev, mesh)
         result["runs"][a] = {
             "streams": streams, "buckets": buckets, "steps_run": steps_run,
             "launches": {k: v for k, v in launches.items() if v},
@@ -1946,6 +2181,70 @@ def profile_mesh_steps(torch, dev, mesh_report):
     return out
 
 
+def cascade_step_before(h_shard, xp_full, u_rows, b_full, idx, *, mesh,
+                        variant):
+    """``rowparallel._cascade_step_cuda`` as it ran before row 16 read its
+    gates in place: v3's psum + b, this rank's slices of g and xp copied
+    out, the contiguous call (v1 as it is): phase 12's "before" of the
+    served v3 step."""
+    from repro_torch.core import rowparallel as rp
+    from repro_torch.kernels.gru_sequence import kernel as K
+    if variant != "v3":
+        return rp._cascade_step_cuda(h_shard, xp_full, u_rows, b_full, idx,
+                                     mesh=mesh, variant=variant)
+    h32 = h_shard.float()
+    return old_epilogue(mesh.psum(K.gru_shard_matvec(h32, u_rows)), xp_full,
+                        b_full, h32, idx)
+
+
+def steps_both_ways(torch, dev):
+    """The two served steps rows 7 and 16 sit in, each with the old route
+    forced and with the new, in turns old, new, new, old: gru-jet-deep's
+    ``cuda_chain_q8`` decode step (``profile_decode``; old: the q8 step's
+    block route at its old tile) and its v3 twin's ``cuda_sharded`` step
+    on a one-rank mesh without a group (``profile_mesh_decode``; old:
+    :func:`cascade_step_before`). Returns {step: [(which, profile)]}."""
+    from repro_torch.core import rowparallel as rp
+    from repro_torch.core.params import init_params
+    from repro_torch.distributed import ShardCtx, local_mesh
+    from repro_torch.kernels.gru_cell import kernel as CK
+    from repro_torch.models import gru_lm
+    out = {"cuda_chain_q8": [], "cuda_sharded v3": []}
+    planner, impls = CK.step_q8_plan, dict(rp._STEP_IMPLS)
+
+    def block_plan(B, H, variant):
+        return step_q8_block_route(B, H)
+    cfg = mesh_configs()[MESH_ARCHS[1]]
+    params = init_params(gru_lm.lm_specs(cfg), seed=0,
+                         device=torch.device("cpu"))
+    for which in ("old", "new", "new", "old"):
+        try:
+            if which == "old":
+                CK.step_q8_plan = block_plan
+                rp._STEP_IMPLS["cuda"] = (impls["cuda"][0],
+                                          cascade_step_before)
+            out["cuda_chain_q8"].append((which, profile_decode(
+                torch, dev, "cuda_chain_q8")))
+            out["cuda_sharded v3"].append((which, profile_mesh_decode(
+                torch, cfg, params, dev, ShardCtx(local_mesh(dev)))))
+        finally:
+            CK.step_q8_plan = planner
+            rp._STEP_IMPLS.update(impls)
+    for step, runs in out.items():
+        for which, pr in runs:
+            if pr is None:
+                print(f"  served step {step} {which}: not measured (no device"
+                      f" time recorded)", flush=True)
+                continue
+            extra = (f", shard kernels {pr['shard_kernels_ms_per_step']:.4f}"
+                     f" ms/step" if "shard_kernels_ms_per_step" in pr else "")
+            print(f"  served step gru-jet-deep {step} ({SLOTS} slots, 20 "
+                  f"steps) {which}: wall {pr['wall_ms_per_step']:.4f} ms/step,"
+                  f" device busy {pr['device_busy_ms_per_step']:.4f} ms/step"
+                  f"{extra} (idle {pr['device_idle_share']:.3%})", flush=True)
+    return out
+
+
 def run_mesh_path(torch):
     """Spawn each mesh of ``MESHES`` on the one card (the libraries are
     built), wait for its ranks, and hold them against each other: every
@@ -2002,6 +2301,9 @@ def run_mesh_path(torch):
                   f"{run['decode_p99_ms']:.4f} ms (host clock)", flush=True)
         print(f"    backend=cuda: prefill cuda_sharded, decode cuda_fused; "
               f"rank 0 launches {r0['cuda_run']['launches']}", flush=True)
+        print(f"    v3 cascade layer, 20 steps under the profiler (rank 0): "
+              f"{r0['cascade_layer_v3']} -- row 16 once a step, no cat or "
+              f"add kernel around it", flush=True)
         report[f"{n}x{backend}"] = r0
     check(all(v > 0 for v in launches.values()),
           f"a shard kernel never launched on the mesh path: {launches}")
@@ -2147,6 +2449,7 @@ def time_kernels(torch, dev, err, launches):
     the JSON rows are the 8-slot shapes (gru-jet fp32 prefill, gru-jet-deep
     for the others: L=3 for the fused kernels, one H=32 layer for the q8
     chain's; slstm-jet, L=1 H=20, for the sLSTM kernels)."""
+    from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
     rows = []
@@ -2177,6 +2480,12 @@ def time_kernels(torch, dev, err, launches):
                     per_graph=200)
                 before = (f"  block route {blk * 1e3:8.2f} us; plan "
                           f"{K.gru_sequence_kernel.last_plan}")
+            if name == "gru_step_q8":
+                blk = device_time_ms(torch, step_q8_route_fn(
+                    torch, q8_step_args(a), "v1", step_q8_block_route(B, H)),
+                    per_graph=200)
+                before = (f"  block route {blk * 1e3:8.2f} us; plan "
+                          f"{CK.gru_step_q8.last_plan}")
             print(f"  {name:28s} L={L} H={H} B={B:2d} T={T:2d}: device "
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
@@ -2197,6 +2506,9 @@ def time_kernels(torch, dev, err, launches):
                               "variant": None if name in SLSTM else "v1"}})
                 if name == "gru_sequence_kernel":
                     rows[-1]["plan"] = str(K.gru_sequence_kernel.last_plan)
+                    rows[-1]["block_route_ms"] = blk
+                if name == "gru_step_q8":
+                    rows[-1]["plan"] = str(CK.gru_step_q8.last_plan)
                     rows[-1]["block_route_ms"] = blk
     # the fp32 chain's decode layer: the depth-1 sequence kernel at T=1,
     # unmasked (a row of PERF.md, not of the JSON line)
@@ -2243,6 +2555,31 @@ def time_kernels(torch, dev, err, launches):
               flush=True)
     print(f"  gru_sequence_kernel: launches x (device - bound) over its "
           f"{sum(SEQ_SHAPES.values())} served launches = {gap_us:.0f} us "
+          f"(block route forced: {gap_block_us:.0f} us)", flush=True)
+    # row 7's served launches by shape (phase 7: the q8 chain's decode
+    # layers), likewise
+    check(sum(STEP_Q8_SHAPES.values()) == launches["gru_step_q8"],
+          f"gru_step_q8: served calls by shape {STEP_Q8_SHAPES} do not sum "
+          f"to its {launches['gru_step_q8']} launches")
+    gap_us = gap_block_us = 0.0
+    for (B, H), count in sorted(STEP_Q8_SHAPES.items()):
+        a = make_inputs(torch, 1, H, B, 1, seed=7, dev=dev)
+        ms = device_time_ms(torch, lambda: run_kernel(
+            K, ref, "gru_step_q8", a, "v1", False, plain=False),
+            per_graph=200)
+        plan = CK.gru_step_q8.last_plan
+        blk = device_time_ms(torch, step_q8_route_fn(
+            torch, q8_step_args(a), "v1", step_q8_block_route(B, H)),
+            per_graph=200)
+        bms, _ = bound_ms("gru_step_q8", a)
+        gap_us += count * (ms - bms) * 1e3
+        gap_block_us += count * (blk - bms) * 1e3
+        print(f"  gru_step_q8 served B={B} H={H}: {count:3d} launches, device "
+              f"{ms * 1e3:7.2f} us ({plan.route} warps={plan.warps}), block "
+              f"route {blk * 1e3:7.2f} us, bound {bms * 1e6:6.2f} ns",
+              flush=True)
+    print(f"  gru_step_q8: launches x (device - bound) over its "
+          f"{sum(STEP_Q8_SHAPES.values())} served launches = {gap_us:.0f} us "
           f"(block route forced: {gap_block_us:.0f} us)", flush=True)
     print(f"  torch.nn.GRU (cuDNN) yardstick, v3 T=32 B={SLOTS} H=32: "
           f"{cudnn_gru_ms(torch, dev) * 1e3:.2f} us", flush=True)
@@ -2653,7 +2990,11 @@ def time_shard_kernels(torch, dev, err, launches):
     """Device, per-call, plain-version and bound times of the seven shard
     kernels at the mesh path's shard shapes (8 slots; the matvec at v1's
     N = 2H); ``torch.matmul`` beside the matvec (TF32 off), the one
-    kernel a single PyTorch call computes. Returns the seven JSON rows."""
+    kernel a single PyTorch call computes; row 16 as the mesh step calls
+    it (gate views and b, one launch) beside the epilogue it replaced (+ b,
+    two slice copies, the kernel) and the kernel on contiguous slices.
+    Returns the seven JSON rows."""
+    from repro_torch.kernels.gru_sequence import kernel as K
     rows = []
     for (H, n) in SHARD_TIMED:
         a = shard_inputs(torch, H, n, SLOTS, 77, dev)
@@ -2682,6 +3023,15 @@ def time_shard_kernels(torch, dev, err, launches):
                 tile = device_time_ms(torch, czr_tile_fn(torch, args),
                                       per_graph=200)   # direct route
                 old = f"  old tile {tile * 1e3:6.2f} us"
+            if name == "gru_cascade_shard_gates":   # the epilogue before
+                epi = device_time_ms(torch, old_gates_fn(a), per_graph=200)
+                local = [t.reshape(SLOTS, -1).contiguous() for t in args[:2]]
+                contig = device_time_ms(
+                    torch, lambda: K.gru_cascade_shard_gates(
+                        *local, a["h_shard"]), per_graph=200)
+                old = (f"  old epilogue (+ b, 2 cats, kernel) {epi * 1e3:6.2f}"
+                       f" us; kernel on contiguous slices, no b "
+                       f"{contig * 1e3:6.2f} us")
             print(f"  {name:28s} H={H} ranks={n} Hl={H // n:2d} B={SLOTS}: "
                   f"device {ms * 1e3:6.2f} us (per call {call * 1e3:6.2f})  "
                   f"plain {plain * 1e3:7.2f} us  matmul {lib_s}  bound "
@@ -2699,6 +3049,9 @@ def time_shard_kernels(torch, dev, err, launches):
                     "shape": {"H": H, "ranks": n, "Hl": H // n, "B": SLOTS}})
                 if name == "gru_cascade_shard_zr":
                     rows[-1]["old_tile_ms"] = tile
+                if name == "gru_cascade_shard_gates":
+                    rows[-1]["old_epilogue_ms"] = epi
+                    rows[-1]["contiguous_ms"] = contig
     print("  library_ms: torch.matmul on the matvec's operands (TF32 off); "
           "null for the other six -- no single PyTorch call computes a "
           "shard step's gate math", flush=True)
@@ -2885,6 +3238,9 @@ def main() -> None:
         torch, dev, "cuda_fused", "slstm-jet")
     lm_report["profile_decode"] = profile_lm_decode(torch, dev, lm_params)
     mesh_report["profiles"] = profile_mesh_steps(torch, dev, mesh_report)
+    both = steps_both_ways(torch, dev)
+    cq8_report["step_both_ways"] = both["cuda_chain_q8"]
+    mesh_report["v3_step_both_ways"] = both["cuda_sharded v3"]
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the JAX package was imported")
     print(json.dumps({"serve": report, "serve_q8": q8_report,

@@ -86,6 +86,13 @@ def _local_gates(a: torch.Tensor, gates: int, H: int, idx: int,
                      dim=1)
 
 
+def _gate_view(a: torch.Tensor, gates: int, H: int, idx: int,
+               Hl: int) -> torch.Tensor:
+    """This rank's gates of stacked (..., gates*H) gates as a (..., gates,
+    Hl) view, no copy."""
+    return a.unflatten(-1, (gates, H))[..., idx * Hl:(idx + 1) * Hl]
+
+
 def _rowwise_step(h_full, xp_shard, u_shard, b_shard, idx, *, mesh: Mesh,
                   variant: str):
     """One GRU step on one rank. h_full (B,H) replicated; u_shard (H,3Hl)
@@ -174,16 +181,18 @@ def _cascade_step_cuda(h_shard, xp_full, u_rows, b_full, idx, *, mesh: Mesh,
                        variant: str):
     """``_cascade_step`` with the per-rank compute in the shard kernels: the
     partial products and the gate epilogues run in kernels, the psums
-    between them stay where the eager step has them."""
+    between them stay where the eager step has them. v3's epilogue reads
+    this rank's gates of the psum, of xp and of b in place and adds b
+    itself: one launch after the psum."""
     from repro_torch.kernels.gru_sequence import kernel as K
     Hl = h_shard.shape[1]
     H = xp_full.shape[-1] // 3
     h32 = h_shard.float()
     if variant == "v3":
-        g = mesh.psum(K.gru_shard_matvec(h32, u_rows)) + b_full   # psum 1
+        g = mesh.psum(K.gru_shard_matvec(h32, u_rows))            # psum 1
         return K.gru_cascade_shard_gates(
-            _local_gates(g, 3, H, idx, Hl),
-            _local_gates(xp_full, 3, H, idx, Hl), h32)
+            _gate_view(g, 3, H, idx, Hl), _gate_view(xp_full, 3, H, idx, Hl),
+            h32, _gate_view(b_full, 3, H, idx, Hl))
     zr = (mesh.psum(K.gru_shard_matvec(h32, u_rows[:, :2 * H]))  # psum 1
           + b_full[:2 * H])
     z, ht_p = K.gru_cascade_shard_zr(

@@ -10,16 +10,29 @@
 // cell_update_q8() of gru_q8_math.cuh, shared with the sequence kernels.
 //
 // Translation. The TPU kernel is one grid step over the whole (B, H)
-// state. Here the grid runs over independent batch tiles of `bt` rows;
-// each block copies the layer's int8 rows (padded to odd word strides),
-// scales and bias into shared memory and updates its rows, writing each
-// new state straight to the output.
+// state. Here two routes, picked by shape in Python (step_q8_plan in
+// kernels/gru_cell/kernel.py):
+// - "warp" (H <= 32, every served width): one warp a batch row; lane c
+//   owns column c of z, r and h. Its three int8 rows of U stay in
+//   registers (8 words each at H = 32), loaded at entry with its scales,
+//   biases, xp and h[c]. Lane c quantizes h[c]; the packed words of q8(h)
+//   are built by shuffles (an OR over each group of 4 lanes, then one
+//   broadcast per word), in load_rows's layout, and each gate sum is 8
+//   __dp4a. v1 packs q8(r * h) the same way for the candidate. No shared
+//   memory and no barrier; a warp past B exits whole.
+// - "block" (wider H): the grid runs over independent batch tiles of
+//   `bt` rows; each block copies the layer's int8 rows (padded to odd
+//   word strides), scales and bias into shared memory and updates its
+//   rows (cell_update_q8), writing each new state straight to the output.
+// The int32 sums are exact in any order and both routes take every
+// float32 op from gru_q8_math.cuh, so they agree bit for bit.
 //
 // Bound on an H100 (SXM): at the serving shapes (H = 20 or 32, 8 rows)
 // a few KB of inputs over 3.35 TB/s and a few thousand int8 MACs over
 // 1,979 TOP/s take a few nanoseconds; the kernel is bound by latency:
-// the launch, the one-time copy of the rows into shared memory and the
-// barriers of the update (two for v3, three for v1).
+// the launch, the loads and the dependent chain of the gate math (on the
+// block route also the copy of the rows into shared memory and the
+// barriers of the update: two for v3, three for v1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,10 +95,124 @@ size_t smem_bytes_step_q8(int H, int bt) {
 
 size_t step_smem[kMaxDevices];
 
+// --- the warp route ----------------------------------------------------------
+
+constexpr int kWarpMaxH = 32;                // one output column a lane
+constexpr int kWarpWords = kWarpMaxH / 4;    // int8 words of a row
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Lane c's int8 row of U (`row`, H bytes) as words in load_rows's layout:
+// byte j of word k is element 4k + j, bytes past H are 0; a lane past H
+// (`col` false) holds zeros. VEC: the row is 4-byte aligned and H % 4 ==
+// 0, so its words load whole. Otherwise the row is read as the aligned
+// words that cover it (at most kWarpWords + 1), each word of the row
+// funnel-shifted out of two of them. The cover may reach up to 3 bytes
+// before or after the rows, never past an allocation: allocations start
+// and end on 4-byte boundaries. (Loading the 32 bytes one by one spilled,
+// and took twice as long as words; PERF.md's findings.)
+template <bool VEC>
+__device__ __forceinline__ void load_row_words(int (&w)[kWarpWords],
+                                               const int8_t* row, int H,
+                                               bool col) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int k = 0; k < kWarpWords; ++k)
+      w[k] = col && 4 * k < H ? __ldg(reinterpret_cast<const int*>(row) + k)
+                              : 0;
+  } else {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(row);
+    const unsigned* cover =
+        reinterpret_cast<const unsigned*>(at & ~(uintptr_t)3);
+    const int skew = (int)(at & 3);
+    const int last = (skew + H - 1) >> 2;        // the cover's last word
+    unsigned a[kWarpWords + 1];
+#pragma unroll
+    for (int k = 0; k <= kWarpWords; ++k)
+      a[k] = col && k <= last ? __ldg(cover + k) : 0u;
+#pragma unroll
+    for (int k = 0; k < kWarpWords; ++k) {
+      const unsigned v = __funnelshift_r(a[k], a[k + 1], 8 * skew);
+      const int left = H - 4 * k;                // the row's bytes from 4k
+      w[k] = (int)(left >= 4 ? v : left > 0 ? v & ((1u << (8 * left)) - 1)
+                                            : 0u);
+    }
+  }
+}
+
+// The packed words of an int8 vector whose element c is lane c's `q` (0 on
+// lanes past H), in load_rows's layout, in every lane: each lane puts its
+// byte in place, an OR over each group of 4 lanes makes word k in lanes
+// 4k..4k+3, and lane 4k broadcasts it.
+__device__ __forceinline__ void pack_words(int (&w)[kWarpWords], int8_t q,
+                                           int lane) {
+  uint32_t v = (uint32_t)(uint8_t)q << (8 * (lane & 3));
+  v |= __shfl_xor_sync(kFullWarp, v, 1);
+  v |= __shfl_xor_sync(kFullWarp, v, 2);
+#pragma unroll
+  for (int k = 0; k < kWarpWords; ++k)
+    w[k] = (int)__shfl_sync(kFullWarp, v, 4 * k);
+}
+
+// int32 dot product of two packed int8 rows: exact in any order
+__device__ __forceinline__ int dot_words(const int (&a)[kWarpWords],
+                                         const int (&w)[kWarpWords]) {
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < kWarpWords; ++k) acc = __dp4a(a[k], w[k], acc);
+  return acc;
+}
+
+// One q8 step, one warp a batch row (the source note's warp route), lane c
+// < H owning column c; the float32 math is cell_update_q8's, op for op.
+template <bool V3, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+gru_step_q8_warp_k(const float* __restrict__ h, const float* __restrict__ xp,
+                   const int8_t* __restrict__ uq,
+                   const float* __restrict__ ueff,
+                   const float* __restrict__ b, float* __restrict__ out,
+                   int B, int H) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= B) return;
+  const bool col = lane < H;
+  const int c = col ? lane : 0;
+
+  int uz[kWarpWords], ur[kWarpWords], uh[kWarpWords];
+  load_row_words<VEC>(uz, uq + (size_t)c * H, H, col);
+  load_row_words<VEC>(ur, uq + (size_t)(H + c) * H, H, col);
+  load_row_words<VEC>(uh, uq + (size_t)(2 * H + c) * H, H, col);
+  float eff[3], bias[3], x[3];
+  const float* xr = xp + (size_t)row * 3 * H + c;
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    eff[g] = col ? __ldg(ueff + g * H + c) : 0.0f;
+    bias[g] = col ? __ldg(b + g * H + c) : 0.0f;
+    x[g] = col ? __ldg(xr + g * H) : 0.0f;
+  }
+  const float hold = col ? __ldg(h + (size_t)row * H + c) : 0.0f;
+
+  int qh[kWarpWords];
+  pack_words(qh, col ? q8_act(hold) : (int8_t)0, lane);
+  const float z = sigmoid_f(__fadd_rn(x[0], dequant(dot_words(qh, uz), eff[0],
+                                                    bias[0])));
+  const float r = sigmoid_f(__fadd_rn(x[1], dequant(dot_words(qh, ur), eff[1],
+                                                    bias[1])));
+  float ht;
+  if constexpr (V3) {
+    const float gh = dequant(dot_words(qh, uh), eff[2], bias[2]);
+    ht = tanhf(__fadd_rn(x[2], __fmul_rn(r, gh)));
+  } else {       // the candidate from q8(r * h), packed the same way
+    int qr[kWarpWords];
+    pack_words(qr, col ? q8_act(__fmul_rn(r, hold)) : (int8_t)0, lane);
+    ht = tanhf(__fadd_rn(x[2], dequant(dot_words(qr, uh), eff[2], bias[2])));
+  }
+  if (col) out[(size_t)row * H + c] = update_q8(z, hold, ht);
+}
+
 }  // namespace
 
-// C entry point, bound with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// C entry points, bound with ctypes. Each launches on `stream` and returns
+// cudaGetLastError() (0 = launched). The block route, `bt` rows a block:
 extern "C" int gru_step_q8_launch(const float* h, const float* xp,
                                   const int8_t* uq, const float* ueff,
                                   const float* b, float* out, int B, int H,
@@ -95,5 +222,33 @@ extern "C" int gru_step_q8_launch(const float* h, const float* xp,
   if (err) return err;
   gru_step_q8_k<<<(B + bt - 1) / bt, kThreads, bytes, (cudaStream_t)stream>>>(
       h, xp, uq, ueff, b, out, B, H, v3, bt);
+  return (int)cudaGetLastError();
+}
+
+// The warp route (H <= 32): `warps` warps a block, one batch row each;
+// `vec`: U's rows load as whole 4-byte words (H % 4 == 0, u_q 4-byte
+// aligned), else through the aligned words that cover them.
+extern "C" int gru_step_q8_warp_launch(const float* h, const float* xp,
+                                       const int8_t* uq, const float* ueff,
+                                       const float* b, float* out, int B,
+                                       int H, int v3, int warps, int vec,
+                                       void* stream) {
+  if (H < 1 || H > kWarpMaxH || warps < 1 || warps > kThreads / 32 ||
+      (vec && H % 4))
+    return (int)cudaErrorInvalidValue;
+  const int grid = (B + warps - 1) / warps;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (v3 && vec)
+    gru_step_q8_warp_k<true, true><<<grid, 32 * warps, 0, st>>>(
+        h, xp, uq, ueff, b, out, B, H);
+  else if (v3)
+    gru_step_q8_warp_k<true, false><<<grid, 32 * warps, 0, st>>>(
+        h, xp, uq, ueff, b, out, B, H);
+  else if (vec)
+    gru_step_q8_warp_k<false, true><<<grid, 32 * warps, 0, st>>>(
+        h, xp, uq, ueff, b, out, B, H);
+  else
+    gru_step_q8_warp_k<false, false><<<grid, 32 * warps, 0, st>>>(
+        h, xp, uq, ueff, b, out, B, H);
   return (int)cudaGetLastError();
 }

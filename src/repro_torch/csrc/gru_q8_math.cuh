@@ -53,6 +53,11 @@ __device__ __forceinline__ float dequant(int acc, float eff, float b) {
   return __fadd_rn(__fmul_rn((float)acc, eff), b);
 }
 
+// The state update (1 - z) * h + z * ht, each op rounded on its own.
+__device__ __forceinline__ float update_q8(float z, float h, float ht) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), h), __fmul_rn(z, ht));
+}
+
 // int32 dot product of two int8 rows packed four to a word. Unrolled by 4
 // (H = 32: 8 words); left to the compiler the fused q8 kernels ran slower
 // (PERF.md, the chains' findings), and unrolled by 8 the stack prefill
@@ -145,8 +150,7 @@ __device__ __forceinline__ void cell_update_q8(
       const float rr = sigmoid_f(__fadd_rn(xr[H + c], gr));
       const float ht = tanhf(__fadd_rn(xr[2 * H + c], __fmul_rn(rr, gh)));
       const float hold = h[i];
-      const float hn = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, zz), hold),
-                                 __fmul_rn(zz, ht));
+      const float hn = update_q8(zz, hold, ht);
       const float v = live[r] != 0.0f ? hn : hold;
       h[i] = v;
       if (out != nullptr) out[i] = v;
@@ -179,8 +183,7 @@ __device__ __forceinline__ void cell_update_q8(
     const float ht = tanhf(__fadd_rn(xr[2 * H + c], cand));
     const float zz = z[i];
     const float hold = h[i];
-    const float hn = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, zz), hold),
-                               __fmul_rn(zz, ht));
+    const float hn = update_q8(zz, hold, ht);
     const float v = live[r] != 0.0f ? hn : hold;
     h[i] = v;
     if (out != nullptr) out[i] = v;

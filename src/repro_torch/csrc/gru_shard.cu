@@ -48,8 +48,10 @@
 //   block (elementwise, from the psum'd pre-activations) into shared memory
 //   as the operand of its product, so the partial product needs no round
 //   trip through device memory.
-// The two epilogue-only kernels (v3 cascade gates, v1 cascade update) are
-// elementwise grid-stride loops.
+// The two epilogue-only kernels are elementwise: the v3 cascade gates one
+// thread an output, reading g, xp and b in place (gate-strided views of
+// the psum'd and projected (B, 3H) arrays: no slice copies, no bias add
+// around it); the v1 cascade update a grid-stride loop.
 //
 // Bound on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): a shard's operands
 // are a few KB at these widths, so every kernel's bound is a few
@@ -229,23 +231,43 @@ cascade_zr_k(const float* __restrict__ zr, const float* __restrict__ xp,
   }
 }
 
-// v3 cascade epilogue: g, xp (B, 3Hl) local gate slices, h (B, Hl).
-__global__ void __launch_bounds__(kThreads)
-cascade_gates_k(const float* __restrict__ g, const float* __restrict__ xp,
+// v3 cascade epilogue, one thread an element (row, c) of the new h shard
+// (B, Hl). g and xp are read where they lie: gate k of row `row` at
+// row * ld + k * gs + c (the local (B, 3Hl) slices: gs = Hl; gate views
+// of the full (B, 3H) arrays: gs = H, the rank's offset in the pointer).
+// BIAS: b's gate k at k * gsb + c is added to g first, rounded on its own
+// (JAX's psum(...) + b, then xp + g). Every load goes out at entry; z's
+// and r's sigmoids do not wait on each other. The candidate and the
+// update are written as nvcc contracted them in the kernel this one
+// replaces (the add kernel, the slices' copies and a loop over contiguous
+// slices), so the results are those bit for bit.
+constexpr int kGatesThreads = 128;   // a block of the v3 cascade epilogue
+
+template <bool BIAS>
+__global__ void __launch_bounds__(kGatesThreads)
+cascade_gates_k(const float* __restrict__ g, int ldg, int gsg,
+                const float* __restrict__ xp, int ldx, int gsx,
+                const float* __restrict__ b, int gsb,
                 const float* __restrict__ h, float* __restrict__ out, int B,
                 int Hl) {
-  const size_t n = (size_t)B * Hl;
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * kThreads) {
-    const size_t row = i / Hl;
-    const int c = (int)(i - row * Hl);
-    const float* gr = g + row * 3 * Hl;
-    const float* xr = xp + row * 3 * Hl;
-    const float z = sigmoid_f(xr[c] + gr[c]);
-    const float rg = sigmoid_f(xr[Hl + c] + gr[Hl + c]);
-    const float ht = tanhf(xr[2 * Hl + c] + rg * gr[2 * Hl + c]);
-    out[i] = (1.0f - z) * h[i] + z * ht;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * Hl) return;
+  const int row = i / Hl;
+  const int c = i - row * Hl;
+  const float* gr = g + row * ldg + c;
+  const float* xr = xp + row * ldx + c;
+  float gz = __ldg(gr), gg = __ldg(gr + gsg), gh = __ldg(gr + 2 * gsg);
+  const float xz = __ldg(xr), xg = __ldg(xr + gsx), xh = __ldg(xr + 2 * gsx);
+  const float hv = __ldg(h + i);
+  if constexpr (BIAS) {
+    gz = __fadd_rn(gz, __ldg(b + c));
+    gg = __fadd_rn(gg, __ldg(b + gsb + c));
+    gh = __fadd_rn(gh, __ldg(b + 2 * gsb + c));
   }
+  const float z = sigmoid_f(__fadd_rn(xz, gz));
+  const float r = sigmoid_f(__fadd_rn(xg, gg));
+  const float ht = tanhf(__fmaf_rn(r, gh, xh));
+  out[i] = __fmaf_rn(1.0f - z, hv, __fmul_rn(z, ht));
 }
 
 // v1 cascade epilogue: (1 - z) h + z tanh(ht_in), all (B, Hl).
@@ -750,11 +772,23 @@ extern "C" int gru_cascade_shard_zr_direct_launch(
   });
 }
 
-extern "C" int gru_cascade_shard_gates_launch(const float* g, const float* xp,
-                                              const float* h, float* out,
-                                              int B, int Hl, void* stream) {
-  cascade_gates_k<<<elementwise_blocks((size_t)B * Hl), kThreads, 0,
-                    (cudaStream_t)stream>>>(g, xp, h, out, B, Hl);
+// g and xp: row and gate strides (ld*, gs*) in floats; b null (no bias)
+// or gate stride gsb. One thread an element, kGatesThreads a block.
+extern "C" int gru_cascade_shard_gates_launch(const float* g, int ldg,
+                                              int gsg, const float* xp,
+                                              int ldx, int gsx, const float* b,
+                                              int gsb, const float* h,
+                                              float* out, int B, int Hl,
+                                              void* stream) {
+  const int n = B * Hl;
+  const int grid = (n + kGatesThreads - 1) / kGatesThreads;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (b != nullptr)
+    cascade_gates_k<true><<<grid, kGatesThreads, 0, st>>>(
+        g, ldg, gsg, xp, ldx, gsx, b, gsb, h, out, B, Hl);
+  else
+    cascade_gates_k<false><<<grid, kGatesThreads, 0, st>>>(
+        g, ldg, gsg, xp, ldx, gsx, b, gsb, h, out, B, Hl);
   return (int)cudaGetLastError();
 }
 

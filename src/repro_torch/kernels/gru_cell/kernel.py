@@ -27,16 +27,21 @@ refused, and adds one to its ``launches`` counter (zeroed by
 :data:`STEP_KERNELS`. ``gru_step_blocked`` is two CUDA launches on the
 stream (gates, then candidate) and counts once per call.
 
-The q8 kernel's block takes a tile of
-:data:`~repro_torch.kernels._launch.DEFAULT_BATCH_BLOCK` rows. The
-fp32/bf16 kernels take at most 8 rows (the smallest power of two that
-holds B, halved until the block's shared memory fits); the grid runs over
-batch tiles and, for the v3 fused step and the blocked step, over column
-tiles. The v1 fused step keeps h, z and r*h of its tile in shared memory
-(12 bytes per row and unit of H) and raises beyond what one block holds
-(H of about 19,000 at one row).
+:func:`gru_step_q8` launches the route :func:`step_q8_plan` picks (one
+warp per batch row where H <= :data:`STEP_Q8_WARP_MAX_H`, every served
+width; else a block of a batch tile of
+:data:`~repro_torch.kernels._launch.DEFAULT_BATCH_BLOCK` rows) and keeps
+it as ``last_plan``. The fp32/bf16 kernels take at most 8 rows (the
+smallest power of two that holds B, halved until the block's shared
+memory fits); the grid runs over batch tiles and, for the v3 fused step
+and the blocked step, over column tiles. The v1 fused step keeps h, z and
+r*h of its tile in shared memory (12 bytes per row and unit of H) and
+raises beyond what one block holds (H of about 19,000 at one row).
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -44,8 +49,10 @@ from repro_torch.kernels import _launch
 from repro_torch.kernels._launch import I, P, SMEM_LIMIT
 from repro_torch.kernels.gru_cell import ref
 
-# h, xp, u_q, u_eff, b, out, B, H, v3, bt, stream
+# h, xp, u_q, u_eff, b, out, B, H, v3, bt, stream (the warp route's: ...,
+# v3, warps, vec, stream)
 _ARGTYPES = [P] * 6 + [I] * 4 + [P]
+_WARP_ARGS = [P] * 6 + [I] * 5 + [P]
 # h, xp, u, b, out, B, H, v3, bf16, bt, ct, vec, stream
 _FUSED_ARGS = [P] * 5 + [I] * 7 + [P]
 # h, xp, u, b, zs, rhs, out, B, H, bf16, bt, ct, vec, stream
@@ -186,17 +193,76 @@ def smem_bytes_step_q8(H: int, bt: int) -> int:
     return 4 * (H3 * (nw | 1) + 2 * H3 + 2 * bt * H + 2 * bt * nw + bt)
 
 
+# The warp route's width and knob: one output column a lane (kWarpMaxH in
+# csrc/gru_cell_q8.cu); warps a block read off tools/step_q8_tiles.py on
+# an H100 (PERF.md's findings): one warp a block, so B rows spread over B
+# SMs, was the fastest at the served H=32, 8 rows (2, 4 and 8 warps 11-48 %
+# slower) and within 7 % of the best at H=20 and at 1 and 64 rows. The
+# block route past STEP_Q8_WARP_MAX_H.
+STEP_Q8_WARP_MAX_H = 32
+STEP_Q8_WARPS = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class StepQ8Plan:
+    """One launch of :func:`gru_step_q8`: ``route`` "warp" (one warp a batch
+    row, ``warps`` warps a block, ``rows`` 1) or "block" (``rows`` the
+    batch tile of a block of :data:`~repro_torch.kernels._launch.THREADS`
+    threads). ``grid`` blocks, ``threads`` per block, ``smem`` dynamic
+    bytes."""
+    route: str
+    rows: int
+    warps: int
+    grid: int
+    threads: int
+    smem: int
+
+
+def step_q8_warp_plan(B: int, warps: int) -> StepQ8Plan:
+    """The warp-route launch at ``warps`` warps a block."""
+    return StepQ8Plan("warp", 1, warps, -(-B // warps), 32 * warps, 0)
+
+
+def step_q8_block_plan(B: int, H: int, bt: int) -> StepQ8Plan:
+    """The block-route launch at batch tile ``bt``."""
+    return StepQ8Plan("block", bt, _launch.THREADS // 32, -(-B // bt),
+                      _launch.THREADS, smem_bytes_step_q8(H, bt))
+
+
+@functools.lru_cache(maxsize=512)
+def step_q8_plan(B: int, H: int, variant: str) -> StepQ8Plan:
+    """The launch of the q8 step: the warp route where H <=
+    :data:`STEP_Q8_WARP_MAX_H` (at most :data:`STEP_Q8_WARPS` warps a
+    block, no more than the rows need), else the block route at
+    :func:`_launch.batch_tile`'s tile (which raises where one block's
+    shared memory does not fit)."""
+    _launch.check_problem(variant, B, 1, H, 1)
+    if H > STEP_Q8_WARP_MAX_H:
+        return step_q8_block_plan(B, H, _launch.batch_tile(
+            variant, B, 1, H, 1, 0, None,
+            lambda _L, H, bt: smem_bytes_step_q8(H, bt)))
+    return step_q8_warp_plan(B, min(STEP_Q8_WARPS,
+                                    1 << max(B - 1, 0).bit_length()))
+
+
+def q8_words(H: int, u_q: torch.Tensor) -> int:
+    """Whether the warp route loads u_q's rows as 4-byte words."""
+    return int(H % 4 == 0 and u_q.data_ptr() % 4 == 0)
+
+
 def gru_step_q8(h: torch.Tensor, x_proj: torch.Tensor, u_q: torch.Tensor,
                 u_eff: torch.Tensor, b: torch.Tensor, *,
                 variant: str = "v1") -> torch.Tensor:
-    """One q8 GRU step with everything resident -> new state (B,H)."""
+    """One q8 GRU step with everything resident -> new state (B,H).
+    Launches :func:`step_q8_plan`'s route and keeps the plan as
+    ``last_plan``."""
     if h.dim() != 2:
         raise ValueError(f"h: expected (B,H), got {tuple(h.shape)}")
     B, H = h.shape
     dev = h.device
     ref.check_q8_width(H, dev)
-    bt = _launch.batch_tile(variant, B, 1, H, 1, 0, dev,
-                            lambda _L, H, bt: smem_bytes_step_q8(H, bt))
+    _launch.check_device(dev)
+    p = step_q8_plan(B, H, variant)
     _launch.check("h", h, (B, H), dev)
     _launch.check("x_proj", x_proj, (B, 3 * H), dev)
     _launch.check("u_q", u_q, (3 * H, H), dev, torch.int8)
@@ -205,13 +271,21 @@ def gru_step_q8(h: torch.Tensor, x_proj: torch.Tensor, u_q: torch.Tensor,
     if dev.type == "cpu":
         return ref.gru_step_q8_ref(h, x_proj, u_q, u_eff, b, variant)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
-    err = _launch.launcher("gru_cell_q8", "gru_step_q8_launch", _ARGTYPES)(
-        _launch.ptr(h), _launch.ptr(x_proj), _launch.ptr(u_q),
-        _launch.ptr(u_eff), _launch.ptr(b), _launch.ptr(out), B, H,
-        int(variant == "v3"), bt, _launch.stream(dev))
+    head = (_launch.ptr(h), _launch.ptr(x_proj), _launch.ptr(u_q),
+            _launch.ptr(u_eff), _launch.ptr(b), _launch.ptr(out), B, H,
+            int(variant == "v3"))
+    if p.route == "warp":
+        err = _launch.launcher("gru_cell_q8", "gru_step_q8_warp_launch",
+                               _WARP_ARGS)(
+            *head, p.warps, q8_words(H, u_q), _launch.stream(dev))
+    else:
+        err = _launch.launcher("gru_cell_q8", "gru_step_q8_launch",
+                               _ARGTYPES)(*head, p.rows, _launch.stream(dev))
     _launch.raise_on(err, "gru_step_q8")
     gru_step_q8.launches += 1
+    gru_step_q8.last_plan = p
     return out
 
 
 gru_step_q8.launches = 0
+gru_step_q8.last_plan = None

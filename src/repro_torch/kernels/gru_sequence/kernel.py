@@ -439,6 +439,8 @@ _MATVEC_ARGS = [P, I, P, I, P] + [I] * 6 + [P]
 _CZR_ARGS = [P] * 4 + [I, P, P] + [I] * 6 + [P]
 # in, in, in, out, B, Hl, stream
 _ELEMENTWISE_ARGS = [P] * 4 + [I, I, P]
+# g, ldg, gsg, xp, ldx, gsx, b, gsb, h, out, B, Hl, stream
+_GATES_ARGS = [P, I, I, P, I, I, P, I, P, P, I, I, P]
 SHARD_MAX_ROWS = 8           # rows of one block's batch tile
 
 
@@ -775,20 +777,68 @@ def _cascade_dims(h_shard):
     return B, Hl, h_shard.device
 
 
+def _gate_strides(name: str, t, B: int, G: int, Hl: int,
+                  dev: torch.device) -> tuple:
+    """Check G gates of Hl float32 columns for each of B rows (B None: one
+    row, the bias), given as local slices ((B, G*Hl), or (G*Hl,) for the
+    bias; rows may be strided) or as gate views ((B, G, Hl), or (G, Hl):
+    gate g of a rank's slice of stacked (B, G*H) gates, ``a.unflatten(-1,
+    (G, H))[..., s:s + Hl]``); columns unit-stride, gates apart. Returns
+    (row stride, gate stride) in elements."""
+    lead = () if B is None else (B,)
+    if not isinstance(t, torch.Tensor) or t.dim() not in (len(lead) + 1,
+                                                          len(lead) + 2):
+        raise ValueError(f"{name}: expected {lead + (G * Hl,)} slices or "
+                         f"{lead + (G, Hl)} gate views, got "
+                         f"{getattr(t, 'shape', type(t))}")
+    if t.dim() == len(lead) + 1:
+        if tuple(t.shape) != lead + (G * Hl,):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{lead + (G * Hl,)}")
+        t = t.unflatten(-1, (G, Hl))
+    if tuple(t.shape) != lead + (G, Hl):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{lead + (G, Hl)}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes "
+                        f"torch.float32")
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, expected {dev}")
+    if Hl > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: columns must be unit-stride")
+    gs = t.stride(-2)
+    ld = t.stride(0) if B is not None and B > 1 else G * gs
+    if gs < Hl or ld < (G - 1) * gs + Hl:
+        raise ValueError(f"{name}: gate stride {gs}, row stride {ld}: gates "
+                         f"or rows overlap (an expanded view)")
+    if (B or 1) * ld >= 2 ** 31:
+        raise ValueError(f"{name}: {B} rows of stride {ld} exceed the "
+                         f"kernel's 32-bit indices")
+    return ld, gs
+
+
 def gru_cascade_shard_gates(g_local: torch.Tensor, xp_local: torch.Tensor,
-                            h_shard: torch.Tensor) -> torch.Tensor:
-    """v3 cascade epilogue: local (B,3Hl) gate slices -> new h shard."""
+                            h_shard: torch.Tensor,
+                            b_local: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """v3 cascade epilogue -> new h shard (B,Hl). g_local and xp_local: the
+    local (B,3Hl) gate slices, as JAX's kernel takes them, or (B,3,Hl)
+    gate views of the psum'd and projected (B,3H) arrays, read in place;
+    b_local (optional): (3Hl,) or a (3,Hl) gate view of the full bias,
+    added to g first (JAX's ``psum(...) + b``, then ``xp + g``)."""
     B, Hl, dev = _cascade_dims(h_shard)
-    _check("g_local", g_local, (B, 3 * Hl), dev)
-    _check("xp_local", xp_local, (B, 3 * Hl), dev)
+    ldg, gsg = _gate_strides("g_local", g_local, B, 3, Hl, dev)
+    ldx, gsx = _gate_strides("xp_local", xp_local, B, 3, Hl, dev)
+    gsb = (0 if b_local is None else
+           _gate_strides("b_local", b_local, None, 3, Hl, dev)[1])
     _check("h_shard", h_shard, (B, Hl), dev)
     if dev.type == "cpu":
-        return ref.gru_cascade_shard_gates_ref(g_local, xp_local, h_shard)
+        return ref.gru_cascade_shard_gates_ref(g_local, xp_local, h_shard,
+                                               b_local)
     out = torch.empty((B, Hl), dtype=torch.float32, device=dev)
-    err = _shard_launcher("gru_cascade_shard_gates_launch",
-                          _ELEMENTWISE_ARGS)(
-        _ptr(g_local), _ptr(xp_local), _ptr(h_shard), _ptr(out), B, Hl,
-        _stream(dev))
+    err = _shard_launcher("gru_cascade_shard_gates_launch", _GATES_ARGS)(
+        _ptr(g_local), ldg, gsg, _ptr(xp_local), ldx, gsx, _ptr(b_local),
+        gsb, _ptr(h_shard), _ptr(out), B, Hl, _stream(dev))
     _raise_on(err, "gru_cascade_shard_gates")
     gru_cascade_shard_gates.launches += 1
     return out

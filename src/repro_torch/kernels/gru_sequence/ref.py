@@ -221,10 +221,18 @@ def gru_shard_matvec_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def gru_cascade_shard_gates_ref(g: torch.Tensor, xp: torch.Tensor,
-                                h: torch.Tensor) -> torch.Tensor:
-    """v3 cascade epilogue on local gate slices: g, xp (B,3Hl), h (B,Hl)
-    -> new h shard (B,Hl)."""
-    Hl = h.shape[-1]
+                                h: torch.Tensor,
+                                b: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """v3 cascade epilogue on local gate slices: g, xp (B,3Hl) or (B,3,Hl)
+    gate views, h (B,Hl), optional b (3Hl,) or (3,Hl) added to g first ->
+    new h shard (B,Hl). The slices are taken whole before the gate math,
+    as the mesh step's copies took them."""
+    B, Hl = h.shape
+    g = g.reshape(B, 3, Hl)
+    if b is not None:
+        g = g + b.reshape(3, Hl)
+    g, xp = g.reshape(B, 3 * Hl), xp.reshape(B, 3 * Hl)
     z = torch.sigmoid(xp[:, :Hl] + g[:, :Hl])
     r = torch.sigmoid(xp[:, Hl:2 * Hl] + g[:, Hl:2 * Hl])
     ht = torch.tanh(xp[:, 2 * Hl:] + r * g[:, 2 * Hl:])

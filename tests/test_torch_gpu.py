@@ -340,6 +340,113 @@ def test_step_q8_kernel_matches_plain(cuda_device, H, B, variant):
     assert [k.launches for k in K.CHAIN_Q8_KERNELS] == [0, 1]
 
 
+# the q8 step's warp route (H <= 32) and block route
+STEP_Q8_CASES = list(itertools.product((1, 4, 5, 20, 31, 32), (1, 3, 8, 33),
+                                       ("v1", "v3")))
+
+
+def _step_q8_forced(args, variant, plan, vec=None):
+    """The q8 step's C entry at an explicit plan (the route forced, as
+    chip_smoke.py and tools/step_q8_tiles.py force it); ``vec`` None: the
+    wrapper's choice of word loads."""
+    from repro_torch.kernels import _launch
+    h, xp, u_q, u_eff, b = args
+    B, H = h.shape
+    out = torch.empty(B, H, device=h.device)
+    head = (h.data_ptr(), xp.data_ptr(), u_q.data_ptr(), u_eff.data_ptr(),
+            b.data_ptr(), out.data_ptr(), B, H, int(variant == "v3"))
+    if plan.route == "warp":
+        vec = CK.q8_words(H, u_q) if vec is None else vec
+        err = _launch.launcher("gru_cell_q8", "gru_step_q8_warp_launch",
+                               CK._WARP_ARGS)(
+            *head, plan.warps, vec, _launch.stream(h.device))
+    else:
+        err = _launch.launcher("gru_cell_q8", "gru_step_q8_launch",
+                               CK._ARGTYPES)(*head, plan.rows,
+                                             _launch.stream(h.device))
+    assert err == 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,B,variant", STEP_Q8_CASES)
+def test_step_q8_warp_route_matches_block_and_plain(cuda_device, H, B,
+                                                    variant):
+    """The wrapper launches step_q8_plan's warp route at H <= 32; it equals
+    the block route forced on the same inputs bit for bit (exact int32
+    sums, the same float32 ops) and the plain version within TOL; where H
+    % 4 == 0 the byte loads of U give the word loads' bits."""
+    a = _inputs(1, H, B, 1, cuda_device, seed=H * 100 + B)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    args = (a["h0"][0], a["xp"][0], u_q, u_eff, b)
+    K.reset_launch_counts()
+    got = CK.gru_step_q8(*args, variant=variant)
+    assert CK.gru_step_q8.last_plan == CK.step_q8_plan(B, H, variant)
+    assert CK.gru_step_q8.last_plan.route == "warp"
+    assert [k.launches for k in K.CHAIN_Q8_KERNELS] == [0, 1]
+    blk = _step_q8_forced(args, variant,
+                          CK.step_q8_block_plan(B, H, min(B, 4)))
+    want = cref.gru_step_q8_ref(*args, variant)
+    assert _max_err([(got, want), (blk, want)]) <= TOL
+    assert torch.equal(got, blk)
+    if H % 4 == 0:
+        by_bytes = _step_q8_forced(args, variant,
+                                   CK.step_q8_plan(B, H, variant), vec=0)
+        torch.cuda.synchronize()
+        assert torch.equal(by_bytes, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", (5, 20, 31, 32))
+@pytest.mark.parametrize("skew", (1, 2, 3))
+def test_step_q8_warp_route_reads_a_misaligned_u(cuda_device, H, skew):
+    """u_q as a view ``skew`` bytes past a 4-byte boundary: the warp route
+    reads its rows through the aligned words that cover them and equals
+    the block route bit for bit."""
+    a = _inputs(1, H, 8, 1, cuda_device, seed=H + skew)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    flat = torch.randint(-127, 128, (skew + u_q.numel() + 8,),
+                         dtype=torch.int8, device=cuda_device)
+    view = flat[skew:skew + u_q.numel()].view_as(u_q)
+    view.copy_(u_q)
+    args = (a["h0"][0], a["xp"][0], view, u_eff, b)
+    assert view.data_ptr() % 4 == skew and CK.q8_words(H, view) == 0
+    for variant in ("v1", "v3"):
+        got = CK.gru_step_q8(*args, variant=variant)
+        assert CK.gru_step_q8.last_plan.route == "warp"
+        blk = _step_q8_forced(args, variant,
+                              CK.step_q8_block_plan(8, H, 4))
+        torch.cuda.synchronize()
+        assert torch.equal(got, blk)
+        assert torch.equal(got, CK.gru_step_q8(a["h0"][0], a["xp"][0], u_q,
+                                               u_eff, b, variant=variant))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", (1, 2, 4, 8))
+def test_step_q8_warp_route_takes_every_warp_count(cuda_device, warps):
+    a = _inputs(1, 32, 33, 1, cuda_device, seed=warps)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    args = (a["h0"][0], a["xp"][0], u_q, u_eff, b)
+    for variant in ("v1", "v3"):
+        got = _step_q8_forced(args, variant, CK.step_q8_warp_plan(33, warps))
+        want = CK.gru_step_q8(*args, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", (33, 48))
+def test_step_q8_block_route_past_warp_width(cuda_device, H):
+    a = _inputs(1, H, 8, 1, cuda_device, seed=H)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    args = (a["h0"][0], a["xp"][0], u_q, u_eff, b)
+    for variant in ("v1", "v3"):
+        got = CK.gru_step_q8(*args, variant=variant)
+        assert CK.gru_step_q8.last_plan.route == "block"
+        assert _max_err([(got, cref.gru_step_q8_ref(*args, variant))]) <= TOL
+
+
 def _chain_cfg(arch, layer_dims, backend):
     cfg = get_config(arch)
     gru = dataclasses.replace(cfg.gru, backend=backend)
@@ -914,6 +1021,40 @@ def test_shard_kernels_match_plain(cuda_device, H, n, B):
         pairs += list(zip(got, want))
     assert all(f.launches == 1 for f in K.SHARD_KERNELS)
     assert _max_err(pairs) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,n", tuple(itertools.product((20, 32),
+                                                        (1, 2, 4))))
+@pytest.mark.parametrize("B", (1, 8))
+def test_cascade_gates_in_place_equal_the_old_sequence(cuda_device, H, n,
+                                                       B):
+    """The v3 cascade epilogue as the mesh step calls it (gate views of the
+    psum'd gates and of xp, b's local view: one launch) equals, bit for
+    bit, the sequence it replaced (psum + b at full width, this rank's
+    slices copied out, the contiguous call), on every rank's slices."""
+    from repro_torch.core import rowparallel as rp
+    g = torch.Generator().manual_seed(H * 10 + n + B)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(cuda_device)
+    Hl = H // n
+    gf, xp, b, h = rand(B, 3 * H), rand(B, 3 * H), rand(3 * H), rand(B, Hl)
+    for idx in range(n):
+        K.reset_launch_counts()
+        got = K.gru_cascade_shard_gates(
+            rp._gate_view(gf, 3, H, idx, Hl), rp._gate_view(xp, 3, H, idx, Hl),
+            h, rp._gate_view(b, 3, H, idx, Hl))
+        assert K.gru_cascade_shard_gates.launches == 1
+        old = K.gru_cascade_shard_gates(
+            rp._local_gates(gf + b, 3, H, idx, Hl),
+            rp._local_gates(xp, 3, H, idx, Hl), h)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old)
+        want = ref.gru_cascade_shard_gates_ref(
+            rp._local_gates(gf + b, 3, H, idx, Hl),
+            rp._local_gates(xp, 3, H, idx, Hl), h)
+        assert _max_err([(got, want)]) <= TOL
 
 
 @pytest.mark.gpu

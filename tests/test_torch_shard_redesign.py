@@ -25,15 +25,24 @@ route's summation order.
   ``gru_cascade_shard_zr`` in interpret mode within ``SHARD_TOL``,
   at every slice count. No CUDA kernel runs here: this is the one check of
   the new order that does not need the card.
+* The v3 cascade epilogue ``gru_cascade_shard_gates``, which reads its
+  gates in place: the wrapper fed gate views of the full (B,3H) arrays
+  and the bias equals, bit for bit, the sequence the mesh step ran before
+  (psum + b, ``_local_gates``'s copies, the contiguous call) on every rank
+  of gru-jet's and gru-jet-deep's meshes, and JAX's kernel within
+  ``SHARD_TOL``; the strides it passes the kernel reach each element of
+  each view it takes, and it refuses views the kernel cannot read.
 """
 import itertools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import close
 from repro.kernels.gru_sequence import kernel as JK
+from repro_torch.core import rowparallel
 from repro_torch.kernels._launch import SMEM_LIMIT
 from repro_torch.kernels.gru_sequence import kernel as K
 
@@ -407,3 +416,104 @@ def test_every_slice_count_sums_within_tolerance(slices):
                               interpret=True), tol=SHARD_TOL)
     _close_v1(a, 16, slices)
     _close_cascade_zr(a, 32, slices)
+
+
+# ---------------------------------------------------------------------------
+# row 16: the v3 cascade epilogue reads its gates in place
+# ---------------------------------------------------------------------------
+
+# (H, ranks, this rank, B): every rank of gru-jet's and gru-jet-deep's
+# meshes, B 1, 3 and 8
+GATES_SHAPES = tuple((H, n, idx, B) for H in (20, 32) for n in RANKS
+                     for idx in range(n) for B in (1, 3, 8))
+
+
+def _full_gates(H, B, seed):
+    """The v3 cascade layer's full operands: the psum'd gates g (B,3H), the
+    projection xp (B,3H), the bias b (3H,)."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(_f32(rng, B, 3 * H)),
+            torch.from_numpy(_f32(rng, B, 3 * H)),
+            torch.from_numpy(_f32(rng, 3 * H, scale=0.3)))
+
+
+@pytest.mark.parametrize("H,n,idx,B", GATES_SHAPES)
+def test_cascade_gates_in_place_equal_the_old_sequence(H, n, idx, B):
+    """The wrapper on gate views of the full arrays and b's local view
+    equals, bit for bit, the sequence the mesh step ran before: psum + b at
+    full width, this rank's slices copied out (``_local_gates``), the
+    contiguous call; and JAX's kernel on those slices within
+    ``SHARD_TOL``."""
+    g, xp, b = _full_gates(H, B, seed=100 * H + 10 * n + idx + B)
+    Hl = H // n
+    h = torch.from_numpy(_f32(np.random.default_rng(idx), B, Hl, scale=0.5))
+    K.reset_launch_counts()
+    got = K.gru_cascade_shard_gates(
+        rowparallel._gate_view(g, 3, H, idx, Hl),
+        rowparallel._gate_view(xp, 3, H, idx, Hl), h,
+        rowparallel._gate_view(b, 3, H, idx, Hl))
+    gl = rowparallel._local_gates(g + b, 3, H, idx, Hl)
+    xl = rowparallel._local_gates(xp, 3, H, idx, Hl)
+    assert torch.equal(got, K.gru_cascade_shard_gates(gl, xl, h))
+    assert K.gru_cascade_shard_gates.launches == 0
+    # the local slices and the bias as (3Hl,), the other form it takes
+    bl = rowparallel._local_gates(b[None], 3, H, idx, Hl)[0]
+    assert torch.equal(got, K.gru_cascade_shard_gates(
+        rowparallel._local_gates(g, 3, H, idx, Hl), xl, h, bl))
+    close(got, JK.gru_cascade_shard_gates(*map(jnp.asarray, (gl, xl, h)),
+                                          interpret=True), tol=SHARD_TOL)
+
+
+@pytest.mark.parametrize("H,n", tuple(itertools.product((20, 32), RANKS)))
+def test_cascade_gates_strides_address_the_views(H, n):
+    """The (row stride, gate stride) the wrapper passes the kernel, with
+    the view's own offset (its data pointer), reach each element of the
+    view: the kernel's g + row * ld + k * gs + c, mirrored here, for gate
+    views of (B,3H) arrays, contiguous and row-strided local slices and
+    both forms of the bias; and the kernel's one thread an element covers
+    each output once."""
+    B, Hl = 3, H // n
+    g, _, b = _full_gates(H, B, seed=H + n)
+    wide = torch.from_numpy(_f32(np.random.default_rng(n), B, 4 * Hl))
+    for idx in range(n):
+        views = [(rowparallel._gate_view(g, 3, H, idx, Hl), B),
+                 (rowparallel._local_gates(g, 3, H, idx, Hl), B),
+                 (wide[:, Hl:], B),
+                 (rowparallel._gate_view(b, 3, H, idx, Hl), None),
+                 (b[:3 * Hl], None)]
+        for t, rows in views:
+            ld, gs = K._gate_strides("t", t, rows, 3, Hl, t.device)
+            flat = t.untyped_storage()
+            base = torch.tensor([], dtype=torch.float32).set_(flat)
+            r = torch.arange(rows or 1)[:, None, None]
+            k = torch.arange(3)[None, :, None]
+            c = torch.arange(Hl)[None, None, :]
+            at = base[t.storage_offset() + r * ld + k * gs + c]
+            want = t.reshape(rows or 1, 3, Hl)
+            assert torch.equal(at, want)
+    n_out = B * Hl
+    threads = 128                                  # kGatesThreads
+    i = np.arange(-(-n_out // threads) * threads)
+    i = i[i < n_out]
+    assert (np.bincount((i // Hl) * Hl + i % Hl, minlength=n_out) == 1).all()
+
+
+def test_cascade_gates_refuse_what_the_kernel_does_not_take():
+    g, xp, b = _full_gates(32, 3, seed=1)
+    h = torch.zeros(3, 16)
+    gv = rowparallel._gate_view(g, 3, 32, 1, 16)
+    xv = rowparallel._gate_view(xp, 3, 32, 1, 16)
+    with pytest.raises(ValueError, match="overlap"):    # an expanded row
+        K.gru_cascade_shard_gates(gv[:1].expand(3, 3, 16), xv, h)
+    with pytest.raises(ValueError, match="overlap"):    # gates overlap
+        K.gru_cascade_shard_gates(g.as_strided((3, 3, 16), (96, 8, 1)),
+                                  xv, h)
+    with pytest.raises(ValueError, match="unit-stride"):
+        K.gru_cascade_shard_gates(gv.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), xv, h)
+    with pytest.raises(ValueError, match="shape"):      # another shard width
+        K.gru_cascade_shard_gates(g[:, :40], xv, h)
+    with pytest.raises(ValueError, match="shape"):
+        K.gru_cascade_shard_gates(gv, xv, h, b[:40])
+    with pytest.raises(TypeError):
+        K.gru_cascade_shard_gates(gv.double(), xv, h)

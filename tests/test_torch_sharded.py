@@ -6,8 +6,9 @@ ranks of a gloo process group (``sharded``, ``cuda_sharded``,
   kernels in interpret mode, at gru-jet's (H=20) and gru-jet-deep's
   (H=32) shard widths over 1, 2 and 4 ranks, within 1e-6; the wrappers
   run them on CPU tensors and launch nothing;
-* (b) the port's ``sharded`` and ``cuda_sharded`` on meshes of 2 and 4 CPU
-  ranks (each world size spawned once, every case inside): finals,
+* (b) the port's ``sharded`` and ``cuda_sharded`` on gloo meshes of 1, 2
+  and 4 CPU ranks (each world size spawned once, every case inside; the
+  v3 cases' cascade layers run the in-place gates epilogue): finals,
   ``return_all`` states, masked prefill and decode steps within 1e-5 of
   JAX's single-device ``xla`` backend (the cases of
   ``test_pallas_sharded.py``, gru-jet-deep v1 and v3, gru-jet);
@@ -21,7 +22,7 @@ ranks of a gloo process group (``sharded``, ``cuda_sharded``,
 * (e) dispatch: the backends JAX picks under the name map, on a one-rank
   mesh and without one, across preference x hetero x mask x family (the
   sLSTM has no mesh backend and falls through), and on the n-rank meshes;
-* (f) a served wave on the 2- and 4-rank meshes pinned to
+* (f) a served wave on the 1-, 2- and 4-rank meshes pinned to
   ``cuda_sharded``: every prefill and step attributed to it, streams equal
   on every rank and to the replicated ``eager`` engine's;
 * (g) one case on 2 ranks against JAX's own ``sharded`` backend on 2 host
@@ -76,7 +77,7 @@ CASES = {
     "gru-jet": dict(input_dim=5, layer_dims=(20,),
                     layer_matvec_modes=("rowwise",), variant="v1"),
 }
-WORLDS = (2, 4)
+WORLDS = (1, 2, 4)
 # JAX backend name -> the port's
 PORT_NAME = {"xla": "eager", "pallas_fused": "cuda_fused",
              "pallas_chain": "cuda_chain", "sharded": "sharded",

@@ -20,6 +20,15 @@ off) is timed beside the matvec. Each shape's lines end with the fastest
 launch of each route and the wrapper's plan (``kernel.shard_plan``), so
 the plan's rule can be read off the table.
 
+Then row 16, ``gru_cascade_shard_gates`` (the v3 cascade epilogue, one
+thread an output, no knob): at the same shapes and B 1 and 64, the call as
+the mesh step makes it (gate views of the psum'd gates, of xp and of b:
+one launch) beside the epilogue it replaced (psum + b, two slice copies,
+the kernel on contiguous slices), both held against the plain version
+and against each other bit for bit; with ``--parent DIR`` (a checkout of
+an earlier commit) also that commit's kernel, built from its source, on
+the contiguous slices and as its whole epilogue, held bit for bit.
+
 Then the served ``cuda_sharded`` decode step of gru-jet-deep v1 and v3 on
 a one-rank mesh without a group (``chip_smoke.profile_mesh_decode``),
 once with the wrapper's plans and once with all five kernels forced to
@@ -34,7 +43,8 @@ one run.
 
 Run from the repository root on a machine with a card::
 
-    python3 tools/shard_tiles.py [--out build/shard_tiles.txt]
+    python3 tools/shard_tiles.py [--out build/shard_tiles.txt] [--parent DIR]
+        [--gates-only]
 """
 from __future__ import annotations
 
@@ -53,10 +63,34 @@ WARPS = (1, 2, 4, 8)
 WIDE = tuple(itertools.product((64, 128, 256, 512), (1, 2, 4)))
 
 
+def parent_gates_entry(parent: Path, build: Path):
+    """The v3 cascade epilogue's C entry of an earlier checkout's
+    ``gru_shard.cu``, built with the port's nvcc flags: the entry before
+    row 16 read its gates in place, (g, xp, h, out, B, Hl, stream) on
+    contiguous (B,3Hl) slices."""
+    import ctypes
+    from repro_torch.kernels import _build
+    src = parent / "src" / "repro_torch" / "csrc" / "gru_shard.cu"
+    lib = build / "libgru_shard_parent.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).gru_cascade_shard_gates_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/shard_tiles.txt",
                     help="file for the sweep's lines")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of an earlier commit whose row 16 "
+                         "kernel is built and held beside this one")
+    ap.add_argument("--gates-only", action="store_true",
+                    help="row 16's lines only")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
@@ -196,9 +230,74 @@ def main() -> None:
 
     shapes = [(H, n, 8) for H, n in cs.SHARD_TIMED]
     shapes += [(32, 2, 1), (32, 2, 64)] + [(H, n, 8) for H, n in WIDE]
-    for H, n, B in shapes:
-        for name in cs.REDESIGNED:
-            sweep(name, H, n, B)
+    if not args.gates_only:
+        for H, n, B in shapes:
+            for name in cs.REDESIGNED:
+                sweep(name, H, n, B)
+
+    # row 16: the call as the step makes it against the epilogue before
+    from repro_torch.core import rowparallel as rp
+    parent = (parent_gates_entry(Path(args.parent).resolve(),
+                                 ROOT / "build" / "parent_gru_shard")
+              if args.parent else None)
+    name = "gru_cascade_shard_gates"
+    for H, n, B in shapes[:len(cs.SHARD_TIMED) + 2]:
+        a = cs.shard_inputs(torch, H, n, B, 17 * H + n + B, dev)
+        args_ = cs.shard_args(name, a)
+        Hl, idx, h = a["Hl"], a["idx"], a["h_shard"]
+        head = f"{name:27s} H={H:3d} ranks={n} B={B:2d}"
+        want = ref.gru_cascade_shard_gates_ref(*args_)
+        got = K.gru_cascade_shard_gates(*args_)
+        old = cs.old_gates_fn(a)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        if not (e <= TOL and torch.equal(got, old())):
+            sys.exit(f"shard_tiles: {head}: max |err| {e:.3g}, or the "
+                     f"in-place call differs from the old sequence")
+        local = [t.reshape(B, -1).contiguous() for t in args_[:2]]
+        t_new = cs.device_time_ms(
+            torch, lambda: K.gru_cascade_shard_gates(*args_), per_graph=50)
+        t_contig = cs.device_time_ms(
+            torch, lambda: K.gru_cascade_shard_gates(*local, h),
+            per_graph=50)
+        t_old = cs.device_time_ms(torch, old, per_graph=50)
+        line = (f"{head} in place (views + b) {t_new * 1e3:6.2f} us; "
+                f"contiguous slices {t_contig * 1e3:6.2f} us; old epilogue "
+                f"(+ b, 2 cats, kernel) {t_old * 1e3:6.2f} us")
+        if parent is not None:
+            out_p = torch.empty_like(got)
+
+            def parent_epilogue():
+                gl = rp._local_gates(a["g_full"] + a["b_full"], 3, H, idx, Hl)
+                xl = rp._local_gates(a["xp_full"], 3, H, idx, Hl)
+                _launch.raise_on(parent(
+                    gl.data_ptr(), xl.data_ptr(), h.data_ptr(),
+                    out_p.data_ptr(), B, Hl, _launch.stream(dev)),
+                    "the parent's gates kernel")
+                return out_p
+            parent_epilogue()
+            torch.cuda.synchronize()
+            if not torch.equal(out_p, got):
+                sys.exit(f"shard_tiles: {head}: the in-place call differs "
+                         f"from the parent's epilogue (max "
+                         f"{(out_p - got).abs().max().item():.3g})")
+            gl = rp._local_gates(a["g_full"], 3, H, idx, Hl)
+            xl = local[1]
+
+            def parent_kernel():
+                _launch.raise_on(parent(
+                    gl.data_ptr(), xl.data_ptr(), h.data_ptr(),
+                    out_p.data_ptr(), B, Hl, _launch.stream(dev)),
+                    "the parent's gates kernel")
+            t_par = cs.device_time_ms(torch, parent_kernel, per_graph=50)
+            t_par_epi = cs.device_time_ms(torch, parent_epilogue,
+                                          per_graph=50)
+            line += (f"; parent's kernel {t_par * 1e3:6.2f} us, its epilogue"
+                     f" {t_par_epi * 1e3:6.2f} us (bit for bit equal)")
+        say(line)
+    if args.gates_only:
+        out.write_text("\n".join(lines) + "\n")
+        return
 
     # the served step, one rank: the wrapper's plans against the column tile
     from repro_torch.core.params import init_params
