@@ -13,7 +13,8 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_cell``, ``rowwise_matvec`` and ``gru_shard``, one ``nvcc`` each,
    started together) and print ``-Xptxas -v``'s report (``gru_shard``'s
    functions, row 16's among them, ``gru_sequence_kernel``'s, both
-   routes, and ``gru_step_q8``'s warp route must not spill)
+   routes, ``gru_step_q8``'s warp route and the two fused decode kernels'
+   warp routes must not spill)
    and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree), the row-wise
@@ -34,7 +35,11 @@ Phases (any failure exits non-zero, before the result lines):
    the largest difference between the two routes is reported;
    ``gru_step_q8`` likewise must launch the route ``step_q8_plan`` names
    (the warp route at these widths), and its block route, forced beside
-   it, must agree with the plain version and equal it bit for bit;
+   it, must agree with the plain version and equal it bit for bit; so
+   must ``gru_stack_decode_kernel`` and ``gru_stack_decode_q8_kernel``
+   (``decode_plan``, ``decode_q8_plan``: the warp route at gru-jet's L=1
+   H=20 and gru-jet-deep's L=3 H=32), the largest difference between the
+   routes reported;
 3b. hold the seven shard kernels (the ``cuda_sharded`` backend's per-rank
    steps) against their plain versions on the card at gru-jet's (H=20)
    and gru-jet-deep's (H=32) shard widths and at wide shards (H 64, 256,
@@ -55,13 +60,15 @@ Phases (any failure exits non-zero, before the result lines):
    must rise by the prefills and steps served, no plain version may run,
    the class streams must equal the ``eager`` engine's on the card, and
    the prefill logits must be finite and agree with the dense reference on
-   a small batch;
+   a small batch; every served call of ``gru_stack_decode_kernel`` must
+   launch the warp route;
 5. serve both configs again, pinned to ``cuda_fused_q8`` (the int8
    datapath), with the counters zeroed just before: both q8 kernels must
    launch once per prefill and per step, no fp32 kernel and no plain
    version may run, the class streams and prefill logits must equal the
-   CPU run of the same pin; the share of tokens on which the q8 and fp32
-   streams agree is reported only;
+   CPU run of the same pin; every served call of
+   ``gru_stack_decode_q8_kernel`` must launch the warp route; the share of
+   tokens on which the q8 and fp32 streams agree is reported only;
 6. serve both configs and a heterogeneous stack (gru-jet-deep with
    ``layer_dims=(32, 32, 20)``) through the per-layer chain, with the
    counters zeroed just before: the two configs pinned to ``cuda_chain``,
@@ -135,7 +142,10 @@ Phases (any failure exits non-zero, before the result lines):
    under ``torch.profiler`` on each rank, must launch the matvec and
    ``gru_cascade_shard_gates`` once a call and no cat or add kernel
    around them. Then once under ``backend="cuda"``:
-   prefill on ``cuda_sharded``, decode on ``cuda_fused``. Each mesh also
+   prefill on ``cuda_sharded``, decode on ``cuda_fused``, every decode
+   call on ``gru_stack_decode_kernel``'s warp route (its launches go to
+   the kernel's row as ``mesh_launches``, apart from phase 4's
+   ``launches``). Each mesh also
    profiles a served ``cuda_sharded`` decode step (reported in phase 12).
    A rank that fails fails the script;
 12. time each kernel and its plain version with CUDA events, on the device
@@ -152,7 +162,10 @@ Phases (any failure exits non-zero, before the result lines):
    ``torch.nn.GRU`` (cuDNN) call on the v3 unmasked work at T=32 B=8 H=32,
    ``gru_cascade_shard_zr`` beside its old column tile (timed only);
    ``gru_step_q8`` beside its block route forced at the same shapes (its
-   served shapes split by launches), ``gru_cascade_shard_gates`` beside
+   served shapes split by launches), the two fused decode kernels likewise
+   (their served shapes from phases 4, 5 and 11b), and ``torch.nn.GRU``
+   (cuDNN) on rows 2 and 3's v3 work over L layers (T=16; T=1),
+   ``gru_cascade_shard_gates`` beside
    the epilogue it replaced (+ b, two slice copies, the kernel) and the
    kernel on contiguous slices; the served gru-jet-deep ``cuda_chain_q8``
    decode step and its v3 twin's one-rank ``cuda_sharded`` step with the
@@ -162,7 +175,10 @@ Phases (any failure exits non-zero, before the result lines):
    decode step on a one-rank mesh without a group (no collective; v1 and
    v3) beside phase 11b's meshes, split into
    the shard kernels' device time and the host time in the collectives
-   (one card's: no measure of NCCL across cards); and profile a served
+   (one card's: no measure of NCCL across cards); the served gru-jet-deep
+   ``cuda`` and ``cuda_fused_q8`` decode steps with both fused decode
+   kernels' block routes forced and with the plans, in turns old, new,
+   new, old (profiler); and profile a served
    decode step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
    ``cuda_chain`` and ``cuda_chain_q8``, of slstm-jet through
    ``cuda_fused``, and of qwen3-0.6b through ``attn_impl="cuda"``. The
@@ -339,6 +355,16 @@ def build_kernels():
           f"instances)")
     print(f"  gru_cell_q8: row 7's {len(frames)} warp-route instances, no "
           f"spills (ptxas)")
+    # rows 3 and 5's warp routes: the fp32 instances (v1/v3, H 20, 32 or
+    # any) and the q8 ones (v1/v3, word/cover loads, one layer or three)
+    for lib, fn, want in (("gru_sequence", "gru_stack_decode_warp_k", 6),
+                          ("gru_sequence_q8", "gru_stack_decode_q8_warp_k",
+                           8)):
+        frames = [(f, ln) for f, ln in spill_frames(lib) if fn in f]
+        spills = [f for f, ln in frames if not no_spill(ln)]
+        check(len(frames) == want and not spills, f"{lib}: ptxas reports "
+              f"spills in {fn} {spills[:3]} ({len(frames)} instances)")
+        print(f"  {lib}: {fn}'s {len(frames)} instances, no spills (ptxas)")
     # all shared memory is dynamic, so ptxas does not report it
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.slstm_cell import kernel as SK
@@ -667,6 +693,45 @@ def step_q8_block_route(B, H):
     return CK.step_q8_block_plan(B, H, min(B, _launch.DEFAULT_BATCH_BLOCK))
 
 
+def decode_route_fn(torch, a, variant, plan, q8=False, vec=None):
+    """A call of a fused decode kernel's C entry on ``a`` (the operands of
+    :func:`make_inputs`: h0, xp's first step, u, wd, b; q8: the int8 rows
+    of ``a["q8"]``) at an explicit plan (``kernel.decode_warp_plan`` or
+    ``kernel.decode_block_plan``; ``vec``: the q8 warp route's word loads,
+    None for the wrapper's choice), into a fresh output: the route forced,
+    for phase 3's check of both routes, the before/after times of phase 12
+    and ``tools/decode_tiles.py``. Reads the current stream at each call,
+    so a CUDA-graph capture records it; raises if the launch is refused."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.gru_sequence import kernel as K
+    h, xp = a["h0"], a["xp"][0]
+    L, B, H = h.shape
+    out = torch.empty(L, B, H, device=h.device)
+    ws = a["q8"] if q8 else (a["u"], a["wd"], a["b"])
+    head = (h.data_ptr(), xp.data_ptr(), *(w.data_ptr() for w in ws),
+            out.data_ptr(), B, H, L, int(variant == "v3"))
+    name = "gru_stack_decode_q8" if q8 else "gru_stack_decode"
+    if plan.route == "warp":
+        fn = K._launcher(f"{name}_warp_launch")
+        tail = (plan.warps,) + ((K.decode_q8_words(H, ws[0], ws[2])
+                                 if vec is None else vec,) if q8 else ())
+    else:
+        fn = K._launcher(f"{name}_launch")
+        tail = (plan.rows,)
+
+    def call():
+        _launch.raise_on(fn(*head, *tail, _launch.stream(h.device)),
+                         f"{name} forced {plan}")
+        return out
+    return call
+
+
+def decode_block_route(K, B, H, L, q8=False):
+    """A fused decode kernel's block route at the tile the wrapper gave it
+    before the warp route: ``min(B, DEFAULT_BATCH_BLOCK)`` rows."""
+    return K.decode_block_plan(B, H, L, min(B, K.DEFAULT_BATCH_BLOCK), q8)
+
+
 def q8_step_args(a):
     """The q8 step's operands from :func:`make_inputs` (L = 1): h, xp of the
     first step, the layer's int8 rows, scales and bias."""
@@ -685,6 +750,9 @@ def check_kernels(torch, dev):
     seq_routes, err_block, route_diff, same_bits = {}, 0.0, 0.0, 0
     # row 7 likewise; its two routes must agree bit for bit
     q8_routes, err_q8_block, q8_same = {}, 0.0, 0
+    # rows 3 and 5 likewise: route launched, block route forced beside it
+    dec = {n: {"routes": {}, "err_block": 0.0, "diff": 0.0, "same": 0}
+           for n in FUSED_DECODE}
     from repro_torch.kernels.gru_cell import kernel as CK
     for name, shapes in MAIN_SHAPES.items():
         Ts = ((1,) if name in DECODE else (8, 16, 32))
@@ -753,6 +821,33 @@ def check_kernels(torch, dev):
                                       f"H={H} B={B} {variant}: the {p.route}"
                                       f" route differs from the block route")
                                 q8_same += 1
+                            if name in FUSED_DECODE:
+                                q8 = name == "gru_stack_decode_q8_kernel"
+                                p = getattr(K, name).last_plan
+                                plan = (K.decode_q8_plan if q8 else
+                                        K.decode_plan)(B, H, L, variant)
+                                check(p == plan, f"{name} L={L} B={B} H={H}"
+                                      f": launched {p}, its plan names "
+                                      f"{plan}")
+                                d = dec[name]
+                                d["routes"][p.route] = d["routes"].get(
+                                    p.route, 0) + 1
+                                blk = decode_route_fn(
+                                    torch, a, variant,
+                                    decode_block_route(K, B, H, L, q8), q8)()
+                                torch.cuda.synchronize()
+                                e = (blk - want[0]).abs().max().item()
+                                d["err_block"] = max(d["err_block"], e)
+                                check(e <= TOL, f"{name} block route L={L} "
+                                      f"H={H} B={B} {variant}: max |err| "
+                                      f"{e:.3g} > {TOL}")
+                                d["diff"] = max(d["diff"], (
+                                    got[0] - blk).abs().max().item())
+                                check(torch.equal(got[0], blk), f"{name} "
+                                      f"L={L} H={H} B={B} {variant}: the "
+                                      f"{p.route} route differs from the "
+                                      f"block route")
+                                d["same"] += 1
                             if name in SLSTM and masked and B > 1:
                                 frozen_rows[name] += 1
                                 for k, leaf in enumerate(a["leaves"]):
@@ -778,6 +873,12 @@ def check_kernels(torch, dev):
           f"the block route forced beside each call: max |block - plain| = "
           f"{err_q8_block:.3g} (<= {TOL}); equal to the launched route bit "
           f"for bit in {q8_same} of {checks['gru_step_q8']} comparisons")
+    for n, d in dec.items():
+        print(f"  {n}: routes launched {d['routes']} (its plan's); the block "
+              f"route forced beside each call: max |block - plain| = "
+              f"{d['err_block']:.3g} (<= {TOL}); max |launched - block| = "
+              f"{d['diff']:.3g}, bit for bit in {d['same']} of {checks[n]} "
+              f"comparisons")
     print(f"  slstm_stack_sequence_kernel: the fully masked row (m = M_INIT)"
           f" kept all four leaves bit for bit in "
           f"{frozen_rows['slstm_stack_sequence_kernel']} masked comparisons")
@@ -1057,6 +1158,50 @@ def step_q8_calls():
         ops.gru_step_q8 = fn
 
 
+# the fused decode kernels' served calls (phases 4 and 5, and phase 11b's
+# backend="cuda" runs, whose ranks report theirs) by (L, B, H), for phase
+# 12's launches x gap, and the routes they launched, by shape
+FUSED_DECODE = ("gru_stack_decode_kernel", "gru_stack_decode_q8_kernel")
+DECODE_SHAPES: dict = {n: {} for n in FUSED_DECODE}
+DECODE_ROUTES: dict = {n: {} for n in FUSED_DECODE}
+
+
+@contextlib.contextmanager
+def decode_calls(shapes=DECODE_SHAPES, routes=DECODE_ROUTES):
+    """Count the calls of the two fused decode kernels that the serving
+    path makes through its ops module, by (L, B, H), while the block runs,
+    and note the route each launched."""
+    from repro_torch.kernels.gru_sequence import ops
+    saved = {n: getattr(ops, n) for n in FUSED_DECODE}
+
+    def recording(n, fn):
+        def wrapped(h, *args, **kw):
+            key = tuple(h.shape)
+            shapes[n][key] = shapes[n].get(key, 0) + 1
+            out = fn(h, *args, **kw)
+            if h.is_cuda:
+                routes[n].setdefault(key, set()).add(fn.last_plan.route)
+            return out
+        return wrapped
+    for n, fn in saved.items():
+        setattr(ops, n, recording(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def check_decode_routes(name, routes=DECODE_ROUTES):
+    """Every served call of fused decode kernel ``name`` took the warp
+    route (its plan's at every served shape)."""
+    got = routes[name]
+    check(got and all(r == {"warp"} for r in got.values()),
+          f"{name}: served calls launched {got}, not the warp route alone")
+    print(f"  {name}: every served call took the warp route "
+          f"({ {k: sorted(v) for k, v in got.items()} })", flush=True)
+
+
 def serve(cfg, params, backend, dev):
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve.engine import ServeEngine
@@ -1075,7 +1220,8 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
     K.reset_launch_counts()
     engines, streams, per_arch = {}, {}, {}
     before = [0] * len(kernels)
-    with plain_calls() as plain, sequence_shapes(SEQ_SHAPES):
+    with plain_calls() as plain, sequence_shapes(SEQ_SHAPES), \
+            decode_calls():
         for a in cfgs:
             b = (backends or {}).get(a, backend)
             engines[a], streams[a] = serve(cfgs[a], params[a], b, dev)
@@ -1170,6 +1316,7 @@ def run_main_path(torch, dev):
               f"streams == eager; logits vs reference {e:.3g}", flush=True)
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    check_decode_routes("gru_stack_decode_kernel")
     return launches, report, cfgs, params, streams
 
 
@@ -1231,6 +1378,7 @@ def run_q8_path(torch, dev, cfgs, params, fp32_streams):
               f"to fp32 cuda_fused: {agree:.4f} (report only)", flush=True)
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the q8 path never launched: {launches}")
+    check_decode_routes("gru_stack_decode_q8_kernel")
     return launches, report
 
 
@@ -2121,8 +2269,12 @@ def mesh_rank_main(rank: int, n: int, backend: str, store: str,
     # replicated on the fused kernel (decode_cost), as JAX's rule has it
     a, cfg = MESH_ARCHS[0], mesh_configs()[MESH_ARCHS[0]]
     params = init_params(gru_lm.lm_specs(cfg), seed=0, device=cpu)
-    eng, streams, launches, plain, buckets = serve_on_mesh(
-        torch, cfg, params, "cuda", dev, ctx)
+    shapes, routes = {n: {} for n in FUSED_DECODE}, {n: {} for n in
+                                                     FUSED_DECODE}
+    with decode_calls(shapes, routes):
+        eng, streams, launches, plain, buckets = serve_on_mesh(
+            torch, cfg, params, "cuda", dev, ctx)
+    check_decode_routes("gru_stack_decode_kernel", routes)
     st = eng.latency_stats()
     steps_run = st["steps"] + 1
     check(set(eng.prefill_backends) == {"cuda_sharded"},
@@ -2137,7 +2289,10 @@ def mesh_rank_main(rank: int, n: int, backend: str, store: str,
           f"{who} cuda: streams differ from the cuda_sharded run")
     result["cuda_run"] = {"launches": {k: v for k, v in launches.items()
                                        if v}, "buckets": buckets,
-                          "steps_run": steps_run}
+                          "steps_run": steps_run,
+                          "decode_shapes": [
+                              [list(k), n] for k, n in
+                              shapes["gru_stack_decode_kernel"].items()]}
     result["profile"] = profile_mesh_decode(torch, cfg, params, dev, ctx)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           f"{who}: the JAX package was imported")
@@ -2245,6 +2400,42 @@ def steps_both_ways(torch, dev):
     return out
 
 
+def decode_steps_both_ways(torch, dev):
+    """The served gru-jet-deep decode steps rows 3 and 5 sit in (``cuda``,
+    which serves it through ``cuda_fused``, and ``cuda_fused_q8``), each
+    with both fused decode kernels' block routes forced (at their old
+    tiles) and with the plans, in turns old, new, new, old
+    (``profile_decode``). Returns {backend: [(which, profile)]}."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    out = {"cuda": [], "cuda_fused_q8": []}
+    plans = K.decode_plan, K.decode_q8_plan
+
+    def forced(q8):
+        def plan(B, H, L, variant, batch_block=0):
+            return decode_block_route(K, B, H, L, q8)
+        return plan
+    for which in ("old", "new", "new", "old"):
+        try:
+            if which == "old":
+                K.decode_plan, K.decode_q8_plan = forced(False), forced(True)
+            for backend in out:
+                out[backend].append((which, profile_decode(torch, dev,
+                                                           backend)))
+        finally:
+            K.decode_plan, K.decode_q8_plan = plans
+    for backend, runs in out.items():
+        for which, pr in runs:
+            if pr is None:
+                print(f"  served step {backend} {which}: not measured (no "
+                      f"device time recorded)", flush=True)
+                continue
+            print(f"  served step gru-jet-deep {backend} ({SLOTS} slots, 20 "
+                  f"steps) {which}: wall {pr['wall_ms_per_step']:.4f} ms/step,"
+                  f" device busy {pr['device_busy_ms_per_step']:.4f} ms/step "
+                  f"(idle {pr['device_idle_share']:.3%})", flush=True)
+    return out
+
+
 def run_mesh_path(torch):
     """Spawn each mesh of ``MESHES`` on the one card (the libraries are
     built), wait for its ranks, and hold them against each other: every
@@ -2253,7 +2444,8 @@ def run_mesh_path(torch):
     report)."""
     import tempfile
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
-    report, launches, streams = {}, {n: 0 for n in SHARD}, None
+    report, streams = {}, None
+    launches = {n: 0 for n in SHARD + ("gru_stack_decode_kernel",)}
     for n, backend in MESHES:
         t0 = time.monotonic()
         procs = []
@@ -2288,6 +2480,12 @@ def run_mesh_path(torch):
             for a in MESH_ARCHS:
                 for k, v in res["runs"][a]["launches"].items():
                     launches[k] += v
+            # backend="cuda": decode on row 3, counted beside phase 4's
+            launches["gru_stack_decode_kernel"] += res["cuda_run"][
+                "launches"]["gru_stack_decode_kernel"]
+            for key, count in res["cuda_run"]["decode_shapes"]:
+                served = DECODE_SHAPES["gru_stack_decode_kernel"]
+                served[tuple(key)] = served.get(tuple(key), 0) + count
         r0 = ranks[0]
         print(f"  mesh of {n} ranks ({backend}, one card): every rank exit "
               f"0 in {time.monotonic() - t0:.1f} s; streams equal across "
@@ -2395,35 +2593,51 @@ def bound_ms(name, a, masked=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cudnn_gru_ms(torch, dev, T=32, B=SLOTS, H=32):
+def cudnn_gru_ms(torch, dev, T=32, B=SLOTS, H=32, L=1):
     """Device time (graph replay) of one ``torch.nn.GRU`` call (cuDNN) on
-    row 1's v3 unmasked work at (T, B, H): a yardstick, timed here only
-    (the port never calls it; it has no v1). The kernel's operands mapped
+    the v3 unmasked work of an L-layer stack at (T, B, H): row 1's (L = 1,
+    T = 32), row 2's and, at T = 1, row 3's; a yardstick, timed here only
+    (the port never calls it; it has no v1). The kernels' operands mapped
     as ROADMAP's ground rules say: torch's gate order r, z, n; its z is 1 -
-    v3's z, so the z rows of its weights and bias are negated; U and b go
-    to ``weight_hh`` and ``bias_hh``, ``bias_ih`` is 0; x_proj is its
-    input, through a ``weight_ih`` that is an exact signed permutation (so
-    cuDNN does one (T*B, 3H) x (3H, 3H) product more than the kernel).
-    Its output is first held against the plain v3 version within TOL."""
+    v3's z, so the z rows of its weights and bias are negated; each U and
+    b go to ``weight_hh`` and ``bias_hh``, ``bias_ih`` is 0; x_proj is its
+    input, through a ``weight_ih_l0`` that is an exact signed permutation
+    (so cuDNN does one (T*B, 3H) x (3H, 3H) product more than the kernel),
+    and each deep layer's ``weight_ih`` is its W (``w_deep``), mapped the
+    same way. Its output is first held against the plain v3 version
+    within TOL."""
     from repro_torch.kernels.gru_sequence import ref
-    a = make_inputs(torch, 1, H, B, T, seed=7, dev=dev)
-    h0, xp, u, b = a["h0"][0], a["xp"], a["u"][0], a["b"][0]
+    a = make_inputs(torch, L, H, B, T, seed=7, dev=dev)
+    h0, xp, u, wd, b = a["h0"], a["xp"], a["u"], a["wd"], a["b"]
     eye, zero = torch.eye(H, device=dev), torch.zeros(H, H, device=dev)
-    gru = torch.nn.GRU(3 * H, H).to(dev)
+
+    def gates(m):          # (K, 3H) [z | r | h] -> torch's (3H, K) [r|z|n]
+        return torch.cat([m[:, H:2 * H].T, -m[:, :H].T, m[:, 2 * H:].T])
+    gru = torch.nn.GRU(3 * H, H, num_layers=L).to(dev)
     with torch.no_grad():
         gru.weight_ih_l0.copy_(torch.cat([torch.cat([zero, eye, zero], 1),
                                           torch.cat([-eye, zero, zero], 1),
                                           torch.cat([zero, zero, eye], 1)]))
-        gru.weight_hh_l0.copy_(torch.cat([u[:, H:2 * H].T, -u[:, :H].T,
-                                          u[:, 2 * H:].T]))
-        gru.bias_ih_l0.zero_()
-        gru.bias_hh_l0.copy_(torch.cat([b[H:2 * H], -b[:H], b[2 * H:]]))
-        out, _ = gru(xp, h0[None])
-        want = ref.gru_sequence_ref(h0, xp, u, b, None, "v3")
-        e = (out - want).abs().max().item()
-        check(e <= TOL, f"torch.nn.GRU mapping: max |GRU - plain v3| "
-              f"{e:.3g} > {TOL}")
-        return device_time_ms(torch, lambda: gru(xp, h0[None]), per_graph=50)
+        for l in range(L):
+            if l:
+                getattr(gru, f"weight_ih_l{l}").copy_(gates(wd[l - 1]))
+            getattr(gru, f"weight_hh_l{l}").copy_(gates(u[l]))
+            getattr(gru, f"bias_ih_l{l}").zero_()
+            getattr(gru, f"bias_hh_l{l}").copy_(gates(b[l][None])[:, 0])
+        out, hn = gru(xp, h0)
+        if L == 1:
+            want = ref.gru_sequence_ref(h0[0], xp, u[0], b[0], None, "v3")
+            e = (out - want).abs().max().item()
+        elif T == 1:
+            want = ref.gru_stack_decode_ref(h0, xp[0], u, wd, b, "v3")
+            e = (hn - want).abs().max().item()
+        else:
+            want = ref.gru_stack_sequence_ref(h0, xp, u, wd, b, None, "v3")
+            e = max((out - want[0]).abs().max().item(),
+                    (hn - want[1]).abs().max().item())
+        check(e <= TOL, f"torch.nn.GRU mapping (L={L} T={T}): max |GRU - "
+              f"plain v3| {e:.3g} > {TOL}")
+        return device_time_ms(torch, lambda: gru(xp, h0), per_graph=50)
 
 
 TIMED = (("gru_sequence_kernel", (1, 20)),
@@ -2444,11 +2658,15 @@ TIMED = (("gru_sequence_kernel", (1, 20)),
          ("slstm_stack_decode_kernel", (3, 32)))
 
 
-def time_kernels(torch, dev, err, launches):
+def time_kernels(torch, dev, err, launches, mesh_launches):
     """Kernel, plain-version and bound times at the main path's shapes;
     the JSON rows are the 8-slot shapes (gru-jet fp32 prefill, gru-jet-deep
     for the others: L=3 for the fused kernels, one H=32 layer for the q8
-    chain's; slstm-jet, L=1 H=20, for the sLSTM kernels)."""
+    chain's; slstm-jet, L=1 H=20, for the sLSTM kernels). ``launches``:
+    each kernel's count from its main path's run; ``mesh_launches``: the
+    fused decode kernels' from phase 11b's ``backend="cuda"`` runs, kept
+    apart in their rows and counted beside ``launches`` in the served
+    launches x gap."""
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
@@ -2486,6 +2704,13 @@ def time_kernels(torch, dev, err, launches):
                     per_graph=200)
                 before = (f"  block route {blk * 1e3:8.2f} us; plan "
                           f"{CK.gru_step_q8.last_plan}")
+            if name in FUSED_DECODE:
+                q8 = name == "gru_stack_decode_q8_kernel"
+                blk = device_time_ms(torch, decode_route_fn(
+                    torch, a, "v1", decode_block_route(K, B, H, L, q8), q8),
+                    per_graph=200)
+                before = (f"  block route {blk * 1e3:8.2f} us; plan "
+                          f"{getattr(K, name).last_plan}")
             print(f"  {name:28s} L={L} H={H} B={B:2d} T={T:2d}: device "
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
@@ -2510,6 +2735,10 @@ def time_kernels(torch, dev, err, launches):
                 if name == "gru_step_q8":
                     rows[-1]["plan"] = str(CK.gru_step_q8.last_plan)
                     rows[-1]["block_route_ms"] = blk
+                if name in FUSED_DECODE:
+                    rows[-1]["plan"] = str(getattr(K, name).last_plan)
+                    rows[-1]["block_route_ms"] = blk
+                    rows[-1]["mesh_launches"] = mesh_launches.get(name, 0)
     # the fp32 chain's decode layer: the depth-1 sequence kernel at T=1,
     # unmasked (a row of PERF.md, not of the JSON line)
     for H in (32, 20):
@@ -2581,8 +2810,49 @@ def time_kernels(torch, dev, err, launches):
     print(f"  gru_step_q8: launches x (device - bound) over its "
           f"{sum(STEP_Q8_SHAPES.values())} served launches = {gap_us:.0f} us "
           f"(block route forced: {gap_block_us:.0f} us)", flush=True)
+    # rows 3 and 5's served launches by shape (phase 4 and phase 11b's
+    # backend="cuda" ranks; phase 5), likewise, the block route forced
+    for name in FUSED_DECODE:
+        q8 = name == "gru_stack_decode_q8_kernel"
+        served = DECODE_SHAPES[name]
+        total = launches[name] + mesh_launches.get(name, 0)
+        check(sum(served.values()) == total, f"{name}: served calls by "
+              f"shape {served} do not sum to its {launches[name]} main-path "
+              f"and {mesh_launches.get(name, 0)} mesh launches")
+        gap_us = gap_block_us = 0.0
+        for (L, B, H), count in sorted(served.items()):
+            a = make_inputs(torch, L, H, B, 1, seed=7, dev=dev)
+            ms = device_time_ms(torch, lambda: run_kernel(
+                K, ref, name, a, "v1", False, plain=False), per_graph=200)
+            plan = getattr(K, name).last_plan
+            blk = device_time_ms(torch, decode_route_fn(
+                torch, a, "v1", decode_block_route(K, B, H, L, q8), q8),
+                per_graph=200)
+            bms, _ = bound_ms(name, a)
+            gap_us += count * (ms - bms) * 1e3
+            gap_block_us += count * (blk - bms) * 1e3
+            print(f"  {name} served L={L} B={B} H={H}: {count:3d} launches, "
+                  f"device {ms * 1e3:7.2f} us ({plan.route} warps="
+                  f"{plan.warps}), block route "
+                  f"{blk * 1e3:7.2f} us, bound {bms * 1e6:6.2f} ns",
+                  flush=True)
+        print(f"  {name}: launches x (device - bound) over its "
+              f"{sum(served.values())} served launches = {gap_us:.0f} us "
+              f"(block route forced: {gap_block_us:.0f} us)", flush=True)
     print(f"  torch.nn.GRU (cuDNN) yardstick, v3 T=32 B={SLOTS} H=32: "
           f"{cudnn_gru_ms(torch, dev) * 1e3:.2f} us", flush=True)
+    # rows 2 and 3's yardstick: torch.nn.GRU over L layers on the same v3
+    # unmasked work, beside the kernel on it (row 2 at its T=16 bucket)
+    for name, L, H, T in (("gru_stack_sequence_kernel", 3, 32, 16),
+                          ("gru_stack_decode_kernel", 3, 32, 1),
+                          ("gru_stack_decode_kernel", 1, 20, 1)):
+        a = make_inputs(torch, L, H, SLOTS, T, seed=7, dev=dev)
+        ms = device_time_ms(torch, lambda: run_kernel(
+            K, ref, name, a, "v3", False, plain=False), per_graph=200)
+        lib = cudnn_gru_ms(torch, dev, T=T, H=H, L=L)
+        print(f"  torch.nn.GRU (cuDNN) yardstick for {name}, v3 L={L} H={H} "
+              f"B={SLOTS} T={T}: {lib * 1e3:.2f} us; the kernel on the same "
+              f"work {ms * 1e3:.2f} us", flush=True)
     print("  library_ms: null -- no single PyTorch call computes the v1 "
           "(paper) GRU recurrence or step these kernels run, in fp32 or on "
           "int8 weight rows; nor the exponential-gated sLSTM (torch.nn.LSTM "
@@ -3223,9 +3493,12 @@ def main() -> None:
     phase("11b. mesh path: gru-jet-deep v1 and v3 through cuda_sharded on "
           "2 and 4 ranks (gloo) and 1 rank (NCCL), one card")
     mesh_launches, mesh_report = run_mesh_path(torch)
+    # row 3's decode launches under backend="cuda", kept apart from phase 4's
+    mesh_decode = {"gru_stack_decode_kernel":
+                   mesh_launches.pop("gru_stack_decode_kernel")}
     launches.update(mesh_launches)
     phase("12. timing (CUDA events: device via graph replay, and per call)")
-    rows = time_kernels(torch, dev, err, launches)
+    rows = time_kernels(torch, dev, err, launches, mesh_decode)
     rows += time_attention(torch, dev, attn_err, launches)
     rows += time_rowwise(torch, dev, rw_err, launches)
     rows += time_shard_kernels(torch, dev, shard_err, launches)
@@ -3241,6 +3514,9 @@ def main() -> None:
     both = steps_both_ways(torch, dev)
     cq8_report["step_both_ways"] = both["cuda_chain_q8"]
     mesh_report["v3_step_both_ways"] = both["cuda_sharded v3"]
+    both = decode_steps_both_ways(torch, dev)
+    report["step_both_ways"] = both["cuda"]
+    q8_report["step_both_ways"] = both["cuda_fused_q8"]
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the JAX package was imported")
     print(json.dumps({"serve": report, "serve_q8": q8_report,

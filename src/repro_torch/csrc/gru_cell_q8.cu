@@ -95,72 +95,7 @@ size_t smem_bytes_step_q8(int H, int bt) {
 
 size_t step_smem[kMaxDevices];
 
-// --- the warp route ----------------------------------------------------------
-
-constexpr int kWarpMaxH = 32;                // one output column a lane
-constexpr int kWarpWords = kWarpMaxH / 4;    // int8 words of a row
-constexpr unsigned kFullWarp = 0xffffffffu;
-
-// Lane c's int8 row of U (`row`, H bytes) as words in load_rows's layout:
-// byte j of word k is element 4k + j, bytes past H are 0; a lane past H
-// (`col` false) holds zeros. VEC: the row is 4-byte aligned and H % 4 ==
-// 0, so its words load whole. Otherwise the row is read as the aligned
-// words that cover it (at most kWarpWords + 1), each word of the row
-// funnel-shifted out of two of them. The cover may reach up to 3 bytes
-// before or after the rows, never past an allocation: allocations start
-// and end on 4-byte boundaries. (Loading the 32 bytes one by one spilled,
-// and took twice as long as words; PERF.md's findings.)
-template <bool VEC>
-__device__ __forceinline__ void load_row_words(int (&w)[kWarpWords],
-                                               const int8_t* row, int H,
-                                               bool col) {
-  if constexpr (VEC) {
-#pragma unroll
-    for (int k = 0; k < kWarpWords; ++k)
-      w[k] = col && 4 * k < H ? __ldg(reinterpret_cast<const int*>(row) + k)
-                              : 0;
-  } else {
-    const uintptr_t at = reinterpret_cast<uintptr_t>(row);
-    const unsigned* cover =
-        reinterpret_cast<const unsigned*>(at & ~(uintptr_t)3);
-    const int skew = (int)(at & 3);
-    const int last = (skew + H - 1) >> 2;        // the cover's last word
-    unsigned a[kWarpWords + 1];
-#pragma unroll
-    for (int k = 0; k <= kWarpWords; ++k)
-      a[k] = col && k <= last ? __ldg(cover + k) : 0u;
-#pragma unroll
-    for (int k = 0; k < kWarpWords; ++k) {
-      const unsigned v = __funnelshift_r(a[k], a[k + 1], 8 * skew);
-      const int left = H - 4 * k;                // the row's bytes from 4k
-      w[k] = (int)(left >= 4 ? v : left > 0 ? v & ((1u << (8 * left)) - 1)
-                                            : 0u);
-    }
-  }
-}
-
-// The packed words of an int8 vector whose element c is lane c's `q` (0 on
-// lanes past H), in load_rows's layout, in every lane: each lane puts its
-// byte in place, an OR over each group of 4 lanes makes word k in lanes
-// 4k..4k+3, and lane 4k broadcasts it.
-__device__ __forceinline__ void pack_words(int (&w)[kWarpWords], int8_t q,
-                                           int lane) {
-  uint32_t v = (uint32_t)(uint8_t)q << (8 * (lane & 3));
-  v |= __shfl_xor_sync(kFullWarp, v, 1);
-  v |= __shfl_xor_sync(kFullWarp, v, 2);
-#pragma unroll
-  for (int k = 0; k < kWarpWords; ++k)
-    w[k] = (int)__shfl_sync(kFullWarp, v, 4 * k);
-}
-
-// int32 dot product of two packed int8 rows: exact in any order
-__device__ __forceinline__ int dot_words(const int (&a)[kWarpWords],
-                                         const int (&w)[kWarpWords]) {
-  int acc = 0;
-#pragma unroll
-  for (int k = 0; k < kWarpWords; ++k) acc = __dp4a(a[k], w[k], acc);
-  return acc;
-}
+// --- the warp route (its helpers are gru_q8_math.cuh's) -----------------------
 
 // One q8 step, one warp a batch row (the source note's warp route), lane c
 // < H owning column c; the float32 math is cell_update_q8's, op for op.

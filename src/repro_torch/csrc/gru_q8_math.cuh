@@ -1,6 +1,7 @@
 // The int8 (q8) GRU arithmetic shared by the port's q8 kernels
 // (gru_sequence_q8.cu: fused stack and depth-1 sequence; gru_cell_q8.cu:
-// one step), so that all of them round in one way: the JAX kernels'
+// one step), and the warp routes' row loads, packing and sums, so that all
+// of them round in one way: the JAX kernels'
 // _gate_math_q8 (src/repro/kernels/gru_sequence/kernel.py) and
 // _q8_step_kernel (src/repro/kernels/gru_cell/kernel.py).
 //
@@ -188,6 +189,76 @@ __device__ __forceinline__ void cell_update_q8(
     h[i] = v;
     if (out != nullptr) out[i] = v;
   }
+}
+
+// --- the warp routes (gru_cell_q8.cu's step, gru_sequence_q8.cu's decode) ---
+//
+// One warp a batch row, lane c owning column c of each gate; U's rows in
+// registers as words, q8 activations packed by shuffles, __dp4a sums.
+
+constexpr int kWarpMaxH = 32;                // one output column a lane
+constexpr int kWarpWords = kWarpMaxH / 4;    // int8 words of a row
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Lane c's int8 row of U (`row`, H bytes) as words in load_rows's layout:
+// byte j of word k is element 4k + j, bytes past H are 0; a lane past H
+// (`col` false) holds zeros. VEC: the row is 4-byte aligned and H % 4 ==
+// 0, so its words load whole. Otherwise the row is read as the aligned
+// words that cover it (at most kWarpWords + 1), each word of the row
+// funnel-shifted out of two of them. The cover may reach up to 3 bytes
+// before or after the rows, never past an allocation: allocations start
+// and end on 4-byte boundaries. (Loading the 32 bytes one by one spilled,
+// and took twice as long as words; PERF.md's findings.)
+template <bool VEC>
+__device__ __forceinline__ void load_row_words(int (&w)[kWarpWords],
+                                               const int8_t* row, int H,
+                                               bool col) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int k = 0; k < kWarpWords; ++k)
+      w[k] = col && 4 * k < H ? __ldg(reinterpret_cast<const int*>(row) + k)
+                              : 0;
+  } else {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(row);
+    const unsigned* cover =
+        reinterpret_cast<const unsigned*>(at & ~(uintptr_t)3);
+    const int skew = (int)(at & 3);
+    const int last = (skew + H - 1) >> 2;        // the cover's last word
+    unsigned a[kWarpWords + 1];
+#pragma unroll
+    for (int k = 0; k <= kWarpWords; ++k)
+      a[k] = col && k <= last ? __ldg(cover + k) : 0u;
+#pragma unroll
+    for (int k = 0; k < kWarpWords; ++k) {
+      const unsigned v = __funnelshift_r(a[k], a[k + 1], 8 * skew);
+      const int left = H - 4 * k;                // the row's bytes from 4k
+      w[k] = (int)(left >= 4 ? v : left > 0 ? v & ((1u << (8 * left)) - 1)
+                                            : 0u);
+    }
+  }
+}
+
+// The packed words of an int8 vector whose element c is lane c's `q` (0 on
+// lanes past H), in load_rows's layout, in every lane: each lane puts its
+// byte in place, an OR over each group of 4 lanes makes word k in lanes
+// 4k..4k+3, and lane 4k broadcasts it.
+__device__ __forceinline__ void pack_words(int (&w)[kWarpWords], int8_t q,
+                                           int lane) {
+  uint32_t v = (uint32_t)(uint8_t)q << (8 * (lane & 3));
+  v |= __shfl_xor_sync(kFullWarp, v, 1);
+  v |= __shfl_xor_sync(kFullWarp, v, 2);
+#pragma unroll
+  for (int k = 0; k < kWarpWords; ++k)
+    w[k] = (int)__shfl_sync(kFullWarp, v, 4 * k);
+}
+
+// int32 dot product of two packed int8 rows: exact in any order
+__device__ __forceinline__ int dot_words(const int (&a)[kWarpWords],
+                                         const int (&w)[kWarpWords]) {
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < kWarpWords; ++k) acc = __dp4a(a[k], w[k], acc);
+  return acc;
 }
 
 // Above 48 KB a block's shared memory must be opted into per kernel and

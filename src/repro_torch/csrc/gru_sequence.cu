@@ -5,38 +5,48 @@
 //   gru_sequence_warp_k (warp route),
 //   gru_sequence_k (block route) <- gru_sequence_kernel   (depth-1 sequence)
 //   gru_stack_sequence_k  <- gru_stack_sequence_kernel  (fused depth-L seq)
-//   gru_stack_decode_k    <- gru_stack_decode_kernel    (one token, L layers)
+//   gru_stack_decode_warp_k (warp route),
+//   gru_stack_decode_k (block route) <- gru_stack_decode_kernel (one token,
+//                                                                 L layers)
 // They compute what the TPU kernels compute for variant v1 (paper/Cho gate
 // math, two phases per step) and v3 (one stacked U matvec per step).
 //
 // Translation. The TPU walks a sequential time grid and carries h in VMEM
 // scratch. Here the time loop (and the layer loop) runs INSIDE the kernel,
 // and the grid runs over independent batch rows (the decode kernel's
-// "parallel" axis on the TPU). Two routes; the wrapper picks one by shape
-// (seq_plan in kernels/gru_sequence/kernel.py):
-// - "warp" (the depth-1 sequence at H <= 32, every served width): one
-//   warp per R batch rows; lane c owns output column c of each gate and
-//   keeps its 3H weights of U (U[k*3H + c], k < H; coalesced across the
-//   lanes) in registers from entry on. h_k reaches every lane by
-//   __shfl_sync from the lane that owns it; v1 runs the z/r phase, forms
-//   r_c*h_c in lane c, broadcasts it the same way and runs the candidate
-//   phase; v3 runs one phase of three accumulators. Nothing on the step
-//   chain touches shared memory, waits at a barrier or waits for device
-//   memory: each lane's xp columns and the row's liveness are loaded D
-//   steps ahead into a register ring (slot t % D), and out[t] is stored
-//   as the step ends (coalesced; nothing reads it back). No branch splits
-//   a pass over k: it runs all 32 lanes' k's, the lanes past H holding
-//   zeros, so the shuffles go out ahead of the fma chain (a branch per k
-//   made each k wait for its shuffle: 1.6 us a step at H=32 on an H100).
+// "parallel" axis on the TPU). Two routes for the depth-1 sequence and for
+// the decode; the wrappers pick one by shape (seq_plan and decode_plan in
+// kernels/gru_sequence/kernel.py):
+// - "warp" (H <= 32, every served width): one warp per batch row (R rows
+//   for the sequence); lane c owns output column c of each gate
+//   (warp_gru_step, shared by both kernels). The sequence keeps its 3H
+//   weights of U (U[k*3H + c], k < H; coalesced across the lanes) in
+//   registers from entry on; h_k reaches every lane by __shfl_sync from
+//   the lane that owns it; v1 runs the z/r phase, forms r_c*h_c in lane
+//   c, broadcasts it the same way and runs the candidate phase; v3 runs
+//   one phase of three accumulators. Nothing on the step chain touches
+//   shared memory, waits at a barrier or waits for device memory: each
+//   lane's xp columns and the row's liveness are loaded D steps ahead into
+//   a register ring (slot t % D), and out[t] is stored as the step ends
+//   (coalesced; nothing reads it back). No branch splits a pass over k: it
+//   runs all 32 lanes' k's, the lanes past H holding zeros, so the
+//   shuffles go out ahead of the fma chain (a branch per k made each k
+//   wait for its shuffle: 1.6 us a step at H=32 on an H100). The decode
+//   (gru_stack_decode_warp_k, see its note) chains the L layers in the
+//   same warp: layer l+1's input projection is the warp's own pass over
+//   k; each layer's U and W come from device memory, in one burst of
+//   loads a pass; h_k reaches the lanes through a slot of shared memory,
+//   8 float4 reads a pass.
 // - "block" (run_stack, shared by all three kernels; the depth-1 kernel
-//   past H = 32): a block per tile of `bt` rows copies U, the deep layers'
-//   W and b into shared memory once and keeps them for the whole loop (the
-//   paper's row reuse). Every thread owns whole output columns of U (the
-//   paper's row-wise split) and reads U[k*3H + j], so neighbouring threads
-//   read neighbouring shared-memory words. The per-layer h lives in shared
-//   memory; layer l+1 reads layer l's new h from there, never from device
-//   memory. A masked row keeps its pre-step h in every layer, and the next
-//   layer consumes that gated output.
+//   and the decode past H = 32 or L = 4): a block per tile
+//   of `bt` rows copies U, the deep layers' W and b into shared memory
+//   once and keeps them for the whole loop (the paper's row reuse). Every
+//   thread owns whole output columns of U (the paper's row-wise split) and
+//   reads U[k*3H + j], so neighbouring threads read neighbouring shared-
+//   memory words. The per-layer h lives in shared memory; layer l+1 reads
+//   layer l's new h from there, never from device memory. A masked row
+//   keeps its pre-step h in every layer, and the next layer consumes that
+//   gated output.
 //
 // Bound on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): the work is a chain
 // of tiny matvecs (2*3H*H flops per row, layer and step) over a few tens
@@ -46,16 +56,18 @@
 // __syncthreads() with a block-wide matvec between each pair, and a trip
 // to L2 for the step's xp and mask inside the chain; its U copy and
 // barrier come before step 0. The warp route's step is H dependent fmas
-// per accumulator (the shuffles of h do not wait on them) and the gate
-// math, twice for v1; its only trip to memory that the chain waits for is
-// the load of U and of the first D steps at entry.
+// per accumulator (the broadcasts of h do not wait on them) and the gate
+// math, twice for v1; the sequence's only trip to memory that the chain
+// waits for is the load of U and of the first D steps at entry, the
+// decode's the first layer's operands and each matrix's burst of loads.
 //
 // Numerics: expf/tanhf, no fast math; sums accumulate in k order with fma
 // from 0, and the epilogues add in the same order on both routes (z, r:
 // x + (U.h + b); the v1 candidate (x + U.(r*h)) + b, v3's x + r*(U.h + b);
 // the update fma(1 - z, h, z*ht), the contraction nvcc picks for
-// run_stack's (1 - z)*h + z*ht, written out in the warp route), so the
-// two routes compute the same expressions.
+// run_stack's (1 - z)*h + z*ht, written out in the warp route; the
+// decode's deep projection h @ W in k order by fma from 0 as run_stack's
+// matvec), so the two routes compute the same expressions.
 
 #include <cuda_runtime.h>
 
@@ -244,10 +256,111 @@ gru_stack_decode_k(const float* h, const float* xp, const float* u,
   run_stack(h, xp, u, wd, b, nullptr, nullptr, out, 1, B, H, L, v3, bt);
 }
 
-// --- the warp route ----------------------------------------------------------
+// --- the warp routes ---------------------------------------------------------
 
 constexpr int kWarpMaxH = 32;          // one output column a lane
 constexpr unsigned kFullWarp = 0xffffffffu;
+
+// How a warp's lanes see each other's values in a pass over k: at(r, k)
+// is lane k's v[r] of the last put(v). By shuffle (row 1's route: each
+// at() a __shfl_sync from lane k) or through a slot of shared memory per
+// warp (the decode route: put() stores each lane's value once, and the
+// pass reads the vector back as float4 broadcasts, 8 reads where the
+// shuffles were 32; __syncwarp() on both sides of the store, so no lane
+// overwrites a value another still reads). Both give the same values.
+template <int R>
+struct ShflBcast {
+  float v[R];
+  __device__ __forceinline__ void put(const float (&x)[R]) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = x[r];
+  }
+  __device__ __forceinline__ float at(int r, int k) const {
+    return __shfl_sync(kFullWarp, v[r], k);
+  }
+};
+
+template <int R>
+struct SmemBcast {
+  float* slot;                            // (R, 32) floats, 16-byte aligned
+  int lane;
+  __device__ __forceinline__ void put(const float (&x)[R]) {
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < R; ++r) slot[r * 32 + lane] = x[r];
+    __syncwarp();
+  }
+  __device__ __forceinline__ float at(int r, int k) const {
+    const float4 q = reinterpret_cast<const float4*>(slot + r * 32)[k >> 2];
+    return (k & 3) == 0 ? q.x : (k & 3) == 1 ? q.y : (k & 3) == 2 ? q.z : q.w;
+  }
+};
+
+// One GRU step of R batch rows by one warp (the warp routes' layer): lane
+// c < H owns column c of every gate. x: the lane's three gate columns of
+// the input projection, a row each; h: the lane's states; wt(k, g): lane
+// c's weight of gate g in row k of U (U[k*3H + g*H + c]; 0 for k >= H);
+// bc: how the pass sees h_k (and v1's r_k*h_k), see ShflBcast and
+// SmemBcast; bz, br, bh: the lane's biases. Returns the new states in hn,
+// unmasked.
+//
+// z and r (and v3's candidate) in one pass over k. All 32 k's, with no
+// branch between them, so the broadcasts can all go out ahead of the fma
+// chain; k >= H adds fma(h_k, +0): lane k >= H holds a finite h_k (+0 on
+// row 1's route, whose lanes past H hold zeros throughout; a value no
+// lane below H otherwise reads on the decode route), the product is +-0,
+// and adding it leaves the sum (never -0) as it was, so the sums equal
+// the block route's over k < H bit for bit.
+template <int V3, int R, typename Wt, typename Bc>
+__device__ __forceinline__ void warp_gru_step(const float (&x)[R][3],
+                                              const float (&h)[R], Wt wt,
+                                              Bc& bc, float bz, float br,
+                                              float bh, float (&hn)[R]) {
+  float az[R] = {}, ar[R] = {}, ah[R] = {}, z[R], ht[R];
+  bc.put(h);
+#pragma unroll
+  for (int k = 0; k < kWarpMaxH; ++k) {
+    const float uz = wt(k, 0), ur = wt(k, 1);
+    const float uh = V3 ? wt(k, 2) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float hk = bc.at(r, k);
+      az[r] = fmaf(hk, uz, az[r]);
+      ar[r] = fmaf(hk, ur, ar[r]);
+      if constexpr (V3) ah[r] = fmaf(hk, uh, ah[r]);
+    }
+  }
+  if constexpr (V3) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      z[r] = sigmoid_f(x[r][0] + (az[r] + bz));
+      const float rr = sigmoid_f(x[r][1] + (ar[r] + br));
+      ht[r] = tanhf(x[r][2] + rr * (ah[r] + bh));
+    }
+  } else {      // v1: the candidate's pass over k, on lane c's r_c*h_c
+    float rh[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      z[r] = sigmoid_f(x[r][0] + (az[r] + bz));
+      rh[r] = sigmoid_f(x[r][1] + (ar[r] + br)) * h[r];
+    }
+    bc.put(rh);
+#pragma unroll
+    for (int k = 0; k < kWarpMaxH; ++k) {     // k >= H: weight 0
+      const float uh = wt(k, 2);
+#pragma unroll
+      for (int r = 0; r < R; ++r) ah[r] = fmaf(bc.at(r, k), uh, ah[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) ht[r] = tanhf((x[r][2] + ah[r]) + bh);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    // (1 - z)*h + z*ht contracted as nvcc contracts it in run_stack (its
+    // SASS: FMUL z*ht, then FFMA (1 - z), h), so that the routes round
+    // alike; left to itself nvcc contracts the other product here
+    hn[r] = __fmaf_rn(1.0f - z[r], h[r], __fmul_rn(z[r], ht[r]));
+}
 
 // One lane's operands of step t: its three gate columns of xp for each of
 // its R rows and the rows' liveness (0 for a row past B).
@@ -299,6 +412,9 @@ gru_sequence_warp_k(const float* __restrict__ h0,
     ur[k] = in ? __ldg(uk + H) : 0.0f;
     uh[k] = in ? __ldg(uk + 2 * H) : 0.0f;
   }
+  const auto wt = [&](int k, int g) {
+    return g == 0 ? uz[k] : g == 1 ? ur[k] : uh[k];
+  };
   const float bz = col ? __ldg(b + c) : 0.0f;
   const float br = col ? __ldg(b + H + c) : 0.0f;
   const float bh = col ? __ldg(b + 2 * H + c) : 0.0f;
@@ -329,58 +445,145 @@ gru_sequence_warp_k(const float* __restrict__ h0,
       if (t + D < T)       // refill the slot just read, D steps ahead
         load_step<R>(ring_x[i], ring_m[i], xp, mask, t + D, B, H, row0, nrow,
                      col, c);
-
-      // z and r (and v3's candidate) in one pass over k. All 32 k's, with
-      // no branch between them, so the shuffles can all go out ahead of
-      // the fma chain; k >= H adds fma(+0, +0): lane k >= H holds h = +0
-      // (its x, U and b are 0, so every step keeps it +0) and u[k] = 0,
-      // and an fma of +0 leaves the sum (never -0) as it was, so the sums
-      // equal the block route's over k < H bit for bit.
-      float az[R] = {}, ar[R] = {}, ah[R] = {}, z[R], ht[R];
-#pragma unroll
-      for (int k = 0; k < kWarpMaxH; ++k) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float hk = __shfl_sync(kFullWarp, h[r], k);
-          az[r] = fmaf(hk, uz[k], az[r]);
-          ar[r] = fmaf(hk, ur[k], ar[r]);
-          if constexpr (V3) ah[r] = fmaf(hk, uh[k], ah[r]);
-        }
-      }
-      if constexpr (V3) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          z[r] = sigmoid_f(x[r][0] + (az[r] + bz));
-          const float rr = sigmoid_f(x[r][1] + (ar[r] + br));
-          ht[r] = tanhf(x[r][2] + rr * (ah[r] + bh));
-        }
-      } else {      // v1: the candidate's pass over k, on lane c's r_c*h_c
-        float rh[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          z[r] = sigmoid_f(x[r][0] + (az[r] + bz));
-          rh[r] = sigmoid_f(x[r][1] + (ar[r] + br)) * h[r];
-        }
-#pragma unroll
-        for (int k = 0; k < kWarpMaxH; ++k)       // lane k >= H: rh = +0
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            ah[r] = fmaf(__shfl_sync(kFullWarp, rh[r], k), uh[k], ah[r]);
-#pragma unroll
-        for (int r = 0; r < R; ++r) ht[r] = tanhf((x[r][2] + ah[r]) + bh);
-      }
+      float hn[R];
+      ShflBcast<R> bc;
+      warp_gru_step<V3, R>(x, h, wt, bc, bz, br, bh, hn);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float hold = h[r];
-        // (1 - z)*h + z*ht contracted as nvcc contracts it in run_stack
-        // (its SASS: FMUL z*ht, then FFMA (1 - z), h), so that the two
-        // routes round alike; left to itself nvcc contracts the other
-        // product here
-        const float hn = __fmaf_rn(1.0f - z[r], hold, __fmul_rn(z[r], ht[r]));
-        h[r] = m[r] != 0.0f ? hn : hold;
+        h[r] = m[r] != 0.0f ? hn[r] : h[r];
         if (col && r < nrow) out[((size_t)t * B + row0 + r) * H + c] = h[r];
       }
     }
+  }
+}
+
+// --- the decode warp route --------------------------------------------------
+
+constexpr int kDecodeMaxLayers = 4;    // the deepest stack the route takes
+
+// Lane c's columns of a (H, 3H) matrix at m (the matrix plus c) in device
+// memory: w[g][k] = m[k*3H + g*H], 0 for k >= H, loaded in one burst ahead
+// of the pass that reads them. (Read inside the pass, one load before each
+// fma, every k waited for its load: 2-5 us a layer.) The loads are plain
+// coherent ld.global, and a __syncwarp() closes the burst: ptxas may not
+// move such a load past the barrier. Through __ldg (ld.global.nc), which
+// it may move, ptxas put each load just before the fma that reads it (43
+// registers at H = 32, where the burst holds 96 values) and the pass
+// waited on each in turn: 10.4 us a launch for v3 at L=3 H=32 on an H100
+// against 4.2. With H a compile-time constant each load is one instruction
+// at an immediate offset; with H at run time each also computes its
+// address and predicate (a burst of 96 took about 770 cycles where its
+// pass takes 190). A lane past H reads column 0 (its m is the matrix
+// itself), unpredicated: a per-lane predicate tripled the burst at H = 20.
+// Its sums are finite garbage that no lane below H reads: those lanes
+// weigh every k >= H by an exact 0, and it stores nothing.
+template <int HT>
+__device__ __forceinline__ void load_cols(float (&w)[3][kWarpMaxH],
+                                          const float* m, int H) {
+  if constexpr (HT) H = HT;
+#pragma unroll
+  for (int k = 0; k < kWarpMaxH; ++k)
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      if (k < H)
+        asm volatile("ld.global.f32 %0, [%1];"
+                     : "=f"(w[g][k])
+                     : "l"(m + k * 3 * H + g * H));
+      else
+        w[g][k] = 0.0f;
+    }
+  __syncwarp();
+}
+
+// The next layer's input projection of one row by one warp: p[g] = sum_k
+// h_k W[k*3H + g*H + c] over k in order by fma from 0, as run_stack's
+// matvec sums; h_k as bc gives it, and wt(k, g) is 0 for k >= H, as in
+// warp_gru_step.
+template <typename Wt, typename Bc>
+__device__ __forceinline__ void warp_project(float h, Wt wt, Bc& bc,
+                                             float (&p)[3]) {
+  const float hv[1] = {h};
+  bc.put(hv);
+  p[0] = p[1] = p[2] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kWarpMaxH; ++k) {
+    const float hk = bc.at(0, k);
+#pragma unroll
+    for (int g = 0; g < 3; ++g) p[g] = fmaf(hk, wt(k, g), p[g]);
+  }
+}
+
+// One token through L <= kDecodeMaxLayers layers, one warp a batch row
+// (the source note's decode warp route). Layouts as run_stack's (T = 1, no
+// mask). Lane c < H owns column c of every gate in every layer; HT is H at
+// compile time (the served 20 and 32) or 0 (any H <= 32, at run time).
+//
+// The weights: before each pass the warp loads lane c's 96 columns of the
+// pass's matrix (U_l, then W_l) from device memory into registers in one
+// burst (load_cols). (Staging every matrix in shared memory at entry by
+// bulk copies, one mbarrier each, bought nothing over these reads.)
+//
+// The pass: h (and v1's r*h) reaches the lanes through the warp's slot of
+// shared memory, as float4 broadcasts (SmemBcast; 32 shuffles a pass took
+// 1.4x as long). Layer l+1's input projection h_l' @ W_l is the same warp's
+// pass over k (three sums by fma in k order from 0, as run_stack's matvec
+// sums), so it reaches the next layer in registers; each layer's h[c] and
+// b are loaded one layer ahead. Nothing on the layer chain waits at a
+// __syncthreads().
+template <int V3, int HT>
+__global__ void __launch_bounds__(kThreads)
+gru_stack_decode_warp_k(const float* __restrict__ h,
+                        const float* __restrict__ xp,
+                        const float* __restrict__ u,
+                        const float* __restrict__ wd,
+                        const float* __restrict__ b, float* __restrict__ out,
+                        int B, int H, int L) {
+  if constexpr (HT) H = HT;
+  __shared__ __align__(16) float sbc[kThreads];   // each warp's 32 slots
+  const int H3 = 3 * H;
+  const int n = H * H3;                   // floats of one matrix
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= B) return;      // a warp past B
+  const bool col = lane < H;
+  const int c = col ? lane : 0;
+  SmemBcast<1> bc{sbc + (threadIdx.x & ~31), lane};
+
+  // layer 0's operands now, each later layer's h[c] and b one layer ahead
+  // (issued before the layer's weight loads, so they land while it runs)
+  float x[1][3], hl = 0.0f, bias[3] = {};
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    x[0][g] = col ? __ldg(xp + (size_t)row * H3 + g * H + c) : 0.0f;
+    bias[g] = col ? __ldg(b + g * H + c) : 0.0f;
+  }
+  if (col) hl = __ldg(h + (size_t)row * H + c);
+
+  float w[3][kWarpMaxH];     // lane c's columns of the matrix of the pass
+  const auto wt = [&](int k, int g) { return w[g][k]; };
+  for (int l = 0; l < L; ++l) {
+    const bool ahead = col && l + 1 < L;
+    const float h_next =
+        ahead ? __ldg(h + ((size_t)(l + 1) * B + row) * H + c) : 0.0f;
+    float b_next[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      b_next[g] = ahead ? __ldg(b + (size_t)(l + 1) * H3 + g * H + c) : 0.0f;
+    load_cols<HT>(w, u + (size_t)l * n + c, H);
+    const float hold[1] = {hl};
+    float hn[1];
+    warp_gru_step<V3, 1>(x, hold, wt, bc, bias[0], bias[1], bias[2], hn);
+    if (col) out[((size_t)l * B + row) * H + c] = hn[0];
+    if (l + 1 < L) {         // the next layer's input projection, in-warp
+      load_cols<HT>(w, wd + (size_t)l * n + c, H);
+      float p[3];
+      warp_project(hn[0], wt, bc, p);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) x[0][g] = p[g];
+    }
+    hl = h_next;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) bias[g] = b_next[g];
   }
 }
 
@@ -505,4 +708,31 @@ extern "C" int gru_sequence_warp_launch(const float* h0, const float* xp,
       return (int)cudaGetLastError();
     });
   });
+}
+
+// The warp route of the fused decode: `warps` warps a block, one batch row
+// each. H at most 32 (20 and 32 compiled as constants), L at most
+// kDecodeMaxLayers.
+extern "C" int gru_stack_decode_warp_launch(const float* h, const float* xp,
+                                            const float* u, const float* wd,
+                                            const float* b, float* out,
+                                            int B, int H, int L, int v3,
+                                            int warps, void* stream) {
+  if (H < 1 || H > kWarpMaxH || L < 1 || L > kDecodeMaxLayers ||
+      warps < 1 || warps > kThreads / 32)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + warps - 1) / warps);
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto go = [&](auto kernel) {
+    kernel<<<grid, 32 * warps, 0, st>>>(h, xp, u, wd, b, out, B, H, L);
+    return (int)cudaGetLastError();
+  };
+  const auto width = [&](auto v3c) {
+    constexpr int V = decltype(v3c)::value;
+    if (H == 32) return go(gru_stack_decode_warp_k<V, 32>);
+    if (H == 20) return go(gru_stack_decode_warp_k<V, 20>);
+    return go(gru_stack_decode_warp_k<V, 0>);
+  };
+  return v3 ? width(std::integral_constant<int, 1>())
+            : width(std::integral_constant<int, 0>());
 }

@@ -3,10 +3,12 @@
 // Replaces three Pallas TPU kernels of the q8 datapath in
 // src/repro/kernels/gru_sequence/kernel.py:
 //   gru_stack_sequence_q8_k  <- gru_stack_sequence_q8_kernel  (masked prefill)
-//   gru_stack_decode_q8_k    <- gru_stack_decode_q8_kernel    (one token)
+//   gru_stack_decode_q8_k (block route),
+//   gru_stack_decode_q8_warp_k (warp route) <- gru_stack_decode_q8_kernel
+//                                                  (one token)
 //   gru_sequence_q8_k        <- gru_sequence_q8_kernel        (depth 1, masked)
-// The two fused kernels run one shared routine, run_stack_q8(), which
-// computes _gate_math_q8 for every layer, v1 (two phases) or v3, with the
+// The two fused kernels' block routes run one shared routine,
+// run_stack_q8(), which computes _gate_math_q8 for every layer, v1 (two phases) or v3, with the
 // deep layers' input projection in int8 too. The depth-1 kernel is one
 // layer of the per-layer chain (cuda_chain_q8 prefill): its own (3H, H)
 // rows, no deep projection, its input projection float32 from outside.
@@ -21,10 +23,19 @@
 // shared memory; layer l+1 reads layer l's new (masked) h from there. The
 // optional time-major mask is double-buffered by step parity.
 //
+// The decode has a second route, picked by shape (decode_q8_plan in
+// kernels/gru_sequence/kernel.py): "warp" (H <= 32 and L <= 3, every
+// served shape), gru_stack_decode_q8_warp_k: one warp a batch row, every
+// layer's int8 rows in registers, the layers chained in the warp with no
+// shared memory or barrier (see its note); "block", the kernel above,
+// past that.
+//
 // Bound on an H100 (SXM): a few tens of KB of inputs (3.35 TB/s) and
 // int8 MACs (1,979 TOP/s on the tensor cores) take tens of nanoseconds at
 // the serving shapes; the kernels are bound by latency: the launch, the
-// one-time weight copy and the __syncthreads() chain of each layer-step.
+// one-time weight copy and the __syncthreads() chain of each layer-step
+// (the decode's warp route: the launch, the loads at entry and each
+// layer's dependent gate math).
 // Tensor-core IMMA (mma.sync s8) and a shorter chain are later work.
 
 #include <cuda_runtime.h>
@@ -241,6 +252,104 @@ size_t smem_bytes_seq_q8(int H, int bt) {
   return 4 * w;
 }
 
+// --- the decode warp route ---------------------------------------------------
+
+constexpr int kQ8DecodeMaxLayers = 3;  // layers a lane holds in registers
+
+// One token through L <= LMAX layers on int8 rows, one warp a batch row
+// (the source note's decode warp route): lane c < H owns column c of each
+// gate and holds its three int8 rows of every U_l and of every deep W_l in
+// registers as words (load_row_words; H = 32, L = 3: 72 + 48 words),
+// loaded at entry with their scales, the biases, the layers' h[c] and its
+// xp columns. Each layer is gru_step_q8_warp_k's step: q8(h) packed by
+// shuffles, each gate sum __dp4a over the words, v1's q8(r * h) packed the
+// same way. The next layer's input projection quantizes the new h the
+// same way, in the warp, and scales each row's int32 sum by its eff, as
+// run_stack_q8 does; no shared memory and no barrier. A warp past B exits
+// whole. Every float32 op is gru_q8_math.cuh's, so the route equals the
+// block route bit for bit.
+template <bool V3, bool VEC, int LMAX>
+__global__ void __launch_bounds__(kThreads)
+gru_stack_decode_q8_warp_k(const float* __restrict__ h,
+                           const float* __restrict__ xp,
+                           const int8_t* __restrict__ uq,
+                           const float* __restrict__ ueff,
+                           const int8_t* __restrict__ wdq,
+                           const float* __restrict__ wdeff,
+                           const float* __restrict__ b,
+                           float* __restrict__ out, int B, int H, int L) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= B) return;
+  const bool col = lane < H;
+  const int c = col ? lane : 0;
+  const int H3 = 3 * H;
+
+  int uw[LMAX][3][kWarpWords];
+  float ue[LMAX][3], ub[LMAX][3], hl[LMAX];
+  constexpr int LW = LMAX > 1 ? LMAX - 1 : 1;
+  int ww[LW][3][kWarpWords];
+  float we[LW][3];
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l) {
+    const bool in = col && l < L;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const size_t j = (size_t)l * H3 + g * H + c;     // row of (L*3H, H)
+      load_row_words<VEC>(uw[l][g], uq + j * H, H, in);
+      ue[l][g] = in ? __ldg(ueff + j) : 0.0f;
+      ub[l][g] = in ? __ldg(b + j) : 0.0f;
+    }
+    hl[l] = in ? __ldg(h + ((size_t)l * B + row) * H + c) : 0.0f;
+  }
+#pragma unroll
+  for (int l = 0; l + 1 < LMAX; ++l) {
+    const bool in = col && l + 1 < L;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const size_t j = (size_t)l * H3 + g * H + c;
+      load_row_words<VEC>(ww[l][g], wdq + j * H, H, in);
+      we[l][g] = in ? __ldg(wdeff + j) : 0.0f;
+    }
+  }
+  float x[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+    x[g] = col ? __ldg(xp + (size_t)row * H3 + g * H + c) : 0.0f;
+
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l) {
+    if (l >= L) break;
+    const float hold = hl[l];
+    int qh[kWarpWords];
+    pack_words(qh, col ? q8_act(hold) : (int8_t)0, lane);
+    const float z = sigmoid_f(__fadd_rn(
+        x[0], dequant(dot_words(qh, uw[l][0]), ue[l][0], ub[l][0])));
+    const float r = sigmoid_f(__fadd_rn(
+        x[1], dequant(dot_words(qh, uw[l][1]), ue[l][1], ub[l][1])));
+    float ht;
+    if constexpr (V3) {
+      const float gh = dequant(dot_words(qh, uw[l][2]), ue[l][2], ub[l][2]);
+      ht = tanhf(__fadd_rn(x[2], __fmul_rn(r, gh)));
+    } else {     // the candidate from q8(r * h), packed the same way
+      int qr[kWarpWords];
+      pack_words(qr, col ? q8_act(__fmul_rn(r, hold)) : (int8_t)0, lane);
+      ht = tanhf(__fadd_rn(
+          x[2], dequant(dot_words(qr, uw[l][2]), ue[l][2], ub[l][2])));
+    }
+    const float hn = update_q8(z, hold, ht);
+    if (col) out[((size_t)l * B + row) * H + c] = hn;
+    if (l + 1 < L) {         // the next layer's input projection, in-warp
+      int qn[kWarpWords];
+      pack_words(qn, col ? q8_act(hn) : (int8_t)0, lane);
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        x[g] = __fmul_rn((float)dot_words(qn, ww[l < LW ? l : 0][g]),
+                         we[l < LW ? l : 0][g]);
+    }
+  }
+}
+
 size_t stack_smem[kMaxDevices];
 size_t decode_smem[kMaxDevices];
 size_t seq_smem[kMaxDevices];
@@ -288,4 +397,40 @@ extern "C" int gru_sequence_q8_launch(const float* h0, const float* xp,
                       (cudaStream_t)stream>>>(h0, xp, uq, ueff, b, mask, out,
                                               T, B, H, v3, bt);
   return (int)cudaGetLastError();
+}
+
+// The warp route of the fused q8 decode: `warps` warps a block, one batch
+// row each; `vec`: the int8 rows load as whole 4-byte words (H % 4 == 0,
+// u_q and wd_q 4-byte aligned), else through the aligned words that cover
+// them. H at most 32, L at most kQ8DecodeMaxLayers (one layer: its own
+// instance, which holds no deep rows).
+extern "C" int gru_stack_decode_q8_warp_launch(
+    const float* h, const float* xp, const int8_t* uq, const float* ueff,
+    const int8_t* wdq, const float* wdeff, const float* b, float* out, int B,
+    int H, int L, int v3, int warps, int vec, void* stream) {
+  if (H < 1 || H > kWarpMaxH || L < 1 || L > kQ8DecodeMaxLayers ||
+      warps < 1 || warps > kThreads / 32 || (vec && H % 4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + warps - 1) / warps);
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto go = [&](auto kernel) {
+    kernel<<<grid, 32 * warps, 0, st>>>(h, xp, uq, ueff, wdq, wdeff, b, out,
+                                        B, H, L);
+    return (int)cudaGetLastError();
+  };
+  const bool one = L == 1;
+  if (v3 && vec)
+    return one ? go(gru_stack_decode_q8_warp_k<true, true, 1>)
+               : go(gru_stack_decode_q8_warp_k<true, true, kQ8DecodeMaxLayers>);
+  if (v3)
+    return one ? go(gru_stack_decode_q8_warp_k<true, false, 1>)
+               : go(gru_stack_decode_q8_warp_k<true, false,
+                                               kQ8DecodeMaxLayers>);
+  if (vec)
+    return one ? go(gru_stack_decode_q8_warp_k<false, true, 1>)
+               : go(gru_stack_decode_q8_warp_k<false, true,
+                                               kQ8DecodeMaxLayers>);
+  return one ? go(gru_stack_decode_q8_warp_k<false, false, 1>)
+             : go(gru_stack_decode_q8_warp_k<false, false,
+                                             kQ8DecodeMaxLayers>);
 }

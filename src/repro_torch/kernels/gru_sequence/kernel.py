@@ -13,11 +13,15 @@ Same names and array interface as the Pallas kernels in
   u (L,H,3H), w_deep (L-1,H,3H) ((1,1,3H) for L=1, unused), b (L,3H)
   -> ((T,B,H) last layer, (L,B,H) finals);
 * :func:`gru_stack_decode_kernel` — one token through L layers, h (L,B,H),
-  x_proj (B,3H) -> (L,B,H);
+  x_proj (B,3H) -> (L,B,H); it launches the route :func:`decode_plan`
+  picks (one warp per batch row where H <= 32 and L <= 8, else the block
+  route) and keeps it as ``last_plan``;
 * :func:`gru_stack_sequence_q8_kernel` / :func:`gru_stack_decode_q8_kernel`
   — their q8 twins: int8 weight rows u_q (L,3H,H) with u_eff (L,3H),
   wd_q (L-1,3H,H) with wd_eff (L-1,3H) ((1,3H,1) and (1,3H) for L=1,
-  unused), b (L,3H); states and x_proj stay float32;
+  unused), b (L,3H); states and x_proj stay float32; the decode launches
+  :func:`decode_q8_plan`'s route (one warp per batch row where H <= 32
+  and L <= 3) and keeps it as ``last_plan``;
 * :func:`gru_sequence_q8_kernel` — the depth-1 q8 sequence of one chain
   layer: h0 (B,H), x_proj (T,B,3H), u_q (3H,H) int8, u_eff (3H,), b (3H,),
   optional mask (T,B) -> (T,B,H).
@@ -57,9 +61,10 @@ LM's attention kernels, :data:`ATTN_KERNELS` (``flash_attention`` and
 ``cascade_matmul`` of ``repro_torch.kernels.rowwise_matvec.kernel``),
 and the shard kernels, :data:`SHARD_KERNELS`.
 
-A block of the fused kernels (and of the depth-1 kernel's block route)
+A block of the fused kernels' block routes (and of the depth-1 kernel's)
 takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows (the decode
-kernel's ``batch_block`` sets it, as in the JAX signature); the grid is
+kernels' nonzero ``batch_block`` sets it, as in the JAX signature, and
+selects the block route); the grid is
 ``ceil(B / tile)`` blocks. U, the deep layers' W, b and the per-layer h of
 one tile must fit the 227 KB of shared memory a Hopper block may use.
 """
@@ -95,6 +100,8 @@ _SIGNATURES = {        # launcher -> (library, argtypes)
     "gru_stack_sequence_launch": ("gru_sequence", [P] * 8 + [I] * 6 + [P]),
     # h, xp, u, wd, b, out, B, H, L, v3, bt, stream
     "gru_stack_decode_launch": ("gru_sequence", [P] * 6 + [I] * 5 + [P]),
+    # h, xp, u, wd, b, out, B, H, L, v3, warps, stream
+    "gru_stack_decode_warp_launch": ("gru_sequence", [P] * 6 + [I] * 5 + [P]),
     # h0, xp, u_q, u_eff, wd_q, wd_eff, b, mask, out, finals,
     # T, B, H, L, v3, bt, stream
     "gru_stack_sequence_q8_launch": ("gru_sequence_q8",
@@ -102,6 +109,10 @@ _SIGNATURES = {        # launcher -> (library, argtypes)
     # h, xp, u_q, u_eff, wd_q, wd_eff, b, out, B, H, L, v3, bt, stream
     "gru_stack_decode_q8_launch": ("gru_sequence_q8",
                                    [P] * 8 + [I] * 5 + [P]),
+    # h, xp, u_q, u_eff, wd_q, wd_eff, b, out, B, H, L, v3, warps, vec,
+    # stream
+    "gru_stack_decode_q8_warp_launch": ("gru_sequence_q8",
+                                        [P] * 8 + [I] * 6 + [P]),
     # h0, xp, u_q, u_eff, b, mask, out, T, B, H, v3, bt, stream
     "gru_sequence_q8_launch": ("gru_sequence_q8", [P] * 7 + [I] * 5 + [P]),
 }
@@ -271,18 +282,107 @@ def gru_stack_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
     return out, finals
 
 
+# The fused decode's warp routes (rows 3 and 5): one warp a batch row,
+# lane c owning column c of every gate in every layer, the layers chained
+# in registers. fp32 reads each layer's U and the deep W from device memory
+# in one burst a pass, for at most DECODE_WARP_MAX_L layers
+# (kDecodeMaxLayers: the deepest swept on the card by tools/decode_tiles.py
+# and held there against the block route); q8 holds every layer's int8
+# rows in registers, so at most DECODE_Q8_WARP_MAX_L layers
+# (kQ8DecodeMaxLayers). Both only where H <= WARP_MAX_H, 1 warp a block,
+# read off tools/decode_tiles.py on an H100 (PERF.md's findings: 2-4
+# within 3 %, 8 slower by 20 % at L=3); the C entries take 1-8 for the
+# sweep.
+DECODE_WARP_MAX_L = 4
+DECODE_Q8_WARP_MAX_L = 3
+DECODE_WARPS = 1
+DECODE_Q8_WARPS = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """One launch of a fused decode kernel: ``route`` "warp" (one warp a
+    batch row, ``warps`` warps a block) or "block"
+    (``run_stack``/``run_stack_q8``: ``rows`` the batch tile of a block of
+    :data:`THREADS` threads). ``grid`` blocks, ``threads`` per block,
+    ``smem`` dynamic bytes (none on the warp routes)."""
+    route: str
+    rows: int
+    warps: int
+    grid: int
+    threads: int
+    smem: int
+
+
+def decode_warp_plan(B: int, warps: int) -> DecodePlan:
+    """The warp-route launch at ``warps`` warps a block (fp32 and q8 alike;
+    no dynamic shared memory)."""
+    return DecodePlan("warp", 1, warps, -(-B // warps), 32 * warps, 0)
+
+
+def decode_block_plan(B: int, H: int, L: int, bt: int,
+                      q8: bool = False) -> DecodePlan:
+    """The block-route launch at batch tile ``bt``."""
+    smem = smem_bytes_q8 if q8 else smem_bytes
+    return DecodePlan("block", bt, _launch.THREADS // 32, -(-B // bt),
+                      _launch.THREADS, smem(L, H, bt))
+
+
+def _decode_plan(B, H, L, variant, batch_block, q8):
+    smem = smem_bytes_q8 if q8 else smem_bytes
+    max_l = DECODE_Q8_WARP_MAX_L if q8 else DECODE_WARP_MAX_L
+    _launch.check_problem(variant, B, 1, H, L)
+    if batch_block or H > WARP_MAX_H or L > max_l:
+        return decode_block_plan(B, H, L, _launch.batch_tile(
+            variant, B, 1, H, L, batch_block, None, smem), q8)
+    warps = DECODE_Q8_WARPS if q8 else DECODE_WARPS
+    return decode_warp_plan(B, min(warps, _pow2(B)))
+
+
+@functools.lru_cache(maxsize=512)
+def decode_plan(B: int, H: int, L: int, variant: str,
+                batch_block: int = 0) -> DecodePlan:
+    """The launch of :func:`gru_stack_decode_kernel`: the warp route where H
+    <= :data:`WARP_MAX_H` and L <= :data:`DECODE_WARP_MAX_L` (at most
+    :data:`DECODE_WARPS` warps a block, no more than the rows need), else,
+    or where ``batch_block`` is nonzero (JAX's block tile), the block route
+    at :func:`_launch.batch_tile`'s tile (which raises where one block's
+    shared memory does not fit)."""
+    return _decode_plan(B, H, L, variant, batch_block, False)
+
+
+@functools.lru_cache(maxsize=512)
+def decode_q8_plan(B: int, H: int, L: int, variant: str,
+                   batch_block: int = 0) -> DecodePlan:
+    """The launch of :func:`gru_stack_decode_q8_kernel`: the warp route
+    where H <= :data:`WARP_MAX_H` and L <= :data:`DECODE_Q8_WARP_MAX_L`
+    (the layers a lane holds in registers; at most
+    :data:`DECODE_Q8_WARPS` warps a block), else, or where ``batch_block``
+    is nonzero, the block route at :func:`_launch.batch_tile`'s tile."""
+    return _decode_plan(B, H, L, variant, batch_block, True)
+
+
+def decode_q8_words(H: int, u_q: torch.Tensor, wd_q: torch.Tensor) -> int:
+    """Whether the q8 warp route loads the int8 rows as 4-byte words."""
+    return int(H % 4 == 0 and u_q.data_ptr() % 4 == 0
+               and wd_q.data_ptr() % 4 == 0)
+
+
 def gru_stack_decode_kernel(h: torch.Tensor, x_proj: torch.Tensor,
                             u: torch.Tensor, w_deep: torch.Tensor,
                             b: torch.Tensor, *, variant: str = "v1",
                             batch_block: int = 0) -> torch.Tensor:
-    """One token through all L layers -> new per-layer states (L,B,H)."""
+    """One token through all L layers -> new per-layer states (L,B,H).
+    Launches :func:`decode_plan`'s route and keeps the plan as
+    ``last_plan``; a nonzero ``batch_block`` names the block route's
+    tile."""
     if h.dim() != 3 or x_proj.dim() != 2:
         raise ValueError("h (L,B,H) and x_proj (B,3H) expected, got "
                          f"{tuple(h.shape)} and {tuple(x_proj.shape)}")
     L, B, H = h.shape
     dev = h.device
-    bt = _launch.batch_tile(variant, B, 1, H, L, batch_block, dev,
-                             smem_bytes)
+    _launch.check_device(dev)
+    p = decode_plan(B, H, L, variant, batch_block)
     _check("h", h, (L, B, H), dev)
     _check("x_proj", x_proj, (B, 3 * H), dev)
     _check("u", u, (L, H, 3 * H), dev)
@@ -291,11 +391,17 @@ def gru_stack_decode_kernel(h: torch.Tensor, x_proj: torch.Tensor,
     if dev.type == "cpu":
         return ref.gru_stack_decode_ref(h, x_proj, u, w_deep, b, variant)
     out = torch.empty((L, B, H), dtype=torch.float32, device=dev)
-    err = _launcher("gru_stack_decode_launch")(
-        _ptr(h), _ptr(x_proj), _ptr(u), _ptr(w_deep), _ptr(b), _ptr(out),
-        B, H, L, int(variant == "v3"), bt, _stream(dev))
+    head = (_ptr(h), _ptr(x_proj), _ptr(u), _ptr(w_deep), _ptr(b), _ptr(out),
+            B, H, L, int(variant == "v3"))
+    if p.route == "warp":
+        err = _launcher("gru_stack_decode_warp_launch")(
+            *head, p.warps, _stream(dev))
+    else:
+        err = _launcher("gru_stack_decode_launch")(*head, p.rows,
+                                                   _stream(dev))
     _raise_on(err, "gru_stack_decode_kernel")
     gru_stack_decode_kernel.launches += 1
+    gru_stack_decode_kernel.last_plan = p
     return out
 
 
@@ -305,7 +411,7 @@ def _q8_common(variant: str, B: int, T: int, H: int, L: int,
     """Checks shared by the q8 wrappers; returns the batch tile."""
     check_q8_width(H, dev)
     bt = _launch.batch_tile(variant, B, T, H, L, batch_block, dev,
-                             smem_bytes_q8)
+                            smem_bytes_q8)
     _check("u_q", u_q, (L, 3 * H, H), dev, torch.int8)
     _check("u_eff", u_eff, (L, 3 * H), dev)
     _check("wd_q", wd_q, (L - 1, 3 * H, H) if L > 1 else (1, 3 * H, 1), dev,
@@ -355,26 +461,34 @@ def gru_stack_decode_q8_kernel(h: torch.Tensor, x_proj: torch.Tensor,
                                b: torch.Tensor, *, variant: str = "v1",
                                batch_block: int = 0) -> torch.Tensor:
     """One token through all L layers on int8 weight rows -> new per-layer
-    states (L,B,H) float32."""
+    states (L,B,H) float32. Launches :func:`decode_q8_plan`'s route and
+    keeps the plan as ``last_plan``; a nonzero ``batch_block`` names the
+    block route's tile."""
     if h.dim() != 3 or x_proj.dim() != 2:
         raise ValueError("h (L,B,H) and x_proj (B,3H) expected, got "
                          f"{tuple(h.shape)} and {tuple(x_proj.shape)}")
     L, B, H = h.shape
     dev = h.device
-    bt = _q8_common(variant, B, 1, H, L, batch_block, dev, u_q, u_eff, wd_q,
-                    wd_eff, b)
+    _q8_common(variant, B, 1, H, L, batch_block, dev, u_q, u_eff, wd_q,
+               wd_eff, b)
+    p = decode_q8_plan(B, H, L, variant, batch_block)
     _check("h", h, (L, B, H), dev)
     _check("x_proj", x_proj, (B, 3 * H), dev)
     if dev.type == "cpu":
         return ref.gru_stack_decode_q8_ref(h, x_proj, u_q, u_eff, wd_q,
                                            wd_eff, b, variant)
     out = torch.empty((L, B, H), dtype=torch.float32, device=dev)
-    err = _launcher("gru_stack_decode_q8_launch")(
-        _ptr(h), _ptr(x_proj), _ptr(u_q), _ptr(u_eff), _ptr(wd_q),
-        _ptr(wd_eff), _ptr(b), _ptr(out), B, H, L, int(variant == "v3"), bt,
-        _stream(dev))
+    head = (_ptr(h), _ptr(x_proj), _ptr(u_q), _ptr(u_eff), _ptr(wd_q),
+            _ptr(wd_eff), _ptr(b), _ptr(out), B, H, L, int(variant == "v3"))
+    if p.route == "warp":
+        err = _launcher("gru_stack_decode_q8_warp_launch")(
+            *head, p.warps, decode_q8_words(H, u_q, wd_q), _stream(dev))
+    else:
+        err = _launcher("gru_stack_decode_q8_launch")(*head, p.rows,
+                                                      _stream(dev))
     _raise_on(err, "gru_stack_decode_q8_kernel")
     gru_stack_decode_q8_kernel.launches += 1
+    gru_stack_decode_q8_kernel.last_plan = p
     return out
 
 
@@ -924,7 +1038,8 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
-for _fn in (gru_sequence_kernel, gru_rowwise_shard_step,
+for _fn in (gru_sequence_kernel, gru_stack_decode_kernel,
+            gru_stack_decode_q8_kernel, gru_rowwise_shard_step,
             gru_rowwise_shard_zr, gru_rowwise_shard_candidate,
             gru_shard_matvec, gru_cascade_shard_zr):
     _fn.last_plan = None

@@ -447,6 +447,164 @@ def test_step_q8_block_route_past_warp_width(cuda_device, H):
         assert _max_err([(got, cref.gru_step_q8_ref(*args, variant))]) <= TOL
 
 
+# the fused decode kernels' warp routes (rows 3 and 5, H <= 32) and block
+# routes, at the sweep's shapes (tools/decode_tiles.py)
+DECODE_WARP_CASES = list(itertools.product(
+    ((1, 1), (1, 5), (1, 20), (2, 31), (3, 20), (3, 32), (4, 32)),
+    (1, 8, 64), ("v1", "v3")))
+
+
+def _decode_forced(args, variant, plan, q8, vec=None):
+    """A fused decode kernel's C entry at an explicit plan (the route
+    forced, as chip_smoke.py and tools/decode_tiles.py force it); ``args``
+    the wrapper's (h, x_proj, weights...); ``vec`` None: the wrapper's
+    choice of the q8 route's word loads."""
+    from repro_torch.kernels import _launch
+    h = args[0]
+    L, B, H = h.shape
+    out = torch.empty(L, B, H, device=h.device)
+    head = (*(t.data_ptr() for t in args), out.data_ptr(), B, H, L,
+            int(variant == "v3"))
+    name = "gru_stack_decode_q8" if q8 else "gru_stack_decode"
+    if plan.route == "warp":
+        tail = (plan.warps,) + ((K.decode_q8_words(H, args[2], args[4])
+                                 if vec is None else vec,) if q8 else ())
+        err = K._launcher(f"{name}_warp_launch")(*head, *tail,
+                                                   _launch.stream(h.device))
+    else:
+        err = K._launcher(f"{name}_launch")(*head, plan.rows,
+                                            _launch.stream(h.device))
+    assert err == 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH,B,variant", DECODE_WARP_CASES)
+def test_decode_warp_route_matches_block_and_plain(cuda_device, LH, B,
+                                                   variant):
+    """Row 3: the wrapper launches decode_plan's warp route at H <= 32; it
+    equals the block route forced on the same inputs bit for bit (k-order
+    fma sums, the same epilogues) and the plain version within TOL."""
+    L, H = LH
+    a = _inputs(L, H, B, 1, cuda_device, seed=100 * L + H + B)
+    args = (a["h0"], a["xp"][0], a["u"], a["wd"], a["b"])
+    K.reset_launch_counts()
+    got = K.gru_stack_decode_kernel(*args, variant=variant)
+    assert K.gru_stack_decode_kernel.last_plan == K.decode_plan(B, H, L,
+                                                                variant)
+    assert K.gru_stack_decode_kernel.last_plan.route == "warp"
+    assert [k.launches for k in K.KERNELS] == [0, 0, 1]
+    blk = _decode_forced(args, variant,
+                         K.decode_block_plan(B, H, L, min(B, 4)), False)
+    want = ref.gru_stack_decode_ref(*args, variant)
+    assert _max_err([(got, want), (blk, want)]) <= TOL
+    assert torch.equal(got, blk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", (1, 2, 4, 8))
+def test_decode_warp_route_takes_every_knob(cuda_device, warps):
+    a = _inputs(3, 32, 33, 1, cuda_device, seed=warps)
+    args = (a["h0"], a["xp"][0], a["u"], a["wd"], a["b"])
+    for variant in ("v1", "v3"):
+        got = _decode_forced(args, variant, K.decode_warp_plan(33, warps),
+                             False)
+        want = K.gru_stack_decode_kernel(*args, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH,B,variant", DECODE_WARP_CASES)
+def test_q8_decode_warp_route_matches_block_and_plain(cuda_device, LH, B,
+                                                      variant):
+    """Row 5: decode_q8_plan's warp route at H <= 32 and L <= 3 (the block
+    route at L = 4, past the layers a lane holds); it equals the block
+    route forced bit for bit and the plain version within TOL; where H % 4
+    == 0 the cover loads give the word loads' bits."""
+    L, H = LH
+    a = _inputs(L, H, B, 1, cuda_device, seed=100 * L + H + B)
+    args = (a["h0"], a["xp"][0], *_q8_views(a))
+    K.reset_launch_counts()
+    got = K.gru_stack_decode_q8_kernel(*args, variant=variant)
+    plan = K.gru_stack_decode_q8_kernel.last_plan
+    assert plan == K.decode_q8_plan(B, H, L, variant)
+    assert plan.route == ("warp" if L <= K.DECODE_Q8_WARP_MAX_L
+                          else "block")
+    assert [k.launches for k in K.Q8_KERNELS] == [0, 1]
+    blk = _decode_forced(args, variant,
+                         K.decode_block_plan(B, H, L, min(B, 4), True), True)
+    want = ref.gru_stack_decode_q8_ref(*args, variant)
+    assert _max_err([(got, want), (blk, want)]) <= TOL
+    assert torch.equal(got, blk)
+    if plan.route == "warp" and H % 4 == 0:
+        cover = _decode_forced(args, variant, plan, True, vec=0)
+        torch.cuda.synchronize()
+        assert torch.equal(cover, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", (5, 20, 32))
+@pytest.mark.parametrize("skew", (1, 2, 3))
+def test_q8_decode_warp_route_reads_misaligned_rows(cuda_device, H, skew):
+    """u_q and wd_q as views ``skew`` bytes past a 4-byte boundary: the warp
+    route reads their rows through the aligned words that cover them and
+    equals the block route bit for bit."""
+    a = _inputs(3, H, 8, 1, cuda_device, seed=H + skew)
+    u_q, u_eff, wd_q, wd_eff, b = _q8_views(a)
+    views = []
+    for t in (u_q, wd_q):
+        flat = torch.randint(-127, 128, (skew + t.numel() + 8,),
+                             dtype=torch.int8, device=cuda_device)
+        v = flat[skew:skew + t.numel()].view_as(t)
+        v.copy_(t)
+        views.append(v)
+    args = (a["h0"], a["xp"][0], views[0], u_eff, views[1], wd_eff, b)
+    assert K.decode_q8_words(H, views[0], views[1]) == 0
+    for variant in ("v1", "v3"):
+        got = K.gru_stack_decode_q8_kernel(*args, variant=variant)
+        assert K.gru_stack_decode_q8_kernel.last_plan.route == "warp"
+        blk = _decode_forced(args, variant, K.decode_block_plan(8, H, 3, 4,
+                                                                True), True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, blk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", (1, 2, 4, 8))
+def test_q8_decode_warp_route_takes_every_warp_count(cuda_device, warps):
+    a = _inputs(3, 32, 33, 1, cuda_device, seed=warps)
+    args = (a["h0"], a["xp"][0], *_q8_views(a))
+    for variant in ("v1", "v3"):
+        got = _decode_forced(args, variant,
+                             K.decode_warp_plan(33, warps), True)
+        want = K.gru_stack_decode_q8_kernel(*args, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", (False, True))
+def test_decode_batch_block_selects_the_block_route(cuda_device, q8):
+    """A nonzero batch_block keeps its JAX meaning, the block route's tile;
+    wider H takes the block route too."""
+    for L, H, bb, route in ((3, 32, 2, "block"), (1, 20, 8, "block"),
+                            (3, 32, 0, "warp"), (1, 40, 0, "block")):
+        a = _inputs(L, H, 8, 1, cuda_device, seed=H + bb)
+        if q8:
+            args = (a["h0"], a["xp"][0], *_q8_views(a))
+            got = K.gru_stack_decode_q8_kernel(*args, batch_block=bb)
+            plan = K.gru_stack_decode_q8_kernel.last_plan
+            want = ref.gru_stack_decode_q8_ref(*args)
+        else:
+            args = (a["h0"], a["xp"][0], a["u"], a["wd"], a["b"])
+            got = K.gru_stack_decode_kernel(*args, batch_block=bb)
+            plan = K.gru_stack_decode_kernel.last_plan
+            want = ref.gru_stack_decode_ref(*args)
+        assert plan.route == route and (not bb or plan.rows == bb)
+        assert _max_err([(got, want)]) <= TOL
+
+
 def _chain_cfg(arch, layer_dims, backend):
     cfg = get_config(arch)
     gru = dataclasses.replace(cfg.gru, backend=backend)
