@@ -12,9 +12,10 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_cell_q8``, ``slstm_cell``, ``flash_attn``, ``decode_attn``,
    ``gru_cell``, ``rowwise_matvec`` and ``gru_shard``, one ``nvcc`` each,
    started together) and print ``-Xptxas -v``'s report (``gru_shard``'s
-   functions, row 16's among them, ``gru_sequence_kernel``'s, both
-   routes, ``gru_step_q8``'s warp route and the two fused decode kernels'
-   warp routes must not spill)
+   functions, rows 16 and 18's among them, ``gru_sequence_kernel``'s, both
+   routes, ``gru_step_q8``'s warp route, the two fused decode kernels'
+   warp routes and ``gru_stack_sequence_kernel``'s warp route, its 4
+   instances, must not spill)
    and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree), the row-wise
@@ -38,8 +39,10 @@ Phases (any failure exits non-zero, before the result lines):
    it, must agree with the plain version and equal it bit for bit; so
    must ``gru_stack_decode_kernel`` and ``gru_stack_decode_q8_kernel``
    (``decode_plan``, ``decode_q8_plan``: the warp route at gru-jet's L=1
-   H=20 and gru-jet-deep's L=3 H=32), the largest difference between the
-   routes reported;
+   H=20 and gru-jet-deep's L=3 H=32), and ``gru_stack_sequence_kernel``
+   (``stack_seq_plan``: the warp route at gru-jet-deep's L=3 H=32, B 1, 8
+   and 64, T 8, 16 and 32, v1 and v3, masked and not), the largest
+   difference between the routes reported;
 3b. hold the seven shard kernels (the ``cuda_sharded`` backend's per-rank
    steps) against their plain versions on the card at gru-jet's (H=20)
    and gru-jet-deep's (H=32) shard widths and at wide shards (H 64, 256,
@@ -52,7 +55,9 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_cascade_shard_gates`` runs as the mesh step calls it (gate views
    of the full (B,3H) gates and projection, b's view) and must equal the
    sequence it replaced (+ b, two slice copies, the contiguous call) bit
-   for bit;
+   for bit; so must ``gru_cascade_shard_update`` (column slices of the
+   psum'd (B,H) partial, of xp's candidate gate and of b) against its old
+   sequence (two adds, the contiguous call), on every rank of each mesh;
 4. serve gru-jet and gru-jet-deep through ``ServeEngine`` with
    ``backend="cuda"`` (12 requests over 8 slots, ragged prompts of 1-20
    vectors, 16 decode steps each): every prefill and decode step must be
@@ -60,8 +65,8 @@ Phases (any failure exits non-zero, before the result lines):
    must rise by the prefills and steps served, no plain version may run,
    the class streams must equal the ``eager`` engine's on the card, and
    the prefill logits must be finite and agree with the dense reference on
-   a small batch; every served call of ``gru_stack_decode_kernel`` must
-   launch the warp route;
+   a small batch; every served call of ``gru_stack_decode_kernel`` and of
+   ``gru_stack_sequence_kernel`` must launch the warp route;
 5. serve both configs again, pinned to ``cuda_fused_q8`` (the int8
    datapath), with the counters zeroed just before: both q8 kernels must
    launch once per prefill and per step, no fp32 kernel and no plain
@@ -141,7 +146,9 @@ Phases (any failure exits non-zero, before the result lines):
    reference (v3: the eager stack); the v3 cascade layer's step, 20 calls
    under ``torch.profiler`` on each rank, must launch the matvec and
    ``gru_cascade_shard_gates`` once a call and no cat or add kernel
-   around them. Then once under ``backend="cuda"``:
+   around them; the v1 cascade layer's the matvec, the middle phase and
+   ``gru_cascade_shard_update`` once a call and one add kernel (the psum
+   + b beside the middle phase). Then once under ``backend="cuda"``:
    prefill on ``cuda_sharded``, decode on ``cuda_fused``, every decode
    call on ``gru_stack_decode_kernel``'s warp route (its launches go to
    the kernel's row as ``mesh_launches``, apart from phase 4's
@@ -163,13 +170,17 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_cascade_shard_zr`` beside its old column tile (timed only);
    ``gru_step_q8`` beside its block route forced at the same shapes (its
    served shapes split by launches), the two fused decode kernels likewise
-   (their served shapes from phases 4, 5 and 11b), and ``torch.nn.GRU``
-   (cuDNN) on rows 2 and 3's v3 work over L layers (T=16; T=1),
+   (their served shapes from phases 4, 5 and 11b), and
+   ``gru_stack_sequence_kernel`` likewise (its served shapes from phase
+   4), and ``torch.nn.GRU`` (cuDNN) on rows 2 and 3's v3 work over L
+   layers (T=16 and the served T=32, row 2's block route beside; T=1),
    ``gru_cascade_shard_gates`` beside
    the epilogue it replaced (+ b, two slice copies, the kernel) and the
-   kernel on contiguous slices; the served gru-jet-deep ``cuda_chain_q8``
-   decode step and its v3 twin's one-rank ``cuda_sharded`` step with the
-   old route forced and the new, in turns (profiler);
+   kernel on contiguous slices, ``gru_cascade_shard_update`` beside its
+   old epilogue (two adds, the kernel) and the kernel on a contiguous
+   pre-activation; the served gru-jet-deep ``cuda_chain_q8`` decode step
+   and its v3 twin's and its own one-rank ``cuda_sharded`` steps with
+   the old route forced and the new, in turns (profiler);
    the shard kernels at the mesh path's shapes (``torch.matmul`` beside
    the matvec; each kernel's route printed); the served ``cuda_sharded``
    decode step on a one-rank mesh without a group (no collective; v1 and
@@ -335,8 +346,10 @@ def build_kernels():
     spills = [f for f, ln in frames if not no_spill(ln)]
     check(frames and not spills, f"gru_shard: ptxas reports spills in "
           f"{spills[:3]}")
+    check(any("cascade_update_k" in f for f, _ in frames), "gru_shard: "
+          "ptxas reports no row 18 kernel (cascade_update_k)")
     print(f"  gru_shard: {len(frames)} functions (row 16's cascade_gates_k "
-          f"among them), no spills (ptxas)")
+          f"and row 18's cascade_update_k among them), no spills (ptxas)")
     # row 1's two routes (the block route's kernel, gru_sequence_k, and
     # every gru_sequence_warp_k instance)
     frames = [(f, ln) for f, ln in spill_frames("gru_sequence")
@@ -356,16 +369,21 @@ def build_kernels():
     print(f"  gru_cell_q8: row 7's {len(frames)} warp-route instances, no "
           f"spills (ptxas)")
     # rows 3 and 5's warp routes: the fp32 instances (v1/v3, H 20, 32 or
-    # any) and the q8 ones (v1/v3, word/cover loads, one layer or three)
+    # any) and the q8 ones (v1/v3, word/cover loads, one layer or three);
+    # row 2's warp route: v1/v3, H 32 or any
     for lib, fn, want in (("gru_sequence", "gru_stack_decode_warp_k", 6),
                           ("gru_sequence_q8", "gru_stack_decode_q8_warp_k",
-                           8)):
+                           8),
+                          ("gru_sequence", "gru_stack_sequence_warp_k",
+                           4)):
         frames = [(f, ln) for f, ln in spill_frames(lib) if fn in f]
         spills = [f for f, ln in frames if not no_spill(ln)]
         check(len(frames) == want and not spills, f"{lib}: ptxas reports "
               f"spills in {fn} {spills[:3]} ({len(frames)} instances)")
         print(f"  {lib}: {fn}'s {len(frames)} instances, no spills (ptxas)")
-    # all shared memory is dynamic, so ptxas does not report it
+    # all shared memory but row 2's warp route's slots (static, 3.75 KB a
+    # block, in ptxas's report above) is dynamic, so ptxas does not report
+    # it
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.slstm_cell import kernel as SK
     bt = K.DEFAULT_BATCH_BLOCK
@@ -732,6 +750,45 @@ def decode_block_route(K, B, H, L, q8=False):
     return K.decode_block_plan(B, H, L, min(B, K.DEFAULT_BATCH_BLOCK), q8)
 
 
+def stack_route_fn(torch, a, variant, masked, plan):
+    """A call of the fused prefill's C entry on ``a`` (the operands of
+    :func:`make_inputs`) at an explicit plan (``kernel.stack_seq_warp_plan``
+    or ``kernel.stack_seq_block_plan``), into fresh outputs: the route
+    forced, for phase 3's check of both routes, the before/after times of
+    phase 12 and ``tools/stack_seq_tiles.py``. Reads the current stream at
+    each call, so a CUDA-graph capture records it; raises if the launch is
+    refused."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.gru_sequence import kernel as K
+    h0, xp = a["h0"], a["xp"]
+    L, B, H = h0.shape
+    T = xp.shape[0]
+    out = torch.empty(T, B, H, device=xp.device)
+    finals = torch.empty(L, B, H, device=xp.device)
+    head = (h0.data_ptr(), xp.data_ptr(), a["u"].data_ptr(),
+            a["wd"].data_ptr(), a["b"].data_ptr(),
+            a["mask"].data_ptr() if masked else None, out.data_ptr(),
+            finals.data_ptr(), T, B, H, L, int(variant == "v3"))
+    if plan.route == "warp":
+        fn = K._launcher("gru_stack_sequence_warp_launch")
+        tail = ()
+    else:
+        fn = K._launcher("gru_stack_sequence_launch")
+        tail = (plan.rows,)
+
+    def call():
+        _launch.raise_on(fn(*head, *tail, _launch.stream(xp.device)),
+                         f"gru_stack_sequence forced {plan}")
+        return out, finals
+    return call
+
+
+def stack_block_route(K, B, H, L):
+    """The fused prefill's block route at the tile the wrapper gave it
+    before the warp route: ``min(B, DEFAULT_BATCH_BLOCK)`` rows."""
+    return K.stack_seq_block_plan(B, H, L, min(B, K.DEFAULT_BATCH_BLOCK))
+
+
 def q8_step_args(a):
     """The q8 step's operands from :func:`make_inputs` (L = 1): h, xp of the
     first step, the layer's int8 rows, scales and bias."""
@@ -752,7 +809,7 @@ def check_kernels(torch, dev):
     q8_routes, err_q8_block, q8_same = {}, 0.0, 0
     # rows 3 and 5 likewise: route launched, block route forced beside it
     dec = {n: {"routes": {}, "err_block": 0.0, "diff": 0.0, "same": 0}
-           for n in FUSED_DECODE}
+           for n in FUSED_DECODE + ("gru_stack_sequence_kernel",)}
     from repro_torch.kernels.gru_cell import kernel as CK
     for name, shapes in MAIN_SHAPES.items():
         Ts = ((1,) if name in DECODE else (8, 16, 32))
@@ -848,6 +905,34 @@ def check_kernels(torch, dev):
                                       f"{p.route} route differs from the "
                                       f"block route")
                                 d["same"] += 1
+                            if name == "gru_stack_sequence_kernel":
+                                p = K.gru_stack_sequence_kernel.last_plan
+                                plan = K.stack_seq_plan(B, T, H, L, variant)
+                                check(p == plan, f"{name} L={L} B={B} T={T}"
+                                      f" H={H}: launched {p}, stack_seq_plan"
+                                      f" names {plan}")
+                                d = dec[name]
+                                d["routes"][p.route] = d["routes"].get(
+                                    p.route, 0) + 1
+                                blk = stack_route_fn(
+                                    torch, a, variant, masked,
+                                    stack_block_route(K, B, H, L))()
+                                torch.cuda.synchronize()
+                                e = max((x - w_).abs().max().item()
+                                        for x, w_ in zip(blk, want))
+                                d["err_block"] = max(d["err_block"], e)
+                                check(e <= TOL, f"{name} block route L={L} "
+                                      f"H={H} B={B} T={T} {variant} masked="
+                                      f"{masked}: max |err| {e:.3g} > {TOL}")
+                                d["diff"] = max([d["diff"]] + [
+                                    (x - y).abs().max().item()
+                                    for x, y in zip(got, blk)])
+                                check(all(torch.equal(x, y) for x, y in
+                                          zip(got, blk)), f"{name} L={L} "
+                                      f"H={H} B={B} T={T} {variant} masked="
+                                      f"{masked}: the {p.route} route "
+                                      f"differs from the block route")
+                                d["same"] += 1
                             if name in SLSTM and masked and B > 1:
                                 frozen_rows[name] += 1
                                 for k, leaf in enumerate(a["leaves"]):
@@ -908,7 +993,9 @@ def shard_inputs(torch, H, n, B, seed, dev):
     row-wise operands as gate slices of the shard's (B,3Hl) projection and
     (H,3Hl) rows of U (row-strided views), h_local a column slice of h; the
     v3 cascade epilogue's psum'd gates, projection and bias at full width
-    (B,3H), (3H,), read through gate views."""
+    (B,3H), (3H,), read through gate views; the v1 cascade epilogue's
+    psum'd partial (B,H), read through its column slice with xp's and
+    b's."""
     g = torch.Generator().manual_seed(seed)
     Hl = H // n
     idx = n - 1
@@ -923,7 +1010,8 @@ def shard_inputs(torch, H, n, B, seed, dev):
              z=torch.sigmoid(rand(B, Hl)), h_shard=rand(B, Hl, scale=0.5),
              u_rows=rand(Hl, 3 * H, scale=H ** -0.5), g_full=rand(B, 3 * H),
              xp_full=rand(B, 3 * H), b_full=rand(3 * H, scale=0.3),
-             zr=rand(B, 2 * Hl), xp2=rand(B, 2 * Hl), ht_in=rand(B, Hl))
+             zr=rand(B, 2 * Hl), xp2=rand(B, 2 * Hl), ht_in=rand(B, Hl),
+             ht_full=rand(B, H))
     return a
 
 
@@ -947,6 +1035,29 @@ def old_gates_fn(a):
                                 a["h_shard"], a["idx"])
 
 
+def update_views(a, idx):
+    """Row 18's in-place operands on rank ``idx``, as the mesh step passes
+    them: z, this rank's column slice of the psum'd partial, h, and the
+    slices of xp's candidate gate and of b."""
+    from repro_torch.core import rowparallel as rp
+    H, Hl = a["H"], a["Hl"]
+    s = 2 * H + idx * Hl
+    return (a["z"], rp._local(a["ht_full"], idx * Hl, Hl), a["h_shard"],
+            rp._local(a["xp_full"], s, Hl), a["b_full"][s:s + Hl])
+
+
+def old_update_fn(a, idx):
+    """The v1 cascade epilogue as the mesh step ran it before row 18 read
+    its candidate in place: ``_ht_in``'s two adds (xp + psum, then + b),
+    then the kernel on the contiguous pre-activation; as a call (phase 3b's
+    bitwise check and phase 12's "before")."""
+    from repro_torch.core import rowparallel as rp
+    from repro_torch.kernels.gru_sequence import kernel as K
+    return lambda: K.gru_cascade_shard_update(
+        a["z"], rp._ht_in(a["xp_full"], a["ht_full"], a["b_full"], a["H"],
+                          idx, a["Hl"]), a["h_shard"])
+
+
 def shard_args(name, a, N=None):
     """The operands of shard kernel ``name`` (``N``: the matvec's width,
     3H (v3) or 2H (v1, a strided slice))."""
@@ -968,7 +1079,7 @@ def shard_args(name, a, N=None):
         return (views[0], views[1], a["h_shard"], views[2])
     if name == "gru_cascade_shard_zr":
         return (a["zr"], a["xp2"], a["h_shard"], a["u_rows"][:, 2 * H:])
-    return (a["z"], a["ht_in"], a["h_shard"])
+    return update_views(a, a["idx"])          # in place, as the step calls it
 
 
 def run_shard_kernel(name, args, plain):
@@ -987,7 +1098,7 @@ def check_shard_kernels(torch, dev):
     from repro_torch.kernels.gru_sequence import kernel as K
     err = {n: 0.0 for n in SHARD}
     routes = {n: {} for n in REDESIGNED}
-    n_checks = gates_same = 0
+    n_checks = gates_same = update_same = 0
     for (H, n) in SHARD_SHAPES:
         for B in (1, 8):
             a = shard_inputs(torch, H, n, B, 1000 * n + H + B, dev)
@@ -1011,6 +1122,17 @@ def check_shard_kernels(torch, dev):
                               f" B={B}: the in-place call differs from the "
                               f"old sequence (+ b, slices, contiguous call)")
                         gates_same += 1
+                    if name == "gru_cascade_shard_update":   # every rank
+                        for idx in range(n):
+                            new = K.gru_cascade_shard_update(
+                                *update_views(a, idx))
+                            old = old_update_fn(a, idx)()
+                            torch.cuda.synchronize()
+                            check(torch.equal(new, old), f"{name} H={H} "
+                                  f"n={n} rank {idx} B={B}: the in-place "
+                                  f"call differs from the old sequence "
+                                  f"(two adds, contiguous call)")
+                            update_same += 1
                     torch.cuda.synchronize()
                     for g_, w_ in zip(got, want):
                         check(g_.shape == w_.shape
@@ -1029,6 +1151,10 @@ def check_shard_kernels(torch, dev):
           f"xp and b) equals the old sequence (+ b, two slice copies, the "
           f"contiguous call) bit for bit in {gates_same} of {gates_same} "
           f"comparisons")
+    print(f"  gru_cascade_shard_update: the in-place call (column slices of "
+          f"the psum, of xp and of b) equals the old sequence (two adds, "
+          f"the contiguous call) bit for bit in {update_same} of "
+          f"{update_same} comparisons (every rank of each mesh)")
     print(f"  {n_checks} shard kernel/plain comparisons passed (H 20, 32, "
           f"64, 256, 512 over 1, 2, 4 ranks; B 1 and 8)", flush=True)
     return err
@@ -1192,6 +1318,35 @@ def decode_calls(shapes=DECODE_SHAPES, routes=DECODE_ROUTES):
             setattr(ops, n, fn)
 
 
+# the fused prefill's served calls (phase 4: gru-jet-deep's prefills) by
+# (L, T, B, H), for phase 12's launches x gap, and the routes they launched
+STACK_SHAPES: dict = {}
+STACK_ROUTES: dict = {}
+
+
+@contextlib.contextmanager
+def stack_calls():
+    """Count the calls of ``gru_stack_sequence_kernel`` that the serving
+    path makes through its ops module, by (L, T, B, H), while the block
+    runs (:data:`STACK_SHAPES`), and note the route each launched
+    (:data:`STACK_ROUTES`)."""
+    from repro_torch.kernels.gru_sequence import ops
+    fn = ops.gru_stack_sequence_kernel
+
+    def recording(h0, x_proj, *args, **kw):
+        key = (h0.shape[0],) + tuple(x_proj.shape[:2]) + (h0.shape[-1],)
+        STACK_SHAPES[key] = STACK_SHAPES.get(key, 0) + 1
+        out = fn(h0, x_proj, *args, **kw)
+        if x_proj.is_cuda:
+            STACK_ROUTES.setdefault(key, set()).add(fn.last_plan.route)
+        return out
+    ops.gru_stack_sequence_kernel = recording
+    try:
+        yield
+    finally:
+        ops.gru_stack_sequence_kernel = fn
+
+
 def check_decode_routes(name, routes=DECODE_ROUTES):
     """Every served call of fused decode kernel ``name`` took the warp
     route (its plan's at every served shape)."""
@@ -1221,7 +1376,7 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
     engines, streams, per_arch = {}, {}, {}
     before = [0] * len(kernels)
     with plain_calls() as plain, sequence_shapes(SEQ_SHAPES), \
-            decode_calls():
+            decode_calls(), stack_calls():
         for a in cfgs:
             b = (backends or {}).get(a, backend)
             engines[a], streams[a] = serve(cfgs[a], params[a], b, dev)
@@ -1317,6 +1472,12 @@ def run_main_path(torch, dev):
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     check_decode_routes("gru_stack_decode_kernel")
+    check(STACK_ROUTES and all(r == {"warp"} for r in STACK_ROUTES.values()),
+          f"gru_stack_sequence_kernel: served calls launched {STACK_ROUTES},"
+          f" not the warp route alone")
+    print(f"  gru_stack_sequence_kernel: every served call took the warp "
+          f"route ({ {k: sorted(v) for k, v in STACK_ROUTES.items()} }; "
+          f"(L, T, B, H))", flush=True)
     return launches, report, cfgs, params, streams
 
 
@@ -2127,12 +2288,15 @@ def profile_mesh_decode(torch, cfg, params, dev, ctx):
 
 
 def cascade_layer_kernels(torch, cfg, params, dev, mesh, steps=20):
-    """What the v3 cascade layer's step puts on the card on this rank:
-    ``rowparallel._cascade_step_cuda`` at gru-jet-deep v3's cascade layer
-    (this rank's placed views, 8 slots), ``steps`` calls under
-    ``torch.profiler``. Checks that each step launches the partial product
-    (row 15) and the gates epilogue (row 16) once and no cat or add kernel
-    (the slice copies and the bias add that ran around row 16 before); the
+    """What the cascade layer's step puts on the card on this rank:
+    ``rowparallel._cascade_step_cuda`` at gru-jet-deep's (v1) or its v3
+    twin's cascade layer (this rank's placed views, 8 slots), ``steps``
+    calls under ``torch.profiler``. v3: each step launches the partial
+    product (row 15) and the gates epilogue (row 16) once and no cat or
+    add kernel (the slice copies and the bias add that ran around row 16
+    before). v1: each step launches the partial product, the middle phase
+    (row 17) and the update (row 18) once, and one add kernel (the psum +
+    b beside row 17; ``_ht_in``'s two adds before row 18 are gone). The
     psum's own entries (its copy, NCCL's kernel, gloo's memcpys) may run.
     Returns the device entries' counts by name."""
     from torch.autograd import DeviceType
@@ -2150,9 +2314,11 @@ def cascade_layer_kernels(torch, cfg, params, dev, mesh, steps=20):
     h = (0.5 * torch.randn(SLOTS, H // mesh.size, generator=g)).to(dev)
     xp = torch.randn(SLOTS, 3 * H, generator=g).to(dev)
 
+    variant = gcfg.variant
+
     def step():
         return rp._cascade_step_cuda(h, xp, a["u"], a["b"], mesh.rank,
-                                     mesh=mesh, variant="v3")
+                                     mesh=mesh, variant=variant)
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2164,11 +2330,23 @@ def cascade_layer_kernels(torch, cfg, params, dev, mesh, steps=20):
               if getattr(e, "device_type", None) == DeviceType.CUDA
               and e.count}
     who = f"rank {mesh.rank}/{mesh.size}"
-    check(counts, f"{who}: the profiler recorded no device entry of the v3 "
-          f"cascade layer")
+    check(counts, f"{who}: the profiler recorded no device entry of the "
+          f"{variant} cascade layer")
 
     def launched(part):
         return sum(c for k, c in counts.items() if part in k)
+    if variant == "v1":
+        check(launched("cascade_update_k") == steps
+              and launched("cascade_zr") == steps
+              and launched("shard_matvec") == steps,
+              f"{who}: the v1 cascade layer's {steps} steps launched "
+              f"{counts}, not the matvec, the middle phase and the update "
+              f"once a step")
+        adds = sum(c for k, c in counts.items() if "add" in k.lower())
+        check(adds == steps, f"{who}: {adds} add kernels in the v1 cascade "
+              f"layer's {steps} steps, not one a step (the psum + b beside "
+              f"row 17): {counts}")
+        return counts
     check(launched("cascade_gates_k") == steps
           and launched("shard_matvec") == steps,
           f"{who}: the v3 cascade layer's {steps} steps launched {counts}, "
@@ -2255,9 +2433,8 @@ def mesh_rank_main(rank: int, n: int, backend: str, store: str,
         check(tuple(logits.shape) == (3, cfg.gru.num_classes)
               and bool(torch.isfinite(logits).all()) and e <= TOL,
               f"{who} {a}: prefill logits vs reference {e:.3g}")
-        if cfg.gru.variant == "v3":
-            result["cascade_layer_v3"] = cascade_layer_kernels(
-                torch, cfg, params, dev, mesh)
+        result[f"cascade_layer_{cfg.gru.variant}"] = cascade_layer_kernels(
+            torch, cfg, params, dev, mesh)
         result["runs"][a] = {
             "streams": streams, "buckets": buckets, "steps_run": steps_run,
             "launches": {k: v for k, v in launches.items() if v},
@@ -2338,40 +2515,52 @@ def profile_mesh_steps(torch, dev, mesh_report):
 
 def cascade_step_before(h_shard, xp_full, u_rows, b_full, idx, *, mesh,
                         variant):
-    """``rowparallel._cascade_step_cuda`` as it ran before row 16 read its
-    gates in place: v3's psum + b, this rank's slices of g and xp copied
-    out, the contiguous call (v1 as it is): phase 12's "before" of the
-    served v3 step."""
+    """``rowparallel._cascade_step_cuda`` as it ran before rows 16 and 18
+    read their operands in place: v3's psum + b, this rank's slices of g
+    and xp copied out, the contiguous call; v1's candidate pre-activation
+    added by ``_ht_in``'s two adds before the contiguous update: phase 12's
+    "before" of the served v3 and v1 steps."""
     from repro_torch.core import rowparallel as rp
     from repro_torch.kernels.gru_sequence import kernel as K
-    if variant != "v3":
-        return rp._cascade_step_cuda(h_shard, xp_full, u_rows, b_full, idx,
-                                     mesh=mesh, variant=variant)
     h32 = h_shard.float()
-    return old_epilogue(mesh.psum(K.gru_shard_matvec(h32, u_rows)), xp_full,
-                        b_full, h32, idx)
+    if variant == "v3":
+        return old_epilogue(mesh.psum(K.gru_shard_matvec(h32, u_rows)),
+                            xp_full, b_full, h32, idx)
+    H, Hl = xp_full.shape[-1] // 3, h32.shape[1]
+    zr = (mesh.psum(K.gru_shard_matvec(h32, u_rows[:, :2 * H]))
+          + b_full[:2 * H])
+    z, ht_p = K.gru_cascade_shard_zr(
+        rp._local_gates(zr, 2, H, idx, Hl),
+        rp._local_gates(xp_full, 2, H, idx, Hl), h32, u_rows[:, 2 * H:])
+    return K.gru_cascade_shard_update(
+        z, rp._ht_in(xp_full, mesh.psum(ht_p), b_full, H, idx, Hl), h32)
 
 
 def steps_both_ways(torch, dev):
-    """The two served steps rows 7 and 16 sit in, each with the old route
+    """The served steps rows 7, 16 and 18 sit in, each with the old route
     forced and with the new, in turns old, new, new, old: gru-jet-deep's
     ``cuda_chain_q8`` decode step (``profile_decode``; old: the q8 step's
-    block route at its old tile) and its v3 twin's ``cuda_sharded`` step
-    on a one-rank mesh without a group (``profile_mesh_decode``; old:
-    :func:`cascade_step_before`). Returns {step: [(which, profile)]}."""
+    block route at its old tile) and its v3 twin's and its own (v1)
+    ``cuda_sharded`` steps on a one-rank mesh without a group
+    (``profile_mesh_decode``; old: :func:`cascade_step_before`). Returns
+    {step: [(which, profile)]}."""
     from repro_torch.core import rowparallel as rp
     from repro_torch.core.params import init_params
     from repro_torch.distributed import ShardCtx, local_mesh
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.models import gru_lm
-    out = {"cuda_chain_q8": [], "cuda_sharded v3": []}
+    out = {"cuda_chain_q8": [], "cuda_sharded v3": [],
+           "cuda_sharded v1": []}
     planner, impls = CK.step_q8_plan, dict(rp._STEP_IMPLS)
 
     def block_plan(B, H, variant):
         return step_q8_block_route(B, H)
-    cfg = mesh_configs()[MESH_ARCHS[1]]
-    params = init_params(gru_lm.lm_specs(cfg), seed=0,
-                         device=torch.device("cpu"))
+    meshed = {}
+    for step, arch in (("cuda_sharded v3", MESH_ARCHS[1]),
+                       ("cuda_sharded v1", MESH_ARCHS[0])):
+        cfg = mesh_configs()[arch]
+        meshed[step] = (cfg, init_params(gru_lm.lm_specs(cfg), seed=0,
+                                         device=torch.device("cpu")))
     for which in ("old", "new", "new", "old"):
         try:
             if which == "old":
@@ -2380,8 +2569,9 @@ def steps_both_ways(torch, dev):
                                           cascade_step_before)
             out["cuda_chain_q8"].append((which, profile_decode(
                 torch, dev, "cuda_chain_q8")))
-            out["cuda_sharded v3"].append((which, profile_mesh_decode(
-                torch, cfg, params, dev, ShardCtx(local_mesh(dev)))))
+            for step, (cfg, params) in meshed.items():
+                out[step].append((which, profile_mesh_decode(
+                    torch, cfg, params, dev, ShardCtx(local_mesh(dev)))))
         finally:
             CK.step_q8_plan = planner
             rp._STEP_IMPLS.update(impls)
@@ -2502,6 +2692,9 @@ def run_mesh_path(torch):
         print(f"    v3 cascade layer, 20 steps under the profiler (rank 0): "
               f"{r0['cascade_layer_v3']} -- row 16 once a step, no cat or "
               f"add kernel around it", flush=True)
+        print(f"    v1 cascade layer, 20 steps under the profiler (rank 0): "
+              f"{r0['cascade_layer_v1']} -- row 18 once a step, one add a "
+              f"step (the psum + b beside row 17)", flush=True)
         report[f"{n}x{backend}"] = r0
     check(all(v > 0 for v in launches.values()),
           f"a shard kernel never launched on the mesh path: {launches}")
@@ -2711,6 +2904,12 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
                     per_graph=200)
                 before = (f"  block route {blk * 1e3:8.2f} us; plan "
                           f"{getattr(K, name).last_plan}")
+            if name == "gru_stack_sequence_kernel":
+                blk = device_time_ms(torch, stack_route_fn(
+                    torch, a, "v1", True, stack_block_route(K, B, H, L)),
+                    per_graph=200)
+                before = (f"  block route {blk * 1e3:8.2f} us; plan "
+                          f"{K.gru_stack_sequence_kernel.last_plan}")
             print(f"  {name:28s} L={L} H={H} B={B:2d} T={T:2d}: device "
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
@@ -2739,6 +2938,10 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
                     rows[-1]["plan"] = str(getattr(K, name).last_plan)
                     rows[-1]["block_route_ms"] = blk
                     rows[-1]["mesh_launches"] = mesh_launches.get(name, 0)
+                if name == "gru_stack_sequence_kernel":
+                    rows[-1]["plan"] = str(K.gru_stack_sequence_kernel
+                                           .last_plan)
+                    rows[-1]["block_route_ms"] = blk
     # the fp32 chain's decode layer: the depth-1 sequence kernel at T=1,
     # unmasked (a row of PERF.md, not of the JSON line)
     for H in (32, 20):
@@ -2839,20 +3042,54 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
         print(f"  {name}: launches x (device - bound) over its "
               f"{sum(served.values())} served launches = {gap_us:.0f} us "
               f"(block route forced: {gap_block_us:.0f} us)", flush=True)
+    # row 2's served launches by shape (phase 4: gru-jet-deep's prefills),
+    # likewise, the block route forced
+    name = "gru_stack_sequence_kernel"
+    check(sum(STACK_SHAPES.values()) == launches[name], f"{name}: served "
+          f"calls by shape {STACK_SHAPES} do not sum to its "
+          f"{launches[name]} launches")
+    gap_us = gap_block_us = 0.0
+    for (L, T, B, H), count in sorted(STACK_SHAPES.items()):
+        a = make_inputs(torch, L, H, B, T, seed=7, dev=dev)
+        ms = device_time_ms(torch, lambda: run_kernel(
+            K, ref, name, a, "v1", True, plain=False), per_graph=50)
+        plan = K.gru_stack_sequence_kernel.last_plan
+        blk = device_time_ms(torch, stack_route_fn(
+            torch, a, "v1", True, stack_block_route(K, B, H, L)),
+            per_graph=50)
+        bms, _ = bound_ms(name, a)
+        gap_us += count * (ms - bms) * 1e3
+        gap_block_us += count * (blk - bms) * 1e3
+        print(f"  {name} served L={L} T={T} B={B} H={H}: {count:3d} "
+              f"launches, device {ms * 1e3:7.2f} us ({plan.route} route, "
+              f"{plan.grid} blocks of {plan.warps} warps), block "
+              f"route {blk * 1e3:7.2f} us, bound {bms * 1e6:6.2f} ns",
+              flush=True)
+    print(f"  {name}: launches x (device - bound) over its "
+          f"{sum(STACK_SHAPES.values())} served launches = {gap_us:.0f} us "
+          f"(block route forced: {gap_block_us:.0f} us)", flush=True)
     print(f"  torch.nn.GRU (cuDNN) yardstick, v3 T=32 B={SLOTS} H=32: "
           f"{cudnn_gru_ms(torch, dev) * 1e3:.2f} us", flush=True)
     # rows 2 and 3's yardstick: torch.nn.GRU over L layers on the same v3
-    # unmasked work, beside the kernel on it (row 2 at its T=16 bucket)
+    # unmasked work, beside the kernel on it (row 2 at its T=16 bucket and
+    # the served T=32, with its block route forced beside)
     for name, L, H, T in (("gru_stack_sequence_kernel", 3, 32, 16),
+                          ("gru_stack_sequence_kernel", 3, 32, 32),
                           ("gru_stack_decode_kernel", 3, 32, 1),
                           ("gru_stack_decode_kernel", 1, 20, 1)):
         a = make_inputs(torch, L, H, SLOTS, T, seed=7, dev=dev)
         ms = device_time_ms(torch, lambda: run_kernel(
             K, ref, name, a, "v3", False, plain=False), per_graph=200)
         lib = cudnn_gru_ms(torch, dev, T=T, H=H, L=L)
+        blk = ""
+        if name == "gru_stack_sequence_kernel":
+            t_blk = device_time_ms(torch, stack_route_fn(
+                torch, a, "v3", False, stack_block_route(K, SLOTS, H, L)),
+                per_graph=50)
+            blk = f"; its block route {t_blk * 1e3:.2f} us"
         print(f"  torch.nn.GRU (cuDNN) yardstick for {name}, v3 L={L} H={H} "
               f"B={SLOTS} T={T}: {lib * 1e3:.2f} us; the kernel on the same "
-              f"work {ms * 1e3:.2f} us", flush=True)
+              f"work {ms * 1e3:.2f} us{blk}", flush=True)
     print("  library_ms: null -- no single PyTorch call computes the v1 "
           "(paper) GRU recurrence or step these kernels run, in fp32 or on "
           "int8 weight rows; nor the exponential-gated sLSTM (torch.nn.LSTM "
@@ -3195,7 +3432,7 @@ SHARD_ELEMENTWISE = {"gru_rowwise_shard_step": 14, "gru_rowwise_shard_zr": 7,
                      "gru_rowwise_shard_candidate": 7, "gru_shard_matvec": 0,
                      "gru_cascade_shard_gates": 11,
                      "gru_cascade_shard_zr": 5,
-                     "gru_cascade_shard_update": 5}
+                     "gru_cascade_shard_update": 7}
 # (H, ranks) timed; the JSON rows are gru-jet-deep's at 2 ranks, 8 slots
 SHARD_TIMED = ((32, 2), (32, 4), (32, 1), (20, 2), (20, 4))
 SHARD_ROW = (32, 2)
@@ -3245,15 +3482,15 @@ def czr_tile_fn(torch, args):
 
 def shard_route(name) -> str:
     """The route of a shard kernel's last launch: the five redesigned
-    kernels' plan (``last_plan``), a grid-stride loop for the two
-    elementwise ones."""
+    kernels' plan (``last_plan``); the two epilogues run one thread an
+    output, reading their operands in place."""
     from repro_torch.kernels.gru_sequence import kernel as K
     if name in REDESIGNED:
         p = getattr(K, name).last_plan
         return (f"direct S={p.slices} R={p.rows} warps={p.warps} grid="
                 f"{p.grid}" if p.route == "direct" else
                 f"tile bt={p.rows} ct={p.ct} grid={p.grid}")
-    return "elementwise"
+    return "one thread an output, in place"
 
 
 def time_shard_kernels(torch, dev, err, launches):
@@ -3262,8 +3499,9 @@ def time_shard_kernels(torch, dev, err, launches):
     N = 2H); ``torch.matmul`` beside the matvec (TF32 off), the one
     kernel a single PyTorch call computes; row 16 as the mesh step calls
     it (gate views and b, one launch) beside the epilogue it replaced (+ b,
-    two slice copies, the kernel) and the kernel on contiguous slices.
-    Returns the seven JSON rows."""
+    two slice copies, the kernel) and the kernel on contiguous slices; row
+    18 likewise (its in-place call beside ``_ht_in``'s two adds and the
+    contiguous call, and that call alone). Returns the seven JSON rows."""
     from repro_torch.kernels.gru_sequence import kernel as K
     rows = []
     for (H, n) in SHARD_TIMED:
@@ -3302,6 +3540,16 @@ def time_shard_kernels(torch, dev, err, launches):
                 old = (f"  old epilogue (+ b, 2 cats, kernel) {epi * 1e3:6.2f}"
                        f" us; kernel on contiguous slices, no b "
                        f"{contig * 1e3:6.2f} us")
+            if name == "gru_cascade_shard_update":  # the epilogue before
+                epi = device_time_ms(torch, old_update_fn(a, a["idx"]),
+                                     per_graph=200)
+                ht_in = args[1].contiguous()
+                contig = device_time_ms(
+                    torch, lambda: K.gru_cascade_shard_update(
+                        a["z"], ht_in, a["h_shard"]), per_graph=200)
+                old = (f"  old epilogue (2 adds, kernel) {epi * 1e3:6.2f} us;"
+                       f" kernel on a contiguous pre-activation, no adds "
+                       f"{contig * 1e3:6.2f} us")
             print(f"  {name:28s} H={H} ranks={n} Hl={H // n:2d} B={SLOTS}: "
                   f"device {ms * 1e3:6.2f} us (per call {call * 1e3:6.2f})  "
                   f"plain {plain * 1e3:7.2f} us  matmul {lib_s}  bound "
@@ -3319,7 +3567,8 @@ def time_shard_kernels(torch, dev, err, launches):
                     "shape": {"H": H, "ranks": n, "Hl": H // n, "B": SLOTS}})
                 if name == "gru_cascade_shard_zr":
                     rows[-1]["old_tile_ms"] = tile
-                if name == "gru_cascade_shard_gates":
+                if name in ("gru_cascade_shard_gates",
+                            "gru_cascade_shard_update"):
                     rows[-1]["old_epilogue_ms"] = epi
                     rows[-1]["contiguous_ms"] = contig
     print("  library_ms: torch.matmul on the matvec's operands (TF32 off); "
@@ -3514,6 +3763,7 @@ def main() -> None:
     both = steps_both_ways(torch, dev)
     cq8_report["step_both_ways"] = both["cuda_chain_q8"]
     mesh_report["v3_step_both_ways"] = both["cuda_sharded v3"]
+    mesh_report["v1_step_both_ways"] = both["cuda_sharded v1"]
     both = decode_steps_both_ways(torch, dev)
     report["step_both_ways"] = both["cuda"]
     q8_report["step_both_ways"] = both["cuda_fused_q8"]

@@ -181,9 +181,10 @@ def _cascade_step_cuda(h_shard, xp_full, u_rows, b_full, idx, *, mesh: Mesh,
                        variant: str):
     """``_cascade_step`` with the per-rank compute in the shard kernels: the
     partial products and the gate epilogues run in kernels, the psums
-    between them stay where the eager step has them. v3's epilogue reads
-    this rank's gates of the psum, of xp and of b in place and adds b
-    itself: one launch after the psum."""
+    between them stay where the eager step has them. Each epilogue reads
+    this rank's columns of the psum, of xp and of b in place and adds them
+    itself, one launch after the psum: v3's gates, v1's candidate
+    pre-activation ((xp + psum) + b, as ``_ht_in`` adds it)."""
     from repro_torch.kernels.gru_sequence import kernel as K
     Hl = h_shard.shape[1]
     H = xp_full.shape[-1] // 3
@@ -199,8 +200,10 @@ def _cascade_step_cuda(h_shard, xp_full, u_rows, b_full, idx, *, mesh: Mesh,
         _local_gates(zr, 2, H, idx, Hl), _local_gates(xp_full, 2, H, idx, Hl),
         h32, u_rows[:, 2 * H:])
     ht_p = mesh.psum(ht_p)                                        # psum 2
-    return K.gru_cascade_shard_update(z, _ht_in(xp_full, ht_p, b_full, H,
-                                                 idx, Hl), h32)
+    s = 2 * H + idx * Hl
+    return K.gru_cascade_shard_update(z, _local(ht_p, idx * Hl, Hl), h32,
+                                      _local(xp_full, s, Hl),
+                                      b_full[s:s + Hl])
 
 
 # step_impl -> (row-wise step, cascade step): "eager" for `sharded` and

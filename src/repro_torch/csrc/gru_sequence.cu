@@ -4,7 +4,9 @@
 // src/repro/kernels/gru_sequence/kernel.py:
 //   gru_sequence_warp_k (warp route),
 //   gru_sequence_k (block route) <- gru_sequence_kernel   (depth-1 sequence)
-//   gru_stack_sequence_k  <- gru_stack_sequence_kernel  (fused depth-L seq)
+//   gru_stack_sequence_warp_k (warp route),
+//   gru_stack_sequence_k (block route) <- gru_stack_sequence_kernel (fused
+//                                                                 depth-L seq)
 //   gru_stack_decode_warp_k (warp route),
 //   gru_stack_decode_k (block route) <- gru_stack_decode_kernel (one token,
 //                                                                 L layers)
@@ -14,8 +16,8 @@
 // Translation. The TPU walks a sequential time grid and carries h in VMEM
 // scratch. Here the time loop (and the layer loop) runs INSIDE the kernel,
 // and the grid runs over independent batch rows (the decode kernel's
-// "parallel" axis on the TPU). Two routes for the depth-1 sequence and for
-// the decode; the wrappers pick one by shape (seq_plan and decode_plan in
+// "parallel" axis on the TPU). Two routes for each kernel; the wrappers
+// pick one by shape (seq_plan, stack_seq_plan and decode_plan in
 // kernels/gru_sequence/kernel.py):
 // - "warp" (H <= 32, every served width): one warp per batch row (R rows
 //   for the sequence); lane c owns output column c of each gate
@@ -36,9 +38,15 @@
 //   same warp: layer l+1's input projection is the warp's own pass over
 //   k; each layer's U and W come from device memory, in one burst of
 //   loads a pass; h_k reaches the lanes through a slot of shared memory,
-//   8 float4 reads a pass.
-// - "block" (run_stack, shared by all three kernels; the depth-1 kernel
-//   and the decode past H = 32 or L = 4): a block per tile
+//   8 float4 reads a pass. The fused prefill (gru_stack_sequence_warp_k,
+//   see its note) gives each batch row a block, each layer its own warp
+//   (U in registers) and each pair of layers a projection warp (W in
+//   registers), on a wavefront skewed by layer: layer l runs step t while
+//   layer l-1 runs step t+1, and layer l's new h reaches layer l+1 through
+//   shared memory within one barrier a hop, so the chain is T + 2(L - 1)
+//   ticks, not T x L layer-steps.
+// - "block" (run_stack, shared by all three kernels; each past its warp
+//   route's bounds, H = 32 or the layer bound): a block per tile
 //   of `bt` rows copies U, the deep layers' W and b into shared memory
 //   once and keeps them for the whole loop (the paper's row reuse). Every
 //   thread owns whole output columns of U (the paper's row-wise split) and
@@ -59,15 +67,16 @@
 // per accumulator (the broadcasts of h do not wait on them) and the gate
 // math, twice for v1; the sequence's only trip to memory that the chain
 // waits for is the load of U and of the first D steps at entry, the
-// decode's the first layer's operands and each matrix's burst of loads.
+// decode's the first layer's operands and each matrix's burst of loads,
+// the fused prefill's one barrier a tick.
 //
 // Numerics: expf/tanhf, no fast math; sums accumulate in k order with fma
 // from 0, and the epilogues add in the same order on both routes (z, r:
 // x + (U.h + b); the v1 candidate (x + U.(r*h)) + b, v3's x + r*(U.h + b);
 // the update fma(1 - z, h, z*ht), the contraction nvcc picks for
 // run_stack's (1 - z)*h + z*ht, written out in the warp route; the
-// decode's deep projection h @ W in k order by fma from 0 as run_stack's
-// matvec), so the two routes compute the same expressions.
+// deep projection h @ W in k order by fma from 0 as run_stack's matvec),
+// so the two routes compute the same expressions.
 
 #include <cuda_runtime.h>
 
@@ -587,6 +596,184 @@ gru_stack_decode_warp_k(const float* __restrict__ h,
   }
 }
 
+// --- the fused prefill's warp route: a layer-skewed wavefront ---------------
+
+constexpr int kSeqMaxLayers = 4;       // the deepest stack the route takes
+constexpr int kLaneCols = 3 * kWarpMaxH;   // a projection's 3 gates x 32 lanes
+// A block's slots for the deepest stack: each layer's h by step parity,
+// each projection's by step parity, each gate warp's r*h (3.75 KB).
+constexpr int kSeqSlotFloats = kSeqMaxLayers * 64 +
+                               (kSeqMaxLayers - 1) * 2 * kLaneCols +
+                               kSeqMaxLayers * 32;
+
+// The block's barrier between two ticks. Warps of different roles reach it
+// from different places in the code, so it is the non-aligned form (a
+// __syncthreads() is bar.sync.aligned, which all threads must reach at
+// the same instruction).
+__device__ __forceinline__ void tick_barrier() {
+  asm volatile("barrier.sync 0;" ::: "memory");
+}
+
+// How a consumer's pass over k sees a row that another warp left in a
+// slot of shared memory: SmemBcast's float4 broadcasts of the slot, with
+// nothing to put (the producer stored it before the tick's barrier).
+struct SlotRead : SmemBcast<1> {
+  __device__ __forceinline__ void put(const float (&)[1]) {}
+};
+
+// How a gate warp's passes over k see h_k and v1's r_k*h_k: h straight
+// from the layer's h slot, where the warp stored it the tick before (a
+// barrier between), so the first put stores nothing; r*h through the
+// warp's own slot, as SmemBcast puts it.
+struct GateBcast : SmemBcast<1> {
+  float* rh;
+  bool first = true;
+  __device__ __forceinline__ void put(const float (&x)[1]) {
+    if (!first) {
+      SmemBcast<1>{rh, lane}.put(x);
+      slot = rh;
+    }
+    first = false;
+  }
+};
+
+// L layers over T steps for one batch row a block, on a wavefront skewed
+// by layer (the source note's prefill warp route). Layouts as run_stack's.
+// The block has 2L - 1 warps: at even positions q = 2l the gate warp of
+// layer l (its U in registers), between two layers the projection warp of
+// layer l (q = 2l + 1, its W_l in registers). Warp q runs step j - q at
+// tick j, and a barrier ends every tick, so the chain is T + 2(L - 1)
+// ticks of one pass over k each (two for a v1 gate step), where the block
+// route's is T x L layer-steps of several barriers each.
+//
+// Layer l's new h (its gated output: a masked row keeps its pre-step h,
+// and the projection consumes that) goes to slot (t & 1) of the layer's
+// two; the projection warp reads it in the next tick, and so does the gate
+// warp's own next step; the gate warp writes the slot again two ticks on,
+// after those reads and a barrier. The projection (three sums in k order
+// by fma from 0, as run_stack's matvec) goes to layer l+1 the same way.
+// Nothing on the chain goes through device memory: every gate warp loads
+// the next tick's mask, and layer 0's its xp, one tick ahead into
+// registers; the top layer stores out[t] and each gate warp its layer's
+// finals.
+//
+// Written for ptxas, as timed on an H100 (PERF.md, Findings): the launch
+// bounds ask for one block an SM, or ptxas may fit the v1 instance at
+// H = 32 into 128 registers beside the weights' 96 and recompute its
+// addresses every tick, which was slower; q comes from lane 0 by shuffle,
+// so the slot addresses it gives stay in registers and are not rebuilt
+// from threadIdx at every tick, which was slower too. Two or four rows a
+// block, xp two or four ticks ahead, or W staged in shared memory for the
+// next gate warp to project were no faster.
+//
+// A lane past H works on column 0's weights (load_cols): its values stay
+// finite and every lane below H weighs them by an exact 0, so the sums
+// equal run_stack's bit for bit, as warp_gru_step's note says.
+template <int V3, int HT>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_stack_sequence_warp_k(const float* __restrict__ h0,
+                          const float* __restrict__ xp,
+                          const float* __restrict__ u,
+                          const float* __restrict__ wd,
+                          const float* __restrict__ b,
+                          const float* __restrict__ mask,
+                          float* __restrict__ out,
+                          float* __restrict__ finals, int T, int B, int H,
+                          int L) {
+  if constexpr (HT) H = HT;
+  __shared__ __align__(16) float smem[kSeqSlotFloats];
+  const int H3 = 3 * H;
+  const int n = H * H3;                   // floats of one matrix
+  const int lane = threadIdx.x & 31;
+  const int nw = 2 * L - 1;               // warps (positions) a row
+  const int q = __shfl_sync(kFullWarp, threadIdx.x >> 5, 0);  // position
+  const int row = blockIdx.x;
+  const bool proj = q & 1;                // a projection warp
+  const int l = q >> 1;                   // its layer (the one it projects)
+  const bool col = lane < H;
+  const int c = col ? lane : 0;
+  const int ticks = T + nw - 1;
+
+  float* hs = smem;                       // (L, 2, 32) h slots
+  float* ps = hs + L * 64;                // (L-1, 2, 96) projections
+  float* bs = ps + (L - 1) * 2 * kLaneCols;   // (L, 32) r*h slots
+
+  float w[3][kWarpMaxH];     // lane c's columns of U_l, or of W_l
+  load_cols<HT>(w, (proj ? wd : u) + (size_t)l * n + c, H);
+  const auto wt = [&](int k, int g) { return w[g][k]; };
+  float* hslot = hs + l * 64;             // layer l's two h slots
+
+  if (proj) {                // layer l's new h -> layer l+1's input
+    float* pslot = ps + l * 2 * kLaneCols;
+    for (int j = 0; j < ticks; ++j) {
+      const int t = j - q;
+      if (t >= 0 && t < T) {
+        SlotRead sr{{hslot + (t & 1) * 32, lane}};
+        float p[3];
+        warp_project(0.0f, wt, sr, p);
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          pslot[(t & 1) * kLaneCols + g * 32 + lane] = p[g];
+      }
+      tick_barrier();
+    }
+    return;
+  }
+
+  const float bz = col ? __ldg(b + (size_t)l * H3 + c) : 0.0f;
+  const float br = col ? __ldg(b + (size_t)l * H3 + H + c) : 0.0f;
+  const float bh = col ? __ldg(b + (size_t)l * H3 + 2 * H + c) : 0.0f;
+  float hc = col ? __ldg(h0 + ((size_t)l * B + row) * H + c) : 0.0f;
+  float* rslot = bs + l * 32;
+  hslot[32 + lane] = hc;                  // h0, in the slot of step -1
+  __syncwarp();
+  const float* pin = ps + (l > 0 ? l - 1 : 0) * 2 *
+                              kLaneCols;  // layer l-1's projections
+
+  // tick j's mask and, in layer 0, its xp columns, loaded a tick ahead
+  const auto fetch = [&](float (&x)[3], float& m, int j) {
+    const int t = j - q;
+    if (t < 0 || t >= T) return;
+    const size_t r = (size_t)t * B + row;
+    m = mask == nullptr ? 1.0f : __ldg(mask + r);
+    if (l == 0) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        x[g] = col ? __ldg(xp + r * H3 + g * H + c) : 0.0f;
+    }
+  };
+  float nx[3] = {}, nm = 0.0f;
+  fetch(nx, nm, 0);
+
+  for (int j = 0; j < ticks; ++j) {
+    const int t = j - q;
+    const bool act = t >= 0 && t < T;
+    float x[1][3] = {}, m = 0.0f;
+    if (act) {
+      m = nm;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) x[0][g] = nx[g];
+    }
+    fetch(nx, nm, j + 1);
+    if (act) {
+      if (l > 0) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          x[0][g] = pin[(t & 1) * kLaneCols + g * 32 + lane];
+      }
+      const float hold[1] = {hc};
+      float hn[1];
+      GateBcast bc{{hslot + ((t - 1) & 1) * 32, lane}, rslot};
+      warp_gru_step<V3, 1>(x, hold, wt, bc, bz, br, bh, hn);
+      hc = m != 0.0f ? hn[0] : hc;
+      hslot[(t & 1) * 32 + lane] = hc;
+      if (col && l == L - 1) out[((size_t)t * B + row) * H + c] = hc;
+    }
+    tick_barrier();
+  }
+  if (col) finals[((size_t)l * B + row) * H + c] = hc;
+}
+
 size_t smem_bytes(int L, int H, int bt) {
   const size_t H3 = 3 * (size_t)H;
   const size_t floats = (size_t)L * H * H3 + (size_t)(L - 1) * H * H3 +
@@ -732,6 +919,31 @@ extern "C" int gru_stack_decode_warp_launch(const float* h, const float* xp,
     if (H == 32) return go(gru_stack_decode_warp_k<V, 32>);
     if (H == 20) return go(gru_stack_decode_warp_k<V, 20>);
     return go(gru_stack_decode_warp_k<V, 0>);
+  };
+  return v3 ? width(std::integral_constant<int, 1>())
+            : width(std::integral_constant<int, 0>());
+}
+
+// The warp route of the fused prefill: a block of 2L - 1 warps per batch
+// row. H at most 32 (32 compiled as a constant), L at most kSeqMaxLayers;
+// its 3.75 KB of shared memory is static.
+extern "C" int gru_stack_sequence_warp_launch(
+    const float* h0, const float* xp, const float* u, const float* wd,
+    const float* b, const float* mask, float* out, float* finals, int T,
+    int B, int H, int L, int v3, void* stream) {
+  if (H < 1 || H > kWarpMaxH || L < 1 || L > kSeqMaxLayers)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(32 * (2 * L - 1));
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto go = [&](auto kernel) {
+    kernel<<<B, block, 0, st>>>(h0, xp, u, wd, b, mask, out, finals, T, B,
+                                H, L);
+    return (int)cudaGetLastError();
+  };
+  const auto width = [&](auto v3c) {
+    constexpr int V = decltype(v3c)::value;
+    if (H == 32) return go(gru_stack_sequence_warp_k<V, 32>);
+    return go(gru_stack_sequence_warp_k<V, 0>);
   };
   return v3 ? width(std::integral_constant<int, 1>())
             : width(std::integral_constant<int, 0>());

@@ -48,10 +48,12 @@
 //   block (elementwise, from the psum'd pre-activations) into shared memory
 //   as the operand of its product, so the partial product needs no round
 //   trip through device memory.
-// The two epilogue-only kernels are elementwise: the v3 cascade gates one
-// thread an output, reading g, xp and b in place (gate-strided views of
-// the psum'd and projected (B, 3H) arrays: no slice copies, no bias add
-// around it); the v1 cascade update a grid-stride loop.
+// The two epilogue-only kernels are elementwise, one thread an output,
+// reading their operands in place: the v3 cascade gates g, xp and b
+// through gate-strided views of the psum'd and projected (B, 3H) arrays
+// (no slice copies, no bias add around it); the v1 cascade update the
+// candidate's three addends through column slices of the psum, of xp and
+// of b (no add kernels around it).
 //
 // Bound on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): a shard's operands
 // are a few KB at these widths, so every kernel's bound is a few
@@ -270,15 +272,37 @@ cascade_gates_k(const float* __restrict__ g, int ldg, int gsg,
   out[i] = __fmaf_rn(1.0f - z, hv, __fmul_rn(z, ht));
 }
 
-// v1 cascade epilogue: (1 - z) h + z tanh(ht_in), all (B, Hl).
-__global__ void __launch_bounds__(kThreads)
+// v1 cascade epilogue, one thread an element (row, c) of the new h shard
+// (B, Hl): (1 - z) h + z tanh(ht_in), z and h contiguous. The candidate's
+// pre-activation is read where its addends lie: row `row` of the psum'd
+// partial at ht + row * ldt + c (a column slice of the (B, H) psum: ldt =
+// H, the rank's offset in the pointer; a finished local (B, Hl) ht_in:
+// ldt = Hl), and, where given, this rank's columns of xp's candidate gate
+// (xp + row * ldx + c, a column slice of the (B, 3H) projection) and of b
+// (b + c). They are added in JAX's order, (xp + psum) + b, each rounded on
+// its own, as the two add kernels this replaces rounded them. A block
+// row of the grid is a batch row, so every load's address is at hand at
+// entry (no division by Hl before the loads: it delayed them by 0.1 us on
+// an H100), and every load goes out at once. The update is written as
+// nvcc contracted the grid-stride kernel this one replaces (its SASS: FMUL
+// z*tanh, then FFMA (1 - z), h), so the results are that sequence's bit
+// for bit.
+__global__ void __launch_bounds__(kGatesThreads)
 cascade_update_k(const float* __restrict__ z, const float* __restrict__ ht,
-                 const float* __restrict__ h, float* __restrict__ out,
-                 size_t n) {
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * kThreads) {
-    out[i] = (1.0f - z[i]) * h[i] + z[i] * tanhf(ht[i]);
-  }
+                 int ldt, const float* __restrict__ xp, int ldx,
+                 const float* __restrict__ b, const float* __restrict__ h,
+                 float* __restrict__ out, int Hl) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y;
+  if (c >= Hl) return;
+  const int i = row * Hl + c;
+  const float zv = __ldg(z + i), hv = __ldg(h + i);
+  float a = __ldg(ht + row * ldt + c);
+  const float xv = xp != nullptr ? __ldg(xp + row * ldx + c) : 0.0f;
+  const float bv = b != nullptr ? __ldg(b + c) : 0.0f;
+  if (xp != nullptr) a = __fadd_rn(xv, a);
+  if (b != nullptr) a = __fadd_rn(a, bv);
+  out[i] = __fmaf_rn(1.0f - zv, hv, __fmul_rn(zv, tanhf(a)));
 }
 
 // --- the direct route ------------------------------------------------------
@@ -593,15 +617,10 @@ dim3 direct_grid(int ncols, int B, int slices, int rows, int warps) {
 
 bool valid_direct(int warps) { return warps >= 1 && warps <= kWarps; }
 
-// --- the tile route and the elementwise kernels' launches --------------------
+// --- the tile route's launches ----------------------------------------------
 
 dim3 tiles(int ncols, int B, int bt, int ct) {
   return dim3((ncols + ct - 1) / ct, (B + bt - 1) / bt);
-}
-
-int elementwise_blocks(size_t n) {
-  const size_t blocks = (n + kThreads - 1) / kThreads;
-  return (int)(blocks < 1024 ? (blocks > 0 ? blocks : 1) : 1024);
 }
 
 template <int MODE, int BT>
@@ -792,12 +811,21 @@ extern "C" int gru_cascade_shard_gates_launch(const float* g, int ldg,
   return (int)cudaGetLastError();
 }
 
+// ht: row stride ldt in floats; xp (row stride ldx) and b null where the
+// caller passes a finished pre-activation. One thread an element: a grid
+// row per batch row (B at most 65535), the row's Hl columns over blocks
+// of at most kGatesThreads threads, whole warps.
 extern "C" int gru_cascade_shard_update_launch(const float* z,
-                                               const float* ht,
+                                               const float* ht, int ldt,
+                                               const float* xp, int ldx,
+                                               const float* b,
                                                const float* h, float* out,
                                                int B, int Hl, void* stream) {
-  const size_t n = (size_t)B * Hl;
-  cascade_update_k<<<elementwise_blocks(n), kThreads, 0,
-                     (cudaStream_t)stream>>>(z, ht, h, out, n);
+  if (B < 1 || B > 65535 || Hl < 1) return (int)cudaErrorInvalidValue;
+  const int warps32 = (Hl + 31) / 32 * 32;
+  const int threads = warps32 < kGatesThreads ? warps32 : kGatesThreads;
+  const dim3 grid((Hl + threads - 1) / threads, B);
+  cascade_update_k<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      z, ht, ldt, xp, ldx, b, h, out, Hl);
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,13 @@ Same names and array interface as the Pallas kernels in
   ``last_plan``;
 * :func:`gru_stack_sequence_kernel` — fused depth-L sequence, h0 (L,B,H),
   u (L,H,3H), w_deep (L-1,H,3H) ((1,1,3H) for L=1, unused), b (L,3H)
-  -> ((T,B,H) last layer, (L,B,H) finals);
+  -> ((T,B,H) last layer, (L,B,H) finals); it launches the route
+  :func:`stack_seq_plan` picks (a block per batch row: a warp per layer,
+  and one between two layers, on a wavefront skewed by layer, where H <=
+  32 and L <= 4; else the block route) and keeps it as ``last_plan``;
 * :func:`gru_stack_decode_kernel` — one token through L layers, h (L,B,H),
   x_proj (B,3H) -> (L,B,H); it launches the route :func:`decode_plan`
-  picks (one warp per batch row where H <= 32 and L <= 8, else the block
+  picks (one warp per batch row where H <= 32 and L <= 4, else the block
   route) and keeps it as ``last_plan``;
 * :func:`gru_stack_sequence_q8_kernel` / :func:`gru_stack_decode_q8_kernel`
   — their q8 twins: int8 weight rows u_q (L,3H,H) with u_eff (L,3H),
@@ -62,9 +65,10 @@ LM's attention kernels, :data:`ATTN_KERNELS` (``flash_attention`` and
 and the shard kernels, :data:`SHARD_KERNELS`.
 
 A block of the fused kernels' block routes (and of the depth-1 kernel's)
-takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows (the decode
-kernels' nonzero ``batch_block`` sets it, as in the JAX signature, and
-selects the block route); the grid is
+takes a tile of :data:`DEFAULT_BATCH_BLOCK` batch rows (a nonzero
+``batch_block`` of the decode kernels, as in the JAX signature, or of
+the fp32 stack sequence sets it and selects the block route); the grid
+is
 ``ceil(B / tile)`` blocks. U, the deep layers' W, b and the per-layer h of
 one tile must fit the 227 KB of shared memory a Hopper block may use.
 """
@@ -98,6 +102,9 @@ _SIGNATURES = {        # launcher -> (library, argtypes)
     "gru_sequence_warp_launch": ("gru_sequence", [P] * 6 + [I] * 7 + [P]),
     # h0, xp, u, wd, b, mask, out, finals, T, B, H, L, v3, bt, stream
     "gru_stack_sequence_launch": ("gru_sequence", [P] * 8 + [I] * 6 + [P]),
+    # h0, xp, u, wd, b, mask, out, finals, T, B, H, L, v3, stream
+    "gru_stack_sequence_warp_launch": ("gru_sequence",
+                                       [P] * 8 + [I] * 5 + [P]),
     # h, xp, u, wd, b, out, B, H, L, v3, bt, stream
     "gru_stack_decode_launch": ("gru_sequence", [P] * 6 + [I] * 5 + [P]),
     # h, xp, u, wd, b, out, B, H, L, v3, warps, stream
@@ -246,13 +253,74 @@ def gru_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
     return out
 
 
+# The fused prefill's warp route (row 2): a block a batch row, on a
+# wavefront skewed by layer: a gate warp per layer with its U in registers
+# and a projection warp between two layers with its W in registers, layer
+# l+1 one step behind layer l, each hand-over through shared memory within
+# one block barrier a tick. At most STACK_WARP_MAX_L layers
+# (kSeqMaxLayers: the deepest swept on the card and held there against
+# the block route), only where H <= WARP_MAX_H.
+STACK_WARP_MAX_L = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class StackSeqPlan:
+    """One launch of :func:`gru_stack_sequence_kernel`: ``route`` "warp"
+    (one batch row a block, 2L - 1 warps; its shared memory static) or
+    "block" (``run_stack``: ``rows`` the batch tile of a block of
+    :data:`THREADS` threads). ``rows`` batch rows a block, ``warps`` a
+    block, ``grid`` blocks, ``threads`` per block, ``smem`` dynamic
+    bytes."""
+    route: str
+    rows: int
+    warps: int
+    grid: int
+    threads: int
+    smem: int
+
+
+def stack_warps(L: int) -> int:
+    """Warps of a warp-route block (its wavefront's positions): L gate
+    warps and L - 1 projection warps."""
+    return 2 * L - 1
+
+
+def stack_seq_warp_plan(B: int, L: int) -> StackSeqPlan:
+    """The warp-route launch: B blocks of :func:`stack_warps` warps."""
+    return StackSeqPlan("warp", 1, stack_warps(L), B, 32 * stack_warps(L),
+                        0)
+
+
+def stack_seq_block_plan(B: int, H: int, L: int, bt: int) -> StackSeqPlan:
+    """The block-route launch (``run_stack``) at batch tile ``bt``."""
+    return StackSeqPlan("block", bt, _launch.THREADS // 32, -(-B // bt),
+                        _launch.THREADS, smem_bytes(L, H, bt))
+
+
+@functools.lru_cache(maxsize=512)
+def stack_seq_plan(B: int, T: int, H: int, L: int, variant: str,
+                   batch_block: int = 0) -> StackSeqPlan:
+    """The launch of :func:`gru_stack_sequence_kernel`: the warp route
+    where H <= :data:`WARP_MAX_H` and L <= :data:`STACK_WARP_MAX_L`, else,
+    or where ``batch_block`` is nonzero, the block route at
+    :func:`_launch.batch_tile`'s tile (which raises where one block's
+    shared memory does not fit)."""
+    _launch.check_problem(variant, B, T, H, L)
+    if batch_block or H > WARP_MAX_H or L > STACK_WARP_MAX_L:
+        return stack_seq_block_plan(B, H, L, _launch.batch_tile(
+            variant, B, T, H, L, batch_block, None, smem_bytes))
+    return stack_seq_warp_plan(B, L)
+
+
 def gru_stack_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                               u: torch.Tensor, w_deep: torch.Tensor,
                               b: torch.Tensor,
                               mask: Optional[torch.Tensor] = None, *,
-                              variant: str = "v1"):
+                              variant: str = "v1", batch_block: int = 0):
     """Fused depth-L GRU over T steps -> ((T,B,H) last layer's states,
-    (L,B,H) per-layer finals)."""
+    (L,B,H) per-layer finals). Launches :func:`stack_seq_plan`'s route and
+    keeps the plan as ``last_plan``; a nonzero ``batch_block`` names the
+    block route's tile."""
     if x_proj.dim() != 3 or h0.dim() != 3:
         raise ValueError("x_proj (T,B,3H) and h0 (L,B,H) expected, got "
                          f"{tuple(x_proj.shape)} and {tuple(h0.shape)}")
@@ -260,7 +328,8 @@ def gru_stack_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
     H = H3 // 3
     L = h0.shape[0]
     dev = x_proj.device
-    bt = _launch.batch_tile(variant, B, T, H, L, 0, dev, smem_bytes)
+    _launch.check_device(dev)
+    p = stack_seq_plan(B, T, H, L, variant, batch_block)
     _check("h0", h0, (L, B, H), dev)
     _check("x_proj", x_proj, (T, B, 3 * H), dev)
     _check("u", u, (L, H, 3 * H), dev)
@@ -273,12 +342,18 @@ def gru_stack_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                                           variant)
     out = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     finals = torch.empty((L, B, H), dtype=torch.float32, device=dev)
-    err = _launcher("gru_stack_sequence_launch")(
-        _ptr(h0), _ptr(x_proj), _ptr(u), _ptr(w_deep), _ptr(b), _ptr(mask),
-        _ptr(out), _ptr(finals), T, B, H, L, int(variant == "v3"), bt,
-        _stream(dev))
+    head = (_ptr(h0), _ptr(x_proj), _ptr(u), _ptr(w_deep), _ptr(b),
+            _ptr(mask), _ptr(out), _ptr(finals), T, B, H, L,
+            int(variant == "v3"))
+    if p.route == "warp":
+        err = _launcher("gru_stack_sequence_warp_launch")(*head,
+                                                          _stream(dev))
+    else:
+        err = _launcher("gru_stack_sequence_launch")(*head, p.rows,
+                                                     _stream(dev))
     _raise_on(err, "gru_stack_sequence_kernel")
     gru_stack_sequence_kernel.launches += 1
+    gru_stack_sequence_kernel.last_plan = p
     return out, finals
 
 
@@ -552,7 +627,8 @@ _MATVEC_ARGS = [P, I, P, I, P] + [I] * 6 + [P]
 # route's: ..., N, slices, rows, warps, stream)
 _CZR_ARGS = [P] * 4 + [I, P, P] + [I] * 6 + [P]
 # in, in, in, out, B, Hl, stream
-_ELEMENTWISE_ARGS = [P] * 4 + [I, I, P]
+# z, ht, ldt, xp, ldx, b, h, out, B, Hl, stream
+_UPDATE_ARGS = [P, P, I, P, I, P, P, P, I, I, P]
 # g, ldg, gsg, xp, ldx, gsx, b, gsb, h, out, B, Hl, stream
 _GATES_ARGS = [P, I, I, P, I, I, P, I, P, P, I, I, P]
 SHARD_MAX_ROWS = 8           # rows of one block's batch tile
@@ -995,20 +1071,32 @@ def gru_cascade_shard_zr(zr_local: torch.Tensor, xp_local: torch.Tensor,
 
 
 def gru_cascade_shard_update(z_local: torch.Tensor, ht_in_local: torch.Tensor,
-                             h_shard: torch.Tensor) -> torch.Tensor:
-    """v1 cascade epilogue: pre-activated local candidate -> new h shard."""
+                             h_shard: torch.Tensor,
+                             xp_h: Optional[torch.Tensor] = None,
+                             b_h: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """v1 cascade epilogue -> new h shard (B,Hl): z_local and h_shard
+    (B,Hl) contiguous; ht_in_local (B,Hl), the finished local candidate
+    pre-activation (JAX's form), or the rank's column slice of the psum'd
+    partial (a row-strided view of the (B,H) psum), with its addends read
+    in place where given: xp_h (B,Hl), the rank's columns of xp's
+    candidate gate (a view of the (B,3H) projection), and b_h (Hl,), of
+    b's; added as JAX adds them, (xp + psum) + b."""
     B, Hl, dev = _cascade_dims(h_shard)
-    for name, t in (("z_local", z_local), ("ht_in_local", ht_in_local),
-                    ("h_shard", h_shard)):
-        _check(name, t, (B, Hl), dev)
+    _check("z_local", z_local, (B, Hl), dev)
+    _check("h_shard", h_shard, (B, Hl), dev)
+    ldt = _gate_strides("ht_in_local", ht_in_local, B, 1, Hl, dev)[0]
+    ldx = (0 if xp_h is None else
+           _gate_strides("xp_h", xp_h, B, 1, Hl, dev)[0])
+    if b_h is not None:
+        _gate_strides("b_h", b_h, None, 1, Hl, dev)
     if dev.type == "cpu":
         return ref.gru_cascade_shard_update_ref(z_local, ht_in_local,
-                                                h_shard)
+                                                h_shard, xp_h, b_h)
     out = torch.empty((B, Hl), dtype=torch.float32, device=dev)
-    err = _shard_launcher("gru_cascade_shard_update_launch",
-                          _ELEMENTWISE_ARGS)(
-        _ptr(z_local), _ptr(ht_in_local), _ptr(h_shard), _ptr(out), B, Hl,
-        _stream(dev))
+    err = _shard_launcher("gru_cascade_shard_update_launch", _UPDATE_ARGS)(
+        _ptr(z_local), _ptr(ht_in_local), ldt, _ptr(xp_h), ldx, _ptr(b_h),
+        _ptr(h_shard), _ptr(out), B, Hl, _stream(dev))
     _raise_on(err, "gru_cascade_shard_update")
     gru_cascade_shard_update.launches += 1
     return out
@@ -1038,7 +1126,8 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
-for _fn in (gru_sequence_kernel, gru_stack_decode_kernel,
+for _fn in (gru_sequence_kernel, gru_stack_sequence_kernel,
+            gru_stack_decode_kernel,
             gru_stack_decode_q8_kernel, gru_rowwise_shard_step,
             gru_rowwise_shard_zr, gru_rowwise_shard_candidate,
             gru_shard_matvec, gru_cascade_shard_zr):

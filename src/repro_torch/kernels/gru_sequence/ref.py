@@ -250,6 +250,15 @@ def gru_cascade_shard_zr_ref(zr: torch.Tensor, xp: torch.Tensor,
 
 
 def gru_cascade_shard_update_ref(z: torch.Tensor, ht_in: torch.Tensor,
-                                 h: torch.Tensor) -> torch.Tensor:
-    """v1 cascade epilogue: (1-z) h + z tanh(ht_in), all (B,Hl)."""
+                                 h: torch.Tensor,
+                                 xp_h: Optional[torch.Tensor] = None,
+                                 b_h: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """v1 cascade epilogue: (1-z) h + z tanh(ht_in), all (B,Hl); where
+    given, xp_h (B,Hl) and b_h (Hl,) are added to ht_in first, as JAX
+    adds them: (xp + psum) + b."""
+    if xp_h is not None:
+        ht_in = xp_h + ht_in
+    if b_h is not None:
+        ht_in = ht_in + b_h
     return (1 - z) * h + z * torch.tanh(ht_in)

@@ -514,6 +514,122 @@ def test_decode_warp_route_takes_every_knob(cuda_device, warps):
         assert torch.equal(got, want)
 
 
+# the fused prefill's warp route (row 2, H <= 32, L <= 4) and block route,
+# at the sweep's shapes (tools/stack_seq_tiles.py)
+STACK_WARP_CASES = list(itertools.product(
+    ((1, 5), (2, 31), (3, 20), (3, 32), (4, 32)), (1, 8, 64), (1, 16, 33),
+    ("v1", "v3"), (False, True)))
+
+
+def _stack_forced(args, variant, plan):
+    """The fused prefill's C entry at an explicit plan (the route forced,
+    as chip_smoke.py and tools/stack_seq_tiles.py force it); ``args`` the
+    wrapper's (h0, x_proj, u, w_deep, b, mask)."""
+    from repro_torch.kernels import _launch
+    h0, xp = args[0], args[1]
+    L, B, H = h0.shape
+    T = xp.shape[0]
+    out = torch.empty(T, B, H, device=xp.device)
+    finals = torch.empty(L, B, H, device=xp.device)
+    head = (*(None if t is None else t.data_ptr() for t in args),
+            out.data_ptr(), finals.data_ptr(), T, B, H, L,
+            int(variant == "v3"))
+    if plan.route == "warp":
+        err = K._launcher("gru_stack_sequence_warp_launch")(
+            *head, _launch.stream(xp.device))
+    else:
+        err = K._launcher("gru_stack_sequence_launch")(
+            *head, plan.rows, _launch.stream(xp.device))
+    assert err == 0
+    return out, finals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH,B,T,variant,masked", STACK_WARP_CASES)
+def test_stack_sequence_warp_route_matches_block_and_plain(
+        cuda_device, LH, B, T, variant, masked):
+    """Row 2: the wrapper launches stack_seq_plan's warp route at H <= 32
+    and L <= 4; it equals the block route forced on the same inputs bit
+    for bit (the same sums and epilogues, only their schedule differs) and
+    the plain version within TOL."""
+    L, H = LH
+    a = _inputs(L, H, B, T, cuda_device, seed=1000 * L + 10 * H + B + T)
+    args = (a["h0"], a["xp"], a["u"], a["wd"], a["b"],
+            a["mask"] if masked else None)
+    K.reset_launch_counts()
+    got = K.gru_stack_sequence_kernel(*args, variant=variant)
+    p = K.gru_stack_sequence_kernel.last_plan
+    assert p == K.stack_seq_plan(B, T, H, L, variant) and p.route == "warp"
+    assert [k.launches for k in K.KERNELS] == [0, 1, 0]
+    blk = _stack_forced(args, variant,
+                        K.stack_seq_block_plan(B, H, L, min(B, 4)))
+    want = ref.gru_stack_sequence_ref(*args, variant)
+    assert _max_err(list(zip(got, want)) + list(zip(blk, want))) <= TOL
+    assert all(torch.equal(g_, b_) for g_, b_ in zip(got, blk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bt", (1, 2, 4, 8))
+@pytest.mark.parametrize("L", (1, 2, 3, 4))
+def test_stack_sequence_warp_route_matches_every_block_tile(cuda_device, bt,
+                                                            L):
+    """The warp route gives the block route's bits at every batch tile
+    (1, 2, 4 or 8 rows a block, a B the tile does not divide), v1 and
+    v3, masked."""
+    a = _inputs(L, 32, 7, 12, cuda_device, seed=L + 10 * bt)
+    args = (a["h0"], a["xp"], a["u"], a["wd"], a["b"], a["mask"])
+    for variant in ("v1", "v3"):
+        got = _stack_forced(args, variant, K.stack_seq_warp_plan(7, L))
+        blk = _stack_forced(args, variant,
+                            K.stack_seq_block_plan(7, 32, L, bt))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g_, b_) for g_, b_ in zip(got, blk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ("v1", "v3"))
+def test_stack_sequence_warp_route_left_padding_is_bitwise(cuda_device,
+                                                           variant):
+    """A left-padded row's outputs from its first live step on, and its
+    finals, equal its unpadded run's bit for bit: the dead steps keep every
+    layer's h, the live ones run exactly the unmasked arithmetic."""
+    a = _inputs(3, 32, 3, 12, cuda_device, seed=5)
+    pad = 5
+    mask = torch.ones(12, 3, device=cuda_device)
+    mask[:pad, 1] = 0.0
+    w = (a["u"], a["wd"], a["b"])
+    out, fin = K.gru_stack_sequence_kernel(a["h0"], a["xp"], *w, mask,
+                                           variant=variant)
+    out1, fin1 = K.gru_stack_sequence_kernel(
+        a["h0"][:, 1:2].contiguous(), a["xp"][pad:, 1:2].contiguous(), *w,
+        variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out[pad:, 1], out1[:, 0])
+    assert torch.equal(fin[:, 1], fin1[:, 0])
+    assert torch.equal(out[:pad, 1], a["h0"][2, 1].expand(pad, 32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH", ((3, 33), (5, 32), (3, 32)))
+@pytest.mark.parametrize("batch_block", (0, 1, 8))
+def test_stack_sequence_block_route_past_the_bounds(cuda_device, LH,
+                                                    batch_block):
+    """Past H = 32 or the layer bound, or with a nonzero batch_block, the
+    wrapper launches the block route at its tile."""
+    L, H = LH
+    a = _inputs(L, H, 8, 9, cuda_device, seed=L + H)
+    args = (a["h0"], a["xp"], a["u"], a["wd"], a["b"], a["mask"])
+    got = K.gru_stack_sequence_kernel(*args, variant="v1",
+                                      batch_block=batch_block)
+    p = K.gru_stack_sequence_kernel.last_plan
+    warp = H <= 32 and L <= K.STACK_WARP_MAX_L and not batch_block
+    assert p.route == ("warp" if warp else "block")
+    if not warp:
+        assert p.rows == (batch_block or 4)
+    want = ref.gru_stack_sequence_ref(*args, "v1")
+    assert _max_err(list(zip(got, want))) <= TOL
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("LH,B,variant", DECODE_WARP_CASES)
 def test_q8_decode_warp_route_matches_block_and_plain(cuda_device, LH, B,
@@ -1212,6 +1328,38 @@ def test_cascade_gates_in_place_equal_the_old_sequence(cuda_device, H, n,
         want = ref.gru_cascade_shard_gates_ref(
             rp._local_gates(gf + b, 3, H, idx, Hl),
             rp._local_gates(xp, 3, H, idx, Hl), h)
+        assert _max_err([(got, want)]) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,n", tuple(itertools.product((20, 32),
+                                                        (1, 2, 4))))
+@pytest.mark.parametrize("B", (1, 3, 8))
+def test_cascade_update_in_place_equals_the_old_sequence(cuda_device, H, n,
+                                                         B):
+    """Row 18: the v1 cascade epilogue as the mesh step calls it (column
+    slices of the psum'd partial, of xp's candidate gate and of b: one
+    launch) equals, bit for bit, the sequence it replaced (``_ht_in``'s two
+    adds, the contiguous call), on every rank's slices."""
+    from repro_torch.core import rowparallel as rp
+    g = torch.Generator().manual_seed(H * 10 + n + B)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(cuda_device)
+    Hl = H // n
+    ht_p, xp, b = rand(B, H), rand(B, 3 * H), rand(3 * H, scale=0.3)
+    z, h = torch.sigmoid(rand(B, Hl)), rand(B, Hl, scale=0.5)
+    for idx in range(n):
+        s = 2 * H + idx * Hl
+        K.reset_launch_counts()
+        got = K.gru_cascade_shard_update(z, rp._local(ht_p, idx * Hl, Hl), h,
+                                         rp._local(xp, s, Hl), b[s:s + Hl])
+        assert K.gru_cascade_shard_update.launches == 1
+        ht_in = rp._ht_in(xp, ht_p, b, H, idx, Hl)
+        old = K.gru_cascade_shard_update(z, ht_in, h)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old)
+        want = ref.gru_cascade_shard_update_ref(z, ht_in, h)
         assert _max_err([(got, want)]) <= TOL
 
 

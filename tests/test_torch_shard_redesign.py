@@ -32,6 +32,12 @@ route's summation order.
   of gru-jet's and gru-jet-deep's meshes, and JAX's kernel within
   ``SHARD_TOL``; the strides it passes the kernel reach each element of
   each view it takes, and it refuses views the kernel cannot read.
+* The v1 cascade epilogue ``gru_cascade_shard_update``, which reads its
+  candidate's three addends in place: the wrapper fed column slices of
+  the psum'd partial, of xp and of b equals, bit for bit, the sequence the
+  mesh step ran before (``_ht_in``'s two adds, the contiguous call) on
+  every rank of gru-jet's and gru-jet-deep's meshes, and JAX's kernel
+  within ``SHARD_TOL``; likewise its strides and the views it refuses.
 """
 import itertools
 
@@ -517,3 +523,105 @@ def test_cascade_gates_refuse_what_the_kernel_does_not_take():
         K.gru_cascade_shard_gates(gv, xv, h, b[:40])
     with pytest.raises(TypeError):
         K.gru_cascade_shard_gates(gv.double(), xv, h)
+
+
+# ---------------------------------------------------------------------------
+# row 18: the v1 cascade epilogue reads its candidate in place
+# ---------------------------------------------------------------------------
+
+def _v1_update_operands(H, n, B, seed):
+    """The v1 cascade layer's operands at full width: the psum'd partial
+    ht_p (B,H), the projection xp (B,3H), the bias b (3H,); and one rank's
+    z and h shard (B,Hl)."""
+    rng = np.random.default_rng(seed)
+    Hl = H // n
+    t = [torch.from_numpy(_f32(rng, *shape, scale=sc)) for shape, sc in (
+        ((B, H), 1.0), ((B, 3 * H), 1.0), ((3 * H,), 0.3), ((B, Hl), 1.0),
+        ((B, Hl), 0.5))]
+    return t[0], t[1], t[2], torch.sigmoid(t[3]), t[4]
+
+
+def _in_place(ht_p, xp, b, H, idx, Hl):
+    """The update's operands as the mesh step passes them: column slices
+    of the psum, of xp's candidate gate and of b, no copy."""
+    s = 2 * H + idx * Hl
+    return (rowparallel._local(ht_p, idx * Hl, Hl),
+            rowparallel._local(xp, s, Hl), b[s:s + Hl])
+
+
+@pytest.mark.parametrize("H,n,idx,B", GATES_SHAPES)
+def test_cascade_update_in_place_equals_the_old_sequence(H, n, idx, B):
+    """The wrapper on column views of the psum, of xp and of b equals, bit
+    for bit, the sequence the mesh step ran before (``_ht_in``'s two adds,
+    then the contiguous call), and JAX's kernel on that pre-activation
+    within ``SHARD_TOL``."""
+    ht_p, xp, b, z, h = _v1_update_operands(H, n, B,
+                                            seed=100 * H + 10 * n + idx + B)
+    Hl = H // n
+    ht_v, xp_v, b_v = _in_place(ht_p, xp, b, H, idx, Hl)
+    K.reset_launch_counts()
+    got = K.gru_cascade_shard_update(z, ht_v, h, xp_v, b_v)
+    ht_in = rowparallel._ht_in(xp, ht_p, b, H, idx, Hl)
+    assert torch.equal(got, K.gru_cascade_shard_update(z, ht_in, h))
+    assert K.gru_cascade_shard_update.launches == 0
+    close(got, JK.gru_cascade_shard_update(*map(jnp.asarray, (z, ht_in, h)),
+                                           interpret=True), tol=SHARD_TOL)
+
+
+@pytest.mark.parametrize("H,n", tuple(itertools.product((20, 32), RANKS)))
+def test_cascade_update_strides_address_the_views(H, n):
+    """The row stride the wrapper passes the kernel for each operand, with
+    the view's own offset (its data pointer), reaches each element of the
+    view: the kernel's ht + row * ldt + c (and xp's, b + c), mirrored
+    here, for column slices of the (B,H) psum and of the (B,3H) projection,
+    a contiguous pre-activation and the bias slice; and the kernel's grid
+    (a grid row per batch row, the columns over blocks of whole warps)
+    gives each output one thread."""
+    B, Hl = 3, H // n
+    ht_p, xp, b, _, _ = _v1_update_operands(H, n, B, seed=H + n)
+    for idx in range(n):
+        ht_v, xp_v, b_v = _in_place(ht_p, xp, b, H, idx, Hl)
+        for t, rows in ((ht_v, B), (xp_v, B), (ht_v.contiguous(), B),
+                        (b_v, None)):
+            ld = K._gate_strides("t", t, rows, 1, Hl, t.device)[0]
+            base = torch.tensor([], dtype=torch.float32).set_(
+                t.untyped_storage())
+            r = torch.arange(rows or 1)[:, None]
+            c = torch.arange(Hl)[None, :]
+            at = base[t.storage_offset() + r * ld + c]
+            assert torch.equal(at, t.reshape(rows or 1, Hl))
+    for Hl_ in (Hl, 1, 5, 31, 33, 128, 200, 512):
+        threads = min(128, -(-Hl_ // 32) * 32)     # kGatesThreads at most
+        assert threads % 32 == 0
+        hits = np.zeros((B, Hl_), dtype=np.int64)
+        for bx, row, tx in itertools.product(range(-(-Hl_ // threads)),
+                                             range(B), range(threads)):
+            c = bx * threads + tx
+            if c < Hl_:
+                hits[row, c] += 1
+        assert (hits == 1).all()
+
+
+def test_cascade_update_refuses_what_the_kernel_does_not_take():
+    ht_p, xp, b, z, h = _v1_update_operands(32, 2, 3, seed=1)
+    ht_v, xp_v, b_v = _in_place(ht_p, xp, b, 32, 1, 16)
+    with pytest.raises(ValueError, match="overlap"):    # an expanded row
+        K.gru_cascade_shard_update(z, ht_v[:1].expand(3, 16), h, xp_v, b_v)
+    with pytest.raises(ValueError, match="overlap"):    # rows overlap
+        K.gru_cascade_shard_update(z, ht_p.as_strided((3, 16), (8, 1)), h)
+    with pytest.raises(ValueError, match="overlap"):
+        K.gru_cascade_shard_update(z, ht_v, h, xp.as_strided((3, 16), (4, 1)))
+    with pytest.raises(ValueError, match="unit-stride"):
+        K.gru_cascade_shard_update(z, ht_p[:, :32:2], h)
+    with pytest.raises(ValueError, match="unit-stride"):
+        K.gru_cascade_shard_update(z, ht_v, h, xp_v, b[:32:2])
+    with pytest.raises(ValueError, match="shape"):      # another shard width
+        K.gru_cascade_shard_update(z, ht_p[:, :20], h)
+    with pytest.raises(ValueError, match="shape"):
+        K.gru_cascade_shard_update(z, ht_v, h, xp_v, b[:20])
+    with pytest.raises(ValueError, match="shape"):
+        K.gru_cascade_shard_update(z, ht_v, h, xp[:2, :16], b_v)
+    with pytest.raises(TypeError):
+        K.gru_cascade_shard_update(z, ht_v.double(), h)
+    with pytest.raises(TypeError):
+        K.gru_cascade_shard_update(z, ht_v, h, xp_v, b_v.double())

@@ -25,9 +25,14 @@ thread an output, no knob): at the same shapes and B 1 and 64, the call as
 the mesh step makes it (gate views of the psum'd gates, of xp and of b:
 one launch) beside the epilogue it replaced (psum + b, two slice copies,
 the kernel on contiguous slices), both held against the plain version
-and against each other bit for bit; with ``--parent DIR`` (a checkout of
-an earlier commit) also that commit's kernel, built from its source, on
-the contiguous slices and as its whole epilogue, held bit for bit.
+and against each other bit for bit. Then row 18,
+``gru_cascade_shard_update`` (the v1 cascade epilogue, one thread an
+output) likewise: the call as the mesh step makes it (column slices of the
+psum'd partial, of xp's candidate gate and of b) beside ``_ht_in``'s two
+adds and the contiguous call, on every rank; with ``--parent DIR`` (a
+checkout of a commit before row 18 read its candidate in place) also that
+commit's kernel, built from its source, on the contiguous pre-activation,
+held bit for bit and timed.
 
 Then the served ``cuda_sharded`` decode step of gru-jet-deep v1 and v3 on
 a one-rank mesh without a group (``chip_smoke.profile_mesh_decode``),
@@ -44,7 +49,7 @@ one run.
 Run from the repository root on a machine with a card::
 
     python3 tools/shard_tiles.py [--out build/shard_tiles.txt] [--parent DIR]
-        [--gates-only]
+        [--epilogues-only]
 """
 from __future__ import annotations
 
@@ -63,11 +68,12 @@ WARPS = (1, 2, 4, 8)
 WIDE = tuple(itertools.product((64, 128, 256, 512), (1, 2, 4)))
 
 
-def parent_gates_entry(parent: Path, build: Path):
-    """The v3 cascade epilogue's C entry of an earlier checkout's
+def parent_update_entry(parent: Path, build: Path):
+    """The v1 cascade epilogue's C entry of an earlier checkout's
     ``gru_shard.cu``, built with the port's nvcc flags: the entry before
-    row 16 read its gates in place, (g, xp, h, out, B, Hl, stream) on
-    contiguous (B,3Hl) slices."""
+    row 18 read its candidate in place, (z, ht_in, h, out, B, Hl, stream)
+    on a contiguous (B,Hl) pre-activation. Also writes that kernel's SASS
+    beside the library."""
     import ctypes
     from repro_torch.kernels import _build
     src = parent / "src" / "repro_torch" / "csrc" / "gru_shard.cu"
@@ -75,7 +81,13 @@ def parent_gates_entry(parent: Path, build: Path):
     lib.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
                     str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).gru_cascade_shard_gates_launch
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    (build / "parent_cascade_update_k.sass").write_text("".join(
+        part for part in sass.split("Function : ")
+        if "cascade_update_k" in part.partition("\n")[0]))
+    fn = ctypes.CDLL(str(lib)).gru_cascade_shard_update_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -87,10 +99,11 @@ def main() -> None:
     ap.add_argument("--out", default="build/shard_tiles.txt",
                     help="file for the sweep's lines")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of an earlier commit whose row 16 "
-                         "kernel is built and held beside this one")
-    ap.add_argument("--gates-only", action="store_true",
-                    help="row 16's lines only")
+                    help="a checkout of a commit before row 18 read its "
+                         "candidate in place, whose row 18 kernel is built "
+                         "and held beside this one")
+    ap.add_argument("--epilogues-only", action="store_true",
+                    help="rows 16 and 18's lines only")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
@@ -230,21 +243,21 @@ def main() -> None:
 
     shapes = [(H, n, 8) for H, n in cs.SHARD_TIMED]
     shapes += [(32, 2, 1), (32, 2, 64)] + [(H, n, 8) for H, n in WIDE]
-    if not args.gates_only:
+    if not args.epilogues_only:
         for H, n, B in shapes:
             for name in cs.REDESIGNED:
                 sweep(name, H, n, B)
 
     # row 16: the call as the step makes it against the epilogue before
     from repro_torch.core import rowparallel as rp
-    parent = (parent_gates_entry(Path(args.parent).resolve(),
-                                 ROOT / "build" / "parent_gru_shard")
-              if args.parent else None)
+    parent_update = (parent_update_entry(Path(args.parent).resolve(),
+                                         ROOT / "build" / "parent_gru_shard")
+                     if args.parent else None)
     name = "gru_cascade_shard_gates"
     for H, n, B in shapes[:len(cs.SHARD_TIMED) + 2]:
         a = cs.shard_inputs(torch, H, n, B, 17 * H + n + B, dev)
         args_ = cs.shard_args(name, a)
-        Hl, idx, h = a["Hl"], a["idx"], a["h_shard"]
+        h = a["h_shard"]
         head = f"{name:27s} H={H:3d} ranks={n} B={B:2d}"
         want = ref.gru_cascade_shard_gates_ref(*args_)
         got = K.gru_cascade_shard_gates(*args_)
@@ -264,38 +277,63 @@ def main() -> None:
         line = (f"{head} in place (views + b) {t_new * 1e3:6.2f} us; "
                 f"contiguous slices {t_contig * 1e3:6.2f} us; old epilogue "
                 f"(+ b, 2 cats, kernel) {t_old * 1e3:6.2f} us")
-        if parent is not None:
-            out_p = torch.empty_like(got)
-
-            def parent_epilogue():
-                gl = rp._local_gates(a["g_full"] + a["b_full"], 3, H, idx, Hl)
-                xl = rp._local_gates(a["xp_full"], 3, H, idx, Hl)
-                _launch.raise_on(parent(
-                    gl.data_ptr(), xl.data_ptr(), h.data_ptr(),
-                    out_p.data_ptr(), B, Hl, _launch.stream(dev)),
-                    "the parent's gates kernel")
-                return out_p
-            parent_epilogue()
-            torch.cuda.synchronize()
-            if not torch.equal(out_p, got):
-                sys.exit(f"shard_tiles: {head}: the in-place call differs "
-                         f"from the parent's epilogue (max "
-                         f"{(out_p - got).abs().max().item():.3g})")
-            gl = rp._local_gates(a["g_full"], 3, H, idx, Hl)
-            xl = local[1]
-
-            def parent_kernel():
-                _launch.raise_on(parent(
-                    gl.data_ptr(), xl.data_ptr(), h.data_ptr(),
-                    out_p.data_ptr(), B, Hl, _launch.stream(dev)),
-                    "the parent's gates kernel")
-            t_par = cs.device_time_ms(torch, parent_kernel, per_graph=50)
-            t_par_epi = cs.device_time_ms(torch, parent_epilogue,
-                                          per_graph=50)
-            line += (f"; parent's kernel {t_par * 1e3:6.2f} us, its epilogue"
-                     f" {t_par_epi * 1e3:6.2f} us (bit for bit equal)")
         say(line)
-    if args.gates_only:
+
+    # row 18: the call as the step makes it against the epilogue before
+    name = "gru_cascade_shard_update"
+    for H, n, B in shapes[:len(cs.SHARD_TIMED) + 2]:
+        a = cs.shard_inputs(torch, H, n, B, 19 * H + n + B, dev)
+        Hl = a["Hl"]
+        for idx in range(n):
+            head = f"{name:27s} H={H:3d} ranks={n} rank={idx} B={B:2d}"
+            views = cs.update_views(a, idx)
+            old = cs.old_update_fn(a, idx)
+            got = K.gru_cascade_shard_update(*views)
+            want = ref.gru_cascade_shard_update_ref(*views)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            if not (e <= TOL and torch.equal(got, old())):
+                sys.exit(f"shard_tiles: {head}: max |err| {e:.3g}, or the "
+                         f"in-place call differs from the old sequence")
+            ht_in = rp._ht_in(a["xp_full"], a["ht_full"], a["b_full"],
+                              a["H"], idx, Hl)
+            line = ""
+            if parent_update is not None:
+                out_p = torch.empty_like(got)
+
+                def parent_kernel():
+                    _launch.raise_on(parent_update(
+                        a["z"].data_ptr(), ht_in.data_ptr(),
+                        a["h_shard"].data_ptr(), out_p.data_ptr(), B, Hl,
+                        _launch.stream(dev)), "the parent's update kernel")
+                    return out_p
+                parent_kernel()
+                torch.cuda.synchronize()
+                if not torch.equal(out_p, got):
+                    sys.exit(f"shard_tiles: {head}: the in-place call "
+                             f"differs from the parent's kernel (max "
+                             f"{(out_p - got).abs().max().item():.3g})")
+                line = " (== the parent's kernel bit for bit)"
+            if idx != n - 1:
+                say(f"{head} in place == old sequence{line}")
+                continue
+            t_new = cs.device_time_ms(
+                torch, lambda: K.gru_cascade_shard_update(*views),
+                per_graph=50)
+            t_contig = cs.device_time_ms(
+                torch, lambda: K.gru_cascade_shard_update(
+                    a["z"], ht_in, a["h_shard"]), per_graph=50)
+            t_old = cs.device_time_ms(torch, old, per_graph=50)
+            line = (f"{head} in place (slices + adds) {t_new * 1e3:6.2f} us; "
+                    f"contiguous pre-activation {t_contig * 1e3:6.2f} us; "
+                    f"old epilogue (2 adds, kernel) {t_old * 1e3:6.2f} us"
+                    f"{line}")
+            if parent_update is not None:
+                t_par = cs.device_time_ms(torch, parent_kernel,
+                                          per_graph=50)
+                line += f"; parent's kernel {t_par * 1e3:6.2f} us"
+            say(line)
+    if args.epilogues_only:
         out.write_text("\n".join(lines) + "\n")
         return
 
