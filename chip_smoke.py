@@ -14,8 +14,10 @@ Phases (any failure exits non-zero, before the result lines):
    started together) and print ``-Xptxas -v``'s report (``gru_shard``'s
    functions, rows 16 and 18's among them, ``gru_sequence_kernel``'s, both
    routes, ``gru_step_q8``'s warp route, the two fused decode kernels'
-   warp routes and ``gru_stack_sequence_kernel``'s warp route, its 4
-   instances, must not spill)
+   warp routes, ``gru_stack_sequence_kernel``'s warp route, its 4
+   instances, and the q8 prefills' warp routes, ``gru_sequence_q8_kernel``'s
+   and ``gru_stack_sequence_q8_kernel``'s 4 each, must not spill;
+   the prefill warp routes' registers are printed)
    and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree), the row-wise
@@ -41,8 +43,12 @@ Phases (any failure exits non-zero, before the result lines):
    (``decode_plan``, ``decode_q8_plan``: the warp route at gru-jet's L=1
    H=20 and gru-jet-deep's L=3 H=32), and ``gru_stack_sequence_kernel``
    (``stack_seq_plan``: the warp route at gru-jet-deep's L=3 H=32, B 1, 8
-   and 64, T 8, 16 and 32, v1 and v3, masked and not), the largest
-   difference between the routes reported;
+   and 64, T 8, 16 and 32, v1 and v3, masked and not), and the q8
+   prefills, ``gru_stack_sequence_q8_kernel`` (``stack_seq_q8_plan``: the
+   warp route at L=1 H=20 and L=3 H=32) and ``gru_sequence_q8_kernel``
+   (``seq_q8_plan``: the warp route at H=20 and 32), each equal to its
+   block route bit for bit, the largest difference between the routes
+   reported;
 3b. hold the seven shard kernels (the ``cuda_sharded`` backend's per-rank
    steps) against their plain versions on the card at gru-jet's (H=20)
    and gru-jet-deep's (H=32) shard widths and at wide shards (H 64, 256,
@@ -72,7 +78,8 @@ Phases (any failure exits non-zero, before the result lines):
    launch once per prefill and per step, no fp32 kernel and no plain
    version may run, the class streams and prefill logits must equal the
    CPU run of the same pin; every served call of
-   ``gru_stack_decode_q8_kernel`` must launch the warp route; the share of
+   ``gru_stack_decode_q8_kernel`` and of ``gru_stack_sequence_q8_kernel``
+   must launch the warp route; the share of
    tokens on which the q8 and fp32 streams agree is reported only;
 6. serve both configs and a heterogeneous stack (gru-jet-deep with
    ``layer_dims=(32, 32, 20)``) through the per-layer chain, with the
@@ -87,7 +94,8 @@ Phases (any failure exits non-zero, before the result lines):
    must launch L times per prefill and ``gru_step_q8`` L times per step,
    no other kernel and no plain version may run, and the class streams and
    prefill logits must equal the CPU run of the same pin; every served
-   call of ``gru_step_q8`` must launch the warp route;
+   call of ``gru_step_q8`` and of ``gru_sequence_q8_kernel`` must launch
+   the warp route;
 8. serve the sLSTM family: slstm-jet and slstm-jet with ``num_layers=3,
    hidden_dim=32`` through ``ServeEngine`` with ``backend="cuda"``, with
    the counters zeroed just before: every prefill and step attributed to
@@ -172,7 +180,10 @@ Phases (any failure exits non-zero, before the result lines):
    served shapes split by launches), the two fused decode kernels likewise
    (their served shapes from phases 4, 5 and 11b), and
    ``gru_stack_sequence_kernel`` likewise (its served shapes from phase
-   4), and ``torch.nn.GRU`` (cuDNN) on rows 2 and 3's v3 work over L
+   4), the two q8 prefills likewise (their served shapes from phases 5 and
+   7; also at 8 slots and T 16 and 32, row 6 at H 32 and 20, row 4 at L=3
+   H=32 and L=1 H=20), and ``torch.nn.GRU`` (cuDNN) on rows 2 and 3's v3
+   work over L
    layers (T=16 and the served T=32, row 2's block route beside; T=1),
    ``gru_cascade_shard_gates`` beside
    the epilogue it replaced (+ b, two slice copies, the kernel) and the
@@ -370,17 +381,28 @@ def build_kernels():
           f"spills (ptxas)")
     # rows 3 and 5's warp routes: the fp32 instances (v1/v3, H 20, 32 or
     # any) and the q8 ones (v1/v3, word/cover loads, one layer or three);
-    # row 2's warp route: v1/v3, H 32 or any
+    # row 2's warp route: v1/v3, H 32 or any; rows 6 and 4's: v1/v3,
+    # word/cover loads
     for lib, fn, want in (("gru_sequence", "gru_stack_decode_warp_k", 6),
                           ("gru_sequence_q8", "gru_stack_decode_q8_warp_k",
                            8),
                           ("gru_sequence", "gru_stack_sequence_warp_k",
+                           4),
+                          ("gru_sequence_q8", "gru_sequence_q8_warp_k", 4),
+                          ("gru_sequence_q8", "gru_stack_sequence_q8_warp_k",
                            4)):
         frames = [(f, ln) for f, ln in spill_frames(lib) if fn in f]
         spills = [f for f, ln in frames if not no_spill(ln)]
         check(len(frames) == want and not spills, f"{lib}: ptxas reports "
               f"spills in {fn} {spills[:3]} ({len(frames)} instances)")
         print(f"  {lib}: {fn}'s {len(frames)} instances, no spills (ptxas)")
+    # the registers of the prefill warp routes (row 2's speed hangs on
+    # ptxas's choice: 147 and 158 at H=32 where it was timed; PERF.md)
+    for lib, fn in (("gru_sequence", "gru_stack_sequence_warp_k"),
+                    ("gru_sequence_q8", "gru_stack_sequence_q8_warp_k"),
+                    ("gru_sequence_q8", "gru_sequence_q8_warp_k")):
+        print(f"  {lib}: {fn} registers by instance: "
+              f"{[n for f, n in register_counts(lib) if fn in f]}")
     # all shared memory but row 2's warp route's slots (static, 3.75 KB a
     # block, in ptxas's report above) is dynamic, so ptxas does not report
     # it
@@ -494,6 +516,20 @@ def spill_frames(library):
             fn = ln.split("'")[1]
         elif "spill stores" in ln and fn is not None:
             out.append((fn, ln.strip()))
+            fn = None
+    return out
+
+
+def register_counts(library):
+    """(function, registers a thread) of each kernel of ``library``'s build
+    log, from ptxas's "Used N registers" line."""
+    from repro_torch.kernels import _build
+    out, fn = [], None
+    for ln in _build.build_log(library).splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "Used" in ln and "registers" in ln and fn is not None:
+            out.append((fn, int(ln.split("Used")[1].split()[0])))
             fn = None
     return out
 
@@ -789,6 +825,106 @@ def stack_block_route(K, B, H, L):
     return K.stack_seq_block_plan(B, H, L, min(B, K.DEFAULT_BATCH_BLOCK))
 
 
+def seq_q8_route_fn(torch, a, variant, masked, plan, vec=None):
+    """A call of the depth-1 q8 sequence's C entry on ``a`` (the L = 1
+    operands of :func:`make_inputs`, the layer's int8 rows) at an explicit
+    plan (``kernel.warp_plan`` or ``kernel.block_plan(..., q8=True)``;
+    ``vec``: the warp route's word loads of U, None for the wrapper's
+    choice), into a fresh output: the route forced, for phase 3's check of
+    both routes, the before/after times of phase 12 and
+    ``tools/seq_q8_tiles.py``. Reads the current stream at each call, so a
+    CUDA-graph capture records it; raises if the launch is refused."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.gru_sequence import kernel as K
+    h0, xp = a["h0"][0], a["xp"]
+    u_q, u_eff, _, _, b = (x[0] for x in a["q8"])
+    T, B, H = xp.shape[0], xp.shape[1], h0.shape[1]
+    out = torch.empty(T, B, H, device=xp.device)
+    head = (h0.data_ptr(), xp.data_ptr(), u_q.data_ptr(), u_eff.data_ptr(),
+            b.data_ptr(), a["mask"].data_ptr() if masked else None,
+            out.data_ptr(), T, B, H, int(variant == "v3"))
+    if plan.route == "warp":
+        fn = K._launcher("gru_sequence_q8_warp_launch")
+        tail = (plan.warps, K.q8_words(H, u_q) if vec is None else vec)
+    else:
+        fn = K._launcher("gru_sequence_q8_launch")
+        tail = (plan.rows,)
+
+    def call():
+        _launch.raise_on(fn(*head, *tail, _launch.stream(xp.device)),
+                         f"gru_sequence_q8 forced {plan}")
+        return out
+    return call
+
+
+def seq_q8_block_route(K, B, H):
+    """The depth-1 q8 sequence's block route at the tile the wrapper gave
+    it before the warp route: ``min(B, DEFAULT_BATCH_BLOCK)`` rows."""
+    return K.block_plan(B, H, min(B, K.DEFAULT_BATCH_BLOCK), q8=True)
+
+
+def stack_q8_route_fn(torch, a, variant, masked, plan, vec=None):
+    """A call of the fused q8 prefill's C entry on ``a`` (the operands of
+    :func:`make_inputs`, its int8 rows ``a["q8"]``) at an explicit plan
+    (``kernel.stack_seq_warp_plan`` or ``kernel.stack_seq_block_plan(...,
+    q8=True)``; ``vec``: the warp route's word loads, None for the
+    wrapper's choice), into fresh outputs: the route forced, as
+    :func:`stack_route_fn` forces row 2's."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.gru_sequence import kernel as K
+    h0, xp = a["h0"], a["xp"]
+    L, B, H = h0.shape
+    T = xp.shape[0]
+    out = torch.empty(T, B, H, device=xp.device)
+    finals = torch.empty(L, B, H, device=xp.device)
+    q = a["q8"]
+    head = (h0.data_ptr(), xp.data_ptr(), *(w.data_ptr() for w in q),
+            a["mask"].data_ptr() if masked else None, out.data_ptr(),
+            finals.data_ptr(), T, B, H, L, int(variant == "v3"))
+    if plan.route == "warp":
+        fn = K._launcher("gru_stack_sequence_q8_warp_launch")
+        tail = (K.decode_q8_words(H, q[0], q[2]) if vec is None else vec,)
+    else:
+        fn = K._launcher("gru_stack_sequence_q8_launch")
+        tail = (plan.rows,)
+
+    def call():
+        _launch.raise_on(fn(*head, *tail, _launch.stream(xp.device)),
+                         f"gru_stack_sequence_q8 forced {plan}")
+        return out, finals
+    return call
+
+
+def stack_q8_block_route(K, B, H, L):
+    """The fused q8 prefill's block route at the tile the wrapper gave it
+    before the warp route: ``min(B, DEFAULT_BATCH_BLOCK)`` rows."""
+    return K.stack_seq_block_plan(B, H, L, min(B, K.DEFAULT_BATCH_BLOCK),
+                                  q8=True)
+
+
+# the prefill kernels with a warp route and a block route: rows 2, 4 and 6
+PREFILLS = ("gru_stack_sequence_kernel", "gru_stack_sequence_q8_kernel",
+            "gru_sequence_q8_kernel")
+
+
+def prefill_routes(torch, K, name, a, variant, masked):
+    """For prefill kernel ``name`` (:data:`PREFILLS`) on ``a``: the launch its
+    plan names, and a call of its block route forced at the tile the
+    wrapper gave it before the warp route (returning the kernel's outputs
+    as a tuple)."""
+    L, B, H = a["h0"].shape
+    T = a["xp"].shape[0]
+    if name == "gru_stack_sequence_kernel":
+        return (K.stack_seq_plan(B, T, H, L, variant), stack_route_fn(
+            torch, a, variant, masked, stack_block_route(K, B, H, L)))
+    if name == "gru_stack_sequence_q8_kernel":
+        return (K.stack_seq_q8_plan(B, T, H, L, variant), stack_q8_route_fn(
+            torch, a, variant, masked, stack_q8_block_route(K, B, H, L)))
+    call = seq_q8_route_fn(torch, a, variant, masked,
+                           seq_q8_block_route(K, B, H))
+    return K.seq_q8_plan(B, T, H, variant), lambda: (call(),)
+
+
 def q8_step_args(a):
     """The q8 step's operands from :func:`make_inputs` (L = 1): h, xp of the
     first step, the layer's int8 rows, scales and bias."""
@@ -808,8 +944,9 @@ def check_kernels(torch, dev):
     # row 7 likewise; its two routes must agree bit for bit
     q8_routes, err_q8_block, q8_same = {}, 0.0, 0
     # rows 3 and 5 likewise: route launched, block route forced beside it
+    # rows 2, 4 and 6 likewise
     dec = {n: {"routes": {}, "err_block": 0.0, "diff": 0.0, "same": 0}
-           for n in FUSED_DECODE + ("gru_stack_sequence_kernel",)}
+           for n in FUSED_DECODE + PREFILLS}
     from repro_torch.kernels.gru_cell import kernel as CK
     for name, shapes in MAIN_SHAPES.items():
         Ts = ((1,) if name in DECODE else (8, 16, 32))
@@ -905,18 +1042,17 @@ def check_kernels(torch, dev):
                                       f"{p.route} route differs from the "
                                       f"block route")
                                 d["same"] += 1
-                            if name == "gru_stack_sequence_kernel":
-                                p = K.gru_stack_sequence_kernel.last_plan
-                                plan = K.stack_seq_plan(B, T, H, L, variant)
+                            if name in PREFILLS:
+                                p = getattr(K, name).last_plan
+                                plan, forced = prefill_routes(
+                                    torch, K, name, a, variant, masked)
                                 check(p == plan, f"{name} L={L} B={B} T={T}"
-                                      f" H={H}: launched {p}, stack_seq_plan"
-                                      f" names {plan}")
+                                      f" H={H}: launched {p}, its plan names"
+                                      f" {plan}")
                                 d = dec[name]
                                 d["routes"][p.route] = d["routes"].get(
                                     p.route, 0) + 1
-                                blk = stack_route_fn(
-                                    torch, a, variant, masked,
-                                    stack_block_route(K, B, H, L))()
+                                blk = forced()
                                 torch.cuda.synchronize()
                                 e = max((x - w_).abs().max().item()
                                         for x, w_ in zip(blk, want))
@@ -1318,33 +1454,56 @@ def decode_calls(shapes=DECODE_SHAPES, routes=DECODE_ROUTES):
             setattr(ops, n, fn)
 
 
-# the fused prefill's served calls (phase 4: gru-jet-deep's prefills) by
-# (L, T, B, H), for phase 12's launches x gap, and the routes they launched
-STACK_SHAPES: dict = {}
-STACK_ROUTES: dict = {}
+# the prefill kernels' served calls (phase 4: gru-jet-deep's fused
+# prefills; phase 5: the fused q8 prefills, both by (L, T, B, H); phase 7:
+# the q8 chain's layers by (T, B, H)), for phase 12's launches x gap, and
+# the routes they launched, by shape
+PREFILL_SHAPES: dict = {n: {} for n in PREFILLS}
+PREFILL_ROUTES: dict = {n: {} for n in PREFILLS}
 
 
 @contextlib.contextmanager
-def stack_calls():
-    """Count the calls of ``gru_stack_sequence_kernel`` that the serving
-    path makes through its ops module, by (L, T, B, H), while the block
-    runs (:data:`STACK_SHAPES`), and note the route each launched
-    (:data:`STACK_ROUTES`)."""
+def prefill_calls():
+    """Count the calls of the three prefill kernels (:data:`PREFILLS`) that
+    the serving path makes through its ops module, by shape ((L, T, B, H)
+    for the fused ones, (T, B, H) for the chain's layer), while the block
+    runs, and note the route each launched."""
     from repro_torch.kernels.gru_sequence import ops
-    fn = ops.gru_stack_sequence_kernel
+    saved = {n: getattr(ops, n) for n in PREFILLS}
 
-    def recording(h0, x_proj, *args, **kw):
-        key = (h0.shape[0],) + tuple(x_proj.shape[:2]) + (h0.shape[-1],)
-        STACK_SHAPES[key] = STACK_SHAPES.get(key, 0) + 1
-        out = fn(h0, x_proj, *args, **kw)
-        if x_proj.is_cuda:
-            STACK_ROUTES.setdefault(key, set()).add(fn.last_plan.route)
-        return out
-    ops.gru_stack_sequence_kernel = recording
+    def recording(n, fn):
+        def wrapped(h0, x_proj, *args, **kw):
+            key = ((h0.shape[0],) if h0.dim() == 3 else ()) + tuple(
+                x_proj.shape[:2]) + (h0.shape[-1],)
+            shapes = PREFILL_SHAPES[n]
+            shapes[key] = shapes.get(key, 0) + 1
+            out = fn(h0, x_proj, *args, **kw)
+            if x_proj.is_cuda:
+                PREFILL_ROUTES[n].setdefault(key, set()).add(
+                    fn.last_plan.route)
+            return out
+        return wrapped
+    for n, fn in saved.items():
+        setattr(ops, n, recording(n, fn))
     try:
         yield
     finally:
-        ops.gru_stack_sequence_kernel = fn
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def check_prefill_routes(name, launches):
+    """Every served call of prefill kernel ``name`` took the warp route (its
+    plan's at every served shape), and the calls recorded by shape are all
+    its ``launches``."""
+    got, shapes = PREFILL_ROUTES[name], PREFILL_SHAPES[name]
+    check(got and set(got) == set(shapes)
+          and sum(shapes.values()) == launches
+          and all(r == {"warp"} for r in got.values()),
+          f"{name}: served calls {shapes} ({launches} launches) launched "
+          f"{got}, not the warp route every time")
+    print(f"  {name}: the warp route at every served call ({launches}; "
+          f"{ {k: shapes[k] for k in sorted(shapes)} })", flush=True)
 
 
 def check_decode_routes(name, routes=DECODE_ROUTES):
@@ -1376,7 +1535,7 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
     engines, streams, per_arch = {}, {}, {}
     before = [0] * len(kernels)
     with plain_calls() as plain, sequence_shapes(SEQ_SHAPES), \
-            decode_calls(), stack_calls():
+            decode_calls(), prefill_calls():
         for a in cfgs:
             b = (backends or {}).get(a, backend)
             engines[a], streams[a] = serve(cfgs[a], params[a], b, dev)
@@ -1472,12 +1631,8 @@ def run_main_path(torch, dev):
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     check_decode_routes("gru_stack_decode_kernel")
-    check(STACK_ROUTES and all(r == {"warp"} for r in STACK_ROUTES.values()),
-          f"gru_stack_sequence_kernel: served calls launched {STACK_ROUTES},"
-          f" not the warp route alone")
-    print(f"  gru_stack_sequence_kernel: every served call took the warp "
-          f"route ({ {k: sorted(v) for k, v in STACK_ROUTES.items()} }; "
-          f"(L, T, B, H))", flush=True)
+    check_prefill_routes("gru_stack_sequence_kernel",
+                         launches["gru_stack_sequence_kernel"])
     return launches, report, cfgs, params, streams
 
 
@@ -1540,6 +1695,8 @@ def run_q8_path(torch, dev, cfgs, params, fp32_streams):
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the q8 path never launched: {launches}")
     check_decode_routes("gru_stack_decode_q8_kernel")
+    check_prefill_routes("gru_stack_sequence_q8_kernel",
+                         launches["gru_stack_sequence_q8_kernel"])
     return launches, report
 
 
@@ -1658,6 +1815,8 @@ def run_chain_q8_path(torch, dev, cfgs, params):
               f"CPU run {e:.3g}", flush=True)
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the q8 chain never launched: {launches}")
+    check_prefill_routes("gru_sequence_q8_kernel",
+                         launches["gru_sequence_q8_kernel"])
     return launches, report
 
 
@@ -2904,12 +3063,11 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
                     per_graph=200)
                 before = (f"  block route {blk * 1e3:8.2f} us; plan "
                           f"{getattr(K, name).last_plan}")
-            if name == "gru_stack_sequence_kernel":
-                blk = device_time_ms(torch, stack_route_fn(
-                    torch, a, "v1", True, stack_block_route(K, B, H, L)),
-                    per_graph=200)
+            if name in PREFILLS:
+                blk = device_time_ms(torch, prefill_routes(
+                    torch, K, name, a, "v1", True)[1], per_graph=200)
                 before = (f"  block route {blk * 1e3:8.2f} us; plan "
-                          f"{K.gru_stack_sequence_kernel.last_plan}")
+                          f"{getattr(K, name).last_plan}")
             print(f"  {name:28s} L={L} H={H} B={B:2d} T={T:2d}: device "
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
@@ -2938,9 +3096,8 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
                     rows[-1]["plan"] = str(getattr(K, name).last_plan)
                     rows[-1]["block_route_ms"] = blk
                     rows[-1]["mesh_launches"] = mesh_launches.get(name, 0)
-                if name == "gru_stack_sequence_kernel":
-                    rows[-1]["plan"] = str(K.gru_stack_sequence_kernel
-                                           .last_plan)
+                if name in PREFILLS:
+                    rows[-1]["plan"] = str(getattr(K, name).last_plan)
                     rows[-1]["block_route_ms"] = blk
     # the fp32 chain's decode layer: the depth-1 sequence kernel at T=1,
     # unmasked (a row of PERF.md, not of the JSON line)
@@ -3042,32 +3199,51 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
         print(f"  {name}: launches x (device - bound) over its "
               f"{sum(served.values())} served launches = {gap_us:.0f} us "
               f"(block route forced: {gap_block_us:.0f} us)", flush=True)
-    # row 2's served launches by shape (phase 4: gru-jet-deep's prefills),
-    # likewise, the block route forced
-    name = "gru_stack_sequence_kernel"
-    check(sum(STACK_SHAPES.values()) == launches[name], f"{name}: served "
-          f"calls by shape {STACK_SHAPES} do not sum to its "
-          f"{launches[name]} launches")
-    gap_us = gap_block_us = 0.0
-    for (L, T, B, H), count in sorted(STACK_SHAPES.items()):
-        a = make_inputs(torch, L, H, B, T, seed=7, dev=dev)
-        ms = device_time_ms(torch, lambda: run_kernel(
-            K, ref, name, a, "v1", True, plain=False), per_graph=50)
-        plan = K.gru_stack_sequence_kernel.last_plan
-        blk = device_time_ms(torch, stack_route_fn(
-            torch, a, "v1", True, stack_block_route(K, B, H, L)),
-            per_graph=50)
-        bms, _ = bound_ms(name, a)
-        gap_us += count * (ms - bms) * 1e3
-        gap_block_us += count * (blk - bms) * 1e3
-        print(f"  {name} served L={L} T={T} B={B} H={H}: {count:3d} "
-              f"launches, device {ms * 1e3:7.2f} us ({plan.route} route, "
-              f"{plan.grid} blocks of {plan.warps} warps), block "
-              f"route {blk * 1e3:7.2f} us, bound {bms * 1e6:6.2f} ns",
-              flush=True)
-    print(f"  {name}: launches x (device - bound) over its "
-          f"{sum(STACK_SHAPES.values())} served launches = {gap_us:.0f} us "
-          f"(block route forced: {gap_block_us:.0f} us)", flush=True)
+    # rows 2, 4 and 6's served launches by shape (phase 4: gru-jet-deep's
+    # prefills; phase 5: both configs' q8 prefills; phase 7: the q8 chain's
+    # layers), likewise, the block route forced
+    for name in PREFILLS:
+        served = PREFILL_SHAPES[name]
+        check(sum(served.values()) == launches[name], f"{name}: served "
+              f"calls by shape {served} do not sum to its "
+              f"{launches[name]} launches")
+        gap_us = gap_block_us = 0.0
+        for key, count in sorted(served.items()):
+            L, (T, B, H) = (key[0], key[1:]) if len(key) == 4 else (1, key)
+            a = make_inputs(torch, L, H, B, T, seed=7, dev=dev)
+            ms = device_time_ms(torch, lambda: run_kernel(
+                K, ref, name, a, "v1", True, plain=False), per_graph=50)
+            plan = getattr(K, name).last_plan
+            blk = device_time_ms(torch, prefill_routes(
+                torch, K, name, a, "v1", True)[1], per_graph=50)
+            bms, _ = bound_ms(name, a)
+            gap_us += count * (ms - bms) * 1e3
+            gap_block_us += count * (blk - bms) * 1e3
+            print(f"  {name} served L={L} T={T} B={B} H={H}: {count:3d} "
+                  f"launches, device {ms * 1e3:7.2f} us ({plan.route} route, "
+                  f"{plan.grid} blocks of {plan.warps} warps), block "
+                  f"route {blk * 1e3:7.2f} us, bound {bms * 1e6:6.2f} ns",
+                  flush=True)
+        print(f"  {name}: launches x (device - bound) over its "
+              f"{sum(served.values())} served launches = {gap_us:.0f} us "
+              f"(block route forced: {gap_block_us:.0f} us)", flush=True)
+    # rows 4 and 6 at 8 slots, v1 masked, at the T=16 bucket and the served
+    # T=32, both routes (the JSON rows are T=16)
+    for name, L, H in (("gru_sequence_q8_kernel", 1, 32),
+                       ("gru_sequence_q8_kernel", 1, 20),
+                       ("gru_stack_sequence_q8_kernel", 3, 32),
+                       ("gru_stack_sequence_q8_kernel", 1, 20)):
+        for T in (16, 32):
+            a = make_inputs(torch, L, H, SLOTS, T, seed=7, dev=dev)
+            ms = device_time_ms(torch, lambda: run_kernel(
+                K, ref, name, a, "v1", True, plain=False), per_graph=50)
+            blk = device_time_ms(torch, prefill_routes(
+                torch, K, name, a, "v1", True)[1], per_graph=50)
+            bms, _ = bound_ms(name, a)
+            print(f"  {name} L={L} H={H} B={SLOTS} T={T} v1 masked: "
+                  f"{getattr(K, name).last_plan.route} route {ms * 1e3:.2f} "
+                  f"us, block route {blk * 1e3:.2f} us, bound "
+                  f"{bms * 1e6:.2f} ns", flush=True)
     print(f"  torch.nn.GRU (cuDNN) yardstick, v3 T=32 B={SLOTS} H=32: "
           f"{cudnn_gru_ms(torch, dev) * 1e3:.2f} us", flush=True)
     # rows 2 and 3's yardstick: torch.nn.GRU over L layers on the same v3

@@ -98,7 +98,8 @@ size_t step_smem[kMaxDevices];
 // --- the warp route (its helpers are gru_q8_math.cuh's) -----------------------
 
 // One q8 step, one warp a batch row (the source note's warp route), lane c
-// < H owning column c; the float32 math is cell_update_q8's, op for op.
+// < H owning column c; the step is warp_step_q8, whose float32 math is
+// cell_update_q8's, op for op.
 template <bool V3, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gru_step_q8_warp_k(const float* __restrict__ h, const float* __restrict__ xp,
@@ -112,14 +113,12 @@ gru_step_q8_warp_k(const float* __restrict__ h, const float* __restrict__ xp,
   const bool col = lane < H;
   const int c = col ? lane : 0;
 
-  int uz[kWarpWords], ur[kWarpWords], uh[kWarpWords];
-  load_row_words<VEC>(uz, uq + (size_t)c * H, H, col);
-  load_row_words<VEC>(ur, uq + (size_t)(H + c) * H, H, col);
-  load_row_words<VEC>(uh, uq + (size_t)(2 * H + c) * H, H, col);
+  int u[3][kWarpWords];
   float eff[3], bias[3], x[3];
   const float* xr = xp + (size_t)row * 3 * H + c;
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
+    load_row_words<VEC>(u[g], uq + (size_t)(g * H + c) * H, H, col);
     eff[g] = col ? __ldg(ueff + g * H + c) : 0.0f;
     bias[g] = col ? __ldg(b + g * H + c) : 0.0f;
     x[g] = col ? __ldg(xr + g * H) : 0.0f;
@@ -128,20 +127,8 @@ gru_step_q8_warp_k(const float* __restrict__ h, const float* __restrict__ xp,
 
   int qh[kWarpWords];
   pack_words(qh, col ? q8_act(hold) : (int8_t)0, lane);
-  const float z = sigmoid_f(__fadd_rn(x[0], dequant(dot_words(qh, uz), eff[0],
-                                                    bias[0])));
-  const float r = sigmoid_f(__fadd_rn(x[1], dequant(dot_words(qh, ur), eff[1],
-                                                    bias[1])));
-  float ht;
-  if constexpr (V3) {
-    const float gh = dequant(dot_words(qh, uh), eff[2], bias[2]);
-    ht = tanhf(__fadd_rn(x[2], __fmul_rn(r, gh)));
-  } else {       // the candidate from q8(r * h), packed the same way
-    int qr[kWarpWords];
-    pack_words(qr, col ? q8_act(__fmul_rn(r, hold)) : (int8_t)0, lane);
-    ht = tanhf(__fadd_rn(x[2], dequant(dot_words(qr, uh), eff[2], bias[2])));
-  }
-  if (col) out[(size_t)row * H + c] = update_q8(z, hold, ht);
+  const float hn = warp_step_q8<V3>(qh, u, x, eff, bias, hold, col, lane);
+  if (col) out[(size_t)row * H + c] = hn;
 }
 
 }  // namespace

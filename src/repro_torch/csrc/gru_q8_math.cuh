@@ -191,7 +191,8 @@ __device__ __forceinline__ void cell_update_q8(
   }
 }
 
-// --- the warp routes (gru_cell_q8.cu's step, gru_sequence_q8.cu's decode) ---
+// --- the warp routes (gru_cell_q8.cu's step, gru_sequence_q8.cu's decode
+// and prefills) ---
 //
 // One warp a batch row, lane c owning column c of each gate; U's rows in
 // registers as words, q8 activations packed by shuffles, __dp4a sums.
@@ -259,6 +260,35 @@ __device__ __forceinline__ int dot_words(const int (&a)[kWarpWords],
 #pragma unroll
   for (int k = 0; k < kWarpWords; ++k) acc = __dp4a(a[k], w[k], acc);
   return acc;
+}
+
+// One q8 GRU step of lane c (every q8 warp route's layer step, op for op
+// cell_update_q8's): qh the packed q8(h), u lane c's int8 rows of the three
+// gates as words, x its input-projection columns, eff and b its scales and
+// biases, hold its h[c] (0 past H, where every operand is 0). Returns the
+// new h[c], unmasked.
+template <bool V3>
+__device__ __forceinline__ float warp_step_q8(const int (&qh)[kWarpWords],
+                                              const int (&u)[3][kWarpWords],
+                                              const float (&x)[3],
+                                              const float (&eff)[3],
+                                              const float (&b)[3],
+                                              float hold, bool col,
+                                              int lane) {
+  const float z =
+      sigmoid_f(__fadd_rn(x[0], dequant(dot_words(qh, u[0]), eff[0], b[0])));
+  const float r =
+      sigmoid_f(__fadd_rn(x[1], dequant(dot_words(qh, u[1]), eff[1], b[1])));
+  float ht;
+  if constexpr (V3) {
+    const float gh = dequant(dot_words(qh, u[2]), eff[2], b[2]);
+    ht = tanhf(__fadd_rn(x[2], __fmul_rn(r, gh)));
+  } else {       // the candidate from q8(r * h), packed the same way
+    int qr[kWarpWords];
+    pack_words(qr, col ? q8_act(__fmul_rn(r, hold)) : (int8_t)0, lane);
+    ht = tanhf(__fadd_rn(x[2], dequant(dot_words(qr, u[2]), eff[2], b[2])));
+  }
+  return update_q8(z, hold, ht);
 }
 
 // Above 48 KB a block's shared memory must be opted into per kernel and

@@ -2,41 +2,57 @@
 //
 // Replaces three Pallas TPU kernels of the q8 datapath in
 // src/repro/kernels/gru_sequence/kernel.py:
-//   gru_stack_sequence_q8_k  <- gru_stack_sequence_q8_kernel  (masked prefill)
-//   gru_stack_decode_q8_k (block route),
-//   gru_stack_decode_q8_warp_k (warp route) <- gru_stack_decode_q8_kernel
+//   gru_stack_sequence_q8_warp_k (warp route),
+//   gru_stack_sequence_q8_k (block route) <- gru_stack_sequence_q8_kernel
+//                                                  (masked prefill)
+//   gru_stack_decode_q8_warp_k (warp route),
+//   gru_stack_decode_q8_k (block route) <- gru_stack_decode_q8_kernel
 //                                                  (one token)
-//   gru_sequence_q8_k        <- gru_sequence_q8_kernel        (depth 1, masked)
+//   gru_sequence_q8_warp_k (warp route),
+//   gru_sequence_q8_k (block route) <- gru_sequence_q8_kernel (depth 1,
+//                                                              masked)
 // The two fused kernels' block routes run one shared routine,
-// run_stack_q8(), which computes _gate_math_q8 for every layer, v1 (two phases) or v3, with the
-// deep layers' input projection in int8 too. The depth-1 kernel is one
-// layer of the per-layer chain (cuda_chain_q8 prefill): its own (3H, H)
-// rows, no deep projection, its input projection float32 from outside.
-// Every layer-step is cell_update_q8() of gru_q8_math.cuh, which holds the
-// arithmetic and its rounding discipline for all the port's q8 kernels.
+// run_stack_q8(), which computes _gate_math_q8 for every layer, v1 (two
+// phases) or v3, with the deep layers' input projection in int8 too. The
+// depth-1 kernel is one layer of the per-layer chain (cuda_chain_q8
+// prefill): its own (3H, H) rows, no deep projection, its input
+// projection float32 from outside. Every layer-step of the block routes is
+// cell_update_q8() of gru_q8_math.cuh, which holds the arithmetic and its
+// rounding discipline for all the port's q8 kernels.
 //
 // Translation, as in gru_sequence.cu: the time and layer loops run inside
-// one block; the grid is over independent batch tiles of `bt` rows. Each
-// block copies the int8 U and deep W, eff and b into shared memory once
-// (gru-jet-deep: 9,216 + 6,144 B of int8, 3 KB of scales and bias; one
-// chain layer of H=32: 3,456 B of int8 rows). The per-layer h lives in
-// shared memory; layer l+1 reads layer l's new (masked) h from there. The
-// optional time-major mask is double-buffered by step parity.
-//
-// The decode has a second route, picked by shape (decode_q8_plan in
-// kernels/gru_sequence/kernel.py): "warp" (H <= 32 and L <= 3, every
-// served shape), gru_stack_decode_q8_warp_k: one warp a batch row, every
-// layer's int8 rows in registers, the layers chained in the warp with no
-// shared memory or barrier (see its note); "block", the kernel above,
-// past that.
+// the kernel; the grid is over independent batch rows. Each kernel has two
+// routes, picked by shape in Python (seq_q8_plan, stack_seq_q8_plan and
+// decode_q8_plan in kernels/gru_sequence/kernel.py):
+// - "warp" (H <= 32, every served width; the fused kernels also bound the
+//   depth): lane c of a warp owns column c of each gate and holds its int8
+//   rows in registers as words (load_row_words); q8 activations are packed
+//   by shuffles and each gate sum is __dp4a over the words (row 7's step,
+//   gru_cell_q8.cu). The depth-1 sequence (gru_sequence_q8_warp_k) is one
+//   warp a batch row with xp and the mask loaded steps ahead, no shared
+//   memory and no barrier; the decode (gru_stack_decode_q8_warp_k) chains
+//   every layer in one warp; the fused prefill
+//   (gru_stack_sequence_q8_warp_k) gives each batch row a block on
+//   gru_sequence.cu's layer-skewed wavefront, a gate warp per layer and a
+//   projection warp between two layers, one block barrier a tick (see each
+//   kernel's note).
+// - "block", past those bounds: a block per tile of `bt` rows copies the
+//   int8 U and deep W, eff and b into shared memory once (gru-jet-deep:
+//   9,216 + 6,144 B of int8, 3 KB of scales and bias; one chain layer of
+//   H=32: 3,456 B of int8 rows). The per-layer h lives in shared memory;
+//   layer l+1 reads layer l's new (masked) h from there. The optional
+//   time-major mask is double-buffered by step parity.
+// The int32 sums are exact in any order and every route takes its float32
+// ops from gru_q8_math.cuh, so the routes agree bit for bit.
 //
 // Bound on an H100 (SXM): a few tens of KB of inputs (3.35 TB/s) and
 // int8 MACs (1,979 TOP/s on the tensor cores) take tens of nanoseconds at
-// the serving shapes; the kernels are bound by latency: the launch, the
-// one-time weight copy and the __syncthreads() chain of each layer-step
-// (the decode's warp route: the launch, the loads at entry and each
-// layer's dependent gate math).
-// Tensor-core IMMA (mma.sync s8) and a shorter chain are later work.
+// the serving shapes; the kernels are bound by latency: on the block
+// routes the launch, the one-time weight copy and the __syncthreads()
+// chain of each layer-step (three, and two more for each deep projection);
+// on the warp routes the launch, the loads at entry and each step's
+// dependent gate math (the fused prefill's also one barrier a tick).
+// Tensor-core IMMA (mma.sync s8) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -261,10 +277,10 @@ constexpr int kQ8DecodeMaxLayers = 3;  // layers a lane holds in registers
 // gate and holds its three int8 rows of every U_l and of every deep W_l in
 // registers as words (load_row_words; H = 32, L = 3: 72 + 48 words),
 // loaded at entry with their scales, the biases, the layers' h[c] and its
-// xp columns. Each layer is gru_step_q8_warp_k's step: q8(h) packed by
-// shuffles, each gate sum __dp4a over the words, v1's q8(r * h) packed the
-// same way. The next layer's input projection quantizes the new h the
-// same way, in the warp, and scales each row's int32 sum by its eff, as
+// xp columns. Each layer is warp_step_q8, gru_step_q8_warp_k's step: q8(h)
+// packed by shuffles, each gate sum __dp4a over the words, v1's q8(r * h)
+// packed the same way. The next layer's input projection quantizes the new
+// h the same way, in the warp, and scales each row's int32 sum by its eff, as
 // run_stack_q8 does; no shared memory and no barrier. A warp past B exits
 // whole. Every float32 op is gru_q8_math.cuh's, so the route equals the
 // block route bit for bit.
@@ -323,21 +339,8 @@ gru_stack_decode_q8_warp_k(const float* __restrict__ h,
     const float hold = hl[l];
     int qh[kWarpWords];
     pack_words(qh, col ? q8_act(hold) : (int8_t)0, lane);
-    const float z = sigmoid_f(__fadd_rn(
-        x[0], dequant(dot_words(qh, uw[l][0]), ue[l][0], ub[l][0])));
-    const float r = sigmoid_f(__fadd_rn(
-        x[1], dequant(dot_words(qh, uw[l][1]), ue[l][1], ub[l][1])));
-    float ht;
-    if constexpr (V3) {
-      const float gh = dequant(dot_words(qh, uw[l][2]), ue[l][2], ub[l][2]);
-      ht = tanhf(__fadd_rn(x[2], __fmul_rn(r, gh)));
-    } else {     // the candidate from q8(r * h), packed the same way
-      int qr[kWarpWords];
-      pack_words(qr, col ? q8_act(__fmul_rn(r, hold)) : (int8_t)0, lane);
-      ht = tanhf(__fadd_rn(
-          x[2], dequant(dot_words(qr, uw[l][2]), ue[l][2], ub[l][2])));
-    }
-    const float hn = update_q8(z, hold, ht);
+    const float hn =
+        warp_step_q8<V3>(qh, uw[l], x, ue[l], ub[l], hold, col, lane);
     if (col) out[((size_t)l * B + row) * H + c] = hn;
     if (l + 1 < L) {         // the next layer's input projection, in-warp
       int qn[kWarpWords];
@@ -348,6 +351,223 @@ gru_stack_decode_q8_warp_k(const float* __restrict__ h,
                          we[l < LW ? l : 0][g]);
     }
   }
+}
+
+// --- the depth-1 sequence's warp route --------------------------------------
+
+// One lane's operands of step t: its three gate columns of xp and the row's
+// liveness.
+__device__ __forceinline__ void load_step_q8(float (&x)[3], float& m,
+                                             const float* __restrict__ xp,
+                                             const float* __restrict__ mask,
+                                             int t, int B, int H, int row,
+                                             bool col, int c) {
+  const size_t r = (size_t)t * B + row;
+  const float* xr = xp + r * 3 * H + c;
+#pragma unroll
+  for (int g = 0; g < 3; ++g) x[g] = col ? __ldg(xr + g * H) : 0.0f;
+  m = mask == nullptr ? 1.0f : __ldg(mask + r);
+}
+
+// One layer of the q8 chain over T steps, one warp a batch row (the source
+// note's depth-1 warp route): lane c < H owns column c of each gate and
+// holds its three int8 rows of U in registers as words, with its scales,
+// biases and h[c]. Each step is warp_step_q8 (q8(h) packed by shuffles,
+// __dp4a sums, v1's q8(r * h) packed the same way), the mask a select (a
+// dead step keeps h), and the new h stored to out[t] as the step ends.
+// The next step's xp columns and liveness load while the step runs, so
+// nothing on the step chain waits for device memory, a barrier or shared
+// memory. (Loaded 2, 4 or 8 steps ahead, as row 1's fp32 route does, the
+// route was slower on an H100: PERF.md's findings.) A warp past B exits
+// whole.
+template <bool V3, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+gru_sequence_q8_warp_k(const float* __restrict__ h0,
+                       const float* __restrict__ xp,
+                       const int8_t* __restrict__ uq,
+                       const float* __restrict__ ueff,
+                       const float* __restrict__ b,
+                       const float* __restrict__ mask,
+                       float* __restrict__ out, int T, int B, int H) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= B) return;
+  const bool col = lane < H;
+  const int c = col ? lane : 0;
+
+  int u[3][kWarpWords];
+  float eff[3], bias[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    load_row_words<VEC>(u[g], uq + (size_t)(g * H + c) * H, H, col);
+    eff[g] = col ? __ldg(ueff + g * H + c) : 0.0f;
+    bias[g] = col ? __ldg(b + g * H + c) : 0.0f;
+  }
+  float h = col ? __ldg(h0 + (size_t)row * H + c) : 0.0f;
+
+  float nx[3] = {}, nm = 0.0f;           // step t + 1's operands
+  if (T > 0) load_step_q8(nx, nm, xp, mask, 0, B, H, row, col, c);
+  for (int t = 0; t < T; ++t) {
+    float x[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) x[g] = nx[g];
+    const float m = nm;
+    if (t + 1 < T)
+      load_step_q8(nx, nm, xp, mask, t + 1, B, H, row, col, c);
+    int qh[kWarpWords];
+    pack_words(qh, col ? q8_act(h) : (int8_t)0, lane);
+    const float hn = warp_step_q8<V3>(qh, u, x, eff, bias, h, col, lane);
+    h = m != 0.0f ? hn : h;
+    if (col) out[((size_t)t * B + row) * H + c] = h;
+  }
+}
+
+// --- the fused prefill's warp route: a layer-skewed wavefront ---------------
+
+constexpr int kQ8SeqMaxLayers = 4;     // the deepest stack the route takes
+
+// The block's barrier between two ticks. Warps of different roles reach it
+// from different places in the code, so it is the non-aligned form (a
+// __syncthreads() is bar.sync.aligned, which all threads must reach at the
+// same instruction).
+__device__ __forceinline__ void tick_barrier() {
+  asm volatile("barrier.sync 0;" ::: "memory");
+}
+
+// L layers of int8 rows over T steps, one batch row a block, on the
+// wavefront of gru_sequence.cu's fp32 prefill route (the source note's
+// prefill warp route). Layouts as run_stack_q8's. The block has 2L - 1
+// warps: at even positions q = 2l the gate warp of layer l (U_l's int8
+// rows in registers as words, with its scales and biases), between two
+// layers the projection warp of layer l (q = 2l + 1, W_l's rows and
+// wd_eff[l]). Warp q runs step j - q at tick j, and one block barrier
+// ends every tick, so the chain is T + 2(L - 1) ticks of one q8 gate step
+// each, where the block route's is T x L layer-steps of three barriers
+// (and two more for each deep projection).
+//
+// A gate warp's step is warp_step_q8 on q8(h), which it packs from its own
+// h by shuffles; a dead step keeps h. Layer l's new h (the kept value)
+// goes to the projection warp as float32 through slot (t & 1) of the
+// layer's two in static shared memory. The projection warp does
+// run_stack_q8's deep projection: q8(h) packed by shuffles, three __dp4a
+// sums against W_l's rows, each times its scale (no bias: b enters at the
+// gates), into slot (t & 1) of layer l+1's input, which layer l+1's gate
+// warp reads the next tick. A slot is written again two ticks on, after
+// its read and a barrier. (Handing over the packed q8(h) words instead,
+// which the gate warp makes anyway for its own next step, gave the same
+// bits at the same speed over the sweep's shapes: PERF.md's findings.)
+// Nothing on the chain goes through device memory: every gate warp loads
+// the next tick's mask, and layer 0's its xp, one tick ahead into
+// registers; the top layer stores out[t] and each gate warp its layer's
+// finals.
+//
+// As the fp32 route, the launch bounds ask for one block an SM and q
+// comes from lane 0 by shuffle, so the slot addresses stay in registers.
+template <bool V3, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_stack_sequence_q8_warp_k(const float* __restrict__ h0,
+                             const float* __restrict__ xp,
+                             const int8_t* __restrict__ uq,
+                             const float* __restrict__ ueff,
+                             const int8_t* __restrict__ wdq,
+                             const float* __restrict__ wdeff,
+                             const float* __restrict__ b,
+                             const float* __restrict__ mask,
+                             float* __restrict__ out,
+                             float* __restrict__ finals, int T, int B, int H,
+                             int L) {
+  constexpr int kProj = kQ8SeqMaxLayers - 1;
+  // layer l's new h for its projection warp, by step parity; the
+  // projection of layer l into layer l+1's input
+  __shared__ __align__(16) float hf[kProj][2][32];
+  __shared__ __align__(16) float ps[kProj][2][3][32];
+  const int H3 = 3 * H;
+  const int lane = threadIdx.x & 31;
+  const int q = __shfl_sync(kFullWarp, threadIdx.x >> 5, 0);  // position
+  const int row = blockIdx.x;
+  const bool proj = q & 1;               // a projection warp
+  const int l = q >> 1;                  // its layer (the one it projects)
+  const bool col = lane < H;
+  const int c = col ? lane : 0;
+  const int ticks = T + 2 * L - 2;
+
+  int w[3][kWarpWords];    // lane c's int8 rows of U_l, or of W_l
+  float e[3];
+  {
+    const int8_t* rows = proj ? wdq : uq;
+    const float* scale = proj ? wdeff : ueff;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const size_t j = (size_t)l * H3 + g * H + c;     // row of (L*3H, H)
+      load_row_words<VEC>(w[g], rows + j * H, H, col);
+      e[g] = col ? __ldg(scale + j) : 0.0f;
+    }
+  }
+
+  if (proj) {                // layer l's new h -> layer l+1's input
+    for (int j = 0; j < ticks; ++j) {
+      const int t = j - q;
+      if (t >= 0 && t < T) {
+        int qh[kWarpWords];
+        pack_words(qh, col ? q8_act(hf[l][t & 1][lane]) : (int8_t)0, lane);
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          ps[l][t & 1][g][lane] =
+              __fmul_rn((float)dot_words(qh, w[g]), e[g]);
+      }
+      tick_barrier();
+    }
+    return;
+  }
+
+  float bias[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+    bias[g] = col ? __ldg(b + (size_t)l * H3 + g * H + c) : 0.0f;
+  float hc = col ? __ldg(h0 + ((size_t)l * B + row) * H + c) : 0.0f;
+  const bool feeds = l + 1 < L;          // a projection warp reads its h
+  int qh[kWarpWords];                    // q8(hc), packed
+  pack_words(qh, col ? q8_act(hc) : (int8_t)0, lane);
+
+  // tick j's mask and, in layer 0, its xp columns, loaded a tick ahead
+  const auto fetch = [&](float (&x)[3], float& m, int j) {
+    const int t = j - q;
+    if (t < 0 || t >= T) return;
+    const size_t r = (size_t)t * B + row;
+    m = mask == nullptr ? 1.0f : __ldg(mask + r);
+    if (l == 0) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        x[g] = col ? __ldg(xp + r * H3 + g * H + c) : 0.0f;
+    }
+  };
+  float nx[3] = {}, nm = 0.0f;
+  fetch(nx, nm, 0);
+
+  for (int j = 0; j < ticks; ++j) {
+    const int t = j - q;
+    const bool act = t >= 0 && t < T;
+    float x[3] = {}, m = 0.0f;
+    if (act) {
+      m = nm;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) x[g] = nx[g];
+    }
+    fetch(nx, nm, j + 1);
+    if (act) {
+      if (l > 0) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) x[g] = ps[l - 1][t & 1][g][lane];
+      }
+      const float hn = warp_step_q8<V3>(qh, w, x, e, bias, hc, col, lane);
+      hc = m != 0.0f ? hn : hc;
+      pack_words(qh, col ? q8_act(hc) : (int8_t)0, lane);   // next step's
+      if (feeds) hf[l][t & 1][lane] = hc;
+      if (col && l == L - 1) out[((size_t)t * B + row) * H + c] = hc;
+    }
+    tick_barrier();
+  }
+  if (col) finals[((size_t)l * B + row) * H + c] = hc;
 }
 
 size_t stack_smem[kMaxDevices];
@@ -433,4 +653,52 @@ extern "C" int gru_stack_decode_q8_warp_launch(
   return one ? go(gru_stack_decode_q8_warp_k<false, false, 1>)
              : go(gru_stack_decode_q8_warp_k<false, false,
                                              kQ8DecodeMaxLayers>);
+}
+
+// The depth-1 sequence's warp route: `warps` warps a block (1 to 8), one
+// batch row each; `vec`: U's rows load as whole 4-byte words (H % 4 == 0,
+// u_q 4-byte aligned), else through the aligned words that cover them. H
+// at most 32.
+extern "C" int gru_sequence_q8_warp_launch(
+    const float* h0, const float* xp, const int8_t* uq, const float* ueff,
+    const float* b, const float* mask, float* out, int T, int B, int H,
+    int v3, int warps, int vec, void* stream) {
+  if (H < 1 || H > kWarpMaxH || warps < 1 || warps > kThreads / 32 ||
+      (vec && H % 4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + warps - 1) / warps);
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto go = [&](auto kernel) {
+    kernel<<<grid, 32 * warps, 0, st>>>(h0, xp, uq, ueff, b, mask, out, T, B,
+                                        H);
+    return (int)cudaGetLastError();
+  };
+  if (v3 && vec) return go(gru_sequence_q8_warp_k<true, true>);
+  if (v3) return go(gru_sequence_q8_warp_k<true, false>);
+  if (vec) return go(gru_sequence_q8_warp_k<false, true>);
+  return go(gru_sequence_q8_warp_k<false, false>);
+}
+
+// The fused prefill's warp route: a block of 2L - 1 warps a batch row. H at
+// most 32, L at most kQ8SeqMaxLayers; `vec` as above (u_q and wd_q). Its
+// shared memory is static.
+extern "C" int gru_stack_sequence_q8_warp_launch(
+    const float* h0, const float* xp, const int8_t* uq, const float* ueff,
+    const int8_t* wdq, const float* wdeff, const float* b, const float* mask,
+    float* out, float* finals, int T, int B, int H, int L, int v3, int vec,
+    void* stream) {
+  if (H < 1 || H > kWarpMaxH || L < 1 || L > kQ8SeqMaxLayers ||
+      (vec && H % 4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(32 * (2 * L - 1));
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto go = [&](auto kernel) {
+    kernel<<<B, block, 0, st>>>(h0, xp, uq, ueff, wdq, wdeff, b, mask, out,
+                                finals, T, B, H, L);
+    return (int)cudaGetLastError();
+  };
+  if (v3 && vec) return go(gru_stack_sequence_q8_warp_k<true, true>);
+  if (v3) return go(gru_stack_sequence_q8_warp_k<true, false>);
+  if (vec) return go(gru_stack_sequence_q8_warp_k<false, true>);
+  return go(gru_stack_sequence_q8_warp_k<false, false>);
 }

@@ -22,12 +22,14 @@ Same names and array interface as the Pallas kernels in
 * :func:`gru_stack_sequence_q8_kernel` / :func:`gru_stack_decode_q8_kernel`
   — their q8 twins: int8 weight rows u_q (L,3H,H) with u_eff (L,3H),
   wd_q (L-1,3H,H) with wd_eff (L-1,3H) ((1,3H,1) and (1,3H) for L=1,
-  unused), b (L,3H); states and x_proj stay float32; the decode launches
-  :func:`decode_q8_plan`'s route (one warp per batch row where H <= 32
-  and L <= 3) and keeps it as ``last_plan``;
+  unused), b (L,3H); states and x_proj stay float32; the prefill launches
+  :func:`stack_seq_q8_plan`'s route (row 2's wavefront on int8 rows where
+  H <= 32 and L <= 4), the decode :func:`decode_q8_plan`'s (one warp per
+  batch row where H <= 32 and L <= 3), each kept as ``last_plan``;
 * :func:`gru_sequence_q8_kernel` — the depth-1 q8 sequence of one chain
   layer: h0 (B,H), x_proj (T,B,3H), u_q (3H,H) int8, u_eff (3H,), b (3H,),
-  optional mask (T,B) -> (T,B,H).
+  optional mask (T,B) -> (T,B,H); it launches :func:`seq_q8_plan`'s route
+  (one warp per batch row where H <= 32) and keeps it as ``last_plan``.
 * the seven shard kernels (``repro_torch/csrc/gru_shard.cu``), one
   rank's compute between two collectives of the row-wise/cascade split
   (``repro_torch.core.rowparallel``), fp32, B rows, H the full width, Hl
@@ -87,7 +89,8 @@ from repro_torch.kernels._launch import check as _check
 from repro_torch.kernels._launch import ptr as _ptr
 from repro_torch.kernels._launch import raise_on as _raise_on
 from repro_torch.kernels._launch import stream as _stream
-from repro_torch.kernels.gru_cell.kernel import STEP_KERNELS, gru_step_q8
+from repro_torch.kernels.gru_cell.kernel import (STEP_KERNELS, gru_step_q8,
+                                                q8_words)
 from repro_torch.kernels.gru_cell.ref import check_q8_width
 from repro_torch.kernels.gru_sequence import ref
 from repro_torch.kernels.decode_attn.kernel import flash_decode
@@ -120,8 +123,15 @@ _SIGNATURES = {        # launcher -> (library, argtypes)
     # stream
     "gru_stack_decode_q8_warp_launch": ("gru_sequence_q8",
                                         [P] * 8 + [I] * 6 + [P]),
+    # h0, xp, u_q, u_eff, wd_q, wd_eff, b, mask, out, finals,
+    # T, B, H, L, v3, vec, stream
+    "gru_stack_sequence_q8_warp_launch": ("gru_sequence_q8",
+                                          [P] * 10 + [I] * 6 + [P]),
     # h0, xp, u_q, u_eff, b, mask, out, T, B, H, v3, bt, stream
     "gru_sequence_q8_launch": ("gru_sequence_q8", [P] * 7 + [I] * 5 + [P]),
+    # h0, xp, u_q, u_eff, b, mask, out, T, B, H, v3, warps, vec, stream
+    "gru_sequence_q8_warp_launch": ("gru_sequence_q8",
+                                    [P] * 7 + [I] * 6 + [P]),
 }
 
 
@@ -195,10 +205,12 @@ def warp_plan(B: int, rows: int, warps: int, depth: int) -> SeqPlan:
                    0)
 
 
-def block_plan(B: int, H: int, bt: int) -> SeqPlan:
-    """The block-route launch (``run_stack``) at batch tile ``bt``."""
+def block_plan(B: int, H: int, bt: int, q8: bool = False) -> SeqPlan:
+    """The block-route launch (``run_stack``; q8: ``gru_sequence_q8_k``) at
+    batch tile ``bt``."""
+    smem = smem_bytes_seq_q8(H, bt) if q8 else smem_bytes(1, H, bt)
     return SeqPlan("block", bt, _launch.THREADS // 32, 0, -(-B // bt),
-                   _launch.THREADS, smem_bytes(1, H, bt))
+                   _launch.THREADS, smem)
 
 
 @functools.lru_cache(maxsize=512)
@@ -291,10 +303,13 @@ def stack_seq_warp_plan(B: int, L: int) -> StackSeqPlan:
                         0)
 
 
-def stack_seq_block_plan(B: int, H: int, L: int, bt: int) -> StackSeqPlan:
-    """The block-route launch (``run_stack``) at batch tile ``bt``."""
+def stack_seq_block_plan(B: int, H: int, L: int, bt: int,
+                         q8: bool = False) -> StackSeqPlan:
+    """The block-route launch (``run_stack``; q8: ``run_stack_q8``) at batch
+    tile ``bt``."""
+    smem = smem_bytes_q8 if q8 else smem_bytes
     return StackSeqPlan("block", bt, _launch.THREADS // 32, -(-B // bt),
-                        _launch.THREADS, smem_bytes(L, H, bt))
+                        _launch.THREADS, smem(L, H, bt))
 
 
 @functools.lru_cache(maxsize=512)
@@ -496,6 +511,35 @@ def _q8_common(variant: str, B: int, T: int, H: int, L: int,
     return bt
 
 
+# The q8 prefills' warp routes (rows 6 and 4): row 1's and row 2's
+# schedules on int8 rows held in registers as words (row 7's q8 step), only
+# where H <= WARP_MAX_H. The depth-1 sequence takes one warp a batch row,
+# SEQ_Q8_WARPS warps a block, and loads xp one step ahead (SEQ_Q8_DEPTH,
+# fixed in the kernel); read off tools/seq_q8_tiles.py on an H100
+# (PERF.md's findings): 1, 2 and 4 warps a block within 2 % of each other,
+# 8 slower by 10 %; xp 2, 4 or 8 steps ahead slower than 1. The
+# fused prefill takes a block a batch row on the layer-skewed wavefront,
+# for at most STACK_Q8_WARP_MAX_L layers (kQ8SeqMaxLayers: the deepest
+# swept on the card, as row 2's).
+SEQ_Q8_WARPS = 2
+SEQ_Q8_DEPTH = 1
+STACK_Q8_WARP_MAX_L = 4
+
+
+@functools.lru_cache(maxsize=512)
+def stack_seq_q8_plan(B: int, T: int, H: int, L: int,
+                      variant: str) -> StackSeqPlan:
+    """The launch of :func:`gru_stack_sequence_q8_kernel`: the warp route
+    where H <= :data:`WARP_MAX_H` and L <= :data:`STACK_Q8_WARP_MAX_L`,
+    else the block route at :func:`_launch.batch_tile`'s tile (which raises
+    where one block's shared memory does not fit)."""
+    _launch.check_problem(variant, B, T, H, L)
+    if H > WARP_MAX_H or L > STACK_Q8_WARP_MAX_L:
+        return stack_seq_block_plan(B, H, L, _launch.batch_tile(
+            variant, B, T, H, L, 0, None, smem_bytes_q8), q8=True)
+    return stack_seq_warp_plan(B, L)
+
+
 def gru_stack_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                                  u_q: torch.Tensor, u_eff: torch.Tensor,
                                  wd_q: torch.Tensor, wd_eff: torch.Tensor,
@@ -503,7 +547,9 @@ def gru_stack_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                                  mask: Optional[torch.Tensor] = None, *,
                                  variant: str = "v1"):
     """Fused q8 depth-L GRU over T steps (any L, including 1) -> ((T,B,H)
-    last layer's states, (L,B,H) per-layer finals)."""
+    last layer's states, (L,B,H) per-layer finals). Launches
+    :func:`stack_seq_q8_plan`'s route and keeps the plan as
+    ``last_plan``."""
     if x_proj.dim() != 3 or h0.dim() != 3:
         raise ValueError("x_proj (T,B,3H) and h0 (L,B,H) expected, got "
                          f"{tuple(x_proj.shape)} and {tuple(h0.shape)}")
@@ -511,7 +557,8 @@ def gru_stack_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
     H = H3 // 3
     L = h0.shape[0]
     dev = x_proj.device
-    bt = _q8_common(variant, B, T, H, L, 0, dev, u_q, u_eff, wd_q, wd_eff, b)
+    _q8_common(variant, B, T, H, L, 0, dev, u_q, u_eff, wd_q, wd_eff, b)
+    p = stack_seq_q8_plan(B, T, H, L, variant)
     _check("h0", h0, (L, B, H), dev)
     _check("x_proj", x_proj, (T, B, 3 * H), dev)
     if mask is not None:
@@ -521,12 +568,18 @@ def gru_stack_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                                              wd_eff, b, mask, variant)
     out = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     finals = torch.empty((L, B, H), dtype=torch.float32, device=dev)
-    err = _launcher("gru_stack_sequence_q8_launch")(
-        _ptr(h0), _ptr(x_proj), _ptr(u_q), _ptr(u_eff), _ptr(wd_q),
-        _ptr(wd_eff), _ptr(b), _ptr(mask), _ptr(out), _ptr(finals), T, B, H,
-        L, int(variant == "v3"), bt, _stream(dev))
+    head = (_ptr(h0), _ptr(x_proj), _ptr(u_q), _ptr(u_eff), _ptr(wd_q),
+            _ptr(wd_eff), _ptr(b), _ptr(mask), _ptr(out), _ptr(finals), T, B,
+            H, L, int(variant == "v3"))
+    if p.route == "warp":
+        err = _launcher("gru_stack_sequence_q8_warp_launch")(
+            *head, decode_q8_words(H, u_q, wd_q), _stream(dev))
+    else:
+        err = _launcher("gru_stack_sequence_q8_launch")(*head, p.rows,
+                                                        _stream(dev))
     _raise_on(err, "gru_stack_sequence_q8_kernel")
     gru_stack_sequence_q8_kernel.launches += 1
+    gru_stack_sequence_q8_kernel.last_plan = p
     return out, finals
 
 
@@ -577,21 +630,37 @@ def smem_bytes_seq_q8(H: int, bt: int) -> int:
     return 4 * (H3 * (nw | 1) + 2 * H3 + 2 * bt * H + 2 * bt * nw + 2 * bt)
 
 
+@functools.lru_cache(maxsize=512)
+def seq_q8_plan(B: int, T: int, H: int, variant: str) -> SeqPlan:
+    """The launch of :func:`gru_sequence_q8_kernel`: the warp route where H
+    <= :data:`WARP_MAX_H` (one row a warp, at most :data:`SEQ_Q8_WARPS`
+    warps a block, no more than the rows need; xp :data:`SEQ_Q8_DEPTH`
+    step ahead), else the block route at :func:`_launch.batch_tile`'s
+    tile (which raises where one block's shared memory does not fit)."""
+    _launch.check_problem(variant, B, T, H, 1)
+    if H > WARP_MAX_H:
+        return block_plan(B, H, _launch.batch_tile(
+            variant, B, T, H, 1, 0, None,
+            lambda _L, H, bt: smem_bytes_seq_q8(H, bt)), q8=True)
+    return warp_plan(B, 1, min(SEQ_Q8_WARPS, _pow2(B)), SEQ_Q8_DEPTH)
+
+
 def gru_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                            u_q: torch.Tensor, u_eff: torch.Tensor,
                            b: torch.Tensor,
                            mask: Optional[torch.Tensor] = None, *,
                            variant: str = "v1") -> torch.Tensor:
     """Depth-1 q8 GRU over T steps on one layer's int8 weight rows -> all
-    hidden states (T,B,H) float32."""
+    hidden states (T,B,H) float32. Launches :func:`seq_q8_plan`'s route and
+    keeps the plan as ``last_plan``."""
     if x_proj.dim() != 3:
         raise ValueError(f"x_proj: expected (T,B,3H), got {tuple(x_proj.shape)}")
     T, B, H3 = x_proj.shape
     H = H3 // 3
     dev = x_proj.device
+    _launch.check_device(dev)
     check_q8_width(H, dev)
-    bt = _launch.batch_tile(variant, B, T, H, 1, 0, dev,
-                            lambda _L, H, bt: smem_bytes_seq_q8(H, bt))
+    p = seq_q8_plan(B, T, H, variant)
     _check("h0", h0, (B, H), dev)
     _check("x_proj", x_proj, (T, B, 3 * H), dev)
     _check("u_q", u_q, (3 * H, H), dev, torch.int8)
@@ -603,13 +672,18 @@ def gru_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
         return ref.gru_sequence_q8_ref(h0, x_proj, u_q, u_eff, b, mask,
                                        variant)
     out = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    err = _launcher("gru_sequence_q8_launch")(
-        _ptr(h0), _ptr(x_proj), _ptr(u_q), _ptr(u_eff), _ptr(b), _ptr(mask),
-        _ptr(out), T, B, H, int(variant == "v3"), bt, _stream(dev))
+    head = (_ptr(h0), _ptr(x_proj), _ptr(u_q), _ptr(u_eff), _ptr(b),
+            _ptr(mask), _ptr(out), T, B, H, int(variant == "v3"))
+    if p.route == "warp":
+        err = _launcher("gru_sequence_q8_warp_launch")(
+            *head, p.warps, q8_words(H, u_q), _stream(dev))
+    else:
+        err = _launcher("gru_sequence_q8_launch")(*head, p.rows,
+                                                  _stream(dev))
     _raise_on(err, "gru_sequence_q8_kernel")
     gru_sequence_q8_kernel.launches += 1
+    gru_sequence_q8_kernel.last_plan = p
     return out
-
 
 
 # ---------------------------------------------------------------------------
@@ -1127,8 +1201,9 @@ def reset_launch_counts() -> None:
 
 reset_launch_counts()
 for _fn in (gru_sequence_kernel, gru_stack_sequence_kernel,
-            gru_stack_decode_kernel,
-            gru_stack_decode_q8_kernel, gru_rowwise_shard_step,
+            gru_stack_decode_kernel, gru_stack_sequence_q8_kernel,
+            gru_stack_decode_q8_kernel, gru_sequence_q8_kernel,
+            gru_rowwise_shard_step,
             gru_rowwise_shard_zr, gru_rowwise_shard_candidate,
             gru_shard_matvec, gru_cascade_shard_zr):
     _fn.last_plan = None

@@ -630,6 +630,239 @@ def test_stack_sequence_block_route_past_the_bounds(cuda_device, LH,
     assert _max_err(list(zip(got, want))) <= TOL
 
 
+# the q8 prefills' warp routes (row 6, the q8 chain's layer, at H <= 32;
+# row 4, the fused q8 prefill, at H <= 32 and L <= 4) and block routes, at
+# the sweep's shapes (tools/seq_q8_tiles.py); H = 31 has rows that are not
+# 4-byte aligned, which the warp routes read through their cover words
+SEQ_Q8_WARP_CASES = list(itertools.product(
+    (20, 32, 31), (1, 8, 64), (1, 8, 16, 32), ("v1", "v3"), (False, True)))
+STACK_Q8_WARP_CASES = list(itertools.product(
+    ((1, 20), (1, 31), (2, 32), (3, 20), (3, 32), (4, 32)), (1, 8, 64),
+    (1, 8, 16, 32), ("v1", "v3"), (False, True)))
+
+
+def _seq_q8_forced(args, variant, plan, vec=None):
+    """The depth-1 q8 sequence's C entry at an explicit plan (the route
+    forced, as chip_smoke.py and tools/seq_q8_tiles.py force it); ``args``
+    the wrapper's (h0, x_proj, u_q, u_eff, b, mask); ``vec`` None: the
+    wrapper's choice of word loads."""
+    from repro_torch.kernels import _launch
+    h0, xp, u_q = args[0], args[1], args[2]
+    T, B, H = xp.shape[0], xp.shape[1], h0.shape[1]
+    out = torch.empty(T, B, H, device=xp.device)
+    head = (*(None if t is None else t.data_ptr() for t in args),
+            out.data_ptr(), T, B, H, int(variant == "v3"))
+    if plan.route == "warp":
+        err = K._launcher("gru_sequence_q8_warp_launch")(
+            *head, plan.warps, K.q8_words(H, u_q) if vec is None else vec,
+            _launch.stream(xp.device))
+    else:
+        err = K._launcher("gru_sequence_q8_launch")(
+            *head, plan.rows, _launch.stream(xp.device))
+    assert err == 0
+    return out
+
+
+def _stack_q8_forced(args, variant, plan, vec=None):
+    """The fused q8 prefill's C entry at an explicit plan (the route
+    forced); ``args`` the wrapper's (h0, x_proj, u_q, u_eff, wd_q, wd_eff,
+    b, mask); ``vec`` None: the wrapper's choice of word loads."""
+    from repro_torch.kernels import _launch
+    h0, xp = args[0], args[1]
+    L, B, H = h0.shape
+    T = xp.shape[0]
+    out = torch.empty(T, B, H, device=xp.device)
+    finals = torch.empty(L, B, H, device=xp.device)
+    head = (*(None if t is None else t.data_ptr() for t in args),
+            out.data_ptr(), finals.data_ptr(), T, B, H, L,
+            int(variant == "v3"))
+    if plan.route == "warp":
+        err = K._launcher("gru_stack_sequence_q8_warp_launch")(
+            *head, K.decode_q8_words(H, args[2], args[4]) if vec is None
+            else vec, _launch.stream(xp.device))
+    else:
+        err = K._launcher("gru_stack_sequence_q8_launch")(
+            *head, plan.rows, _launch.stream(xp.device))
+    assert err == 0
+    return out, finals
+
+
+def _skewed(t, skew, dev):
+    """A copy of int8 ``t`` as a view ``skew`` bytes past a 4-byte boundary,
+    among foreign bytes."""
+    flat = torch.randint(-127, 128, (skew + t.numel() + 8,), dtype=torch.int8,
+                         device=dev)
+    v = flat[skew:skew + t.numel()].view_as(t)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,B,T,variant,masked", SEQ_Q8_WARP_CASES)
+def test_seq_q8_warp_route_matches_block_and_plain(cuda_device, H, B, T,
+                                                   variant, masked):
+    """Row 6: the wrapper launches seq_q8_plan's warp route at H <= 32; it
+    equals the block route forced on the same inputs bit for bit (the same
+    int32 sums and float32 ops, only their schedule differs) and the plain
+    version within TOL; where H % 4 == 0 the cover loads give the word
+    loads' bits."""
+    a = _inputs(1, H, B, T, cuda_device, seed=10 * H + B + T)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    args = (a["h0"][0], a["xp"], u_q, u_eff, b,
+            a["mask"] if masked else None)
+    K.reset_launch_counts()
+    got = K.gru_sequence_q8_kernel(*args, variant=variant)
+    p = K.gru_sequence_q8_kernel.last_plan
+    assert p == K.seq_q8_plan(B, T, H, variant) and p.route == "warp"
+    assert [k.launches for k in K.CHAIN_Q8_KERNELS] == [1, 0]
+    blk = _seq_q8_forced(args, variant, K.block_plan(B, H, min(B, 4), True))
+    want = ref.gru_sequence_q8_ref(*args, variant)
+    assert _max_err([(got, want), (blk, want)]) <= TOL
+    assert torch.equal(got, blk)
+    if H % 4 == 0:
+        cover = _seq_q8_forced(args, variant, p, vec=0)
+        torch.cuda.synchronize()
+        assert torch.equal(cover, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", (5, 20, 32))
+@pytest.mark.parametrize("skew", (1, 2, 3))
+def test_seq_q8_warp_route_reads_misaligned_rows(cuda_device, H, skew):
+    """u_q as a view ``skew`` bytes past a 4-byte boundary: the warp route
+    reads its rows through the aligned words that cover them and equals
+    the block route bit for bit."""
+    a = _inputs(1, H, 8, 12, cuda_device, seed=H + skew)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    args = (a["h0"][0], a["xp"], _skewed(u_q, skew, cuda_device), u_eff, b,
+            a["mask"])
+    assert K.q8_words(H, args[2]) == 0
+    for variant in ("v1", "v3"):
+        got = K.gru_sequence_q8_kernel(*args, variant=variant)
+        assert K.gru_sequence_q8_kernel.last_plan.route == "warp"
+        blk = _seq_q8_forced(args, variant, K.block_plan(8, H, 4, True))
+        torch.cuda.synchronize()
+        assert torch.equal(got, blk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warps", (1, 2, 4, 8))
+def test_seq_q8_warp_route_takes_every_warp_count(cuda_device, warps):
+    """Every warps a block the C entry takes gives the plan's bits (a B
+    that they do not divide)."""
+    a = _inputs(1, 32, 13, 11, cuda_device, seed=warps)
+    u_q, u_eff, _, _, b = (x[0] for x in _q8_views(a))
+    args = (a["h0"][0], a["xp"], u_q, u_eff, b, a["mask"])
+    for variant in ("v1", "v3"):
+        got = _seq_q8_forced(args, variant,
+                             K.warp_plan(13, 1, warps, K.SEQ_Q8_DEPTH))
+        want = K.gru_sequence_q8_kernel(*args, variant=variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH,B,T,variant,masked", STACK_Q8_WARP_CASES)
+def test_stack_q8_warp_route_matches_block_and_plain(cuda_device, LH, B, T,
+                                                     variant, masked):
+    """Row 4: the wrapper launches stack_seq_q8_plan's warp route at H <= 32
+    and L <= 4; it equals the block route forced bit for bit and the plain
+    version within TOL; where H % 4 == 0 the cover loads give the word
+    loads' bits."""
+    L, H = LH
+    a = _inputs(L, H, B, T, cuda_device, seed=1000 * L + 10 * H + B + T)
+    args = (a["h0"], a["xp"], *_q8_views(a), a["mask"] if masked else None)
+    K.reset_launch_counts()
+    got = K.gru_stack_sequence_q8_kernel(*args, variant=variant)
+    p = K.gru_stack_sequence_q8_kernel.last_plan
+    assert p == K.stack_seq_q8_plan(B, T, H, L, variant)
+    assert p.route == "warp"
+    assert [k.launches for k in K.Q8_KERNELS] == [1, 0]
+    blk = _stack_q8_forced(args, variant, K.stack_seq_block_plan(
+        B, H, L, min(B, 4), True))
+    want = ref.gru_stack_sequence_q8_ref(*args, variant)
+    assert _max_err(list(zip(got, want)) + list(zip(blk, want))) <= TOL
+    assert all(torch.equal(g_, b_) for g_, b_ in zip(got, blk))
+    if H % 4 == 0:
+        cover = _stack_q8_forced(args, variant, p, vec=0)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g_, b_) for g_, b_ in zip(got, cover))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", (5, 20, 32))
+@pytest.mark.parametrize("skew", (1, 2, 3))
+def test_stack_q8_warp_route_reads_misaligned_rows(cuda_device, H, skew):
+    """u_q and wd_q as views ``skew`` bytes past a 4-byte boundary: the warp
+    route reads their rows through the cover words and equals the block
+    route bit for bit."""
+    a = _inputs(3, H, 8, 12, cuda_device, seed=H + skew)
+    u_q, u_eff, wd_q, wd_eff, b = _q8_views(a)
+    args = (a["h0"], a["xp"], _skewed(u_q, skew, cuda_device), u_eff,
+            _skewed(wd_q, skew, cuda_device), wd_eff, b, a["mask"])
+    assert K.decode_q8_words(H, args[2], args[4]) == 0
+    for variant in ("v1", "v3"):
+        got = K.gru_stack_sequence_q8_kernel(*args, variant=variant)
+        assert K.gru_stack_sequence_q8_kernel.last_plan.route == "warp"
+        blk = _stack_q8_forced(args, variant,
+                               K.stack_seq_block_plan(8, H, 3, 4, True))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g_, b_) for g_, b_ in zip(got, blk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("LH", ((3, 33), (5, 32), (1, 48)))
+def test_q8_prefills_take_the_block_routes_past_the_bounds(cuda_device, LH):
+    """Past H = 32, or (row 4) past the layer bound, the wrappers launch the
+    block route at the old tile, within TOL of the plain version."""
+    L, H = LH
+    a = _inputs(L, H, 8, 9, cuda_device, seed=L + H)
+    q = _q8_views(a)
+    args = (a["h0"], a["xp"], *q, a["mask"])
+    got = K.gru_stack_sequence_q8_kernel(*args, variant="v1")
+    p = K.gru_stack_sequence_q8_kernel.last_plan
+    assert p.route == "block" and p.rows == 4
+    want = ref.gru_stack_sequence_q8_ref(*args, "v1")
+    assert _max_err(list(zip(got, want))) <= TOL
+    if H > 32:
+        one = (a["h0"][0], a["xp"], q[0][0], q[1][0], q[4][0], a["mask"])
+        got = K.gru_sequence_q8_kernel(*one, variant="v1")
+        p = K.gru_sequence_q8_kernel.last_plan
+        assert p.route == "block" and p.rows == 4
+        want = ref.gru_sequence_q8_ref(*one, "v1")
+        assert _max_err([(got, want)]) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ("v1", "v3"))
+def test_q8_prefill_warp_routes_left_padding_is_bitwise(cuda_device,
+                                                        variant):
+    """A left-padded row's outputs from its first live step on, and its
+    finals, equal its unpadded run's bit for bit on both warp routes."""
+    a = _inputs(3, 32, 3, 12, cuda_device, seed=5)
+    q = _q8_views(a)
+    pad = 5
+    mask = torch.ones(12, 3, device=cuda_device)
+    mask[:pad, 1] = 0.0
+    out, fin = K.gru_stack_sequence_q8_kernel(a["h0"], a["xp"], *q, mask,
+                                              variant=variant)
+    out1, fin1 = K.gru_stack_sequence_q8_kernel(
+        a["h0"][:, 1:2].contiguous(), a["xp"][pad:, 1:2].contiguous(), *q,
+        variant=variant)
+    one = (q[0][0], q[1][0], q[4][0])
+    seq = K.gru_sequence_q8_kernel(a["h0"][0], a["xp"], *one, mask,
+                                   variant=variant)
+    seq1 = K.gru_sequence_q8_kernel(a["h0"][0, 1:2].contiguous(),
+                                    a["xp"][pad:, 1:2].contiguous(), *one,
+                                    variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out[pad:, 1], out1[:, 0])
+    assert torch.equal(fin[:, 1], fin1[:, 0])
+    assert torch.equal(out[:pad, 1], a["h0"][2, 1].expand(pad, 32))
+    assert torch.equal(seq[pad:, 1], seq1[:, 0])
+    assert torch.equal(seq[:pad, 1], a["h0"][0, 1].expand(pad, 32))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("LH,B,variant", DECODE_WARP_CASES)
 def test_q8_decode_warp_route_matches_block_and_plain(cuda_device, LH, B,
