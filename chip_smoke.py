@@ -16,8 +16,10 @@ Phases (any failure exits non-zero, before the result lines):
    routes, ``gru_step_q8``'s warp route, the two fused decode kernels'
    warp routes, ``gru_stack_sequence_kernel``'s warp route, its 4
    instances, and the q8 prefills' warp routes, ``gru_sequence_q8_kernel``'s
-   and ``gru_stack_sequence_q8_kernel``'s 4 each, must not spill;
-   the prefill warp routes' registers are printed)
+   and ``gru_stack_sequence_q8_kernel``'s 4 each, and the single step's
+   new routes, ``gru_step_warp_k``'s 12 and ``gru_step_wide_k``'s 24
+   instances, must not spill; the prefill warp routes' and the step's new
+   routes' registers are printed)
    and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree), the row-wise
@@ -132,11 +134,16 @@ Phases (any failure exits non-zero, before the result lines):
    (bf16 N = 20 and 100, fp32 K = 1000). Each call must launch exactly the
    kernel JAX's dispatch rule names (``gru_step_fused`` or
    ``gru_step_blocked``; ``rowwise_matmul``, ``cascade_matmul``) on the
-   route its plan names (plain loads exactly where TMA cannot read the
-   operands), no plain version and no other kernel may run; then each
-   output is held against
-   its plain version on the card (step: fp32 1e-5, bf16 u 1e-2; matmuls
-   rtol = atol 2e-4 fp32, 2e-2 bf16);
+   route its plan names (the step: ``step_plan``'s warp route at H <= 32,
+   its wide route for v1 at H 1000 and up, the column tile for v3 there,
+   checked on ``last_plan`` after every call; the matmuls: plain loads
+   exactly where TMA cannot read the operands), no plain version and no
+   other kernel may run; then each output is held against its plain
+   version on the card (step: fp32 1e-5, bf16 u 1e-2; matmuls rtol = atol
+   2e-4 fp32, 2e-2 bf16), and each step also against the column tile it
+   took before (forced through the C entries) within the same tolerance,
+   the largest difference printed, and against a second launch (the same
+   bits);
 11b. the mesh path: after the build, the script starts itself once per
    rank (``--mesh-rank``) for a 2-rank and a 4-rank mesh on the one card
    (gloo, since NCCL refuses two ranks on one device; the collectives go
@@ -172,6 +179,9 @@ Phases (any failure exits non-zero, before the result lines):
    inputs and the matmuls beside one ``torch.matmul`` (TF32 off) where it
    computes the same function, ``torch.mm(..., out_dtype=float32)`` for
    the bf16 cascade (timed only; the port never calls either);
+   ``gru_step_fused`` and ``gru_step_blocked`` beside the column tile
+   they launched before, forced at the same shapes (also phase 11's
+   shapes one by one, with launches x (device - bound) both ways);
    ``gru_sequence_kernel`` beside its block route forced at the same
    shapes (its served shapes split by launches) and beside one
    ``torch.nn.GRU`` (cuDNN) call on the v3 unmasked work at T=32 B=8 H=32,
@@ -396,6 +406,17 @@ def build_kernels():
         check(len(frames) == want and not spills, f"{lib}: ptxas reports "
               f"spills in {fn} {spills[:3]} ({len(frames)} instances)")
         print(f"  {lib}: {fn}'s {len(frames)} instances, no spills (ptxas)")
+    # rows 10 and 11's new routes: the warp route's instances (v1/v3, H 20,
+    # 32 or any, fp32/bf16 u) and the wide route's (1, 2, 4 or 8 rows a
+    # pass; 4, 8 or 16 columns a gate; fp32/bf16 u)
+    for fn, want in (("gru_step_warp_k", 12), ("gru_step_wide_k", 24)):
+        frames = [(f, ln) for f, ln in spill_frames("gru_cell") if fn in f]
+        spills = [f for f, ln in frames if not no_spill(ln)]
+        check(len(frames) == want and not spills, f"gru_cell: ptxas reports "
+              f"spills in {fn} {spills[:3]} ({len(frames)} instances)")
+        regs = [n for f, n in register_counts("gru_cell") if fn in f]
+        print(f"  gru_cell: {fn}'s {len(frames)} instances, no spills "
+              f"(ptxas), {min(regs)}-{max(regs)} registers")
     # the registers of the prefill warp routes (row 2's speed hangs on
     # ptxas's choice: 147 and 158 at H=32 where it was timed; PERF.md)
     for lib, fn in (("gru_sequence", "gru_stack_sequence_warp_k"),
@@ -459,6 +480,16 @@ def build_kernels():
     ms = _build.load("rowwise_matvec").rowwise_smem_bytes
     gs.argtypes, ms.argtypes = [ctypes.c_int] * 4, [ctypes.c_int] * 8
     gs.restype = ms.restype = ctypes.c_size_t
+    ws = _build.load("gru_cell").gru_step_wide_smem_bytes
+    ws.argtypes, ws.restype = [ctypes.c_int] * 6, ctypes.c_size_t
+    for bf16, dt in ((0, torch.float32), (1, torch.bfloat16)):
+        for H in (20, 1000, 1001, 2048):
+            for bt, cw, kc, st in ((1, 4, 128, 2), (8, 8, 512, 3),
+                                   (4, 16, 1024, 32)):
+                want = CK.wide_smem(H, bt, cw, kc, st, dt)
+                check(ws(H, bt, cw, kc, st, bf16) == want, f"gru_cell wide "
+                      f"smem H={H} bt={bt} cw={cw} kc={kc} stages={st} {dt}: "
+                      f"CUDA {ws(H, bt, cw, kc, st, bf16)} != wrapper {want}")
     for code, kind in enumerate(("v1", "v3", "blocked")):
         for H in (20, 32, 1000, 1024, 2048):
             for bt in (1, 2, 4, 8):
@@ -745,6 +776,30 @@ def step_q8_block_route(B, H):
     from repro_torch.kernels import _launch
     from repro_torch.kernels.gru_cell import kernel as CK
     return CK.step_q8_block_plan(B, H, min(B, _launch.DEFAULT_BATCH_BLOCK))
+
+
+def step_route_fn(torch, step, variant, plan, blocked=False):
+    """A call of the fp32/bf16 step's C entries on ``step`` (h, xp, u, b)
+    at an explicit plan (``kernel.warp_step_plan``, ``wide_step_plan`` or
+    ``tile_step_plan``; ``blocked``: the blocked step's order of additions
+    and, on the tile route, its two kernels), into a fresh output: the
+    route forced, for phase 11's check of both routes, the before/after
+    times of phase 12 and ``tools/step_tiles.py``. Reads the current stream
+    at each call, so a CUDA-graph capture records it; raises if the launch
+    is refused."""
+    from repro_torch.kernels.gru_cell import kernel as CK
+
+    def call():
+        return CK.launch_step(plan, *step, variant, blocked)
+    return call
+
+
+def step_old_route(B, H, variant, u_dtype, kernel):
+    """The column-tile route each step kernel launched before the warp and
+    wide routes (``kernel.tile_step_plan``)."""
+    from repro_torch.kernels.gru_cell import kernel as CK
+    kind = "blocked" if kernel == "gru_step_blocked" else variant
+    return CK.tile_step_plan(kind, B, H, u_dtype)
 
 
 def decode_route_fn(torch, a, variant, plan, q8=False, vec=None):
@@ -2244,11 +2299,14 @@ def run_rowwise_path(torch, dev):
         check(delta == {n: int(n == want) for n in counters},
               f"{want}: launches {delta}")
         return out
+    from repro_torch.kernels.gru_cell import kernel as CK
+    sms = CK.sm_count(dev)
     K.reset_launch_counts()                          # the row-wise path
-    got = []
+    got, plans = [], []
     with plain_calls() as plain:
         for (B, H, v, dt, kern), a in steps:
             got.append(call(lambda: cops.gru_step_cuda(*a, v), kern))
+            plans.append(getattr(CK, kern).last_plan)
         for c, (x, w) in mms:
             got.append((call(lambda: mops.rowwise(x, w), "rowwise_matmul"),
                         call(lambda: mops.cascade(x, w), "cascade_matmul"),
@@ -2269,16 +2327,37 @@ def run_rowwise_path(torch, dev):
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the row-wise path never launched: {launches}")
     err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in ROWWISE}
-    for ((B, H, v, dt, kern), a), y in zip(steps, got):
+    for ((B, H, v, dt, kern), a), y, p in zip(steps, got, plans):
         want = cref.gru_step_ref(*a, v)
         tol = TOL if dt == "float32" else STEP_BF16_TOL
         e = (y - want).abs().max().item()
         err[kern][dt] = max(err[kern][dt], e)
+        head = f"{kern} B={B} H={H} {v} u {dt}"
         check(y.dtype == torch.float32 and bool(torch.isfinite(y).all())
               and torch.allclose(y, want, rtol=tol, atol=tol),
-              f"{kern} B={B} H={H} {v} u {dt}: max |err| {e:.3g} (tol {tol})")
-        print(f"  gru_step_cuda B={B} H={H:4d} {v} u {dt:8s} -> {kern}: max "
-              f"|kernel - plain| {e:.3g}", flush=True)
+              f"{head}: max |err| {e:.3g} (tol {tol})")
+        # the plan's route, against the column tile the step took before
+        # (forced through the C entries; no counter moves) and against a
+        # second launch of itself
+        check(p == CK.step_plan(B, H, v, a[2].dtype, kern, sms),
+              f"{head}: launched {p}, the plan names "
+              f"{CK.step_plan(B, H, v, a[2].dtype, kern, sms)}")
+        blocked = kern == "gru_step_blocked"
+        old = step_route_fn(torch, a, v, step_old_route(B, H, v, a[2].dtype,
+                                                        kern), blocked)()
+        again = step_route_fn(torch, a, v, p, blocked)()
+        torch.cuda.synchronize()
+        e_old = (y - old).abs().max().item()
+        check(torch.allclose(old, want, rtol=tol, atol=tol)
+              and torch.allclose(y, old, rtol=tol, atol=tol),
+              f"{head}: old route max |err| "
+              f"{(old - want).abs().max().item():.3g}, new - old {e_old:.3g}"
+              f" (tol {tol})")
+        check(torch.equal(y, again), f"{head}: two launches of {p.route} "
+              f"differ")
+        print(f"  gru_step_cuda B={B} H={H:4d} {v} u {dt:8s} -> {kern} "
+              f"({p.route}): max |kernel - plain| {e:.3g}, |new - old route| "
+              f"{e_old:.3g}", flush=True)
     for ((B, K_, N, dt, vec), (x, w)), (yr, yc, routes) in zip(
             mms, got[len(steps):]):
         x2 = x[None] if vec else x
@@ -2306,8 +2385,10 @@ def run_rowwise_path(torch, dev):
               f"{' (1-D x)' if vec else ''}: max |kernel - plain| "
               f"{es[0]:.3g} / {es[1]:.3g} ({routes[0]})", flush=True)
     print(f"  {len(steps)} steps and {len(mms)} x 2 matmuls, each on the "
-          f"kernel JAX's rule names, within tolerance of its plain version "
-          f"(step fp32 {TOL}, bf16 u {STEP_BF16_TOL}; matmuls {MM_TOL})",
+          f"kernel JAX's rule names and the route its plan names, within "
+          f"tolerance of its plain version (step fp32 {TOL}, bf16 u "
+          f"{STEP_BF16_TOL}; matmuls {MM_TOL}); each step also of the "
+          f"column tile forced beside it, and equal to a second launch",
           flush=True)
     return launches, err
 
@@ -3467,6 +3548,7 @@ ROWWISE_TIMED = (
     ("gru_step_fused", (8, 32, None, "v3", "float32")),
     ("gru_step_fused", (8, 32, None, "v1", "bfloat16")),
     ("gru_step_fused", (1, 1000, None, "v1", "float32")),
+    ("gru_step_fused", (8, 1000, None, "v1", "float32")),
     ("gru_step_fused", (8, 1024, None, "v3", "float32")),
     ("gru_step_blocked", (1, 1024, None, "v1", "float32")),
     ("gru_step_blocked", (8, 1024, None, "v1", "float32")),  # JSON row
@@ -3513,7 +3595,9 @@ def rowwise_bound_ms(name, shape):
 def time_rowwise(torch, dev, err, launches):
     """Kernel, plain-version, library and bound times of the four row-wise
     primitives, each kernel called through its wrapper with the blocks its
-    entry point picks; returns the four JSON rows."""
+    entry point picks (the two steps also with their old column tile
+    forced, and by phase 11's shapes: ``step_gaps``); returns the four
+    JSON rows."""
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.gru_cell import ref as cref
     from repro_torch.kernels.rowwise_matvec import kernel as MK
@@ -3575,10 +3659,19 @@ def time_rowwise(torch, dev, err, launches):
         bms, by = rowwise_bound_ms(name, shape)
         lib_s = f"{lib * 1e3:8.2f} us" if lib is not None else "    n/a"
         plan = ""
+        old_ms = None
         if name.endswith("matmul"):
             p = getattr(MK, name).last_plan
             plan = (f"  [{p.route} ct={p.ct} kc={p.kc} stages={p.stages} "
                     f"warps={p.warps} grid={p.grid}]")
+        else:
+            p = getattr(CK, name).last_plan
+            old_ms = device_time_ms(torch, step_route_fn(
+                torch, (h, xp, u, b), v, step_old_route(B, n, v, u.dtype,
+                                                        name),
+                name == "gru_step_blocked"), per_graph=50)
+            plan = (f"  [{step_plan_str(p)}; old column tile "
+                    f"{old_ms * 1e3:.2f} us]")
         print(f"  {name:16s} {label}: device {ms * 1e3:9.2f} us (per call "
               f"{call * 1e3:8.2f})  plain {plain * 1e3:9.2f} us  matmul "
               f"{lib_s}  bound {bms * 1e3:8.4f} us ({by}){plan}", flush=True)
@@ -3593,12 +3686,58 @@ def time_rowwise(torch, dev, err, launches):
                 "bound_by": by, "library_ms": lib, "call_ms": call,
                 "shape": {"B": B, ("H" if N is None else "K"): n, "N": N,
                           "variant": v, "dtype": dtype}})
+            if old_ms is not None:
+                rows[-1]["plan"] = str(p)
+                rows[-1]["old_route_ms"] = old_ms
+    step_gaps(torch, dev, launches)
     print("  library_ms: torch.matmul on the same inputs (TF32 off) where it "
           "computes the same function (rowwise; fp32 cascade), torch.mm with "
           "out_dtype=float32 for the bf16 cascade; null for the GRU steps -- "
           "torch.nn.GRUCell computes neither v1 nor JAX's v3 from a given "
           "x_proj", flush=True)
     return rows
+
+
+def step_plan_str(p):
+    """A step plan's route and knobs, short."""
+    if p.route == "warp":
+        return f"warp warps={p.warps}"
+    if p.route == "wide":
+        return (f"wide cw={p.ct} kc={p.kc} stages={p.stages} rows={p.rows} "
+                f"grid={p.grid}")
+    return f"tile ct={p.ct} rows={p.rows} grid={p.grid}"
+
+
+def step_gaps(torch, dev, launches):
+    """Rows 10 and 11's launches in phase 11 by shape (``STEP_SHAPES``, one
+    call each): device time under the plan and with the old column tile
+    forced, the bound, and launches x (device - bound) summed by kernel
+    both ways."""
+    from repro_torch.kernels.gru_cell import kernel as CK
+    from repro_torch.kernels.gru_cell import ops as cops
+    for name in ("gru_step_fused", "gru_step_blocked"):
+        shapes = [c for c in STEP_SHAPES if c[4] == name]
+        check(len(shapes) == launches[name], f"{name}: phase 11's shapes "
+              f"{len(shapes)} do not match its {launches[name]} launches")
+        gap = gap_old = 0.0
+        for B, H, v, dt, _ in shapes:
+            a = step_inputs(torch, B, H, dt, 17, dev)
+            ms = device_time_ms(torch, lambda: cops.gru_step_cuda(*a, v),
+                                per_graph=50)
+            p = getattr(CK, name).last_plan
+            old = device_time_ms(torch, step_route_fn(
+                torch, a, v, step_old_route(B, H, v, a[2].dtype, name),
+                name == "gru_step_blocked"), per_graph=50)
+            bms, _ = rowwise_bound_ms(name, (B, H, None, v, dt))
+            gap += (ms - bms) * 1e3
+            gap_old += (old - bms) * 1e3
+            print(f"  {name} served B={B} H={H:4d} {v} u {dt:8s}: 1 launch, "
+                  f"device {ms * 1e3:7.2f} us ({step_plan_str(p)}), old "
+                  f"column tile {old * 1e3:7.2f} us, bound "
+                  f"{bms * 1e3:.4f} us", flush=True)
+        print(f"  {name}: launches x (device - bound) over its {len(shapes)} "
+              f"phase-11 launches = {gap:.0f} us (old column tile forced: "
+              f"{gap_old:.0f} us)", flush=True)
 
 
 # elementwise operations per output unit of each shard kernel (a sigmoid

@@ -11,6 +11,7 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -102,6 +103,19 @@ def fits_smem(smem: Callable[[int, int, int], int], L: int, H: int,
     routes a stack to a kernel backend."""
     bt = min(batch or DEFAULT_BATCH_BLOCK, DEFAULT_BATCH_BLOCK)
     return smem(L, H, bt) <= SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA card ``device`` (read once per
+    card)."""
+    device = torch.device(device)
+    index = device.index
+    return _sms_of(torch.cuda.current_device() if index is None else index)
 
 
 def stream(device: torch.device) -> int:

@@ -24,13 +24,13 @@ card to the plain version.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.kernels import _launch
 from repro_torch.kernels._launch import I, P, SMEM_LIMIT
 from repro_torch.kernels._launch import raise_on as _raise_on
+from repro_torch.kernels._launch import sm_count
 from repro_torch.kernels._launch import stream as _stream
 from repro_torch.kernels.decode_attn import ref
 
@@ -58,19 +58,6 @@ def num_splits(B: int, Hkv: int, C: int, sms: int = SM_COUNT) -> int:
     if tiles <= STAGES:
         return 1
     return max(1, min(tiles, MAX_SPLITS, sms // (B * Hkv)))
-
-
-@functools.lru_cache(maxsize=None)
-def _sms_of(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of the CUDA card ``device`` (read once per
-    card)."""
-    device = torch.device(device)
-    index = device.index
-    return _sms_of(torch.cuda.current_device() if index is None else index)
 
 
 def smem_bytes(D: int, dtype: torch.dtype) -> int:

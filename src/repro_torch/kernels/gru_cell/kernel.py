@@ -8,10 +8,9 @@ Same names and array interfaces as the Pallas kernels in
   float32, u (H,3H) float32 or bfloat16 (gate columns [z | r | h]), b
   (3H,) float32 -> (B,H) float32; v1 or v3. h and r*h are rounded to u's
   dtype before each product; sums are fp32.
-* :func:`gru_step_blocked` — the same step, v1, split over column tiles of
-  many thread blocks for large H; ``block_n`` is JAX's row block and must
-  divide H (``min(block_n, H)``, as there); the CUDA kernels pick their
-  own tiles.
+* :func:`gru_step_blocked` — the same step, v1, spread over many thread
+  blocks for large H; ``block_n`` is JAX's row block and must divide H
+  (``min(block_n, H)``, as there); the CUDA kernels pick their own tiles.
 * :func:`gru_step_q8` — one q8 cell update, h (B,H) float32, x_proj (B,3H)
   float32, u_q (3H,H) int8 weight rows, u_eff (3H,) per-row dequant
   scales, b (3H,) -> (B,H) float32; v1 or v3.
@@ -19,24 +18,34 @@ Same names and array interfaces as the Pallas kernels in
 Each checks device, dtype, shapes and contiguity and raises on anything
 its kernel does not take (:mod:`repro_torch.kernels._launch`). For CPU
 tensors it returns the plain PyTorch version (``ref.py``); for CUDA tensors
-it allocates the output (and the blocked step's z and r*h scratch) with
-``torch.empty``, launches on the current stream, raises if a launch was
-refused, and adds one to its ``launches`` counter (zeroed by
+it allocates the output (and the wide and blocked routes' z and r*h
+scratch) with ``torch.empty``, launches on the current stream, raises if
+a launch was refused, and adds one to its ``launches`` counter (zeroed by
 ``repro_torch.kernels.gru_sequence.kernel.reset_launch_counts``).
 ``gru_step_q8`` belongs to its ``CHAIN_Q8_KERNELS``; the fp32/bf16 pair is
-:data:`STEP_KERNELS`. ``gru_step_blocked`` is two CUDA launches on the
-stream (gates, then candidate) and counts once per call.
+:data:`STEP_KERNELS`. A call counts once whatever its CUDA launches (the
+old blocked route and the wide route's dependent-launch pair are two).
+
+:func:`gru_step_fused` and :func:`gru_step_blocked` launch the route
+:func:`step_plan` picks and keep it as ``last_plan``: "warp" (one warp a
+batch row, lane c owning column c of every gate; the fused step at H <=
+:data:`STEP_WARP_MAX_H`, the paper's widths), "wide" (v1: one step spread
+over the whole card, ceil(H / cw) blocks streaming their column slices of
+U through a ring of shared memory, z and r*h through global scratch and
+one grid barrier; v1 past the warp route) or "tile" (the column tile of
+``col_tile.cuh`` that both launched before: v3 past the warp route, and
+v1 where the wide route's grid does not fit the card). :func:`launch_step`
+launches any plan,
+so tests and tools can force a route (``tile_step_plan`` is the route
+each step took before). The column tile takes at most 8 rows a block (the
+smallest power of two that holds B, halved until the block's shared
+memory fits) and raises beyond what one block holds.
 
 :func:`gru_step_q8` launches the route :func:`step_q8_plan` picks (one
 warp per batch row where H <= :data:`STEP_Q8_WARP_MAX_H`, every served
 width; else a block of a batch tile of
 :data:`~repro_torch.kernels._launch.DEFAULT_BATCH_BLOCK` rows) and keeps
-it as ``last_plan``. The fp32/bf16 kernels take at most 8 rows (the
-smallest power of two that holds B, halved until the block's shared
-memory fits); the grid runs over batch tiles and, for the v3 fused step
-and the blocked step, over column tiles. The v1 fused step keeps h, z and
-r*h of its tile in shared memory (12 bytes per row and unit of H) and
-raises beyond what one block holds (H of about 19,000 at one row).
+it as ``last_plan``.
 """
 from __future__ import annotations
 
@@ -57,6 +66,11 @@ _WARP_ARGS = [P] * 6 + [I] * 5 + [P]
 _FUSED_ARGS = [P] * 5 + [I] * 7 + [P]
 # h, xp, u, b, zs, rhs, out, B, H, bf16, bt, ct, vec, stream
 _BLOCKED_ARGS = [P] * 7 + [I] * 6 + [P]
+# h, xp, u, b, out, B, H, v3, bf16, warps, stream
+_WARP_STEP_ARGS = [P] * 5 + [I] * 5 + [P]
+# h, xp, u, b, zs, rhs, out, B, H, bf16, bt, cw, kc, stages, vec, blk,
+# stream
+_WIDE_ARGS = [P] * 7 + [I] * 9 + [P]
 WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_ROWS = 8                 # rows of one block's batch tile (BT)
 NARROW_H = 64                # widest state the v3 fused step tiles by 32
@@ -128,58 +142,238 @@ def _vec(H: int, u: torch.Tensor) -> int:
     return int(H % 4 == 0 and u.data_ptr() % (4 * u.element_size()) == 0)
 
 
+# The warp route (one warp a batch row, lane c owning column c; kWarpMaxH
+# in csrc/gru_cell.cu) and its warps a block, read off tools/step_tiles.py
+# on an H100 (PERF.md's findings).
+STEP_WARP_MAX_H = 32
+STEP_WARPS = 2
+# The wide route (v1, one step over the whole card, one cooperative
+# launch): columns a gate a block (the narrowest whose grid fits one block
+# an SM), the stages a streaming ring keeps room for, the most stages a
+# block holds (kWideMaxStages). Every v1 step past the warp route takes it
+# (tools/step_tiles.py timed it faster than the column tile from H = 40
+# on).
+WIDE_COLS = (4, 8, 16)
+WIDE_STAGES = 3
+WIDE_MAX_STAGES = 32
+SMS = 132                    # an H100 SXM's SMs; wrappers pass the card's
+WIDE_ROWS = 8                # batch rows of one pass of a wide block
+WIDE_THREADS = 256           # threads of a wide block (kWideThreads)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """One launch of :func:`gru_step_fused` or :func:`gru_step_blocked`:
+    ``route`` "warp" (one warp a batch row, ``warps`` a block), "wide"
+    (``grid`` blocks of ``ct`` columns a gate, ``rows`` batch rows a pass,
+    ``kc`` z/r rows a stage, ``stages`` in the ring; one cooperative
+    launch) or "tile" (the column tile: ``ct`` columns a tile, ``rows``
+    the batch tile; the blocked step's two launches). ``grid`` blocks a
+    launch, ``threads`` a block, ``smem`` dynamic bytes a block."""
+    route: str
+    grid: int
+    threads: int
+    smem: int
+    rows: int
+    warps: int = 0
+    ct: int = 0
+    kc: int = 0
+    stages: int = 0
+
+
+def warp_step_plan(B: int, warps: int = STEP_WARPS) -> StepPlan:
+    """The warp route at ``warps`` warps a block (no more than B needs)."""
+    warps = min(warps, 1 << max(B - 1, 0).bit_length())
+    return StepPlan("warp", -(-B // warps), 32 * warps, 0, 1, warps=warps)
+
+
+def tile_step_plan(kind: str, B: int, H: int,
+                   u_dtype: torch.dtype) -> StepPlan:
+    """The column-tile route as the wrappers launched it before the warp
+    and wide routes: kind ``v1``/``v3`` (the fused step) or ``blocked``."""
+    ct = column_tile(u_dtype, kind == "v1" or (kind == "v3"
+                                               and H <= NARROW_H))
+    bt = step_tile(kind, B, H, ct)
+    cols = 1 if kind == "v1" else -(-H // ct)
+    return StepPlan("tile", cols * -(-B // bt), _launch.THREADS,
+                    smem_bytes_step(kind, H, bt, ct), bt, ct=ct)
+
+
+def wide_smem(H: int, bt: int, cw: int, kc: int, stages: int,
+              u_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one wide block (mirrors ``wide_smem`` in
+    the CUDA source): the (H, bt) operand rounded up to 16 bytes, the ring
+    of ``stages`` stages of 2*kc*cw weights, the warps' sums."""
+    item = 2 if u_dtype == torch.bfloat16 else 4
+    return (4 * (-(-H * bt // 4) * 4) + stages * 2 * kc * cw * item
+            + 4 * (WIDE_THREADS // 32) * bt * 32)
+
+
+def wide_chunks(B: int, H: int, bt: int, kc: int) -> int:
+    """Chunks one wide block streams: per batch tile ceil(H / kc) of z/r
+    rows and ceil(H / 2kc) of candidate rows."""
+    return -(-B // bt) * (-(-H // kc) + -(-H // (2 * kc)))
+
+
+def wide_kc_unit(cw: int) -> int:
+    """The wide route's z/r rows a stage come in multiples of 2 *
+    :data:`WIDE_THREADS` / cw: every span is then a multiple of both
+    passes' k-slices (a thread owns 4 columns, so 4 * WIDE_THREADS / Q
+    slices for a pass over Q columns; the C entry refuses other kc)."""
+    return 4 * WIDE_THREADS // (2 * cw)
+
+
+def wide_step_plan(B: int, H: int, u_dtype: torch.dtype, *,
+                   cw: int = 0, kc: int = 0, stages: int = 0,
+                   sms: int = SMS):
+    """The wide route's launch: ``cw`` 0 picks the narrowest of
+    :data:`WIDE_COLS` whose grid fits one block an SM; ``kc`` 0 one pass's
+    rows (H, rounded up to :func:`wide_kc_unit`) where two stages of them
+    fit, else the largest of the unit's power-of-two multiples with which
+    :data:`WIDE_STAGES` stages fit (fewer, larger chunks were faster at
+    every shape the sweep timed, as long as a streaming ring kept three
+    stages); ``stages`` 0 as many as the chunks need and a block's
+    shared memory holds (at most :data:`WIDE_MAX_STAGES`). The batch rows
+    of a pass: the smallest power of two >= B, at most :data:`WIDE_ROWS`,
+    halved until two stages of one unit fit. None where the grid does not
+    fit one block an SM (the cooperative launch's residency) or not even
+    one row and two such stages fit."""
+    if not cw:
+        cw = next((c for c in WIDE_COLS if -(-H // c) <= sms), WIDE_COLS[-1])
+    grid = -(-H // cw)
+    if grid > sms:
+        return None
+    unit = wide_kc_unit(cw)
+
+    def smem(bt, kc, n):
+        return wide_smem(H, bt, cw, kc, n, u_dtype)
+    bt = min(WIDE_ROWS, 1 << max(B - 1, 0).bit_length())
+    while bt > 1 and smem(bt, kc or unit, 2) > SMEM_LIMIT:
+        bt //= 2
+    if smem(bt, kc or unit, 2) > SMEM_LIMIT:
+        return None
+    if not kc:
+        whole = -(-H // unit) * unit
+        kc = unit
+        while kc * 2 < whole and smem(bt, kc * 2, WIDE_STAGES) <= SMEM_LIMIT:
+            kc *= 2
+        if smem(bt, whole, 2) <= SMEM_LIMIT:
+            kc = whole
+    if not stages:
+        per = smem(bt, kc, 1) - smem(bt, kc, 0)
+        stages = min(WIDE_MAX_STAGES, max(2, wide_chunks(B, H, bt, kc)),
+                     (SMEM_LIMIT - smem(bt, kc, 0)) // per)
+    return StepPlan("wide", grid, WIDE_THREADS, smem(bt, kc, stages), bt,
+                    ct=cw, kc=kc, stages=stages)
+
+
+@functools.lru_cache(maxsize=1024)
+def step_plan(B: int, H: int, variant: str, u_dtype: torch.dtype,
+              kernel: str = "gru_step_fused", sms: int = SMS) -> StepPlan:
+    """The launch of ``kernel``: the fused step takes the warp route where
+    H <= :data:`STEP_WARP_MAX_H`; past it (and the blocked step always) v1
+    takes the wide route and v3 the column tile; v1 takes the column tile
+    only where the wide route does not fit (a grid past ``sms`` blocks: H
+    > 16 * sms). Raises where nothing fits one block's shared memory."""
+    _launch.check_problem(variant, B, 1, H, 1)
+    if kernel == "gru_step_fused" and H <= STEP_WARP_MAX_H:
+        return warp_step_plan(B)
+    if variant == "v1":
+        p = wide_step_plan(B, H, u_dtype, sms=sms)
+        if p is not None:
+            return p
+    return tile_step_plan("blocked" if kernel == "gru_step_blocked"
+                          else variant, B, H, u_dtype)
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs a cooperative grid may span: the card's, :data:`SMS` for a
+    plan made on the CPU."""
+    return _launch.sm_count(device) if device.type == "cuda" else SMS
+
+
+def launch_step(p: StepPlan, h, x_proj, u, b, variant: str,
+                blocked: bool) -> torch.Tensor:
+    """Launch plan ``p`` on CUDA tensors (checked by the caller) into a new
+    (B, H) output; ``blocked``: the blocked step's order of additions on
+    the wide route and its two kernels on the tile route. The wrappers'
+    launch, and how tests and tools force a route."""
+    B, H = h.shape
+    dev = h.device
+    out = torch.empty((B, H), dtype=torch.float32, device=dev)
+    bf16 = int(u.dtype == torch.bfloat16)
+    head = (_launch.ptr(h), _launch.ptr(x_proj), _launch.ptr(u),
+            _launch.ptr(b))
+    if p.route == "warp":
+        err = _launch.launcher("gru_cell", "gru_step_warp_launch",
+                               _WARP_STEP_ARGS)(
+            *head, _launch.ptr(out), B, H, int(variant == "v3"), bf16,
+            p.warps, _launch.stream(dev))
+    elif p.route == "tile" and not blocked:
+        err = _launch.launcher("gru_cell", "gru_step_fused_launch",
+                               _FUSED_ARGS)(
+            *head, _launch.ptr(out), B, H, int(variant == "v3"), bf16,
+            p.rows, p.ct, _vec(H, u), _launch.stream(dev))
+    else:
+        # z (B, H); r*h (B, H), on the wide route tile-major (tiles, H, rows)
+        zs = torch.empty((B, H), dtype=torch.float32, device=dev)
+        rhs = torch.empty((-(-B // p.rows) * p.rows, H), dtype=torch.float32,
+                          device=dev)
+        scratch = (_launch.ptr(zs), _launch.ptr(rhs), _launch.ptr(out))
+        if p.route == "tile":
+            err = _launch.launcher("gru_cell", "gru_step_blocked_launch",
+                                   _BLOCKED_ARGS)(
+                *head, *scratch, B, H, bf16, p.rows, p.ct, _vec(H, u),
+                _launch.stream(dev))
+        else:
+            err = _launch.launcher("gru_cell", "gru_step_wide_launch",
+                                   _WIDE_ARGS)(
+                *head, *scratch, B, H, bf16, p.rows, p.ct, p.kc, p.stages,
+                _vec(H, u) * int(h.data_ptr() % 16 == 0), int(blocked),
+                _launch.stream(dev))
+    _launch.raise_on(err, "gru_step_blocked" if blocked else "gru_step_fused")
+    return out
+
+
 def gru_step_fused(h: torch.Tensor, x_proj: torch.Tensor, u: torch.Tensor,
                    b: torch.Tensor, *, variant: str = "v1") -> torch.Tensor:
-    """h' for one step, the whole state of a batch tile in one block (v1)
-    or column tiles over blocks (v3) -> (B,H) float32."""
+    """h' for one step -> (B,H) float32. Launches :func:`step_plan`'s route
+    and keeps the plan as ``last_plan``."""
     if variant not in _launch.VARIANTS:
         raise ValueError(f"variant {variant!r} not in {_launch.VARIANTS}")
     B, H, dev = _check_step(h, x_proj, u, b)
-    ct = column_tile(u.dtype, variant == "v1" or H <= NARROW_H)
-    bt = step_tile(variant, B, H, ct)
+    p = step_plan(B, H, variant, u.dtype, "gru_step_fused", sm_count(dev))
     if dev.type == "cpu":
         return ref.gru_step_ref(h, x_proj, u, b, variant)
-    out = torch.empty((B, H), dtype=torch.float32, device=dev)
-    err = _launch.launcher("gru_cell", "gru_step_fused_launch", _FUSED_ARGS)(
-        _launch.ptr(h), _launch.ptr(x_proj), _launch.ptr(u), _launch.ptr(b),
-        _launch.ptr(out), B, H, int(variant == "v3"),
-        int(u.dtype == torch.bfloat16), bt, ct, _vec(H, u),
-        _launch.stream(dev))
-    _launch.raise_on(err, "gru_step_fused")
+    out = launch_step(p, h, x_proj, u, b, variant, False)
     gru_step_fused.launches += 1
+    gru_step_fused.last_plan = p
     return out
 
 
 def gru_step_blocked(h: torch.Tensor, x_proj: torch.Tensor, u: torch.Tensor,
                      b: torch.Tensor, *, block_n: int = 256) -> torch.Tensor:
-    """The v1 step over column tiles of many blocks: z and r*h for every
-    column first (into scratch), then the candidate and the update, as two
-    launches on the current stream -> (B,H) float32. ``min(block_n, H)``
-    must divide H, as JAX asserts."""
+    """The v1 step for large H, z and r*h of every column before any
+    candidate -> (B,H) float32. ``min(block_n, H)`` must divide H, as JAX
+    asserts. Launches :func:`step_plan`'s route (the wide route; z and r*h
+    through (B, H) scratch) and keeps the plan as ``last_plan``."""
     B, H, dev = _check_step(h, x_proj, u, b)
     bn = min(block_n, H)
     if H % bn:
         raise ValueError(f"H={H} is not a multiple of block_n={bn}")
-    ct = column_tile(u.dtype, False)
-    bt = step_tile("blocked", B, H, ct)
+    p = step_plan(B, H, "v1", u.dtype, "gru_step_blocked", sm_count(dev))
     if dev.type == "cpu":
         return ref.gru_step_ref(h, x_proj, u, b, "v1")
-    out = torch.empty((B, H), dtype=torch.float32, device=dev)
-    zs = torch.empty((B, H), dtype=torch.float32, device=dev)
-    rhs = torch.empty((B, H), dtype=torch.float32, device=dev)
-    err = _launch.launcher("gru_cell", "gru_step_blocked_launch",
-                           _BLOCKED_ARGS)(
-        _launch.ptr(h), _launch.ptr(x_proj), _launch.ptr(u), _launch.ptr(b),
-        _launch.ptr(zs), _launch.ptr(rhs), _launch.ptr(out), B, H,
-        int(u.dtype == torch.bfloat16), bt, ct, _vec(H, u),
-        _launch.stream(dev))
-    _launch.raise_on(err, "gru_step_blocked")
+    out = launch_step(p, h, x_proj, u, b, "v1", True)
     gru_step_blocked.launches += 1
+    gru_step_blocked.last_plan = p
     return out
 
 
 gru_step_fused.launches = 0
 gru_step_blocked.launches = 0
+gru_step_fused.last_plan = None
+gru_step_blocked.last_plan = None
 STEP_KERNELS = (gru_step_fused, gru_step_blocked)
 
 

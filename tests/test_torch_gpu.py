@@ -1337,6 +1337,94 @@ def test_step_kernels_match_plain(cuda_device, B, H, variant, dtype,
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+# The step's new routes (warp at H <= 32, wide for v1) against the column
+# tile each kernel launched before, forced through the C entries
+# (``kernel.launch_step`` with ``kernel.tile_step_plan``), and against the
+# plain version: H 20 and 32 (the warp route's constant widths), 31 (any
+# width, ragged), 1000, 1024 and 2048; B 1, 8 and 64; fp32 and bf16 u.
+NEW_ROUTE_KINDS = (("gru_step_fused", "v1"), ("gru_step_fused", "v3"),
+                   ("gru_step_blocked", "v1"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("B", (1, 8, 64))
+@pytest.mark.parametrize("H", (20, 31, 32, 1000, 1024, 2048))
+@pytest.mark.parametrize("kernel,variant", NEW_ROUTE_KINDS)
+def test_step_new_routes_match_old_route_and_plain(cuda_device, kernel,
+                                                   variant, H, B, dtype):
+    dt = getattr(torch, dtype)
+    h, xp, u, b = _step_inputs(B, H, dt, cuda_device, 3 * H + B)
+    blocked = kernel == "gru_step_blocked"
+    K.reset_launch_counts()
+    if blocked:
+        got = CK.gru_step_blocked(h, xp, u, b, block_n=256 if H % 256 == 0
+                                  else H)
+    else:
+        got = CK.gru_step_fused(h, xp, u, b, variant=variant)
+    fn = getattr(CK, kernel)
+    assert fn.launches == 1
+    p = fn.last_plan
+    assert p == CK.step_plan(B, H, variant, dt, kernel,
+                             CK.sm_count(cuda_device))
+    want_route = ("warp" if not blocked and H <= CK.STEP_WARP_MAX_H
+                  else "wide" if variant == "v1" else "tile")
+    assert p.route == want_route
+    old = CK.launch_step(CK.tile_step_plan("blocked" if blocked else variant,
+                                           B, H, dt),
+                         h, xp, u, b, variant, blocked)
+    again = CK.launch_step(p, h, xp, u, b, variant, blocked)
+    want = cref.gru_step_ref(h, xp, u, b, variant)
+    torch.cuda.synchronize()
+    tol = TOL if dtype == "float32" else STEP_BF16_TOL
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(got, old, rtol=tol, atol=tol)
+    assert torch.equal(got, again)
+    assert fn.launches == 1                  # forced launches count nothing
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("skew", (1, 2, 3))
+def test_wide_route_reads_a_misaligned_u(cuda_device, dtype, skew):
+    """A view of u that starts ``skew`` elements into its storage: the
+    wide route copies element by element, and agrees with the plain
+    version and with the aligned u bit for bit (the same order)."""
+    B, H = 8, 1024
+    h, xp, u, b = _step_inputs(B, H, dtype, cuda_device, skew)
+    flat = torch.zeros(u.numel() + skew, device=cuda_device, dtype=dtype)
+    flat[skew:] = u.reshape(-1)
+    uv = flat[skew:].view(H, 3 * H)
+    assert uv.is_contiguous() and uv.data_ptr() % 16 != 0
+    got = CK.gru_step_blocked(h, xp, uv, b, block_n=256)
+    assert CK.gru_step_blocked.last_plan.route == "wide"
+    aligned = CK.gru_step_blocked(h, xp, u, b, block_n=256)
+    want = cref.gru_step_ref(h, xp, uv, b, "v1")
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.float32 else STEP_BF16_TOL
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("cw", (4, 8, 16))
+def test_wide_route_takes_every_column_width(cuda_device, cw, dtype):
+    """The sweep's knob: every column width, and a streaming ring (chunks of
+    one unit, two stages), agree with the plain version."""
+    B, H = 8, 512
+    h, xp, u, b = _step_inputs(B, H, dtype, cuda_device, cw)
+    want = cref.gru_step_ref(h, xp, u, b, "v1")
+    tol = TOL if dtype == torch.float32 else STEP_BF16_TOL
+    for p in (CK.wide_step_plan(B, H, dtype, cw=cw),
+              CK.wide_step_plan(B, H, dtype, cw=cw,
+                                kc=CK.wide_kc_unit(cw), stages=2)):
+        got = CK.launch_step(p, h, xp, u, b, "v1", False)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
 # (B, K, N): JAX's test shapes, the paper's matvec, qwen3-0.6b's MLP, and
 # ragged shapes: N = 20 and 100 (in bf16 rows of w that 16-byte copies
 # cannot read: the plain-load route), K = 1000 and 3000 (auto_blocks'
