@@ -16,10 +16,11 @@ Phases (any failure exits non-zero, before the result lines):
    routes, ``gru_step_q8``'s warp route, the two fused decode kernels'
    warp routes, ``gru_stack_sequence_kernel``'s warp route, its 4
    instances, and the q8 prefills' warp routes, ``gru_sequence_q8_kernel``'s
-   and ``gru_stack_sequence_q8_kernel``'s 4 each, and the single step's
+   and ``gru_stack_sequence_q8_kernel``'s 4 each, the single step's
    new routes, ``gru_step_warp_k``'s 12 and ``gru_step_wide_k``'s 24
-   instances, must not spill; the prefill warp routes' and the step's new
-   routes' registers are printed)
+   instances, and the sLSTM pair's warp route, ``slstm_stack_warp_k``'s
+   3, must not spill; the prefill warp routes', the step's new routes'
+   and the sLSTM warp route's registers are printed)
    and each kernel's dynamic
    shared memory (the attention and row-wise kernels' as the wrappers
    compute it and as the CUDA sources do, which must agree), the row-wise
@@ -48,8 +49,10 @@ Phases (any failure exits non-zero, before the result lines):
    and 64, T 8, 16 and 32, v1 and v3, masked and not), and the q8
    prefills, ``gru_stack_sequence_q8_kernel`` (``stack_seq_q8_plan``: the
    warp route at L=1 H=20 and L=3 H=32) and ``gru_sequence_q8_kernel``
-   (``seq_q8_plan``: the warp route at H=20 and 32), each equal to its
-   block route bit for bit, the largest difference between the routes
+   (``seq_q8_plan``: the warp route at H=20 and 32), and the two sLSTM
+   kernels (``slstm_decode_plan``, ``slstm_stack_seq_plan``: the warp
+   route at slstm-jet's L=1 H=20 and the L=3 H=32 stack), each equal to
+   its block route bit for bit, the largest difference between the routes
    reported;
 3b. hold the seven shard kernels (the ``cuda_sharded`` backend's per-rank
    steps) against their plain versions on the card at gru-jet's (H=20)
@@ -104,7 +107,10 @@ Phases (any failure exits non-zero, before the result lines):
    ``cuda_fused``, the sequence kernel launched once per prefill and the
    decode kernel once per step, no GRU kernel and no plain version run,
    class streams equal to the ``eager`` engine's on the card, prefill
-   logits within 1e-5 of the dense reference; every GRU phase above
+   logits within 1e-5 of the dense reference; every served call of either
+   kernel on its warp route (each kernel's ``last_plan`` printed, the
+   decode reading the served state in place through its table of
+   per-layer pointers); every GRU phase above
    counts the sLSTM and attention kernels among its other kernels (none
    may run);
 9. hold the dense LM's attention kernels against their plain versions on
@@ -192,8 +198,10 @@ Phases (any failure exits non-zero, before the result lines):
    ``gru_stack_sequence_kernel`` likewise (its served shapes from phase
    4), the two q8 prefills likewise (their served shapes from phases 5 and
    7; also at 8 slots and T 16 and 32, row 6 at H 32 and 20, row 4 at L=3
-   H=32 and L=1 H=20), and ``torch.nn.GRU`` (cuDNN) on rows 2 and 3's v3
-   work over L
+   H=32 and L=1 H=20), the two sLSTM kernels likewise (at L=1 H=20 and
+   L=3 H=32, B 1, 8 and 64, the prefill at T=16, and by phase 8's served
+   shapes, its prefills at their prompt bucket), and ``torch.nn.GRU``
+   (cuDNN) on rows 2 and 3's v3 work over L
    layers (T=16 and the served T=32, row 2's block route beside; T=1),
    ``gru_cascade_shard_gates`` beside
    the epilogue it replaced (+ b, two slice copies, the kernel) and the
@@ -210,7 +218,10 @@ Phases (any failure exits non-zero, before the result lines):
    (one card's: no measure of NCCL across cards); the served gru-jet-deep
    ``cuda`` and ``cuda_fused_q8`` decode steps with both fused decode
    kernels' block routes forced and with the plans, in turns old, new,
-   new, old (profiler); and profile a served
+   new, old (profiler); the served slstm-jet and L=3 H=32 sLSTM decode
+   steps likewise, the decode's block route (and the stacking of the state
+   it needs) forced against the plan, where the warp route's step must run
+   no ``aten::stack`` or ``aten::cat``; and profile a served
    decode step of gru-jet-deep through ``cuda_fused``, ``cuda_fused_q8``,
    ``cuda_chain`` and ``cuda_chain_q8``, of slstm-jet through
    ``cuda_fused``, and of qwen3-0.6b through ``attn_impl="cuda"``. The
@@ -226,6 +237,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -417,6 +429,20 @@ def build_kernels():
         regs = [n for f, n in register_counts("gru_cell") if fn in f]
         print(f"  gru_cell: {fn}'s {len(frames)} instances, no spills "
               f"(ptxas), {min(regs)}-{max(regs)} registers")
+    # rows 9 and 8's warp route (one kernel, the decode its T = 1): its
+    # instances (H 20, 32 or any), their registers by instance; no stack
+    # frame either (its table of leaf pointers is read in place)
+    fn = "slstm_stack_warp_k"
+    frames = [(f, ln) for f, ln in spill_frames("slstm_cell") if fn in f]
+    spills = [f for f, ln in frames if not re.search(
+        r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        ln)]
+    check(len(frames) == 3 and not spills, f"slstm_cell: ptxas reports "
+          f"a stack frame or spills in {fn} {spills[:3]} ({len(frames)} "
+          f"instances)")
+    regs = [n for f, n in register_counts("slstm_cell") if fn in f]
+    print(f"  slstm_cell: {fn}'s {len(frames)} instances, no spills "
+          f"(ptxas), registers by instance {regs}")
     # the registers of the prefill warp routes (row 2's speed hangs on
     # ptxas's choice: 147 and 158 at H=32 where it was timed; PERF.md)
     for lib, fn in (("gru_sequence", "gru_stack_sequence_warp_k"),
@@ -638,6 +664,38 @@ def run_slstm_kernel(name, a, masked, plain):
     if plain:
         return sref.slstm_stack_sequence_ref(*args)
     return SK.slstm_stack_sequence_kernel(*args)
+
+
+def slstm_route_fn(torch, name, a, masked, plan):
+    """A call of sLSTM kernel ``name`` on ``a`` (:func:`make_slstm_inputs`)
+    at an explicit plan (``kernel.warp_plan`` or ``block_plan``) through
+    ``kernel.launch_decode`` / ``launch_sequence``, into fresh outputs:
+    the route forced, for phase 3's check of both routes, the before/after
+    times of phase 12 and ``tools/slstm_tiles.py``. Reads the current
+    stream at each call, so a CUDA-graph capture records it; raises if the
+    launch is refused."""
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    w = (a["u"], a["wd"], a["b"])
+    if name == "slstm_stack_decode_kernel":
+        args = (*a["leaves"], a["xp"][0], *w)
+        return lambda: SK.launch_decode(plan, *args)
+    args = (*a["leaves"], a["xp"], *w, a["mask"] if masked else None)
+    return lambda: SK.launch_sequence(plan, *args)
+
+
+def slstm_routes(torch, name, a, masked):
+    """For sLSTM kernel ``name`` on ``a``: the launch its plan names, and a
+    call of its block route forced at the tile the wrapper gave it before
+    the warp routes (``min(B, DEFAULT_BATCH_BLOCK)`` rows)."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    L, B, H = a["leaves"][3].shape
+    T = a["xp"].shape[0]
+    plan = (SK.slstm_decode_plan(B, H, L)
+            if name == "slstm_stack_decode_kernel"
+            else SK.slstm_stack_seq_plan(B, T, H, L))
+    blk = SK.block_plan(B, H, L, min(B, _launch.DEFAULT_BATCH_BLOCK))
+    return plan, slstm_route_fn(torch, name, a, masked, blk)
 
 
 def run_kernel(K, ref, name, a, variant, masked, plain):
@@ -1000,9 +1058,11 @@ def check_kernels(torch, dev):
     q8_routes, err_q8_block, q8_same = {}, 0.0, 0
     # rows 3 and 5 likewise: route launched, block route forced beside it
     # rows 2, 4 and 6 likewise
+    # rows 9 and 8 likewise
     dec = {n: {"routes": {}, "err_block": 0.0, "diff": 0.0, "same": 0}
-           for n in FUSED_DECODE + PREFILLS}
+           for n in FUSED_DECODE + PREFILLS + SLSTM}
     from repro_torch.kernels.gru_cell import kernel as CK
+    from repro_torch.kernels.slstm_cell import kernel as SK
     for name, shapes in MAIN_SHAPES.items():
         Ts = ((1,) if name in DECODE else (8, 16, 32))
         if name in STEP_TOO:
@@ -1097,10 +1157,13 @@ def check_kernels(torch, dev):
                                       f"{p.route} route differs from the "
                                       f"block route")
                                 d["same"] += 1
-                            if name in PREFILLS:
-                                p = getattr(K, name).last_plan
-                                plan, forced = prefill_routes(
-                                    torch, K, name, a, variant, masked)
+                            if name in PREFILLS + SLSTM:
+                                p = getattr(SK if name in SLSTM else K,
+                                            name).last_plan
+                                plan, forced = (
+                                    slstm_routes(torch, name, a, masked)
+                                    if name in SLSTM else prefill_routes(
+                                        torch, K, name, a, variant, masked))
                                 check(p == plan, f"{name} L={L} B={B} T={T}"
                                       f" H={H}: launched {p}, its plan names"
                                       f" {plan}")
@@ -1384,7 +1447,8 @@ PLAIN = {                  # module of plain versions -> names the wrappers call
     "repro_torch.kernels.rowwise_matvec.ref": ("rowwise_matmul_ref",
                                                "cascade_matmul_ref"),
     "repro_torch.kernels.slstm_cell.ref": ("slstm_stack_sequence_ref",
-                                           "slstm_stack_decode_ref"),
+                                           "slstm_stack_decode_ref",
+                                           "slstm_stack_decode_layers_ref"),
     "repro_torch.kernels.flash_attn.ref": ("flash_attention_plain",),
     "repro_torch.kernels.decode_attn.ref": ("flash_decode_plain",),
 }
@@ -1547,6 +1611,49 @@ def prefill_calls():
             setattr(ops, n, fn)
 
 
+# the sLSTM kernels' served calls (phase 8) by shape ((L, B, H) for the
+# decode, (L, T, B, H) for the prefill), for phase 12's launches x gap, and
+# the routes they launched, by shape
+SLSTM_SHAPES: dict = {n: {} for n in SLSTM}
+SLSTM_ROUTES: dict = {n: {} for n in SLSTM}
+
+
+@contextlib.contextmanager
+def slstm_calls():
+    """Count the calls of the two sLSTM kernels that the serving path makes
+    through its ops module (the decode through ``slstm_stack_decode_layers``,
+    the per-layer entry of ``slstm_stack_decode_kernel``), by shape, while
+    the block runs, and note the route each launched."""
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.kernels.slstm_cell import ops
+    dec, seq = ops.slstm_stack_decode_layers, ops.slstm_stack_sequence_kernel
+
+    def record(n, key, cuda):
+        SLSTM_SHAPES[n][key] = SLSTM_SHAPES[n].get(key, 0) + 1
+        if cuda:
+            SLSTM_ROUTES[n].setdefault(key, set()).add(
+                getattr(SK, n).last_plan.route)
+
+    def decode(layers, x_proj, *args, **kw):
+        out = dec(layers, x_proj, *args, **kw)
+        record("slstm_stack_decode_kernel",
+               (len(layers),) + tuple(layers[0][3].shape), x_proj.is_cuda)
+        return out
+
+    def sequence(c0, n0, m0, h0, x_proj, *args, **kw):
+        out = seq(c0, n0, m0, h0, x_proj, *args, **kw)
+        record("slstm_stack_sequence_kernel", (h0.shape[0],) + tuple(
+            x_proj.shape[:2]) + (h0.shape[-1],), x_proj.is_cuda)
+        return out
+    ops.slstm_stack_decode_layers = decode
+    ops.slstm_stack_sequence_kernel = sequence
+    try:
+        yield
+    finally:
+        ops.slstm_stack_decode_layers = dec
+        ops.slstm_stack_sequence_kernel = seq
+
+
 def check_prefill_routes(name, launches):
     """Every served call of prefill kernel ``name`` took the warp route (its
     plan's at every served shape), and the calls recorded by shape are all
@@ -1590,7 +1697,7 @@ def serve_all(K, cfgs, params, backend, dev, kernels, backends=None):
     engines, streams, per_arch = {}, {}, {}
     before = [0] * len(kernels)
     with plain_calls() as plain, sequence_shapes(SEQ_SHAPES), \
-            decode_calls(), prefill_calls():
+            decode_calls(), prefill_calls(), slstm_calls():
         for a in cfgs:
             b = (backends or {}).get(a, backend)
             engines[a], streams[a] = serve(cfgs[a], params[a], b, dev)
@@ -1882,21 +1989,28 @@ def run_chain_q8_path(torch, dev, cfgs, params):
 SLSTM_ARCHS = ("slstm-jet", "slstm-jet L=3 H=32")
 
 
+def slstm_configs() -> dict:
+    """slstm-jet and its uniform deep stack (``num_layers=3,
+    hidden_dim=32``), by :data:`SLSTM_ARCHS` name."""
+    from repro_torch.configs.base import get_config
+    base = get_config("slstm-jet")
+    return {SLSTM_ARCHS[0]: base,
+            SLSTM_ARCHS[1]: base.replace(gru=dataclasses.replace(
+                base.gru, num_layers=3, hidden_dim=32))}
+
+
 def run_slstm_path(torch, dev):
     """slstm-jet and its uniform deep stack (``num_layers=3,
     hidden_dim=32``) under ``backend="cuda"``: one sequence launch per
     prefill, one decode launch per step, class streams equal to the eager
-    engine's, prefill logits against the dense reference."""
-    from repro_torch.configs.base import get_config
+    engine's, prefill logits against the dense reference; every served
+    call of either kernel on its warp route."""
     from repro_torch.core import slstm as slstm_core
     from repro_torch.core.params import init_params
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.slstm_cell import kernel as SK
     from repro_torch.models import slstm_lm
-    base = get_config("slstm-jet")
-    cfgs = {SLSTM_ARCHS[0]: base,
-            SLSTM_ARCHS[1]: base.replace(gru=dataclasses.replace(
-                base.gru, num_layers=3, hidden_dim=32))}
+    cfgs = slstm_configs()
     params = {a: init_params(slstm_lm.lm_specs(c), seed=0, device=dev)
               for a, c in cfgs.items()}
     engines, streams, per_arch, launches = serve_all(
@@ -1938,6 +2052,16 @@ def run_slstm_path(torch, dev):
               f"streams == eager; logits vs reference {e:.3g}", flush=True)
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the sLSTM path never launched: {launches}")
+    for n in SLSTM:              # rows 9 and 8: the warp route every call
+        got, shapes = SLSTM_ROUTES[n], SLSTM_SHAPES[n]
+        check(got and set(got) == set(shapes)
+              and sum(shapes.values()) == launches[n]
+              and all(r == {"warp"} for r in got.values()),
+              f"{n}: served calls {shapes} ({launches[n]} launches) "
+              f"launched {got}, not the warp route every time")
+        print(f"  {n}: the warp route at every served call ({launches[n]};"
+              f" {dict(sorted(shapes.items()))}); last_plan "
+              f"{getattr(SK, n).last_plan}", flush=True)
     return launches, report
 
 
@@ -2866,6 +2990,54 @@ def decode_steps_both_ways(torch, dev):
     return out
 
 
+def slstm_steps_both_ways(torch, dev):
+    """The served sLSTM decode steps row 9 sits in (slstm-jet and the L=3
+    H=32 stack through ``cuda_fused``), with the decode's block route
+    forced at its old tile (which reads (L,B,H) stacks, so the state is
+    stacked around it, as it was before the table of per-layer pointers)
+    and with the plan, in turns old, new, new, old (``profile_decode``). On
+    the warp route the step must run no copy of its state: no
+    ``aten::stack`` or ``aten::cat`` in its profile. Returns {arch:
+    [(which, profile)]}."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    cfgs = slstm_configs()
+    out = {a: [] for a in SLSTM_ARCHS}
+    planner = SK.slstm_decode_plan
+
+    def forced(B, H, L, batch_block=0):
+        return SK.block_plan(B, H, L, min(B, _launch.DEFAULT_BATCH_BLOCK))
+    for which in ("old", "new", "new", "old"):
+        try:
+            if which == "old":
+                SK.slstm_decode_plan = forced
+            for a in out:
+                out[a].append((which, profile_decode(
+                    torch, dev, "cuda_fused", a, cfgs[a])))
+        finally:
+            SK.slstm_decode_plan = planner
+    for a, runs in out.items():
+        for which, pr in runs:
+            check(which == "old" or pr is not None, f"{a}: the served decode "
+                  f"step on the warp route was not profiled (no device time "
+                  f"recorded), so its copies were not counted")
+            if pr is None:
+                print(f"  served step {a} {which}: not measured (no device "
+                      f"time recorded)", flush=True)
+                continue
+            copies = pr["stack_ops_per_step"] + pr["cat_ops_per_step"]
+            check(which == "old" or copies == 0, f"{a}: the served decode "
+                  f"step on the warp route copies its state ({copies:g} "
+                  f"aten::stack/aten::cat ops a step)")
+            print(f"  served step {a} cuda_fused ({SLOTS} slots, 20 steps) "
+                  f"{which}: wall {pr['wall_ms_per_step']:.4f} ms/step, "
+                  f"device busy {pr['device_busy_ms_per_step']:.4f} ms/step "
+                  f"(idle {pr['device_idle_share']:.3%}), aten::stack "
+                  f"{pr['stack_ops_per_step']:g} and aten::cat "
+                  f"{pr['cat_ops_per_step']:g} a step", flush=True)
+    return out
+
+
 def run_mesh_path(torch):
     """Spawn each mesh of ``MESHES`` on the one card (the libraries are
     built), wait for its ranks, and hold them against each other: every
@@ -3103,6 +3275,7 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
     from repro_torch.kernels.gru_cell import kernel as CK
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.gru_sequence import ref
+    from repro_torch.kernels.slstm_cell import kernel as SK
     rows = []
     # main-path shapes: 8 slots, a 16-step bucket, v1 (the configs' variant)
     for name, (L, H) in TIMED:
@@ -3149,6 +3322,11 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
                     torch, K, name, a, "v1", True)[1], per_graph=200)
                 before = (f"  block route {blk * 1e3:8.2f} us; plan "
                           f"{getattr(K, name).last_plan}")
+            if name in SLSTM:
+                blk = device_time_ms(torch, slstm_routes(
+                    torch, name, a, not decode)[1], per_graph=200)
+                before = (f"  block route {blk * 1e3:8.2f} us; plan "
+                          f"{getattr(SK, name).last_plan}")
             print(f"  {name:28s} L={L} H={H} B={B:2d} T={T:2d}: device "
                   f"{ms * 1e3:8.2f} us (per call {call * 1e3:7.2f})  plain "
                   f"{plain * 1e3:9.2f} us (per call {plain_call * 1e3:9.2f})"
@@ -3177,8 +3355,9 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
                     rows[-1]["plan"] = str(getattr(K, name).last_plan)
                     rows[-1]["block_route_ms"] = blk
                     rows[-1]["mesh_launches"] = mesh_launches.get(name, 0)
-                if name in PREFILLS:
-                    rows[-1]["plan"] = str(getattr(K, name).last_plan)
+                if name in PREFILLS or name in SLSTM:
+                    rows[-1]["plan"] = str(getattr(
+                        SK if name in SLSTM else K, name).last_plan)
                     rows[-1]["block_route_ms"] = blk
     # the fp32 chain's decode layer: the depth-1 sequence kernel at T=1,
     # unmasked (a row of PERF.md, not of the JSON line)
@@ -3304,6 +3483,37 @@ def time_kernels(torch, dev, err, launches, mesh_launches):
                   f"launches, device {ms * 1e3:7.2f} us ({plan.route} route, "
                   f"{plan.grid} blocks of {plan.warps} warps), block "
                   f"route {blk * 1e3:7.2f} us, bound {bms * 1e6:6.2f} ns",
+                  flush=True)
+        print(f"  {name}: launches x (device - bound) over its "
+              f"{sum(served.values())} served launches = {gap_us:.0f} us "
+              f"(block route forced: {gap_block_us:.0f} us)", flush=True)
+    # rows 9 and 8's served launches by shape (phase 8: slstm-jet and the
+    # L=3 H=32 stack; the prefills at their served prompt bucket),
+    # likewise, the block route forced
+    for name in SLSTM:
+        served = SLSTM_SHAPES[name]
+        check(sum(served.values()) == launches[name], f"{name}: served "
+              f"calls by shape {served} do not sum to its "
+              f"{launches[name]} launches")
+        gap_us = gap_block_us = 0.0
+        for key, count in sorted(served.items()):
+            L, T, B, H = key if len(key) == 4 else (key[0], 1) + key[1:]
+            a = make_slstm_inputs(torch, L, H, B, T, seed=7, dev=dev)
+            masked = name == "slstm_stack_sequence_kernel"
+            ms = device_time_ms(torch, lambda: run_slstm_kernel(
+                name, a, masked, plain=False), per_graph=50)
+            plan = getattr(SK, name).last_plan
+            blk = device_time_ms(torch, slstm_routes(torch, name, a,
+                                                     masked)[1],
+                                 per_graph=50)
+            bms, _ = bound_ms(name, a)
+            gap_us += count * (ms - bms) * 1e3
+            gap_block_us += count * (blk - bms) * 1e3
+            print(f"  {name} served L={L} T={T} B={B} H={H}: {count:3d} "
+                  f"launches, device {ms * 1e3:7.2f} us ({plan.route} route,"
+                  f" {plan.grid} blocks of {plan.threads // 32} warps), "
+                  f"block route "
+                  f"{blk * 1e3:7.2f} us, bound {bms * 1e6:6.2f} ns",
                   flush=True)
         print(f"  {name}: launches x (device - bound) over its "
               f"{sum(served.values())} served launches = {gap_us:.0f} us "
@@ -3957,17 +4167,19 @@ def profile_lm_decode(torch, dev, params):
             "flash_decode_us_per_step": decode_us}
 
 
-def profile_decode(torch, dev, backend, arch="gru-jet-deep"):
+def profile_decode(torch, dev, backend, arch="gru-jet-deep", cfg=None):
     """Device busy share of the served decode step: ``torch.profiler`` over
-    20 warm steps of a full 8-slot ``arch`` wave through ``backend``;
-    busy = the kernels' summed device time over the steps' wall time."""
+    20 warm steps of a full 8-slot ``arch`` wave (``cfg`` if given, ``arch``
+    its name) through ``backend``; busy = the kernels' summed device time
+    over the steps' wall time; also the ``aten::stack`` and ``aten::cat``
+    ops a step (a stack runs a cat inside it)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.core.params import init_params
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import api
     from repro_torch.serve.engine import ServeEngine
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     cfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend=backend))
     params = init_params(api.get_api(cfg).specs(cfg), seed=0, device=dev)
     eng = ServeEngine(cfg, params, max_batch=SLOTS, device=dev)
@@ -4000,9 +4212,13 @@ def profile_decode(torch, dev, backend, arch="gru-jet-deep"):
           f"{1 - busy / wall:.3%})", flush=True)
     for k, us in top:
         print(f"    {us / 20:9.2f} us/step  {k[:90]}")
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.key in ("aten::stack", "aten::cat")}
     return {"wall_ms_per_step": wall / 20 * 1e3,
             "device_busy_ms_per_step": busy / 20 * 1e3,
-            "device_idle_share": 1 - busy / wall}
+            "device_idle_share": 1 - busy / wall,
+            "stack_ops_per_step": ops.get("aten::stack", 0) / 20,
+            "cat_ops_per_step": ops.get("aten::cat", 0) / 20}
 
 
 def main() -> None:
@@ -4073,6 +4289,7 @@ def main() -> None:
                                                             backend)
     slstm_report["profile_slstm_jet_decode"] = profile_decode(
         torch, dev, "cuda_fused", "slstm-jet")
+    slstm_report["step_both_ways"] = slstm_steps_both_ways(torch, dev)
     lm_report["profile_decode"] = profile_lm_decode(torch, dev, lm_params)
     mesh_report["profiles"] = profile_mesh_steps(torch, dev, mesh_report)
     both = steps_both_ways(torch, dev)

@@ -7,9 +7,11 @@ Same split as the GRU's ``cuda_fused``: the layer-0 input projection
 owns the recurrent path of the whole stack, all four state leaves of every
 layer, per prefill and per decode step. A (B, T) bool length mask is
 turned time-major (T, B) float and streamed through the kernel. The flat
-runtime state ``(c0, n0, m0, h0, c1, ...)`` is stacked into four (L,B,H)
-leaves on the way in and unstacked on the way out. Uniform hidden sizes
-only; ``(slstm, eager)`` serves the rest.
+runtime state ``(c0, n0, m0, h0, c1, ...)`` goes to the decode as it is,
+per layer (its warp route reads and writes the leaves in place through a
+table of per-layer pointers, no stacking copies); the prefill stacks it
+into four (L,B,H) leaves on the way in and unstacks the finals on the way
+out. Uniform hidden sizes only; ``(slstm, eager)`` serves the rest.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.slstm import STATE_LEAVES, flatten_states, group_states
 from repro_torch.kernels.gru_sequence.ops import (  # noqa: F401
     prepare_stacked_cells, time_major_mask)
 from repro_torch.kernels._launch import fits_smem
-from repro_torch.kernels.slstm_cell.kernel import (slstm_stack_decode_kernel,
+from repro_torch.kernels.slstm_cell.kernel import (slstm_stack_decode_layers,
                                                    slstm_stack_sequence_kernel,
                                                    smem_bytes)
 
@@ -56,14 +58,12 @@ def slstm_stack_sequence_cuda(params: tuple, state0: tuple, xs: torch.Tensor,
 
 def slstm_stack_decode_cuda(params: tuple, state: tuple, x: torch.Tensor, *,
                             stacked: dict) -> tuple:
-    """One token through the whole stack in one launch; returns the flat
-    new state."""
-    L = len(params)
+    """One token through the whole stack in one launch, on the flat state's
+    own leaves; returns the flat new state (fresh leaves)."""
     xp = (x @ params[0]["w"]).contiguous()                    # (B,4H)
-    new = slstm_stack_decode_kernel(*_leaf_stacks(tuple(state), L), xp,
-                                    stacked["u"], stacked["w_deep"],
-                                    stacked["b"])
-    return _unstack_leaves(new, L)
+    return flatten_states(slstm_stack_decode_layers(
+        group_states(tuple(state), len(params)), xp, stacked["u"],
+        stacked["w_deep"], stacked["b"]))
 
 
 def register_runtime_backends() -> None:

@@ -62,6 +62,14 @@ def slstm_stack_sequence_ref(c0, n0, m0, h0, x_proj, u, w_deep, b,
 def slstm_stack_decode_ref(c, n, m, h, x_proj, u, w_deep, b):
     """One token: (L,B,H) leaves and x_proj (B,4H) -> the four new
     (L,B,H) leaves."""
-    state = _init(c, n, m, h)
+    return _leaves(slstm_stack_decode_layers_ref(_init(c, n, m, h), x_proj,
+                                                 u, w_deep, b))
+
+
+def slstm_stack_decode_layers_ref(layers, x_proj, u, w_deep, b) -> tuple:
+    """One token on per-layer leaves: L tuples (c, n, m, h) of (B,H) ->
+    L tuples of the new ones (the same values as
+    :func:`slstm_stack_decode_ref`, without the stacks)."""
+    state = [list(layer) for layer in layers]
     _step(state, x_proj, u, w_deep, b, None)
-    return _leaves(state)
+    return tuple(tuple(layer) for layer in state)

@@ -1072,6 +1072,72 @@ def test_slstm_decode_kernel_matches_plain(cuda_device, LH, B, batch_block):
     assert [k.launches for k in SK.SLSTM_KERNELS] == [0, 1]
 
 
+SLSTM_ROUTE_CASES = list(itertools.product((1, 5, 20, 31, 32), (1, 2, 3, 4),
+                                           (1, 8, 64)))
+
+
+def _same_bits(xs, ys):
+    return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,L,B", SLSTM_ROUTE_CASES)
+def test_slstm_decode_warp_route_equals_the_block_route(cuda_device, H, L,
+                                                        B):
+    """The decode's warp route (its plan at every H <= 32, L <= 4): within
+    TOL of the plain version, bit for bit the block route forced at the
+    tile the wrapper gave it before, the same bits on a second launch, and
+    from per-layer leaves (the served form) the same bits again; the same
+    bits as the prefill's warp route over the one step."""
+    a = _slstm_inputs(L, H, B, 1, cuda_device, seed=H + 10 * L + B)
+    args = (*a["leaves"], a["xp"][0], a["u"], a["wd"], a["b"])
+    K.reset_launch_counts()
+    got = SK.slstm_stack_decode_kernel(*args)
+    plan = SK.slstm_stack_decode_kernel.last_plan
+    assert plan == SK.slstm_decode_plan(B, H, L) and plan.route == "warp"
+    again = SK.slstm_stack_decode_kernel(*args)
+    layers = tuple(tuple(leaf[l] for leaf in a["leaves"]) for l in range(L))
+    per = SK.slstm_stack_decode_layers(layers, *args[4:])
+    blk = SK.launch_decode(SK.block_plan(B, H, L, min(B, 4)), *args)
+    seq = SK.launch_sequence(plan, *a["leaves"], a["xp"][:1], *args[5:])
+    want = sref.slstm_stack_decode_ref(*args)
+    assert _max_err(zip(got, want)) <= TOL
+    assert _same_bits(got, blk) and _same_bits(got, again)
+    assert _same_bits(got, seq[1:])
+    assert all(torch.equal(per[l][k], got[k][l])
+               for l, k in itertools.product(range(L), range(4)))
+    assert [k.launches for k in SK.SLSTM_KERNELS] == [0, 3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,L,B", SLSTM_ROUTE_CASES)
+@pytest.mark.parametrize("masked", (False, True))
+def test_slstm_sequence_warp_route_equals_the_block_route(cuda_device, H, L,
+                                                          B, masked):
+    """The prefill's warp route (its plan at every H <= 32, L <= 4): within
+    TOL of the plain version, bit for bit the block route forced beside
+    it, the same bits on a second launch; a fully masked row keeps its
+    leaves, m = M_INIT included."""
+    T = 17
+    a = _slstm_inputs(L, H, B, T, cuda_device, seed=H + 10 * L + B)
+    m = a["mask"] if masked else None
+    args = (*a["leaves"], a["xp"], a["u"], a["wd"], a["b"], m)
+    K.reset_launch_counts()
+    got = SK.slstm_stack_sequence_kernel(*args)
+    plan = SK.slstm_stack_sequence_kernel.last_plan
+    assert plan == SK.slstm_stack_seq_plan(B, T, H, L)
+    assert plan.route == "warp"
+    again = SK.slstm_stack_sequence_kernel(*args)
+    blk = SK.launch_sequence(SK.block_plan(B, H, L, min(B, 4)), *args)
+    want = sref.slstm_stack_sequence_ref(*args)
+    assert _max_err(zip(got, want)) <= TOL
+    assert _same_bits(got, blk) and _same_bits(got, again)
+    if masked and B > 1:
+        for k in range(4):
+            assert torch.equal(got[1 + k][:, 0], a["leaves"][k][:, 0])
+    assert [k.launches for k in SK.SLSTM_KERNELS] == [2, 0]
+
+
 @pytest.mark.gpu
 def test_slstm_wrappers_raise_on_device_mix(cuda_device):
     a = _slstm_inputs(3, 32, 2, 1, cuda_device)
