@@ -113,6 +113,27 @@ Phases (any failure exits non-zero, before the result lines):
    per-layer pointers); every GRU phase above
    counts the sLSTM and attention kernels among its other kernels (none
    may run);
+8b. the tuning loop (counters zeroed just before, plain versions
+   watched): gru-jet-deep served at 8 slots (``SystemClock``) pinned to
+   ``cuda_fused``, ``cuda_chain`` and ``eager``; their served decode p50s
+   (host clock, synchronized) become a ``CostModel``, and
+   ``compile(backend="cuda", batch=8, mode="decode")`` must choose the
+   faster of the two kernel backends; then that table with the two
+   swapped is installed between two waves of an autotuned engine
+   (recalibration off): the second wave must run on the other backend
+   (``decode_backend_steps``), launching its kernel (row 1 for
+   ``cuda_chain``, row 3 for ``cuda_fused``), with class streams equal to
+   an untuned engine's; then slstm-jet is served pinned to ``cuda_fused``
+   and ``eager``, their p50s seed a ``CostModel``, and an autotuned
+   slstm-jet engine under ``backend="auto"`` with recalibration on serves
+   three waves (its decisions and the cost epoch printed): after each
+   wave ``compile(mode="decode")`` must choose by measured cost
+   (``cost_source == "measured"``) the backend the table in force prices
+   lower, and its streams must equal the untuned and eager engines'.
+   Afterwards (its counts already read) every sLSTM call the phase served,
+   the ragged T of the tuned bucket ladders included, is held against its
+   plain version by phase 3's rules. Its launches of rows 1-3, 8 and 9
+   are added to the kernels line's counts;
 9. hold the dense LM's attention kernels against their plain versions on
    the card, in fp32 (at most 1e-5) and bf16 (flash attention, whose
    output is bf16: within rtol = atol = 2**-7, one bf16 ulp; flash decode,
@@ -2063,6 +2084,276 @@ def run_slstm_path(torch, dev):
               f" {dict(sorted(shapes.items()))}); last_plan "
               f"{getattr(SK, n).last_plan}", flush=True)
     return launches, report
+
+
+# ---------------------------------------------------------------------------
+# 8b. the tuning loop: served timings choose the backend, wave and buckets
+# ---------------------------------------------------------------------------
+
+TUNE_ARCH = "gru-jet-deep"
+TUNE_RECAL_STEPS = 16          # slstm-jet's fold threshold (warm steps)
+SLSTM_TUNE_WAVES = (3, 4, 5)   # slstm-jet's request seeds, a wave each
+
+
+def tuning_rows(cfg, p50_us: dict) -> list:
+    """Calibration rows (the CostModel's schema) of ``cfg``'s decode at
+    :data:`SLOTS`, one per served backend."""
+    g = cfg.gru
+    return [{"family": g.family, "backend": b, "op": "decode",
+             "depth": g.resolved_num_layers,
+             "hidden_dim": g.resolved_layer_dims[0], "batch": SLOTS,
+             "p50_us": us} for b, us in p50_us.items()]
+
+
+def stream_waves(eng, cfg, seeds):
+    """Serve one wave of :data:`REQUESTS` requests per seed; the class
+    streams of all of them."""
+    from repro_torch.launch.serve import make_requests
+    out = []
+    for seed in seeds:
+        reqs = make_requests(cfg, REQUESTS, MAX_PROMPT, True, MAX_NEW, seed)
+        out += [r.out for r in eng.generate(reqs)]
+    return out
+
+
+def run_tuning_path(torch, dev):
+    """The measured table, a forced flip and a real recalibration, with
+    every launch counter set to 0 just before and the plain versions
+    watched: (1) gru-jet-deep served at 8 slots pinned to cuda_fused,
+    cuda_chain and eager (SystemClock); their p50s become a CostModel, and
+    ``compile(backend="cuda", batch=8, mode="decode")`` must choose the
+    faster kernel backend; (2) that table swapped between the two kernel
+    backends: an autotuned engine (recalibration off) must serve its next
+    wave on the other one, launching its kernel, with streams equal to an
+    untuned engine's; (3) slstm-jet served at 8 slots pinned to cuda_fused
+    and eager, their p50s a CostModel; an autotuned engine under "auto"
+    with recalibration on serves three waves, and after each the table in
+    force (folds included) must choose its decode backend by measured cost;
+    streams equal to the untuned and eager engines'; then every sLSTM
+    call the phase served is held against its plain version."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import runtime
+    from repro_torch.core.params import init_params
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.models import gru_lm, slstm_lm
+    from repro_torch.serve.autotune import AutoTuneConfig, AutoTuner
+    from repro_torch.serve.engine import ServeEngine
+    kernels = K.KERNELS + SK.SLSTM_KERNELS
+    static = runtime.CostModel({}, source="<chip_smoke: static>")
+    runtime.set_cost_model(static)
+    cfg = get_config(TUNE_ARCH)
+    params = init_params(gru_lm.lm_specs(cfg), seed=0, device=dev)
+    ccfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend="cuda"))
+    scfg = get_config("slstm-jet")
+    scfg = scfg.replace(gru=dataclasses.replace(scfg.gru, backend="auto"))
+    sparams = init_params(slstm_lm.lm_specs(scfg), seed=0, device=dev)
+    report = {}
+    before = {n: dict(SLSTM_SHAPES[n]) for n in SLSTM}
+    K.reset_launch_counts()
+    with plain_calls() as plain, sequence_shapes(SEQ_SHAPES), \
+            decode_calls(), prefill_calls(), slstm_calls():
+        # (1) the measured table
+        p50 = {}
+        for b in ("cuda_fused", "cuda_chain", "eager"):
+            eng, _ = serve(cfg, params, b, dev)
+            st = eng.latency_stats()
+            check(st["decode_backend_steps"] == {b: st["steps"]},
+                  f"8b: {b} steps {st['decode_backend_steps']}")
+            p50[b] = st["p50_s"] * 1e6
+        rows = tuning_rows(cfg, p50)
+        runtime.set_cost_model(runtime.CostModel.from_entries(
+            rows, source="<chip_smoke: served p50>"))
+        exe = runtime.compile(ccfg.gru, batch=SLOTS, mode="decode")
+        won = min(("cuda_fused", "cuda_chain"), key=p50.get)
+        lost = ({"cuda_fused", "cuda_chain"} - {won}).pop()
+        check(exe.decode_backend == won and exe.cost_source == "measured",
+              f"8b: measured table {p50} chose {exe.describe()}")
+        print(f"  {TUNE_ARCH} at {SLOTS} slots, served decode p50 (host "
+              f"clock, synchronized): " + ", ".join(
+                  f"{b} {us:.2f} us" for b, us in p50.items())
+              + f"; compile(backend='cuda', batch={SLOTS}, mode='decode') "
+              f"-> {exe.decode_backend} (measured)", flush=True)
+        report["served_p50_us"] = p50
+        report["measured_choice"] = exe.decode_backend
+        # (2) the forced flip at the next boundary
+        tuner = AutoTuner(AutoTuneConfig(recalibrate=False,
+                                         tune_wave_size=False,
+                                         tune_buckets=False))
+        eng = ServeEngine(ccfg, params, max_batch=SLOTS, device=dev,
+                          tuner=tuner)
+        tuned = stream_waves(eng, ccfg, (3,))
+        steps1 = dict(eng.latency_stats()["decode_backend_steps"])
+        check(steps1 == {won: eng.latency_stats()["steps"]},
+              f"8b: first wave's steps {steps1}, not all {won}")
+        inverted = {won: p50[lost], lost: p50[won], "eager": p50["eager"]}
+        runtime.set_cost_model(runtime.CostModel.from_entries(
+            tuning_rows(cfg, inverted), source="<chip_smoke: inverted>"))
+        check(eng.refresh_executables(), "8b: the inverted table changed "
+              "no frozen executable at the boundary")
+        row = ("gru_sequence_kernel" if lost == "cuda_chain"
+               else "gru_stack_decode_kernel")
+        n0 = getattr(K, row).launches
+        tuned += stream_waves(eng, ccfg, (4,))
+        flip_launches = getattr(K, row).launches - n0
+        steps = eng.latency_stats()["decode_backend_steps"]
+        n2 = eng.latency_stats()["steps"] - sum(steps1.values())
+        check(steps.get(lost, 0) == n2 > 0 and steps.get(won) == steps1[won]
+              and flip_launches > 0,
+              f"8b: after the inverted table, steps {steps} ({n2} in the "
+              f"second wave), {row} launched {flip_launches} times")
+        runtime.set_cost_model(static)
+        untuned = stream_waves(ServeEngine(ccfg, params, max_batch=SLOTS,
+                                           device=dev), ccfg, (3, 4))
+        check(tuned == untuned, "8b: the flipped engine's class streams "
+              "differ from an untuned engine's")
+        print(f"  forced flip: wave 1 on {won}, inverted table, wave 2 on "
+              f"{lost} ({n2} steps, {row} launched {flip_launches} times); "
+              f"decode_backend_steps {steps}; streams == untuned", flush=True)
+        report["flip"] = {"from": won, "to": lost, "steps": steps,
+                          "flip_row": row, "flip_launches": flip_launches,
+                          "streams_equal_untuned": True}
+        # (3) a real recalibration on slstm-jet: a measured table seeded
+        # with the served p50s of both its backends, under "auto"
+        runtime.set_cost_model(static)
+        s_streams, s_p50 = {}, {}
+        for b in ("cuda_fused", "eager"):
+            bcfg = scfg.replace(gru=dataclasses.replace(scfg.gru, backend=b))
+            beng = ServeEngine(bcfg, sparams, max_batch=SLOTS, device=dev)
+            s_streams[b] = stream_waves(beng, bcfg, SLSTM_TUNE_WAVES)
+            s_p50[b] = beng.latency_stats()["p50_s"] * 1e6
+        check(s_streams["cuda_fused"] == s_streams["eager"], "8b: slstm-jet's"
+              " cuda_fused streams differ from the eager engine's")
+        runtime.set_cost_model(runtime.CostModel.from_entries(
+            tuning_rows(scfg, s_p50), source="<chip_smoke: slstm p50>"))
+        stuner = AutoTuner(AutoTuneConfig(recal_min_steps=TUNE_RECAL_STEPS))
+        seng = ServeEngine(scfg, sparams, max_batch=SLOTS, device=dev,
+                           tuner=stuner)
+        epoch0 = runtime.cost_epoch()
+        s_tuned, choices, seen = [], [], 0
+        for seed in SLSTM_TUNE_WAVES:
+            s_tuned += stream_waves(seng, scfg, (seed,))
+            folds = sum(d["kind"] == "recalibrate"
+                        for d in stuner.decisions[seen:])
+            seen = len(stuner.decisions)
+            exe = runtime.compile(scfg.gru, batch=seng.max_batch,
+                                  mode="decode")
+            model = runtime.cost_model()
+            g = scfg.gru
+            priced = {b: model.lookup(b, "decode",
+                                      depth=g.resolved_num_layers,
+                                      batch=seng.max_batch,
+                                      hidden=g.resolved_layer_dims[0],
+                                      family=g.family)
+                      for b in ("cuda_fused", "eager")}
+            check(exe.cost_source == "measured"
+                  and exe.decode_backend == min(priced, key=priced.get),
+                  f"8b: slstm-jet after wave {seed} ({folds} folds): "
+                  f"{exe.describe()} under {priced}")
+            choices.append({"wave": seed, "folds": folds,
+                            "epoch": runtime.cost_epoch(),
+                            "priced_us": priced,
+                            "choice": exe.decode_backend})
+        check(s_tuned == s_streams["cuda_fused"], "8b: slstm-jet's "
+              "recalibrating engine's class streams differ from an untuned "
+              "engine's and the eager engine's")
+        decisions = stuner.decisions
+        check(any(d["kind"] == "recalibrate" for d in decisions),
+              f"8b: slstm-jet folded no served timing: {decisions}")
+        for d in decisions:
+            print(f"  slstm-jet [{d['kind']}] {d['from']} -> {d['to']} "
+                  f"({d['measurement'].get('rule', '')})", flush=True)
+        sst = seng.latency_stats()
+        folded = [(e["backend"], e["batch"], round(e["p50_us"], 2))
+                  for d in decisions if d["kind"] == "recalibrate"
+                  for e in d["measurement"]["entries"]]
+        print(f"  slstm-jet at {SLOTS} slots, served decode p50 (host clock, "
+              f"synchronized): " + ", ".join(
+                  f"{b} {us:.2f} us" for b, us in s_p50.items())
+              + "; measured choice after each wave (backend='auto'): "
+              + "; ".join(f"wave {c['wave']} ({c['folds']} folds, epoch "
+                          f"{c['epoch']}) {c['choice']} under "
+                          + ", ".join(f"{b} {us:.2f}" for b, us in
+                                      c["priced_us"].items())
+                          for c in choices), flush=True)
+        print(f"  slstm-jet: cost epoch {epoch0} -> {runtime.cost_epoch()}; "
+              f"wave {sst['autotune']['wave_size']}, buckets "
+              f"{sst['autotune']['bucket_ladder'] or 'pow2'}; decode steps "
+              f"{sst['decode_backend_steps']}; folded rows (backend, batch, "
+              f"p50 us) {folded}; streams == untuned == eager", flush=True)
+        report["slstm_recalibration"] = {
+            "served_p50_us": s_p50, "choices": choices,
+            "epoch_from": epoch0, "epoch_to": runtime.cost_epoch(),
+            "decisions": [{k: d[k] for k in ("kind", "from", "to")}
+                          for d in decisions],
+            "decode_backend_steps": sst["decode_backend_steps"],
+            "streams_equal_untuned_and_eager": True}
+    runtime.set_cost_model(static)
+    launches = {k.__name__: k.launches for k in kernels}
+    others = {k.__name__: k.launches
+              for k in (K.Q8_KERNELS + K.CHAIN_Q8_KERNELS + K.ATTN_KERNELS
+                        + K.ROWWISE_KERNELS + K.SHARD_KERNELS)}
+    print(f"  launches: {launches}; other kernels {others}; plain versions "
+          f"{plain}", flush=True)
+    check(not any(others.values()), f"8b: other kernels ran {others}")
+    check(not any(plain.values()), f"8b: plain versions ran {plain}")
+    check(all(n > 0 for n in launches.values()),
+          f"8b: a kernel of the tuning path never launched: {launches}")
+    report["launches"] = launches
+    # every sLSTM call this phase served (the tuned ladders give ragged T),
+    # held against its plain version: made after the counts were read
+    served = {n: {k: c - before[n].get(k, 0)
+                  for k, c in SLSTM_SHAPES[n].items()
+                  if c > before[n].get(k, 0)} for n in SLSTM}
+    report["served_shape_err"] = check_slstm_shapes(torch, dev, served)
+    return launches, report
+
+
+def check_slstm_shapes(torch, dev, served) -> dict:
+    """Hold each sLSTM kernel against its plain version at every served
+    shape in ``served`` (``{name: {(L, B, H) or (L, T, B, H): calls}}``),
+    by phase 3's rules: finite, within :data:`TOL`, the launch its plan
+    names, bit for bit its forced block route, and (masked, B > 1) the
+    fully masked row's leaves unmoved; masked and unmasked where T > 1.
+    The largest error per kernel."""
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    err, n_checks = {n: 0.0 for n in SLSTM}, 0
+    for name, shapes in served.items():
+        for key in sorted(shapes):
+            L, T, B, H = ((key[0], 1) + key[1:] if len(key) == 3 else key)
+            a = make_slstm_inputs(torch, L, H, B, T, B * 100 + T, dev)
+            for masked in ((False,) if T == 1 else (False, True)):
+                got = run_slstm_kernel(name, a, masked, plain=False)
+                want = run_slstm_kernel(name, a, masked, plain=True)
+                plan, forced = slstm_routes(torch, name, a, masked)
+                p = getattr(SK, name).last_plan
+                blk = forced()
+                torch.cuda.synchronize()
+                where = f"{name} L={L} T={T} B={B} H={H} masked={masked}"
+                check(all(bool(torch.isfinite(g_).all()) for g_ in got),
+                      f"{where}: non-finite output")
+                e = max((g_ - w_).abs().max().item()
+                        for g_, w_ in zip(got, want))
+                err[name] = max(err[name], e)
+                check(e <= TOL, f"{where}: max |err| {e:.3g} > {TOL}")
+                check(p == plan, f"{where}: launched {p}, its plan {plan}")
+                check(all(torch.equal(x, y) for x, y in zip(got, blk)),
+                      f"{where}: the launch {p} differs from the block "
+                      f"route")
+                if name == "slstm_stack_sequence_kernel" and masked and B > 1:
+                    for k, leaf in enumerate(a["leaves"]):
+                        check(torch.equal(got[1 + k][:, 0], leaf[:, 0]),
+                              f"{where}: the fully masked row's leaf {k} "
+                              f"moved")
+                n_checks += 1
+        print(f"  {name} at the {len(shapes)} shapes this phase served "
+              f"({dict(sorted(shapes.items()))}): max |kernel - plain| = "
+              f"{err[name]:.3g} (<= {TOL}), bit for bit its block route",
+              flush=True)
+    check(all(served.values()), f"8b: an sLSTM kernel served no call {served}")
+    print(f"  {n_checks} served-shape kernel/plain comparisons passed",
+          flush=True)
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -4260,6 +4551,13 @@ def main() -> None:
           "cuda_fused")
     slstm_launches, slstm_report = run_slstm_path(torch, dev)
     launches.update(slstm_launches)
+    phase("8b. the tuning loop: a measured table, a forced flip and a "
+          "recalibrating slstm-jet engine")
+    tune_launches, tune_report = run_tuning_path(torch, dev)
+    for k, n in tune_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, e in tune_report.pop("served_shape_err").items():
+        err[k] = max(err[k], e)
     phase("9. attention kernels vs plain versions (qwen3-0.6b heads)")
     attn_err = check_attention_kernels(torch, dev)
     phase("10. dense LM: serve qwen3-0.6b at full width through the "
@@ -4304,7 +4602,8 @@ def main() -> None:
     print(json.dumps({"serve": report, "serve_q8": q8_report,
                       "serve_chain": chain_report,
                       "serve_chain_q8": cq8_report,
-                      "serve_slstm": slstm_report, "serve_lm": lm_report,
+                      "serve_slstm": slstm_report,
+                      "serve_tuning": tune_report, "serve_lm": lm_report,
                       "rowwise_launches": rw_launches,
                       "serve_mesh": mesh_report}))
     print(json.dumps({"kernels": rows}))

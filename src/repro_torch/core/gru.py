@@ -19,17 +19,40 @@ product up to summation order.
 
 Masks are (B, T) bool: False steps leave the hidden state untouched
 (left-padded, bucketed prompts give the unpadded result). Backend dispatch
-lives in ``repro_torch.core.runtime``.
+lives in ``repro_torch.core.runtime``. The historical entry points
+(``gru_sequence``, ``gru_stack_sequence``, ``gru_stack_decode_step``,
+``gru_decode_step``) remain as deprecated shims over the executor, as in
+the JAX package: equal to it bit for bit, each warning once per process.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import GRUConfig
 from repro_torch.core.params import Spec
+
+
+# ---------------------------------------------------------------------------
+# deprecation bookkeeping for the legacy entry points (executor shims)
+# ---------------------------------------------------------------------------
+
+_DEPRECATION_WARNED: set = set()
+
+
+def _warn_deprecated(old: str) -> None:
+    """One DeprecationWarning per legacy entry point per process."""
+    if old in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(old)
+    warnings.warn(
+        f"{old} is a deprecated entry point; use "
+        "repro_torch.core.runtime.compile() -> GRUExecutable (the "
+        "capability-dispatched executor, compile then execute) instead.",
+        DeprecationWarning, stacklevel=3)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +218,19 @@ def gru_sequence_eager(params: dict, h0: torch.Tensor, xs: torch.Tensor, *,
     return h, (torch.stack(hs, dim=-2) if return_all else None)
 
 
+def gru_sequence(params: dict, h0: torch.Tensor, xs: torch.Tensor, *,
+                 cfg: GRUConfig, return_all: bool = False,
+                 mask: Optional[torch.Tensor] = None):
+    """DEPRECATED single-cell entry point: a shim over the executor
+    (``runtime.compile(..., mode="sequence")``)."""
+    _warn_deprecated("gru_sequence")
+    from repro_torch.core import runtime
+    lcfg = cfg if cfg.resolved_num_layers == 1 else layer_config(cfg, 0)
+    finals, states = runtime.sequence((params,), (h0,), xs, cfg=lcfg,
+                                      return_all=return_all, mask=mask)
+    return finals[0], states
+
+
 # ---------------------------------------------------------------------------
 # deep stacks
 # ---------------------------------------------------------------------------
@@ -228,6 +264,17 @@ def gru_stack_sequence_eager(params: Sequence[dict],
     return tuple(finals), (hs if return_all else None)
 
 
+def gru_stack_sequence(params: Sequence[dict], h0s: Sequence[torch.Tensor],
+                       xs: torch.Tensor, *, cfg: GRUConfig,
+                       return_all: bool = False,
+                       mask: Optional[torch.Tensor] = None):
+    """DEPRECATED stack entry point: a shim over the executor."""
+    _warn_deprecated("gru_stack_sequence")
+    from repro_torch.core import runtime
+    return runtime.sequence(params, tuple(h0s), xs, cfg=cfg,
+                            return_all=return_all, mask=mask)
+
+
 def gru_stack_decode_eager(params: Sequence[dict],
                            hs: Sequence[torch.Tensor], x: torch.Tensor, *,
                            cfg: GRUConfig) -> tuple:
@@ -240,6 +287,29 @@ def gru_stack_decode_eager(params: Sequence[dict],
         new_hs.append(h2)
         cur = h2
     return tuple(new_hs)
+
+
+def gru_stack_decode_step(params: Sequence[dict],
+                          hs: Sequence[torch.Tensor], x: torch.Tensor, *,
+                          cfg: GRUConfig, impl: Optional[str] = None) -> tuple:
+    """DEPRECATED decode entry point: a shim over the executor. ``impl``
+    (``"cuda"``, ``"eager"`` or a backend name) overrides ``cfg.backend``
+    as the preference; None follows ``cfg.backend``."""
+    _warn_deprecated("gru_stack_decode_step")
+    from repro_torch.core import runtime
+    if impl is not None and impl != cfg.backend:
+        cfg = dataclasses.replace(cfg, backend=impl)
+    return runtime.decode(params, tuple(hs), x, cfg=cfg)
+
+
+def gru_decode_step(params: dict, h: torch.Tensor, x: torch.Tensor, *,
+                    cfg: GRUConfig) -> torch.Tensor:
+    """DEPRECATED single-cell serve step: a shim over the executor."""
+    _warn_deprecated("gru_decode_step")
+    from repro_torch.core import runtime
+    cell = params["cell"] if "cell" in params else params
+    lcfg = cfg if cfg.resolved_num_layers == 1 else layer_config(cfg, 0)
+    return runtime.decode((cell,), (h,), x, cfg=lcfg)[0]
 
 
 def gru_stack_reference(params: Sequence[dict], h0s: Sequence[torch.Tensor],
@@ -267,8 +337,7 @@ def gru_classify(params: dict, xs: torch.Tensor, *,
     B = xs.shape[0]
     cells = stack_cell_params(params, cfg)
     h0s = stack_h0(cfg, B, xs.dtype, xs.device)
-    exe = runtime.compile(cfg, batch=B, seq=xs.shape[-2])
-    finals, _ = exe.sequence(cells, h0s, xs)
+    finals, _ = runtime.sequence(cells, h0s, xs, cfg=cfg)
     return finals[-1] @ params["head"]["w"] + params["head"]["b"]
 
 

@@ -35,6 +35,11 @@ The per-shard step is a parameter (``_STEP_IMPLS``): ``"eager"`` runs
 plain ops (the ``sharded`` and ``sharded_decode`` backends); ``"cuda"``
 runs the shard kernels of ``repro_torch.kernels.gru_sequence`` between the
 same collectives (the ``cuda_sharded`` backend, JAX's ``pallas_sharded``).
+The JAX package's per-call entry points (``gru_stack_sequence_sharded``,
+``gru_stack_sequence_sharded_impl``, ``gru_stack_decode_sharded_impl``)
+remain as deprecated shims over the executor, pinned to ``sharded`` and
+``sharded_decode``: each places this rank's part on every call and warns
+once per process.
 The kernels' plain versions repeat the eager step's expressions, so on the
 CPU the two are equal bit for bit. The cascade step applies its gate
 nonlinearities to this rank's gate slices only; JAX's XLA step computes
@@ -44,6 +49,7 @@ keeps the two steps bitwise equal.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Sequence
 
@@ -400,3 +406,56 @@ def gru_stack_decode_sharded_prepared(layer_args, hs: Sequence,
         outs.append(h2)
         cur = h2
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# deprecated per-call entry points (executor shims)
+# ---------------------------------------------------------------------------
+
+def _sharded_sequence_shim(params, h0s, xs, *, mesh: Mesh, cfg: GRUConfig,
+                           return_all: bool, mask):
+    from repro_torch.core import runtime
+    exe = runtime.compile(dataclasses.replace(cfg, backend="sharded"),
+                          batch=xs.shape[0], seq=xs.shape[1],
+                          mask=mask is not None, placement=mesh,
+                          mode="sequence")
+    finals, states = exe.sequence(params, h0s, xs, return_all=return_all,
+                                  mask=mask)
+    return (finals, states) if return_all else finals
+
+
+def gru_stack_sequence_sharded(params, h0s, xs, *, mesh: Mesh,
+                               cfg: GRUConfig, return_all: bool = False,
+                               mask=None):
+    """DEPRECATED: use ``runtime.compile(cfg, placement=mesh)``, which
+    sends sequence work to the split whenever a mesh is given. A shim over
+    the executor's ``sharded`` backend (full cells in ``params``; this
+    rank's part placed per call). Returns the per-layer finals, or
+    ``(finals, last layer's states)`` with ``return_all``."""
+    from repro_torch.core.gru import _warn_deprecated
+    _warn_deprecated("gru_stack_sequence_sharded")
+    return _sharded_sequence_shim(params, h0s, xs, mesh=mesh, cfg=cfg,
+                                  return_all=return_all, mask=mask)
+
+
+def gru_stack_sequence_sharded_impl(params, h0s, xs, *, mesh: Mesh,
+                                    cfg: GRUConfig, return_all: bool = False,
+                                    mask=None):
+    """DEPRECATED per-call form of the ``sharded`` backend: the same shim
+    as :func:`gru_stack_sequence_sharded`."""
+    from repro_torch.core.gru import _warn_deprecated
+    _warn_deprecated("gru_stack_sequence_sharded_impl")
+    return _sharded_sequence_shim(params, h0s, xs, mesh=mesh, cfg=cfg,
+                                  return_all=return_all, mask=mask)
+
+
+def gru_stack_decode_sharded_impl(params, hs, x, *, mesh: Mesh,
+                                  cfg: GRUConfig) -> tuple:
+    """DEPRECATED per-call decode of the split: a shim over the executor's
+    ``sharded_decode`` backend (this rank's part placed per call)."""
+    from repro_torch.core import runtime
+    from repro_torch.core.gru import _warn_deprecated
+    _warn_deprecated("gru_stack_decode_sharded_impl")
+    exe = runtime.compile(dataclasses.replace(cfg, backend="sharded_decode"),
+                          batch=x.shape[0], placement=mesh, mode="decode")
+    return exe.decode(params, hs, x)

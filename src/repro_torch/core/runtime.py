@@ -68,7 +68,9 @@ family runs replicated, as in JAX)::
 ``cfg.backend`` is a preference: ``"eager"`` (the default, as ``"xla"`` is
 in the JAX config) and ``"cuda"`` pin their family when legal, an exact
 backend name pins that backend, and ``"auto"`` picks the cheapest legal
-one. An illegal preference falls through to the cheapest legal backend.
+one: by measured cost (:class:`CostModel`) when the model covers the
+call, else by the static table. An illegal preference falls through to
+the cheapest legal backend.
 So heterogeneous ``layer_dims`` under ``"cuda"``, or under a ``cuda_fused``
 or ``cuda_fused_q8`` pin, run ``cuda_chain``, as the JAX runtime falls to
 ``pallas_chain``.
@@ -77,9 +79,10 @@ Mesh (``REQ``: the backend requires a mesh placement; without one it is
 illegal, so a pin falls through). A mesh is an explicit request to use it
 for sequence work: the mesh backends win prefill before the preference is
 read (``cuda_sharded`` by its cost 4 unless a pin says otherwise). Decode
-is latency-bound and ranks by preference and static cost alone, so under
-``"cuda"`` it stays on the replicated ``cuda_fused`` (``cuda_sharded``'s
-decode cost is 190); the exact names ``cuda_sharded`` and
+is latency-bound and ranks by preference and cost alone, so under
+``"cuda"`` it stays on the replicated ``cuda_fused`` statically
+(``cuda_sharded``'s decode cost is 190) unless a measured table prices
+``cuda_sharded`` lower; the exact names ``cuda_sharded`` and
 ``sharded_decode`` pin the split's decode.
 
 Shape is part of legality: each kernel backend declares (``fits``, from
@@ -97,17 +100,66 @@ gated as in the JAX runtime: one is a candidate only under an exact-name
 pin, or when ``cfg.quant == "int8"`` and the recorded accuracy artifact
 (``BENCH_quant_accuracy.json``, or ``$REPRO_GRU_QUANT_ACC``; see
 :func:`load_quant_accuracy`) passed. Its static cost keeps ``auto`` off it
-even then. The measured CostModel is not ported yet. On CPU tensors the
+even then, unless a measured row shows it faster. On CPU tensors the
 ``cuda*`` backends run the kernels' plain PyTorch versions (see
 ``repro_torch.kernels.gru_sequence`` and ``repro_torch.kernels.gru_cell``).
+
+Measured dispatch. A :class:`CostModel` holds measured latencies per
+``(family, backend, op, depth, hidden)``, interpolated over the batch
+(the JAX package's schema: ``"bench": "gru_backend_costs"``, rows
+``family, backend, op, depth, hidden_dim, batch, p50_us``; rows without
+``family`` are the GRU's). Within one preference rank the measured cost
+replaces the static one when the model covers every legal candidate (a
+candidate whose static cost is at least :data:`UNCALIBRATED_GATE_COST`
+may go unmeasured: it then loses). The order stays mesh request >
+preference > cost > name, so under ``"cuda"`` a table chooses among the
+``cuda*`` backends and never puts ``eager`` ahead of them; only
+``"auto"`` compares every legal backend. Shape is checked first: a
+measured row never makes a kernel backend legal for a stack its
+``fits`` rejects. A ``p50_us`` is the engine's served step, the host
+clock around a step that ends in ``torch.cuda.synchronize()`` (what
+``ServeEngine.latency_stats`` reports), not device time; a table written
+on one card prices backends on that card only.
+
+The port's table is its own: :func:`cost_model` loads
+``$REPRO_TORCH_GRU_COSTS`` (default ``./BENCH_backend_costs_torch.json``),
+never the JAX package's ``$REPRO_GRU_COSTS`` /
+``./BENCH_backend_costs.json``. ``sharded`` and ``sharded_decode`` are
+backend names in both packages, so a JAX table would price the port's
+mesh backends with times taken on another machine. A missing or corrupt
+file gives an empty model: static dispatch, as before calibration.
+
+Recalibration and cost epochs. :func:`set_cost_model` and
+:func:`set_quant_accuracy` bump the cost epoch (:func:`cost_epoch`), which
+is part of every executable's cache key, and empty the cache: an
+executable priced under an older table or gate is never returned again.
+An executable already handed out keeps its backends: the serving engine
+freezes one per decode key and one per prefill bucket and calls through
+it, so a table installed mid-wave changes nothing until
+``ServeEngine.refresh_executables`` runs at a wave boundary (the tuner
+calls it after a recalibration, any other caller itself), where it
+re-resolves and drops its executables only if a backend changed. That is
+the port's counterpart of JAX's jit caches, which embed the backend of
+their trace.
+
+``compile(..., mode=...)`` states which ops the caller needs:
+``"prefill"`` and ``"sequence"`` a sequence backend, ``"decode"`` a
+decode backend, ``"serve"`` (the default) both; when none is legal it
+raises :class:`NoCapableBackend`. The deprecated one-shot surface
+(:func:`plan`, the ``ExecPlan`` name, and the legacy entry points of
+``core/gru.py`` and ``core/rowparallel.py``) shims onto ``compile`` and
+warns once per process.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import json
+import math
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GRUConfig
@@ -382,6 +434,156 @@ def prepare(params, cfg: GRUConfig, placement=None, *, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# measured cost model (static table fallback)
+# ---------------------------------------------------------------------------
+
+def _cost_key(e) -> tuple:
+    """A calibration row's curve key; rows without ``family`` or ``op``
+    are GRU decode rows."""
+    return (str(e.get("family", "gru")), str(e["backend"]),
+            str(e.get("op", "decode")), int(e["depth"]), int(e["hidden_dim"]))
+
+
+class CostModel:
+    """Measured per-backend latency, keyed (family, backend, op, depth,
+    hidden), linearly interpolated over the batch.
+
+    Loaded from a ``gru_backend_costs`` file (see the module docstring for
+    the schema and the units). Keys of 4 items (backend, op, depth,
+    hidden) are the GRU's, as are rows without ``family``. Lookups outside
+    the measured batches clamp to the nearest one; ``lookup`` is None for a
+    curve with no point, and selection trusts the model only where it
+    covers every legal candidate (µs and static preference numbers are not
+    comparable)."""
+
+    def __init__(self, table: Dict[tuple, List[tuple]], source: str = "",
+                 error: Optional[str] = None):
+        self._table = {(k if len(k) == 5 else ("gru", *k)): v
+                       for k, v in table.items()}
+        self.source = source
+        self.error = error
+
+    def __len__(self) -> int:
+        return sum(len(v) for v in self._table.values())
+
+    @classmethod
+    def from_entries(cls, entries, source: str = "") -> "CostModel":
+        table: Dict[tuple, List[tuple]] = {}
+        for e in entries:
+            table.setdefault(_cost_key(e), []).append(
+                (int(e["batch"]), float(e["p50_us"])))
+        for v in table.values():
+            v.sort()
+        return cls(table, source=source)
+
+    @classmethod
+    def load(cls, path) -> "CostModel":
+        """Tolerant load: a missing, unreadable or schema-mismatched file
+        gives an EMPTY model (every lookup misses: static dispatch)."""
+        try:
+            with open(path) as f:
+                data = json.load(f)
+            if data.get("bench") != "gru_backend_costs":
+                raise ValueError("not a gru_backend_costs artifact")
+            return cls.from_entries(data["entries"], source=str(path))
+        except (OSError, ValueError, KeyError, TypeError,
+                AttributeError) as e:
+            return cls({}, source=str(path),
+                       error=f"{type(e).__name__}: {e}")
+
+    def merged(self, entries, source: str = "") -> "CostModel":
+        """A NEW model: this table with ``entries`` folded in (the online
+        recalibration of ``repro_torch.serve.autotune``). A row replaces
+        the measured point at its (family, backend, op, depth, hidden,
+        batch), or extends the curve at a new batch. Malformed rows and
+        non-finite or non-positive latencies are skipped: a ManualClock run
+        measures dt == 0, which must never price a backend as free. Pure:
+        install the result with :func:`set_cost_model`."""
+        table = {k: list(v) for k, v in self._table.items()}
+        for e in entries:
+            try:
+                key = _cost_key(e)
+                batch = int(e["batch"])
+                us = float(e["p50_us"])
+            except (KeyError, TypeError, ValueError):
+                continue
+            if batch < 1 or not math.isfinite(us) or us <= 0.0:
+                continue
+            pts = table.setdefault(key, [])
+            pts[:] = [(b, c) for (b, c) in pts if b != batch]
+            pts.append((batch, us))
+            pts.sort()
+        return CostModel(table,
+                         source=source or (f"{self.source}+online"
+                                           if self.source else "<online>"))
+
+    def batch_points(self, backend: str, op: str = "decode", *, depth: int,
+                     hidden: int, family: str = "gru") -> List[tuple]:
+        """The measured ``(batch, p50_us)`` points of one curve, sorted by
+        batch: the autotuner's view, which must know where the
+        measurements end (``lookup`` clamps and interpolates)."""
+        return list(self._table.get((str(family), str(backend), str(op),
+                                     int(depth), int(hidden)), ()))
+
+    def lookup(self, backend: str, op: str, *, depth: int, batch: int,
+               hidden: int, family: str = "gru") -> Optional[float]:
+        pts = self._table.get((str(family), backend, op, int(depth),
+                               int(hidden)))
+        if not pts:
+            return None
+        if batch <= pts[0][0]:
+            return pts[0][1]
+        if batch >= pts[-1][0]:
+            return pts[-1][1]
+        for (b0, c0), (b1, c1) in zip(pts, pts[1:]):
+            if b0 <= batch <= b1:
+                return c0 + (batch - b0) / (b1 - b0) * (c1 - c0)
+        return None  # pragma: no cover - unreachable on a sorted table
+
+
+COSTS_ENV = "REPRO_TORCH_GRU_COSTS"
+COSTS_FILE = "BENCH_backend_costs_torch.json"
+_COST_MODEL: Optional[CostModel] = None
+_COST_EPOCH = 0     # part of the executable cache key: new model, new plans
+
+
+def set_cost_model(model: Optional[CostModel]) -> None:
+    """Install a calibration model (None re-arms the lazy default load).
+    Bumps the cost epoch and empties the executable cache: executables
+    priced under the old table are never returned again."""
+    global _COST_MODEL, _COST_EPOCH
+    _COST_MODEL = model
+    _COST_EPOCH += 1
+    _EXEC_CACHE.clear()
+
+
+def load_cost_model(path) -> CostModel:
+    """Load ``path`` (tolerantly) and install it. Returns the model."""
+    model = CostModel.load(path)
+    set_cost_model(model)
+    return model
+
+
+def cost_epoch() -> int:
+    """The current cost/gate epoch, bumped by :func:`set_cost_model` and
+    :func:`set_quant_accuracy`."""
+    return _COST_EPOCH
+
+
+def cost_model() -> CostModel:
+    """The active calibration model. On first use, loads
+    ``$REPRO_TORCH_GRU_COSTS`` (default
+    ``./BENCH_backend_costs_torch.json``) if present; otherwise an empty
+    model (static dispatch)."""
+    global _COST_MODEL
+    if _COST_MODEL is None:
+        path = os.environ.get(COSTS_ENV, COSTS_FILE)
+        _COST_MODEL = (CostModel.load(path) if os.path.exists(path)
+                       else CostModel({}, source=path))
+    return _COST_MODEL
+
+
+# ---------------------------------------------------------------------------
 # quant accuracy gate (the q8 backends' dispatch-eligibility record)
 # ---------------------------------------------------------------------------
 
@@ -421,10 +623,12 @@ _QUANT_ACC: Optional[QuantAccuracy] = None
 
 def set_quant_accuracy(report: Optional[QuantAccuracy]) -> None:
     """Install an accuracy report (None re-arms the lazy default load).
-    Gate flips change which backends are legal, so the memoized
-    executables are dropped."""
-    global _QUANT_ACC
+    Gate flips change which backends are legal, so this bumps the cost
+    epoch and empties the executable cache, as :func:`set_cost_model`
+    does."""
+    global _QUANT_ACC, _COST_EPOCH
     _QUANT_ACC = report
+    _COST_EPOCH += 1
     _EXEC_CACHE.clear()
 
 
@@ -460,9 +664,26 @@ def backend_dtype(name: Optional[str]) -> str:
     return "int8" if name and name.endswith("_q8") else "float32"
 
 
+
+
 # ---------------------------------------------------------------------------
-# compile(): capability filtering + preference + static cost
+# compile(): capability filtering + preference + (measured | static) cost
 # ---------------------------------------------------------------------------
+
+class NoCapableBackend(ValueError):
+    """No registered backend can legally serve the requested call."""
+
+
+MODES = ("serve", "prefill", "sequence", "decode")
+
+
+def _on(t, device) -> bool:
+    """Whether tensor ``t`` lives on ``device`` (no index: any of its
+    type)."""
+    device = torch.device(device)
+    return t.device.type == device.type and (
+        device.index is None or t.device.index == device.index)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class GRUExecutable:
@@ -472,18 +693,23 @@ class GRUExecutable:
     ``sequence(params, state0, xs, *, return_all=False, mask=None)``
     returns ``(flat finals, last layer's h sequence | None)``; ``prefill``
     is its finals-only view; ``decode(params, state, x)`` returns the flat
-    new state. A state is the family's flat tuple of per-layer leaves
-    (GRU: ``h`` per layer; sLSTM: ``c, n, m, h`` per layer); under a mesh
-    every rank passes and gets the same, replicated. ``params`` may be any
-    layout ``prepare`` accepts; pass :meth:`prepare`'s output on hot paths
-    so no call restacks or places weights."""
+    new state (None where no decode backend is legal). A state is the
+    family's flat tuple of per-layer leaves (GRU: ``h`` per layer; sLSTM:
+    ``c, n, m, h`` per layer); under a mesh every rank passes and gets the
+    same, replicated. ``params`` may be any layout ``prepare`` accepts;
+    pass :meth:`prepare`'s output on hot paths so no call restacks or
+    places weights. ``cost_source`` says whether the backends of ``mode``
+    were chosen by measured cost (``"measured"``) or by the static table
+    (``"static"``)."""
     cfg: GRUConfig
     batch: Optional[int]
     seq: Optional[int]
     masked: bool
-    sequence_backend: str
-    decode_backend: str
-    placement: Placement = HOST
+    placement: Placement
+    mode: str
+    sequence_backend: Optional[str]
+    decode_backend: Optional[str]
+    cost_source: str = "static"
     sequence: Callable = dataclasses.field(repr=False, default=None)
     prefill: Callable = dataclasses.field(repr=False, default=None)
     decode: Callable = dataclasses.field(repr=False, default=None)
@@ -494,8 +720,9 @@ class GRUExecutable:
 
     def _specs(self) -> tuple:
         fam = cell_families.cfg_family(self.cfg)
-        return (_REGISTRY[(fam, self.sequence_backend)],
-                _REGISTRY[(fam, self.decode_backend)])
+        return tuple(_REGISTRY[(fam, n)] for n in (self.sequence_backend,
+                                                   self.decode_backend)
+                     if n is not None)
 
     def prepare(self, params, *, device="cuda") -> StackParams:
         """Params for THIS executable's backends, placed once: this rank's
@@ -510,26 +737,41 @@ class GRUExecutable:
                        want_cells=not all(s.caps.supports_mesh
                                           for s in specs))
 
+    def missing_views(self, params, *, device="cuda") -> tuple:
+        """The weight views this executable's backends read that ``params``
+        (a prepared dict or :class:`StackParams`) lacks: ``"cells"`` (the
+        full cells on ``device``, for a replicated backend), ``"stacked"``,
+        ``"quant"`` or ``"placed"`` (this placement's). A call on params
+        that lack one builds it again on every call."""
+        family = cell_families.get_family(cell_families.cfg_family(self.cfg))
+        sp = _stack_params(params, self.cfg, want_stacked=False)
+        uniform = len(set(sp.dims)) == 1
+        missing = []
+        for s in self._specs():
+            if s.caps.supports_mesh:
+                if sp.placed is None or sp.placement != self.placement:
+                    missing.append("placed")
+                continue
+            if not _on(sp.cells[0]["u"], device):
+                missing.append("cells")
+            if (s.views == "stacked" and sp.stacked is None and uniform
+                    and family.stacked_views is not None):
+                missing.append("stacked")
+            if s.views == "quant" and sp.quant is None:
+                missing.append("quant")
+        return tuple(dict.fromkeys(missing))
+
+    def describe(self) -> dict:
+        return {"sequence_backend": self.sequence_backend,
+                "decode_backend": self.decode_backend,
+                "masked": self.masked, "mesh": self.mesh is not None,
+                "mode": self.mode, "batch": self.batch, "seq": self.seq,
+                "cost_source": self.cost_source}
+
 
 def _hetero(cfg: GRUConfig) -> bool:
     dims = cfg.resolved_layer_dims
     return any(d != dims[0] for d in dims)
-
-
-def _rank(spec: BackendSpec, cfg: GRUConfig, *, op: str, mesh) -> tuple:
-    """Selection key, lexicographic: mesh request (sequence ops: a mesh
-    is an explicit ask for the split) > ``cfg.backend`` preference (family
-    or exact name) > static cost of ``op`` > name (determinism)."""
-    mesh_rank = 0
-    if mesh is not None and op != "decode":
-        mesh_rank = 0 if spec.caps.supports_mesh else 1
-    pref = getattr(cfg, "backend", "eager")
-    fam = 1
-    if pref == spec.name:
-        fam = 0                          # exact backend-name pin
-    elif pref == "cuda" and spec.name.startswith("cuda"):
-        fam = 0
-    return (mesh_rank, fam, spec.static_cost(op), spec.name)
 
 
 def _q8_allowed(spec: BackendSpec, cfg: GRUConfig) -> bool:
@@ -540,23 +782,94 @@ def _q8_allowed(spec: BackendSpec, cfg: GRUConfig) -> bool:
     return cfg.quant == "int8" and quant_gate_open()
 
 
-def _select(cfg: GRUConfig, *, masked: bool, batch: Optional[int] = None,
-            op: str = "sequence", placement: Placement = HOST
-            ) -> BackendSpec:
-    """The preferred legal backend of ``cfg``'s family for ``op`` at this
-    batch on this placement (``eager`` serves every call, so there always
-    is one). A mesh backend is legal only on a mesh."""
-    hetero = _hetero(cfg)
+# Static costs at or above this line mark a backend "measured-only": it is
+# defined to lose unless a calibration measures it faster, so a cost model
+# that does not cover it (a q8 calibration of the decode op alone, say)
+# does not send the whole selection back to the static table. Candidates
+# below the line are all-or-nothing: measured µs and static preference
+# numbers are not comparable units.
+UNCALIBRATED_GATE_COST = 100
+
+
+def _measured_costs(legal, cfg: GRUConfig, *, op: str,
+                    batch: Optional[int]) -> Optional[Dict[str, float]]:
+    """Measured µs per candidate, or None where the model cannot cover the
+    call (no batch, heterogeneous dims, or an unmeasured candidate below
+    :data:`UNCALIBRATED_GATE_COST`; one at or above it is priced at
+    infinity and loses)."""
+    if batch is None or _hetero(cfg):
+        return None
+    model = cost_model()
+    if not len(model):
+        return None
+    dims = cfg.resolved_layer_dims
     fam = cell_families.cfg_family(cfg)
+    out, covered = {}, 0
+    for s in legal:
+        us = model.lookup(s.name, op, depth=len(dims), batch=batch,
+                          hidden=dims[0], family=fam)
+        if us is None:
+            if s.static_cost(op) >= UNCALIBRATED_GATE_COST:
+                out[s.name] = float("inf")
+                continue
+            return None
+        covered += 1
+        out[s.name] = us
+    return out if covered else None
+
+
+def _rank(spec: BackendSpec, cfg: GRUConfig, *, op: str, mesh,
+          measured: Optional[float] = None) -> tuple:
+    """Selection key, lexicographic: mesh request (sequence ops: a mesh
+    is an explicit ask for the split) > ``cfg.backend`` preference (family
+    or exact name) > cost of ``op`` (measured µs when the model covers the
+    call, else the static table) > name (determinism). JAX's first term,
+    a platform check that keeps its Pallas backends off platforms they
+    cannot lower on, has no counterpart: on CPU tensors the ``cuda*``
+    backends run their plain versions."""
+    mesh_rank = 0
+    if mesh is not None and op != "decode":
+        mesh_rank = 0 if spec.caps.supports_mesh else 1
+    pref = getattr(cfg, "backend", "eager")
+    fam = 1
+    if pref == spec.name:
+        fam = 0                          # exact backend-name pin
+    elif pref == "cuda" and spec.name.startswith("cuda"):
+        fam = 0
+    cost = float(spec.static_cost(op)) if measured is None else measured
+    return (mesh_rank, fam, cost, spec.name)
+
+
+def _legal(spec: BackendSpec, cfg: GRUConfig, *, op: str, masked: bool,
+           batch: Optional[int], mesh) -> bool:
+    """Whether ``spec`` may serve ``op`` of ``cfg``: its family, the op,
+    the mask, heterogeneous dims, a mesh where it needs one, the q8 gate,
+    and its kernels' shape fit at this batch."""
+    return (spec.family == cell_families.cfg_family(cfg) and spec.serves(op)
+            and (spec.caps.supports_mask or not masked)
+            and (spec.caps.supports_hetero_dims or not _hetero(cfg))
+            and (mesh is not None or not spec.caps.supports_mesh)
+            and _q8_allowed(spec, cfg)
+            and (spec.fits is None or spec.fits(cfg, batch, op)))
+
+
+def _select(cfg: GRUConfig, *, masked: bool, batch: Optional[int] = None,
+            op: str = "sequence", placement: Placement = HOST) -> tuple:
+    """-> (the preferred legal backend of ``cfg``'s family for ``op`` at
+    this batch on this placement, or None; ``"measured"`` or
+    ``"static"``). A mesh backend is legal only on a mesh, and a kernel
+    backend only for stacks its ``fits`` takes, whatever a measured row
+    says."""
     mesh = placement.mesh
     legal = [s for s in _REGISTRY.values()
-             if s.family == fam and s.serves(op)
-             and (s.caps.supports_mask or not masked)
-             and (s.caps.supports_hetero_dims or not hetero)
-             and (mesh is not None or not s.caps.supports_mesh)
-             and _q8_allowed(s, cfg)
-             and (s.fits is None or s.fits(cfg, batch, op))]
-    return min(legal, key=lambda s: _rank(s, cfg, op=op, mesh=mesh))
+             if _legal(s, cfg, op=op, masked=masked, batch=batch, mesh=mesh)]
+    if not legal:
+        return None, "static"
+    measured = _measured_costs(legal, cfg, op=op, batch=batch)
+    spec = min(legal, key=lambda s: _rank(
+        s, cfg, op=op, mesh=mesh,
+        measured=None if measured is None else measured[s.name]))
+    return spec, ("measured" if measured is not None else "static")
 
 
 _EXEC_CACHE: Dict[tuple, GRUExecutable] = {}
@@ -564,25 +877,41 @@ _EXEC_CACHE: Dict[tuple, GRUExecutable] = {}
 
 def compile(cfg: GRUConfig, *, batch: Optional[int] = None,
             seq: Optional[int] = None, mask: bool = False,
-            placement=None) -> GRUExecutable:
+            placement=None, mode: str = "serve") -> GRUExecutable:
     """Resolve the backends for a recurrent workload of ``cfg.family`` at
     these shapes on ``placement`` (a :class:`Placement`, a mesh, or None =
     host). ``mask`` declares whether sequence calls carry a (B, T) length
-    mask (decode steps carry none). Memoized on (cfg, shapes, mask,
-    placement): the same key returns the same object. An unregistered
-    ``cfg.family`` raises ``UnknownCellFamily``."""
+    mask (decode steps carry none). ``mode``: ``"prefill"`` and
+    ``"sequence"`` need a sequence backend, ``"decode"`` a decode backend,
+    ``"serve"`` both; :class:`NoCapableBackend` where one is missing.
+    Memoized on (cfg, shapes, mask, placement, mode, cost epoch): the same
+    key returns the same object. An unregistered ``cfg.family`` raises
+    ``UnknownCellFamily``."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
     _ensure_backends()
-    cell_families.get_family(cell_families.cfg_family(cfg))
+    fam = cell_families.cfg_family(cfg)
+    cell_families.get_family(fam)
     pl_ = _as_placement(placement)
     masked = bool(mask)
-    key = (cfg, batch, seq, masked, pl_)
+    key = (cfg, batch, seq, masked, pl_, mode, _COST_EPOCH)
     hit = _EXEC_CACHE.get(key)
     if hit is not None:
         return hit
-    seq_spec = _select(cfg, masked=masked, batch=batch, op="sequence",
-                       placement=pl_)
-    dec_spec = _select(cfg, masked=False, batch=batch, op="decode",
-                       placement=pl_)
+    seq_spec, seq_src = _select(cfg, masked=masked, batch=batch,
+                                op="sequence", placement=pl_)
+    dec_spec, dec_src = _select(cfg, masked=False, batch=batch, op="decode",
+                                placement=pl_)
+    if mode != "decode" and seq_spec is None:
+        raise NoCapableBackend(
+            f"no sequence backend for family={fam!r} "
+            f"cfg.backend={cfg.backend!r} mask={masked} "
+            f"dims={cfg.resolved_layer_dims} mesh={pl_.mesh}")
+    if mode in ("decode", "serve") and dec_spec is None:
+        raise NoCapableBackend(
+            f"no decode backend for family={fam!r} "
+            f"cfg.backend={cfg.backend!r} dims={cfg.resolved_layer_dims} "
+            f"mesh={pl_.mesh}")
 
     def stack_params(spec, params):
         return _stack_params(params, cfg, spec.views == "stacked",
@@ -593,6 +922,9 @@ def compile(cfg: GRUConfig, *, batch: Optional[int] = None,
         if mask is not None and not masked:
             raise ValueError("executable was compiled with mask=False; "
                              "re-compile with mask=True to pass a mask")
+        if seq_spec is None:
+            raise NoCapableBackend(f"no sequence backend for family="
+                                   f"{fam!r} cfg.backend={cfg.backend!r}")
         return seq_spec.sequence_fn(stack_params(seq_spec, params),
                                     tuple(state0), xs, cfg=cfg,
                                     return_all=return_all, mask=mask)
@@ -604,10 +936,57 @@ def compile(cfg: GRUConfig, *, batch: Optional[int] = None,
         return dec_spec.decode_fn(stack_params(dec_spec, params),
                                   tuple(state), x, cfg=cfg)
 
+    relevant = ([seq_src] if mode in ("prefill", "sequence") else
+                [dec_src] if mode == "decode" else [seq_src, dec_src])
     exe = GRUExecutable(
-        cfg=cfg, batch=batch, seq=seq, masked=masked,
-        sequence_backend=seq_spec.name, decode_backend=dec_spec.name,
-        placement=pl_, sequence=run_sequence, prefill=run_prefill,
-        decode=run_decode)
+        cfg=cfg, batch=batch, seq=seq, masked=masked, placement=pl_,
+        mode=mode, sequence_backend=seq_spec.name if seq_spec else None,
+        decode_backend=dec_spec.name if dec_spec else None,
+        cost_source="measured" if "measured" in relevant else "static",
+        sequence=run_sequence, prefill=run_prefill,
+        decode=run_decode if dec_spec else None)
     _EXEC_CACHE[key] = exe
     return exe
+
+
+# ---------------------------------------------------------------------------
+# compile-and-run conveniences (the legacy entry points shim onto these)
+# ---------------------------------------------------------------------------
+
+def sequence(params, state0, xs, *, cfg: GRUConfig, return_all: bool = False,
+             mask=None, mesh=None):
+    """Run a depth-L stack over xs (B,T,X) with the compiled backend.
+    Returns (flat finals, last layer's states | None)."""
+    exe = compile(cfg, batch=xs.shape[0] if xs.dim() >= 3 else None,
+                  seq=xs.shape[-2], placement=mesh, mask=mask is not None,
+                  mode="sequence")
+    return exe.sequence(params, state0, xs, return_all=return_all, mask=mask)
+
+
+def decode(params, state, x, *, cfg: GRUConfig, mesh=None):
+    """One serve step through the stack with the compiled backend.
+    Returns the flat new state."""
+    exe = compile(cfg, batch=x.shape[0], placement=mesh, mode="decode")
+    return exe.decode(params, state, x)
+
+
+# ---------------------------------------------------------------------------
+# deprecated one-shot surface: plan() / ExecPlan
+# ---------------------------------------------------------------------------
+
+def plan(cfg: GRUConfig, *, batch: Optional[int] = None,
+         seq: Optional[int] = None, mesh=None, mask: bool = False,
+         mode: str = "serve") -> GRUExecutable:
+    """DEPRECATED one-shot resolve: returns the SAME memoized executable
+    :func:`compile` would; warns once per process."""
+    gru_core._warn_deprecated("runtime.plan")
+    return compile(cfg, batch=batch, seq=seq, placement=mesh, mask=mask,
+                   mode=mode)
+
+
+def __getattr__(name: str):
+    if name == "ExecPlan":
+        # the deprecated class name: plans are executables now
+        gru_core._warn_deprecated("runtime.ExecPlan")
+        return GRUExecutable
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

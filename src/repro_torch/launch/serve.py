@@ -1,7 +1,7 @@
 """Serving driver: a wave of requests through the port's ServeEngine (the
-single-engine path of ``repro.launch.serve``; no fleet, async front-end or
-autotuner): feature-vector requests for the cell families, token prompts
-for the dense LM.
+single-engine path of ``repro.launch.serve``, its autotuner included; no
+fleet or async front-end): feature-vector requests for the cell
+families, token prompts for the dense LM.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet \\
         --gru-backend cuda --requests 12 --slots 8 --vary-prompt
@@ -44,6 +44,17 @@ cell configs are already small)::
         --requests 4 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu
+
+``--bucket-min`` sets the shortest prompt bucket (8 by default).
+``--autotune`` attaches an ``AutoTuner`` (``repro_torch.serve.autotune``;
+cell families): wave size from the measured batch-latency curve, the
+bucket ladder from the observed prompt lengths, served step timings folded
+back into the CostModel, all applied at wave boundaries (here: before the
+one wave and after it drains), and the applied decisions are printed::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet-deep \
+        --gru-backend cuda --autotune --bucket-min 4 --requests 12 \
+        --slots 4 --vary-prompt --max-new 4
 
 The run is on the card unless ``--device cpu`` is given. Prints each
 request's class or token stream, the decode latency statistics, the
@@ -112,6 +123,16 @@ def main(argv=None):
                         "every rank) and fall through here, and the "
                         "cuda_fused_q8 and cuda_chain_q8 pins serve the "
                         "int8 datapath whatever the accuracy gate says")
+    p.add_argument("--bucket-min", type=int, default=8,
+                   help="shortest prompt bucket (prompts pad to the next "
+                        "power of two at or above it)")
+    p.add_argument("--autotune", action="store_true",
+                   help="cell families: attach an online AutoTuner (wave "
+                        "size from the measured batch-latency curve, "
+                        "bucket ladder from observed prompt-length "
+                        "quantiles, served step timings folded back into "
+                        "the CostModel; retuned only at wave boundaries) "
+                        "and print the applied decisions")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -128,8 +149,15 @@ def main(argv=None):
                          device=device)
     reqs = make_requests(cfg, args.requests, args.prompt_len,
                          args.vary_prompt, args.max_new, args.seed)
+    tuner = None
+    if args.autotune:
+        if not is_cell:
+            p.error("--autotune tunes the cell families' waves")
+        from repro_torch.serve.autotune import AutoTuner
+        tuner = AutoTuner()
     engine = ServeEngine(cfg, params, max_batch=args.slots or args.requests,
-                         device=device)
+                         device=device, bucket_min=args.bucket_min,
+                         tuner=tuner)
     done = engine.generate(reqs)
     for i, r in enumerate(done):
         if is_cell:
@@ -146,7 +174,8 @@ def main(argv=None):
           f"p99={stats['p99_s'] * 1e3:.4f}ms ({stats['steps']} steps, "
           f"{stats['served_dtype']}); "
           f"prefill mean={stats['prefill_mean_s'] * 1e3:.4f}ms "
-          f"({stats['prefills']} prefills)")
+          f"({stats['prefills']} prefills, "
+          f"{len(engine._prefill_exes)} buckets)")
     if not is_cell:
         print(f"attention: {cfg.attn_impl} ({cfg.num_layers} layers, "
               f"d_model {cfg.d_model}, vocab {cfg.vocab_size})")
@@ -156,7 +185,22 @@ def main(argv=None):
     print(f"executor: prefill={'/'.join(sorted(set(engine.prefill_backends)))} "
           f"decode={engine.decode_backend} "
           f"decode_steps=[{attributed or '-'}]")
+    if tuner is not None:
+        print_autotune(stats["autotune"])
     return done
+
+
+def print_autotune(at: dict) -> None:
+    """The tuned shape and every applied decision, as JAX's CLI prints
+    them."""
+    ladder = at.get("bucket_ladder")
+    print(f"autotune: wave_size={at['wave_size']} "
+          f"bucket_ladder={ladder or 'pow2'} "
+          f"retunes={at.get('retunes', 0)} "
+          f"prompts_observed={at.get('prompts_observed', 0)}")
+    for d in at.get("decisions", ()):
+        print(f"  [{d['kind']}] {d['from']} -> {d['to']} "
+              f"({d['measurement'].get('rule', '')})")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ Forward = the sequence classifier (GRU stack + linear head). Serving =
 one recurrent step through the whole stack per feature vector, the
 paper's latency path; the cache carries one hidden state per layer. All
 GRU execution goes through the executor (``repro_torch.core.runtime``):
-``prefill``/``decode_step`` ask ``compile()`` for the memoized executable,
-and ``serve_executable`` exposes it so the engine can record which backend
+``prefill``/``decode_step`` ask ``compile()`` for the memoized executable
+unless the caller passes one (``exe``), and ``serve_executable`` exposes it
+so the engine can freeze it, call through it and record which backend
 ran. Under a mesh (``ctx=ShardCtx(mesh)``) the mesh becomes the
 executable's ``Placement``: every rank serves the same requests SPMD, and
 prefill runs the row-wise/cascade split (``cuda_sharded`` under
@@ -45,22 +46,31 @@ def _placement(ctx: ShardCtx) -> runtime.Placement:
 
 
 def prepare_params(params: dict, cfg: ModelConfig, device="cuda", *,
-                   ctx: ShardCtx = NO_SHARD) -> dict:
+                   ctx: ShardCtx = NO_SHARD, batch: int = None,
+                   executables=()) -> dict:
     """One-time serving prep: the cells on ``device`` plus the fused
     kernels' weight stacks (``"stacked_cells"``), so no step restacks, and
     when the config asks for the q8 datapath (``cfg.gru.quant`` or a
     ``*_q8`` pin) the int8 weight views (``"quant_cells"``), so no step
-    quantizes weights. Under a mesh, what the serving executable's
-    backends read: this rank's part of every layer on the mesh's device
+    quantizes weights. Under a mesh, what the serving executable at
+    ``batch`` reads (its backends may be priced by a measured table):
+    this rank's part of every layer on the mesh's device
     (``"placed_cells"``, with its ``"placement"``) for a mesh backend, the
     full cells on ``device`` only for a replicated one (``cfg.gru.backend
-    = "cuda"`` decodes on ``cuda_fused``)."""
+    = "cuda"`` decodes on ``cuda_fused``). ``executables``: also build
+    what these executables read (the engine passes the ones a retune
+    resolved to, whose backends may read views ``params`` lacks); views
+    ``params`` already carries are kept."""
     pl = _placement(ctx)
-    if pl.is_host:
+    if executables:
+        sp = params
+        for exe in executables:
+            sp = exe.prepare(sp, device=device)
+    elif pl.is_host:
         sp = runtime.prepare(params, cfg.gru, device=device)
     else:
-        sp = runtime.compile(cfg.gru, mask=True, placement=pl).prepare(
-            params, device=device)
+        sp = runtime.compile(cfg.gru, batch=batch, mask=True,
+                             placement=pl).prepare(params, device=device)
     out = {"cells": sp.cells,
            "head": {k: v.to(resolve_device(device))
                     for k, v in params["head"].items()}}
@@ -75,12 +85,13 @@ def prepare_params(params: dict, cfg: ModelConfig, device="cuda", *,
 
 
 def serve_executable(cfg: ModelConfig, *, batch: int, seq: int = None,
-                     masked: bool = False,
+                     masked: bool = False, mode: str = "serve",
                      mesh=None) -> runtime.GRUExecutable:
     """The executable a serving call with these shapes uses (the same
-    memoized object ``prefill``/``decode_step`` resolve)."""
+    memoized object ``prefill``/``decode_step`` resolve; the engine
+    freezes it and passes it back as ``exe``)."""
     return runtime.compile(cfg.gru, batch=batch, seq=seq, mask=masked,
-                           placement=mesh)
+                           placement=mesh, mode=mode)
 
 
 def cache_specs(cfg: ModelConfig, batch: int) -> dict:
@@ -97,28 +108,32 @@ def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                x: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
+                x: torch.Tensor, *, ctx: ShardCtx = NO_SHARD, exe=None):
     """One recurrent step through the stack: x (B,X) features ->
-    (class logits, new cache)."""
-    exe = runtime.compile(cfg.gru, batch=x.shape[0],
-                          placement=_placement(ctx))
+    (class logits, new cache). ``exe``: a decode executable to call
+    through (an engine's frozen one); None resolves it through
+    ``compile``."""
+    exe = exe or runtime.compile(cfg.gru, batch=x.shape[0], mode="decode",
+                                 placement=_placement(ctx))
     hs = exe.decode(params, cache["h"], x)
     return _logits(params, hs[-1]), {"h": hs, "pos": cache["pos"] + 1}
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
-            ctx: ShardCtx = NO_SHARD):
+            ctx: ShardCtx = NO_SHARD, exe=None):
     """Run the full sequence; return (logits, per-layer cache).
 
     ``batch["mask"]`` (B, T) bool, optional: False steps freeze the
     recurrence, so left-padded bucketed prompts give the state of their
-    unpadded originals."""
+    unpadded originals. ``exe``: a prefill executable to call through (an
+    engine's frozen one); None resolves it through ``compile``."""
     xs = batch["features"]
     B = xs.shape[0]
     mask = batch.get("mask")
     h0s = gru_core.stack_h0(cfg.gru, B, xs.dtype, xs.device)
-    exe = runtime.compile(cfg.gru, batch=B, seq=xs.shape[1],
-                          mask=mask is not None, placement=_placement(ctx))
+    exe = exe or runtime.compile(cfg.gru, batch=B, seq=xs.shape[1],
+                                 mask=mask is not None, mode="prefill",
+                                 placement=_placement(ctx))
     finals = exe.prefill(params, h0s, xs, mask=mask)
     cache = {"h": tuple(h.float() for h in finals),
              "pos": torch.tensor(xs.shape[1] - 1, dtype=torch.int32,

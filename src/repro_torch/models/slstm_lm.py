@@ -48,7 +48,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     xs = batch["features"]
     state0 = slstm_core.stack_state0(cfg.gru, xs.shape[0], xs.dtype,
                                      xs.device)
-    exe = runtime.compile(cfg.gru, batch=xs.shape[0], seq=xs.shape[1])
+    exe = runtime.compile(cfg.gru, batch=xs.shape[0], seq=xs.shape[1],
+                          mode="sequence")
     finals, _ = exe.sequence(stack_cell_params(params, cfg.gru), state0, xs)
     return _logits(params, finals[-1])
 
@@ -72,29 +73,32 @@ def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                x: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
+                x: torch.Tensor, *, ctx: ShardCtx = NO_SHARD, exe=None):
     """One recurrent step through the stack: x (B,X) features ->
     (class logits, new cache); all four leaves of every layer advance.
-    The family has no mesh backend: under a mesh it runs replicated."""
-    exe = runtime.compile(cfg.gru, batch=x.shape[0],
-                          placement=_placement(ctx))
+    The family has no mesh backend: under a mesh it runs replicated.
+    ``exe``: a decode executable to call through (None: ``compile``)."""
+    exe = exe or runtime.compile(cfg.gru, batch=x.shape[0], mode="decode",
+                                 placement=_placement(ctx))
     state = exe.decode(params, cache["h"], x)
     return _logits(params, state[-1]), {"h": state, "pos": cache["pos"] + 1}
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
-            ctx: ShardCtx = NO_SHARD):
+            ctx: ShardCtx = NO_SHARD, exe=None):
     """Run the full sequence; return (logits, flat recurrent state).
 
     ``batch["mask"]`` (B, T) bool, optional: False steps freeze all four
     leaves, stabilizer included, so left-padded bucketed prompts give the
-    state of their unpadded originals."""
+    state of their unpadded originals. ``exe``: a prefill executable to
+    call through (None: ``compile``)."""
     xs = batch["features"]
     B = xs.shape[0]
     mask = batch.get("mask")
     state0 = slstm_core.stack_state0(cfg.gru, B, xs.dtype, xs.device)
-    exe = runtime.compile(cfg.gru, batch=B, seq=xs.shape[1],
-                          mask=mask is not None, placement=_placement(ctx))
+    exe = exe or runtime.compile(cfg.gru, batch=B, seq=xs.shape[1],
+                                 mask=mask is not None, mode="prefill",
+                                 placement=_placement(ctx))
     finals = exe.prefill(params, state0, xs, mask=mask)
     cache = {"h": tuple(s.float() for s in finals),
              "pos": torch.tensor(xs.shape[1] - 1, dtype=torch.int32,

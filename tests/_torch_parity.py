@@ -90,3 +90,29 @@ def run_ranks(body: str, n: int, workdir, timeout: float = 240.0) -> None:
         assert p.returncode == 0, (
             f"rank {r} of {n} exited {p.returncode}:\n"
             + (workdir / f"rank{r}.log").read_text()[-4000:])
+
+
+# executor backend names, JAX package -> port ("pallas" and "cuda" are the
+# kernel-family preferences)
+NAME_MAP = {"xla": "eager", "pallas": "cuda", "pallas_fused": "cuda_fused",
+            "pallas_chain": "cuda_chain", "pallas_fused_q8": "cuda_fused_q8",
+            "pallas_chain_q8": "cuda_chain_q8",
+            "pallas_sharded": "cuda_sharded", "sharded": "sharded",
+            "sharded_decode": "sharded_decode", "auto": "auto"}
+
+
+def port_rows(entries):
+    """Calibration rows with JAX backend names renamed to the port's."""
+    return [dict(e, backend=NAME_MAP.get(e["backend"], e["backend"]))
+            for e in entries]
+
+
+def hermetic_runtimes() -> None:
+    """Empty cost models (static dispatch) and closed q8 gates in both
+    packages' runtimes, so no calibration file in the working directory
+    moves a choice under test."""
+    from repro.core import runtime as jrt
+    from repro_torch.core import runtime as rt
+    for r in (jrt, rt):
+        r.set_cost_model(r.CostModel({}, source="<tests: static>"))
+        r.set_quant_accuracy(r.QuantAccuracy({}, source="<tests: closed>"))
