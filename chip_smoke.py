@@ -134,6 +134,39 @@ Phases (any failure exits non-zero, before the result lines):
    the ragged T of the tuned bucket ladders included, is held against its
    plain version by phase 3's rules. Its launches of rows 1-3, 8 and 9
    are added to the kernels line's counts;
+8c. the serving fleet (``repro_torch.serve.fleet``, full width, seed 0,
+   counters zeroed just before each part, plain versions watched, every
+   prefill and step of every engine recorded, those of killed replicas
+   too): (a) gru-jet-deep under ``backend="cuda"`` on a ``FleetRouter``
+   of 2 replicas of 8 slots under a ``SystemClock``, ``FleetConfig()``
+   defaults, depth routing, 24 requests with ragged prompts of 1-20
+   vectors and 16 decode steps: every request completes, none fails or is
+   shed, the class streams equal one engine's at 8 slots on the card and
+   the ``eager`` engine's; (b) the same requests on 3 replicas under a
+   ``ManualClock``, replica0 killed while it holds flights and restored
+   later, replica1 slowed 6x for a window (three replicas, since the
+   straggler monitor compares with the median of the replicas' medians):
+   kills, restores, retries and hedges each at least 1, every request
+   completed, the streams equal (a)'s, the restart releases the dropped
+   engine (``torch.cuda.memory_allocated()`` no higher after it; printed
+   before and after the run) and the restored replica serves steps again
+   on ``cuda_fused``; (c) gru-jet through ``AsyncFleetClient`` (2
+   replicas, ``SystemClock``), 16 concurrent client coroutines, one
+   cancelled mid-stream: that ticket ends ``cancelled``, every other
+   stream equals its ``request.out`` and one engine's, and every prefill
+   and step ran on the front end's ``fleet-tick`` worker thread; (d)
+   slstm-jet on 2 replicas with a kill and a restore under a
+   ``ManualClock``: streams equal one engine's; (e) the CLI's
+   ``--replicas 2 --inject-faults`` run of gru-jet-deep, sync and
+   ``--async``, each in its own process (both started together), must
+   exit 0 with every request completed. In each of (a)-(d) the prefill
+   row (1, 2 or 8) launches once per prefill and the decode row (3 or 9)
+   once per decode step served, on the warp route, every prefill and step
+   is on ``cuda_fused``, and no other kernel and no plain version runs;
+   each part prints its e2e p50/p99, queue-wait p99, each replica's
+   decode p50/p99, retries and hedges. Every served shape phase 3 did not
+   cover is then held against its plain version by phase 3's rules. Its
+   launches of rows 1-3, 8 and 9 are added to the kernels line's counts;
 9. hold the dense LM's attention kernels against their plain versions on
    the card, in fp32 (at most 1e-5) and bf16 (flash attention, whose
    output is bf16: within rtol = atol = 2**-7, one bf16 ulp; flash decode,
@@ -249,7 +282,12 @@ Phases (any failure exits non-zero, before the result lines):
    engine's decode-step p50/p99 come from phases 4-8 and 10 (host clock).
 
 Then it prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
-line, and as the last line ``{"ok": true, "device": {...}}``. Without a
+line, and as the last line ``{"ok": true, "device": {...}}``. A row's
+``launches`` sums the serving phases that drove it with the counters
+zeroed just before: rows 1-9 phases 4-8, 8b and 8c (row 3's phase-11b
+``backend="cuda"`` launches kept apart as ``mesh_launches``), the
+attention rows phase 10, rows 10, 11, 19 and 20 phase 11, and the shard
+rows phase 11b. Without a
 card, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
@@ -2354,6 +2392,556 @@ def check_slstm_shapes(torch, dev, served) -> dict:
     print(f"  {n_checks} served-shape kernel/plain comparisons passed",
           flush=True)
     return err
+
+
+# ---------------------------------------------------------------------------
+# 8c. the serving fleet: replicas, faults and the asyncio front end
+# ---------------------------------------------------------------------------
+
+FLEET_REQUESTS, FLEET_CLIENTS = 24, 16
+FLEET_ROWS = ("gru_sequence_kernel", "gru_stack_sequence_kernel",
+              "gru_stack_decode_kernel") + SLSTM
+CLI_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def engine_calls():
+    """Record every prefill and decode step that any ``ServeEngine`` serves
+    while the block runs (the engines of killed replicas too): the backend
+    each ran on and the thread that ran it."""
+    import threading
+    from repro_torch.serve.engine import ServeEngine
+    seen = {"prefills": [], "steps": [], "threads": set()}
+    prefill, step = ServeEngine._gru_prefill, ServeEngine.gru_wave_step
+
+    def counted_prefill(self, prompts):
+        out = prefill(self, prompts)
+        seen["prefills"].append(self.prefill_backends[-1])
+        seen["threads"].add(threading.current_thread().name)
+        return out
+
+    def counted_step(self):
+        stepping = self._wave is not None
+        out = step(self)
+        if stepping:
+            seen["steps"].append(self.decode_backend)
+            seen["threads"].add(threading.current_thread().name)
+        return out
+    ServeEngine._gru_prefill = counted_prefill
+    ServeEngine.gru_wave_step = counted_step
+    try:
+        yield seen
+    finally:
+        ServeEngine._gru_prefill = prefill
+        ServeEngine.gru_wave_step = step
+
+
+def fleet_shape_counts() -> dict:
+    """The calls of rows 1, 2, 3, 8 and 9 recorded so far, by shape."""
+    return {"gru_sequence_kernel": dict(SEQ_SHAPES),
+            "gru_stack_sequence_kernel": dict(
+                PREFILL_SHAPES["gru_stack_sequence_kernel"]),
+            "gru_stack_decode_kernel": dict(
+                DECODE_SHAPES["gru_stack_decode_kernel"]),
+            **{n: dict(SLSTM_SHAPES[n]) for n in SLSTM}}
+
+
+def fleet_routes(name) -> dict:
+    if name == "gru_sequence_kernel":
+        return SEQ_ROUTES
+    if name in SLSTM:
+        return SLSTM_ROUTES[name]
+    if name in PREFILLS:
+        return PREFILL_ROUTES[name]
+    return DECODE_ROUTES[name]
+
+
+def counted_fleet_run(label, fn, want_rows):
+    """Run ``fn()`` with every launch counter at 0 just before, the plain
+    versions watched and every engine's prefills and steps recorded; the
+    kernels of ``want_rows`` (``(prefill row, decode row)``) must launch
+    once per prefill and per decode step served, no other kernel and no
+    plain version may run, every prefill and step must be on
+    ``cuda_fused`` and every served call on its warp route. Returns
+    ``fn``'s result, the launches of rows 1, 2, 3, 8 and 9, the engine
+    record and the calls by shape."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    before = fleet_shape_counts()
+    K.reset_launch_counts()
+    with plain_calls() as plain, sequence_shapes(SEQ_SHAPES), \
+            decode_calls(), prefill_calls(), slstm_calls(), \
+            engine_calls() as seen:
+        result = fn()
+    every = (K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
+             + SK.SLSTM_KERNELS + K.ATTN_KERNELS + K.ROWWISE_KERNELS
+             + K.SHARD_KERNELS)
+    counts = {k.__name__: k.launches for k in every}
+    launches = {n: counts[n] for n in FLEET_ROWS}
+    want = {n: 0 for n in counts}
+    want[want_rows[0]] = len(seen["prefills"])
+    want[want_rows[1]] = len(seen["steps"])
+    print(f"  {label}: {len(seen['prefills'])} prefills, "
+          f"{len(seen['steps'])} decode steps; launches "
+          f"{ {n: c for n, c in counts.items() if c} }; plain versions "
+          f"{ {n: c for n, c in plain.items() if c} }", flush=True)
+    check(counts == want, f"8c {label}: launches {counts} != one "
+          f"{want_rows[0]} per prefill and one {want_rows[1]} per decode "
+          f"step ({len(seen['prefills'])}, {len(seen['steps'])})")
+    check(not any(plain.values()), f"8c {label}: plain versions ran {plain}")
+    check(seen["prefills"] and seen["steps"]
+          and set(seen["prefills"]) == set(seen["steps"]) == {"cuda_fused"},
+          f"8c {label}: prefills on {set(seen['prefills'])}, steps on "
+          f"{set(seen['steps'])}, not all cuda_fused")
+    after = fleet_shape_counts()
+    served = {n: {k: c - before[n].get(k, 0) for k, c in after[n].items()
+                  if c > before[n].get(k, 0)} for n in FLEET_ROWS}
+    for n in want_rows:
+        routes = fleet_routes(n)
+        got = {k: routes.get(k) for k in served[n]}
+        check(sum(served[n].values()) == launches[n]
+              and all(r == {"warp"} for r in got.values()),
+              f"8c {label}: {n}'s served calls {served[n]} "
+              f"({launches[n]} launches) launched {got}, not the warp "
+              f"route every time")
+    return result, launches, seen, served
+
+
+def fleet_line(label, s, clock_name):
+    """The printed summary of one fleet run: e2e and queue-wait tails, each
+    replica's decode tails, retries and hedges."""
+    reps = "; ".join(
+        f"{name} decode p50 {r['decode_p50_s'] * 1e3:.4f} ms p99 "
+        f"{r['decode_p99_s'] * 1e3:.4f} ms ({r['steps']} steps, "
+        f"{r['restarts']} restarts)" for name, r in s["replicas"].items())
+    print(f"  {label} [{clock_name}]: completed {s['completed']}/"
+          f"{s['submitted']}, failed {s['failed']}, cancelled "
+          f"{s['cancelled']}, shed {s['shed']}; e2e p50 "
+          f"{s['e2e_p50_s'] * 1e3:.4f} ms p99 {s['e2e_p99_s'] * 1e3:.4f} "
+          f"ms; queue wait p99 {s['queue_wait_p99_s'] * 1e3:.4f} ms; "
+          f"retries {s['retries']}, hedges {s['hedges']} "
+          f"({s['hedges_cancelled']} cancelled), kills {s['kills']}, "
+          f"restores {s['restores']}; {reps}", flush=True)
+
+
+def fleet_report(s) -> dict:
+    keys = ("submitted", "completed", "failed", "cancelled", "retries",
+            "hedges", "hedges_cancelled", "kills", "restores", "ticks",
+            "e2e_p50_s", "e2e_p99_s", "queue_wait_p99_s")
+    return {**{k: s[k] for k in keys}, "shed": s["shed"],
+            "replicas": {n: {k: r[k] for k in ("steps", "restarts",
+                                               "decode_p50_s",
+                                               "decode_p99_s")}
+                         for n, r in s["replicas"].items()}}
+
+
+def fleet_requests(cfg, n, seed):
+    from repro_torch.launch.serve import make_requests
+    return make_requests(cfg, n, MAX_PROMPT, True, MAX_NEW, seed)
+
+
+def engine_streams(cfg, params, dev, n, seed, backend="cuda"):
+    """The class streams of one engine at :data:`SLOTS` slots."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend=backend))
+    return [r.out for r in ServeEngine(cfg, params, max_batch=SLOTS,
+                                       device=dev).generate(
+        fleet_requests(cfg, n, seed))]
+
+
+@contextlib.contextmanager
+def restart_watch(torch, dev):
+    """Record every replica restart while the block runs: the device memory
+    allocated just before and just after it, and whether the dropped engine
+    was released (nothing holds it once replaced)."""
+    import gc
+    import weakref
+    from repro_torch.serve.fleet import FleetReplica
+    restarts, restart = [], FleetReplica.restart
+
+    def allocated():
+        return (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+
+    def watched(self):
+        old = weakref.ref(self.engine)
+        m0 = allocated()
+        restart(self)
+        gc.collect()
+        restarts.append({"replica": self.name, "steps": self.steps,
+                         "allocated_before": m0,
+                         "allocated_after": allocated(),
+                         "released": old() is None})
+    FleetReplica.restart = watched
+    try:
+        yield restarts
+    finally:
+        FleetReplica.restart = restart
+
+
+def run_fleet_path(torch, dev):
+    """Phase 8c: (a) gru-jet-deep on a two-replica fleet under the real
+    clock; (b) the same requests on three replicas under a ManualClock with
+    replica0 killed and restored and replica1 slowed (hedges); (c) gru-jet
+    through the asyncio front end, 16 client coroutines, one cancelled
+    mid-stream; (d) slstm-jet with a kill and a restore; (e) the CLI's
+    fleet modes in their own processes. Counters are zeroed just before
+    each part; every served shape not in phase 3 is then held against its
+    plain version."""
+    import asyncio
+    import gc
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.params import init_params
+    from repro_torch.models import gru_lm, slstm_lm
+    from repro_torch.serve.async_frontend import AsyncFleetClient
+    from repro_torch.serve.clock import ManualClock
+    from repro_torch.serve.fleet import (FaultEvent, FaultInjector,
+                                         FleetConfig, FleetRouter)
+    t_phase = time.monotonic()
+    total = {n: 0 for n in FLEET_ROWS}
+    served_all = {n: {} for n in FLEET_ROWS}
+    report = {}
+
+    def add(launches, served):
+        for n in FLEET_ROWS:
+            total[n] += launches[n]
+            for k, c in served[n].items():
+                served_all[n][k] = served_all[n].get(k, 0) + c
+
+    def cuda(cfg):
+        return cfg.replace(gru=dataclasses.replace(cfg.gru, backend="cuda"))
+
+    deep = cuda(get_config("gru-jet-deep"))
+    deep_params = init_params(gru_lm.lm_specs(deep), seed=0, device=dev)
+    rows_gru_deep = ("gru_stack_sequence_kernel", "gru_stack_decode_kernel")
+
+    def engine_s(router):
+        """Host seconds of the replicas' recorded prefills and steps."""
+        return sum(sum(r.engine.step_times) + sum(r.engine.prefill_times)
+                   for r in router.replicas)
+
+    # (a) fault-free, real clock, FleetConfig() defaults, depth routing
+    def part_a():
+        router = FleetRouter(deep, deep_params, replicas=2, max_batch=SLOTS,
+                             config=FleetConfig(), device=dev)
+        reqs = fleet_requests(deep, FLEET_REQUESTS, seed=8)
+        t0 = time.monotonic()
+        router.generate(reqs)
+        return router, reqs, time.monotonic() - t0
+    t_part = time.monotonic()
+    (router, reqs, wall), launches, seen, served = counted_fleet_run(
+        "(a) gru-jet-deep, 2 replicas, SystemClock", part_a, rows_gru_deep)
+    add(launches, served)
+    s = router.stats()
+    fleet_line("(a) gru-jet-deep, 2 replicas", s, "host clock")
+    print(f"  (a) generate() {wall * 1e3:.4f} ms over {s['ticks']} ticks "
+          f"({wall / s['ticks'] * 1e3:.4f} ms a tick); the replicas' "
+          f"recorded prefills and steps {engine_s(router) * 1e3:.4f} ms "
+          f"of it (host clock)", flush=True)
+    streams_a = [r.out for r in reqs]
+    check(s["completed"] == s["submitted"] == FLEET_REQUESTS
+          and s["failed"] == 0 and not s["shed"],
+          f"8c (a): {fleet_report(s)}")
+    check(len(seen["steps"]) == sum(r.steps for r in router.replicas),
+          "8c (a): the engines' steps differ from the replicas' count")
+    solo = engine_streams(deep, deep_params, dev, FLEET_REQUESTS, 8)
+    eager = engine_streams(deep, deep_params, dev, FLEET_REQUESTS, 8,
+                           "eager")
+    check(streams_a == solo == eager, "8c (a): the fleet's class streams "
+          "differ from one engine's at 8 slots or the eager engine's")
+    check(all(len(x) == MAX_NEW for x in streams_a),
+          f"8c (a): stream lengths {[len(x) for x in streams_a]}")
+    report["a"] = {**fleet_report(s), "launches": launches,
+                   "streams_equal_engine_and_eager": True, "wall_s": wall,
+                   "engine_s": engine_s(router),
+                   "part_s": time.monotonic() - t_part}
+    del router
+
+    # (b) ManualClock: kill replica0 while it holds flights, restore it,
+    # slow replica1 6x. Three replicas: the straggler monitor compares a
+    # replica's median step with the median of all replicas' medians, and
+    # of two replicas neither median can exceed 3x their mean.
+    def part_b():
+        schedule = FaultInjector([
+            FaultEvent(t=0.05, kind="kill", replica="replica0"),
+            FaultEvent(t=0.06, kind="slow", replica="replica1", factor=6.0),
+            FaultEvent(t=0.20, kind="restore", replica="replica0"),
+            FaultEvent(t=0.80, kind="slow", replica="replica1", factor=1.0)])
+        router = FleetRouter(deep, deep_params, replicas=3, max_batch=SLOTS,
+                             clock=ManualClock(),
+                             config=FleetConfig(heartbeat_timeout_s=0.05,
+                                                tick_s=0.01),
+                             injector=schedule, device=dev)
+        reqs = fleet_requests(deep, FLEET_REQUESTS, seed=8)
+        with restart_watch(torch, dev) as restarts:
+            router.generate(reqs)
+        return router, reqs, restarts
+    gc.collect()
+    t_part = time.monotonic()
+    m_before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    (router, reqs, restarts), launches, seen, served = counted_fleet_run(
+        "(b) gru-jet-deep, 3 replicas, ManualClock, kill/restore/slow",
+        part_b, rows_gru_deep)
+    add(launches, served)
+    s = router.stats()
+    fleet_line("(b) gru-jet-deep, 3 replicas, faults", s, "virtual clock")
+    rep0 = router.replicas[0]
+    check(s["kills"] >= 1 and s["restores"] >= 1 and s["hedges"] >= 1
+          and s["retries"] >= 1, f"8c (b): a fault did not act: "
+          f"{fleet_report(s)}")
+    check(s["completed"] == s["submitted"] == FLEET_REQUESTS
+          and s["failed"] == 0, f"8c (b): {fleet_report(s)}")
+    check([r.out for r in reqs] == streams_a,
+          "8c (b): the faulted fleet's class streams differ from (a)'s")
+    check(len(restarts) == 1 and restarts[0]["released"]
+          and restarts[0]["allocated_after"]
+          <= restarts[0]["allocated_before"],
+          f"8c (b): the restart kept the dropped engine's tensors: "
+          f"{restarts}")
+    check(rep0.steps > restarts[0]["steps"]
+          and set(rep0.engine.prefill_backends) == {"cuda_fused"}
+          and set(rep0.engine.decode_backends) == {"cuda_fused"},
+          f"8c (b): the restored replica served "
+          f"{rep0.steps - restarts[0]['steps']} steps after its restart, on "
+          f"{set(rep0.engine.decode_backends)}")
+    m_after = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    del router, rep0
+    gc.collect()
+    m_freed = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    print(f"  (b) torch.cuda.memory_allocated: {m_before} B before, "
+          f"{m_after} B after the run, {m_freed} B once the router is "
+          f"dropped; at the restart {restarts[0]['allocated_before']} B -> "
+          f"{restarts[0]['allocated_after']} B (the dropped engine "
+          f"released); replica0 served "
+          f"{s['replicas']['replica0']['steps'] - restarts[0]['steps']} "
+          f"steps after it, all cuda_fused", flush=True)
+    report["b"] = {**fleet_report(s), "launches": launches,
+                   "memory_allocated": [m_before, m_after, m_freed],
+                   "restart": restarts[0], "streams_equal_a": True,
+                   "part_s": time.monotonic() - t_part}
+
+    # (c) the asyncio front end: gru-jet, 16 concurrent clients, one gone
+    jet = cuda(get_config("gru-jet"))
+    jet_params = init_params(gru_lm.lm_specs(jet), seed=0, device=dev)
+
+    def part_c():
+        router = FleetRouter(jet, jet_params, replicas=2, max_batch=SLOTS,
+                             device=dev)
+        reqs = fleet_requests(jet, FLEET_CLIENTS, seed=9)
+        streamed = [None] * len(reqs)
+        tick, in_ticks = router.tick, []
+
+        def timed_tick(*a, **kw):       # on the worker thread
+            t0 = time.monotonic()
+            out = tick(*a, **kw)
+            in_ticks.append(time.monotonic() - t0)
+            return out
+        router.tick = timed_tick
+
+        async def client(c, i, first_token):
+            handle = await c.submit(reqs[i])
+            toks = streamed[i] = []
+            async for tok in handle:
+                toks.append(tok)
+                first_token.set()
+            streamed[i] = toks
+
+        async def main():
+            async with AsyncFleetClient(router) as c:
+                first = asyncio.Event()
+                victim = asyncio.create_task(client(c, 0, first))
+                others = [asyncio.create_task(client(c, i, asyncio.Event()))
+                          for i in range(1, len(reqs))]
+                await first.wait()
+                victim.cancel()
+                await asyncio.gather(victim, *others,
+                                     return_exceptions=True)
+        t0 = time.monotonic()
+        asyncio.run(main())        # the counters are read after it closed
+        return router, reqs, streamed, time.monotonic() - t0, sum(in_ticks)
+    t_part = time.monotonic()
+    (router, reqs, streamed, wall, ticking), launches, seen, served = \
+        counted_fleet_run("(c) gru-jet, async front end, 16 clients",
+                          part_c, ("gru_sequence_kernel",
+                                   "gru_stack_decode_kernel"))
+    add(launches, served)
+    s = router.stats()
+    fleet_line("(c) gru-jet, 2 replicas, async front end", s, "host clock")
+    print(f"  (c) asyncio.run {wall * 1e3:.4f} ms, {s['ticks']} ticks "
+          f"taking {ticking * 1e3:.4f} ms on the worker thread, the "
+          f"replicas' recorded prefills and steps "
+          f"{engine_s(router) * 1e3:.4f} ms of them (host clock)",
+          flush=True)
+    solo = engine_streams(jet, jet_params, dev, FLEET_CLIENTS, 9)
+    victim = router.tickets[[t.request for t in router.tickets].index(
+        reqs[0])]
+    check(victim.status == "cancelled" and not reqs[0].done
+          and s["cancelled"] == 1 and 0 < len(streamed[0]) < MAX_NEW,
+          f"8c (c): the disconnected client's ticket is {victim.status}")
+    check(all(streamed[i] == reqs[i].out == solo[i]
+              for i in range(1, len(reqs))),
+          "8c (c): a client's stream differs from its request.out or from "
+          "one engine's stream")
+    check(s["completed"] == FLEET_CLIENTS - 1 and s["failed"] == 0,
+          f"8c (c): {fleet_report(s)}")
+    check(seen["threads"] and all(t.startswith("fleet-tick")
+                                  for t in seen["threads"]),
+          f"8c (c): prefills and steps ran on {seen['threads']}, not the "
+          f"front end's worker thread")
+    print(f"  (c) every prefill and step on thread(s) "
+          f"{sorted(seen['threads'])}; client 0 cancelled after "
+          f"{len(streamed[0])} of its {MAX_NEW} classes streamed, "
+          f"{FLEET_CLIENTS - 1} streams == request.out == one engine's",
+          flush=True)
+    report["c"] = {**fleet_report(s), "launches": launches,
+                   "threads": sorted(seen["threads"]), "wall_s": wall,
+                   "tick_s": ticking, "engine_s": engine_s(router),
+                   "part_s": time.monotonic() - t_part}
+    del router
+
+    # (d) slstm-jet: 2 replicas, kill and restore under a ManualClock
+    sj = cuda(get_config("slstm-jet"))
+    sj_params = init_params(slstm_lm.lm_specs(sj), seed=0, device=dev)
+
+    def part_d():
+        router = FleetRouter(sj, sj_params, replicas=2, max_batch=SLOTS,
+                             clock=ManualClock(),
+                             config=FleetConfig(heartbeat_timeout_s=0.05,
+                                                tick_s=0.01),
+                             injector=FaultInjector([
+                                 FaultEvent(t=0.05, kind="kill",
+                                            replica="replica0"),
+                                 FaultEvent(t=0.20, kind="restore",
+                                            replica="replica0")]),
+                             device=dev)
+        reqs = fleet_requests(sj, FLEET_REQUESTS, seed=10)
+        router.generate(reqs)
+        return router, reqs
+    t_part = time.monotonic()
+    (router, reqs), launches, seen, served = counted_fleet_run(
+        "(d) slstm-jet, 2 replicas, ManualClock, kill/restore", part_d,
+        SLSTM)
+    add(launches, served)
+    s = router.stats()
+    fleet_line("(d) slstm-jet, 2 replicas, faults", s, "virtual clock")
+    solo = engine_streams(sj, sj_params, dev, FLEET_REQUESTS, 10)
+    check(s["kills"] == 1 and s["restores"] == 1 and s["failed"] == 0
+          and s["completed"] == FLEET_REQUESTS, f"8c (d): {fleet_report(s)}")
+    check([r.out for r in reqs] == solo, "8c (d): slstm-jet's fleet "
+          "streams differ from one engine's")
+    report["d"] = {**fleet_report(s), "launches": launches,
+                   "part_s": time.monotonic() - t_part}
+    del router
+
+    # (e) the CLI's fleet modes, in their own processes (their launches are
+    # theirs): both at once
+    t_part = time.monotonic()
+    report["e"] = run_fleet_cli()
+    report["e"]["part_s"] = time.monotonic() - t_part
+
+    # every served shape that phase 3 did not hold against its plain
+    # version, held now (after the counts were read)
+    report["served_shapes"] = {n: len(v) for n, v in served_all.items()}
+    report["served_shape_err"] = check_fleet_shapes(torch, dev, served_all)
+    check(all(total[n] > 0 for n in FLEET_ROWS),
+          f"8c: a kernel of the fleet path never launched: {total}")
+    report["launches"] = total
+    report["phase_s"] = time.monotonic() - t_phase
+    print(f"  phase 8c: {report['phase_s']:.1f} s (parts: " + ", ".join(
+        f"{k} {report[k]['part_s']:.1f}" for k in "abcde") + ")",
+        flush=True)
+    return total, report
+
+
+def phase3_covers(name, key) -> bool:
+    """Whether phase 3 held kernel ``name`` against its plain version at
+    served shape ``key`` (rows 1, 2, 3, 8, 9)."""
+    if name == "gru_sequence_kernel":
+        T, B, H = key
+        return (T in (1, 8, 16, 32) and B in (1, 8, 64)
+                and (1, H) in MAIN_SHAPES[name])
+    if len(key) == 3:                  # a decode: (L, B, H)
+        L, B, H = key
+        return B in (1, 8, 64) and (L, H) in MAIN_SHAPES[name]
+    L, T, B, H = key
+    return (T in (8, 16, 32) and B in (1, 8, 64)
+            and (L, H) in MAIN_SHAPES[name])
+
+
+def check_fleet_shapes(torch, dev, served) -> dict:
+    """Hold each fleet row against its plain version at every served shape
+    phase 3 did not cover, by phase 3's rules (sLSTM: as phase 8b does);
+    the largest error per kernel."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.gru_sequence import ref
+    new = {n: {k: c for k, c in shapes.items() if not phase3_covers(n, k)}
+           for n, shapes in served.items()}
+    print(f"  served shapes outside phase 3: "
+          f"{ {n: sorted(v) for n, v in new.items() if v} or 'none'}",
+          flush=True)
+    err = {n: 0.0 for n in FLEET_ROWS}
+    sl = {n: new[n] for n in SLSTM if new[n]}
+    if sl:
+        err.update(check_slstm_shapes(torch, dev, sl))
+    for name in FLEET_ROWS[:3]:
+        for key in sorted(new[name]):
+            if name == "gru_sequence_kernel":
+                (T, B, H), L = key, 1
+            elif len(key) == 3:
+                (L, B, H), T = key, 1
+            else:
+                L, T, B, H = key
+            a = make_inputs(torch, L, H, B, T, B * 100 + T, dev)
+            for masked in ((False,) if T == 1 else (False, True)):
+                got = run_kernel(K, ref, name, a, "v1", masked, plain=False)
+                want = run_kernel(K, ref, name, a, "v1", masked, plain=True)
+                torch.cuda.synchronize()
+                e = max((g_ - w_).abs().max().item()
+                        for g_, w_ in zip(got, want))
+                check(all(bool(torch.isfinite(g_).all()) for g_ in got)
+                      and e <= TOL, f"{name} at served {key} masked="
+                      f"{masked}: max |err| {e:.3g} > {TOL}")
+                err[name] = max(err[name], e)
+    return err
+
+
+def run_fleet_cli() -> dict:
+    """``repro_torch.launch.serve`` in fleet mode, sync and ``--async``,
+    each in its own process, both started together: each must exit 0 with
+    every request completed."""
+    import os
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "gru-jet-deep", "--gru-backend", "cuda", "--replicas", "2",
+            "--inject-faults", "--requests", "16", "--vary-prompt"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = {"sync": base, "async": base + ["--async"]}
+    procs = {k: subprocess.Popen(v, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT)
+             for k, v in runs.items()}
+    out = {}
+    try:
+        for k, p in procs.items():
+            text, _ = p.communicate(timeout=CLI_TIMEOUT_S)
+            out[k] = (p.returncode, text)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    report = {}
+    for k, (rc, text) in out.items():
+        lines = text.splitlines()
+        fleet = [ln for ln in lines if ln.startswith("fleet (")]
+        print(f"  (e) CLI {k}: exit {rc}; {lines[0] if lines else ''}",
+              flush=True)
+        for ln in fleet + [ln for ln in lines if ln.startswith("  replica")]:
+            print(f"    {ln.strip()}", flush=True)
+        check(rc == 0 and fleet and "completed=16/16 failed=0" in fleet[0],
+              f"8c (e): the CLI ({k}) exited {rc}:\n" + text[-3000:])
+        report[k] = {"exit": rc, "fleet": fleet[0]}
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -4558,6 +5146,13 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + n
     for k, e in tune_report.pop("served_shape_err").items():
         err[k] = max(err[k], e)
+    phase("8c. the serving fleet: gru-jet-deep on replicas with faults, "
+          "gru-jet through the asyncio front end, slstm-jet, the CLI")
+    fleet_launches, fleet_report_ = run_fleet_path(torch, dev)
+    for k, n in fleet_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, e in fleet_report_.pop("served_shape_err").items():
+        err[k] = max(err[k], e)
     phase("9. attention kernels vs plain versions (qwen3-0.6b heads)")
     attn_err = check_attention_kernels(torch, dev)
     phase("10. dense LM: serve qwen3-0.6b at full width through the "
@@ -4603,7 +5198,8 @@ def main() -> None:
                       "serve_chain": chain_report,
                       "serve_chain_q8": cq8_report,
                       "serve_slstm": slstm_report,
-                      "serve_tuning": tune_report, "serve_lm": lm_report,
+                      "serve_tuning": tune_report,
+                      "serve_fleet": fleet_report_, "serve_lm": lm_report,
                       "rowwise_launches": rw_launches,
                       "serve_mesh": mesh_report}))
     print(json.dumps({"kernels": rows}))

@@ -19,7 +19,8 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 __all__ = ["CellFamily", "UnknownCellFamily", "register_family",
-           "get_family", "ensure_families", "cfg_family", "is_cell_family"]
+           "get_family", "ensure_families", "families", "cfg_family",
+           "is_cell_family"]
 
 
 class UnknownCellFamily(KeyError):
@@ -83,6 +84,12 @@ def get_family(name: str) -> CellFamily:
     if fam is None:
         raise UnknownCellFamily(name, known=_FAMILIES)
     return fam
+
+
+def families() -> Dict[str, CellFamily]:
+    """Snapshot of the registry (name -> family)."""
+    ensure_families()
+    return dict(_FAMILIES)
 
 
 def is_cell_family(name: str) -> bool:

@@ -1,7 +1,9 @@
-"""Serving driver: a wave of requests through the port's ServeEngine (the
-single-engine path of ``repro.launch.serve``, its autotuner included; no
-fleet or async front-end): feature-vector requests for the cell
-families, token prompts for the dense LM.
+"""Serving driver (counterpart of ``repro.launch.serve``): a wave of
+requests through the port's ServeEngine, its autotuner included, or, with
+``--replicas N`` (N > 1) or ``--async``, through the fault-tolerant
+``FleetRouter`` (``repro_torch.serve.fleet``; cell families only):
+feature-vector requests for the cell families, token prompts for the dense
+LM.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet \\
         --gru-backend cuda --requests 12 --slots 8 --vary-prompt
@@ -55,6 +57,25 @@ one wave and after it drains), and the applied decisions are printed::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet-deep \
         --gru-backend cuda --autotune --bucket-min 4 --requests 12 \
         --slots 4 --vary-prompt --max-new 4
+
+Fleet mode (cell families): ``--replicas N`` serves through a
+``FleetRouter`` of N engine replicas (bounded admission, depth routing,
+retries and hedging; ``--slots`` is each replica's slot count, by default
+half of ``--requests`` and at least 2); ``--routing`` picks depth-aware or
+static round-robin dispatch; ``--inject-faults`` runs a seeded
+kill/restore and slow schedule (``FaultInjector.seeded(seed, names,
+0.6)``, printed as the JAX CLI prints it) under a deterministic
+``ManualClock`` and prints the fleet's fault accounting. ``--async`` serves
+through the asyncio front end (``repro_torch.serve.async_frontend``): one
+client coroutine per request over the router, one replica or several, with
+the synchronous path's class streams::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet-deep \
+        --gru-backend cuda --replicas 2 --inject-faults --requests 16 \
+        --vary-prompt
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet-deep \
+        --gru-backend cuda --replicas 2 --inject-faults --requests 16 \
+        --vary-prompt --async
 
 The run is on the card unless ``--device cpu`` is given. Prints each
 request's class or token stream, the decode latency statistics, the
@@ -133,6 +154,22 @@ def main(argv=None):
                         "quantiles, served step timings folded back into "
                         "the CostModel; retuned only at wave boundaries) "
                         "and print the applied decisions")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="cell families: serve through a FleetRouter with "
+                        "this many engine replicas (admission control, "
+                        "depth routing, retries and hedging)")
+    p.add_argument("--inject-faults", action="store_true",
+                   help="fleet: run a seeded kill/restore and slow schedule "
+                        "under a deterministic virtual clock and print the "
+                        "fault accounting (with --replicas > 1)")
+    p.add_argument("--routing", choices=("depth", "static"), default="depth",
+                   help="fleet dispatch: measured queue-depth scoring or "
+                        "static round robin")
+    p.add_argument("--async", dest="use_async", action="store_true",
+                   help="serve through the asyncio front end: one client "
+                        "coroutine per request over a FleetRouter (one "
+                        "replica or --replicas); the class streams equal "
+                        "the synchronous path's (cell families only)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -149,6 +186,11 @@ def main(argv=None):
                          device=device)
     reqs = make_requests(cfg, args.requests, args.prompt_len,
                          args.vary_prompt, args.max_new, args.seed)
+    if args.replicas > 1 or args.use_async:
+        if not is_cell:
+            p.error("--async and --replicas > 1 serve through the "
+                    "FleetRouter, which serves the cell families only")
+        return _serve_fleet(cfg, params, reqs, args, device)
     tuner = None
     if args.autotune:
         if not is_cell:
@@ -201,6 +243,68 @@ def print_autotune(at: dict) -> None:
     for d in at.get("decisions", ()):
         print(f"  [{d['kind']}] {d['from']} -> {d['to']} "
               f"({d['measurement'].get('rule', '')})")
+
+
+def _serve_fleet(cfg, params, reqs, args, device):
+    """Fleet mode: N supervised replicas behind one ``generate()`` call (or
+    the asyncio front end with ``--async``). ``--inject-faults`` runs in
+    deterministic virtual time (``ManualClock``) against a seeded
+    kill/restore and slow schedule."""
+    from repro_torch.distributed.fault_tolerance import ManualClock
+    from repro_torch.serve.fleet import (FaultInjector, FleetConfig,
+                                         FleetRouter)
+
+    names = [f"replica{i}" for i in range(args.replicas)]
+    clock = injector = None
+    if args.inject_faults:
+        clock = ManualClock()
+        injector = FaultInjector.seeded(args.seed, names, horizon_s=0.6)
+        print(f"fault schedule (seed {args.seed}): "
+              + "; ".join(f"t={e.t:.3f} {e.kind} {e.replica}"
+                          + (f" x{e.factor:g}" if e.kind == "slow" else "")
+                          for e in injector.events))
+    router = FleetRouter(cfg, params, replicas=args.replicas,
+                         max_batch=args.slots or max(2, args.requests // 2),
+                         bucket_min=args.bucket_min, clock=clock,
+                         config=FleetConfig(routing=args.routing),
+                         injector=injector, autotune=args.autotune,
+                         device=device)
+    if args.use_async:
+        from repro_torch.serve.async_frontend import run_clients
+        done = run_clients(router, reqs)
+        print(f"async front end: {len(reqs)} concurrent client coroutines "
+              f"over {args.replicas} replica(s)")
+    else:
+        done = router.generate(reqs)
+    for i, r in enumerate(done):
+        print(f"req{i}: prompt {len(r.prompt)} -> {len(r.out)} classes "
+              f"{r.out}")
+    s = router.stats()
+    print(f"fleet ({router.device}): {args.replicas} replicas "
+          f"routing={s['routing']} "
+          f"completed={s['completed']}/{s['submitted']} "
+          f"failed={s['failed']} shed={s['shed'] or '{}'} "
+          f"retries={s['retries']} hedges={s['hedges']} "
+          f"kills={s['kills']} restores={s['restores']}; "
+          f"e2e p50={s['e2e_p50_s'] * 1e3:.4f}ms "
+          f"p99={s['e2e_p99_s'] * 1e3:.4f}ms "
+          f"queue wait p99={s['queue_wait_p99_s'] * 1e3:.4f}ms")
+    for rep in router.replicas:
+        rs = s["replicas"][rep.name]
+        steps = rep.engine.latency_stats()["decode_backend_steps"]
+        prefill = "/".join(sorted(set(rep.engine.prefill_backends))) or "-"
+        line = (f"  {rep.name}: alive={rs['alive']} "
+                f"restarts={rs['restarts']} steps={rs['steps']} "
+                f"requests={rs['requests']} "
+                f"decode p50={rs['decode_p50_s'] * 1e3:.4f}ms "
+                f"p99={rs['decode_p99_s'] * 1e3:.4f}ms "
+                f"prefill={prefill} decode_steps={steps}")
+        if args.autotune:
+            line += (f" wave_size={rs['wave_size']} "
+                     f"bucket_ladder={rs['bucket_ladder'] or 'pow2'} "
+                     f"retunes={rs['retunes']}")
+        print(line)
+    return done
 
 
 if __name__ == "__main__":

@@ -1902,3 +1902,49 @@ def test_redesigned_shard_kernels_are_deterministic(cuda_device, H, n, B):
                            ("gru_cascade_shard_zr", "cascade_zr", H // n)):
         assert getattr(K, name).last_plan.route == (
             "tile" if Kc > K.DIRECT_MAX_K[kind] else "direct")
+
+
+# ---------------------------------------------------------------------------
+# The serving fleet on the card: two replicas behind one router
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_fleet_on_the_card_gives_the_single_engines_streams(cuda_device):
+    """gru-jet-deep through ``backend="cuda"`` on a two-replica
+    ``FleetRouter`` (a ``ManualClock``, replica0 killed and restored while
+    it serves): every request completes with the class streams of one
+    engine on the card, every prefill and step on ``cuda_fused``, and the
+    fused kernels launched once per prefill and per decode step the
+    replicas ran."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.clock import ManualClock
+    from repro_torch.serve.fleet import (FaultEvent, FaultInjector,
+                                         FleetConfig, FleetRouter)
+    cfg = get_config("gru-jet-deep")
+    cfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend="cuda"))
+    params = init_params(gru_lm.lm_specs(cfg), seed=0, device=cuda_device)
+    reqs = make_requests(cfg, 12, 20, True, 8, seed=3)
+    K.reset_launch_counts()
+    router = FleetRouter(
+        cfg, params, replicas=2, max_batch=4, clock=ManualClock(),
+        config=FleetConfig(heartbeat_timeout_s=0.05, tick_s=0.01),
+        injector=FaultInjector([
+            FaultEvent(t=0.05, kind="kill", replica="replica0"),
+            FaultEvent(t=0.15, kind="restore", replica="replica0")]),
+        device=cuda_device)
+    router.generate(reqs)
+    s = router.stats()
+    assert s["completed"] == 12 and s["failed"] == 0
+    assert s["kills"] == 1 and s["restores"] == 1
+    prefills = 0
+    for rep in router.replicas:
+        assert set(rep.engine.prefill_backends) <= {"cuda_fused"}
+        assert set(rep.engine.decode_backends) <= {"cuda_fused"}
+        prefills += len(rep.engine.prefill_backends)
+    # the killed engine's prefills and steps count too: read the launches
+    steps = sum(rep.steps for rep in router.replicas)
+    _, seq, dec = (k.launches for k in K.KERNELS)
+    assert seq >= prefills > 0 and dec == steps
+    ref = make_requests(cfg, 12, 20, True, 8, seed=3)
+    ServeEngine(cfg, params, max_batch=1, device=cuda_device).generate(ref)
+    assert [r.out for r in reqs] == [r.out for r in ref]
