@@ -167,6 +167,44 @@ Phases (any failure exits non-zero, before the result lines):
    decode p50/p99, retries and hedges. Every served shape phase 3 did not
    cover is then held against its plain version by phase 3's rules. Its
    launches of rows 1-3, 8 and 9 are added to the kernels line's counts;
+8d. training on the card (counters zeroed just before each part, plain
+   versions watched; training itself must launch no kernel and run no
+   plain version: it is eager with autograd): (a) gru-jet through the
+   port's train CLI in this process, 300 steps at batch 64, lr 3e-3, a
+   checkpoint every 100 into a temporary directory, then ``--resume`` to
+   320; the first run's state carried on in memory over steps 300-319
+   under the resumed run's schedule (the run that never stops) must
+   equal the resumed params within 1e-6 (the largest difference printed);
+   the loss at step 319 below step 0's; ``batch_at(10_001)`` (256 rows)
+   classified under ``torch.no_grad()`` through ``eager`` (accuracy above
+   0.5) and ``cuda_fused``: logits within 1e-5, the same classes, row 1
+   launched once, nothing else; (b) gru-jet-deep and slstm-jet, 50 steps
+   each, the loss falling; ``microbatches=2`` against 1 from one state:
+   the step-0 gradients within rtol 1e-5, the params after 5 steps
+   within 1e-5 on every element whose two step-0 gradients agree to 1e-3
+   (the rest, gradients at noise level that AdamW turns into +-lr
+   steps, counted and printed); the trained gru-jet-deep through
+   ``cuda_fused`` (row 2) as in (a); (c) qwen3-0.6b at full width (fp32
+   params, bf16 compute, ``attn_impl="chunked"``), 8 steps at batch 4 x
+   seq 256, the loss finite and falling, the step time, tokens/s, the
+   gradient and AdamW parts of 3 more steps and the peak memory
+   printed; a config on ``attn_impl="cuda"`` (and gru-jet on
+   ``cuda_fused``) must raise "has no backward" at ``make_train_step``
+   and, under autograd, at the kernel wrapper; (d) the q8 harness
+   (``repro_torch.quant.accuracy.run``) at gru-jet and at L=3 H=32, its
+   artifact in a temporary directory: each backend's errors, argmax
+   matches, ties and ``passed`` printed (a ``passed: false`` is a
+   measurement, not a failure); each pin's logits on the card within
+   1e-5 of the CPU run of the same pin on the same trained params; rows
+   4 and 6 launched 8 and 8L times (one per eval batch and layer), no
+   plain version; a passing artifact loaded with ``load_quant_accuracy``
+   opens the port's gate, which makes both q8 backends legal for
+   ``quant="int8"``, and ``compile(quant="int8", backend="cuda")`` then
+   chooses by a table of this card's decode p50s (``eager``, the two
+   fp32 and the two q8 backends at 8 rows): the backend it measures
+   fastest; the gate and the cost table in force before are restored.
+   Its launches of rows 1, 2, 4 and 6 are added to the kernels line's
+   counts;
 9. hold the dense LM's attention kernels against their plain versions on
    the card, in fp32 (at most 1e-5) and bf16 (flash attention, whose
    output is bf16: within rtol = atol = 2**-7, one bf16 ulp; flash decode,
@@ -284,7 +322,8 @@ Phases (any failure exits non-zero, before the result lines):
 Then it prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and as the last line ``{"ok": true, "device": {...}}``. A row's
 ``launches`` sums the serving phases that drove it with the counters
-zeroed just before: rows 1-9 phases 4-8, 8b and 8c (row 3's phase-11b
+zeroed just before: rows 1-9 phases 4-8, 8b and 8c, rows 1, 2, 4 and
+6 also phase 8d (row 3's phase-11b
 ``backend="cuda"`` launches kept apart as ``mesh_launches``), the
 attention rows phase 10, rows 10, 11, 19 and 20 phase 11, and the shard
 rows phase 11b. Without a
@@ -2945,6 +2984,533 @@ def run_fleet_cli() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8d. training on the card: the train CLI, checkpoints, the q8 harness
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, RESUME_STEPS, TRAIN_BATCH = 300, 320, 64
+HELD_OUT = 10_001                   # batch_at step of the held-out rows
+LM_TRAIN_STEPS, LM_TRAIN_B, LM_TRAIN_S = 8, 4, 256
+Q8_RUNS = (("gru-jet", {}), ("gru-jet L=3 H=32", {"depth": 3, "hidden": 32}))
+COST_BATCH = SLOTS                  # the decode table's batch (tuning_rows)
+
+
+@contextlib.contextmanager
+def watched():
+    """Every counter set to 0, the plain versions counted and the served
+    shapes of rows 1, 2, 4 and 6 recorded (for phase 12) while the block
+    runs: yields the plain-call counts."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    K.reset_launch_counts()
+    with plain_calls() as plain, sequence_shapes(SEQ_SHAPES), \
+            prefill_calls(), decode_calls(), step_q8_calls(), slstm_calls():
+        yield plain
+
+
+def launch_counts() -> dict:
+    return {n: k.launches for n, k in all_kernels().items()}
+
+
+def max_param_diff(a, b) -> float:
+    from repro_torch.core.params import flatten
+    fa, fb = flatten(a), flatten(b)
+    check(set(fa) == set(fb), f"param trees differ: {set(fa) ^ set(fb)}")
+    return max((fa[k].detach() - fb[k].detach()).abs().max().item()
+               for k in fa)
+
+
+def run_train_cli(argv):
+    """``repro_torch.launch.train.main(argv)`` in this process, its lines
+    echoed; returns (final state, {step: loss} of the printed lines)."""
+    import io
+    from repro_torch.launch.train import main as train_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = train_main(argv)
+    losses = {}
+    for ln in buf.getvalue().splitlines():
+        print(f"    {ln}", flush=True)
+        m = re.match(r"step\s+(\d+) loss=(\S+)", ln)
+        if m:
+            losses[int(m.group(1))] = float(m.group(2))
+    return state, losses
+
+
+def eval_both(torch, params, arch, dev, row):
+    """``params`` of ``arch`` on ``batch_at(HELD_OUT)`` (256 rows) through
+    ``eager`` and through ``cuda_fused`` under ``torch.no_grad()``: the
+    kernel's logits within TOL of eager's, the same classes, ``row``
+    launched once for the call and nothing else, no plain version."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import gru as gru_core
+    from repro_torch.data.pipeline import SyntheticStream, shard_batch
+    cfg = get_config(arch)
+    batch = shard_batch(SyntheticStream(cfg, ShapeConfig(
+        "held_out", cfg.gru.seq_len, 256, "train")).batch_at(HELD_OUT),
+        device=dev)
+    out = {}
+    for b in ("eager", "cuda_fused"):
+        gcfg = dataclasses.replace(cfg.gru, backend=b)
+        with torch.no_grad():
+            before = launch_counts()
+            out[b] = gru_core.gru_classify(params, batch["features"],
+                                           cfg=gcfg)
+            torch.cuda.synchronize()
+            ran = {n: c - before[n] for n, c in launch_counts().items()
+                   if c != before[n]}
+        want = {} if b == "eager" else {row: 1}
+        check(ran == want, f"8d: {arch} through {b} launched {ran}, "
+              f"expected {want}")
+    labels = batch["labels"].long()
+    acc = {b: float((v.argmax(-1) == labels).float().mean())
+           for b, v in out.items()}
+    err = (out["cuda_fused"] - out["eager"]).abs().max().item()
+    check(bool(torch.isfinite(out["eager"]).all())
+          and tuple(out["eager"].shape) == (256, cfg.gru.num_classes),
+          f"8d: {arch} held-out logits bad")
+    check(err <= TOL, f"8d: {arch} cuda_fused logits vs eager {err:.3g}")
+    check(torch.equal(out["cuda_fused"].argmax(-1), out["eager"].argmax(-1)),
+          f"8d: {arch} cuda_fused classes differ from eager's")
+    return acc, err, getattr(all_kernels()[row], "last_plan", None)
+
+
+def train_steps(torch, cfg, tcfg, state, stream, dev, steps, start=0):
+    """``steps`` steps of ``make_train_step(cfg, tcfg)`` from ``state`` on
+    the stream's batches ``start..``: (state, losses, per-step seconds,
+    synchronized)."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.train import trainer
+    step_fn = trainer.make_train_step(cfg, tcfg)
+    losses, secs = [], []
+    for s in range(start, start + steps):
+        batch = shard_batch(stream.batch_at(s), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return state, losses, secs
+
+
+def check_no_backward(cfg, batch, dev, what):
+    """A config that trains through a kernel raises at make_train_step,
+    and its loss under autograd raises at the kernel wrapper, with the
+    wrappers' no-backward message, on the card."""
+    from repro_torch.models import api as mapi
+    from repro_torch.train import trainer
+    msg = "has no backward; train on backend='eager' / attn_impl='chunked'"
+    params = trainer.init_state(cfg, _tcfg(5), device=dev)["params"]
+    for where, fn in (
+            ("make_train_step", lambda: trainer.make_train_step(
+                cfg, _tcfg(5))),
+            ("the kernel wrapper", lambda: mapi.get_api(cfg).loss_fn(
+                params, cfg, batch))):
+        try:
+            fn()
+        except RuntimeError as e:
+            check(msg in str(e), f"8d: {what} at {where}: {e}")
+            print(f"  {what}: {where} raised: {e}", flush=True)
+            continue
+        fail(f"8d: {what} trained through a kernel at {where} without "
+             f"raising")
+
+
+def _tcfg(total, lr=3e-3, warmup=5, micro=1):
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(learning_rate=lr, warmup_steps=warmup,
+                       total_steps=total, microbatches=micro)
+
+
+def run_jet_training(torch, dev, tmp) -> dict:
+    """(a): gru-jet through the train CLI, 300 steps with checkpoints,
+    resumed to 320; the same state carried on in memory; held-out
+    accuracy through eager and cuda_fused."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.params import map_trees
+    from repro_torch.data.pipeline import SyntheticStream
+    common = ["--arch", "gru-jet", "--batch", str(TRAIN_BATCH), "--lr",
+              "3e-3", "--device", str(dev)]
+    ck = str(tmp / "ck_gru_jet")
+    with watched() as plain:
+        t0 = time.perf_counter()
+        first, l1 = run_train_cli(common + [
+            "--steps", str(TRAIN_STEPS), "--checkpoint-dir", ck,
+            "--checkpoint-every", "100", "--log-every", "100"])
+        t_first = time.perf_counter() - t0
+        resumed, l2 = run_train_cli(common + [
+            "--steps", str(RESUME_STEPS), "--checkpoint-dir", ck, "--resume",
+            "--log-every", "10"])
+        ran = {n: c for n, c in launch_counts().items() if c}
+        check(not ran and not any(plain.values()),
+              f"8d (a): training ran kernels {ran} or plain versions "
+              f"{plain}")
+    # the run that never stops: the first run's state carried on in
+    # memory over steps 300-319 under the resumed run's schedule
+    cfg = get_config("gru-jet")
+    stream = SyntheticStream(cfg, ShapeConfig("cli", cfg.gru.seq_len,
+                                              TRAIN_BATCH, "train"))
+    tcfg = _tcfg(RESUME_STEPS, warmup=min(20, RESUME_STEPS // 10 + 1))
+    straight, _, secs = train_steps(torch, cfg, tcfg, first, stream, dev,
+                                    RESUME_STEPS - TRAIN_STEPS, TRAIN_STEPS)
+    step_ms = float(np.median(secs[1:])) * 1e3
+    check(int(resumed["step"]) == RESUME_STEPS == int(straight["step"]),
+          f"8d (a): steps {int(resumed['step'])}, {int(straight['step'])}")
+    diff = max_param_diff(resumed["params"], straight["params"])
+    check(diff <= 1e-6, f"8d (a): resumed params vs the straight run "
+          f"{diff:.3g}")
+    check(l2[RESUME_STEPS - 1] < l1[0], f"8d (a): loss at step 319 "
+          f"{l2[RESUME_STEPS - 1]} not below step 0's {l1[0]}")
+    params = map_trees(lambda p: p.detach(), resumed["params"])
+    with watched() as plain:
+        acc, err, plan = eval_both(torch, params, "gru-jet", dev,
+                                   "gru_sequence_kernel")
+        ran = {k: v for k, v in launch_counts().items() if v}
+        check(not any(plain.values()), f"8d (a): plain versions {plain}")
+    check(acc["eager"] > 0.5, f"8d (a): held-out accuracy {acc}")
+    print(f"  (a) gru-jet: {TRAIN_STEPS} steps in {t_first:.2f} s "
+          f"({t_first / TRAIN_STEPS * 1e3:.2f} ms/step, CLI wall clock, "
+          f"checkpoints and logging included; {step_ms:.2f} ms median over "
+          f"the straight run's steps, host clock, synchronized), resumed "
+          f"to {RESUME_STEPS}; "
+          f"loss {l1[0]} -> {l2[RESUME_STEPS - 1]}; resumed vs straight "
+          f"params max diff {diff:.3g}; held-out accuracy eager "
+          f"{acc['eager']:.4f} cuda_fused {acc['cuda_fused']:.4f}, logits "
+          f"diff {err:.3g}; row 1 plan {plan}", flush=True)
+    return {"launches": ran,
+            "report": {"loss_step0": l1[0], "step_ms": step_ms,
+                       "loss_step319": l2[RESUME_STEPS - 1],
+                       "resume_vs_straight_max_diff": diff,
+                       "cli_ms_per_step": t_first / TRAIN_STEPS * 1e3,
+                       "held_out_acc": acc, "cuda_fused_logit_err": err},
+            "params": params}
+
+
+def micro_equivalence(torch, cfg, state0, stream, dev):
+    """``microbatches=2`` against ``1`` from ``state0``: the step-0
+    gradients must agree within rtol 1e-5 (atol 1e-7), and the params
+    after 5 steps within 1e-5 on every element whose two step-0 gradients
+    agree to 1e-3 of their size. The other elements carry gradients at
+    the noise level (the sLSTM's bias, ~1e-10), where AdamW's
+    mu/sqrt(nu) is +-1 in either summation order and a step differs by
+    up to 2 lr: they are counted and their difference printed, not held.
+    Returns (grad diff, held params diff, noise elements, params diff
+    over all elements)."""
+    from repro_torch.core.params import flatten
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.train import trainer
+    loss_fn = trainer._loss_fn(cfg)
+    batch = shard_batch(stream.batch_at(0), device=dev)
+    g = {m: flatten(trainer._micro_grads(loss_fn, state0["params"], batch,
+                                         m)[0]) for m in (1, 2)}
+    gdiff, noise, mdiff, raw = 0.0, 0, 0.0, 0.0
+    runs = {m: flatten(train_steps(torch, cfg, _tcfg(5, micro=m), state0,
+                                   stream, dev, 5)[0]["params"])
+            for m in (1, 2)}
+    for k, g1 in g[1].items():
+        d = (g1 - g[2][k]).abs()
+        check(bool((d <= 1e-5 * g1.abs() + 1e-7).all()),
+              f"8d (b): {cfg.name} {k}: step-0 grads of microbatches 2 vs 1 "
+              f"differ by {d.max().item():.3g}")
+        gdiff = max(gdiff, d.max().item())
+        held = d <= 1e-3 * g1.abs()
+        noise += int((~held).sum())
+        pd = (runs[1][k] - runs[2][k]).abs()
+        raw = max(raw, pd.max().item())
+        if held.any():
+            mdiff = max(mdiff, pd[held].max().item())
+    check(mdiff <= 1e-5, f"8d (b): {cfg.name} microbatches 2 vs 1 over 5 "
+          f"steps: {mdiff:.3g}")
+    return gdiff, mdiff, noise, raw
+
+
+def run_deep_training(torch, dev) -> dict:
+    """(b): gru-jet-deep and slstm-jet, 50 steps each; microbatches 2
+    against 1 over 5 steps from one state; the trained gru-jet-deep through
+    cuda_fused (row 2) against eager."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.params import map_trees
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.train import trainer
+    out, launches = {}, {}
+    for arch in ("gru-jet-deep", "slstm-jet"):
+        cfg = get_config(arch)
+        stream = SyntheticStream(cfg, ShapeConfig("t", cfg.gru.seq_len,
+                                                  TRAIN_BATCH, "train"))
+        state0 = trainer.init_state(cfg, _tcfg(50), device=dev)
+        with watched() as plain:
+            state, losses, secs = train_steps(torch, cfg, _tcfg(50), state0,
+                                              stream, dev, 50)
+            ran = {n: c for n, c in launch_counts().items() if c}
+            check(not ran and not any(plain.values()),
+                  f"8d (b): {arch} training ran kernels {ran} or plain "
+                  f"versions {plain}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"8d (b): {arch} loss {losses[0]} -> {losses[-1]}")
+        gdiff, mdiff, noise, raw = micro_equivalence(torch, cfg, state0,
+                                                     stream, dev)
+        rep = {"loss_first": losses[0], "loss_last": losses[-1],
+               "ms_per_step": float(np.median(secs[1:])) * 1e3,
+               "micro2_vs_micro1_grad_diff": gdiff,
+               "micro2_vs_micro1_max_diff": mdiff,
+               "micro2_vs_micro1_max_diff_all": raw,
+               "noise_level_elements": noise}
+        line = (f"  (b) {arch}: 50 steps, loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f}, step median {rep['ms_per_step']:.2f} ms "
+                f"(host clock, synchronized); microbatches 2 vs 1: step-0 "
+                f"grads max diff {gdiff:.3g}, params after 5 steps max diff "
+                f"{mdiff:.3g} ({raw:.3g} with the {noise} noise-level "
+                f"elements)")
+        if arch == "gru-jet-deep":
+            params = map_trees(lambda p: p.detach(), state["params"])
+            with watched() as plain:
+                acc, err, plan = eval_both(torch, params, arch, dev,
+                                           "gru_stack_sequence_kernel")
+                launches = {k: v for k, v in launch_counts().items() if v}
+                check(not any(plain.values()),
+                      f"8d (b): plain versions {plain}")
+            rep.update(held_out_acc=acc, cuda_fused_logit_err=err)
+            line += (f"; held-out eager {acc['eager']:.4f}, cuda_fused "
+                     f"logits diff {err:.3g}, row 2 plan {plan}")
+        out[arch] = rep
+        print(line, flush=True)
+    return {"launches": launches, "report": out}
+
+
+def run_lm_training(torch, dev) -> dict:
+    """(c): qwen3-0.6b at full width, fp32 params and bf16 compute on
+    ``attn_impl="chunked"``: 8 steps at batch 4 x seq 256, then 3 steps
+    timed in two parts (gradients, AdamW); ``attn_impl="cuda"`` raises."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.params import leaves
+    from repro_torch.data.pipeline import SyntheticStream, shard_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    cfg = get_config(LM_ARCH).replace(attn_impl="chunked")
+    check(cfg.num_layers == 28 and cfg.d_model == 1024
+          and cfg.vocab_size == 151_936 and cfg.dtype == "bfloat16"
+          and cfg.param_dtype == "float32", f"8d (c): config {cfg}")
+    stream = SyntheticStream(cfg, ShapeConfig("t", LM_TRAIN_S, LM_TRAIN_B,
+                                              "train"))
+    tcfg = _tcfg(LM_TRAIN_STEPS + 3, lr=1e-3, warmup=2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    state = trainer.init_state(cfg, tcfg, device=dev)
+    with watched() as plain:
+        state, losses, secs = train_steps(torch, cfg, tcfg, state, stream,
+                                          dev, LM_TRAIN_STEPS)
+        ran = {n: c for n, c in launch_counts().items() if c}
+        check(not ran and not any(plain.values()),
+              f"8d (c): training ran kernels {ran} or plain versions {plain}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"8d (c): loss {losses}")
+    # the same step in two timed parts: gradients, then the optimizer
+    loss_fn = trainer._loss_fn(cfg)
+    grad_s, opt_s = [], []
+    for s in range(LM_TRAIN_STEPS, LM_TRAIN_STEPS + 3):
+        batch = shard_batch(stream.batch_at(s), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, _, _ = trainer._micro_grads(loss_fn, state["params"], batch, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p2, o2, _ = adamw.adamw_update(state["params"], grads, state["opt"],
+                                       state["step"], tcfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state = {"params": p2, "opt": o2, "step": state["step"] + 1}
+        del grads
+        grad_s.append(t1 - t0)
+        opt_s.append(t2 - t1)
+    peak = torch.cuda.max_memory_allocated(dev) - mem0
+    step_s = float(np.median(secs[1:]))
+    opt_share = float(np.median(opt_s)) / (float(np.median(grad_s))
+                                           + float(np.median(opt_s)))
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    # AdamW's least time: fp32 p, g, mu, nu read once, p, mu, nu written
+    adamw_bound = 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    print(f"  (c) {LM_ARCH} full width ({n_params:,} params), batch "
+          f"{LM_TRAIN_B} x seq {LM_TRAIN_S}: loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step median {step_s * 1e3:.2f} ms (steps 1-{LM_TRAIN_STEPS - 1},"
+          f" host clock, synchronized), {tokens / step_s:,.0f} tokens/s; "
+          f"gradients {np.median(grad_s) * 1e3:.2f} ms + AdamW "
+          f"{np.median(opt_s) * 1e3:.2f} ms (bound {adamw_bound:.2f} ms, "
+          f"bytes): optimizer share {opt_share:.4f}; peak memory "
+          f"{peak / 2**30:.2f} GiB above the {mem0 / 2**30:.2f} GiB held "
+          f"before", flush=True)
+    small = shard_batch(SyntheticStream(cfg, ShapeConfig(
+        "t", 16, 2, "train")).batch_at(0), device=dev)
+    del state
+    torch.cuda.empty_cache()
+    check_no_backward(cfg.replace(attn_impl="cuda", num_layers=2), small,
+                      dev, "qwen3-0.6b attn_impl='cuda' (2 of its layers)")
+    return {"report": {"losses": losses, "step_ms": step_s * 1e3,
+                       "tokens_per_s": tokens / step_s,
+                       "grad_ms": float(np.median(grad_s)) * 1e3,
+                       "adamw_ms": float(np.median(opt_s)) * 1e3,
+                       "adamw_bound_ms": adamw_bound,
+                       "optimizer_share": opt_share,
+                       "peak_bytes_above_start": peak,
+                       "params": n_params}}
+
+
+def decode_p50_us(torch, cfg, params, backend, dev, iters=50) -> float:
+    """Median host time (synchronized) of one decode step of ``cfg``
+    through ``backend`` at :data:`COST_BATCH` rows."""
+    from repro_torch.core import gru as gru_core
+    from repro_torch.core import runtime
+    g = dataclasses.replace(cfg.gru, backend=backend)
+    exe = runtime.compile(g, batch=COST_BATCH, mode="decode")
+    sp = exe.prepare(params, device=dev)
+    hs = gru_core.stack_h0(g, COST_BATCH, device=dev)
+    x = torch.randn(COST_BATCH, g.input_dim, device=dev)
+    ts = []
+    with torch.no_grad():
+        for i in range(iters + 5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.decode(sp, hs, x)
+            torch.cuda.synchronize()
+            if i >= 5:
+                ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e6
+
+
+def run_q8_harness(torch, dev, tmp) -> dict:
+    """(d): the q8 harness at gru-jet and at L=3 H=32 on the card: its
+    numbers, each pin's logits against the CPU run of the same pin on the
+    same trained params, rows 4 and 6 launched, no plain version; a passing
+    artifact opens the port's gate, and ``compile(quant="int8",
+    backend="cuda")`` then chooses by a table of this card's measured
+    decode steps, the q8 backends among the candidates."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core import runtime
+    from repro_torch.core.params import map_trees
+    from repro_torch.data.pipeline import SyntheticStream, shard_batch
+    from repro_torch.quant import accuracy
+    cpu = torch.device("cpu")
+    report, launches = {}, {}
+    saved_gate, saved_costs = runtime.quant_accuracy(), runtime.cost_model()
+    for label, kw in Q8_RUNS:
+        path = tmp / f"quant_{len(report)}.json"
+        with watched() as plain:
+            art, params = accuracy.run(arch="gru-jet", json_path=str(path),
+                                       csv=False, device=dev,
+                                       return_params=True, **kw)
+            ran = {n: c for n, c in launch_counts().items() if c}
+            check(not any(plain.values()), f"8d (d): plain versions {plain}")
+        L = kw.get("depth", 1)
+        want = {"gru_stack_sequence_q8_kernel": 8, "gru_sequence_q8_kernel":
+                8 * L}
+        check(ran == want, f"8d (d) {label}: launches {ran}, expected {want}")
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        mcfg = get_config("gru-jet")
+        gcfg = dataclasses.replace(
+            mcfg.gru, num_layers=L, hidden_dim=kw.get("hidden",
+                                                      mcfg.gru.hidden_dim))
+        xs = shard_batch(SyntheticStream(mcfg.replace(gru=gcfg), ShapeConfig(
+            "quant_eval", gcfg.seq_len, 64, "prefill")).batch_at(10_000),
+            device=dev)["features"]
+        pcpu = map_trees(lambda p: p.to(cpu), params)
+        pin_err = {}
+        for b in accuracy.Q8_BACKENDS:
+            q = dataclasses.replace(gcfg, backend=b)
+            got = accuracy._eval_logits(params, q, xs)
+            want_l = accuracy._eval_logits(pcpu, q, xs.to(cpu))
+            pin_err[b] = float(np.abs(got - want_l).max())
+            check(pin_err[b] <= TOL, f"8d (d) {label}: {b} on the card vs "
+                  f"the CPU run {pin_err[b]:.3g}")
+        for b, m in art["backends"].items():
+            print(f"  (d) {label} {b}: max_abs_logit_err "
+                  f"{m['max_abs_logit_err']} argmax_match "
+                  f"{m['argmax_match']} confident "
+                  f"{m['argmax_match_confident']} ties {m['ties']} passed "
+                  f"{m['passed']}; card vs CPU {pin_err[b]:.3g}", flush=True)
+        print(f"  (d) {label}: final loss {art['final_loss']}, passed "
+              f"{art['passed']} (device {art['device']})", flush=True)
+        rep = {"final_loss": art["final_loss"], "passed": art["passed"],
+               "backends": art["backends"], "card_vs_cpu": pin_err}
+        if art["passed"]:
+            cfg = mcfg.replace(gru=dataclasses.replace(
+                gcfg, quant="int8", backend="cuda"))
+            runtime.set_quant_accuracy(runtime.QuantAccuracy(
+                {}, source="<chip_smoke 8d: closed>"))
+            runtime.set_cost_model(runtime.CostModel({}, source="<static>"))
+            check(not runtime.quant_gate_open(), "8d (d): gate not closed")
+            runtime.load_quant_accuracy(path)
+            check(runtime.quant_gate_open(), f"8d (d): {path} did not open "
+                  f"the gate")
+            legal = {s.name for s in runtime._REGISTRY.values()
+                     if runtime._legal(s, cfg.gru, op="decode", masked=False,
+                                       batch=COST_BATCH, mesh=None)}
+            check({"cuda_fused_q8", "cuda_chain_q8"} <= legal,
+                  f"8d (d): the open gate left the q8 backends out: {legal}")
+            p50 = {b: decode_p50_us(torch, cfg, params, b, dev)
+                   for b in ("eager", "cuda_fused", "cuda_chain",
+                             "cuda_fused_q8", "cuda_chain_q8")}
+            runtime.set_cost_model(runtime.CostModel.from_entries(
+                tuning_rows(cfg, p50), source="<chip_smoke 8d: decode p50>"))
+            exe = runtime.compile(cfg.gru, batch=COST_BATCH, mode="decode")
+            won = min(("cuda_fused", "cuda_chain", "cuda_fused_q8",
+                       "cuda_chain_q8"), key=p50.get)
+            check(exe.decode_backend == won
+                  and exe.cost_source == "measured",
+                  f"8d (d): measured table {p50} chose {exe.describe()}")
+            print(f"  (d) {label}: gate open from the artifact; decode p50 at "
+                  f"{COST_BATCH} rows (host clock, synchronized): "
+                  + ", ".join(f"{b} {us:.2f} us" for b, us in p50.items())
+                  + f"; compile(quant='int8', backend='cuda') -> "
+                  f"{exe.decode_backend} (measured)", flush=True)
+            rep.update(gate_opened=True, decode_p50_us=p50,
+                       chosen=exe.decode_backend)
+            runtime.set_quant_accuracy(saved_gate)
+            runtime.set_cost_model(saved_costs)
+            check(not runtime.quant_gate_open(), "8d (d): gate left open")
+        report[label] = rep
+    return {"launches": launches, "report": report}
+
+
+def run_training_path(torch, dev):
+    """Phase 8d: (a) gru-jet trained through the train CLI with
+    checkpoints and a resume; (b) gru-jet-deep and slstm-jet; (c)
+    qwen3-0.6b at full width; (d) the q8 harness. Counters are zeroed just
+    before each part and the plain versions watched; the launches of the
+    kernel-backend evaluations go to the kernels line."""
+    import tempfile
+    launches, report, secs = {}, {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        parts = {}
+        for k, fn in (("a", lambda: run_jet_training(torch, dev, tmp)),
+                      ("b", lambda: run_deep_training(torch, dev)),
+                      ("c", lambda: run_lm_training(torch, dev)),
+                      ("d", lambda: run_q8_harness(torch, dev, tmp))):
+            t = time.perf_counter()
+            parts[k] = fn()
+            secs[k] = time.perf_counter() - t
+    a, b, c, d = (parts[k] for k in "abcd")
+    from repro_torch.configs.base import get_config
+    jet = get_config("gru-jet")
+    batch = {"features": torch.zeros(2, 3, jet.gru.input_dim, device=dev),
+             "labels": torch.zeros(2, dtype=torch.int32, device=dev)}
+    check_no_backward(jet.replace(gru=dataclasses.replace(
+        jet.gru, backend="cuda_fused")), batch, dev,
+        "gru-jet backend='cuda_fused'")
+    for part in (a, b, d):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    report.update(jet=a["report"], deep=b["report"], lm=c["report"],
+                  q8=d["report"])
+    print(f"  launches: {launches}", flush=True)
+    print(f"  phase 8d: {time.perf_counter() - t0:.1f} s (parts: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")",
+          flush=True)
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
 # 9. the dense LM's attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -5153,6 +5719,12 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + n
     for k, e in fleet_report_.pop("served_shape_err").items():
         err[k] = max(err[k], e)
+    phase("8d. training on the card: gru-jet through the train CLI with a "
+          "resume, gru-jet-deep, slstm-jet, qwen3-0.6b at full width, the "
+          "q8 harness")
+    train_launches, train_report = run_training_path(torch, dev)
+    for k, n in train_launches.items():
+        launches[k] = launches.get(k, 0) + n
     phase("9. attention kernels vs plain versions (qwen3-0.6b heads)")
     attn_err = check_attention_kernels(torch, dev)
     phase("10. dense LM: serve qwen3-0.6b at full width through the "
@@ -5199,7 +5771,8 @@ def main() -> None:
                       "serve_chain_q8": cq8_report,
                       "serve_slstm": slstm_report,
                       "serve_tuning": tune_report,
-                      "serve_fleet": fleet_report_, "serve_lm": lm_report,
+                      "serve_fleet": fleet_report_,
+                      "train": train_report, "serve_lm": lm_report,
                       "rowwise_launches": rw_launches,
                       "serve_mesh": mesh_report}))
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,12 @@
 """PyTorch port of the recurrent serving path (the paper's GRU and the
-sLSTM cell family), for one NVIDIA H100.
+sLSTM cell family) and its training path, for one NVIDIA H100.
 
 The package mirrors ``repro`` (the JAX reference) module for module:
 ``configs/``, ``core/``, ``kernels/``, ``models/``, ``serve/``,
-``launch/``. It imports ``torch`` and never ``jax``, and nothing of
-``repro``. Its recurrent kernels are hand-written CUDA C++ for ``sm_90a``
-(``csrc/``), built with ``nvcc`` at first use.
+``launch/``, ``data/``, ``optim/``, ``train/``, ``checkpoint/``,
+``quant/``, ``distributed/``. It imports ``torch`` and never ``jax``,
+and nothing of ``repro``. Its recurrent kernels are hand-written CUDA
+C++ for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use.
 
 Entry points default to ``device="cuda"`` and raise when there is no
 card; pass ``device="cpu"`` to run the plain PyTorch versions instead.

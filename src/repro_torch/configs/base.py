@@ -1,9 +1,10 @@
-"""Config system for the port: the recurrent stack config and the model
-config, copied from ``repro.configs.base`` (the port imports nothing of
-``repro``). One config type serves the cell families (the GRU and the
-sLSTM) and the dense transformer LM (``qwen3-0.6b``); the sub-configs of
-the other LM families (``moe``, ``ssm``, ``xlstm``, ``encoder``,
-``vision``) are not ported yet.
+"""Config system for the port: the recurrent stack config, the model
+config, the shape and training configs, copied from
+``repro.configs.base`` (the port imports nothing of ``repro``). One
+config type serves the cell families (the GRU and the sLSTM) and the
+dense transformer LM (``qwen3-0.6b``); the sub-configs of the other LM
+families (``moe``, ``ssm``, ``xlstm``, ``encoder``, ``vision``) are not
+ported yet.
 
 Backend preferences are the port's names (see ``repro_torch.core.runtime``):
 ``"eager"`` (default, the JAX ``"xla"``), ``"cuda"`` (the JAX ``"pallas"``),
@@ -45,6 +46,7 @@ class GRUConfig:
                                      # cuda_chain_q8) candidates,
                                      # chosen without a pin only when the
                                      # quant accuracy gate is open
+    seq_len: int = 20                # a training example's time steps
 
     @property
     def resolved_num_layers(self) -> int:
@@ -120,6 +122,15 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
 
+    @property
+    def is_recurrent(self) -> bool:
+        return self.family in ("ssm", "hybrid", "gru", "slstm")
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: recurrent/hybrid archs only."""
+        return self.family in ("ssm", "hybrid", "gru", "slstm")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -135,6 +146,33 @@ class ModelConfig:
         if not self.tie_embeddings:
             total += self.vocab_size * d
         return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1            # gradient accumulation
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    grad_compression: str = "none"   # none | bf16 | int8_ef (error feedback)
+    opt_dtype: str = "float32"       # Adam moment dtype
 
 
 _REGISTRY = {

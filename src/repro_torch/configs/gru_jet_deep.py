@@ -9,6 +9,8 @@ CONFIG = ModelConfig(
     gru=GRUConfig(input_dim=5, hidden_dim=32, num_classes=5, num_layers=3,
                   layer_matvec_modes=("rowwise", "cascade", "rowwise"),
                   fused_gates=True, decoupled_wx=True),
+    vocab_size=5,             # JAX's value: it seeds the data stream
+    dtype="float32",
     param_dtype="float32",
 )
 

@@ -13,6 +13,8 @@ CONFIG = ModelConfig(
     family="slstm",
     gru=GRUConfig(family="slstm", input_dim=5, hidden_dim=20, num_classes=5,
                   matvec_mode="rowwise", fused_gates=True, decoupled_wx=True),
+    vocab_size=5,             # JAX's value: it seeds the data stream
+    dtype="float32",
     param_dtype="float32",
 )
 

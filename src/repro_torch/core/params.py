@@ -5,9 +5,18 @@ which nothing in the port reads yet): a model declares its parameters as a
 nested dict/tuple of :class:`Spec` leaves, and :func:`init_params` turns
 that tree into tensors, seeded per path with a ``torch.Generator`` (the
 numbers differ from ``jax.random``'s; tests that compare the two
-frameworks carry the JAX tree over with :func:`params_from_numpy`).
+frameworks carry the JAX tree over with :func:`params_from_numpy`, and a
+whole train state with :func:`state_from_numpy`).
 :func:`stack_specs` gives a block's specs a leading layer axis, as the
-transformer stacks its blocks ``(L, ...)``.
+transformer stacks its blocks ``(L, ...)``. :func:`abstract_params` is
+the dry-run stand-in (tensors on the ``meta`` device: shapes and dtypes,
+no storage).
+
+Trees are nested dicts, tuples and lists. :func:`flatten` names each leaf
+by its path as the JAX package's ``jax.tree_util`` paths do (dict keys in
+sorted order, sequence indices as numbers, joined by ``/``:
+``params/cells/0/w``): the checkpoint manager's file names and the
+optimizer's leaf order both follow it.
 """
 from __future__ import annotations
 
@@ -81,6 +90,47 @@ def _map_tree(fn, tree, path=()):
     return fn(path, tree)
 
 
+def _leaf_paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _leaf_paths(tree[k], path + (str(k),))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, path + (str(i),))
+    elif tree is not None:
+        yield "/".join(path), tree
+
+
+def flatten(tree) -> dict:
+    """``{path: leaf}`` in JAX's leaf order (dict keys sorted). ``None``
+    is an empty subtree, as in ``jax.tree_util``."""
+    return dict(_leaf_paths(tree))
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's order."""
+    return [leaf for _, leaf in _leaf_paths(tree)]
+
+
+def map_trees(fn, tree, *rest):
+    """``fn(leaf, *leaves)`` over trees of one structure (the first's)."""
+    if isinstance(tree, dict):
+        return {k: map_trees(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_trees(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def unflatten(like, flat: dict):
+    """``like``'s structure with each leaf replaced by ``flat[path]``."""
+    return _map_tree(lambda path, x: None if x is None
+                     else flat["/".join(path)], like)
+
+
 def stack_specs(spec_tree, n: int):
     """Prepend a layer axis of size ``n`` to every Spec in the tree."""
     return _map_tree(lambda _path, s: Spec((n,) + tuple(s.shape), init=s.init,
@@ -96,6 +146,31 @@ def init_params(specs, seed: int = 0, param_dtype: str = "float32", *,
     return _map_tree(
         lambda path, s: _init_one(s, seed, "/".join(path), param_dtype, dev)
         if is_spec(s) else s, specs)
+
+
+def abstract_params(specs, param_dtype: str = "float32"):
+    """The spec tree as tensors on the ``meta`` device: shapes and dtypes,
+    no storage (the dry-run stand-in)."""
+    return _map_tree(
+        lambda _p, s: torch.empty(tuple(s.shape), device="meta",
+                                  dtype=torch_dtype(s.dtype or param_dtype))
+        if is_spec(s) else s, specs)
+
+
+def param_bytes(specs, param_dtype: str = "float32") -> int:
+    return sum(int(np.prod(s.shape)) * torch_dtype(s.dtype or param_dtype).itemsize
+               for s in leaves(specs) if is_spec(s))
+
+
+def param_count(specs) -> int:
+    return sum(int(np.prod(s.shape)) for s in leaves(specs) if is_spec(s))
+
+
+def cast_tree(tree, dtype):
+    """Every floating-point leaf cast to ``dtype``; others as they are."""
+    dt = torch_dtype(dtype) if isinstance(dtype, str) else dtype
+    return map_trees(lambda x: x.to(dt) if x.is_floating_point() else x,
+                     tree)
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -117,6 +192,18 @@ def params_from_numpy(tree, device="cuda"):
             return torch.from_numpy(a).to(dev)
         return x
     return _map_tree(leaf, tree)
+
+
+def state_from_numpy(state, device="cuda") -> dict:
+    """Carry a whole train state of numpy arrays (JAX's ``{"params",
+    "opt": {"mu", "nu"}, "step", optional "ef"}``) into the port with the
+    same layout: every leaf a tensor on ``device``, the params leaf
+    tensors that require grad (what the trainer differentiates)."""
+    out = params_from_numpy(state, device=device)
+    out["params"] = map_trees(
+        lambda p: p.detach().requires_grad_(p.is_floating_point()),
+        out["params"])
+    return out
 
 
 # ---------------------------------------------------------------------------

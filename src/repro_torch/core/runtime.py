@@ -98,8 +98,11 @@ row split that would keep such stacks on the kernels is not ported yet.
 The q8 backends (names ending ``_q8``) change the numerics, so they are
 gated as in the JAX runtime: one is a candidate only under an exact-name
 pin, or when ``cfg.quant == "int8"`` and the recorded accuracy artifact
-(``BENCH_quant_accuracy.json``, or ``$REPRO_GRU_QUANT_ACC``; see
-:func:`load_quant_accuracy`) passed. Its static cost keeps ``auto`` off it
+of the port's own harness (``repro_torch.quant.accuracy``:
+``./BENCH_quant_accuracy_torch.json``, or ``$REPRO_TORCH_GRU_QUANT_ACC``;
+see :func:`load_quant_accuracy`) passed. The JAX package's artifact
+(``BENCH_quant_accuracy.json``, ``$REPRO_GRU_QUANT_ACC``) measured JAX's
+Pallas q8 kernels, not the port's CUDA kernels, and never opens this gate. Its static cost keeps ``auto`` off it
 even then, unless a measured row shows it faster. On CPU tensors the
 ``cuda*`` backends run the kernels' plain PyTorch versions (see
 ``repro_torch.kernels.gru_sequence`` and ``repro_torch.kernels.gru_cell``).
@@ -587,10 +590,14 @@ def cost_model() -> CostModel:
 # quant accuracy gate (the q8 backends' dispatch-eligibility record)
 # ---------------------------------------------------------------------------
 
+QUANT_ACC_ENV = "REPRO_TORCH_GRU_QUANT_ACC"
+QUANT_ACC_FILE = "BENCH_quant_accuracy_torch.json"
+
+
 class QuantAccuracy:
-    """The recorded result of the q8 accuracy harness
-    (``BENCH_quant_accuracy.json``, the JAX package's schema: ``"bench":
-    "gru_quant_accuracy"``, ``"passed"``). Only a loaded, error-free
+    """The recorded result of the port's q8 accuracy harness
+    (``BENCH_quant_accuracy_torch.json``, the JAX package's schema:
+    ``"bench": "gru_quant_accuracy"``, ``"passed"``). Only a loaded, error-free
     artifact with ``passed: true`` opens the gate; a missing, corrupt or
     failing one keeps the q8 backends pin-only."""
 
@@ -641,12 +648,12 @@ def load_quant_accuracy(path) -> QuantAccuracy:
 
 def quant_accuracy() -> QuantAccuracy:
     """The active accuracy report. On first use, loads
-    ``$REPRO_GRU_QUANT_ACC`` (default ``./BENCH_quant_accuracy.json``) if
-    present; otherwise a closed gate."""
+    ``$REPRO_TORCH_GRU_QUANT_ACC`` (default
+    ``./BENCH_quant_accuracy_torch.json``) if present; otherwise a closed
+    gate. The JAX package's env var and file are never read."""
     global _QUANT_ACC
     if _QUANT_ACC is None:
-        path = os.environ.get("REPRO_GRU_QUANT_ACC",
-                              "BENCH_quant_accuracy.json")
+        path = os.environ.get(QUANT_ACC_ENV, QUANT_ACC_FILE)
         _QUANT_ACC = (QuantAccuracy.load(path) if os.path.exists(path)
                       else QuantAccuracy({}, source=path,
                                          error="missing artifact"))

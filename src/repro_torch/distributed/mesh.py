@@ -10,7 +10,9 @@ written once and used by every sharded step:
 
 * :meth:`Mesh.all_gather` — JAX's ``all_gather(..., tiled=True)``: the
   ranks' tensors concatenated along ``dim`` in rank order;
-* :meth:`Mesh.psum` — ``all_reduce(SUM)``.
+* :meth:`Mesh.psum` — ``all_reduce(SUM)``;
+* :meth:`Mesh.pmax` — ``all_reduce(MAX)`` (the compressed gradient
+  exchange agrees on its int8 scales with it).
 
 A one-rank mesh needs no process group (``group=None``): its collectives
 are identities, as on JAX's one-device ``Mesh``. Given a group, even one
@@ -72,8 +74,17 @@ class Mesh:
         """The sum of every rank's ``t`` (a new tensor; ``t`` is kept)."""
         if self.group is None:
             return t
+        return self._all_reduce(t, dist.ReduceOp.SUM)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of every rank's ``t`` (a new tensor)."""
+        if self.group is None:
+            return t
+        return self._all_reduce(t, dist.ReduceOp.MAX)
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         out = t.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        dist.all_reduce(out, op=op, group=self.group)
         return out
 
 

@@ -1,12 +1,24 @@
 """What every kernel wrapper of the port shares: argument checks, the batch
 tile and its shared-memory check, the current stream, binding a launcher
-of a built library with ``ctypes``, and raising on a refused launch.
+of a built library with ``ctypes``, raising on a refused launch, and
+refusing autograd (:func:`forward_only`).
 
 A wrapper checks device, dtype, shape and contiguity and raises on
 anything its kernel does not take. For CPU tensors it returns the plain
 PyTorch version; for CUDA tensors it launches on the current stream and
 raises if the launch was refused. Nothing falls back from the card to the
 plain version.
+
+No kernel has a backward (none has one in JAX, which trains on XLA). A
+launch writes through ``ctypes`` into a fresh tensor without a
+``grad_fn``, so on the card autograd would stop there and leave the
+weights without gradients, while on the CPU the plain version would be
+differentiated: a training run would pass its CPU tests and be wrong on
+the card. So every wrapper is :func:`forward_only`: called with grad mode
+on and any input that requires grad, it raises, on both devices alike.
+Training runs on ``backend="eager"`` and ``attn_impl="chunked"``;
+evaluation on a kernel backend goes through ``torch.no_grad()`` or
+detached tensors.
 """
 from __future__ import annotations
 
@@ -26,6 +38,38 @@ P = ctypes.c_void_p           # a pointer or the stream
 I = ctypes.c_int
 
 _BOUND: Dict[str, Callable] = {}
+
+
+def _needs_grad(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    if isinstance(x, (tuple, list)):
+        return any(_needs_grad(v) for v in x)
+    if isinstance(x, dict):
+        return any(_needs_grad(v) for v in x.values())
+    return False
+
+
+def no_backward_error(name: str) -> RuntimeError:
+    return RuntimeError(f"{name} has no backward; train on backend='eager' "
+                        f"/ attn_impl='chunked'")
+
+
+def forward_only(fn: Callable) -> Callable:
+    """Wrap a kernel wrapper so that, with grad mode on, an input that
+    requires grad (a tensor, or one inside a tuple, list or dict
+    argument) raises :func:`no_backward_error` before anything runs. The
+    returned function keeps ``fn``'s name and attributes; its
+    ``launches`` counter and ``last_plan`` live on it."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        if torch.is_grad_enabled() and (_needs_grad(args)
+                                        or _needs_grad(kw)):
+            raise no_backward_error(name)
+        return fn(*args, **kw)
+    return wrapper
 
 
 def launcher(library: str, name: str, argtypes: Sequence) -> Callable:

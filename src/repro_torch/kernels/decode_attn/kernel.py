@@ -71,6 +71,7 @@ def smem_bytes(D: int, dtype: torch.dtype) -> int:
     return STAGES * 2 * BLOCK_C * (Dp + vec) * size
 
 
+@_launch.forward_only
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """One query group per (b, kv-head) against the cache -> (B,Hkv,G,D)

@@ -83,6 +83,7 @@ def check_attention(q, k, v) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
+@_launch.forward_only
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Blocked attention with an online softmax -> (B, Hq, Sq, D), q's

@@ -335,6 +335,7 @@ def launch_step(p: StepPlan, h, x_proj, u, b, variant: str,
     return out
 
 
+@_launch.forward_only
 def gru_step_fused(h: torch.Tensor, x_proj: torch.Tensor, u: torch.Tensor,
                    b: torch.Tensor, *, variant: str = "v1") -> torch.Tensor:
     """h' for one step -> (B,H) float32. Launches :func:`step_plan`'s route
@@ -351,6 +352,7 @@ def gru_step_fused(h: torch.Tensor, x_proj: torch.Tensor, u: torch.Tensor,
     return out
 
 
+@_launch.forward_only
 def gru_step_blocked(h: torch.Tensor, x_proj: torch.Tensor, u: torch.Tensor,
                      b: torch.Tensor, *, block_n: int = 256) -> torch.Tensor:
     """The v1 step for large H, z and r*h of every column before any
@@ -444,6 +446,7 @@ def q8_words(H: int, u_q: torch.Tensor) -> int:
     return int(H % 4 == 0 and u_q.data_ptr() % 4 == 0)
 
 
+@_launch.forward_only
 def gru_step_q8(h: torch.Tensor, x_proj: torch.Tensor, u_q: torch.Tensor,
                 u_eff: torch.Tensor, b: torch.Tensor, *,
                 variant: str = "v1") -> torch.Tensor:

@@ -230,6 +230,7 @@ def seq_plan(B: int, T: int, H: int, variant: str) -> SeqPlan:
                      WARP_DEPTH)
 
 
+@_launch.forward_only
 def gru_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                         u: torch.Tensor, b: torch.Tensor,
                         mask: Optional[torch.Tensor] = None, *,
@@ -327,6 +328,7 @@ def stack_seq_plan(B: int, T: int, H: int, L: int, variant: str,
     return stack_seq_warp_plan(B, L)
 
 
+@_launch.forward_only
 def gru_stack_sequence_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                               u: torch.Tensor, w_deep: torch.Tensor,
                               b: torch.Tensor,
@@ -458,6 +460,7 @@ def decode_q8_words(H: int, u_q: torch.Tensor, wd_q: torch.Tensor) -> int:
                and wd_q.data_ptr() % 4 == 0)
 
 
+@_launch.forward_only
 def gru_stack_decode_kernel(h: torch.Tensor, x_proj: torch.Tensor,
                             u: torch.Tensor, w_deep: torch.Tensor,
                             b: torch.Tensor, *, variant: str = "v1",
@@ -540,6 +543,7 @@ def stack_seq_q8_plan(B: int, T: int, H: int, L: int,
     return stack_seq_warp_plan(B, L)
 
 
+@_launch.forward_only
 def gru_stack_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                                  u_q: torch.Tensor, u_eff: torch.Tensor,
                                  wd_q: torch.Tensor, wd_eff: torch.Tensor,
@@ -583,6 +587,7 @@ def gru_stack_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
     return out, finals
 
 
+@_launch.forward_only
 def gru_stack_decode_q8_kernel(h: torch.Tensor, x_proj: torch.Tensor,
                                u_q: torch.Tensor, u_eff: torch.Tensor,
                                wd_q: torch.Tensor, wd_eff: torch.Tensor,
@@ -645,6 +650,7 @@ def seq_q8_plan(B: int, T: int, H: int, variant: str) -> SeqPlan:
     return warp_plan(B, 1, min(SEQ_Q8_WARPS, _pow2(B)), SEQ_Q8_DEPTH)
 
 
+@_launch.forward_only
 def gru_sequence_q8_kernel(h0: torch.Tensor, x_proj: torch.Tensor,
                            u_q: torch.Tensor, u_eff: torch.Tensor,
                            b: torch.Tensor,
@@ -969,6 +975,7 @@ def _rowwise_run(fn, x_name: str, x, h_local, z, xp, u, b):
     return out0, out1
 
 
+@_launch.forward_only
 def gru_rowwise_shard_step(h_full: torch.Tensor, h_local: torch.Tensor,
                            xp: torch.Tensor, u: torch.Tensor,
                            b: torch.Tensor) -> torch.Tensor:
@@ -980,6 +987,7 @@ def gru_rowwise_shard_step(h_full: torch.Tensor, h_local: torch.Tensor,
                         None, xp, u, b)[0]
 
 
+@_launch.forward_only
 def gru_rowwise_shard_zr(h_full: torch.Tensor, h_local: torch.Tensor,
                          xp_zr: torch.Tensor, u_zr: torch.Tensor,
                          b_zr: torch.Tensor):
@@ -990,6 +998,7 @@ def gru_rowwise_shard_zr(h_full: torch.Tensor, h_local: torch.Tensor,
                         None, xp_zr, u_zr, b_zr)
 
 
+@_launch.forward_only
 def gru_rowwise_shard_candidate(rh_full: torch.Tensor, h_local: torch.Tensor,
                                 z_local: torch.Tensor, xp_h: torch.Tensor,
                                 u_h: torch.Tensor,
@@ -1001,6 +1010,7 @@ def gru_rowwise_shard_candidate(rh_full: torch.Tensor, h_local: torch.Tensor,
                         h_local, z_local, xp_h, u_h, b_h)[0]
 
 
+@_launch.forward_only
 def gru_shard_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Cascade partial product: x (B,Hl) @ w (Hl,N) -> (B,N) float32."""
     if (not isinstance(x, torch.Tensor) or x.dim() != 2
@@ -1081,6 +1091,7 @@ def _gate_strides(name: str, t, B: int, G: int, Hl: int,
     return ld, gs
 
 
+@_launch.forward_only
 def gru_cascade_shard_gates(g_local: torch.Tensor, xp_local: torch.Tensor,
                             h_shard: torch.Tensor,
                             b_local: Optional[torch.Tensor] = None
@@ -1108,6 +1119,7 @@ def gru_cascade_shard_gates(g_local: torch.Tensor, xp_local: torch.Tensor,
     return out
 
 
+@_launch.forward_only
 def gru_cascade_shard_zr(zr_local: torch.Tensor, xp_local: torch.Tensor,
                          h_shard: torch.Tensor, u_h_rows: torch.Tensor):
     """v1 cascade middle phase -> (z_local (B,Hl), ht_partial (B,H)):
@@ -1144,6 +1156,7 @@ def gru_cascade_shard_zr(zr_local: torch.Tensor, xp_local: torch.Tensor,
     return z, out
 
 
+@_launch.forward_only
 def gru_cascade_shard_update(z_local: torch.Tensor, ht_in_local: torch.Tensor,
                              h_shard: torch.Tensor,
                              xp_h: Optional[torch.Tensor] = None,

@@ -239,6 +239,7 @@ def _launch_plan(name, args, x, w, y, bk, extra):
     return p
 
 
+@_launch.forward_only
 def rowwise_matmul(x: torch.Tensor, w: torch.Tensor, *, block_b: int = 0,
                    block_n: int = 128) -> torch.Tensor:
     """y = x @ w, each block finishing its own output columns -> (B,N) in
@@ -253,6 +254,7 @@ def rowwise_matmul(x: torch.Tensor, w: torch.Tensor, *, block_b: int = 0,
     return y
 
 
+@_launch.forward_only
 def cascade_matmul(x: torch.Tensor, w: torch.Tensor, *, block_b: int = 0,
                    block_n: int = 128, block_k: int = 128) -> torch.Tensor:
     """y = x @ w, the contraction in blocks of ``min(block_k, K)`` whose

@@ -259,6 +259,7 @@ def launch_sequence(p: SlstmPlan, c0, n0, m0, h0, x_proj, u, w_deep, b,
     return (hs,) + fin
 
 
+@_launch.forward_only
 def slstm_stack_sequence_kernel(c0: torch.Tensor, n0: torch.Tensor,
                                 m0: torch.Tensor, h0: torch.Tensor,
                                 x_proj: torch.Tensor, u: torch.Tensor,
@@ -317,6 +318,7 @@ def _decode(layers: tuple, stacks, x_proj, u, w_deep, b,
     return out
 
 
+@_launch.forward_only
 def slstm_stack_decode_kernel(c: torch.Tensor, n: torch.Tensor,
                               m: torch.Tensor, h: torch.Tensor,
                               x_proj: torch.Tensor, u: torch.Tensor,
@@ -337,6 +339,7 @@ def slstm_stack_decode_kernel(c: torch.Tensor, n: torch.Tensor,
                    batch_block).unbind(0)
 
 
+@_launch.forward_only
 def slstm_stack_decode_layers(layers: Sequence, x_proj: torch.Tensor,
                               u: torch.Tensor, w_deep: torch.Tensor,
                               b: torch.Tensor) -> tuple:

@@ -1,6 +1,7 @@
 """Uniform model API (counterpart of ``repro.models.api``): downstream code
-(the serving engine, the CLI) talks to models only through
-:func:`get_api`. Families: the recurrent cells (``gru``, ``slstm``) and the
+(the serving engine, the trainer, the CLIs) talks to models only through
+:func:`get_api`, and builds input batches with :func:`input_specs` and
+:func:`concrete_batch`. Families: the recurrent cells (``gru``, ``slstm``) and the
 dense transformer LM (``dense``). The other LM families of the JAX package
 (``moe``, ``ssm``, ``hybrid``, ``audio``, ``vlm``) raise
 ``NotImplementedError``; they are ported with the LM zoo (ROADMAP queue 1,
@@ -9,8 +10,13 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core.cells import UnknownCellFamily
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.cells import UnknownCellFamily, is_cell_family
+from repro_torch.core.params import Spec, _map_tree, is_spec, torch_dtype
 from repro_torch.models import gru_lm, slstm_lm, transformer
 
 
@@ -20,6 +26,7 @@ def _cell_api(mod) -> SimpleNamespace:
         prepare_params=mod.prepare_params,         # one-time serving prep
         executable=mod.serve_executable,           # compiled-plan introspection
         forward=mod.forward,
+        loss_fn=mod.loss_fn,
         prefill=mod.prefill,
         decode_step=mod.decode_step,
         cache_specs=mod.cache_specs,
@@ -33,6 +40,7 @@ def _transformer_api() -> SimpleNamespace:
         prepare_params=transformer.prepare_params,  # cast to cdtype once
         forward=lambda p, cfg, batch: transformer.forward(
             p, cfg, batch["tokens"]),
+        loss_fn=transformer.loss_fn,
         prefill=lambda p, cfg, batch: transformer.prefill(
             p, cfg, batch["tokens"]),
         decode_step=transformer.decode_step,
@@ -58,3 +66,54 @@ def get_api(cfg: ModelConfig) -> SimpleNamespace:
     if cfg.family not in _FAMS:
         raise UnknownCellFamily(cfg.family, known=set(_FAMS))
     return _FAMS[cfg.family]()
+
+
+# ---------------------------------------------------------------------------
+# input specs and concrete batches
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Spec tree of the model inputs of one (arch x shape) cell.
+    kind="train"/"prefill": the full batch; kind="decode": only the new
+    token(s) or feature vector (the cache comes from ``cache_specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    if is_cell_family(cfg.family):
+        g = cfg.gru
+        if shape.kind == "decode":
+            return {"x": Spec((B, g.input_dim), dtype=cfg.dtype)}
+        return {"features": Spec((B, S, g.input_dim), dtype=cfg.dtype),
+                "labels": Spec((B,), dtype="int32")}
+    get_api(cfg)        # an LM family not ported yet raises here
+    if shape.kind == "decode":
+        return {"tokens": Spec((B,), dtype="int32")}
+    batch = {"tokens": Spec((B, S), dtype="int32")}
+    if shape.kind == "train":
+        batch["targets"] = Spec((B, S), dtype="int32")
+    return batch
+
+
+def concrete_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                   device="cuda") -> dict:
+    """Small deterministic batch on ``device``: the JAX package's numpy
+    draws in its order, so both packages get the same values."""
+    rng = np.random.default_rng(seed)
+    dev = resolve_device(device)
+
+    def make(_path, s):
+        if not is_spec(s):
+            return s
+        dt = torch_dtype(s.dtype or "float32")
+        if not dt.is_floating_point:
+            hi = (cfg.gru.num_classes if is_cell_family(cfg.family)
+                  else cfg.vocab_size)
+            return torch.from_numpy(
+                rng.integers(0, hi, size=s.shape).astype(np.int32)).to(dev)
+        x = torch.from_numpy(rng.normal(size=s.shape).astype(np.float32))
+        return x.to(device=dev, dtype=dt)
+    return _map_tree(make, _sorted(input_specs(cfg, shape)))
+
+
+def _sorted(tree: dict) -> dict:
+    """The dict with its keys in sorted order: the order JAX's tree_map
+    draws the leaves in."""
+    return {k: tree[k] for k in sorted(tree)}

@@ -1,7 +1,9 @@
 """The jet-tagging GRU (``gru-jet``, ``gru-jet-deep``) behind the model API
 (counterpart of ``repro.models.gru_lm``).
 
-Forward = the sequence classifier (GRU stack + linear head). Serving =
+Forward = the sequence classifier (GRU stack + linear head), and
+``loss_fn`` its softmax CE, which trains through autograd on the
+``eager`` backend (the kernel backends have no backward). Serving =
 one recurrent step through the whole stack per feature vector, the
 paper's latency path; the cache carries one hidden state per layer. All
 GRU execution goes through the executor (``repro_torch.core.runtime``):
@@ -25,6 +27,7 @@ from repro_torch.core import gru as gru_core
 from repro_torch.core import runtime
 from repro_torch.core.params import Spec, init_params
 from repro_torch.distributed.sharding import NO_SHARD, ShardCtx
+from repro_torch.models.layers import nll
 
 
 def lm_specs(cfg: ModelConfig) -> dict:
@@ -38,6 +41,21 @@ def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """batch: {features (B,T,X)} -> class logits (B,C)."""
     return gru_core.gru_classify(params, batch["features"], cfg=cfg.gru)
+
+
+def classifier_loss(logits: torch.Tensor, labels: torch.Tensor):
+    """Softmax CE of class logits (B, C) against labels (B,) -> (loss,
+    {"ce", "acc", "aux"}), JAX's metrics of a cell family."""
+    logits = logits.float()
+    loss = nll(logits, labels).mean()
+    acc = (logits.argmax(-1) == labels.long()).float().mean()
+    return loss, {"ce": loss, "acc": acc,
+                  "aux": torch.zeros((), device=logits.device)}
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+    """batch: {features (B,T,X), labels (B,)} -> softmax CE."""
+    return classifier_loss(forward(params, cfg, batch), batch["labels"])
 
 
 def _placement(ctx: ShardCtx) -> runtime.Placement:

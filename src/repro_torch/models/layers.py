@@ -4,9 +4,11 @@ embeddings (counterpart of ``repro.models.layers``).
 Everything is functional: ``*_specs`` returns a Spec tree; ``*_apply``
 consumes the matching params. Compute dtype discipline, as in JAX: params
 may be fp32 masters; activations run in ``cfg.dtype``; norms accumulate in
-fp32; logits are fp32. ``softmax_xent`` waits for the training path.
+fp32; logits are fp32.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -126,3 +128,24 @@ def unembed_apply(table_or_w: torch.Tensor, x: torch.Tensor,
     """Logits in fp32."""
     w = table_or_w.to(x.dtype)
     return (x @ w.t() if tied else x @ w).float()
+
+
+# --- losses ------------------------------------------------------------------
+
+def nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position CE ``logsumexp(logits) - logits[target]`` in fp32.
+    logits (..., V), targets (...) integer."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return lse - ll
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE. logits (..., V) fp32, targets (...) int32."""
+    out = nll(logits, targets)
+    if mask is not None:
+        m = mask.float()
+        return (out * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return out.mean()

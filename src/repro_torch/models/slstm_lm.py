@@ -8,7 +8,7 @@ all through the executor with ``cfg.gru.family == "slstm"``. The cache
 carries the family's flat state under ``"h"``: four (B, H) leaves per
 layer, layer-major ``(c0, n0, m0, h0, c1, ...)``, so the engine's slot
 scatter works leaf by leaf as for the GRU's one leaf. The readout is the
-last leaf (layer L-1's ``h``). ``loss_fn`` waits for the training path.
+last leaf (layer L-1's ``h``). ``loss_fn`` is the GRU classifier's CE.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.core.params import Spec
 from repro_torch.distributed.sharding import NO_SHARD, ShardCtx
 # family-generic (runtime.prepare and runtime.compile dispatch on
 # cfg.gru.family), so the GRU's serve as they are
-from repro_torch.models.gru_lm import (_placement,
+from repro_torch.models.gru_lm import (_placement, classifier_loss,
                                        prepare_params,  # noqa: F401
                                        serve_executable)
 
@@ -52,6 +52,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
                           mode="sequence")
     finals, _ = exe.sequence(stack_cell_params(params, cfg.gru), state0, xs)
     return _logits(params, finals[-1])
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+    """batch: {features (B,T,X), labels (B,)} -> softmax CE."""
+    return classifier_loss(forward(params, cfg, batch), batch["labels"])
 
 
 def cache_specs(cfg: ModelConfig, batch: int) -> dict:

@@ -1,6 +1,9 @@
 """Decoder-only transformer LM, dense blocks with GQA attention
-(counterpart of ``repro.models.transformer``; the MoE block, ``loss_fn``
-and ``chunked_ce`` wait for their families and the training path).
+(counterpart of ``repro.models.transformer``; the MoE block waits for its
+family). ``loss_fn`` is the fused chunked CE (``chunked_ce``: logits one
+sequence chunk at a time, each chunk recomputed in the backward pass, so
+(B, S, V) never materializes); it trains on ``attn_impl="chunked"`` or
+``"naive"`` (the attention kernels have no backward).
 
 Blocks are stacked ``(L, ...)`` as in JAX and run as a Python loop over
 the layer index; ``cfg.scan_layers`` and ``cfg.remat`` are XLA compile
@@ -13,7 +16,10 @@ passed in is the cache returned, updated.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec, init_params, stack_specs
@@ -103,6 +109,59 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor
     h, _ = hidden_states(params, cfg, tokens)
     table, tied = _unembed_table(params, cfg)
     return layers.unembed_apply(table, h, tied)
+
+
+# ---------------------------------------------------------------------------
+# loss (fused chunked CE: never materializes (B,S,V))
+# ---------------------------------------------------------------------------
+
+def _pick_chunk(S: int, target: int = 512) -> int:
+    c = min(target, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def _ce_chunk(hb, table, tb, mb, tied: bool):
+    """One chunk's (nll sum, mask sum): logits (B,c,V) in fp32, live only
+    inside this call."""
+    w = table.to(hb.dtype)
+    logits = (hb @ w.T if tied else hb @ w).float()
+    return (layers.nll(logits, tb) * mb).sum(), mb.sum()
+
+
+def chunked_ce(h: torch.Tensor, table: torch.Tensor, targets: torch.Tensor,
+               mask: Optional[torch.Tensor], tied: bool, chunk: int = 512):
+    """Mean CE from final hidden states; logits per sequence chunk,
+    rematerialized in the backward pass (``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint`` over its ``lax.scan`` body); the sums accumulate
+    chunk by chunk in fp32, in JAX's order."""
+    B, S, _ = h.shape
+    c = _pick_chunk(S, chunk)
+    mf = (mask.float() if mask is not None
+          else torch.ones((B, S), dtype=torch.float32, device=h.device))
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    m_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = torch.is_grad_enabled() and (h.requires_grad
+                                        or table.requires_grad)
+    for i in range(0, S, c):
+        args = (h[:, i:i + c], table, targets[:, i:i + c], mf[:, i:i + c],
+                tied)
+        n, m = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+                else _ce_chunk(*args))
+        nll_sum = nll_sum + n
+        m_sum = m_sum + m
+    return nll_sum / torch.clamp(m_sum, min=1.0)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+    """batch: {tokens (B,S), targets (B,S), mask optional} -> (loss,
+    {"ce", "aux"}); ``aux`` is 0 (no router loss without experts)."""
+    h, _ = hidden_states(params, cfg, batch["tokens"])
+    table, tied = _unembed_table(params, cfg)
+    ce = chunked_ce(h, table, batch["targets"], batch.get("mask"), tied)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

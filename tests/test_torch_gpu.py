@@ -1948,3 +1948,134 @@ def test_fleet_on_the_card_gives_the_single_engines_streams(cuda_device):
     ref = make_requests(cfg, 12, 20, True, 8, seed=3)
     ServeEngine(cfg, params, max_batch=1, device=cuda_device).generate(ref)
     assert [r.out for r in reqs] == [r.out for r in ref]
+
+
+# ---------------------------------------------------------------------------
+# training on the card: eager autograd, checkpoints, the q8 harness
+# ---------------------------------------------------------------------------
+
+def _train_setup(arch, dev):
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.train import trainer
+    cfg = get_config(arch)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2, total_steps=20)
+    stream = SyntheticStream(cfg, ShapeConfig("t", cfg.gru.seq_len, 64,
+                                              "train"))
+    return cfg, tcfg, stream, trainer.init_state(cfg, tcfg, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("gru-jet", "gru-jet-deep", "slstm-jet"))
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The same state and batch on the card and on the CPU: the gradients
+    within rtol 1e-5 (fp32, summation order), one AdamW step's loss and
+    metrics likewise; training launches no kernel."""
+    from repro_torch.core.params import flatten, map_trees
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.train import trainer
+    cfg, tcfg, stream, st = _train_setup(arch, cuda_device)
+    cpu = torch.device("cpu")
+    st_cpu = map_trees(lambda t: t.detach().to(cpu).requires_grad_(
+        t.requires_grad), st)
+    b = stream.batch_at(3)
+    loss_fn = trainer._loss_fn(cfg)
+    K.reset_launch_counts()
+    g, loss, _ = trainer._micro_grads(loss_fn, st["params"],
+                                      shard_batch(b, device=cuda_device), 1)
+    gc, loss_c, _ = trainer._micro_grads(loss_fn, st_cpu["params"],
+                                         shard_batch(b, device=cpu), 1)
+    np.testing.assert_allclose(float(loss), float(loss_c), rtol=1e-5)
+    fg, fc = flatten(g), flatten(gc)
+    for k in fc:
+        np.testing.assert_allclose(
+            fg[k].cpu().numpy(), fc[k].numpy(), rtol=1e-5,
+            atol=1e-5 * float(fc[k].abs().max()), err_msg=k)
+    step = trainer.make_train_step(cfg, tcfg)
+    _, m = step(st, shard_batch(b, device=cuda_device))
+    _, mc = step(st_cpu, shard_batch(b, device=cpu))
+    for k in mc:
+        np.testing.assert_allclose(float(m[k]), float(mc[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    assert all(k.launches == 0 for k in K.KERNELS + K.Q8_KERNELS
+               + K.CHAIN_Q8_KERNELS + SK.SLSTM_KERNELS)
+
+
+@pytest.mark.gpu
+def test_resumed_run_on_the_card_equals_the_run_that_never_stopped(
+        cuda_device, tmp_path):
+    """8 steps, a checkpoint at 5 through the async writer, a restore onto
+    the card into a fresh state: steps 5-7 from disk equal those in
+    memory within 1e-6."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.params import flatten
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.train import trainer
+    cfg, tcfg, stream, st = _train_setup("gru-jet", cuda_device)
+    step = trainer.make_train_step(cfg, tcfg)
+    mgr = CheckpointManager(str(tmp_path))
+    for s in range(8):
+        st, _ = step(st, shard_batch(stream.batch_at(s), device=cuda_device))
+        if s == 4:
+            mgr.save_async(st, 5)
+    mgr.wait()
+    like = trainer.init_state(cfg, tcfg, seed=9, device=cuda_device)
+    re = mgr.restore(like)
+    assert int(re["step"]) == 5 and re["step"].is_cuda
+    for s in range(5, 8):
+        re, _ = step(re, shard_batch(stream.batch_at(s), device=cuda_device))
+    fa, fb = flatten(st), flatten(re)
+    for k in fa:
+        assert fb[k].device == fa[k].device
+        assert (fa[k].detach().float() - fb[k].detach().float()).abs().max(
+        ).item() <= 1e-6, k
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_autograd_on_the_card(cuda_device):
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.models import api as mapi
+    from repro_torch.train import trainer
+    cfg = get_config("gru-jet")
+    cfg = cfg.replace(gru=dataclasses.replace(cfg.gru, backend="cuda_fused"))
+    st = trainer.init_state(cfg, TrainConfig(), device=cuda_device)
+    batch = mapi.concrete_batch(cfg, ShapeConfig("t", 6, 4, "train"),
+                                device=cuda_device)
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="gru_sequence_kernel has no "
+                       "backward; train on backend='eager'"):
+        mapi.get_api(cfg).loss_fn(st["params"], cfg, batch)
+    assert K.gru_sequence_kernel.launches == 0
+    with torch.no_grad():
+        logits = gru_lm.forward(st["params"], cfg, batch)
+    assert K.gru_sequence_kernel.launches == 1 and logits.is_cuda
+
+
+@pytest.mark.gpu
+def test_q8_harness_on_the_card_launches_rows_4_and_6(cuda_device,
+                                                        tmp_path):
+    """The harness at smoke size on the card: rows 4 and 6 launched once
+    per eval batch, each q8 pin's logits within 1e-5 of the CPU run of
+    the same pin on the same trained params; the port's gate untouched."""
+    from repro_torch.core import runtime
+    from repro_torch.core.params import map_trees
+    from repro_torch.quant import accuracy
+    gate = runtime.quant_accuracy()
+    K.reset_launch_counts()
+    out, params = accuracy.run(arch="gru-jet", train_steps=20,
+                               train_batch=32, eval_batches=2, eval_batch=32,
+                               json_path=str(tmp_path / "a.json"), csv=False,
+                               device=cuda_device, return_params=True)
+    assert K.gru_stack_sequence_q8_kernel.launches == 2
+    assert K.gru_sequence_q8_kernel.launches == 2
+    assert runtime.quant_accuracy() is gate
+    assert out["device"].startswith("cuda: ")
+    assert set(out["backends"]) == set(accuracy.Q8_BACKENDS)
+    cpu = torch.device("cpu")
+    xs = torch.randn(16, 20, 5, generator=torch.Generator().manual_seed(1))
+    pc = map_trees(lambda p: p.to(cpu), params)
+    for b in accuracy.Q8_BACKENDS:
+        g = dataclasses.replace(get_config("gru-jet").gru, backend=b)
+        got = accuracy._eval_logits(params, g, xs.to(cuda_device))
+        want = accuracy._eval_logits(pc, g, xs)
+        assert np.abs(got - want).max() <= TOL, b
