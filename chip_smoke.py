@@ -211,7 +211,12 @@ Phases (any failure exits non-zero, before the result lines):
    whose output is fp32: at most 1e-5): qwen3-0.6b's heads (Hq 16, Hkv 8,
    D 128) at S = 12, 128 and 2048, a window, Sq and Sk off the tiles,
    rows with no valid key (exactly 0); decode with C = S + 64, a wrapped
-   ring, a window, empty slots and a fully masked cache (exactly 0);
+   ring, a window, empty slots and a fully masked cache (exactly 0); then
+   at the LM zoo's heads (``ZOO_HEADS``: qwen2-moe-a2.7b's 16/16x128,
+   G = 1; qwen3-moe-235b-a22b's 64/4x128, G = 16; phi4-mini-3.8b's
+   24/8x128, G = 3; qwen2.5-3b's 16/2x128 and command-r-35b's 64/8x128,
+   G = 8) at the served waves' shapes (prefill S = 12 and 128, decode C =
+   76 and 192), under the same tolerances;
 10. serve qwen3-0.6b at full width (28 layers, d_model 1024, vocab
    151,936; fp32 params from seed 0, bf16 compute, ``attn_impl="cuda"``)
    through ``ServeEngine.generate``: two waves of 4 requests (prompt
@@ -222,6 +227,27 @@ Phases (any failure exits non-zero, before the result lines):
    ``attn_impl="chunked"``: logits along the served tokens within
    ``LM_LOGIT_TOL`` of the bf16 run, and the token streams equal or,
    where they part, the fp32 run's two top logits within that tolerance;
+10b. serve the MoE family: qwen2-moe-a2.7b at full width and full depth
+   (24 layers, d_model 2048, 60 experts padded to 64, top-4, shared
+   expert 5632, vocab 151,936; seed 0, built leaf by leaf on the host into
+   the served bf16 tree, ``init_prepared``, which equals ``prepare_params``
+   of the fp32 tree; the host's ``MemAvailable``, the init time and the
+   peak device memory printed), bf16 compute, ``attn_impl="cuda"``,
+   through ``ServeEngine.generate``: phase 10's two waves, counters zeroed
+   just before: flash attention 24 launches per prefill, flash decode 24
+   per decode step, no plain version and no recurrent kernel; decode-step
+   p50/p99 (host clock); then the same waves again through the kernels
+   and through ``attn_impl="chunked"`` on the same bf16 params, logits
+   and routings recorded: the streams equal or, where they part, the
+   chunked run's two top logits within ``MOE_TOP2_TOL``; the count of
+   (token, layer) top-k sets that differ between the two runs (routing
+   flips) printed, as is the largest logit difference (not held: a flip
+   moves a token's logits); one decode step profiled, split into
+   ``flash_decode``, the expert products (``aten::bmm``) and the rest,
+   beside the step's byte bound. Then qwen3-moe-235b-a22b at full width
+   with its depth cut to 2 (reduced; 6.2 B parameters): one wave of 4
+   (prompt lengths 128 and 12), flash attention 2 per prefill, flash
+   decode 2 per step at G = 16, nothing else;
 11. the paper's row-wise primitives through their entry points, with the
    counters zeroed just before: ``gru_step_cuda`` at gru-jet's H=20 and
    gru-jet-deep's H=32 (B 1 and 8, v1 and v3, fp32 and bf16 u), at
@@ -274,7 +300,8 @@ Phases (any failure exits non-zero, before the result lines):
    3.35 TB/s or the operations over their type's peak (67 TFLOP/s fp32,
    989 TFLOP/s bf16, 1,979 TOP/s int8), whichever is larger; the attention
    kernels beside one ``scaled_dot_product_attention`` call on the same
-   inputs and the matmuls beside one ``torch.matmul`` (TF32 off) where it
+   inputs (also in bf16 at the S = 128 wave at each of the LM zoo's heads,
+   the rows' ``zoo_heads``) and the matmuls beside one ``torch.matmul`` (TF32 off) where it
    computes the same function, ``torch.mm(..., out_dtype=float32)`` for
    the bf16 cascade (timed only; the port never calls either);
    ``gru_step_fused`` and ``gru_step_blocked`` beside the column tile
@@ -325,7 +352,7 @@ line, and as the last line ``{"ok": true, "device": {...}}``. A row's
 zeroed just before: rows 1-9 phases 4-8, 8b and 8c, rows 1, 2, 4 and
 6 also phase 8d (row 3's phase-11b
 ``backend="cuda"`` launches kept apart as ``mesh_launches``), the
-attention rows phase 10, rows 10, 11, 19 and 20 phase 11, and the shard
+attention rows phases 10 and 10b, rows 10, 11, 19 and 20 phase 11, and the shard
 rows phase 11b. Without a
 card, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -3535,21 +3562,35 @@ DECODE_CHECKS = ((4, 76, (0, 12), 12, 0), (4, 192, (0, 128), 128, 0),
                  (4, 192, (100, 400), 400, 100), (4, 192, (0, 50), 50, 0),
                  (2, 76, None, 0, 0), (2, 65, (0, 64), 64, 0),
                  (1, 2112, (1990, 2100), 2100, 0))
+# the LM zoo's heads (Hq, Hkv, D): MHA (G = 1), flash decode's largest
+# group (G = 16, MAX_G), G = 3 and G = 8; held in phase 9 at the served
+# waves' shapes (prefill S = 12 and 128, decode C = 76 and 192), timed in
+# phase 12 at the S = 128 wave
+ZOO_HEADS = {"qwen2-moe-a2.7b": (16, 16, 128),
+             "qwen3-moe-235b-a22b": (64, 4, 128),
+             "phi4-mini-3.8b": (24, 8, 128),
+             "qwen2.5-3b": (16, 2, 128),
+             "command-r-35b": (64, 8, 128)}
+ZOO_FLASH = ((4, 12, 12, True, 0), (4, 128, 128, True, 0))
+ZOO_DECODE = ((4, 76, (0, 12), 12, 0), (4, 192, (0, 128), 128, 0))
 
 
-def attn_inputs(torch, B, Sq, Sk, dtype, seed, dev):
+def attn_inputs(torch, B, Sq, Sk, dtype, seed, dev, heads=(HQ, HKV, HD)):
+    hq, hkv, hd = heads
     g = torch.Generator().manual_seed(seed)
     return tuple(torch.randn(*shape, generator=g).to(dev).to(dtype)
-                 for shape in ((B, HQ, Sq, HD), (B, HKV, Sk, HD),
-                               (B, HKV, Sk, HD)))
+                 for shape in ((B, hq, Sq, hd), (B, hkv, Sk, hd),
+                               (B, hkv, Sk, hd)))
 
 
-def decode_inputs(torch, B, C, written, pos, window, dtype, seed, dev):
+def decode_inputs(torch, B, C, written, pos, window, dtype, seed, dev,
+                  heads=(HQ, HKV, HD)):
     from repro_torch.kernels.decode_attn.ops import valid_slots
+    hq, hkv, hd = heads
     g = torch.Generator().manual_seed(seed)
     q, kc, vc = (torch.randn(*shape, generator=g).to(dev).to(dtype)
-                 for shape in ((B, HKV, HQ // HKV, HD), (B, HKV, C, HD),
-                               (B, HKV, C, HD)))
+                 for shape in ((B, hkv, hq // hkv, hd), (B, hkv, C, hd),
+                               (B, hkv, C, hd)))
     slot_pos = torch.full((C,), -1, dtype=torch.int32)
     if written is not None:
         for p in range(written[0], written[1] + 1):
@@ -3557,75 +3598,112 @@ def decode_inputs(torch, B, C, written, pos, window, dtype, seed, dev):
     return q, kc, vc, valid_slots(slot_pos.to(dev), pos, window)
 
 
-def check_attention_kernels(torch, dev):
-    """Both attention kernels against their plain versions on the card, in
-    fp32 and bf16; returns {kernel: {dtype name: max |err|}}."""
-    from repro_torch.kernels.decode_attn import kernel as DK
-    from repro_torch.kernels.decode_attn import ref as dref
+def check_flash(torch, dev, dtype, case, heads, seed):
+    """One flash-attention launch against its plain version (and a second
+    launch, bit for bit); returns max |err|."""
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn import ref as fref
+    B, Sq, Sk, causal, window = case
+    hq, hkv, hd = heads
+    dn = str(dtype).split(".")[-1]
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    q, k, v = attn_inputs(torch, B, Sq, Sk, dtype, seed, dev, heads)
+    got = FK.flash_attention(q, k, v, causal=causal, window=window)
+    want = fref.flash_attention_plain(q, k, v, causal, window)
+    again = FK.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+          f"flash_attention {dn} S={Sq}/{Sk} heads {heads}: bad output")
+    check(torch.equal(got, again), f"flash_attention {dn} S={Sq}/{Sk} heads "
+          f"{heads}: two launches gave different bits")
+    e = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"flash_attention {dn} B={B} heads {heads} Sq={Sq} Sk={Sk} causal="
+          f"{causal} window={window}: max |err| {e:.3g} (tol {tol})")
+    no_key = ~fref._mask(Sq, 0, Sk, causal, window, dev).any(-1)
+    check(int(torch.count_nonzero(got[:, :, no_key])) == 0,
+          f"flash_attention S={Sq}/{Sk}: a row with no valid key is not 0")
+    print(f"  flash_attention {dn:8s} B={B} Hq={hq} Hkv={hkv} D={hd} "
+          f"Sq={Sq:4d} Sk={Sk:4d} causal={causal!s:5} window={window:3d}: "
+          f"max |kernel - plain| {e:.3g} (rows without a key: "
+          f"{int(no_key.sum())}, exactly 0; two launches bitwise equal)",
+          flush=True)
+    return e
+
+
+def check_decode(torch, dev, dtype, case, heads, seed):
+    """One flash-decode launch against its plain version (and a second
+    launch, bit for bit); returns max |err|."""
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ref as dref
+    B, C, written, pos, window = case
+    hq, hkv, hd = heads
+    dn = str(dtype).split(".")[-1]
+    q, kc, vc, mask = decode_inputs(torch, B, C, written, pos, window, dtype,
+                                    seed, dev, heads)
+    got = DK.flash_decode(q, kc, vc, mask)
+    want = dref.flash_decode_plain(q, kc, vc, mask)
+    again = DK.flash_decode(q, kc, vc, mask)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"flash_decode {dn} C={C} heads {heads}: "
+          f"two launches gave different bits")
+    e = (got - want).abs().max().item()
+    check(got.dtype == torch.float32 and e <= TOL,
+          f"flash_decode {dn} B={B} heads {heads} C={C} written={written} "
+          f"pos={pos} window={window}: max |err| {e:.3g} (tol {TOL})")
+    if written is None:
+        check(int(torch.count_nonzero(got)) == 0,
+              "flash_decode: a fully masked cache is not 0")
+    splits = DK.num_splits(B, hkv, C, DK.sm_count(dev))
+    print(f"  flash_decode    {dn:8s} B={B} Hkv={hkv} G={hq // hkv} D={hd} "
+          f"C={C:4d} valid={int(mask.sum()):4d} window={window:3d}: max "
+          f"|kernel - plain| {e:.3g} ({splits} splits, {B * hkv * splits} "
+          f"blocks; two launches bitwise equal)", flush=True)
+    return e
+
+
+def check_attention_kernels(torch, dev):
+    """Both attention kernels against their plain versions on the card, in
+    fp32 and bf16, at qwen3-0.6b's heads and then at the LM zoo's
+    (``ZOO_HEADS``); returns {kernel: {dtype name: max |err|}} over all,
+    and the zoo's maxima by config."""
+    from repro_torch.kernels.decode_attn import kernel as DK
     err = {n: {"float32": 0.0, "bfloat16": 0.0} for n in ATTN}
+    zoo = {a: {n: {"float32": 0.0, "bfloat16": 0.0} for n in ATTN}
+           for a in ZOO_HEADS}
     n_checks = 0
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        tol = TOL if dtype == torch.float32 else BF16_TOL
-        for (B, Sq, Sk, causal, window) in FLASH_CHECKS:
-            q, k, v = attn_inputs(torch, B, Sq, Sk, dtype, Sq + Sk, dev)
-            got = FK.flash_attention(q, k, v, causal=causal, window=window)
-            want = fref.flash_attention_plain(q, k, v, causal, window)
-            again = FK.flash_attention(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            check(got.dtype == dtype and bool(torch.isfinite(got).all()),
-                  f"flash_attention {dn} S={Sq}/{Sk}: bad output")
-            check(torch.equal(got, again), f"flash_attention {dn} S={Sq}/"
-                  f"{Sk}: two launches gave different bits")
-            e = (got.float() - want.float()).abs().max().item()
-            err["flash_attention"][dn] = max(err["flash_attention"][dn], e)
-            check(torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol),
-                  f"flash_attention {dn} B={B} Sq={Sq} Sk={Sk} causal="
-                  f"{causal} window={window}: max |err| {e:.3g} (tol {tol})")
-            no_key = ~fref._mask(Sq, 0, Sk, causal, window, dev).any(-1)
-            check(int(torch.count_nonzero(got[:, :, no_key])) == 0,
-                  f"flash_attention S={Sq}/{Sk}: a row with no valid key "
-                  f"is not 0")
-            print(f"  flash_attention {dn:8s} B={B} Hq={HQ} Hkv={HKV} D={HD}"
-                  f" Sq={Sq:4d} Sk={Sk:4d} causal={causal!s:5} window="
-                  f"{window:3d}: max |kernel - plain| {e:.3g} (rows without "
-                  f"a key: {int(no_key.sum())}, exactly 0; two launches "
-                  f"bitwise equal)", flush=True)
-            n_checks += 1
-        for (B, C, written, pos, window) in DECODE_CHECKS:
-            q, kc, vc, mask = decode_inputs(torch, B, C, written, pos, window,
-                                            dtype, C + pos, dev)
-            got = DK.flash_decode(q, kc, vc, mask)
-            want = dref.flash_decode_plain(q, kc, vc, mask)
-            again = DK.flash_decode(q, kc, vc, mask)
-            torch.cuda.synchronize()
-            check(torch.equal(got, again), f"flash_decode {dn} C={C}: two "
-                  f"launches gave different bits")
-            e = (got - want).abs().max().item()
-            err["flash_decode"][dn] = max(err["flash_decode"][dn], e)
-            check(got.dtype == torch.float32 and e <= TOL,
-                  f"flash_decode {dn} B={B} C={C} written={written} pos="
-                  f"{pos} window={window}: max |err| {e:.3g} (tol {TOL})")
-            if written is None:
-                check(int(torch.count_nonzero(got)) == 0,
-                      "flash_decode: a fully masked cache is not 0")
-            splits = DK.num_splits(B, HKV, C, DK.sm_count(dev))
-            print(f"  flash_decode    {dn:8s} B={B} Hkv={HKV} G={HQ // HKV} "
-                  f"D={HD} C={C:4d} valid={int(mask.sum()):4d} window="
-                  f"{window:3d}: max |kernel - plain| {e:.3g} ({splits} "
-                  f"splits, {B * HKV * splits} blocks; two launches "
-                  f"bitwise equal)", flush=True)
-            n_checks += 1
+        runs = [(None, (HQ, HKV, HD), FLASH_CHECKS, DECODE_CHECKS)]
+        runs += [(a, h, ZOO_FLASH, ZOO_DECODE) for a, h in ZOO_HEADS.items()]
+        for arch, heads, flash_cases, decode_cases in runs:
+            salt = 0 if arch is None else sum(heads)   # qwen3's seeds kept
+            if arch is not None:
+                print(f"  -- {arch}'s heads {heads}", flush=True)
+            for case in flash_cases:
+                e = check_flash(torch, dev, dtype, case, heads,
+                                case[1] + case[2] + salt)
+                err["flash_attention"][dn] = max(err["flash_attention"][dn],
+                                                 e)
+                if arch is not None:
+                    z = zoo[arch]["flash_attention"]
+                    z[dn] = max(z[dn], e)
+                n_checks += 1
+            for case in decode_cases:
+                e = check_decode(torch, dev, dtype, case, heads,
+                                 case[1] + case[3] + salt)
+                err["flash_decode"][dn] = max(err["flash_decode"][dn], e)
+                if arch is not None:
+                    z = zoo[arch]["flash_decode"]
+                    z[dn] = max(z[dn], e)
+                n_checks += 1
     check(HKV * DK.num_splits(1, HKV, 2112, DK.sm_count(dev)) > HKV,
           "flash_decode at B=1 "
           "C=2112 runs no more blocks than (b, kv-head) pairs")
     print(f"  {n_checks} attention kernel/plain comparisons passed; fp32 "
           f"tol {TOL}, bf16 tol {BF16_TOL:.4g} (flash_attention, bf16 "
           f"output) and {TOL} (flash_decode, fp32 output)", flush=True)
-    return err
+    return err, zoo
 
 
 # ---------------------------------------------------------------------------
@@ -3687,7 +3765,7 @@ def compare_lm_runs(streams_a, logs_a, streams_b, logs_b):
                 top2 = wave_logs_b[d][i].topk(2).values
                 gap = (top2[0] - top2[1]).item()
                 parted.append({"wave": w, "request": i, "token": d,
-                               "fp32_top2_gap": gap})
+                               "top2_gap": gap})
     return worst, parted
 
 
@@ -3714,11 +3792,8 @@ def run_lm_path(torch, dev, cfg=None):
     K.reset_launch_counts()                                  # the LM path
     with plain_calls() as plain:
         streams = serve_lm(eng, cfg)
-    launches = {k.__name__: k.launches for k in K.ATTN_KERNELS}
     from repro_torch.kernels.slstm_cell import kernel as SK
-    others = {k.__name__: k.launches for k in
-              K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
-              + SK.SLSTM_KERNELS + K.ROWWISE_KERNELS + K.SHARD_KERNELS}
+    launches, others = served_launches(K, SK)
     st = eng.latency_stats()
     prefills, steps_run = st["prefills"], st["steps"] + 1   # one decode key
     from repro_torch.kernels.decode_attn import kernel as DK
@@ -3761,7 +3836,7 @@ def run_lm_path(torch, dev, cfg=None):
     worst, parted = compare_lm_runs(streams, log_a, streams32, log_b)
     check(worst <= LM_LOGIT_TOL, f"{LM_ARCH}: bf16 cuda logits differ from "
           f"fp32 chunked by {worst:.4g} > {LM_LOGIT_TOL}")
-    check(all(p["fp32_top2_gap"] <= LM_LOGIT_TOL for p in parted),
+    check(all(p["top2_gap"] <= LM_LOGIT_TOL for p in parted),
           f"{LM_ARCH}: streams part where fp32's top two logits are more "
           f"than {LM_LOGIT_TOL} apart: {parted}")
     equal = not parted
@@ -3770,7 +3845,7 @@ def run_lm_path(torch, dev, cfg=None):
           + ("equal" if equal else
              f"part in {len(parted)} of {LM_SLOTS * len(LM_WAVES)} requests,"
              f" each where fp32's top two logits are within "
-             f"{max(p['fp32_top2_gap'] for p in parted):.4g}: {parted}"),
+             f"{max(p['top2_gap'] for p in parted):.4g}: {parted}"),
           flush=True)
     report = {"arch": LM_ARCH, "layers": L, "d_model": cfg.d_model,
               "vocab": cfg.vocab_size, "params": n_params,
@@ -3782,6 +3857,321 @@ def run_lm_path(torch, dev, cfg=None):
               "logits_vs_fp32_chunked": worst, "streams_equal": equal,
               "parted": parted}
     return launches, report, params
+
+
+# ---------------------------------------------------------------------------
+# 10b. the MoE family: qwen2-moe-a2.7b at full width and full depth, then
+# qwen3-moe-235b-a22b at full width with its depth cut to 2
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_WIDE = "qwen3-moe-235b-a22b"
+MOE_WIDE_LAYERS = 2       # reduced: 94 layers -> 2 (235 B params; 2: 6.2 B)
+# bf16 cuda vs bf16 chunked on the same params: where the streams part,
+# the chunked run's two top logits lie within this (as LM_LOGIT_TOL for
+# qwen3-0.6b's bf16 vs fp32); the logits themselves are reported, not
+# held, since a routing flip (a token's top-k set changed by the other
+# attention's rounding) may move a token's logits far
+MOE_TOP2_TOL = 0.25
+
+
+@contextlib.contextmanager
+def recorded_routes(log):
+    """Append every MoE layer's chosen experts (top_i, sorted per token,
+    left on the device) to ``log`` while the block runs."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod.route
+
+    def rec(p, m, xf):
+        out = route(p, m, xf)
+        log.append(out[2].sort(-1).values)
+        return out
+    moe_mod.route = rec
+    try:
+        yield log
+    finally:
+        moe_mod.route = route
+
+
+def routing_flips(routes_a, routes_b, streams_a, streams_b, L):
+    """(flipped, compared) (token, layer) routings between two runs of
+    ``LM_WAVES``: in each wave the calls made on the same inputs (the
+    prefill and the steps up to the first token where a stream parts)."""
+    flips = total = 0
+    per_wave = L * (LM_NEW + 1)
+    for w in range(len(LM_WAVES)):
+        parts = [next((t for t, (x, y) in enumerate(zip(sa, sb)) if x != y),
+                      None) for sa, sb in zip(streams_a[w], streams_b[w])]
+        parts = [d for d in parts if d is not None]
+        last = min(parts) if parts else LM_NEW
+        for c in range(last + 1):
+            for i in range(L):
+                a = routes_a[w * per_wave + c * L + i]
+                b = routes_b[w * per_wave + c * L + i]
+                diff = (a != b).any(-1)
+                flips += int(diff.sum())
+                total += diff.numel()
+    return flips, total
+
+
+def step_bytes(params, cfg, B, valid):
+    """Bytes one decode step must move: every leaf read once but an untied
+    embedding table (its B rows), and the valid slots' K and V of every
+    layer."""
+    from repro_torch.core.params import flatten
+    n = 0
+    for path, x in flatten(params).items():
+        if path == "embed" and not cfg.tie_embeddings:
+            n += B * x.shape[1] * x.element_size()
+        else:
+            n += x.numel() * x.element_size()
+    kv = 2 * cfg.num_layers * B * cfg.num_kv_heads * valid \
+        * cfg.resolved_head_dim * 2
+    return n + kv
+
+
+def profile_moe_step(torch, dev, params, cfg):
+    """One warm decode step of 4 requests after a 12-token prefill under
+    ``torch.profiler``: its wall time and device time split into
+    ``flash_decode`` (row 22), the expert products (``aten::bmm``'s
+    kernels) and the rest, beside the step's byte bound."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(
+        LM_SLOTS, 12)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        logits, cache = transformer.prefill(params, cfg, toks)
+        nxt = logits.argmax(-1)
+        for _ in range(3):
+            logits, cache = transformer.decode_step(params, cfg, cache, nxt)
+            nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            transformer.decode_step(params, cfg, cache, nxt)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    kernels = device_kernels(prof)
+    valid = 12 + 4
+    bound = step_bytes(params, cfg, LM_SLOTS, valid) / HBM_BYTES_PER_S * 1e3
+    experts = sum(x.numel() * x.element_size()
+                  for k in ("wg", "wu", "wd")
+                  for x in [params["blocks"]["moe"][k]])
+    expert_bound = experts / HBM_BYTES_PER_S * 1e3
+    if not kernels:
+        print("  profiler: no device time recorded -> the step's split not "
+              "measured", flush=True)
+        return {"wall_ms": wall * 1e3, "bound_ms": bound}
+    total = sum(kernels.values()) / 1e3
+    decode = sum(us for k, us in kernels.items() if "flash_decode_k" in k)
+    bmm = [e for e in prof.key_averages() if e.key == "aten::bmm"]
+    bmm_ms = sum(getattr(e, "device_time_total", 0.0) or
+                 getattr(e, "self_device_time_total", 0.0)
+                 for e in bmm) / 1e3
+    bmm_n = sum(e.count for e in bmm)
+    rest = total - decode / 1e3 - bmm_ms
+    print(f"  decode step ({cfg.name}, cuda, {LM_SLOTS} requests, cache of "
+          f"{valid} positions; profiler): wall {wall * 1e3:.4f} ms, device "
+          f"busy {total:.4f} ms ({total / (wall * 1e3):.3%}): flash_decode "
+          f"(row 22) {decode / 1e3:.4f} ms, expert products ({bmm_n} "
+          f"aten::bmm) {bmm_ms:.4f} ms (bound {expert_bound:.4f} ms: "
+          f"{experts / 1e9:.3f} GB of expert weights over 3.35 TB/s), the "
+          f"rest {rest:.4f} ms; the step's byte bound {bound:.4f} ms", flush=True)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    for k, us in top:
+        print(f"    {us:10.2f} us  {k[:90]}")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": total,
+            "device_idle_share": 1 - total / (wall * 1e3),
+            "flash_decode_ms": decode / 1e3, "expert_bmm_ms": bmm_ms,
+            "expert_bmm_launches": bmm_n, "rest_ms": rest,
+            "bound_ms": bound, "expert_bound_ms": expert_bound}
+
+
+def moe_params(torch, dev, cfg, label):
+    """The served bf16 tree of ``cfg`` from seed 0, built leaf by leaf
+    (``init_prepared``: ``prepare_params`` of the fp32 tree value for
+    value, with neither tree whole in fp32 on the host or the card)."""
+    from repro_torch.core.params import draw_workers, mem_available
+    from repro_torch.models import transformer
+    avail = mem_available()
+    workers = draw_workers(transformer.lm_specs(cfg), cfg.param_dtype)
+    print(f"  {label}: host MemAvailable "
+          f"{'not readable' if avail is None else f'{avail / 2**30:.2f} GiB'}"
+          f"; drawing {workers} leaves at a time", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params = transformer.init_prepared(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n = sum(x.numel() for x in _leaves(params))
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    print(f"  {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}x"
+          f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} experts (padded "
+          f"to {params['blocks']['moe']['wg'].shape[1]}) top-"
+          f"{cfg.moe.top_k}, shared {cfg.moe.shared_d_ff}, vocab "
+          f"{cfg.vocab_size}: {n} parameters, {nbytes / 1e9:.3f} GB served "
+          f"({params['blocks']['moe']['wg'].dtype}), made from seed 0 in "
+          f"{init_s:.1f} s", flush=True)
+    return params, {"params": n, "served_gb": nbytes / 1e9,
+                    "init_s": init_s, "draw_workers": workers,
+                    "host_mem_available_gib": (None if avail is None
+                                               else avail / 2**30)}
+
+
+def served_launches(K, SK):
+    launches = {k.__name__: k.launches for k in K.ATTN_KERNELS}
+    others = {k.__name__: k.launches for k in
+              K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS
+              + SK.SLSTM_KERNELS + K.ROWWISE_KERNELS + K.SHARD_KERNELS}
+    return launches, others
+
+
+def run_moe_path(torch, dev, cfg=None):
+    """qwen2-moe-a2.7b at full width and full depth through
+    ``ServeEngine.generate`` (``cfg``: a smaller same-family config for a
+    CPU rehearsal)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg or get_config(MOE_ARCH)
+    check(cfg.attn_impl == "cuda" and cfg.dtype == "bfloat16"
+          and cfg.family == "moe", f"{MOE_ARCH}: config {cfg}")
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, report = moe_params(torch, dev, cfg, MOE_ARCH)
+    eng = ServeEngine(cfg, params, max_batch=LM_SLOTS, device=dev)
+    check(eng.params["blocks"]["moe"]["wg"] is params["blocks"]["moe"]["wg"],
+          f"{MOE_ARCH}: the engine copied the prepared experts")
+    K.reset_launch_counts()                                  # the MoE path
+    with plain_calls() as plain:
+        streams = serve_lm(eng, cfg)
+    launches, others = served_launches(K, SK)
+    st = eng.latency_stats()
+    prefills, steps_run = st["prefills"], st["steps"] + 1   # one decode key
+    print(f"  launches: {launches}; other kernels {others}; plain versions "
+          f"{plain}", flush=True)
+    check(not any(plain.values()), f"{MOE_ARCH}: plain versions ran {plain}")
+    check(not any(others.values()), f"{MOE_ARCH}: other kernels ran {others}")
+    check(launches == {"flash_attention": L * prefills,
+                       "flash_decode": L * steps_run},
+          f"{MOE_ARCH}: launches {launches} != {L} x ({prefills} prefills, "
+          f"{steps_run} steps)")
+    check(all(len(s) == LM_NEW for w in streams for s in w),
+          f"{MOE_ARCH}: stream lengths {[[len(s) for s in w] for w in streams]}")
+    check(st["served_dtype"] == "bfloat16", f"served {st['served_dtype']}")
+    print(f"  {MOE_ARCH}: {prefills} prefills (S = "
+          f"{[max(w) for w in LM_WAVES]}, {LM_SLOTS} requests each), "
+          f"{steps_run} decode steps; flash_attention {L} per prefill, "
+          f"flash_decode {L} per step; prefill mean "
+          f"{st['prefill_mean_s'] * 1e3:.4f} ms, decode p50 "
+          f"{st['p50_s'] * 1e3:.4f} ms p99 {st['p99_s'] * 1e3:.4f} ms "
+          f"(host clock, synchronized)", flush=True)
+    # the same waves, recorded (logits and routings), through the kernels
+    # and through the plain chunked attention, both bf16 on these params
+    log_a, routes_a = record_logits(eng), []
+    with recorded_routes(routes_a):
+        again = serve_lm(eng, cfg)
+    cfg_c = cfg.replace(attn_impl="chunked")
+    eng_c = ServeEngine(cfg_c, params, max_batch=LM_SLOTS, device=dev)
+    log_c, routes_c = record_logits(eng_c), []
+    with recorded_routes(routes_c):
+        streams_c = serve_lm(eng_c, cfg_c)
+    for log in (log_a, log_c):
+        check(all(bool(torch.isfinite(x).all()) and
+                  tuple(x.shape) == (LM_SLOTS, cfg.vocab_size) for x in log),
+              f"{MOE_ARCH}: non-finite or misshapen logits")
+    worst, parted = compare_lm_runs(again, log_a, streams_c, log_c)
+    flips, compared = routing_flips(routes_a, routes_c, again, streams_c, L)
+    check(all(p["top2_gap"] <= MOE_TOP2_TOL for p in parted),
+          f"{MOE_ARCH}: streams part where chunked's top two logits are more "
+          f"than {MOE_TOP2_TOL} apart: {parted}")
+    print(f"  a second cuda run: streams "
+          f"{'equal to the first' if again == streams else 'differ from the first (index_add_ order on the card)'}"
+          f"; bf16 cuda vs bf16 chunked: logits along the served tokens "
+          f"within {worst:.4g} (reported, not held); token streams "
+          + ("equal" if not parted else
+             f"part in {len(parted)} of {LM_SLOTS * len(LM_WAVES)} requests,"
+             f" each where chunked's top two logits are within "
+             f"{max(p['top2_gap'] for p in parted):.4g} (tol "
+             f"{MOE_TOP2_TOL}): {parted}")
+          + f"; routing flips: {flips} of {compared} (token, layer) top-"
+          f"{cfg.moe.top_k} sets differ", flush=True)
+    prof = profile_moe_step(torch, dev, params, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {MOE_ARCH}: peak device memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated, from before the params were built)",
+          flush=True)
+    report.update({
+        "arch": MOE_ARCH, "layers": L, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "prefills": prefills,
+        "decode_steps": steps_run, "launches": launches,
+        "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+        "decode_p50_ms": st["p50_s"] * 1e3,
+        "decode_p99_ms": st["p99_s"] * 1e3,
+        "second_run_streams_equal": again == streams,
+        "logits_vs_chunked": worst, "streams_equal": not parted,
+        "parted": parted, "routing_flips": flips,
+        "routings_compared": compared, "peak_gib": peak / 2**30,
+        "profile_decode": prof})
+    del eng, eng_c, params
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def run_moe_wide(torch, dev, cfg=None):
+    """qwen3-moe-235b-a22b at full width, depth cut to ``MOE_WIDE_LAYERS``
+    (reduced), one wave of 4 through ``ServeEngine.generate``: flash decode
+    at G = 16."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg or get_config(MOE_WIDE).replace(num_layers=MOE_WIDE_LAYERS)
+    L = cfg.num_layers
+    check(cfg.num_heads // cfg.num_kv_heads == 16,
+          f"{MOE_WIDE}: G = {cfg.num_heads // cfg.num_kv_heads}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, report = moe_params(torch, dev, cfg,
+                                f"{MOE_WIDE} (depth {L}, reduced)")
+    eng = ServeEngine(cfg, params, max_batch=LM_SLOTS, device=dev)
+    K.reset_launch_counts()                            # the MoE path, again
+    with plain_calls() as plain:
+        streams = [r.out for r in eng.generate(lm_requests(cfg, 1))]
+    launches, others = served_launches(K, SK)
+    st = eng.latency_stats()
+    prefills, steps_run = st["prefills"], st["steps"] + 1
+    check(not any(plain.values()), f"{MOE_WIDE}: plain versions ran {plain}")
+    check(not any(others.values()), f"{MOE_WIDE}: other kernels ran {others}")
+    check(launches == {"flash_attention": L * prefills,
+                       "flash_decode": L * steps_run},
+          f"{MOE_WIDE}: launches {launches} != {L} x ({prefills} prefills, "
+          f"{steps_run} steps)")
+    check(all(len(s) == LM_NEW for s in streams),
+          f"{MOE_WIDE}: stream lengths {[len(s) for s in streams]}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {MOE_WIDE} (depth {L} of 94, reduced): launches {launches} "
+          f"({prefills} prefill of S = {max(LM_WAVES[1])}, {steps_run} "
+          f"steps; G = 16); prefill {st['prefill_mean_s'] * 1e3:.4f} ms, "
+          f"decode p50 {st['p50_s'] * 1e3:.4f} ms p99 "
+          f"{st['p99_s'] * 1e3:.4f} ms (host clock); peak device memory "
+          f"{peak / 2**30:.3f} GiB; streams {[s[:6] for s in streams]}",
+          flush=True)
+    report.update({"arch": MOE_WIDE, "layers": L, "reduced": "depth 94 -> "
+                   f"{L}", "launches": launches, "prefills": prefills,
+                   "decode_steps": steps_run,
+                   "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+                   "decode_p50_ms": st["p50_s"] * 1e3,
+                   "decode_p99_ms": st["p99_s"] * 1e3,
+                   "peak_gib": peak / 2**30})
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches, report
 
 
 def _leaves(tree):
@@ -4109,7 +4499,6 @@ def cascade_layer_kernels(torch, cfg, params, dev, mesh, steps=20):
     psum's own entries (its copy, NCCL's kernel, gloo's memcpys) may run.
     Returns the device entries' counts by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import gru as gru_core
     from repro_torch.core import rowparallel as rp
     gcfg = cfg.gru
@@ -4130,11 +4519,12 @@ def cascade_layer_kernels(torch, cfg, params, dev, mesh, steps=20):
                                      mesh=mesh, variant=variant)
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def body():
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
+    prof = profiled(torch, body)
     counts = {e.key: e.count for e in prof.key_averages()
               if getattr(e, "device_type", None) == DeviceType.CUDA
               and e.count}
@@ -5033,13 +5423,13 @@ def decode_ops_per_call(torch, fn, B):
     no device activity."""
     import os
     import tempfile
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def body():
         fn()
         torch.cuda.synchronize()
+    prof = profiled(torch, body)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -5076,27 +5466,76 @@ def decode_ops_per_call(torch, fn, B):
     return {"counts": counts, "text": text}
 
 
-def attn_bound_ms(name, shape, itemsize, valid=None):
+def attn_bound_ms(name, shape, itemsize, valid=None, heads=(HQ, HKV, HD)):
     """Least time: q, k, v read once and the output written once over
     3.35 TB/s, or 4*D flops per valid (query, key) pair and head over the
     peak of the inputs' type (bf16 989, fp32 67 TFLOP/s), the larger.
     Flash decode counts only the valid slots' K and V (what this cache's
     data needs), its byte mask and its fp32 output."""
     from repro_torch.kernels.flash_attn import ref as fref
+    hq, hkv, hd = heads
     peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
     if name == "flash_attention":
         B, Sq, Sk, causal, window = shape
         pairs = int(fref._mask(Sq, 0, Sk, causal, window, "cpu").sum())
-        flops = 4 * HD * pairs * B * HQ
-        nbytes = itemsize * (2 * B * HQ * Sq * HD + 2 * B * HKV * Sk * HD)
+        flops = 4 * hd * pairs * B * hq
+        nbytes = itemsize * (2 * B * hq * Sq * hd + 2 * B * hkv * Sk * hd)
     else:
         B, C = shape[:2]
-        flops = 4 * HD * valid * B * HQ
-        nbytes = (itemsize * (B * HQ * HD + 2 * B * HKV * valid * HD) + C
-                  + 4 * B * HQ * HD)
+        flops = 4 * hd * valid * B * hq
+        nbytes = (itemsize * (B * hq * hd + 2 * B * hkv * valid * hd) + C
+                  + 4 * B * hq * hd)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_zoo_heads(torch, dev):
+    """Rows 21-22 in bf16 at the LM zoo's heads (``ZOO_HEADS``), at the
+    served S = 128 wave (``ATTN_ROW``'s shapes): device time, plain
+    version, sdpa and bound, by config."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import kernel as DK
+    from repro_torch.kernels.decode_attn import ref as dref
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.flash_attn import ref as fref
+    out = {}
+    for arch, heads in ZOO_HEADS.items():
+        hq, hkv, hd = heads
+        row = {}
+        B, Sq, Sk, causal, window = ATTN_ROW["flash_attention"]
+        q, k, v = attn_inputs(torch, B, Sq, Sk, torch.bfloat16, 11, dev,
+                              heads)
+        fns = {"flash_attention": (
+            lambda: FK.flash_attention(q, k, v, causal=causal, window=window),
+            lambda: fref.flash_attention_plain(q, k, v, causal, window),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                   enable_gqa=True), None)}
+        Bd, C, written, pos, dwin = ATTN_ROW["flash_decode"]
+        qd, kc, vc, mask = decode_inputs(torch, Bd, C, written, pos, dwin,
+                                         torch.bfloat16, 11, dev, heads)
+        qh = qd.reshape(Bd, hq, 1, hd)
+        amask = mask[None, None, None, :]
+        fns["flash_decode"] = (
+            lambda: DK.flash_decode(qd, kc, vc, mask),
+            lambda: dref.flash_decode_plain(qd, kc, vc, mask),
+            lambda: F.scaled_dot_product_attention(qh, kc, vc,
+                                                   attn_mask=amask,
+                                                   enable_gqa=True),
+            int(mask.sum()))
+        for name, (kern, plain_fn, library, valid) in fns.items():
+            ms = device_time_ms(torch, kern, per_graph=50)
+            plain = device_time_ms(torch, plain_fn, per_graph=2)
+            lib = device_time_ms(torch, library, per_graph=50)
+            bms, by = attn_bound_ms(name, ATTN_ROW[name], 2, valid, heads)
+            row[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": bms, "bound_by": by}
+            print(f"  {name:15s} bf16 {arch} heads {heads} "
+                  f"{ATTN_ROW[name]}: device {ms * 1e3:9.2f} us  plain "
+                  f"{plain * 1e3:10.2f} us  sdpa {lib * 1e3:8.2f} us  bound "
+                  f"{bms * 1e3:8.3f} us ({by})", flush=True)
+        out[arch] = {"heads": list(heads), **row}
+    return out
 
 
 def time_attention(torch, dev, err, launches):
@@ -5184,8 +5623,11 @@ def time_attention(torch, dev, err, launches):
                 "shape": {"heads": [HQ, HKV, HD], "shape": list(shape),
                           "dtype": "bfloat16"}}
             rows.append(row)
+    zoo = time_zoo_heads(torch, dev)
     for row in rows:
         row.update(fp32_at_row[row["name"]])
+        row["zoo_heads"] = {a: {"heads": z["heads"], **z[row["name"]]}
+                            for a, z in zoo.items()}
         if row["name"] == "flash_decode":
             # measured by the profiler at every timed shape (bf16)
             row["device_ops_per_call"] = ops_at
@@ -5547,6 +5989,21 @@ def time_shard_kernels(torch, dev, err, launches):
     return rows
 
 
+def profiled(torch, body):
+    """``torch.profiler`` over ``body`` (which ends synchronized), its
+    events kept whole: a first cycle runs ``body`` with the profiler
+    started and throws its events away (CUPTI can lose the first device
+    activities after it starts), then ``body`` runs again, recorded."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            body()
+            prof.step()
+    return prof
+
+
 def device_kernels(prof) -> dict:
     """Device time (us) by name of what ran on the card (kernels, copies),
     from a profile: only the device entries, since a host op's entry
@@ -5726,11 +6183,18 @@ def main() -> None:
     for k, n in train_launches.items():
         launches[k] = launches.get(k, 0) + n
     phase("9. attention kernels vs plain versions (qwen3-0.6b heads)")
-    attn_err = check_attention_kernels(torch, dev)
+    attn_err, zoo_err = check_attention_kernels(torch, dev)
     phase("10. dense LM: serve qwen3-0.6b at full width through the "
           "attention kernels")
     lm_launches, lm_report, lm_params = run_lm_path(torch, dev)
     launches.update(lm_launches)
+    phase("10b. MoE: serve qwen2-moe-a2.7b at full width and depth, then "
+          "qwen3-moe-235b-a22b at full width and depth 2, through the "
+          "attention kernels")
+    moe_launches, moe_report = run_moe_path(torch, dev)
+    wide_launches, wide_report = run_moe_wide(torch, dev)
+    for k in ATTN:
+        launches[k] += moe_launches[k] + wide_launches[k]
     phase("11. the paper's row-wise primitives through gru_step_cuda, "
           "rowwise and cascade")
     rw_launches, rw_err = run_rowwise_path(torch, dev)
@@ -5773,6 +6237,8 @@ def main() -> None:
                       "serve_tuning": tune_report,
                       "serve_fleet": fleet_report_,
                       "train": train_report, "serve_lm": lm_report,
+                      "serve_moe": moe_report, "serve_moe_wide": wide_report,
+                      "attention_zoo_err": zoo_err,
                       "rowwise_launches": rw_launches,
                       "serve_mesh": mesh_report}))
     print(json.dumps({"kernels": rows}))

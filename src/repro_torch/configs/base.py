@@ -2,9 +2,11 @@
 config, the shape and training configs, copied from
 ``repro.configs.base`` (the port imports nothing of ``repro``). One
 config type serves the cell families (the GRU and the sLSTM) and the
-dense transformer LM (``qwen3-0.6b``); the sub-configs of the other LM
-families (``moe``, ``ssm``, ``xlstm``, ``encoder``, ``vision``) are not
-ported yet.
+transformer LMs, dense (``qwen3-0.6b``, ``qwen2.5-3b``, ``phi4-mini-3.8b``,
+``command-r-35b``) and mixture-of-experts (``qwen2-moe-a2.7b``,
+``qwen3-moe-235b-a22b``, through :class:`MoEConfig`); the sub-configs of
+the other LM families (``ssm``, ``xlstm``, ``encoder``, ``vision``) are
+not ported yet.
 
 Backend preferences are the port's names (see ``repro_torch.core.runtime``):
 ``"eager"`` (default, the JAX ``"xla"``), ``"cuda"`` (the JAX ``"pallas"``),
@@ -17,6 +19,19 @@ import dataclasses
 import importlib
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                    # per-expert FFN hidden size
+    shared_d_ff: int = 0             # 0 = no shared expert
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001   # load-balance aux loss
+    norm_topk_prob: bool = True      # renormalize top-k weights (qwen3 style)
+    tp_mode: str = "gather"          # expert TP under a mesh: "gather" |
+                                     # "psum" (the mesh path is not ported)
 
 
 @dataclass(frozen=True)
@@ -76,7 +91,8 @@ class GRUConfig:
 class ModelConfig:
     """The fields of ``repro.configs.base.ModelConfig`` that the port's
     families read: the recurrent stack (``gru``) for the cell families,
-    the dense transformer's fields for ``family="dense"``.
+    the transformer's fields for ``family="dense"`` and ``"moe"`` (the
+    latter with ``moe``).
 
     ``attn_impl`` takes the port's names: ``"naive"`` (dense score
     matrix, the oracle; JAX ``"naive"``), ``"chunked"`` (the plain chunked
@@ -90,10 +106,10 @@ class ModelConfig:
     them and they change nothing (it runs its layers eagerly).
     """
     name: str
-    family: str                      # "gru" | "slstm" | "dense"
+    family: str                      # "gru" | "slstm" | "dense" | "moe"
     gru: Optional[GRUConfig] = None
     param_dtype: str = "float32"
-    # --- the dense transformer LM (zero for the cell families) ---
+    # --- the transformer LM (zero for the cell families) ---
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -117,6 +133,7 @@ class ModelConfig:
     remat: bool = True               # accepted; changes nothing here
     attn_impl: str = "cuda"          # "cuda" | "chunked" | "naive"
     attn_chunk: int = 1024           # kv chunk of "chunked"
+    moe: Optional[MoEConfig] = None  # the experts of family "moe"
 
     @property
     def resolved_head_dim(self) -> int:
@@ -135,17 +152,33 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense LM (embedding + blocks +
-        head), as ``repro.configs.base.ModelConfig.param_count`` counts a
-        config without experts or encoder."""
+        """Analytic parameter count (embedding + blocks + head), JAX's
+        arithmetic: the experts count ``num_experts``, not the padded
+        count the spec tree holds (``models.moe.padded_experts``)."""
         d, hd = self.d_model, self.resolved_head_dim
         n_q, n_kv = self.num_heads, self.num_kv_heads
         attn = d * hd * n_q + 2 * d * hd * n_kv + hd * n_q * d
         mlp = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff
-        total = self.num_layers * (attn + mlp + 2 * d) + self.vocab_size * d
+        per_layer = attn + mlp + 2 * d
+        if self.moe is not None:
+            m = self.moe
+            emlp = m.num_experts * 3 * d * m.d_expert + d * m.num_experts
+            if m.shared_d_ff:
+                emlp += 3 * d * m.shared_d_ff
+            per_layer = attn + emlp + 2 * d
+        total = self.num_layers * per_layer + self.vocab_size * d
         if not self.tie_embeddings:
             total += self.vocab_size * d
         return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        d, m = self.d_model, self.moe
+        full_moe = m.num_experts * 3 * d * m.d_expert
+        active_moe = m.top_k * 3 * d * m.d_expert
+        return self.param_count() - self.num_layers * (full_moe - active_moe)
 
 
 @dataclass(frozen=True)
@@ -179,7 +212,12 @@ _REGISTRY = {
     "gru-jet": "gru_jet",
     "gru-jet-deep": "gru_jet_deep",
     "slstm-jet": "slstm_jet",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "command-r-35b": "command_r_35b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen2.5-3b": "qwen2_5_3b",
 }
 
 ALL_ARCHS = list(_REGISTRY)

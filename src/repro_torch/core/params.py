@@ -148,6 +148,66 @@ def init_params(specs, seed: int = 0, param_dtype: str = "float32", *,
         if is_spec(s) else s, specs)
 
 
+def mem_available() -> Optional[int]:
+    """The host's ``MemAvailable`` in bytes (``/proc/meminfo``), or None
+    where there is no such file."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def draw_workers(specs, param_dtype: str = "float32", cap: int = 4) -> int:
+    """How many leaves :func:`init_params_each` may draw at a time: as
+    many of the largest leaf (in the param dtype) as fit in half the
+    host's available memory, at most ``cap`` and the CPU count, at least
+    one."""
+    import os
+    avail = mem_available()
+    largest = max(int(np.prod(s.shape)) * torch_dtype(s.dtype or
+                                                      param_dtype).itemsize
+                  for s in leaves(specs) if is_spec(s))
+    if avail is None or largest == 0:
+        return 1
+    return max(1, min(cap, os.cpu_count() or 1, avail // 2 // largest))
+
+
+def init_params_each(specs, prepare, seed: int = 0,
+                     param_dtype: str = "float32", workers: int = 1):
+    """``init_params(specs, seed, param_dtype, device="cpu")`` with
+    ``prepare(path, leaf)`` applied to each leaf as soon as it is drawn
+    (``path`` the tuple of keys), the drawn leaf then dropped: the tree
+    never exists whole in the param dtype (a model too large for that
+    on the host or the card is built this way, already cast and moved).
+    ``workers`` leaves are drawn at a time, the largest first (a draw
+    runs outside the GIL); each leaf's numbers are ``init_params``'s."""
+    from concurrent.futures import ThreadPoolExecutor
+    cpu = torch.device("cpu")
+    jobs = []
+    _map_tree(lambda path, s: jobs.append(path) if is_spec(s) else None,
+              specs)
+    spec_at = {path: _spec_at(specs, path) for path in jobs}
+    jobs.sort(key=lambda path: -int(np.prod(spec_at[path].shape)))
+
+    def one(path):
+        leaf = _init_one(spec_at[path], seed, "/".join(path), param_dtype,
+                         cpu)
+        return prepare(path, leaf)
+    with ThreadPoolExecutor(max(1, workers)) as ex:
+        done = dict(zip(jobs, ex.map(one, jobs)))
+    return _map_tree(lambda path, s: done[path] if is_spec(s) else s, specs)
+
+
+def _spec_at(tree, path):
+    for k in path:
+        tree = tree[k] if isinstance(tree, dict) else tree[int(k)]
+    return tree
+
+
 def abstract_params(specs, param_dtype: str = "float32"):
     """The spec tree as tensors on the ``meta`` device: shapes and dtypes,
     no storage (the dry-run stand-in)."""

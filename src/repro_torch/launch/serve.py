@@ -2,8 +2,8 @@
 requests through the port's ServeEngine, its autotuner included, or, with
 ``--replicas N`` (N > 1) or ``--async``, through the fault-tolerant
 ``FleetRouter`` (``repro_torch.serve.fleet``; cell families only):
-feature-vector requests for the cell families, token prompts for the dense
-LM.
+feature-vector requests for the cell families, token prompts for the
+transformer LMs (dense and MoE).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet \\
         --gru-backend cuda --requests 12 --slots 8 --vary-prompt
@@ -45,6 +45,21 @@ cell configs are already small)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --requests 4 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --smoke --device cpu
+
+The other transformer configs serve the same way: the dense
+``qwen2.5-3b``, ``phi4-mini-3.8b`` and ``command-r-35b`` (layernorm, a
+parallel attention || MLP block), and the MoE family ``qwen2-moe-a2.7b``
+(60 experts padded to 64, top-4, a shared expert) and
+``qwen3-moe-235b-a22b`` (128 experts, top-8; 235 B parameters, far
+beyond one card: serve its ``--smoke`` size). A transformer's weights
+are built leaf by leaf, already cast to the compute dtype and on the
+device (``init_prepared``; qwen2-moe-a2.7b's are 30.3 GB in bf16, 60.6
+in fp32)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+        --requests 4 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --smoke --device cpu
 
 ``--bucket-min`` sets the shortest prompt bucket (8 by default).
@@ -182,8 +197,11 @@ def main(argv=None):
         cfg = cfg.replace(gru=dataclasses.replace(cfg.gru,
                                                   backend=args.gru_backend))
     api = mapi.get_api(cfg)
-    params = init_params(api.specs(cfg), args.seed, cfg.param_dtype,
-                         device=device)
+    if is_cell:
+        params = init_params(api.specs(cfg), args.seed, cfg.param_dtype,
+                             device=device)
+    else:
+        params = api.init_prepared(cfg, args.seed, device)
     reqs = make_requests(cfg, args.requests, args.prompt_len,
                          args.vary_prompt, args.max_new, args.seed)
     if args.replicas > 1 or args.use_async:

@@ -2,10 +2,10 @@
 (the serving engine, the trainer, the CLIs) talks to models only through
 :func:`get_api`, and builds input batches with :func:`input_specs` and
 :func:`concrete_batch`. Families: the recurrent cells (``gru``, ``slstm``) and the
-dense transformer LM (``dense``). The other LM families of the JAX package
-(``moe``, ``ssm``, ``hybrid``, ``audio``, ``vlm``) raise
-``NotImplementedError``; they are ported with the LM zoo (ROADMAP queue 1,
-item 8)."""
+transformer LM, dense (``dense``) and mixture-of-experts (``moe``). The
+other LM families of the JAX package (``ssm``, ``hybrid``, ``audio``,
+``vlm``) raise ``NotImplementedError``; they are ported with the LM zoo
+(ROADMAP queue 1, item 8)."""
 from __future__ import annotations
 
 from types import SimpleNamespace
@@ -38,6 +38,7 @@ def _transformer_api() -> SimpleNamespace:
     return SimpleNamespace(
         specs=transformer.lm_specs,
         prepare_params=transformer.prepare_params,  # cast to cdtype once
+        init_prepared=transformer.init_prepared,    # the same, leaf by leaf
         forward=lambda p, cfg, batch: transformer.forward(
             p, cfg, batch["tokens"]),
         loss_fn=transformer.loss_fn,
@@ -51,8 +52,9 @@ def _transformer_api() -> SimpleNamespace:
 
 _FAMS = {"gru": lambda: _cell_api(gru_lm),
          "slstm": lambda: _cell_api(slstm_lm),
-         "dense": _transformer_api}
-_NOT_PORTED = ("moe", "ssm", "hybrid", "audio", "vlm")
+         "dense": _transformer_api,
+         "moe": _transformer_api}
+_NOT_PORTED = ("ssm", "hybrid", "audio", "vlm")
 
 
 def get_api(cfg: ModelConfig) -> SimpleNamespace:

@@ -1,18 +1,21 @@
-"""Decoder-only transformer LM, dense blocks with GQA attention
-(counterpart of ``repro.models.transformer``; the MoE block waits for its
-family). ``loss_fn`` is the fused chunked CE (``chunked_ce``: logits one
-sequence chunk at a time, each chunk recomputed in the backward pass, so
-(B, S, V) never materializes); it trains on ``attn_impl="chunked"`` or
-``"naive"`` (the attention kernels have no backward).
+"""Decoder-only transformer LM: dense and MoE blocks, GQA attention
+(counterpart of ``repro.models.transformer``). ``loss_fn`` is the fused
+chunked CE (``chunked_ce``: logits one sequence chunk at a time, each
+chunk recomputed in the backward pass, so (B, S, V) never materializes)
+plus the MoE blocks' load-balance aux, summed over the layers; it trains
+on ``attn_impl="chunked"`` or ``"naive"`` (the attention kernels have no
+backward).
 
 Blocks are stacked ``(L, ...)`` as in JAX and run as a Python loop over
 the layer index; ``cfg.scan_layers`` and ``cfg.remat`` are XLA compile
-knobs, accepted and without effect here. The KV cache keeps JAX's layout:
-``{"layers": {"k", "v": (L, B, Hkv, C, hd), "slot_pos": (L, C)}, "pos":
-()}``, with ``headroom`` empty slots after the prompt. ``decode_step``
-writes the new token's K/V and position into slot ``pos % C`` IN PLACE
-(``index_copy_`` on the cache's own storage, no restacking), so the cache
-passed in is the cache returned, updated.
+knobs, accepted and without effect here. The decode step runs the same
+loop at every depth: JAX scans it over the layers above 48
+(``_decode_step_scanned``), which computes the same numbers. The KV
+cache keeps JAX's layout: ``{"layers": {"k", "v": (L, B, Hkv, C, hd),
+"slot_pos": (L, C)}, "pos": ()}``, with ``headroom`` empty slots after
+the prompt. ``decode_step`` writes the new token's K/V and position into
+slot ``pos % C`` IN PLACE (``index_copy_`` on the cache's own storage, no
+restacking), so the cache passed in is the cache returned, updated.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec, init_params, stack_specs
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import cdtype
 
 
@@ -37,7 +41,11 @@ def block_specs(cfg: ModelConfig) -> dict:
          "attn": attn_mod.attn_specs(cfg)}
     if not cfg.parallel_block:
         s["ln2"] = layers.norm_specs(cfg.d_model, cfg.norm)
-    s["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.mlp_bias)
+    if cfg.moe is not None:
+        s["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        s["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp,
+                                    cfg.mlp_bias)
     return s
 
 
@@ -61,40 +69,53 @@ def layer_params(blocks: dict, i: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
+def _ffn(p: dict, cfg: ModelConfig, h):
+    """The block's MLP or MoE on h -> (out, aux); aux 0 without experts."""
+    if cfg.moe is not None:
+        return moe_mod.moe_apply(p["moe"], cfg, h)
+    return (layers.mlp_apply(p["mlp"], h, cfg.mlp),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
 def _mlp_residual(p: dict, cfg: ModelConfig, x, h, a):
-    """The block after attention: parallel (x + a + mlp(h)) or sequential
-    (x + a, then + mlp(norm(x + a)))."""
+    """The block after attention: parallel (x + a + ffn(h)) or sequential
+    (x + a, then + ffn(norm(x + a))). Returns (x, aux)."""
     if cfg.parallel_block:
-        return x + a + layers.mlp_apply(p["mlp"], h, cfg.mlp)
+        m, aux = _ffn(p, cfg, h)
+        return x + a + m, aux
     x = x + a
-    h2 = layers.norm_apply(p["ln2"], x, cfg.norm)
-    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp)
+    m, aux = _ffn(p, cfg, layers.norm_apply(p["ln2"], x, cfg.norm))
+    return x + m, aux
 
 
 def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, collect_kv: bool = False):
-    """One transformer block. Returns (x, kv-or-None)."""
+    """One transformer block. Returns (x, aux, kv-or-None)."""
     h = layers.norm_apply(p["ln1"], x, cfg.norm)
     a, kv = attn_mod.attention(p["attn"], cfg, h, window=cfg.sliding_window,
                                positions=positions)
-    return _mlp_residual(p, cfg, x, h, a), (kv if collect_kv else None)
+    x, aux = _mlp_residual(p, cfg, x, h, a)
+    return x, aux, (kv if collect_kv else None)
 
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                   collect_kv: bool = False):
-    """tokens (B,S) -> (h (B,S,D), per-layer [(k, v)] or None); k and v
-    (B,S,Hkv,hd) in the compute dtype, after RoPE. (JAX's
-    ``inputs_embeds`` serves the vision-language family, not ported.)"""
+    """tokens (B,S) -> (h (B,S,D), aux summed over the layers (fp32
+    scalar), per-layer [(k, v)] or None); k and v (B,S,Hkv,hd) in the
+    compute dtype, after RoPE. (JAX's ``inputs_embeds`` serves the
+    vision-language family, not ported.)"""
     B, S = tokens.shape
     x = layers.embed_apply(params["embed"], tokens, cdtype(cfg))
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
     for i in range(cfg.num_layers):
-        x, kv = block_apply(layer_params(params["blocks"], i), cfg, x,
-                            positions, collect_kv=collect_kv)
+        x, a, kv = block_apply(layer_params(params["blocks"], i), cfg, x,
+                               positions, collect_kv=collect_kv)
+        aux = aux + a
         kvs.append(kv)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
-    return x, (kvs if collect_kv else None)
+    return x, aux, (kvs if collect_kv else None)
 
 
 def _unembed_table(params: dict, cfg: ModelConfig):
@@ -106,7 +127,7 @@ def _unembed_table(params: dict, cfg: ModelConfig):
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor
             ) -> torch.Tensor:
     """Full logits (B,S,V) in fp32: smoke tests and small vocabularies."""
-    h, _ = hidden_states(params, cfg, tokens)
+    h, _, _ = hidden_states(params, cfg, tokens)
     table, tied = _unembed_table(params, cfg)
     return layers.unembed_apply(table, h, tied)
 
@@ -155,12 +176,12 @@ def chunked_ce(h: torch.Tensor, table: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
-    """batch: {tokens (B,S), targets (B,S), mask optional} -> (loss,
-    {"ce", "aux"}); ``aux`` is 0 (no router loss without experts)."""
-    h, _ = hidden_states(params, cfg, batch["tokens"])
+    """batch: {tokens (B,S), targets (B,S), mask optional} -> (ce + aux,
+    {"ce", "aux"}); ``aux`` is the MoE layers' load-balance loss summed
+    over the layers (0 without experts)."""
+    h, aux, _ = hidden_states(params, cfg, batch["tokens"])
     table, tied = _unembed_table(params, cfg)
     ce = chunked_ce(h, table, batch["targets"], batch.get("mask"), tied)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -168,12 +189,35 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
+_CAST = ("w", "b", "embed", "lm_head", "wg", "wu", "wd")
+
+
+def _prepare_leaf(key: str, x: torch.Tensor, ct: torch.dtype,
+                  dev: torch.device) -> torch.Tensor:
+    """One leaf of :func:`prepare_params`: the weights a dense layer or an
+    expert product reads cast to ``ct``, every other leaf kept in its
+    dtype; on ``dev``. A cast that also changes the device goes a block
+    of about 64 MiB of the first axis at a time, so no cast copy of a
+    whole stacked leaf forms on the host (the values are the cast's)."""
+    if key not in _CAST or x.dtype == ct:
+        return x.to(dev)
+    if x.device.type == dev.type or x.dim() < 2:
+        return x.to(device=dev, dtype=ct)
+    out = torch.empty(x.shape, dtype=ct, device=dev)
+    rows = max(1, (64 << 20) // (x[0].numel() * x.element_size()))
+    for i in range(0, x.shape[0], rows):
+        out[i:i + rows].copy_(x[i:i + rows])
+    return out
+
+
 def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:
     """One-time serving prep: every weight a dense layer reads (``w``,
-    ``b``, the embedding table, ``lm_head``) cast to the compute dtype and
-    put on ``device``; norm scales keep the param dtype (the norms compute
-    in fp32 from them). Numerically what ``dense_apply``'s per-call cast
-    does, done once."""
+    ``b``, the embedding table, ``lm_head``) and the experts' ``wg``,
+    ``wu``, ``wd`` cast to the compute dtype and put on ``device``; norm
+    scales, the router and the shared expert's gate keep the param dtype
+    (the norms and the router compute in fp32 from them). Numerically what
+    the per-call casts of ``dense_apply`` and the expert products do, done
+    once."""
     from repro_torch import resolve_device
     dev = resolve_device(device)
     ct = cdtype(cfg)
@@ -181,10 +225,25 @@ def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:
     def walk(tree, key=""):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
-        if key in ("w", "b", "embed", "lm_head"):
-            return tree.to(device=dev, dtype=ct)
-        return tree.to(dev)
+        return _prepare_leaf(key, tree, ct, dev)
     return walk(params)
+
+
+def init_prepared(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """``prepare_params(init_params(lm_specs(cfg), seed, cfg.param_dtype),
+    cfg, device)`` value for value, built leaf by leaf on the CPU
+    (:func:`~repro_torch.core.params.init_params_each`, as many leaves at
+    a time as half the host's available memory holds), so neither the host
+    nor the card holds the param-dtype tree (qwen2-moe-a2.7b: 60.6 GB in
+    fp32, 30.3 GB served in bf16)."""
+    from repro_torch import resolve_device
+    from repro_torch.core.params import draw_workers, init_params_each
+    dev = resolve_device(device)
+    ct = cdtype(cfg)
+    specs = lm_specs(cfg)
+    return init_params_each(
+        specs, lambda path, x: _prepare_leaf(path[-1], x, ct, dev),
+        seed, cfg.param_dtype, draw_workers(specs, cfg.param_dtype))
 
 
 def cache_specs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
@@ -210,7 +269,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``headroom`` empty slots follow the prompt so decode steps never wrap
     onto it (full-attention semantics)."""
     B, S = tokens.shape
-    h, kvs = hidden_states(params, cfg, tokens, collect_kv=True)
+    h, _, kvs = hidden_states(params, cfg, tokens, collect_kv=True)
     table, tied = _unembed_table(params, cfg)
     logits = layers.unembed_apply(table, h[:, -1], tied)
     L, hd, C = cfg.num_layers, cfg.resolved_head_dim, S + headroom
@@ -231,8 +290,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor):
-    """One decode step, layers unrolled (JAX's path up to 48 layers).
-    tokens (B,) -> (logits (B,V) fp32, the cache updated in place)."""
+    """One decode step, a loop over the layers at every depth (JAX unrolls
+    up to 48 layers and scans above; both compute these numbers). tokens
+    (B,) -> (logits (B,V) fp32, the cache updated in place)."""
     B = tokens.shape[0]
     pos = cache["pos"] + 1
     x = layers.embed_apply(params["embed"], tokens[:, None], cdtype(cfg))
@@ -251,7 +311,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         sp_l.index_copy_(0, slot, pos1)
         a = attn_mod.decode_attend(p["attn"], cfg, q[:, 0], k_l, v_l, sp_l,
                                    pos, window=cfg.sliding_window)
-        x = _mlp_residual(p, cfg, x, h, a)
+        x, _ = _mlp_residual(p, cfg, x, h, a)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
     table, tied = _unembed_table(params, cfg)
     logits = layers.unembed_apply(table, x[:, 0], tied)

@@ -1,6 +1,6 @@
 """Serving engine (counterpart of ``repro.serve.engine``): bucketed prefill
 + continuous-batching decode over fixed slots for the recurrent cell
-families (GRU and sLSTM), and one aligned wave for the dense LM.
+families (GRU and sLSTM), and one aligned wave for the transformer LMs.
 
 Cell families. A family's cache is its flat tuple of per-layer state
 leaves (one per layer for the GRU, four for the sLSTM); the admit scatter
@@ -28,12 +28,16 @@ engine records the executor backend of every prefill
 (``prefill_backends``) and of every recorded decode step
 (``decode_backends``, aligned with ``step_times``).
 
-The dense LM (``family="dense"``): ``generate`` serves one wave of at most
-``max_batch`` token prompts, left-padded with token 0 to the longest
-prompt. The pad tokens are attended: there is no pad mask and positions
+The transformer LMs (``family="dense"`` and ``"moe"``): ``generate``
+serves one wave of at most ``max_batch`` token prompts, left-padded with
+token 0 to the longest prompt. The pad tokens are attended: there is no pad mask and positions
 run 0..S-1 over the padded row, exactly as in the JAX engine. Decoding is
 greedy (argmax); a request ends at ``eos_id`` or at ``max_new_tokens``,
-and the wave at the longest budget or when every request has ended.
+and the wave at the longest budget or when every request has ended. An
+MoE wave's requests share the experts' capacity (JAX's semantics): at a
+decode step of B requests an expert takes ceil(B*k/E*1.25) tokens in
+request order and drops the rest, so a request's stream depends on its
+wave-mates.
 
 Under a mesh (``ctx=ShardCtx(mesh)``, cell families) every rank runs an
 engine over the same requests, SPMD: the model calls and the executables
@@ -193,8 +197,8 @@ class ServeEngine:
 
     def generate(self, requests: Sequence[Request]) -> List[Request]:
         """Serve a wave of requests: any number by continuous batching for
-        a cell family, one aligned batch of at most ``max_batch`` for the
-        dense LM."""
+        a cell family, one aligned batch of at most ``max_batch`` for a
+        transformer LM."""
         reqs = list(requests)
         if not reqs:
             return []
@@ -211,7 +215,7 @@ class ServeEngine:
         self.queue_waits.append(now - r.t_submit)
 
     def _generate_lm(self, reqs: List[Request]) -> List[Request]:
-        """The dense LM's wave (JAX ``ServeEngine.generate``'s LM path):
+        """A transformer LM's wave (JAX ``ServeEngine.generate``'s LM path):
         left-pad with token 0, one prefill, greedy decode steps until every
         request has its budget or its ``eos_id``."""
         if len(reqs) > self.max_batch:
@@ -598,7 +602,7 @@ class ServeEngine:
         a deadline, so tails matter), prefill timings, per-request queue
         wait and end-to-end time, recorded steps per backend and the
         served dtype (cells: int8 for the ``*_q8`` backends, float32
-        otherwise, of the latest resolved decode backend; the dense LM:
+        otherwise, of the latest resolved decode backend; a transformer LM:
         its compute dtype), and ``autotune``: the tuned shape and, with a
         tuner attached, its decisions. Empty histories report NaN."""
         ts, pf = self.step_times, self.prefill_times

@@ -1349,6 +1349,91 @@ def test_lm_engine_launches_and_streams(cuda_device):
     assert streams["cuda"] == streams["chunked"]
 
 
+# the LM zoo's heads (Hq, Hkv, D): qwen2-moe-a2.7b (MHA, G = 1),
+# qwen3-moe-235b-a22b (G = 16, the decode kernel's MAX_G), phi4-mini-3.8b
+# (G = 3), qwen2.5-3b (G = 8), command-r-35b (G = 8)
+ZOO_HEADS = ((16, 16, 128), (64, 4, 128), (24, 8, 128), (16, 2, 128),
+             (64, 8, 128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("Hq,Hkv,D", ZOO_HEADS)
+def test_attention_kernels_at_the_zoo_heads(cuda_device, dtype, Hq, Hkv, D):
+    """Both attention kernels against their plain versions at the served
+    S = 128 wave's shapes (prefill causal, decode C = 192) of every
+    transformer config's heads."""
+    from repro_torch.kernels.decode_attn.ops import valid_slots
+    g = torch.Generator().manual_seed(Hq * 7 + Hkv)
+    q = _rand((4, Hq, 128, D), g, cuda_device, dtype)
+    k = _rand((4, Hkv, 128, D), g, cuda_device, dtype)
+    v = _rand((4, Hkv, 128, D), g, cuda_device, dtype)
+    got = FK.flash_attention(q, k, v, causal=True)
+    want = fref.flash_attention_plain(q, k, v, True, 0)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    qd = _rand((4, Hkv, Hq // Hkv, D), g, cuda_device, dtype)
+    kc = _rand((4, Hkv, 192, D), g, cuda_device, dtype)
+    vc = _rand((4, Hkv, 192, D), g, cuda_device, dtype)
+    slot_pos = torch.full((192,), -1, dtype=torch.int32)
+    slot_pos[:129] = torch.arange(129, dtype=torch.int32)
+    mask = valid_slots(slot_pos.to(cuda_device), 128, 0)
+    got = DK.flash_decode(qd, kc, vc, mask)
+    torch.testing.assert_close(got, dref.flash_decode_plain(qd, kc, vc, mask),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("qwen2-moe-a2.7b", "command-r-35b"))
+def test_init_prepared_equals_prepare_params_on_the_card(cuda_device, arch):
+    """The leaf-by-leaf build (cast on the way to the card in blocks of
+    the first axis) gives ``prepare_params`` of the fp32 tree bit for
+    bit."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.params import flatten
+    from repro_torch.models import transformer
+    cfg = get_smoke_config(arch)
+    want = transformer.prepare_params(
+        init_params(transformer.lm_specs(cfg), seed=3, device="cpu"), cfg,
+        cuda_device)
+    got = transformer.init_prepared(cfg, seed=3, device=cuda_device)
+    fw, fg = flatten(want), flatten(got)
+    assert list(fw) == list(fg)
+    for k in fw:
+        assert fg[k].device.type == "cuda" and fg[k].dtype == fw[k].dtype
+        assert torch.equal(fg[k], fw[k]), k
+
+
+@pytest.mark.gpu
+def test_moe_engine_launches_and_streams(cuda_device):
+    """qwen2-moe-a2.7b at SMOKE size in fp32 on the card: ``cuda`` launches
+    flash attention once per layer and prefill and flash decode once per
+    layer and step, no other kernel of the port, and its token streams
+    equal ``chunked``'s."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import transformer
+    base = get_smoke_config("qwen2-moe-a2.7b").replace(dtype="float32")
+    params = transformer.init_prepared(base, seed=0, device=cuda_device)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, base.vocab_size, size=n).astype(np.int32)
+               for n in (3, 9, 5, 12)]
+    streams = {}
+    for impl in ("chunked", "cuda"):
+        K.reset_launch_counts()
+        eng = ServeEngine(base.replace(attn_impl=impl), params, max_batch=4,
+                          device=cuda_device)
+        streams[impl] = [r.out for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts])]
+    steps = eng.latency_stats()["steps"] + 1
+    L = base.num_layers
+    assert [FK.flash_attention.launches, DK.flash_decode.launches] == \
+        [L, L * steps]
+    others = K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS + \
+        SK.SLSTM_KERNELS + K.ROWWISE_KERNELS + K.SHARD_KERNELS
+    assert all(k.launches == 0 for k in others)
+    assert streams["cuda"] == streams["chunked"]
+
+
 # ---------------------------------------------------------------------------
 # The paper's row-wise primitives: the single GRU step (fused and blocked)
 # through gru_step_cuda, and the row-wise / cascade matmuls through
