@@ -216,7 +216,11 @@ Phases (any failure exits non-zero, before the result lines):
    G = 1; qwen3-moe-235b-a22b's 64/4x128, G = 16; phi4-mini-3.8b's
    24/8x128, G = 3; qwen2.5-3b's 16/2x128 and command-r-35b's 64/8x128,
    G = 8) at the served waves' shapes (prefill S = 12 and 128, decode C =
-   76 and 192), under the same tolerances;
+   76 and 192), and at hymba-1.5b's 25/5x64 (G = 5) at phase 10c's
+   shapes (prefill S = 1280 with its window of 1024 and without, S = 128
+   and 12 under the window; decode against a full wrapped window ring of
+   C = 1024, a global layer's C = 1344 and the short prompts' rings),
+   under the same tolerances;
 10. serve qwen3-0.6b at full width (28 layers, d_model 1024, vocab
    151,936; fp32 params from seed 0, bf16 compute, ``attn_impl="cuda"``)
    through ``ServeEngine.generate``: two waves of 4 requests (prompt
@@ -248,6 +252,33 @@ Phases (any failure exits non-zero, before the result lines):
    with its depth cut to 2 (reduced; 6.2 B parameters): one wave of 4
    (prompt lengths 128 and 12), flash attention 2 per prefill, flash
    decode 2 per step at G = 16, nothing else;
+10c. serve the recurrent LMs: hymba-1.5b at full width and full depth
+   (32 layers, d_model 1600, 25/5 heads of 64, a window of 1024 on 29
+   layers, SSM heads of state 16, vocab 32,001; seed 0, built leaf by
+   leaf into the served bf16 tree), bf16, ``attn_impl="cuda"``, through
+   ``ServeEngine.generate``: a wave of 4 prompts of 1280 tokens (past the
+   window: the window masks in prefill and the rings wrap) and one of 128
+   and 12 (under it: the ring repair), 16 new tokens each, counters
+   zeroed just before: flash attention 32 launches per prefill, flash
+   decode 32 per decode step, no plain version and no other kernel; then
+   the same waves recorded through the kernels (a second cuda run's
+   streams equal the first's) and through ``attn_impl="chunked"`` on the
+   same params: the streams equal or, where they part, the chunked run's
+   top two logits within ``HYMBA_TOP2_TOL``; every served prefill's and
+   step's logits against teacher-forced ``forward`` s over the prompts and
+   the generated tokens, bf16 and fp32 (the same seed's fp32 tree): the
+   served logits depart from either by at most ``BF16_SERVED_FACTOR``
+   times the bf16 forward's own departure from the fp32 one; the same
+   waves served in fp32 through the kernels' fp32 paths, against their
+   fp32 teacher-forced forward, within ``FP32_SERVED_TOL`` (the windowed
+   rings on the card); one decode step profiled (wall, device busy, idle
+   share); step p50/p99 and peak memory printed. Then xlstm-125m at full
+   width (12 layers, d_model 768, vocab 50,304; seed 0) in bf16: one wave
+   of 4 prompts of 128 tokens, 16 new tokens, no kernel and no plain
+   version run; the bf16 and fp32 teacher-forced rules as hymba's (the
+   bf16 logits held against fp32 forwards of the same params and the fp32
+   serve against its own); one decode step profiled; p50/p99 and peak
+   memory printed;
 11. the paper's row-wise primitives through their entry points, with the
    counters zeroed just before: ``gru_step_cuda`` at gru-jet's H=20 and
    gru-jet-deep's H=32 (B 1 and 8, v1 and v3, fp32 and bf16 u), at
@@ -301,7 +332,8 @@ Phases (any failure exits non-zero, before the result lines):
    989 TFLOP/s bf16, 1,979 TOP/s int8), whichever is larger; the attention
    kernels beside one ``scaled_dot_product_attention`` call on the same
    inputs (also in bf16 at the S = 128 wave at each of the LM zoo's heads,
-   the rows' ``zoo_heads``) and the matmuls beside one ``torch.matmul`` (TF32 off) where it
+   and at hymba-1.5b's S = 1280 with its window and without, each beside
+   its decode at C = 1024 and 1344, the rows' ``zoo_heads``) and the matmuls beside one ``torch.matmul`` (TF32 off) where it
    computes the same function, ``torch.mm(..., out_dtype=float32)`` for
    the bf16 cascade (timed only; the port never calls either);
    ``gru_step_fused`` and ``gru_step_blocked`` beside the column tile
@@ -352,7 +384,7 @@ line, and as the last line ``{"ok": true, "device": {...}}``. A row's
 zeroed just before: rows 1-9 phases 4-8, 8b and 8c, rows 1, 2, 4 and
 6 also phase 8d (row 3's phase-11b
 ``backend="cuda"`` launches kept apart as ``mesh_launches``), the
-attention rows phases 10 and 10b, rows 10, 11, 19 and 20 phase 11, and the shard
+attention rows phases 10, 10b and 10c, rows 10, 11, 19 and 20 phase 11, and the shard
 rows phase 11b. Without a
 card, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -3570,9 +3602,32 @@ ZOO_HEADS = {"qwen2-moe-a2.7b": (16, 16, 128),
              "qwen3-moe-235b-a22b": (64, 4, 128),
              "phi4-mini-3.8b": (24, 8, 128),
              "qwen2.5-3b": (16, 2, 128),
-             "command-r-35b": (64, 8, 128)}
+             "command-r-35b": (64, 8, 128),
+             "hymba-1.5b": (25, 5, 64)}
 ZOO_FLASH = ((4, 12, 12, True, 0), (4, 128, 128, True, 0))
 ZOO_DECODE = ((4, 76, (0, 12), 12, 0), (4, 192, (0, 128), 128, 0))
+# hymba-1.5b (D = 64: the bf16 kernel's 64-wide instance; G = 5: flash
+# decode's 16-query bucket) at phase 10c's shapes: prefill S = 1280 with
+# its window of 1024 and without (the global layers), S = 128 and 12
+# under the window; decode against a full wrapped window ring (C = 1024),
+# a global layer's cache (C = 1280 + 64) and the short prompts' rings
+# (min(1024, S + 64) slots)
+HYMBA_FLASH = ((4, 1280, 1280, True, 1024), (4, 1280, 1280, True, 0),
+               (4, 128, 128, True, 1024), (4, 12, 12, True, 1024))
+HYMBA_DECODE = ((4, 1024, (257, 1295), 1295, 1024),
+                (4, 1344, (0, 1295), 1295, 0),
+                (4, 192, (0, 143), 143, 1024), (4, 76, (0, 27), 27, 1024))
+ZOO_CASES = {"hymba-1.5b": (HYMBA_FLASH, HYMBA_DECODE)}
+# phase 12's timed zoo shapes: the S = 128 wave (ATTN_ROW) at each
+# config's heads; hymba at its served S = 1280 with the window and
+# without, each beside its decode (window ring C = 1024; global C = 1344)
+ZOO_TIMED = ([(a, h, None, None) for a, h in ZOO_HEADS.items()
+              if a != "hymba-1.5b"]
+             + [("hymba-1.5b window 1024", ZOO_HEADS["hymba-1.5b"],
+                 (4, 1280, 1280, True, 1024),
+                 (4, 1024, (257, 1280), 1280, 1024)),
+                ("hymba-1.5b window 0", ZOO_HEADS["hymba-1.5b"],
+                 (4, 1280, 1280, True, 0), (4, 1344, (0, 1280), 1280, 0))])
 
 
 def attn_inputs(torch, B, Sq, Sk, dtype, seed, dev, heads=(HQ, HKV, HD)):
@@ -3675,7 +3730,8 @@ def check_attention_kernels(torch, dev):
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         runs = [(None, (HQ, HKV, HD), FLASH_CHECKS, DECODE_CHECKS)]
-        runs += [(a, h, ZOO_FLASH, ZOO_DECODE) for a, h in ZOO_HEADS.items()]
+        runs += [(a, h) + ZOO_CASES.get(a, (ZOO_FLASH, ZOO_DECODE))
+                 for a, h in ZOO_HEADS.items()]
         for arch, heads, flash_cases, decode_cases in runs:
             salt = 0 if arch is None else sum(heads)   # qwen3's seeds kept
             if arch is not None:
@@ -3710,12 +3766,12 @@ def check_attention_kernels(torch, dev):
 # 10. the dense LM: serve qwen3-0.6b at full width
 # ---------------------------------------------------------------------------
 
-def lm_requests(cfg, wave: int):
+def lm_requests(cfg, wave: int, waves=LM_WAVES):
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(100 + wave)
     return [Request(prompt=rng.integers(0, cfg.vocab_size, size=n)
                     .astype(np.int32), max_new_tokens=LM_NEW)
-            for n in LM_WAVES[wave]]
+            for n in waves[wave]]
 
 
 def record_logits(eng):
@@ -3739,19 +3795,19 @@ def record_logits(eng):
     return log
 
 
-def serve_lm(eng, cfg):
-    """Both waves through one engine; returns streams per wave."""
-    return [[r.out for r in eng.generate(lm_requests(cfg, w))]
-            for w in range(len(LM_WAVES))]
+def serve_lm(eng, cfg, waves=LM_WAVES):
+    """Every wave through one engine; returns streams per wave."""
+    return [[r.out for r in eng.generate(lm_requests(cfg, w, waves))]
+            for w in range(len(waves))]
 
 
-def compare_lm_runs(streams_a, logs_a, streams_b, logs_b):
+def compare_lm_runs(streams_a, logs_a, streams_b, logs_b, waves=LM_WAVES):
     """Hold run a (bf16, cuda) against run b (fp32, chunked) per request:
     the logits that chose each token while both streams agree (index t of
     a wave's log chose token t), and at the first token where they part,
     run b's top-2 gap. Returns (max |logit diff|, parted list)."""
     worst, parted = 0.0, []
-    for w in range(len(LM_WAVES)):
+    for w in range(len(waves)):
         wave_logs_a = logs_a[w * (LM_NEW + 1):(w + 1) * (LM_NEW + 1)]
         wave_logs_b = logs_b[w * (LM_NEW + 1):(w + 1) * (LM_NEW + 1)]
         for i, (sa, sb) in enumerate(zip(streams_a[w], streams_b[w])):
@@ -4178,6 +4234,327 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# 10c. the recurrent LMs: hymba-1.5b at full width and depth through the
+# windowed attention kernels, xlstm-125m at full width (no kernel)
+# ---------------------------------------------------------------------------
+
+HYMBA_ARCH = "hymba-1.5b"
+XLSTM_ARCH = "xlstm-125m"
+# wave 1: longer than the 1024 window (the window masks in prefill, the
+# rings wrap); wave 2: shorter (the ring repair); 16 new tokens each
+HYMBA_WAVES = ((1280, 1280, 1280, 1280), (128, 12, 128, 12))
+XLSTM_WAVES = ((128, 128, 128, 128),)
+# bf16 cuda vs bf16 chunked on the same params: where the streams part,
+# chunked's two top logits lie within this (phase 10b's rule). The two
+# attention paths' bf16 logits differ by up to 0.59 along their shared
+# prefixes at 32 layers (H100, PERF.md), so near-ties part early
+HYMBA_TOP2_TOL = 0.5
+# bf16 served logits against teacher-forced forwards on the served
+# tokens: serving (a prefill, then the rings and recurrent states step by
+# step) may depart from the fp32 ``forward`` and from the bf16 one by at
+# most this factor times the bf16 ``forward``'s own departure from the
+# fp32 one (CPU SMOKE: ratios 0.8-1.1)
+BF16_SERVED_FACTOR = 2.0
+# fp32 served logits against the fp32 teacher-forced ``forward``: the
+# same function in other summation orders (the kernels' fp32 paths for
+# hymba; CPU SMOKE 5e-6)
+FP32_SERVED_TOL = 1e-3
+
+
+def forced_logits(torch, mod, params, cfg, waves, streams):
+    """Teacher-forced logits at every served position, stacked like a
+    recorded log (``LM_NEW + 1`` calls a wave, each (B, V)): per wave,
+    ``forward`` over the left-padded prompts and the generated tokens, at
+    the positions that chose each token (the last decode step's too)."""
+    out = []
+    for w, ss in enumerate(streams):
+        ps = [r.prompt for r in lm_requests(cfg, w, waves)]
+        S = max(len(p) for p in ps)
+        toks = np.zeros((len(ps), S + LM_NEW), np.int32)
+        for i, (p, s_) in enumerate(zip(ps, ss)):
+            toks[i, S - len(p):S] = p
+            toks[i, S:] = s_
+        with torch.no_grad():
+            full = mod.forward(params, cfg, torch.from_numpy(toks).to(
+                params["embed"].device))
+        out.append(full[:, S - 1:S + LM_NEW].transpose(0, 1).clone())
+        del full
+    return torch.cat(out)
+
+
+def max_diff(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def served_vs_forced(torch, mod, cfg, params16, params32, waves, streams,
+                     log16, dev, label):
+    """The bf16 served logits (``log16``, one entry a call) against
+    teacher-forced forwards on the served tokens, bf16 and fp32; then an
+    fp32 serve of the same waves against its own teacher-forced forward.
+    Checks both rules; returns the errors."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg32 = cfg.replace(dtype="float32")
+    served = torch.stack(log16)
+    f16 = forced_logits(torch, mod, params16, cfg, waves, streams)
+    f32 = forced_logits(torch, mod, params32, cfg32, waves, streams)
+    e_fwd, e_served = max_diff(f16, f32), max_diff(served, f32)
+    e_direct = max_diff(served, f16)
+    last = max_diff(served[LM_NEW::LM_NEW + 1], f16[LM_NEW::LM_NEW + 1])
+    check(max(e_served, e_direct) <= BF16_SERVED_FACTOR * e_fwd,
+          f"{label}: bf16 served logits depart from the fp32 forward by "
+          f"{e_served:.4g} and from the bf16 forward by {e_direct:.4g}, "
+          f"more than {BF16_SERVED_FACTOR} x the bf16 forward's own "
+          f"{e_fwd:.4g}")
+    del f16, f32, served
+    eng32 = ServeEngine(cfg32, params32, max_batch=LM_SLOTS, device=dev)
+    log32 = record_logits(eng32)
+    streams32 = serve_lm(eng32, cfg32, waves)
+    e32 = max_diff(torch.stack(log32),
+                   forced_logits(torch, mod, params32, cfg32, waves,
+                                 streams32))
+    check(e32 <= FP32_SERVED_TOL, f"{label}: fp32 served logits differ "
+          f"from the fp32 teacher-forced forward by {e32:.4g} > "
+          f"{FP32_SERVED_TOL}")
+    print(f"  {label}, against teacher-forced forwards on the served "
+          f"tokens: bf16 served vs bf16 forward {e_direct:.4g} (last step "
+          f"{last:.4g}), vs fp32 forward {e_served:.4g}; the bf16 forward "
+          f"vs the fp32 forward {e_fwd:.4g} (tol {BF16_SERVED_FACTOR} x "
+          f"that); fp32 served vs fp32 forward {e32:.4g} (tol "
+          f"{FP32_SERVED_TOL}); fp32 streams "
+          f"{'equal' if streams32 == streams else 'differ from'} the bf16 "
+          f"streams", flush=True)
+    del eng32
+    return {"bf16_vs_bf16_forward": e_direct,
+            "bf16_vs_bf16_forward_last_step": last,
+            "bf16_vs_fp32_forward": e_served,
+            "bf16_forward_vs_fp32_forward": e_fwd,
+            "fp32_vs_fp32_forward": e32,
+            "fp32_streams_equal_bf16": streams32 == streams}
+
+
+def recurrent_params(torch, dev, cfg, mod, label):
+    """The served bf16 tree of ``cfg`` from seed 0, built leaf by leaf
+    (``init_prepared``: the dense weights cast on the way), and the fp32
+    tree it is cast from (``init_params``, the same seed), both on the
+    card."""
+    from repro_torch.core.params import init_params
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params = mod.init_prepared(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    params32 = init_params(mod.lm_specs(cfg), seed=0, device=dev)
+    n = sum(x.numel() for x in _leaves(params))
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    print(f"  {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}x"
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}: {n} "
+          f"parameters, {nbytes / 1e9:.3f} GB served (bf16 dense weights), "
+          f"made from seed 0 in {init_s:.1f} s (and the fp32 tree)",
+          flush=True)
+    return params, params32, {"params": n, "served_gb": nbytes / 1e9,
+                              "init_s": init_s}
+
+
+def profile_recurrent_step(torch, dev, params, cfg, mod, S=12):
+    """One warm decode step of 4 requests after an S-token prefill under
+    ``torch.profiler``: wall, device busy and idle share, the top
+    kernels, and ``flash_decode``'s part."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(
+        LM_SLOTS, S)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        logits, cache = mod.prefill(params, cfg, toks)
+        nxt = logits.argmax(-1)
+        for _ in range(3):
+            logits, cache = mod.decode_step(params, cfg, cache, nxt)
+            nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            mod.decode_step(params, cfg, cache, nxt)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    kernels = device_kernels(prof)
+    if not kernels:
+        print("  profiler: no device time recorded -> the step's split not "
+              "measured", flush=True)
+        return {"wall_ms": wall * 1e3}
+    total = sum(kernels.values()) / 1e3
+    decode = sum(us for k, us in kernels.items()
+                 if "flash_decode_k" in k) / 1e3
+    print(f"  decode step ({cfg.name}, {cfg.attn_impl}, {LM_SLOTS} requests "
+          f"after a {S}-token prefill; profiler): wall {wall * 1e3:.4f} ms, "
+          f"device busy {total:.4f} ms ({total / (wall * 1e3):.3%}; idle "
+          f"{1 - total / (wall * 1e3):.3%}), flash_decode {decode:.4f} ms",
+          flush=True)
+    for k, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us:10.2f} us  {k[:90]}")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": total,
+            "device_idle_share": 1 - total / (wall * 1e3),
+            "flash_decode_ms": decode}
+
+
+def run_hymba_path(torch, dev, cfg=None):
+    """hymba-1.5b at full width and depth through ``ServeEngine.generate``
+    (``cfg``: a smaller same-family config for a CPU rehearsal): the
+    windowed flash attention at prefill, flash decode against the rings."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.models import hymba
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg or get_config(HYMBA_ARCH)
+    check(cfg.attn_impl == "cuda" and cfg.dtype == "bfloat16"
+          and cfg.family == "hybrid", f"{HYMBA_ARCH}: config {cfg}")
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, params32, report = recurrent_params(torch, dev, cfg, hymba,
+                                                HYMBA_ARCH)
+    eng = ServeEngine(cfg, params, max_batch=LM_SLOTS, device=dev)
+    K.reset_launch_counts()                              # the hymba path
+    t0 = time.monotonic()
+    with plain_calls() as plain:
+        streams = serve_lm(eng, cfg, HYMBA_WAVES)
+    torch.cuda.synchronize()
+    served_s = time.monotonic() - t0
+    launches, others = served_launches(K, SK)
+    st = eng.latency_stats()
+    prefill_ms = [x * 1e3 for x in eng.prefill_times]
+    prefills, steps_run = st["prefills"], st["steps"] + 1   # one decode key
+    print(f"  launches: {launches}; other kernels {others}; plain versions "
+          f"{plain}", flush=True)
+    check(not any(plain.values()), f"{HYMBA_ARCH}: plain versions ran {plain}")
+    check(not any(others.values()),
+          f"{HYMBA_ARCH}: other kernels ran {others}")
+    check(launches == {"flash_attention": L * prefills,
+                       "flash_decode": L * steps_run},
+          f"{HYMBA_ARCH}: launches {launches} != {L} x ({prefills} "
+          f"prefills, {steps_run} steps)")
+    check(all(len(s) == LM_NEW for w in streams for s in w),
+          f"{HYMBA_ARCH}: stream lengths "
+          f"{[[len(s) for s in w] for w in streams]}")
+    check(st["served_dtype"] == "bfloat16", f"served {st['served_dtype']}")
+    print(f"  {HYMBA_ARCH}: {prefills} prefills (S = "
+          f"{[max(w) for w in HYMBA_WAVES]}, {LM_SLOTS} requests each), "
+          f"{steps_run} decode steps in {served_s:.1f} s; flash_attention "
+          f"{L} per prefill, flash_decode {L} per step; prefill "
+          f"{[round(x, 4) for x in prefill_ms]} ms, decode p50 "
+          f"{st['p50_s'] * 1e3:.4f} ms p99 {st['p99_s'] * 1e3:.4f} ms (host "
+          f"clock, synchronized)", flush=True)
+    # the same waves recorded through the kernels, then through the plain
+    # chunked attention on these bf16 params
+    log_a = record_logits(eng)
+    again = serve_lm(eng, cfg, HYMBA_WAVES)
+    check(again == streams, f"{HYMBA_ARCH}: a second cuda run gave other "
+          f"streams")
+    cfg_c = cfg.replace(attn_impl="chunked")
+    eng_c = ServeEngine(cfg_c, params, max_batch=LM_SLOTS, device=dev)
+    log_c = record_logits(eng_c)
+    streams_c = serve_lm(eng_c, cfg_c, HYMBA_WAVES)
+    del eng_c
+    for log in (log_a, log_c):
+        check(all(bool(torch.isfinite(x).all()) and
+                  tuple(x.shape) == (LM_SLOTS, cfg.vocab_size) for x in log),
+              f"{HYMBA_ARCH}: non-finite or misshapen logits")
+    worst, parted = compare_lm_runs(again, log_a, streams_c, log_c,
+                                    HYMBA_WAVES)
+    check(all(p["top2_gap"] <= HYMBA_TOP2_TOL for p in parted),
+          f"{HYMBA_ARCH}: streams part where chunked's top two logits are "
+          f"more than {HYMBA_TOP2_TOL} apart: {parted}")
+    print(f"  a second cuda run: streams equal to the first; bf16 cuda vs "
+          f"bf16 chunked: logits along the served tokens within "
+          f"{worst:.4g} (reported); token streams "
+          + ("equal" if not parted else
+             f"part in {len(parted)} of {LM_SLOTS * len(HYMBA_WAVES)} "
+             f"requests, each where chunked's top two logits are within "
+             f"{max(p['top2_gap'] for p in parted):.4g} (tol "
+             f"{HYMBA_TOP2_TOL}): {parted}"), flush=True)
+    del log_c
+    forced = served_vs_forced(torch, hymba, cfg, params, params32,
+                              HYMBA_WAVES, again, log_a, dev, HYMBA_ARCH)
+    del params32, log_a
+    prof = profile_recurrent_step(torch, dev, params, cfg, hymba)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {HYMBA_ARCH}: peak device memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated, from before the params were built; the "
+          f"fp32 tree beside the served one)", flush=True)
+    report.update({
+        "arch": HYMBA_ARCH, "layers": L, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim],
+        "window": cfg.sliding_window, "vocab": cfg.vocab_size,
+        "waves": [list(w) for w in HYMBA_WAVES], "prefills": prefills,
+        "decode_steps": steps_run, "launches": launches,
+        "prefill_ms": prefill_ms, "decode_p50_ms": st["p50_s"] * 1e3,
+        "decode_p99_ms": st["p99_s"] * 1e3,
+        "logits_vs_chunked": worst, "streams_equal_chunked": not parted,
+        "parted": parted, "teacher_forced": forced,
+        "peak_gib": peak / 2**30, "profile_decode": prof})
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def run_xlstm_path(torch, dev, cfg=None):
+    """xlstm-125m at full width through ``ServeEngine.generate`` in bf16,
+    held against fp32 forwards of the same params (seed 0) and an fp32
+    serve; no kernel and no plain version may run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.models import xlstm
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg or get_config(XLSTM_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.family == "ssm",
+          f"{XLSTM_ARCH}: config {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, params32, report = recurrent_params(torch, dev, cfg, xlstm,
+                                                XLSTM_ARCH)
+    eng = ServeEngine(cfg, params, max_batch=LM_SLOTS, device=dev)
+    K.reset_launch_counts()                              # the xLSTM path
+    log_a = record_logits(eng)
+    with plain_calls() as plain:
+        streams = serve_lm(eng, cfg, XLSTM_WAVES)
+    launches, others = served_launches(K, SK)
+    st = eng.latency_stats()
+    check(not any(plain.values()), f"{XLSTM_ARCH}: plain versions ran {plain}")
+    check(not any(launches.values()) and not any(others.values()),
+          f"{XLSTM_ARCH}: kernels ran {launches} {others}")
+    check(all(len(s) == LM_NEW for w in streams for s in w),
+          f"{XLSTM_ARCH}: stream lengths")
+    check(st["served_dtype"] == "bfloat16", f"served {st['served_dtype']}")
+    check(all(bool(torch.isfinite(x).all()) and
+              tuple(x.shape) == (LM_SLOTS, cfg.vocab_size) for x in log_a),
+          f"{XLSTM_ARCH}: non-finite or misshapen logits")
+    print(f"  {XLSTM_ARCH}: 1 prefill (S = 128, {LM_SLOTS} requests), "
+          f"{st['steps'] + 1} decode steps; no kernel, no plain version; "
+          f"prefill {eng.prefill_times[0] * 1e3:.4f} ms, decode p50 "
+          f"{st['p50_s'] * 1e3:.4f} ms p99 {st['p99_s'] * 1e3:.4f} ms (host "
+          f"clock, synchronized)", flush=True)
+    forced = served_vs_forced(torch, xlstm, cfg, params, params32,
+                              XLSTM_WAVES, streams, log_a, dev, XLSTM_ARCH)
+    prof = profile_recurrent_step(torch, dev, params, cfg, xlstm)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {XLSTM_ARCH}: peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    report.update({"arch": XLSTM_ARCH, "layers": cfg.num_layers,
+                   "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                   "launches": launches,
+                   "prefill_ms": eng.prefill_times[0] * 1e3,
+                   "decode_p50_ms": st["p50_s"] * 1e3,
+                   "decode_p99_ms": st["p99_s"] * 1e3,
+                   "teacher_forced": forced, "peak_gib": peak / 2**30,
+                   "profile_decode": prof})
+    del eng, params, params32
+    torch.cuda.empty_cache()
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -5491,27 +5868,42 @@ def attn_bound_ms(name, shape, itemsize, valid=None, heads=(HQ, HKV, HD)):
 
 
 def time_zoo_heads(torch, dev):
-    """Rows 21-22 in bf16 at the LM zoo's heads (``ZOO_HEADS``), at the
-    served S = 128 wave (``ATTN_ROW``'s shapes): device time, plain
-    version, sdpa and bound, by config."""
+    """Rows 21-22 in bf16 at the LM zoo's heads (``ZOO_TIMED``): the
+    served S = 128 wave (``ATTN_ROW``'s shapes) at each transformer's
+    heads, hymba's served S = 1280 prefill with its window and without,
+    each beside its decode: device time, plain version, sdpa and bound, by
+    config."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import kernel as DK
     from repro_torch.kernels.decode_attn import ref as dref
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.flash_attn import ref as fref
     out = {}
-    for arch, heads in ZOO_HEADS.items():
+    for label, heads, fshape, dshape in ZOO_TIMED:
         hq, hkv, hd = heads
+        fshape = fshape or ATTN_ROW["flash_attention"]
+        dshape = dshape or ATTN_ROW["flash_decode"]
         row = {}
-        B, Sq, Sk, causal, window = ATTN_ROW["flash_attention"]
+        B, Sq, Sk, causal, window = fshape
         q, k, v = attn_inputs(torch, B, Sq, Sk, torch.bfloat16, 11, dev,
                               heads)
+        if window:
+            # sdpa takes a window only as a mask (its flash path refuses
+            # one): the boolean (Sq, Sk) mask of the kernel's rule
+            wmask = fref._mask(Sq, 0, Sk, causal, window, dev)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=wmask, enable_gqa=True)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
         fns = {"flash_attention": (
             lambda: FK.flash_attention(q, k, v, causal=causal, window=window),
             lambda: fref.flash_attention_plain(q, k, v, causal, window),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                   enable_gqa=True), None)}
-        Bd, C, written, pos, dwin = ATTN_ROW["flash_decode"]
+            library, None, fshape)}
+        Bd, C, written, pos, dwin = dshape
         qd, kc, vc, mask = decode_inputs(torch, Bd, C, written, pos, dwin,
                                          torch.bfloat16, 11, dev, heads)
         qh = qd.reshape(Bd, hq, 1, hd)
@@ -5522,19 +5914,21 @@ def time_zoo_heads(torch, dev):
             lambda: F.scaled_dot_product_attention(qh, kc, vc,
                                                    attn_mask=amask,
                                                    enable_gqa=True),
-            int(mask.sum()))
-        for name, (kern, plain_fn, library, valid) in fns.items():
+            int(mask.sum()), dshape)
+        for name, (kern, plain_fn, lib_fn, valid, shape) in fns.items():
             ms = device_time_ms(torch, kern, per_graph=50)
             plain = device_time_ms(torch, plain_fn, per_graph=2)
-            lib = device_time_ms(torch, library, per_graph=50)
-            bms, by = attn_bound_ms(name, ATTN_ROW[name], 2, valid, heads)
+            lib = device_time_ms(torch, lib_fn, per_graph=50)
+            bms, by = attn_bound_ms(name, shape, 2, valid, heads)
             row[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": bms, "bound_by": by}
-            print(f"  {name:15s} bf16 {arch} heads {heads} "
-                  f"{ATTN_ROW[name]}: device {ms * 1e3:9.2f} us  plain "
-                  f"{plain * 1e3:10.2f} us  sdpa {lib * 1e3:8.2f} us  bound "
-                  f"{bms * 1e3:8.3f} us ({by})", flush=True)
-        out[arch] = {"heads": list(heads), **row}
+                         "bound_ms": bms, "bound_by": by,
+                         "shape": [list(x) if isinstance(x, tuple) else x
+                                   for x in shape]}
+            print(f"  {name:15s} bf16 {label} heads {heads} {shape}: device "
+                  f"{ms * 1e3:9.2f} us  plain {plain * 1e3:10.2f} us  sdpa "
+                  f"{lib * 1e3:8.2f} us  bound {bms * 1e3:8.3f} us ({by})",
+                  flush=True)
+        out[label] = {"heads": list(heads), **row}
     return out
 
 
@@ -6195,6 +6589,13 @@ def main() -> None:
     wide_launches, wide_report = run_moe_wide(torch, dev)
     for k in ATTN:
         launches[k] += moe_launches[k] + wide_launches[k]
+    phase("10c. recurrent LMs: serve hymba-1.5b at full width and depth "
+          "through the windowed attention kernels, then xlstm-125m at full "
+          "width")
+    hymba_launches, hymba_report = run_hymba_path(torch, dev)
+    xlstm_report = run_xlstm_path(torch, dev)
+    for k in ATTN:
+        launches[k] += hymba_launches[k]
     phase("11. the paper's row-wise primitives through gru_step_cuda, "
           "rowwise and cascade")
     rw_launches, rw_err = run_rowwise_path(torch, dev)
@@ -6238,6 +6639,8 @@ def main() -> None:
                       "serve_fleet": fleet_report_,
                       "train": train_report, "serve_lm": lm_report,
                       "serve_moe": moe_report, "serve_moe_wide": wide_report,
+                      "serve_hymba": hymba_report,
+                      "serve_xlstm": xlstm_report,
                       "attention_zoo_err": zoo_err,
                       "rowwise_launches": rw_launches,
                       "serve_mesh": mesh_report}))

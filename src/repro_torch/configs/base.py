@@ -4,9 +4,12 @@ config, the shape and training configs, copied from
 config type serves the cell families (the GRU and the sLSTM) and the
 transformer LMs, dense (``qwen3-0.6b``, ``qwen2.5-3b``, ``phi4-mini-3.8b``,
 ``command-r-35b``) and mixture-of-experts (``qwen2-moe-a2.7b``,
-``qwen3-moe-235b-a22b``, through :class:`MoEConfig`); the sub-configs of
-the other LM families (``ssm``, ``xlstm``, ``encoder``, ``vision``) are
-not ported yet.
+``qwen3-moe-235b-a22b``, through :class:`MoEConfig`) and the recurrent
+LMs, the xLSTM (``xlstm-125m``, family ``"ssm"``, through
+:class:`XLSTMConfig`) and hymba (``hymba-1.5b``, family ``"hybrid"``,
+attention and Mamba heads in parallel, through :class:`SSMConfig`); the
+sub-configs of the encoder-decoder and vision-language families
+(``encoder``, ``vision``) are not ported yet.
 
 Backend preferences are the port's names (see ``repro_torch.core.runtime``):
 ``"eager"`` (default, the JAX ``"xla"``), ``"cuda"`` (the JAX ``"pallas"``),
@@ -32,6 +35,22 @@ class MoEConfig:
     norm_topk_prob: bool = True      # renormalize top-k weights (qwen3 style)
     tp_mode: str = "gather"          # expert TP under a mesh: "gather" |
                                      # "psum" (the mesh path is not ported)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style selective SSM (used by hymba's parallel SSM heads)."""
+    state_dim: int = 16
+    conv_width: int = 4
+    dt_rank: int = 0                 # 0 -> ceil(d_model/16)
+    expand: int = 1                  # inner expansion of the ssm path
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_layers: Tuple[int, ...] = ()   # layer indices that are sLSTM blocks
+    proj_factor: float = 2.0             # mLSTM up-projection factor
+    conv_width: int = 4
 
 
 @dataclass(frozen=True)
@@ -92,7 +111,8 @@ class ModelConfig:
     """The fields of ``repro.configs.base.ModelConfig`` that the port's
     families read: the recurrent stack (``gru``) for the cell families,
     the transformer's fields for ``family="dense"`` and ``"moe"`` (the
-    latter with ``moe``).
+    latter with ``moe``), with ``xlstm`` for ``"ssm"`` and ``ssm``,
+    ``sliding_window`` and ``global_attn_layers`` for ``"hybrid"``.
 
     ``attn_impl`` takes the port's names: ``"naive"`` (dense score
     matrix, the oracle; JAX ``"naive"``), ``"chunked"`` (the plain chunked
@@ -106,7 +126,7 @@ class ModelConfig:
     them and they change nothing (it runs its layers eagerly).
     """
     name: str
-    family: str                      # "gru" | "slstm" | "dense" | "moe"
+    family: str                      # gru|slstm|dense|moe|ssm|hybrid
     gru: Optional[GRUConfig] = None
     param_dtype: str = "float32"
     # --- the transformer LM (zero for the cell families) ---
@@ -128,12 +148,17 @@ class ModelConfig:
     parallel_block: bool = False     # cohere-style attn || mlp
     tie_embeddings: bool = False
     sliding_window: int = 0          # 0 = full attention
+    global_attn_layers: Tuple[int, ...] = ()  # layers that ignore
+                                     # sliding_window (hymba: recorded; its
+                                     # groups come from the layer count)
     dtype: str = "bfloat16"          # activation/compute dtype
     scan_layers: bool = True         # accepted; changes nothing here
     remat: bool = True               # accepted; changes nothing here
     attn_impl: str = "cuda"          # "cuda" | "chunked" | "naive"
     attn_chunk: int = 1024           # kv chunk of "chunked"
     moe: Optional[MoEConfig] = None  # the experts of family "moe"
+    ssm: Optional[SSMConfig] = None  # hymba's SSM heads (family "hybrid")
+    xlstm: Optional[XLSTMConfig] = None  # the xLSTM blocks (family "ssm")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -212,12 +237,14 @@ _REGISTRY = {
     "gru-jet": "gru_jet",
     "gru-jet-deep": "gru_jet_deep",
     "slstm-jet": "slstm_jet",
+    "xlstm-125m": "xlstm_125m",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-0.6b": "qwen3_0_6b",
     "command-r-35b": "command_r_35b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen2.5-3b": "qwen2_5_3b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ALL_ARCHS = list(_REGISTRY)

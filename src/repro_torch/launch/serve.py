@@ -3,7 +3,7 @@ requests through the port's ServeEngine, its autotuner included, or, with
 ``--replicas N`` (N > 1) or ``--async``, through the fault-tolerant
 ``FleetRouter`` (``repro_torch.serve.fleet``; cell families only):
 feature-vector requests for the cell families, token prompts for the
-transformer LMs (dense and MoE).
+LMs (dense, MoE, the xLSTM and hymba).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-jet \\
         --gru-backend cuda --requests 12 --slots 8 --vary-prompt
@@ -60,6 +60,17 @@ in fp32)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --requests 4 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+        --smoke --device cpu
+
+The recurrent LMs serve the same way: ``xlstm-125m`` (mLSTM/sLSTM block
+pairs, no attention and no kernel: plain PyTorch recurrences) and
+``hymba-1.5b`` (attention and SSM heads in parallel in every layer;
+attention through the two CUDA kernels, a window of 1024 on 29 of its 32
+layers)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --smoke --device cpu
 
 ``--bucket-min`` sets the shortest prompt bucket (8 by default).
@@ -237,8 +248,7 @@ def main(argv=None):
           f"({stats['prefills']} prefills, "
           f"{len(engine._prefill_exes)} buckets)")
     if not is_cell:
-        print(f"attention: {cfg.attn_impl} ({cfg.num_layers} layers, "
-              f"d_model {cfg.d_model}, vocab {cfg.vocab_size})")
+        print(lm_line(cfg))
         return done
     steps = stats["decode_backend_steps"]
     attributed = ",".join(f"{k}:{v}" for k, v in sorted(steps.items()))
@@ -248,6 +258,22 @@ def main(argv=None):
     if tuner is not None:
         print_autotune(stats["autotune"])
     return done
+
+
+def lm_line(cfg) -> str:
+    """What serves an LM's layers: its attention path, or the xLSTM's
+    blocks (no attention), and hymba's windows and SSM heads."""
+    shape = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+             f"{cfg.vocab_size}")
+    if cfg.family == "ssm":
+        return f"xLSTM blocks ({shape}; mLSTM/sLSTM pairs, no attention)"
+    if cfg.family == "hybrid":
+        from repro_torch.models.hymba import _group_sizes
+        n = _group_sizes(cfg)
+        return (f"attention: {cfg.attn_impl} ({shape}; window "
+                f"{cfg.sliding_window} on {n['swa_a'] + n['swa_b']} layers) "
+                f"beside SSM heads (state {cfg.ssm.state_dim})")
+    return f"attention: {cfg.attn_impl} ({shape})"
 
 
 def print_autotune(at: dict) -> None:

@@ -1,10 +1,11 @@
 """Uniform model API (counterpart of ``repro.models.api``): downstream code
 (the serving engine, the trainer, the CLIs) talks to models only through
 :func:`get_api`, and builds input batches with :func:`input_specs` and
-:func:`concrete_batch`. Families: the recurrent cells (``gru``, ``slstm``) and the
-transformer LM, dense (``dense``) and mixture-of-experts (``moe``). The
-other LM families of the JAX package (``ssm``, ``hybrid``, ``audio``,
-``vlm``) raise ``NotImplementedError``; they are ported with the LM zoo
+:func:`concrete_batch`. Families: the recurrent cells (``gru``, ``slstm``),
+the transformer LM, dense (``dense``) and mixture-of-experts (``moe``), and
+the recurrent LMs, the xLSTM (``ssm``) and hymba (``hybrid``). The other LM
+families of the JAX package (``audio``, ``vlm``) raise
+``NotImplementedError``; they are ported with the rest of the LM zoo
 (ROADMAP queue 1, item 8)."""
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.cells import UnknownCellFamily, is_cell_family
 from repro_torch.core.params import Spec, _map_tree, is_spec, torch_dtype
-from repro_torch.models import gru_lm, slstm_lm, transformer
+from repro_torch.models import (gru_lm, hymba, layers, slstm_lm,
+                                transformer, xlstm)
 
 
 def _cell_api(mod) -> SimpleNamespace:
@@ -50,11 +52,29 @@ def _transformer_api() -> SimpleNamespace:
     )
 
 
+def _recurrent_lm_api(mod) -> SimpleNamespace:
+    """The xLSTM (``ssm``) and hymba (``hybrid``): the transformer's
+    interface over their own modules."""
+    return SimpleNamespace(
+        specs=mod.lm_specs,
+        prepare_params=layers.prepare_dense_params,  # cast dense weights once
+        init_prepared=mod.init_prepared,            # the same, leaf by leaf
+        forward=lambda p, cfg, batch: mod.forward(p, cfg, batch["tokens"]),
+        loss_fn=mod.loss_fn,
+        prefill=lambda p, cfg, batch: mod.prefill(p, cfg, batch["tokens"]),
+        decode_step=mod.decode_step,
+        cache_specs=mod.cache_specs,
+        init_cache=mod.init_cache,
+    )
+
+
 _FAMS = {"gru": lambda: _cell_api(gru_lm),
          "slstm": lambda: _cell_api(slstm_lm),
          "dense": _transformer_api,
-         "moe": _transformer_api}
-_NOT_PORTED = ("ssm", "hybrid", "audio", "vlm")
+         "moe": _transformer_api,
+         "ssm": lambda: _recurrent_lm_api(xlstm),
+         "hybrid": lambda: _recurrent_lm_api(hymba)}
+_NOT_PORTED = ("audio", "vlm")
 
 
 def get_api(cfg: ModelConfig) -> SimpleNamespace:

@@ -4,7 +4,10 @@ implementations (counterpart of ``repro.models.attention``):
 * ``naive``   — the dense score matrix (the oracle; small shapes only);
 * ``chunked`` — the chunked online softmax over KV blocks (JAX's
   ``xla_flash``), plain PyTorch, fp32 running stats, probabilities
-  rounded to the compute dtype before the P.V product as in JAX;
+  rounded to the compute dtype before the P.V product as in JAX; a
+  sliding-window layer whose S is a multiple of the window and at least
+  two windows takes the banded path instead (``_banded_attention``, JAX's
+  rule);
 * ``cuda``    — the CUDA kernels: flash attention for prefill
   (``repro_torch.kernels.flash_attn``) and flash decode for the decode
   step (``repro_torch.kernels.decode_attn``); on CPU tensors their plain
@@ -14,9 +17,9 @@ Decode-step attention runs against a ring-buffer KV cache. Under ``naive``
 and ``chunked`` it is JAX's einsum path (fp32 scores from the cache's
 dtype, probabilities rounded to the cache's dtype).
 
-Not here yet: ``_banded_attention`` (the O(S*2W) sliding-window path, for
-windowed configs; ``chunked`` computes the same attention) and the
-scan-over-layers ``decode_attention`` (JAX uses it only above 48 layers).
+Not here: the scan-over-layers ``decode_attention`` (JAX uses it only
+above 48 layers; the port's decode loops write the ring in place and call
+:func:`decode_attend`, which computes its numbers).
 ``ShardCtx`` and ``constrain`` are the identity on one device; they are
 left out of the signatures until the multi-GPU work brings them.
 """
@@ -121,6 +124,40 @@ def _chunked_attention(q, k, v, causal: bool, window: int,
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def _banded_attention(q, k, v, window: int) -> torch.Tensor:
+    """Exact sliding-window attention in O(S * 2W) (JAX's
+    ``_banded_attention``): q blocks of width W attend only kv blocks
+    (i-1, i), the 2W band that holds every in-window key. (B,S,H,D)
+    layout; S a multiple of W."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    W = window
+    nb = S // W
+    scale = 1.0 / (D ** 0.5)
+    qb = q.reshape(B, nb, W, Hkv, G, D)
+    kb = k.reshape(B, nb, W, Hkv, D)
+    vb = v.reshape(B, nb, W, Hkv, D)
+    z = torch.zeros_like(kb[:, :1])
+    k2 = torch.cat([torch.cat([z, kb[:, :-1]], 1), kb], 2)   # (B,nb,2W,Hkv,D)
+    v2 = torch.cat([torch.cat([z, vb[:, :-1]], 1), vb], 2)
+    s = torch.einsum("bnqhgd,bnkhd->bnhgqk", qb.float() * scale,
+                     k2.float())                           # (B,nb,Hkv,G,W,2W)
+    dev = q.device
+    q_pos = torch.arange(W, device=dev)[:, None] + W       # band coordinates
+    k_pos = torch.arange(2 * W, device=dev)[None, :]
+    band = (q_pos >= k_pos) & (q_pos - k_pos < W)
+    blk = torch.arange(nb, device=dev)
+    first = (blk == 0)[:, None, None] & (k_pos[None] < W)  # block 0: no left
+    mask = band[None] & ~first                             # (nb, W, 2W)
+    s = torch.where(mask[None, :, None, None], s, torch.full_like(s, NEG_INF))
+    # probabilities rounded to the compute dtype, summed in fp32 (JAX's
+    # einsum of the rounded operands)
+    p = torch.softmax(s, dim=-1).to(q.dtype).float()
+    o = torch.einsum("bnhgqk,bnkhd->bnqhgd", p, v2.to(q.dtype).float())
+    return o.reshape(B, S, Hq, D).to(q.dtype)
+
+
 def _cuda_attention(q, k, v, causal: bool, window: int) -> torch.Tensor:
     from repro_torch.kernels.flash_attn import ops as fa_ops
     o = fa_ops.attention(*_heads_major(q, k, v), causal=causal,
@@ -144,7 +181,10 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     elif impl == "cuda":
         o = _cuda_attention(q, k, v, True, window)
     elif impl == "chunked":
-        o = _chunked_attention(q, k, v, True, window, cfg.attn_chunk)
+        if window > 0 and S % window == 0 and S >= 2 * window:
+            o = _banded_attention(q, k, v, window)         # O(S*2W) exact SWA
+        else:
+            o = _chunked_attention(q, k, v, True, window, cfg.attn_chunk)
     else:
         raise ValueError(f"attn_impl {impl!r}: the port's names are "
                          f"'cuda', 'chunked' and 'naive'")

@@ -130,6 +130,81 @@ def unembed_apply(table_or_w: torch.Tensor, x: torch.Tensor,
     return (x @ w.t() if tied else x @ w).float()
 
 
+# --- one-time serving prep ---------------------------------------------------
+
+def served_leaf(x: torch.Tensor, cast: bool, ct: torch.dtype,
+                dev: torch.device) -> torch.Tensor:
+    """One leaf of a serving prep: cast to ``ct`` where ``cast``, else kept
+    in its dtype; on ``dev``. A cast that also changes the device goes a
+    block of about 64 MiB of the first axis at a time, so no cast copy of
+    a whole stacked leaf forms on the host (the values are the cast's)."""
+    if not cast or x.dtype == ct:
+        return x.to(dev)
+    if x.device.type == dev.type or x.dim() < 2:
+        return x.to(device=dev, dtype=ct)
+    out = torch.empty(x.shape, dtype=ct, device=dev)
+    rows = max(1, (64 << 20) // (x[0].numel() * x.element_size()))
+    for i in range(0, x.shape[0], rows):
+        out[i:i + rows].copy_(x[i:i + rows])
+    return out
+
+
+def _is_dense(d) -> bool:
+    """A dense layer's dict (``dense_specs``' tree): ``w`` and an optional
+    ``b``, both leaves."""
+    return (isinstance(d, dict) and "w" in d and set(d) <= {"w", "b"}
+            and not isinstance(d["w"], dict))
+
+
+def dense_cast_paths(tree, path=()) -> set:
+    """The leaf paths (key tuples) a serving prep casts to the compute
+    dtype: ``w`` and ``b`` of every dense dict (what :func:`dense_apply`
+    reads), the embedding table and ``lm_head``. A raw leaf that happens to
+    be named ``b`` (the sLSTM gate bias) is not a dense dict's and is kept
+    in the param dtype, as the model reads it."""
+    out = set()
+    if not isinstance(tree, dict):
+        return out
+    if _is_dense(tree):
+        return {path + (k,) for k in tree}
+    for k, v in tree.items():
+        if not path and k in ("embed", "lm_head") and not isinstance(v, dict):
+            out.add((k,))
+        else:
+            out |= dense_cast_paths(v, path + (k,))
+    return out
+
+
+def prepare_dense_params(params: dict, cfg, device="cuda") -> dict:
+    """One-time serving prep of a recurrent LM (xLSTM, hymba): the leaves
+    of :func:`dense_cast_paths` cast to the compute dtype, every other leaf
+    (norm scales, conv taps, the SSM's ``a_log``/``dt_bias``/``d_skip``,
+    the sLSTM's ``r`` and ``b``, ...) kept in the param dtype, all on
+    ``device``. Numerically what the per-call casts do, done once."""
+    from repro_torch import resolve_device
+    from repro_torch.core.params import _map_tree
+    dev = resolve_device(device)
+    ct = cdtype(cfg)
+    cast = dense_cast_paths(params)
+    return _map_tree(lambda path, x: served_leaf(x, path in cast, ct, dev),
+                     params)
+
+
+def init_prepared_dense(specs: dict, cfg, seed: int = 0,
+                        device="cuda") -> dict:
+    """``prepare_dense_params(init_params(specs, seed, cfg.param_dtype),
+    cfg, device)`` value for value, built leaf by leaf on the CPU
+    (``init_params_each``), so the param-dtype tree never exists whole."""
+    from repro_torch import resolve_device
+    from repro_torch.core.params import draw_workers, init_params_each
+    dev = resolve_device(device)
+    ct = cdtype(cfg)
+    cast = dense_cast_paths(specs)
+    return init_params_each(
+        specs, lambda path, x: served_leaf(x, tuple(path) in cast, ct, dev),
+        seed, cfg.param_dtype, draw_workers(specs, cfg.param_dtype))
+
+
 # --- losses ------------------------------------------------------------------
 
 def nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

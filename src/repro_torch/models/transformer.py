@@ -196,18 +196,8 @@ def _prepare_leaf(key: str, x: torch.Tensor, ct: torch.dtype,
                   dev: torch.device) -> torch.Tensor:
     """One leaf of :func:`prepare_params`: the weights a dense layer or an
     expert product reads cast to ``ct``, every other leaf kept in its
-    dtype; on ``dev``. A cast that also changes the device goes a block
-    of about 64 MiB of the first axis at a time, so no cast copy of a
-    whole stacked leaf forms on the host (the values are the cast's)."""
-    if key not in _CAST or x.dtype == ct:
-        return x.to(dev)
-    if x.device.type == dev.type or x.dim() < 2:
-        return x.to(device=dev, dtype=ct)
-    out = torch.empty(x.shape, dtype=ct, device=dev)
-    rows = max(1, (64 << 20) // (x[0].numel() * x.element_size()))
-    for i in range(0, x.shape[0], rows):
-        out[i:i + rows].copy_(x[i:i + rows])
-    return out
+    dtype; on ``dev`` (``layers.served_leaf``)."""
+    return layers.served_leaf(x, key in _CAST, ct, dev)
 
 
 def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:

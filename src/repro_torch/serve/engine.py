@@ -1,6 +1,7 @@
 """Serving engine (counterpart of ``repro.serve.engine``): bucketed prefill
 + continuous-batching decode over fixed slots for the recurrent cell
-families (GRU and sLSTM), and one aligned wave for the transformer LMs.
+families (GRU and sLSTM), and one aligned wave for the LMs (the
+transformers and the recurrent LMs, xLSTM and hymba).
 
 Cell families. A family's cache is its flat tuple of per-layer state
 leaves (one per layer for the GRU, four for the sLSTM); the admit scatter
@@ -28,8 +29,8 @@ engine records the executor backend of every prefill
 (``prefill_backends``) and of every recorded decode step
 (``decode_backends``, aligned with ``step_times``).
 
-The transformer LMs (``family="dense"`` and ``"moe"``): ``generate``
-serves one wave of at most ``max_batch`` token prompts, left-padded with
+The LMs (``family="dense"``, ``"moe"``, ``"ssm"`` (the xLSTM) and
+``"hybrid"`` (hymba)): ``generate`` serves one wave of at most ``max_batch`` token prompts, left-padded with
 token 0 to the longest prompt. The pad tokens are attended: there is no pad mask and positions
 run 0..S-1 over the padded row, exactly as in the JAX engine. Decoding is
 greedy (argmax); a request ends at ``eos_id`` or at ``max_new_tokens``,
@@ -197,8 +198,8 @@ class ServeEngine:
 
     def generate(self, requests: Sequence[Request]) -> List[Request]:
         """Serve a wave of requests: any number by continuous batching for
-        a cell family, one aligned batch of at most ``max_batch`` for a
-        transformer LM."""
+        a cell family, one aligned batch of at most ``max_batch`` for an
+        LM."""
         reqs = list(requests)
         if not reqs:
             return []
@@ -215,7 +216,7 @@ class ServeEngine:
         self.queue_waits.append(now - r.t_submit)
 
     def _generate_lm(self, reqs: List[Request]) -> List[Request]:
-        """A transformer LM's wave (JAX ``ServeEngine.generate``'s LM path):
+        """An LM's wave (JAX ``ServeEngine.generate``'s LM path):
         left-pad with token 0, one prefill, greedy decode steps until every
         request has its budget or its ``eos_id``."""
         if len(reqs) > self.max_batch:

@@ -2164,3 +2164,132 @@ def test_q8_harness_on_the_card_launches_rows_4_and_6(cuda_device,
         got = accuracy._eval_logits(params, g, xs.to(cuda_device))
         want = accuracy._eval_logits(pc, g, xs)
         assert np.abs(got - want).max() <= TOL, b
+
+
+# ---------------------------------------------------------------------------
+# The recurrent LMs: hymba-1.5b's heads (Hq 25, Hkv 5, D 64, a window of
+# 1024) through rows 21 and 22, and hymba and xlstm-125m served at SMOKE
+# size on the card against the CPU plain path (fp32: the same function in
+# other summation orders, logits within 1e-4 after six layers and a scan;
+# token streams equal).
+# ---------------------------------------------------------------------------
+
+HYMBA_HEADS = (25, 5, 64)
+# (Sq = Sk, window): the served 1280-token prompt with its window and
+# without (the global layers), and a window over a shorter prompt
+HYMBA_FLASH = ((1280, 1024), (1280, 0), (300, 1024), (2100, 1024))
+# (C, written positions (from, to), pos, window): a full window ring,
+# wrapped; a global layer's cache (S + 64 slots); a ring that holds the
+# prompt and its headroom below the window
+HYMBA_DECODE = ((1024, (277, 1300), 1300, 1024), (1344, (0, 1290), 1290, 0),
+                (1024, (0, 140), 140, 1024), (192, (0, 140), 140, 1024))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("S,window", HYMBA_FLASH)
+def test_flash_attention_at_hymba_heads(cuda_device, dtype, S, window):
+    Hq, Hkv, D = HYMBA_HEADS
+    g = torch.Generator().manual_seed(S + window)
+    q = _rand((2, Hq, S, D), g, cuda_device, dtype)
+    k = _rand((2, Hkv, S, D), g, cuda_device, dtype)
+    v = _rand((2, Hkv, S, D), g, cuda_device, dtype)
+    K.reset_launch_counts()
+    got = FK.flash_attention(q, k, v, causal=True, window=window)
+    want = fref.flash_attention_plain(q, k, v, True, window)
+    assert FK.flash_attention.launches == 1
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("C,written,pos,window", HYMBA_DECODE)
+def test_flash_decode_at_hymba_heads(cuda_device, dtype, C, written, pos,
+                                     window):
+    """G = 5: flash decode's 16-query register bucket."""
+    from repro_torch.kernels.decode_attn.ops import valid_slots
+    Hq, Hkv, D = HYMBA_HEADS
+    g = torch.Generator().manual_seed(C + pos)
+    q = _rand((4, Hkv, Hq // Hkv, D), g, cuda_device, dtype)
+    kc = _rand((4, Hkv, C, D), g, cuda_device, dtype)
+    vc = _rand((4, Hkv, C, D), g, cuda_device, dtype)
+    slot_pos = torch.full((C,), -1, dtype=torch.int32)
+    for p in range(written[0], written[1] + 1):
+        slot_pos[p % C] = p
+    mask = valid_slots(slot_pos.to(cuda_device), pos, window)
+    K.reset_launch_counts()
+    got = DK.flash_decode(q, kc, vc, mask)
+    assert DK.flash_decode.launches == 1
+    torch.testing.assert_close(got, dref.flash_decode_plain(q, kc, vc, mask),
+                               rtol=TOL, atol=TOL)
+
+
+def _recurrent_lm_streams(arch, dev, impl, prompts, new):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import api as mapi
+    cfg = get_smoke_config(arch).replace(dtype="float32", attn_impl=impl)
+    params = mapi.get_api(cfg).init_prepared(cfg, 0, dev)
+    eng = ServeEngine(cfg, params, max_batch=len(prompts), device=dev)
+    logs = []
+    api = eng.api
+    from types import SimpleNamespace
+
+    def decode_step(p, c, cache, tok):
+        out = api.decode_step(p, c, cache, tok)
+        logs.append(out[0].float().cpu())
+        return out
+    eng.api = SimpleNamespace(**dict(vars(api), decode_step=decode_step))
+    done = eng.generate([Request(prompt=p, max_new_tokens=new)
+                         for p in prompts])
+    return [r.out for r in done], logs, eng.latency_stats()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("hymba-1.5b", "xlstm-125m"))
+def test_recurrent_lm_served_on_the_card_equals_cpu(cuda_device, arch):
+    """SMOKE in fp32: hymba through ``cuda`` launches flash attention 6
+    times per prefill and flash decode 6 per step, the xLSTM nothing; no
+    other kernel of the port; streams equal the CPU run's, step logits
+    within 1e-4 (prompts of 3-12 tokens, the wave padded to 12, past
+    hymba's window of 8, so its rings wrap)."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 128, size=n).astype(np.int32)
+               for n in (3, 11, 5, 12)]
+    K.reset_launch_counts()
+    got, logs, st = _recurrent_lm_streams(arch, cuda_device, "cuda",
+                                          prompts, 6)
+    counts = [FK.flash_attention.launches, DK.flash_decode.launches]
+    others = K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS + \
+        SK.SLSTM_KERNELS + K.ROWWISE_KERNELS + K.SHARD_KERNELS
+    assert all(k.launches == 0 for k in others)
+    steps = st["steps"] + 1
+    if arch == "hymba-1.5b":
+        assert counts == [6, 6 * steps]
+    else:
+        assert counts == [0, 0]
+    want, wlogs, _ = _recurrent_lm_streams(arch, torch.device("cpu"),
+                                           "cuda", prompts, 6)
+    assert got == want
+    for a, b in zip(logs, wlogs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("hymba-1.5b", "xlstm-125m"))
+def test_recurrent_lm_init_prepared_on_the_card(cuda_device, arch):
+    """The leaf-by-leaf build on the card equals ``prepare_params`` of the
+    fp32 tree bit for bit; only the dense weights are bf16."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.params import flatten
+    from repro_torch.models import api as mapi
+    cfg = get_smoke_config(arch)
+    api = mapi.get_api(cfg)
+    want = api.prepare_params(init_params(api.specs(cfg), seed=3,
+                                          device="cpu"), cfg, cuda_device)
+    got = api.init_prepared(cfg, seed=3, device=cuda_device)
+    fw, fg = flatten(want), flatten(got)
+    assert list(fw) == list(fg)
+    for k in fw:
+        assert fg[k].device.type == "cuda" and fg[k].dtype == fw[k].dtype
+        assert torch.equal(fg[k], fw[k]), k

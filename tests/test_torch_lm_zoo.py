@@ -130,7 +130,7 @@ def test_every_new_arch_resolves_to_the_transformer_api():
             assert cfg.name == arch and cfg.attn_impl == "cuda"
     assert get_config("qwen2-moe-a2.7b").family == "moe"
     assert get_config("command-r-35b").parallel_block
-    for family in ("ssm", "hybrid", "audio", "vlm"):
+    for family in ("audio", "vlm"):     # ssm and hybrid are served now
         with pytest.raises(NotImplementedError, match="queue 1"):
             mapi.get_api(get_smoke_config("qwen3-0.6b").replace(
                 family=family))
