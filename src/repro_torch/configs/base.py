@@ -7,9 +7,11 @@ transformer LMs, dense (``qwen3-0.6b``, ``qwen2.5-3b``, ``phi4-mini-3.8b``,
 ``qwen3-moe-235b-a22b``, through :class:`MoEConfig`) and the recurrent
 LMs, the xLSTM (``xlstm-125m``, family ``"ssm"``, through
 :class:`XLSTMConfig`) and hymba (``hymba-1.5b``, family ``"hybrid"``,
-attention and Mamba heads in parallel, through :class:`SSMConfig`); the
-sub-configs of the encoder-decoder and vision-language families
-(``encoder``, ``vision``) are not ported yet.
+attention and Mamba heads in parallel, through :class:`SSMConfig`), the
+encoder-decoder (``whisper-large-v3``, family ``"audio"``, through
+:class:`EncoderConfig`) and the vision-language model
+(``llava-next-mistral-7b``, family ``"vlm"``, through
+:class:`VisionStubConfig`): every config of the JAX package.
 
 Backend preferences are the port's names (see ``repro_torch.core.runtime``):
 ``"eager"`` (default, the JAX ``"xla"``), ``"cuda"`` (the JAX ``"pallas"``),
@@ -51,6 +53,21 @@ class XLSTMConfig:
     slstm_layers: Tuple[int, ...] = ()   # layer indices that are sLSTM blocks
     proj_factor: float = 2.0             # mLSTM up-projection factor
     conv_width: int = 4
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec archs (whisper). Frontend is a stub:
+    input_specs() provides precomputed frame embeddings."""
+    num_layers: int
+    num_frames: int = 1500           # whisper: 30 s of audio after conv frontend
+
+
+@dataclass(frozen=True)
+class VisionStubConfig:
+    """VLM modality frontend stub: precomputed patch embeddings are inputs."""
+    num_patches: int = 576           # base-resolution tile (anyres tiles stubbed)
+    embed_dim: int = 1024            # pre-projection CLIP dim
 
 
 @dataclass(frozen=True)
@@ -112,7 +129,8 @@ class ModelConfig:
     families read: the recurrent stack (``gru``) for the cell families,
     the transformer's fields for ``family="dense"`` and ``"moe"`` (the
     latter with ``moe``), with ``xlstm`` for ``"ssm"`` and ``ssm``,
-    ``sliding_window`` and ``global_attn_layers`` for ``"hybrid"``.
+    ``sliding_window`` and ``global_attn_layers`` for ``"hybrid"``,
+    ``encoder`` for ``"audio"`` and ``vision`` for ``"vlm"``.
 
     ``attn_impl`` takes the port's names: ``"naive"`` (dense score
     matrix, the oracle; JAX ``"naive"``), ``"chunked"`` (the plain chunked
@@ -126,7 +144,7 @@ class ModelConfig:
     them and they change nothing (it runs its layers eagerly).
     """
     name: str
-    family: str                      # gru|slstm|dense|moe|ssm|hybrid
+    family: str                      # gru|slstm|dense|moe|ssm|hybrid|audio|vlm
     gru: Optional[GRUConfig] = None
     param_dtype: str = "float32"
     # --- the transformer LM (zero for the cell families) ---
@@ -159,6 +177,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None  # the experts of family "moe"
     ssm: Optional[SSMConfig] = None  # hymba's SSM heads (family "hybrid")
     xlstm: Optional[XLSTMConfig] = None  # the xLSTM blocks (family "ssm")
+    encoder: Optional[EncoderConfig] = None  # whisper's encoder ("audio")
+    vision: Optional[VisionStubConfig] = None  # llava's patches ("vlm")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -194,6 +214,8 @@ class ModelConfig:
         total = self.num_layers * per_layer + self.vocab_size * d
         if not self.tie_embeddings:
             total += self.vocab_size * d
+        if self.encoder is not None:
+            total += self.encoder.num_layers * (attn * 2 + mlp + 3 * d)
         return total
 
     def active_param_count(self) -> int:
@@ -244,9 +266,13 @@ _REGISTRY = {
     "command-r-35b": "command_r_35b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen2.5-3b": "qwen2_5_3b",
+    "whisper-large-v3": "whisper_large_v3",
     "hymba-1.5b": "hymba_1_5b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
+ASSIGNED_ARCHS = [a for a in _REGISTRY
+                  if not a.startswith(("gru-jet", "slstm-jet"))]
 ALL_ARCHS = list(_REGISTRY)
 
 

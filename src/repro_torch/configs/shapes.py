@@ -1,12 +1,11 @@
-"""Input-shape cells and their skip rule (counterpart of
-``repro.configs.shapes``). ``cells()``, the (arch x shape) matrix of the
-JAX package, iterates the LM zoo's configs, which the port does not have
-yet: it comes with them (ROADMAP queue 1, item 8)."""
+"""Input-shape cells, their skip rule and the (arch x shape) matrix
+(counterpart of ``repro.configs.shapes``)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import (ASSIGNED_ARCHS, ModelConfig,
+                                      ShapeConfig, get_config)
 
 SHAPES = {
     "train_4k": ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train"),
@@ -29,3 +28,16 @@ def shape_skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
     if shape.name == "long_500k" and not cfg.supports_long_context:
         return "full-attention arch: 500k decode is quadratic-cost; skipped per assignment"
     return None
+
+
+def cells(include_gru: bool = True
+          ) -> Iterator[Tuple[str, ShapeConfig, Optional[str]]]:
+    """Yield (arch, shape, skip_reason) for the full assigned matrix, in
+    JAX's order: the assigned archs by every shape, then gru-jet's cells."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            yield arch, shape, shape_skip_reason(cfg, shape)
+    if include_gru:
+        for shape in GRU_SHAPES.values():
+            yield "gru-jet", shape, None

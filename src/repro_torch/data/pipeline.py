@@ -13,9 +13,9 @@ slice along the batch dimension), and :class:`Prefetcher` keeps the next
 The LM stream is a noisy deterministic bigram process (next = a*cur + c mod
 V with probability 1-eps), so CE on it genuinely decreases during the
 example runs. The jet stream's labels come from a fixed random linear
-teacher over mean features, learnable for the jet-tagging example. (The
-audio and vision-language families' extra inputs, ``frames`` and
-``patches``, come with those families.)
+teacher over mean features, learnable for the jet-tagging example. The
+audio and vision-language families' batches carry ``frames`` and
+``patches`` beside the tokens, drawn after them from the same generator.
 
 One deliberate difference: the jet stream serves every cell family (the
 GRU and the sLSTM), whose loss reads ``features`` and ``labels``. JAX's
@@ -83,8 +83,15 @@ class SyntheticStream:
         for t in range(S):
             nxt = (seq[:, t] * self._a + self._c) % v
             seq[:, t + 1] = np.where(noise[:, t], rand[:, t], nxt)
-        return {"tokens": seq[:, :S].astype(np.int32),
-                "targets": seq[:, 1:].astype(np.int32)}
+        batch = {"tokens": seq[:, :S].astype(np.int32),
+                 "targets": seq[:, 1:].astype(np.int32)}
+        if cfg.family == "audio":
+            batch["frames"] = rng.normal(
+                size=(B, cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            batch["patches"] = rng.normal(
+                size=(B, cfg.vision.num_patches, cfg.vision.embed_dim)).astype(np.float32)
+        return batch
 
 
 def shard_batch(batch: Dict[str, np.ndarray], mesh=None,

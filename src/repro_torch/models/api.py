@@ -2,11 +2,13 @@
 (the serving engine, the trainer, the CLIs) talks to models only through
 :func:`get_api`, and builds input batches with :func:`input_specs` and
 :func:`concrete_batch`. Families: the recurrent cells (``gru``, ``slstm``),
-the transformer LM, dense (``dense``) and mixture-of-experts (``moe``), and
-the recurrent LMs, the xLSTM (``ssm``) and hymba (``hybrid``). The other LM
-families of the JAX package (``audio``, ``vlm``) raise
-``NotImplementedError``; they are ported with the rest of the LM zoo
-(ROADMAP queue 1, item 8)."""
+the transformer LM, dense (``dense``) and mixture-of-experts (``moe``), the
+recurrent LMs, the xLSTM (``ssm``) and hymba (``hybrid``), the
+encoder-decoder whisper (``audio``) and the vision-language llava
+(``vlm``): every family of the JAX package. Whisper's and llava's
+``forward`` and ``prefill`` read the whole batch (``frames``, ``patches``
+beside the tokens); the serving engine serves neither, as in JAX, so they
+are driven through ``prefill`` and ``decode_step``."""
 from __future__ import annotations
 
 from types import SimpleNamespace
@@ -18,8 +20,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.cells import UnknownCellFamily, is_cell_family
 from repro_torch.core.params import Spec, _map_tree, is_spec, torch_dtype
-from repro_torch.models import (gru_lm, hymba, layers, slstm_lm,
-                                transformer, xlstm)
+from repro_torch.models import (gru_lm, hymba, layers, llava, slstm_lm,
+                                transformer, whisper, xlstm)
 
 
 def _cell_api(mod) -> SimpleNamespace:
@@ -36,32 +38,23 @@ def _cell_api(mod) -> SimpleNamespace:
     )
 
 
-def _transformer_api() -> SimpleNamespace:
-    return SimpleNamespace(
-        specs=transformer.lm_specs,
-        prepare_params=transformer.prepare_params,  # cast to cdtype once
-        init_prepared=transformer.init_prepared,    # the same, leaf by leaf
-        forward=lambda p, cfg, batch: transformer.forward(
-            p, cfg, batch["tokens"]),
-        loss_fn=transformer.loss_fn,
-        prefill=lambda p, cfg, batch: transformer.prefill(
-            p, cfg, batch["tokens"]),
-        decode_step=transformer.decode_step,
-        cache_specs=transformer.cache_specs,
-        init_cache=transformer.init_cache,
-    )
-
-
-def _recurrent_lm_api(mod) -> SimpleNamespace:
-    """The xLSTM (``ssm``) and hymba (``hybrid``): the transformer's
-    interface over their own modules."""
+def _lm_api(mod, prepare_params, *, tokens: bool) -> SimpleNamespace:
+    """An LM family's interface over its module. ``tokens``: the module's
+    ``forward`` and ``prefill`` take the token array, so the namespace's
+    take the batch and pass ``batch["tokens"]`` (the transformer, the
+    xLSTM, hymba); whisper's and llava's take the whole batch (``frames``
+    or ``patches`` beside the tokens)."""
+    forward, prefill = mod.forward, mod.prefill
+    if tokens:
+        forward = lambda p, cfg, batch: mod.forward(p, cfg, batch["tokens"])
+        prefill = lambda p, cfg, batch: mod.prefill(p, cfg, batch["tokens"])
     return SimpleNamespace(
         specs=mod.lm_specs,
-        prepare_params=layers.prepare_dense_params,  # cast dense weights once
+        prepare_params=prepare_params,              # cast to cdtype once
         init_prepared=mod.init_prepared,            # the same, leaf by leaf
-        forward=lambda p, cfg, batch: mod.forward(p, cfg, batch["tokens"]),
+        forward=forward,
         loss_fn=mod.loss_fn,
-        prefill=lambda p, cfg, batch: mod.prefill(p, cfg, batch["tokens"]),
+        prefill=prefill,
         decode_step=mod.decode_step,
         cache_specs=mod.cache_specs,
         init_cache=mod.init_cache,
@@ -70,21 +63,22 @@ def _recurrent_lm_api(mod) -> SimpleNamespace:
 
 _FAMS = {"gru": lambda: _cell_api(gru_lm),
          "slstm": lambda: _cell_api(slstm_lm),
-         "dense": _transformer_api,
-         "moe": _transformer_api,
-         "ssm": lambda: _recurrent_lm_api(xlstm),
-         "hybrid": lambda: _recurrent_lm_api(hymba)}
-_NOT_PORTED = ("audio", "vlm")
+         "dense": lambda: _lm_api(transformer, transformer.prepare_params,
+                                  tokens=True),
+         "moe": lambda: _lm_api(transformer, transformer.prepare_params,
+                                tokens=True),
+         "ssm": lambda: _lm_api(xlstm, layers.prepare_dense_params,
+                                tokens=True),
+         "hybrid": lambda: _lm_api(hymba, layers.prepare_dense_params,
+                                   tokens=True),
+         "audio": lambda: _lm_api(whisper, whisper.prepare_params,
+                                  tokens=False),
+         "vlm": lambda: _lm_api(llava, llava.prepare_params, tokens=False)}
 
 
 def get_api(cfg: ModelConfig) -> SimpleNamespace:
-    """The family's API. A JAX LM family not ported yet raises
-    ``NotImplementedError``; an unknown ``cfg.family`` raises
+    """The family's API; an unknown ``cfg.family`` raises
     :class:`UnknownCellFamily`."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"item 8: the LM zoo); the port serves {sorted(_FAMS)}")
     if cfg.family not in _FAMS:
         raise UnknownCellFamily(cfg.family, known=set(_FAMS))
     return _FAMS[cfg.family]()
@@ -105,12 +99,18 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
             return {"x": Spec((B, g.input_dim), dtype=cfg.dtype)}
         return {"features": Spec((B, S, g.input_dim), dtype=cfg.dtype),
                 "labels": Spec((B,), dtype="int32")}
-    get_api(cfg)        # an LM family not ported yet raises here
+    get_api(cfg)        # an unknown family raises here
     if shape.kind == "decode":
         return {"tokens": Spec((B,), dtype="int32")}
     batch = {"tokens": Spec((B, S), dtype="int32")}
     if shape.kind == "train":
         batch["targets"] = Spec((B, S), dtype="int32")
+    if cfg.family == "audio":
+        batch["frames"] = Spec((B, cfg.encoder.num_frames, cfg.d_model),
+                               dtype=cfg.dtype)
+    if cfg.family == "vlm":
+        batch["patches"] = Spec((B, cfg.vision.num_patches,
+                                 cfg.vision.embed_dim), dtype=cfg.dtype)
     return batch
 
 

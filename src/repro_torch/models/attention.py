@@ -13,9 +13,17 @@ implementations (counterpart of ``repro.models.attention``):
   step (``repro_torch.kernels.decode_attn``); on CPU tensors their plain
   versions.
 
+``attention`` takes JAX's ``causal`` (the encoder's and the
+cross-attention's ``causal=False``) and ``kv`` (cross-attention: the
+encoder's K/V in place of the sequence's own, Sq != Sk); the banded path
+serves only causal self-attention, as in JAX.
+
 Decode-step attention runs against a ring-buffer KV cache. Under ``naive``
 and ``chunked`` it is JAX's einsum path (fp32 scores from the cache's
-dtype, probabilities rounded to the cache's dtype).
+dtype, probabilities rounded to the cache's dtype). ``cross=True`` reads a
+cache it does not write (the encoder's K/V, projected once at prefill):
+every slot with ``slot_pos >= 0`` is valid whatever the position. Under
+``cuda`` both modes run the flash-decode kernel on the mask built here.
 
 Not here: the scan-over-layers ``decode_attention`` (JAX uses it only
 above 48 layers; the port's decode loops write the ring in place and call
@@ -49,20 +57,31 @@ def attn_specs(cfg: ModelConfig) -> dict:
     return s
 
 
+def project_q(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, rope: bool = True) -> torch.Tensor:
+    """x: (B,S,D) -> q (B,S,Hq,Dh), qk-normed and rotated as in JAX."""
+    B, S, _ = x.shape
+    q = dense_apply(p["wq"], x).reshape(B, S, cfg.num_heads,
+                                        cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = head_rmsnorm(p["q_norm"], q)
+    if rope and cfg.rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense_apply(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    q = project_q(p, cfg, x, positions)
     k = dense_apply(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
     v = dense_apply(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
-        q = head_rmsnorm(p["q_norm"], q)
         k = head_rmsnorm(p["k_norm"], k)
     if cfg.rope:
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -166,25 +185,31 @@ def _cuda_attention(q, k, v, causal: bool, window: int) -> torch.Tensor:
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-              window: int = 0, positions: Optional[torch.Tensor] = None):
-    """Causal self-attention over the sequence. Returns (out (B,S,D),
-    (k, v) for caching, each (B,S,Hkv,Dh)). The JAX signature's ``causal``
-    and ``kv`` (cross-attention) serve the encoder-decoder families, not
-    ported yet."""
+              window: int = 0, causal: bool = True,
+              positions: Optional[torch.Tensor] = None,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Full-sequence attention. Returns (out (B,S,D), (k, v) for caching,
+    each (B,Sk,Hkv,Dh)). ``kv`` (B,Sk,Hkv,Dh) each replaces the
+    sequence's own K/V (cross-attention: only q is projected, without
+    RoPE, as JAX's ``rope=kv is None``)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    if kv is None:
+        q, k, v = _project_qkv(p, cfg, x, positions)
+    else:
+        q, (k, v) = project_q(p, cfg, x, positions, rope=False), kv
     impl = cfg.attn_impl
     if impl == "naive":
-        o = _naive_attention(q, k, v, True, window)
+        o = _naive_attention(q, k, v, causal, window)
     elif impl == "cuda":
-        o = _cuda_attention(q, k, v, True, window)
+        o = _cuda_attention(q, k, v, causal, window)
     elif impl == "chunked":
-        if window > 0 and S % window == 0 and S >= 2 * window:
+        if (window > 0 and causal and kv is None and S % window == 0
+                and S >= 2 * window):
             o = _banded_attention(q, k, v, window)         # O(S*2W) exact SWA
         else:
-            o = _chunked_attention(q, k, v, True, window, cfg.attn_chunk)
+            o = _chunked_attention(q, k, v, causal, window, cfg.attn_chunk)
     else:
         raise ValueError(f"attn_impl {impl!r}: the port's names are "
                          f"'cuda', 'chunked' and 'naive'")
@@ -212,9 +237,11 @@ def init_cache_specs(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def decode_attend(p: dict, cfg: ModelConfig, q: torch.Tensor, k_cache,
-                  v_cache, slot_pos, pos, *, window: int = 0) -> torch.Tensor:
+                  v_cache, slot_pos, pos, *, window: int = 0,
+                  cross: bool = False) -> torch.Tensor:
     """Attend one query token (B, Hq*Dh or (B,Hq,Dh)) against a
-    (B,Hkv,C,Dh) cache slice; returns (B,1,D).
+    (B,Hkv,C,Dh) cache slice; returns (B,1,D). ``cross``: every written
+    slot is valid, whatever ``pos`` (JAX's ``decode_attention(cross=True)``).
 
     ``attn_impl="cuda"`` runs the flash-decode kernel (scores and
     probabilities never leave the block); the others JAX's einsum path."""
@@ -225,11 +252,11 @@ def decode_attend(p: dict, cfg: ModelConfig, q: torch.Tensor, k_cache,
     if cfg.attn_impl == "cuda":
         from repro_torch.kernels.decode_attn import ops as da_ops
         o = da_ops.decode_attend_cuda(qg.to(k_cache.dtype), k_cache,
-                                      v_cache, slot_pos, pos, window)
+                                      v_cache, slot_pos, pos, window, cross)
         return dense_apply(p["wo"], o.reshape(B, 1, cfg.num_heads * hd)
                            .to(q.dtype))
     from repro_torch.kernels.decode_attn.ops import valid_slots
-    valid = valid_slots(slot_pos, pos, window)
+    valid = valid_slots(slot_pos, pos, window, cross)
     s = torch.einsum("bhgd,bhcd->bhgc", qg.to(k_cache.dtype).float(),
                      k_cache.float()) / (hd ** 0.5)
     s = torch.where(valid[None, None, None, :], s, torch.full_like(s, NEG_INF))

@@ -12,7 +12,7 @@ does.
 
 JAX's expert-parallel and tensor-parallel mesh path (``all_to_all`` over
 the data axis, the expert hidden dim over the model axis) is not ported:
-``moe_apply`` under a mesh raises (ROADMAP queue 1, item 7). Routing,
+``moe_apply`` under a mesh raises (ROADMAP queue 1, item 3). Routing,
 sort and scatter are XLA ops in JAX and plain torch ops here; so are the
 expert products (einsums in JAX, outside any Pallas kernel).
 
@@ -122,7 +122,7 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     if ctx.mesh is not None:
         raise NotImplementedError(
             "moe_apply under a mesh: the expert-parallel path is not ported "
-            "(ROADMAP queue 1, item 7)")
+            "(ROADMAP queue 1, item 3)")
     m = cfg.moe
     B, S, D = x.shape
     E = padded_experts(m)

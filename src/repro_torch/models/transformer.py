@@ -99,13 +99,16 @@ def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                  collect_kv: bool = False):
+                  collect_kv: bool = False,
+                  inputs_embeds: Optional[torch.Tensor] = None):
     """tokens (B,S) -> (h (B,S,D), aux summed over the layers (fp32
     scalar), per-layer [(k, v)] or None); k and v (B,S,Hkv,hd) in the
-    compute dtype, after RoPE. (JAX's ``inputs_embeds`` serves the
-    vision-language family, not ported.)"""
+    compute dtype, after RoPE. ``inputs_embeds`` (B,S,D) replaces the
+    token embedding (the vision-language model's merged patches and
+    text)."""
     B, S = tokens.shape
-    x = layers.embed_apply(params["embed"], tokens, cdtype(cfg))
+    x = (inputs_embeds if inputs_embeds is not None
+         else layers.embed_apply(params["embed"], tokens, cdtype(cfg)))
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
@@ -219,9 +222,11 @@ def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:
     return walk(params)
 
 
-def init_prepared(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """``prepare_params(init_params(lm_specs(cfg), seed, cfg.param_dtype),
-    cfg, device)`` value for value, built leaf by leaf on the CPU
+def init_prepared(cfg: ModelConfig, seed: int = 0, device="cuda", *,
+                  specs: Optional[dict] = None) -> dict:
+    """``prepare_params(init_params(specs, seed, cfg.param_dtype), cfg,
+    device)`` value for value (``specs`` defaults to ``lm_specs(cfg)``),
+    built leaf by leaf on the CPU
     (:func:`~repro_torch.core.params.init_params_each`, as many leaves at
     a time as half the host's available memory holds), so neither the host
     nor the card holds the param-dtype tree (qwen2-moe-a2.7b: 60.6 GB in
@@ -230,7 +235,7 @@ def init_prepared(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     from repro_torch.core.params import draw_workers, init_params_each
     dev = resolve_device(device)
     ct = cdtype(cfg)
-    specs = lm_specs(cfg)
+    specs = lm_specs(cfg) if specs is None else specs
     return init_params_each(
         specs, lambda path, x: _prepare_leaf(path[-1], x, ct, dev),
         seed, cfg.param_dtype, draw_workers(specs, cfg.param_dtype))
@@ -252,29 +257,40 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     return c
 
 
+def stack_kv(kvs, C: int):
+    """Per-layer (k, v), each (B,S,Hkv,hd), -> the cache's k, v
+    (L,B,Hkv,C,hd): the first S slots filled, the rest zero."""
+    k0 = kvs[0][0]
+    B, S, Hkv, hd = k0.shape
+    shape = (len(kvs), B, Hkv, C, hd)
+    k = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
+    v = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
+    for i, (ki, vi) in enumerate(kvs):
+        k[i, :, :, :S] = ki.transpose(1, 2)
+        v[i, :, :, :S] = vi.transpose(1, 2)
+    return k, v
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            inputs_embeds: Optional[torch.Tensor] = None,
             headroom: int = 64):
     """tokens (B,S) -> (last-token logits (B,V) fp32, filled cache).
 
     ``headroom`` empty slots follow the prompt so decode steps never wrap
-    onto it (full-attention semantics)."""
+    onto it (full-attention semantics); ``inputs_embeds`` as in
+    :func:`hidden_states`."""
     B, S = tokens.shape
-    h, _, kvs = hidden_states(params, cfg, tokens, collect_kv=True)
+    h, _, kvs = hidden_states(params, cfg, tokens, collect_kv=True,
+                              inputs_embeds=inputs_embeds)
     table, tied = _unembed_table(params, cfg)
     logits = layers.unembed_apply(table, h[:, -1], tied)
-    L, hd, C = cfg.num_layers, cfg.resolved_head_dim, S + headroom
-    k0 = kvs[0][0]
-    shape = (L, B, cfg.num_kv_heads, C, hd)
-    cache_k = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
-    cache_v = torch.zeros(shape, dtype=k0.dtype, device=k0.device)
-    for i, (k, v) in enumerate(kvs):
-        cache_k[i, :, :, :S] = k.transpose(1, 2)
-        cache_v[i, :, :, :S] = v.transpose(1, 2)
-    slot = torch.full((C,), -1, dtype=torch.int32, device=k0.device)
-    slot[:S] = torch.arange(S, dtype=torch.int32, device=k0.device)
+    L, C, dev = cfg.num_layers, S + headroom, h.device
+    cache_k, cache_v = stack_kv(kvs, C)
+    slot = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    slot[:S] = torch.arange(S, dtype=torch.int32, device=dev)
     cache = {"layers": {"k": cache_k, "v": cache_v,
                         "slot_pos": slot[None].repeat(L, 1)},
-             "pos": torch.tensor(S - 1, dtype=torch.int32, device=k0.device)}
+             "pos": torch.tensor(S - 1, dtype=torch.int32, device=dev)}
     return logits, cache
 
 

@@ -199,8 +199,15 @@ class ServeEngine:
     def generate(self, requests: Sequence[Request]) -> List[Request]:
         """Serve a wave of requests: any number by continuous batching for
         a cell family, one aligned batch of at most ``max_batch`` for an
-        LM."""
+        LM. The encoder-decoder and vision-language families (``audio``,
+        ``vlm``) raise ``NotImplementedError``, as in JAX: their inputs
+        are more than tokens, and they are served through the model API's
+        ``prefill`` and ``decode_step``."""
         reqs = list(requests)
+        if self.cfg.family in ("audio", "vlm"):
+            raise NotImplementedError("wave serving is LM/cell-family-only; "
+                                      "use the model API directly for other "
+                                      "families")
         if not reqs:
             return []
         if not self._is_cell():

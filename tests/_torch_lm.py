@@ -1,5 +1,6 @@
-"""Helpers shared by the recurrent-LM parity tests (``test_torch_ssm``,
-``test_torch_xlstm``, ``test_torch_hymba``): JAX ``init_params`` trees as
+"""Helpers shared by the LM parity tests (``test_torch_ssm``,
+``test_torch_xlstm``, ``test_torch_hymba``, ``test_torch_whisper``,
+``test_torch_llava``): JAX ``init_params`` trees as
 numpy with the zero- and one-initialised leaves perturbed, the configs of
 both packages at SMOKE size in fp32, and left-padded token batches."""
 from __future__ import annotations
@@ -15,27 +16,30 @@ ONES = ("scale", "out_norm", "skip", "d_skip")       # init ones
 ZEROS = ("a_log", "dt_bias", "conv_b")               # init zeros
 
 
-def perturb(tree, rng):
+def perturb(tree, rng, zeros=ZEROS):
     """Ones-initialised leaves -> 1 + 0.1 N(0, 1), zeros-initialised ones
-    -> 0.1 N(0, 1), so every product and sum they enter is exercised (the
-    dense biases and the sLSTM's raw ``b`` are already noise:
-    ``numpy_params``)."""
+    (``zeros``) -> 0.1 N(0, 1), so every product and sum they enter is
+    exercised (the dense biases and the sLSTM's raw ``b`` are already
+    noise: ``numpy_params``)."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
             if k in ONES and not isinstance(v, dict):
                 out[k] = (1.0 + 0.1 * rng.normal(size=v.shape)).astype(
                     np.float32)
-            elif k in ZEROS and not isinstance(v, dict):
+            elif k in zeros and not isinstance(v, dict):
                 out[k] = (0.1 * rng.normal(size=v.shape)).astype(np.float32)
             else:
-                out[k] = perturb(v, rng)
+                out[k] = perturb(v, rng, zeros)
         return out
     return tree
 
 
-def params_np(specs, seed: int = 3):
-    return perturb(numpy_params(specs, seed), np.random.default_rng(seed + 7))
+def params_np(specs, seed: int = 3, zeros=ZEROS):
+    """``numpy_params`` with the ones and ``zeros`` leaves perturbed (pass
+    ``ZEROS + ("bias",)`` to perturb the LayerNorm biases too)."""
+    return perturb(numpy_params(specs, seed), np.random.default_rng(seed + 7),
+                   zeros)
 
 
 def cfgs(arch: str, **kw):

@@ -2293,3 +2293,151 @@ def test_recurrent_lm_init_prepared_on_the_card(cuda_device, arch):
     for k in fw:
         assert fg[k].device.type == "cuda" and fg[k].dtype == fw[k].dtype
         assert torch.equal(fg[k], fw[k]), k
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder and vision-language families: whisper-large-v3's
+# heads (20/20, D 64: the encoder's non-causal attention over 1500 frames,
+# the cross-attention with Sq != Sk, the cross cache with every slot
+# valid) and llava-next-mistral-7b's (32/8, D 128, G 4) through rows 21
+# and 22; both models served at SMOKE size on the card through the model
+# API against the CPU plain path (fp32: logits within 1e-4, streams
+# equal) with their exact launch counts.
+# ---------------------------------------------------------------------------
+
+WHISPER_HEADS, LLAVA_HEADS = (20, 20, 64), (32, 8, 128)
+# (heads, Sq, Sk, causal)
+ENCDEC_FLASH = ((WHISPER_HEADS, 1500, 1500, False),
+                (WHISPER_HEADS, 1500, 1500, True),
+                (WHISPER_HEADS, 4, 1500, False),
+                (WHISPER_HEADS, 64, 1500, False),
+                (WHISPER_HEADS, 77, 300, False),
+                (WHISPER_HEADS, 64, 64, True),
+                (LLAVA_HEADS, 640, 640, True))
+# (heads, C, written positions (from, to), pos or None for a cross cache)
+ENCDEC_DECODE = ((WHISPER_HEADS, 1500, (0, 1499), None),
+                 (WHISPER_HEADS, 1500, (0, 1499), 3),
+                 (WHISPER_HEADS, 68, (0, 4), 4),
+                 (WHISPER_HEADS, 128, (0, 79), 79),
+                 (LLAVA_HEADS, 704, (0, 640), 640),
+                 (LLAVA_HEADS, 704, (0, 655), 655))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("heads,Sq,Sk,causal", ENCDEC_FLASH)
+def test_flash_attention_at_encdec_and_vlm_heads(cuda_device, dtype, heads,
+                                                 Sq, Sk, causal):
+    Hq, Hkv, D = heads
+    g = torch.Generator().manual_seed(Sq + Sk)
+    q = _rand((4, Hq, Sq, D), g, cuda_device, dtype)
+    k = _rand((4, Hkv, Sk, D), g, cuda_device, dtype)
+    v = _rand((4, Hkv, Sk, D), g, cuda_device, dtype)
+    K.reset_launch_counts()
+    got = FK.flash_attention(q, k, v, causal=causal)
+    want = fref.flash_attention_plain(q, k, v, causal, 0)
+    assert FK.flash_attention.launches == 1
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("heads,C,written,pos", ENCDEC_DECODE)
+def test_flash_decode_at_encdec_and_vlm_heads(cuda_device, dtype, heads, C,
+                                              written, pos):
+    """The cross cache (``pos`` None: every written slot valid; at pos 3 the
+    self rule would leave only 4 of them) and the self rings, G = 1 and 4."""
+    from repro_torch.kernels.decode_attn.ops import valid_slots
+    Hq, Hkv, D = heads
+    g = torch.Generator().manual_seed(C + (pos or 0))
+    q = _rand((4, Hkv, Hq // Hkv, D), g, cuda_device, dtype)
+    kc = _rand((4, Hkv, C, D), g, cuda_device, dtype)
+    vc = _rand((4, Hkv, C, D), g, cuda_device, dtype)
+    slot_pos = torch.full((C,), -1, dtype=torch.int32)
+    for p in range(written[0], written[1] + 1):
+        slot_pos[p % C] = p
+    mask = valid_slots(slot_pos.to(cuda_device), pos, 0, cross=pos is None)
+    if pos is None:
+        assert bool(mask.all())
+    K.reset_launch_counts()
+    got = DK.flash_decode(q, kc, vc, mask)
+    assert DK.flash_decode.launches == 1
+    torch.testing.assert_close(got, dref.flash_decode_plain(q, kc, vc, mask),
+                               rtol=TOL, atol=TOL)
+
+
+def _api_streams(arch, dev, new):
+    """SMOKE in fp32 through ``get_api(cfg).prefill`` and ``decode_step``
+    (the engine serves neither family): streams and every call's logits."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import api as mapi
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    api = mapi.get_api(cfg)
+    params = api.init_prepared(cfg, 0, dev)
+    rng = np.random.default_rng(5)
+    S = 12
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(3, S)).astype(np.int32)).to(dev)}
+    if cfg.family == "audio":
+        shape = (3, cfg.encoder.num_frames, cfg.d_model)
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).to(dev)
+    else:
+        shape = (3, cfg.vision.num_patches, cfg.vision.embed_dim)
+        batch["patches"] = torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).to(dev)
+    logs, toks = [], []
+    with torch.no_grad():
+        logits, cache = api.prefill(params, cfg, batch)
+        for _ in range(new):
+            logs.append(logits.float().cpu())
+            toks.append(logits.argmax(-1))
+            logits, cache = api.decode_step(params, cfg, cache, toks[-1])
+    return torch.stack(toks, 1).cpu().tolist(), logs, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("whisper-large-v3", "llava-next-mistral-7b"))
+def test_encdec_and_vlm_served_on_the_card_equal_cpu(cuda_device, arch):
+    """whisper launches flash attention 6 times per prefill (2 encoder, 2
+    decoder self, 2 cross layers) and flash decode 4 per step (self and
+    cross); llava 2 and 2; no other kernel of the port; streams equal the
+    CPU run's, logits within 1e-4."""
+    K.reset_launch_counts()
+    new = 6
+    got, logs, cfg = _api_streams(arch, cuda_device, new)
+    counts = [FK.flash_attention.launches, DK.flash_decode.launches]
+    others = K.KERNELS + K.Q8_KERNELS + K.CHAIN_Q8_KERNELS + \
+        SK.SLSTM_KERNELS + K.ROWWISE_KERNELS + K.SHARD_KERNELS
+    assert all(k.launches == 0 for k in others)
+    L = cfg.num_layers
+    if arch == "whisper-large-v3":
+        assert counts == [cfg.encoder.num_layers + 2 * L, 2 * L * new]
+    else:
+        assert counts == [L, L * new]
+    want, wlogs, _ = _api_streams(arch, torch.device("cpu"), new)
+    assert got == want
+    for a, b in zip(logs, wlogs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("whisper-large-v3", "llava-next-mistral-7b"))
+def test_encdec_and_vlm_init_prepared_on_the_card(cuda_device, arch):
+    """The leaf-by-leaf build on the card equals ``prepare_params`` of the
+    fp32 tree bit for bit (whisper: the LayerNorms stay fp32; llava: the
+    projector is cast with the transformer's weights)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.params import flatten
+    from repro_torch.models import api as mapi
+    cfg = get_smoke_config(arch)
+    api = mapi.get_api(cfg)
+    want = api.prepare_params(init_params(api.specs(cfg), seed=3,
+                                          device="cpu"), cfg, cuda_device)
+    got = api.init_prepared(cfg, seed=3, device=cuda_device)
+    fw, fg = flatten(want), flatten(got)
+    assert list(fw) == list(fg)
+    for k in fw:
+        assert fg[k].device.type == "cuda" and fg[k].dtype == fw[k].dtype
+        assert torch.equal(fg[k], fw[k]), k

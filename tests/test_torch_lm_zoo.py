@@ -130,10 +130,32 @@ def test_every_new_arch_resolves_to_the_transformer_api():
             assert cfg.name == arch and cfg.attn_impl == "cuda"
     assert get_config("qwen2-moe-a2.7b").family == "moe"
     assert get_config("command-r-35b").parallel_block
-    for family in ("audio", "vlm"):     # ssm and hybrid are served now
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            mapi.get_api(get_smoke_config("qwen3-0.6b").replace(
-                family=family))
+    for family, arch in (("audio", "whisper-large-v3"),
+                         ("vlm", "llava-next-mistral-7b")):
+        cfg = get_smoke_config(arch)      # resolved now; the engine raises
+        api = mapi.get_api(cfg)
+        assert api.specs is not transformer.lm_specs
+        eng = ServeEngine(cfg, init_params(api.specs(cfg), device="cpu"),
+                          max_batch=2, clock=ManualClock(), device="cpu")
+        with pytest.raises(NotImplementedError, match="model API directly"):
+            eng.generate([Request(prompt=np.arange(1, 12, dtype=np.int32),
+                                  max_new_tokens=2)])
+
+
+def test_cells_are_jaxs():
+    """``configs.shapes.cells()`` yields JAX's (arch, shape, skip reason)
+    triples in JAX's order, every one of JAX's 13 archs resolving."""
+    import dataclasses
+    from repro.configs.base import ALL_ARCHS as JAX_ALL_ARCHS
+    from repro.configs.shapes import cells as jax_cells
+    from repro_torch.configs.shapes import cells
+    mine = [(a, dataclasses.astuple(s), r) for a, s, r in cells()]
+    theirs = [(a, dataclasses.astuple(s), r) for a, s, r in jax_cells()]
+    assert mine == theirs and len(mine) == 43
+    assert sum(r is not None for _, _, r in mine) == 8
+    assert ALL_ARCHS == JAX_ALL_ARCHS
+    for arch in ALL_ARCHS:
+        mapi.get_api(get_config(arch))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -243,10 +243,22 @@ def test_prepare_params_casts_dense_weights_once():
 
 
 @pytest.mark.parametrize("family", ("audio", "vlm"))
-def test_unported_lm_families_raise(family):
-    cfg = get_smoke_config(ARCH).replace(family=family)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        mapi.get_api(cfg)
+def test_audio_and_vlm_families_resolve(family):
+    """``get_api`` gives the whisper and llava namespaces; the engine
+    serves neither (JAX's ``generate`` raises for both too)."""
+    from repro_torch.models import llava, whisper
+    mod, arch = {"audio": (whisper, "whisper-large-v3"),
+                 "vlm": (llava, "llava-next-mistral-7b")}[family]
+    cfg = get_smoke_config(arch)
+    api = mapi.get_api(cfg)
+    assert api.specs is mod.lm_specs and api.prefill is mod.prefill
+    assert mapi.get_api(get_smoke_config(ARCH).replace(
+        family=family)).specs is mod.lm_specs
+    eng = ServeEngine(cfg, init_params(api.specs(cfg), device="cpu"),
+                      max_batch=2, clock=ManualClock(), device="cpu")
+    with pytest.raises(NotImplementedError, match="model API directly"):
+        eng.generate([Request(prompt=np.arange(1, 12, dtype=np.int32),
+                              max_new_tokens=2)])
 
 
 # --- the engine and the CLI ----------------------------------------------
