@@ -357,6 +357,34 @@ Phases (any failure exits non-zero, before the result lines):
    ``launches``). Each mesh also
    profiles a served ``cuda_sharded`` decode step (reported in phase 12).
    A rank that fails fails the script;
+11c. MoE under a named mesh, run right after phase 10b (its tree still on
+   the card): four ranks share the one card over gloo (the collectives go
+   through the host, so no collective time is a claim); rank 0 is this
+   process, serving from phase 10b's served bf16 tree of qwen2-moe-a2.7b
+   (full width and depth, seed 0; its experts as views, nothing copied),
+   ranks 1-3 the script started again (``--moe-rank``); rank 0 broadcasts
+   the dense leaves and scatters each rank its expert blocks layer by
+   layer through the host (hand-out times and rank 1's GB printed): no
+   other rank holds the whole expert tree. (a) On {data 4} (expert-
+   parallel: 16 experts a rank, the capacity buffer by ``all_to_all``)
+   phase 10's two waves through ``ServeEngine.generate`` under
+   ``ShardCtx(mesh)``, counters zeroed just before: on every rank flash
+   attention 24 launches a prefill and flash decode 24 a step, no plain
+   version and no other kernel; the dropped (token, choice) pairs per
+   wave, decode p50/p99 (host clock) and one profiled step's device busy
+   and idle share; (c) the same waves at capacity factor 16, where nothing
+   drops: the streams equal the one-process engine's at that factor
+   (served on phase 10b's tree after the other ranks have exited) or,
+   where they part, its top two logits within ``MOE_TOP2_TOL``; routing
+   flips counted; (b) on {data 2, model 2} (each rank 32 experts' halves
+   of the hidden dim) one wave of 4 and ``MOE_TP_NEW`` steps for each of
+   ``tp_mode`` ``gather`` (the config's), ``psum``, and ``gather`` under
+   profile ``sp`` (the ``gather_sp`` branch, checked on the dispatch),
+   each with the launch checks, its step times printed; (d)
+   ``pipeline_apply`` over {pod 4} at JAX's test shapes (4 stages of 16, 8
+   microbatches of 4) and at d = 1024, within ``PIPE_TOL`` of
+   ``sequential_reference`` on the card. Every run's streams must be equal
+   on the four ranks, and every rank must exit 0;
 12. time each kernel and its plain version with CUDA events, on the device
    (calls captured in a CUDA graph and replayed, so the host's per-call
    cost is left out) and per call from Python; the bound is the bytes over
@@ -419,7 +447,8 @@ line, and as the last line ``{"ok": true, "device": {...}}``. A row's
 zeroed just before: rows 1-9 phases 4-8, 8b and 8c, rows 1, 2, 4 and
 6 also phase 8d (row 3's phase-11b
 ``backend="cuda"`` launches kept apart as ``mesh_launches``), the
-attention rows phases 10, 10b, 10c and 10d, rows 10, 11, 19 and 20 phase 11, and the shard
+attention rows phases 10, 10b, 10c, 10d and 11c (every rank's counted
+runs), rows 10, 11, 19 and 20 phase 11, and the shard
 rows phase 11b. Without a
 card, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -3836,11 +3865,11 @@ def check_attention_kernels(torch, dev):
 # 10. the dense LM: serve qwen3-0.6b at full width
 # ---------------------------------------------------------------------------
 
-def lm_requests(cfg, wave: int, waves=LM_WAVES):
+def lm_requests(cfg, wave: int, waves=LM_WAVES, new=LM_NEW):
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(100 + wave)
     return [Request(prompt=rng.integers(0, cfg.vocab_size, size=n)
-                    .astype(np.int32), max_new_tokens=LM_NEW)
+                    .astype(np.int32), max_new_tokens=new)
             for n in waves[wave]]
 
 
@@ -3851,13 +3880,13 @@ def record_logits(eng):
     log = []
     api = eng.api
 
-    def prefill(p, cfg, batch):
-        out = api.prefill(p, cfg, batch)
+    def prefill(p, cfg, batch, **kw):
+        out = api.prefill(p, cfg, batch, **kw)
         log.append(out[0].float().clone())
         return out
 
-    def decode_step(p, cfg, cache, tok):
-        out = api.decode_step(p, cfg, cache, tok)
+    def decode_step(p, cfg, cache, tok, **kw):
+        out = api.decode_step(p, cfg, cache, tok, **kw)
         log.append(out[0].float().clone())
         return out
     eng.api = SimpleNamespace(**dict(vars(api), prefill=prefill,
@@ -3865,9 +3894,9 @@ def record_logits(eng):
     return log
 
 
-def serve_lm(eng, cfg, waves=LM_WAVES):
+def serve_lm(eng, cfg, waves=LM_WAVES, new=LM_NEW):
     """Every wave through one engine; returns streams per wave."""
-    return [[r.out for r in eng.generate(lm_requests(cfg, w, waves))]
+    return [[r.out for r in eng.generate(lm_requests(cfg, w, waves, new))]
             for w in range(len(waves))]
 
 
@@ -4056,27 +4085,31 @@ def step_bytes(params, cfg, B, valid):
     return n + kv
 
 
-def profile_moe_step(torch, dev, params, cfg):
+def profile_moe_step(torch, dev, params, cfg, ctx=None):
     """One warm decode step of 4 requests after a 12-token prefill under
     ``torch.profiler``: its wall time and device time split into
     ``flash_decode`` (row 22), the expert products (``aten::bmm``'s
-    kernels) and the rest, beside the step's byte bound."""
+    kernels) and the rest, beside the step's byte bound (of this rank's
+    tree under a mesh ``ctx``)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import NO_SHARD
     from repro_torch.models import transformer
+    ctx = ctx or NO_SHARD
     rng = np.random.default_rng(7)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(
         LM_SLOTS, 12)).astype(np.int32)).to(dev)
     with torch.no_grad():
-        logits, cache = transformer.prefill(params, cfg, toks)
+        logits, cache = transformer.prefill(params, cfg, toks, ctx=ctx)
         nxt = logits.argmax(-1)
         for _ in range(3):
-            logits, cache = transformer.decode_step(params, cfg, cache, nxt)
+            logits, cache = transformer.decode_step(params, cfg, cache, nxt,
+                                                    ctx=ctx)
             nxt = logits.argmax(-1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            transformer.decode_step(params, cfg, cache, nxt)
+            transformer.decode_step(params, cfg, cache, nxt, ctx=ctx)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
     kernels = device_kernels(prof)
@@ -4155,10 +4188,11 @@ def served_launches(K, SK):
     return launches, others
 
 
-def run_moe_path(torch, dev, cfg=None):
+def run_moe_path(torch, dev, cfg=None, keep=False):
     """qwen2-moe-a2.7b at full width and full depth through
     ``ServeEngine.generate`` (``cfg``: a smaller same-family config for a
-    CPU rehearsal)."""
+    CPU rehearsal). ``keep``: also return the served tree (phase 11c
+    serves from it)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.gru_sequence import kernel as K
     from repro_torch.kernels.slstm_cell import kernel as SK
@@ -4217,7 +4251,7 @@ def run_moe_path(torch, dev, cfg=None):
           f"{MOE_ARCH}: streams part where chunked's top two logits are more "
           f"than {MOE_TOP2_TOL} apart: {parted}")
     print(f"  a second cuda run: streams "
-          f"{'equal to the first' if again == streams else 'differ from the first (index_add_ order on the card)'}"
+          f"{'equal to the first' if again == streams else 'differ from the first'}"
           f"; bf16 cuda vs bf16 chunked: logits along the served tokens "
           f"within {worst:.4g} (reported, not held); token streams "
           + ("equal" if not parted else
@@ -4244,7 +4278,10 @@ def run_moe_path(torch, dev, cfg=None):
         "parted": parted, "routing_flips": flips,
         "routings_compared": compared, "peak_gib": peak / 2**30,
         "profile_decode": prof})
-    del eng, eng_c, params
+    del eng, eng_c
+    if keep:
+        return launches, report, params
+    del params
     torch.cuda.empty_cache()
     return launches, report
 
@@ -5726,6 +5763,435 @@ def run_mesh_path(torch):
 
 
 # ---------------------------------------------------------------------------
+# 11c. MoE under a named mesh: qwen2-moe-a2.7b at full width on four ranks
+# ---------------------------------------------------------------------------
+
+MOE_MESH_RANKS = 4
+MOE_MESH_TIMEOUT_S = 600
+MOE_MESH_CAPACITY = 16.0      # (c): no (token, choice) pair can drop
+# (b) on {data 2, model 2}: (tp_mode, profile); "gather" under "sp" takes
+# the gather_sp branch. One wave of 4 prompts of 12 tokens and two steps
+# (the first step of a wave is left out of the step times): the gather
+# modes all-gather each rank's expert F-slices through the host every layer
+# of every call (about 15 s a call, PR 37)
+MOE_TP_RUNS = (("gather", "default"), ("psum", "default"), ("gather", "sp"))
+MOE_TP_WAVES = ((12, 12, 12, 12),)
+MOE_TP_NEW = 2
+# (d): (d, microbatches, microbatch rows) over 4 stages: JAX's test shapes
+# and d = 1024
+PIPE_SHAPES = ((16, 8, 4), (1024, 8, 4))
+PIPE_TOL = 1e-5
+_EXPERT_KEYS = ("wg", "wu", "wd")
+_CHUNK = 1 << 28              # bytes a broadcast moves at once
+
+
+@contextlib.contextmanager
+def moe_dispatches(log):
+    """Record every dispatch of ``models.moe`` while the block runs: each
+    call's (tp_mode, whether it splits over the model axis) and, for the
+    calls that fill a capacity buffer, its dropped (token, choice) pairs
+    (a device scalar: no sync)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod._dispatch_compute_combine
+
+    def rec(x, probs, eidx, *a, E, C, tp_axis=None, tp_mode="psum",
+            tp_size=1, **kw):
+        fills = (tp_axis is None or tp_size <= 1 or tp_mode == "psum"
+                 or (tp_mode == "gather" and x.shape[0] % tp_size))
+        drops = None
+        if fills:
+            counts = torch.bincount(eidx.reshape(-1), minlength=E)
+            drops = (counts - C).clamp(min=0).sum()
+        log.append((tp_mode, tp_axis is not None and tp_size > 1, drops))
+        return real(x, probs, eidx, *a, E=E, C=C, tp_axis=tp_axis,
+                    tp_mode=tp_mode, tp_size=tp_size, **kw)
+    moe_mod._dispatch_compute_combine = rec
+    try:
+        yield log
+    finally:
+        moe_mod._dispatch_compute_combine = real
+
+
+def rank_block(x, ps, mesh, r: int):
+    """Rank r's block of ``x`` under partition spec ``ps`` on ``mesh``
+    (ranks row-major): a view."""
+    from repro_torch.distributed.sharding import block
+    shape = mesh.shape
+    return block(x, ps, mesh, dict(zip(shape, np.unravel_index(
+        r, tuple(shape.values())))))
+
+
+def share_experts(torch, dist, tree, cfg, ctx, dev):
+    """This rank's blocks of the experts (``wg``, ``wu``, ``wd``) by JAX's
+    in-specs on ``ctx``'s mesh: rank 0 keeps views of its whole tree
+    ``tree`` (on the card) and scatters the other ranks' blocks layer by
+    layer through the host; the others receive theirs onto ``dev``."""
+    from repro_torch.distributed.sharding import resolve_pspec
+    from repro_torch.models import moe as moe_mod
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = ctx.mesh
+    out = {}
+    for k in _EXPERT_KEYS:
+        whole = moe_mod.expert_shapes(cfg)[k]
+        ps = resolve_pspec(moe_mod.EXPERT_AXES[k], whole, ctx)
+        if rank == 0:
+            leaf = tree["blocks"]["moe"][k]
+            out[k] = rank_block(leaf, (None,) + tuple(ps), mesh, 0)
+            for layer in range(cfg.num_layers):
+                parts = [rank_block(leaf[layer], ps, mesh, r).contiguous()
+                         .cpu().reshape(-1).view(torch.uint8)
+                         for r in range(world)]
+                dist.scatter(parts[0].clone(), parts, src=0)
+            continue
+        mine = rank_block(torch.empty(whole, device="meta"), ps, mesh, rank)
+        recv = torch.empty((cfg.num_layers,) + tuple(mine.shape),
+                           dtype=torch.bfloat16)
+        for layer in range(cfg.num_layers):
+            dist.scatter(recv[layer].reshape(-1).view(torch.uint8), None,
+                         src=0)
+        out[k] = recv.to(dev)
+        del recv
+    return out
+
+
+def share_moe_tree(torch, dist, tree, cfg, ctx, dev):
+    """Every rank's served tree: the dense leaves whole (rank 0's own, the
+    others' broadcast from its card through the host in pieces of
+    ``_CHUNK`` bytes) and this rank's expert blocks."""
+    from repro_torch.core.params import flatten, unflatten
+    from repro_torch.models import transformer
+    rank = dist.get_rank()
+    box = [None if rank else {p: (tuple(x.shape), str(x.dtype))
+                              for p, x in flatten(tree).items()}]
+    dist.broadcast_object_list(box, src=0)
+    flat = {}
+    for path, (shape, dt) in box[0].items():
+        if path.split("/")[-1] in _EXPERT_KEYS:
+            continue
+        if rank == 0:
+            flat[path] = flatten(tree)[path]
+            buf = flat[path].cpu()
+        else:
+            buf = torch.empty(shape, dtype=getattr(torch, dt.split(".")[-1]))
+        wire = buf.reshape(-1).view(torch.uint8)
+        for i in range(0, wire.numel(), _CHUNK):
+            dist.broadcast(wire[i:i + _CHUNK], src=0)
+        if rank:
+            flat[path] = buf.to(dev)
+    for k, v in share_experts(torch, dist, tree, cfg, ctx, dev).items():
+        flat[f"blocks/moe/{k}"] = v
+    return unflatten(transformer.lm_specs(cfg), flat)
+
+
+def moe_rank_serve(torch, cfg, params, dev, ctx, waves, new, who):
+    """One engine on this rank under ``ctx`` serving ``waves`` with every
+    counter zeroed just before: (streams, attention launches, dispatch
+    log, latency stats)."""
+    from repro_torch.kernels.gru_sequence import kernel as K
+    from repro_torch.kernels.slstm_cell import kernel as SK
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, params, max_batch=LM_SLOTS, device=dev, ctx=ctx)
+    check(eng.params["blocks"]["moe"]["wg"] is params["blocks"]["moe"]["wg"],
+          f"{who}: the engine copied this rank's experts")
+    log = []
+    K.reset_launch_counts()                           # the MoE mesh path
+    with plain_calls() as plain, moe_dispatches(log):
+        streams = serve_lm(eng, cfg, waves, new)
+    torch.cuda.synchronize()
+    launches, others = served_launches(K, SK)
+    st = eng.latency_stats()
+    L = cfg.num_layers
+    prefills, steps_run = st["prefills"], st["steps"] + 1   # one decode key
+    check(not any(plain.values()), f"{who}: plain versions ran {plain}")
+    check(not any(others.values()), f"{who}: other kernels ran {others}")
+    check(launches == {"flash_attention": L * prefills,
+                       "flash_decode": L * steps_run},
+          f"{who}: launches {launches} != {L} x ({prefills} prefills, "
+          f"{steps_run} steps)")
+    check(all(len(s) == new for w in streams for s in w),
+          f"{who}: stream lengths {[[len(s) for s in w] for w in streams]}")
+    return streams, launches, log, st
+
+
+def moe_mesh_rank(torch, rank: int, n: int, dev, tree=None) -> dict:
+    """One rank of phase 11c, in the world ``init_mesh`` joined: rank 0
+    (this script's own process, ``tree`` phase 10b's served tree on the
+    card) hands every other rank the dense leaves and its expert blocks;
+    then (a) the waves on {data n}, (c) the same at capacity factor 16,
+    (b) one wave of each TP mode on {data 2, model n/2}, (d) the pipeline
+    over {pod n}. Returns this rank's results (rank 0's (c) logits and
+    routings under ``"c_logs"``, ``"c_routes"``)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import ShardCtx, named_mesh
+    from repro_torch.distributed import pipeline as pp
+    from repro_torch.serve.engine import ServeEngine
+    meshes = {"data": named_mesh({"data": n}, device=dev),
+              "2x2": named_mesh({"data": 2, "model": n // 2}, device=dev),
+              "pod": named_mesh({"pod": n}, device=dev)}
+    cfg = get_config(MOE_ARCH)
+    L = cfg.num_layers
+    who = f"rank {rank}/{n}"
+    result = {"rank": rank}
+    ctx_a = ShardCtx(meshes["data"])
+    t0 = time.monotonic()
+    params = share_moe_tree(torch, dist, tree, cfg, ctx_a, dev)
+    torch.cuda.synchronize()
+    share_s = time.monotonic() - t0
+    experts = sum(params["blocks"]["moe"][k].numel() * 2
+                  for k in _EXPERT_KEYS)
+    result["build"] = {"share_s": share_s, "expert_gb": experts / 1e9,
+                       "rank_gb": sum(x.numel() * x.element_size()
+                                      for x in _leaves(params)) / 1e9,
+                       "expert_shape": list(params["blocks"]["moe"]["wg"]
+                                            .shape)}
+    # (a) expert-parallel on {data n}: phase 10b's waves
+    streams, launches, log, st = moe_rank_serve(
+        torch, cfg, params, dev, ctx_a, LM_WAVES, LM_NEW, f"{who} (a)")
+    check({m for m, _, _ in log} == {cfg.moe.tp_mode}
+          and not any(split for _, split, _ in log),
+          f"{who} (a): dispatches {set((m, s) for m, s, _ in log)}")
+    calls = L * (1 + LM_NEW)                 # a prefill and LM_NEW steps
+    drops = [int(sum(d for _, _, d in log[w * calls:(w + 1) * calls]))
+             for w in range(len(LM_WAVES))]
+    if rank == 0:
+        prof = profile_moe_step(torch, dev, params, cfg, ctx=ctx_a)
+    else:
+        import io
+        with contextlib.redirect_stdout(io.StringIO()):   # in step with 0
+            prof = profile_moe_step(torch, dev, params, cfg, ctx=ctx_a)
+    result["a"] = {"streams": streams, "launches": launches,
+                   "dropped_pairs_per_wave": drops,
+                   "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+                   "decode_p50_ms": st["p50_s"] * 1e3,
+                   "decode_p99_ms": st["p99_s"] * 1e3,
+                   "profile_decode": prof}
+    # (c) the same waves at capacity factor 16: nothing can drop
+    cfg16 = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_MESH_CAPACITY))
+    eng = ServeEngine(cfg16, params, max_batch=LM_SLOTS, device=dev,
+                      ctx=ctx_a)
+    logs, routes, log = record_logits(eng), [], []
+    with recorded_routes(routes), moe_dispatches(log):
+        streams16 = serve_lm(eng, cfg16)
+    drops16 = int(sum(d for _, _, d in log if d is not None))
+    check(drops16 == 0, f"{who} (c): {drops16} pairs dropped at capacity "
+          f"factor {MOE_MESH_CAPACITY}")
+    result["c"] = {"streams": streams16}
+    if rank == 0:                  # held against the one-process run, here
+        result["c_logs"], result["c_routes"] = logs, routes
+    del eng, logs, routes
+    # (b) {data 2, model n/2}: the experts cut again, one wave per TP mode
+    for k in _EXPERT_KEYS:
+        del params["blocks"]["moe"][k]
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    params["blocks"]["moe"].update(share_experts(
+        torch, dist, tree, cfg, ShardCtx(meshes["2x2"]), dev))
+    torch.cuda.synchronize()
+    result["b_share_s"] = time.monotonic() - t0
+    result["b_expert_shape"] = list(params["blocks"]["moe"]["wg"].shape)
+    result["b"] = {}
+    for mode, profile in MOE_TP_RUNS:
+        cfg_b = cfg.replace(moe=dataclasses.replace(cfg.moe, tp_mode=mode))
+        label = f"{mode}/{profile}"
+        streams_b, launches_b, log, st = moe_rank_serve(
+            torch, cfg_b, params, dev, ShardCtx(meshes["2x2"], profile),
+            MOE_TP_WAVES, MOE_TP_NEW, f"{who} (b) {label}")
+        branch = "gather_sp" if profile == "sp" else mode
+        check(bool(log) and log[0][0] == branch and log[0][1],
+              f"{who} (b) {label}: first dispatch {log[:1]}, want "
+              f"{branch} over the model axis")
+        result["b"][label] = {
+            "streams": streams_b, "launches": launches_b,
+            "prefill_mean_ms": st["prefill_mean_s"] * 1e3,
+            "decode_p50_ms": st["p50_s"] * 1e3}
+    del params
+    torch.cuda.empty_cache()
+    # (d) the pipeline over {pod n}: each rank its stage's params
+    pod = meshes["pod"]
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+    result["d"] = {}
+    for d, M, mb in PIPE_SHAPES:
+        rng = np.random.default_rng(d)
+        scale = 0.5 if d == 16 else d ** -0.5
+        whole = {"w": torch.from_numpy((rng.normal(size=(n, d, d)) * scale)
+                                       .astype(np.float32)).to(dev),
+                 "b": torch.from_numpy((rng.normal(size=(n, d)) * 0.1)
+                                       .astype(np.float32)).to(dev)}
+        xs = torch.from_numpy(rng.normal(size=(M, mb, d)).astype(
+            np.float32)).to(dev)
+        stage = {k: v[pod.axis_index("pod")] for k, v in whole.items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = pp.pipeline_apply(stage_fn, stage, xs, mesh=pod, axis="pod")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        want = pp.sequential_reference(stage_fn, whole, xs)
+        e = (got - want).abs().max().item()
+        check(tuple(got.shape) == (M, mb, d) and bool(torch.isfinite(
+            got).all()) and e <= PIPE_TOL,
+              f"{who} (d) d={d}: pipeline vs sequential {e:.3g}")
+        result["d"][f"d{d}"] = {"err": e, "wall_ms": wall * 1e3,
+                                "checksum": float(got.double().sum())}
+    return result
+
+
+def moe_rank_main(rank: int, n: int, store: str, out: str) -> None:
+    """Ranks 1..n-1 of phase 11c (``chip_smoke.py --moe-rank``): join the
+    world of the script's own process (rank 0) on the card and run
+    :func:`moe_mesh_rank`; write the results to ``out`` (JSON). Any
+    failure exits non-zero."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import init_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    init_mesh(n, rank, init_file=store, device=dev, backend="gloo",
+              timeout_s=MOE_MESH_TIMEOUT_S)
+    result = moe_mesh_rank(torch, rank, n, dev)
+    check("jax" not in sys.modules and "repro" not in sys.modules,
+          f"rank {rank}: the JAX package was imported")
+    Path(out).write_text(json.dumps(result))
+    dist.destroy_process_group()
+
+
+def run_moe_mesh_path(torch, dev, tree):
+    """Phase 11c: this process is rank 0 of four ranks on the one card
+    (gloo), serving from phase 10b's served tree ``tree`` (its experts as
+    views, nothing copied); ranks 1-3 are this script started again. Then,
+    the other ranks gone, the one-process engine serves (c)'s waves on
+    ``tree`` at the same capacity factor. Returns (rows 21-22's launches
+    summed over every rank's counted runs, the report)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import init_mesh
+    from repro_torch.serve.engine import ServeEngine
+    torch.cuda.empty_cache()
+    n = MOE_MESH_RANKS
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_mesh_"))
+    outs = {r: work / f"rank{r}.json" for r in range(1, n)}
+    t0 = time.monotonic()
+    procs, logs = [], []
+    try:
+        for r in range(1, n):
+            logs.append(open(work / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--moe-rank",
+                 str(r), str(n), str(work / "store"), str(outs[r])],
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        init_mesh(n, 0, init_file=str(work / "store"), device=dev,
+                  backend="gloo", timeout_s=MOE_MESH_TIMEOUT_S)
+        r0 = moe_mesh_rank(torch, 0, n, dev, tree)
+        dist.destroy_process_group()
+        deadline = time.monotonic() + 120
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        fail("phase 11c: a rank did not end within 120 s of rank 0")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            for r in range(1, n):
+                print(f"  rank {r} log:\n" + (work / f"rank{r}.log")
+                      .read_text()[-3000:], flush=True)
+    check(codes == [0] * (n - 1), f"phase 11c: ranks 1-3 exit codes {codes}")
+    wall = time.monotonic() - t0
+    ranks = [r0] + [json.loads(outs[r].read_text()) for r in range(1, n)]
+    for res in ranks[1:]:
+        check(res["a"]["streams"] == r0["a"]["streams"],
+              f"(a): rank {res['rank']}'s streams differ from rank 0's")
+        check(res["c"]["streams"] == r0["c"]["streams"],
+              f"(c): rank {res['rank']}'s streams differ from rank 0's")
+        for label, b in res["b"].items():
+            check(b["streams"] == r0["b"][label]["streams"],
+                  f"(b) {label}: rank {res['rank']}'s streams differ")
+    cfg = get_config(MOE_ARCH)
+    L = cfg.num_layers
+    launches = {k: 0 for k in ATTN}
+    for res in ranks:
+        for run in [res["a"]] + list(res["b"].values()):
+            for k in ATTN:
+                launches[k] += run["launches"][k]
+    b, b1 = r0["build"], ranks[1]["build"]
+    print(f"  four ranks (gloo, one card; rank 0 this process, from phase "
+          f"10b's tree) done in {wall:.1f} s; rank 1 holds "
+          f"{b1['rank_gb']:.3f} GB ({b1['expert_gb']:.3f} GB of experts, wg "
+          f"{tuple(b1['expert_shape'])} on {{data 4}}, "
+          f"{tuple(ranks[1]['b_expert_shape'])} on {{data 2, model 2}}), "
+          f"handed out in {b['share_s']:.1f} s and {r0['b_share_s']:.1f} s",
+          flush=True)
+    a = r0["a"]
+    drops = [sum(res["a"]["dropped_pairs_per_wave"][w] for res in ranks)
+             for w in range(len(LM_WAVES))]
+    print(f"  (a) {{data 4}}, capacity factor 1.25: streams equal on the "
+          f"four ranks; flash_attention {L} a prefill, flash_decode {L} a "
+          f"step on every rank ({a['launches']} on rank 0), no plain "
+          f"version, no other kernel; dropped (token, choice) pairs per "
+          f"wave (the ranks' token blocks summed): {drops}; prefill mean {a['prefill_mean_ms']:.4f} ms, decode p50 "
+          f"{a['decode_p50_ms']:.4f} ms p99 {a['decode_p99_ms']:.4f} ms "
+          f"(host clock, rank 0; gloo through the host on one card: no "
+          f"collective time is a claim)", flush=True)
+    for label, run in r0["b"].items():
+        print(f"  (b) {{data 2, model 2}} {label}: streams equal on the four "
+              f"ranks; launches {run['launches']}; prefill "
+              f"{run['prefill_mean_ms']:.4f} ms, decode "
+              f"{run['decode_p50_ms']:.4f} ms (host clock, rank 0)",
+              flush=True)
+    # (c) against the one-process engine at the same factor, on ``tree``
+    cfg16 = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_MESH_CAPACITY))
+    eng = ServeEngine(cfg16, tree, max_batch=LM_SLOTS, device=dev)
+    ref_logs, ref_routes = record_logits(eng), []
+    with recorded_routes(ref_routes):
+        ref_streams = serve_lm(eng, cfg16)
+    del eng
+    worst, parted = compare_lm_runs(r0["c"]["streams"], r0.pop("c_logs"),
+                                    ref_streams, ref_logs)
+    flips, compared = routing_flips(r0.pop("c_routes"), ref_routes,
+                                    r0["c"]["streams"], ref_streams, L)
+    check(all(p["top2_gap"] <= MOE_TOP2_TOL for p in parted),
+          f"(c): streams part from the one-process run where its top two "
+          f"logits are more than {MOE_TOP2_TOL} apart: {parted}")
+    print(f"  (c) capacity factor {MOE_MESH_CAPACITY:g} on {{data 4}} vs the "
+          f"one-process engine at that factor: token streams "
+          + ("equal" if not parted else
+             f"part in {len(parted)} of {LM_SLOTS * len(LM_WAVES)} requests, "
+             f"each where the one-process run's top two logits are within "
+             f"{max(p['top2_gap'] for p in parted):.4g} (tol {MOE_TOP2_TOL})")
+          + f"; logits along the shared tokens within {worst:.4g} "
+          f"(reported); routing flips {flips} of {compared} (token, layer) "
+          f"top-k sets", flush=True)
+    for key, d in r0["d"].items():
+        sums = {res["d"][key]["checksum"] for res in ranks}
+        check(len(sums) == 1, f"(d) {key}: ranks' outputs differ {sums}")
+        print(f"  (d) pipeline over {{pod 4}}, {key}: within {d['err']:.3g} "
+              f"of sequential_reference on the card (tol {PIPE_TOL}), the "
+              f"same on every rank; {d['wall_ms']:.3f} ms (host clock)",
+              flush=True)
+    report = {"wall_s": wall, "build": b, "rank1_build": b1,
+              "a": {k: v for k, v in a.items() if k != "streams"},
+              "dropped_pairs_per_wave": drops,
+              "b": {k: {x: y for x, y in v.items() if x != "streams"}
+                    for k, v in r0["b"].items()},
+              "c": {"parted": parted, "logits_vs_one_process": worst,
+                    "routing_flips": flips, "routings_compared": compared},
+              "d": r0["d"], "launches": launches}
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
 # 12. timing
 # ---------------------------------------------------------------------------
 
@@ -6922,6 +7388,10 @@ def main() -> None:
         rank, n, backend, store, out = sys.argv[2:7]
         mesh_rank_main(int(rank), int(n), backend, store, out)
         return
+    if sys.argv[1:2] == ["--moe-rank"]:
+        rank, n, store, out = sys.argv[2:6]
+        moe_rank_main(int(rank), int(n), store, out)
+        return
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     phase("1. device")
@@ -6985,10 +7455,20 @@ def main() -> None:
     phase("10b. MoE: serve qwen2-moe-a2.7b at full width and depth, then "
           "qwen3-moe-235b-a22b at full width and depth 2, through the "
           "attention kernels")
-    moe_launches, moe_report = run_moe_path(torch, dev)
+    moe_launches, moe_report, moe_tree = run_moe_path(torch, dev, keep=True)
     wide_launches, wide_report = run_moe_wide(torch, dev)
     for k in ATTN:
         launches[k] += moe_launches[k] + wide_launches[k]
+    phase("11c. MoE under a named mesh (run here, from 10b's tree): "
+          "qwen2-moe-a2.7b at full width on 4 ranks (gloo, one card): "
+          "expert-parallel, the TP modes on 2x2, capacity 16 against one "
+          "process, the GPipe pipeline")
+    moe_mesh_launches, moe_mesh_report = run_moe_mesh_path(torch, dev,
+                                                           moe_tree)
+    del moe_tree
+    torch.cuda.empty_cache()
+    for k in ATTN:
+        launches[k] += moe_mesh_launches[k]
     phase("10c. recurrent LMs: serve hymba-1.5b at full width and depth "
           "through the windowed attention kernels, then xlstm-125m at full "
           "width")
@@ -7052,7 +7532,8 @@ def main() -> None:
                       "serve_llava": llava_report,
                       "attention_zoo_err": zoo_err,
                       "rowwise_launches": rw_launches,
-                      "serve_mesh": mesh_report}))
+                      "serve_mesh": mesh_report,
+                      "serve_moe_mesh": moe_mesh_report}))
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -62,9 +62,10 @@ def _warn_deprecated(old: str) -> None:
 def gru_cell_specs(input_dim: int, hidden_dim: int) -> dict:
     """One GRU layer. Gate stacking order along the last axis: [z, r, h]."""
     return {
-        "w": Spec((input_dim, 3 * hidden_dim)),
-        "u": Spec((hidden_dim, 3 * hidden_dim), init="recurrent"),
-        "b": Spec((3 * hidden_dim,), init="zeros"),
+        "w": Spec((input_dim, 3 * hidden_dim), ("rnn_in", "gates")),
+        "u": Spec((hidden_dim, 3 * hidden_dim), ("hidden", "gates"),
+                  init="recurrent"),
+        "b": Spec((3 * hidden_dim,), ("gates",), init="zeros"),
     }
 
 
@@ -102,8 +103,8 @@ def gru_classifier_specs(cfg: GRUConfig) -> dict:
     uses ``{"cell": ...}``, deeper stacks ``{"cells": (...)}``."""
     head_in = cfg.resolved_layer_dims[-1]
     head = {
-        "w": Spec((head_in, cfg.num_classes)),
-        "b": Spec((cfg.num_classes,), init="zeros"),
+        "w": Spec((head_in, cfg.num_classes), ("hidden", None)),
+        "b": Spec((cfg.num_classes,), (None,), init="zeros"),
     }
     if cfg.resolved_num_layers == 1:
         return {"cell": gru_cell_specs(cfg.input_dim, head_in), "head": head}

@@ -1,9 +1,11 @@
-"""Parameter specs: declare-once shapes, materialized with torch.
+"""Parameter specs: declare-once shapes and logical axes, materialized with
+torch.
 
-Counterpart of ``repro.core.params`` (without the logical sharding axes,
-which nothing in the port reads yet): a model declares its parameters as a
-nested dict/tuple of :class:`Spec` leaves, and :func:`init_params` turns
-that tree into tensors, seeded per path with a ``torch.Generator`` (the
+Counterpart of ``repro.core.params``: a model declares its parameters as a
+nested dict/tuple of :class:`Spec` leaves, each with its shape and its
+LOGICAL axes (names from :data:`PARAM_AXES`; :func:`logical_axes` gives the
+tree of them, which ``repro_torch.distributed.sharding`` resolves against
+a mesh), and :func:`init_params` turns that tree into tensors, seeded per path with a ``torch.Generator`` (the
 numbers differ from ``jax.random``'s; tests that compare the two
 frameworks carry the JAX tree over with :func:`params_from_numpy`, and a
 whole train state with :func:`state_from_numpy`).
@@ -39,13 +41,43 @@ def torch_dtype(name: str) -> torch.dtype:
                     "fp16": "float16"}.get(name, name)]
 
 
+# Logical axis vocabulary (a copy of JAX's ``PARAM_AXES``). Activations use
+# the ``act_*`` names; the mapping to mesh axes lives in
+# repro_torch.distributed.sharding.
+PARAM_AXES = (
+    "layers",      # stacked-layers axis (never sharded)
+    "vocab", "embed", "heads", "kv_heads", "head_dim", "mlp",
+    "experts", "expert_mlp",
+    "hidden", "rnn_in", "gates",       # recurrent cells (the paper's rows)
+    "state", "conv", "dt",             # SSM
+    "frames", "patches", "vis_embed",  # modality stubs
+    # activation/cache logical axes (inputs, KV caches, recurrent states)
+    "batch", "act_seq", "act_embed", "act_heads", "act_kv_heads",
+    "act_mlp", "act_experts", "act_gates", "act_hidden",
+    "act_kv_seq",  # KV-cache capacity dim (flash-decode style sharding)
+    "act_seq_tp",  # sequence dim force-sharded over model (SP attention
+                   # fallback when head counts don't divide the TP axis)
+    "podwise",     # per-pod local state (error-feedback residuals)
+)
+
+
 @dataclass(frozen=True)
 class Spec:
-    """Declaration of one parameter tensor."""
+    """Declaration of one parameter tensor: its shape and one logical axis
+    name (or None) per dimension."""
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "fan_in"        # fan_in | recurrent | zeros | ones | embed
     scale: float = 1.0
     dtype: Optional[str] = None  # None -> model param_dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"differ in rank")
+        for a in self.axes:
+            if a is not None and a not in PARAM_AXES:
+                raise ValueError(f"unknown logical axis {a!r}")
 
 
 def is_spec(x) -> bool:
@@ -132,10 +164,17 @@ def unflatten(like, flat: dict):
 
 
 def stack_specs(spec_tree, n: int):
-    """Prepend a layer axis of size ``n`` to every Spec in the tree."""
-    return _map_tree(lambda _path, s: Spec((n,) + tuple(s.shape), init=s.init,
-                                           scale=s.scale, dtype=s.dtype)
+    """Prepend a ``layers`` axis of size ``n`` to every Spec in the tree."""
+    return _map_tree(lambda _path, s: Spec((n,) + tuple(s.shape),
+                                           ("layers",) + tuple(s.axes),
+                                           init=s.init, scale=s.scale,
+                                           dtype=s.dtype)
                      if is_spec(s) else s, spec_tree)
+
+
+def logical_axes(specs):
+    """The same tree with each Spec replaced by its tuple of logical axes."""
+    return _map_tree(lambda _path, s: s.axes if is_spec(s) else s, specs)
 
 
 def init_params(specs, seed: int = 0, param_dtype: str = "float32", *,

@@ -197,11 +197,19 @@ HOST = Placement()
 
 
 def _as_placement(p) -> Placement:
-    """None | Mesh | Placement -> Placement."""
+    """None | Mesh | Placement -> Placement. A multi-axis mesh places the
+    stack on its ``model`` axis (JAX's ``Placement(axis="model")``): the
+    sharded backends split over that axis's ranks and every other axis
+    holds a replica; without a ``model`` axis each rank holds the whole
+    stack (a one-rank mesh on its device)."""
     if p is None:
         return HOST
     if isinstance(p, Placement):
         return p
+    if getattr(p, "subs", ()):
+        from repro_torch.distributed.mesh import Mesh
+        p = (p.sub("model") if "model" in p.axis_names else
+             Mesh(group=None, size=1, rank=0, device=p.device))
     return Placement(mesh=p)
 
 

@@ -48,9 +48,10 @@ def slstm_cell_specs(input_dim: int, hidden_dim: int) -> dict:
     """One sLSTM layer. Gate stacking order along the last axis:
     [z, i, f, o]."""
     return {
-        "w": Spec((input_dim, 4 * hidden_dim)),
-        "u": Spec((hidden_dim, 4 * hidden_dim), init="recurrent"),
-        "b": Spec((4 * hidden_dim,), init="zeros"),
+        "w": Spec((input_dim, 4 * hidden_dim), ("rnn_in", "gates")),
+        "u": Spec((hidden_dim, 4 * hidden_dim), ("hidden", "gates"),
+                  init="recurrent"),
+        "b": Spec((4 * hidden_dim,), ("gates",), init="zeros"),
     }
 
 

@@ -8,7 +8,9 @@ encoder-decoder whisper (``audio``) and the vision-language llava
 (``vlm``): every family of the JAX package. Whisper's and llava's
 ``forward`` and ``prefill`` read the whole batch (``frames``, ``patches``
 beside the tokens); the serving engine serves neither, as in JAX, so they
-are driven through ``prefill`` and ``decode_step``."""
+are driven through ``prefill`` and ``decode_step``. Each family's
+``forward``, ``prefill``, ``decode_step`` and ``loss_fn`` take the
+``ctx`` keyword (JAX's ``ShardCtx`` argument), ``NO_SHARD`` by default."""
 from __future__ import annotations
 
 from types import SimpleNamespace
@@ -20,6 +22,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.cells import UnknownCellFamily, is_cell_family
 from repro_torch.core.params import Spec, _map_tree, is_spec, torch_dtype
+from repro_torch.distributed.sharding import NO_SHARD
 from repro_torch.models import (gru_lm, hymba, layers, llava, slstm_lm,
                                 transformer, whisper, xlstm)
 
@@ -46,8 +49,11 @@ def _lm_api(mod, prepare_params, *, tokens: bool) -> SimpleNamespace:
     or ``patches`` beside the tokens)."""
     forward, prefill = mod.forward, mod.prefill
     if tokens:
-        forward = lambda p, cfg, batch: mod.forward(p, cfg, batch["tokens"])
-        prefill = lambda p, cfg, batch: mod.prefill(p, cfg, batch["tokens"])
+        def forward(p, cfg, batch, *, ctx=NO_SHARD):
+            return mod.forward(p, cfg, batch["tokens"], ctx=ctx)
+
+        def prefill(p, cfg, batch, *, ctx=NO_SHARD):
+            return mod.prefill(p, cfg, batch["tokens"], ctx=ctx)
     return SimpleNamespace(
         specs=mod.lm_specs,
         prepare_params=prepare_params,              # cast to cdtype once
@@ -96,21 +102,24 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     if is_cell_family(cfg.family):
         g = cfg.gru
         if shape.kind == "decode":
-            return {"x": Spec((B, g.input_dim), dtype=cfg.dtype)}
-        return {"features": Spec((B, S, g.input_dim), dtype=cfg.dtype),
-                "labels": Spec((B,), dtype="int32")}
+            return {"x": Spec((B, g.input_dim), ("batch", None),
+                              dtype=cfg.dtype)}
+        return {"features": Spec((B, S, g.input_dim),
+                                 ("batch", "act_seq", None), dtype=cfg.dtype),
+                "labels": Spec((B,), ("batch",), dtype="int32")}
     get_api(cfg)        # an unknown family raises here
     if shape.kind == "decode":
-        return {"tokens": Spec((B,), dtype="int32")}
-    batch = {"tokens": Spec((B, S), dtype="int32")}
+        return {"tokens": Spec((B,), ("batch",), dtype="int32")}
+    batch = {"tokens": Spec((B, S), ("batch", "act_seq"), dtype="int32")}
     if shape.kind == "train":
-        batch["targets"] = Spec((B, S), dtype="int32")
+        batch["targets"] = Spec((B, S), ("batch", "act_seq"), dtype="int32")
     if cfg.family == "audio":
         batch["frames"] = Spec((B, cfg.encoder.num_frames, cfg.d_model),
-                               dtype=cfg.dtype)
+                               ("batch", None, None), dtype=cfg.dtype)
     if cfg.family == "vlm":
         batch["patches"] = Spec((B, cfg.vision.num_patches,
-                                 cfg.vision.embed_dim), dtype=cfg.dtype)
+                                 cfg.vision.embed_dim), ("batch", None, None),
+                                dtype=cfg.dtype)
     return batch
 
 

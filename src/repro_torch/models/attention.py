@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx, constrain
 from repro_torch.models import layers
 from repro_torch.models.layers import dense_apply, dense_specs, head_rmsnorm
 
@@ -47,13 +48,17 @@ NEG_INF = -1e30
 
 def attn_specs(cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    s = {"wq": dense_specs(d, cfg.num_heads * hd, cfg.qkv_bias),
-         "wk": dense_specs(d, cfg.num_kv_heads * hd, cfg.qkv_bias),
-         "wv": dense_specs(d, cfg.num_kv_heads * hd, cfg.qkv_bias),
-         "wo": dense_specs(cfg.num_heads * hd, d, cfg.out_bias)}
+    s = {"wq": dense_specs(d, cfg.num_heads * hd, ("embed", "heads"),
+                           cfg.qkv_bias),
+         "wk": dense_specs(d, cfg.num_kv_heads * hd, ("embed", "kv_heads"),
+                           cfg.qkv_bias),
+         "wv": dense_specs(d, cfg.num_kv_heads * hd, ("embed", "kv_heads"),
+                           cfg.qkv_bias),
+         "wo": dense_specs(cfg.num_heads * hd, d, ("heads", "embed"),
+                           cfg.out_bias)}
     if cfg.qk_norm:
-        s["q_norm"] = Spec((hd,), init="ones")
-        s["k_norm"] = Spec((hd,), init="ones")
+        s["q_norm"] = Spec((hd,), ("head_dim",), init="ones")
+        s["k_norm"] = Spec((hd,), ("head_dim",), init="ones")
     return s
 
 
@@ -185,7 +190,7 @@ def _cuda_attention(q, k, v, causal: bool, window: int) -> torch.Tensor:
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-              window: int = 0, causal: bool = True,
+              ctx: ShardCtx = NO_SHARD, window: int = 0, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
               kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Full-sequence attention. Returns (out (B,S,D), (k, v) for caching,
@@ -199,6 +204,12 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         q, k, v = _project_qkv(p, cfg, x, positions)
     else:
         q, (k, v) = project_q(p, cfg, x, positions, rope=False), kv
+    # TP placement (JAX's): heads over the model axis when they divide it,
+    # else the sequence (q rows) over it
+    m = ctx.axis_size("model")
+    seq_ax = "act_seq" if cfg.num_heads % max(m, 1) == 0 else "act_seq_tp"
+    q = constrain(q, ("batch", seq_ax, "act_heads", None), ctx)
+    k = constrain(k, ("batch", "act_seq", "act_kv_heads", None), ctx)
     impl = cfg.attn_impl
     if impl == "naive":
         o = _naive_attention(q, k, v, causal, window)
@@ -227,13 +238,16 @@ def init_cache_specs(cfg: ModelConfig, batch: int, capacity: int,
     ``init_cache``), shared across the batch."""
     hd = cfg.resolved_head_dim
     shape_kv = (batch, cfg.num_kv_heads, capacity, hd)
-    slot_shape = (capacity,)
+    axes_kv = ("batch", "kv_heads", "act_kv_seq", None)
+    slot = Spec((capacity,), (None,), init="zeros", dtype="int32")
     if layers_axis:
         shape_kv = (layers_axis,) + shape_kv
-        slot_shape = (layers_axis, capacity)
-    return {"k": Spec(shape_kv, init="zeros", dtype=cfg.dtype),
-            "v": Spec(shape_kv, init="zeros", dtype=cfg.dtype),
-            "slot_pos": Spec(slot_shape, init="zeros", dtype="int32")}
+        axes_kv = ("layers",) + axes_kv
+        slot = Spec((layers_axis, capacity), ("layers", None), init="zeros",
+                    dtype="int32")
+    return {"k": Spec(shape_kv, axes_kv, init="zeros", dtype=cfg.dtype),
+            "v": Spec(shape_kv, axes_kv, init="zeros", dtype=cfg.dtype),
+            "slot_pos": slot}
 
 
 def decode_attend(p: dict, cfg: ModelConfig, q: torch.Tensor, k_cache,

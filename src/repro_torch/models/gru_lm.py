@@ -13,9 +13,9 @@ so the engine can freeze it, call through it and record which backend
 ran. Under a mesh (``ctx=ShardCtx(mesh)``) the mesh becomes the
 executable's ``Placement``: every rank serves the same requests SPMD, and
 prefill runs the row-wise/cascade split (``cuda_sharded`` under
-``"cuda"``) unless pinned otherwise. JAX's sharding constraints on the
-cache (``constrain``) have no counterpart here: the states come back
-replicated from the split, as the constraint asks.
+``"cuda"``) unless pinned otherwise. JAX's sharding constraint on the
+states (``constrain``) stands at JAX's point and changes nothing: the
+states come back replicated from the split.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import gru as gru_core
 from repro_torch.core import runtime
 from repro_torch.core.params import Spec, init_params
-from repro_torch.distributed.sharding import NO_SHARD, ShardCtx
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx, constrain
 from repro_torch.models.layers import nll
 
 
@@ -38,7 +38,8 @@ def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
     return (h @ params["head"]["w"] + params["head"]["b"]).float()
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """batch: {features (B,T,X)} -> class logits (B,C)."""
     return gru_core.gru_classify(params, batch["features"], cfg=cfg.gru)
 
@@ -53,8 +54,10 @@ def classifier_loss(logits: torch.Tensor, labels: torch.Tensor):
                   "aux": torch.zeros((), device=logits.device)}
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
-    """batch: {features (B,T,X), labels (B,)} -> softmax CE."""
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
+    """batch: {features (B,T,X), labels (B,)} -> softmax CE. The forward
+    runs whole on every rank (``ctx`` places nothing in it)."""
     return classifier_loss(forward(params, cfg, batch), batch["labels"])
 
 
@@ -115,9 +118,10 @@ def serve_executable(cfg: ModelConfig, *, batch: int, seq: int = None,
 def cache_specs(cfg: ModelConfig, batch: int) -> dict:
     """Recurrent cache: one hidden state per layer, plus the position."""
     return {
-        "h": tuple(Spec((batch, h), init="zeros", dtype="float32")
+        "h": tuple(Spec((batch, h), ("batch", "act_gates"), init="zeros",
+                        dtype="float32")
                    for h in cfg.gru.resolved_layer_dims),
-        "pos": Spec((), init="zeros", dtype="int32"),
+        "pos": Spec((), (), init="zeros", dtype="int32"),
     }
 
 
@@ -134,6 +138,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     exe = exe or runtime.compile(cfg.gru, batch=x.shape[0], mode="decode",
                                  placement=_placement(ctx))
     hs = exe.decode(params, cache["h"], x)
+    hs = tuple(constrain(h, ("batch", "act_gates"), ctx) for h in hs)
     return _logits(params, hs[-1]), {"h": hs, "pos": cache["pos"] + 1}
 
 

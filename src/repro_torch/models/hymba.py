@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec, init_params, stack_specs
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx, constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import ssm as ssm_mod
@@ -76,7 +77,8 @@ def lm_specs(cfg: ModelConfig) -> dict:
         "embed": layers.embed_specs(cfg.vocab_size, cfg.d_model),
         "blocks": blocks,
         "final_norm": layers.norm_specs(cfg.d_model, cfg.norm),
-        "lm_head": Spec((cfg.d_model, cfg.vocab_size), init="fan_in"),
+        "lm_head": Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                        init="fan_in"),
     }
 
 
@@ -125,42 +127,45 @@ def ring(k: torch.Tensor, v: torch.Tensor, window: int, headroom: int = HEADROOM
 
 
 def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
-                window: int, collect_cache: bool = False):
+                window: int, ctx: ShardCtx = NO_SHARD,
+                collect_cache: bool = False):
     """One hybrid block. Returns x, or (x, this layer's decode cache) with
     ``collect_cache``."""
     h = layers.norm_apply(p["ln1"], x, cfg.norm)
-    a, (k, v) = attn_mod.attention(p["attn"], cfg, h, window=window,
+    a, (k, v) = attn_mod.attention(p["attn"], cfg, h, ctx=ctx, window=window,
                                    positions=positions)
     if collect_cache:
         s, ssm_state = ssm_mod.ssm_apply(p["ssm"], cfg, h, return_state=True)
     else:
         s = ssm_mod.ssm_apply(p["ssm"], cfg, h)
-    x = _fuse_mlp(p, cfg, x, a, s)
+    x = constrain(_fuse_mlp(p, cfg, x, a, s), ("batch", "act_seq", "act_embed"), ctx)
     if not collect_cache:
         return x
     return x, {"attn": ring(k, v, window), "ssm": ssm_state}
 
 
-def hidden_states(params: dict, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
+def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     B, S = tokens.shape
     x = layers.embed_apply(params["embed"], tokens, cdtype(cfg))
+    x = constrain(x, ("batch", "act_seq", "act_embed"), ctx)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     for _g, _i, p, window in _layers(params, cfg):
-        x = block_apply(p, cfg, x, positions, window=window)
+        x = block_apply(p, cfg, x, positions, window=window, ctx=ctx)
     return layers.norm_apply(params["final_norm"], x, cfg.norm)
 
 
-def forward(params: dict, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Full logits (B,S,V) in fp32 (teacher-forced)."""
-    h = hidden_states(params, cfg, tokens)
+    h = hidden_states(params, cfg, tokens, ctx=ctx)
     return layers.unembed_apply(params["lm_head"], h, tied=False)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """batch: {tokens, targets, mask optional} -> (ce, {"ce", "aux" = 0})."""
-    h = hidden_states(params, cfg, batch["tokens"])
+    h = hidden_states(params, cfg, batch["tokens"], ctx=ctx)
     ce = chunked_ce(h, params["lm_head"], batch["targets"], batch.get("mask"),
                     tied=False)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
@@ -192,7 +197,7 @@ def cache_specs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
                                                     layers_axis=lead),
                   "ssm": ssm_mod.ssm_cache_specs(cfg, batch,
                                                  layers_axis=lead)}
-    out["pos"] = Spec((), init="zeros", dtype="int32")
+    out["pos"] = Spec((), (), init="zeros", dtype="int32")
     return out
 
 
@@ -234,7 +239,7 @@ def _block_decode(p, cfg, x, c, pos, positions, window):
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
     """tokens (B,) -> (logits (B,V) fp32, the cache updated in place)."""
     B = tokens.shape[0]
     pos = cache["pos"] + 1
@@ -255,16 +260,18 @@ def _stack_caches(caches):
             for part in caches[0]}
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            ctx: ShardCtx = NO_SHARD):
     """Parallel prefill: one full forward that keeps each layer's KV ring
     (:func:`ring`) and SSM state. tokens (B,S) -> (last-token logits (B,V)
     fp32, cache)."""
     B, S = tokens.shape
     x = layers.embed_apply(params["embed"], tokens, cdtype(cfg))
+    x = constrain(x, ("batch", "act_seq", "act_embed"), ctx)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     per_group = {g: [] for g in _GROUPS}
     for g, _i, p, window in _layers(params, cfg):
-        x, c = block_apply(p, cfg, x, positions, window=window,
+        x, c = block_apply(p, cfg, x, positions, window=window, ctx=ctx,
                            collect_cache=True)
         per_group[g].append(c)
     cache = {g: (_stack_caches(cs) if _is_swa(g) else cs[0])
@@ -275,7 +282,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     return logits, cache
 
 
-def prefill_sequential(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+def prefill_sequential(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                       *, ctx: ShardCtx = NO_SHARD):
     """Baseline per-token prefill through decode steps on a cache of
     capacity S (JAX's: its global layers would wrap onto the prompt at the
     next step, so only its logits are a reference)."""
@@ -283,5 +291,6 @@ def prefill_sequential(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     cache = init_cache(cfg, B, S, device=tokens.device)
     cache["pos"] -= 1
     for t in range(S):
-        logits, cache = decode_step(params, cfg, cache, tokens[:, t])
+        logits, cache = decode_step(params, cfg, cache, tokens[:, t],
+                                    ctx=ctx)
     return logits, cache

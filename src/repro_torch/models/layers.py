@@ -8,7 +8,7 @@ fp32; logits are fp32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,9 +22,9 @@ def cdtype(cfg) -> torch.dtype:
 # --- norms -----------------------------------------------------------------
 
 def norm_specs(d: int, kind: str = "rmsnorm") -> dict:
-    s = {"scale": Spec((d,), init="ones")}
+    s = {"scale": Spec((d,), ("embed",), init="ones")}
     if kind == "layernorm":
-        s["bias"] = Spec((d,), init="zeros")
+        s["bias"] = Spec((d,), ("embed",), init="zeros")
     return s
 
 
@@ -50,11 +50,13 @@ def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
 
 # --- dense -----------------------------------------------------------------
 
-def dense_specs(d_in: int, d_out: int, bias: bool = False,
-                init: str = "fan_in", scale: float = 1.0) -> dict:
-    s = {"w": Spec((d_in, d_out), init=init, scale=scale)}
+def dense_specs(d_in: int, d_out: int,
+                axes: Tuple[Optional[str], Optional[str]],
+                bias: bool = False, init: str = "fan_in",
+                scale: float = 1.0) -> dict:
+    s = {"w": Spec((d_in, d_out), axes, init=init, scale=scale)}
     if bias:
-        s["b"] = Spec((d_out,), init="zeros")
+        s["b"] = Spec((d_out,), (axes[1],), init="zeros")
     return s
 
 
@@ -95,11 +97,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def mlp_specs(d_model: int, d_ff: int, kind: str = "swiglu",
               bias: bool = False) -> dict:
     if kind == "swiglu":
-        return {"wg": dense_specs(d_model, d_ff, bias),
-                "wu": dense_specs(d_model, d_ff, bias),
-                "wd": dense_specs(d_ff, d_model, bias)}
-    return {"w1": dense_specs(d_model, d_ff, bias),
-            "w2": dense_specs(d_ff, d_model, bias)}
+        return {"wg": dense_specs(d_model, d_ff, ("embed", "mlp"), bias),
+                "wu": dense_specs(d_model, d_ff, ("embed", "mlp"), bias),
+                "wd": dense_specs(d_ff, d_model, ("mlp", "embed"), bias)}
+    return {"w1": dense_specs(d_model, d_ff, ("embed", "mlp"), bias),
+            "w2": dense_specs(d_ff, d_model, ("mlp", "embed"), bias)}
 
 
 def mlp_apply(p: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
@@ -115,7 +117,8 @@ def mlp_apply(p: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
 # --- embedding / unembedding -------------------------------------------------
 
 def embed_specs(vocab: int, d_model: int) -> Spec:
-    return Spec((vocab, d_model), init="embed", scale=0.02)
+    return Spec((vocab, d_model), ("vocab", "embed"), init="embed",
+                scale=0.02)
 
 
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor,
@@ -175,12 +178,15 @@ def dense_cast_paths(tree, path=()) -> set:
     return out
 
 
-def prepare_dense_params(params: dict, cfg, device="cuda") -> dict:
+def prepare_dense_params(params: dict, cfg, device="cuda", *,
+                         ctx=None) -> dict:
     """One-time serving prep of a recurrent LM (xLSTM, hymba): the leaves
     of :func:`dense_cast_paths` cast to the compute dtype, every other leaf
     (norm scales, conv taps, the SSM's ``a_log``/``dt_bias``/``d_skip``,
     the sLSTM's ``r`` and ``b``, ...) kept in the param dtype, all on
-    ``device``. Numerically what the per-call casts do, done once."""
+    ``device``. Numerically what the per-call casts do, done once. Under a
+    mesh (``ctx``) every leaf stays whole on every rank: the dense blocks
+    have no tensor-parallel split in the port."""
     from repro_torch import resolve_device
     from repro_torch.core.params import _map_tree
     dev = resolve_device(device)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx
 from repro_torch.models import layers, transformer
 from repro_torch.models.layers import cdtype, dense_apply, dense_specs
 from repro_torch.models.transformer import _unembed_table, chunked_ce
@@ -25,8 +26,9 @@ from repro_torch.models.transformer import _unembed_table, chunked_ce
 def lm_specs(cfg: ModelConfig) -> dict:
     s = transformer.lm_specs(cfg)
     s["projector"] = {"w1": dense_specs(cfg.vision.embed_dim, cfg.d_model,
-                                        bias=True),
-                      "w2": dense_specs(cfg.d_model, cfg.d_model, bias=True)}
+                                        ("vis_embed", "embed"), bias=True),
+                      "w2": dense_specs(cfg.d_model, cfg.d_model,
+                                        ("embed", "embed"), bias=True)}
     return s
 
 
@@ -48,21 +50,23 @@ def _merged_embeds(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return torch.cat([proj, tok], dim=1)
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """batch {tokens (B,S), patches (B,P,vis)} -> logits (B,S,V) fp32."""
     x = _merged_embeds(params, cfg, batch["tokens"], batch["patches"])
     h, _, _ = transformer.hidden_states(params, cfg, batch["tokens"],
-                                        inputs_embeds=x)
+                                        ctx=ctx, inputs_embeds=x)
     table, tied = _unembed_table(params, cfg)
     return layers.unembed_apply(table, h, tied)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """batch {tokens, patches, targets, mask optional} -> (ce + aux, {"ce",
     "aux"}); the image positions are masked out of the CE."""
     tokens, P = batch["tokens"], batch["patches"].shape[1]
     x = _merged_embeds(params, cfg, tokens, batch["patches"])
-    h, aux, _ = transformer.hidden_states(params, cfg, tokens,
+    h, aux, _ = transformer.hidden_states(params, cfg, tokens, ctx=ctx,
                                           inputs_embeds=x)
     B, S = tokens.shape
     text = (torch.arange(S, device=h.device) >= P).float()[None].expand(B, S)
@@ -73,11 +77,12 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict):
+def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """batch {tokens (B,S), patches} -> (last-token logits (B,V) fp32,
     the transformer's cache, with its 64 empty slots after the prompt)."""
     x = _merged_embeds(params, cfg, batch["tokens"], batch["patches"])
-    return transformer.prefill(params, cfg, batch["tokens"],
+    return transformer.prefill(params, cfg, batch["tokens"], ctx=ctx,
                                inputs_embeds=x)
 
 

@@ -20,7 +20,7 @@ from repro_torch.core import runtime
 from repro_torch.core import slstm as slstm_core
 from repro_torch.core.gru import stack_cell_params
 from repro_torch.core.params import Spec
-from repro_torch.distributed.sharding import NO_SHARD, ShardCtx
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx, constrain
 # family-generic (runtime.prepare and runtime.compile dispatch on
 # cfg.gru.family), so the GRU's serve as they are
 from repro_torch.models.gru_lm import (_placement, classifier_loss,
@@ -33,8 +33,9 @@ def lm_specs(cfg: ModelConfig) -> dict:
     return {
         "cells": slstm_core.slstm_stack_specs(cfg.gru),
         "head": {
-            "w": Spec((cfg.gru.resolved_layer_dims[-1], cfg.gru.num_classes)),
-            "b": Spec((cfg.gru.num_classes,), init="zeros"),
+            "w": Spec((cfg.gru.resolved_layer_dims[-1], cfg.gru.num_classes),
+                      ("hidden", None)),
+            "b": Spec((cfg.gru.num_classes,), (None,), init="zeros"),
         },
     }
 
@@ -43,7 +44,8 @@ def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
     return (h @ params["head"]["w"] + params["head"]["b"]).float()
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """batch: {features (B,T,X)} -> class logits (B,C)."""
     xs = batch["features"]
     state0 = slstm_core.stack_state0(cfg.gru, xs.shape[0], xs.dtype,
@@ -54,8 +56,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return _logits(params, finals[-1])
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
-    """batch: {features (B,T,X), labels (B,)} -> softmax CE."""
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
+    """batch: {features (B,T,X), labels (B,)} -> softmax CE. The forward
+    runs whole on every rank (``ctx`` places nothing in it)."""
     return classifier_loss(forward(params, cfg, batch), batch["labels"])
 
 
@@ -64,10 +68,11 @@ def cache_specs(cfg: ModelConfig, batch: int) -> dict:
     position. The ``m`` leaf starts at ``slstm.M_INIT``, not zero: build a
     cache with :func:`init_cache` (or ``prefill``), not from these specs."""
     return {
-        "h": tuple(Spec((batch, h), init="zeros", dtype="float32")
+        "h": tuple(Spec((batch, h), ("batch", "act_gates"), init="zeros",
+                        dtype="float32")
                    for h in cfg.gru.resolved_layer_dims
                    for _ in range(slstm_core.STATE_LEAVES)),
-        "pos": Spec((), init="zeros", dtype="int32"),
+        "pos": Spec((), (), init="zeros", dtype="int32"),
     }
 
 
@@ -85,7 +90,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     ``exe``: a decode executable to call through (None: ``compile``)."""
     exe = exe or runtime.compile(cfg.gru, batch=x.shape[0], mode="decode",
                                  placement=_placement(ctx))
-    state = exe.decode(params, cache["h"], x)
+    state = tuple(constrain(h, ("batch", "act_gates"), ctx)
+                  for h in exe.decode(params, cache["h"], x))
     return _logits(params, state[-1]), {"h": state, "pos": cache["pos"] + 1}
 
 

@@ -39,15 +39,16 @@ def ssm_specs(cfg: ModelConfig) -> dict:
     di, dtr, n = _dims(cfg)
     w = cfg.ssm.conv_width
     return {
-        "in_proj": dense_specs(d, 2 * di),                   # x and z
-        "conv": Spec((w, di), init="fan_in"),
-        "conv_b": Spec((di,), init="zeros"),
-        "x_proj": dense_specs(di, dtr + 2 * n),
-        "dt_proj": dense_specs(dtr, di, init="fan_in"),
-        "dt_bias": Spec((di,), init="zeros"),
-        "a_log": Spec((di, n), init="zeros"),                # A = -exp(a_log)-1
-        "d_skip": Spec((di,), init="ones"),
-        "out_proj": dense_specs(di, d),
+        "in_proj": dense_specs(d, 2 * di, ("embed", "gates")),  # x and z
+        "conv": Spec((w, di), ("conv", "gates"), init="fan_in"),
+        "conv_b": Spec((di,), ("gates",), init="zeros"),
+        "x_proj": dense_specs(di, dtr + 2 * n, ("gates", "dt")),
+        "dt_proj": dense_specs(dtr, di, ("dt", "gates"), init="fan_in"),
+        "dt_bias": Spec((di,), ("gates",), init="zeros"),
+        "a_log": Spec((di, n), ("gates", "state"),
+                      init="zeros"),                         # A = -exp(a_log)-1
+        "d_skip": Spec((di,), ("gates",), init="ones"),
+        "out_proj": dense_specs(di, d, ("gates", "embed")),
     }
 
 
@@ -148,10 +149,13 @@ def ssm_cache_specs(cfg: ModelConfig, batch: int, layers_axis: int = 0) -> dict:
     di, _, n = _dims(cfg)
     w = cfg.ssm.conv_width
     lead = (layers_axis,) if layers_axis else ()
+    lax_ = ("layers",) if layers_axis else ()
     return {
-        "conv_buf": Spec(lead + (batch, w - 1, di), init="zeros",
+        "conv_buf": Spec(lead + (batch, w - 1, di),
+                         lax_ + ("batch", None, "gates"), init="zeros",
                          dtype=cfg.dtype),
-        "state": Spec(lead + (batch, di, n), init="zeros", dtype="float32"),
+        "state": Spec(lead + (batch, di, n), lax_ + ("batch", "gates", "state"),
+                      init="zeros", dtype="float32"),
     }
 
 

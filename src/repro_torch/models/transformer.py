@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec, init_params, stack_specs
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx, constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
@@ -54,7 +55,8 @@ def lm_specs(cfg: ModelConfig) -> dict:
          "blocks": stack_specs(block_specs(cfg), cfg.num_layers),
          "final_norm": layers.norm_specs(cfg.d_model, cfg.norm)}
     if not cfg.tie_embeddings:
-        s["lm_head"] = Spec((cfg.d_model, cfg.vocab_size), init="fan_in")
+        s["lm_head"] = Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                            init="fan_in")
     return s
 
 
@@ -69,37 +71,39 @@ def layer_params(blocks: dict, i: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _ffn(p: dict, cfg: ModelConfig, h):
+def _ffn(p: dict, cfg: ModelConfig, h, ctx: ShardCtx):
     """The block's MLP or MoE on h -> (out, aux); aux 0 without experts."""
     if cfg.moe is not None:
-        return moe_mod.moe_apply(p["moe"], cfg, h)
+        return moe_mod.moe_apply(p["moe"], cfg, h, ctx=ctx)
     return (layers.mlp_apply(p["mlp"], h, cfg.mlp),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
-def _mlp_residual(p: dict, cfg: ModelConfig, x, h, a):
+def _mlp_residual(p: dict, cfg: ModelConfig, x, h, a, ctx: ShardCtx):
     """The block after attention: parallel (x + a + ffn(h)) or sequential
     (x + a, then + ffn(norm(x + a))). Returns (x, aux)."""
     if cfg.parallel_block:
-        m, aux = _ffn(p, cfg, h)
+        m, aux = _ffn(p, cfg, h, ctx)
         return x + a + m, aux
     x = x + a
-    m, aux = _ffn(p, cfg, layers.norm_apply(p["ln2"], x, cfg.norm))
+    m, aux = _ffn(p, cfg, layers.norm_apply(p["ln2"], x, cfg.norm), ctx)
     return x + m, aux
 
 
 def block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, *, collect_kv: bool = False):
+                positions: torch.Tensor, *, ctx: ShardCtx = NO_SHARD,
+                collect_kv: bool = False):
     """One transformer block. Returns (x, aux, kv-or-None)."""
     h = layers.norm_apply(p["ln1"], x, cfg.norm)
-    a, kv = attn_mod.attention(p["attn"], cfg, h, window=cfg.sliding_window,
-                               positions=positions)
-    x, aux = _mlp_residual(p, cfg, x, h, a)
+    a, kv = attn_mod.attention(p["attn"], cfg, h, ctx=ctx,
+                               window=cfg.sliding_window, positions=positions)
+    x, aux = _mlp_residual(p, cfg, x, h, a, ctx)
+    x = constrain(x, ("batch", "act_seq", "act_embed"), ctx)
     return x, aux, (kv if collect_kv else None)
 
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                  collect_kv: bool = False,
+                  ctx: ShardCtx = NO_SHARD, collect_kv: bool = False,
                   inputs_embeds: Optional[torch.Tensor] = None):
     """tokens (B,S) -> (h (B,S,D), aux summed over the layers (fp32
     scalar), per-layer [(k, v)] or None); k and v (B,S,Hkv,hd) in the
@@ -109,12 +113,13 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     B, S = tokens.shape
     x = (inputs_embeds if inputs_embeds is not None
          else layers.embed_apply(params["embed"], tokens, cdtype(cfg)))
+    x = constrain(x, ("batch", "act_seq", "act_embed"), ctx)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
     for i in range(cfg.num_layers):
         x, a, kv = block_apply(layer_params(params["blocks"], i), cfg, x,
-                               positions, collect_kv=collect_kv)
+                               positions, ctx=ctx, collect_kv=collect_kv)
         aux = aux + a
         kvs.append(kv)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
@@ -127,10 +132,10 @@ def _unembed_table(params: dict, cfg: ModelConfig):
     return params["lm_head"], False
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor
-            ) -> torch.Tensor:
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Full logits (B,S,V) in fp32: smoke tests and small vocabularies."""
-    h, _, _ = hidden_states(params, cfg, tokens)
+    h, _, _ = hidden_states(params, cfg, tokens, ctx=ctx)
     table, tied = _unembed_table(params, cfg)
     return layers.unembed_apply(table, h, tied)
 
@@ -178,11 +183,12 @@ def chunked_ce(h: torch.Tensor, table: torch.Tensor, targets: torch.Tensor,
     return nll_sum / torch.clamp(m_sum, min=1.0)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """batch: {tokens (B,S), targets (B,S), mask optional} -> (ce + aux,
     {"ce", "aux"}); ``aux`` is the MoE layers' load-balance loss summed
     over the layers (0 without experts)."""
-    h, aux, _ = hidden_states(params, cfg, batch["tokens"])
+    h, aux, _ = hidden_states(params, cfg, batch["tokens"], ctx=ctx)
     table, tied = _unembed_table(params, cfg)
     ce = chunked_ce(h, table, batch["targets"], batch.get("mask"), tied)
     return ce + aux, {"ce": ce, "aux": aux}
@@ -195,56 +201,67 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
 _CAST = ("w", "b", "embed", "lm_head", "wg", "wu", "wd")
 
 
-def _prepare_leaf(key: str, x: torch.Tensor, ct: torch.dtype,
-                  dev: torch.device) -> torch.Tensor:
+def _prepare_leaf(path: tuple, x: torch.Tensor, ct: torch.dtype,
+                  dev: torch.device, cfg: ModelConfig,
+                  ctx: ShardCtx) -> torch.Tensor:
     """One leaf of :func:`prepare_params`: the weights a dense layer or an
     expert product reads cast to ``ct``, every other leaf kept in its
-    dtype; on ``dev`` (``layers.served_leaf``)."""
-    return layers.served_leaf(x, key in _CAST, ct, dev)
+    dtype; on ``dev`` (``layers.served_leaf``). Under a mesh an expert
+    leaf (``moe/wg``, ``wu``, ``wd``) is cut to this rank's block first
+    (a copy: the whole leaf is not kept)."""
+    if (ctx.mesh is not None and len(path) > 1 and path[-2] == "moe"
+            and path[-1] in moe_mod.EXPERT_AXES):
+        part = moe_mod.local_experts(path[-1], x, cfg, ctx)
+        if part is not x:
+            x = part.clone(memory_format=torch.contiguous_format)
+    return layers.served_leaf(x, path[-1] in _CAST, ct, dev)
 
 
-def prepare_params(params: dict, cfg: ModelConfig, device="cuda") -> dict:
+def prepare_params(params: dict, cfg: ModelConfig, device="cuda", *,
+                   ctx: ShardCtx = NO_SHARD) -> dict:
     """One-time serving prep: every weight a dense layer reads (``w``,
     ``b``, the embedding table, ``lm_head``) and the experts' ``wg``,
     ``wu``, ``wd`` cast to the compute dtype and put on ``device``; norm
     scales, the router and the shared expert's gate keep the param dtype
     (the norms and the router compute in fp32 from them). Numerically what
     the per-call casts of ``dense_apply`` and the expert products do, done
-    once."""
+    once. Under a mesh (``ctx``) each rank keeps only its block of the
+    experts (``moe.local_experts``: experts over ``data``, their hidden
+    dim over ``model``, JAX's in-specs); every other leaf stays whole."""
     from repro_torch import resolve_device
+    from repro_torch.core.params import _map_tree
     dev = resolve_device(device)
     ct = cdtype(cfg)
-
-    def walk(tree, key=""):
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        return _prepare_leaf(key, tree, ct, dev)
-    return walk(params)
+    return _map_tree(lambda path, x: _prepare_leaf(path, x, ct, dev, cfg,
+                                                   ctx), params)
 
 
 def init_prepared(cfg: ModelConfig, seed: int = 0, device="cuda", *,
-                  specs: Optional[dict] = None) -> dict:
+                  specs: Optional[dict] = None,
+                  ctx: ShardCtx = NO_SHARD) -> dict:
     """``prepare_params(init_params(specs, seed, cfg.param_dtype), cfg,
     device)`` value for value (``specs`` defaults to ``lm_specs(cfg)``),
     built leaf by leaf on the CPU
     (:func:`~repro_torch.core.params.init_params_each`, as many leaves at
     a time as half the host's available memory holds), so neither the host
     nor the card holds the param-dtype tree (qwen2-moe-a2.7b: 60.6 GB in
-    fp32, 30.3 GB served in bf16)."""
+    fp32, 30.3 GB served in bf16). Under a mesh (``ctx``) the experts are
+    cut to this rank's block as each is drawn, as :func:`prepare_params`
+    cuts them."""
     from repro_torch import resolve_device
     from repro_torch.core.params import draw_workers, init_params_each
     dev = resolve_device(device)
     ct = cdtype(cfg)
     specs = lm_specs(cfg) if specs is None else specs
     return init_params_each(
-        specs, lambda path, x: _prepare_leaf(path[-1], x, ct, dev),
+        specs, lambda path, x: _prepare_leaf(path, x, ct, dev, cfg, ctx),
         seed, cfg.param_dtype, draw_workers(specs, cfg.param_dtype))
 
 
 def cache_specs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
     return {"layers": attn_mod.init_cache_specs(cfg, batch, capacity,
                                                 layers_axis=cfg.num_layers),
-            "pos": Spec((), init="zeros", dtype="int32")}
+            "pos": Spec((), (), init="zeros", dtype="int32")}
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
@@ -272,6 +289,7 @@ def stack_kv(kvs, C: int):
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            ctx: ShardCtx = NO_SHARD,
             inputs_embeds: Optional[torch.Tensor] = None,
             headroom: int = 64):
     """tokens (B,S) -> (last-token logits (B,V) fp32, filled cache).
@@ -280,7 +298,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     onto it (full-attention semantics); ``inputs_embeds`` as in
     :func:`hidden_states`."""
     B, S = tokens.shape
-    h, _, kvs = hidden_states(params, cfg, tokens, collect_kv=True,
+    h, _, kvs = hidden_states(params, cfg, tokens, ctx=ctx, collect_kv=True,
                               inputs_embeds=inputs_embeds)
     table, tied = _unembed_table(params, cfg)
     logits = layers.unembed_apply(table, h[:, -1], tied)
@@ -295,7 +313,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
     """One decode step, a loop over the layers at every depth (JAX unrolls
     up to 48 layers and scans above; both compute these numbers). tokens
     (B,) -> (logits (B,V) fp32, the cache updated in place)."""
@@ -317,7 +335,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         sp_l.index_copy_(0, slot, pos1)
         a = attn_mod.decode_attend(p["attn"], cfg, q[:, 0], k_l, v_l, sp_l,
                                    pos, window=cfg.sliding_window)
-        x, _ = _mlp_residual(p, cfg, x, h, a)
+        x, _ = _mlp_residual(p, cfg, x, h, a, ctx)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
     table, tied = _unembed_table(params, cfg)
     logits = layers.unembed_apply(table, x[:, 0], tied)

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec, init_params, stack_specs
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx, constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models.layers import cdtype, dense_apply
@@ -99,20 +100,21 @@ def _mlp_residual(p: dict, cfg: ModelConfig, x: torch.Tensor):
                                 cfg.mlp)
 
 
-def encode(params: dict, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor, *,
+           ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """frames (B,F,D) precomputed post-conv embeddings -> (B,F,D)."""
     B, F, _ = frames.shape
     ct = cdtype(cfg)
     x = frames.to(ct) + sinusoid(torch.arange(F, device=frames.device),
                                  cfg.d_model)[None].to(ct)
+    x = constrain(x, ("batch", "act_seq", "act_embed"), ctx)
     positions = _positions(B, F, x.device)
     for i in range(cfg.encoder.num_layers):
         p = layer_params(params["enc_blocks"], i)
         a, _ = attn_mod.attention(p["attn"], cfg,
                                   layers.norm_apply(p["ln1"], x, cfg.norm),
-                                  causal=False, positions=positions)
-        x = _mlp_residual(p, cfg, x + a)
+                                  ctx=ctx, causal=False, positions=positions)
+        x = constrain(_mlp_residual(p, cfg, x + a), ("batch", "act_seq", "act_embed"), ctx)
     return layers.norm_apply(params["enc_norm"], x, cfg.norm)
 
 
@@ -129,21 +131,24 @@ def _cross_kv(p_attn: dict, cfg: ModelConfig, enc_out: torch.Tensor):
 
 
 def dec_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                    enc_out: torch.Tensor, positions: torch.Tensor):
+                    enc_out: torch.Tensor, positions: torch.Tensor, *,
+                    ctx: ShardCtx = NO_SHARD):
     """One decoder block -> (x, self (k, v), cross (k, v))."""
     a, kv = attn_mod.attention(p["self_attn"], cfg,
                                layers.norm_apply(p["ln1"], x, cfg.norm),
-                               causal=True, positions=positions)
+                               ctx=ctx, causal=True, positions=positions)
     x = x + a
     ckv = _cross_kv(p["cross_attn"], cfg, enc_out)
     c, _ = attn_mod.attention(p["cross_attn"], cfg,
                               layers.norm_apply(p["ln_c"], x, cfg.norm),
-                              causal=False, positions=positions, kv=ckv)
-    return _mlp_residual(p, cfg, x + c), kv, ckv
+                              ctx=ctx, causal=False, positions=positions,
+                              kv=ckv)
+    x = constrain(_mlp_residual(p, cfg, x + c), ("batch", "act_seq", "act_embed"), ctx)
+    return x, kv, ckv
 
 
 def decode_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  enc_out: torch.Tensor):
+                  enc_out: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
     """tokens (B,S) against the encoder's output -> (h (B,S,D), per-layer
     self [(k, v)], per-layer cross [(k, v)])."""
     B, S = tokens.shape
@@ -154,25 +159,27 @@ def decode_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     kvs, ckvs = [], []
     for i in range(cfg.num_layers):
         x, kv, ckv = dec_block_apply(layer_params(params["dec_blocks"], i),
-                                     cfg, x, enc_out, positions)
+                                     cfg, x, enc_out, positions, ctx=ctx)
         kvs.append(kv)
         ckvs.append(ckv)
     return layers.norm_apply(params["final_norm"], x, cfg.norm), kvs, ckvs
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """batch {frames (B,F,D), tokens (B,S)} -> logits (B,S,V) fp32
     (teacher-forced)."""
-    enc_out = encode(params, cfg, batch["frames"])
-    h, _, _ = decode_hidden(params, cfg, batch["tokens"], enc_out)
+    enc_out = encode(params, cfg, batch["frames"], ctx=ctx)
+    h, _, _ = decode_hidden(params, cfg, batch["tokens"], enc_out, ctx=ctx)
     return layers.unembed_apply(params["embed"], h, tied=True)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """batch {frames, tokens, targets, mask optional} -> (ce, {"ce",
     "aux" = 0}); the tied embedding unembeds (``chunked_ce``)."""
-    enc_out = encode(params, cfg, batch["frames"])
-    h, _, _ = decode_hidden(params, cfg, batch["tokens"], enc_out)
+    enc_out = encode(params, cfg, batch["frames"], ctx=ctx)
+    h, _, _ = decode_hidden(params, cfg, batch["tokens"], enc_out, ctx=ctx)
     ce = chunked_ce(h, params["embed"], batch["targets"], batch.get("mask"),
                     tied=True)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
@@ -196,12 +203,14 @@ def cache_specs(cfg: ModelConfig, batch: int, capacity: int) -> dict:
     F = cfg.encoder.num_frames
     L = cfg.num_layers
     kv = (L, batch, cfg.num_kv_heads, F, cfg.resolved_head_dim)
+    kv_axes = ("layers", "batch", "kv_heads", None, None)
     return {"self": attn_mod.init_cache_specs(cfg, batch, capacity,
                                               layers_axis=L),
-            "cross": {"k": Spec(kv, init="zeros", dtype=cfg.dtype),
-                      "v": Spec(kv, init="zeros", dtype=cfg.dtype),
-                      "slot_pos": Spec((L, F), init="zeros", dtype="int32")},
-            "pos": Spec((), init="zeros", dtype="int32")}
+            "cross": {"k": Spec(kv, kv_axes, init="zeros", dtype=cfg.dtype),
+                      "v": Spec(kv, kv_axes, init="zeros", dtype=cfg.dtype),
+                      "slot_pos": Spec((L, F), ("layers", None), init="zeros",
+                                       dtype="int32")},
+            "pos": Spec((), (), init="zeros", dtype="int32")}
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
@@ -216,7 +225,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     return c
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict):
+def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """batch {frames (B,F,D), tokens (B,S)} -> (last-token logits (B,V)
     fp32, cache). The self ring holds the prompt and ``HEADROOM`` empty
     slots (the repair over JAX, see the module docstring); the cross
@@ -224,8 +234,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict):
     tokens = batch["tokens"]
     B, S = tokens.shape
     F, L = cfg.encoder.num_frames, cfg.num_layers
-    enc_out = encode(params, cfg, batch["frames"])
-    h, kvs, ckvs = decode_hidden(params, cfg, tokens, enc_out)
+    enc_out = encode(params, cfg, batch["frames"], ctx=ctx)
+    h, kvs, ckvs = decode_hidden(params, cfg, tokens, enc_out, ctx=ctx)
     logits = layers.unembed_apply(params["embed"], h[:, -1], tied=True)
     dev = h.device
     k, v = stack_kv(kvs, S + HEADROOM)
@@ -241,7 +251,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict):
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
     """tokens (B,) -> (logits (B,V) fp32, the cache: its self ring updated
     in place, its cross part as it was)."""
     B = tokens.shape[0]

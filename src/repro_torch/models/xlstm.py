@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import Spec, init_params, stack_specs
+from repro_torch.distributed.sharding import NO_SHARD, ShardCtx, constrain
 from repro_torch.models import layers
 from repro_torch.models.layers import cdtype, dense_apply, dense_specs
 from repro_torch.models.ssm import _causal_conv, conv_step, conv_tail
@@ -155,17 +156,17 @@ def mlstm_block_specs(cfg: ModelConfig) -> dict:
     w = cfg.xlstm.conv_width
     return {
         "ln": layers.norm_specs(d, cfg.norm),
-        "w_up": dense_specs(d, 2 * di),
-        "conv": Spec((w, di), init="fan_in"),
-        "conv_b": Spec((di,), init="zeros"),
-        "wq": dense_specs(di, di),
-        "wk": dense_specs(di, di),
-        "wv": dense_specs(di, di),
-        "w_i": dense_specs(di, nh, bias=True),
-        "w_f": dense_specs(di, nh, bias=True),
-        "out_norm": Spec((nh, dh), init="ones"),
-        "w_down": dense_specs(di, d),
-        "skip": Spec((di,), init="ones"),
+        "w_up": dense_specs(d, 2 * di, ("embed", "gates")),
+        "conv": Spec((w, di), ("conv", "gates"), init="fan_in"),
+        "conv_b": Spec((di,), ("gates",), init="zeros"),
+        "wq": dense_specs(di, di, ("gates", "heads")),
+        "wk": dense_specs(di, di, ("gates", "heads")),
+        "wv": dense_specs(di, di, ("gates", "heads")),
+        "w_i": dense_specs(di, nh, ("gates", None), bias=True),
+        "w_f": dense_specs(di, nh, ("gates", None), bias=True),
+        "out_norm": Spec((nh, dh), (None, "head_dim"), init="ones"),
+        "w_down": dense_specs(di, d, ("gates", "embed")),
+        "skip": Spec((di,), ("gates",), init="ones"),
     }
 
 
@@ -184,7 +185,8 @@ def _headnorm(scale, h, eps=1e-6):
 
 
 def mlstm_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                      chunk: int = 64, return_state: bool = False):
+                      ctx: ShardCtx = NO_SHARD, chunk: int = 64,
+                      return_state: bool = False):
     di, nh, dh = _mdims(cfg)
     B, S, _ = x.shape
     hln = layers.norm_apply(p["ln"], x, cfg.norm)
@@ -219,16 +221,18 @@ def slstm_block_specs(cfg: ModelConfig) -> dict:
     ff = -(-int(d * 4 / 3) // 64) * 64
     return {
         "ln": layers.norm_specs(d, cfg.norm),
-        "conv": Spec((w, d), init="fan_in"),
-        "conv_b": Spec((d,), init="zeros"),
+        "conv": Spec((w, d), ("conv", "embed"), init="fan_in"),
+        "conv_b": Spec((d,), ("embed",), init="zeros"),
         # decoupled input projection: one product for all 4 gates
-        "w": dense_specs(d, 4 * d),
+        "w": dense_specs(d, 4 * d, ("embed", "gates")),
         # recurrent block-diagonal matrix: the paper's row-wise target
-        "r": Spec((nh, dh, 4 * dh), init="recurrent"),
-        "b": Spec((4 * d,), init="zeros"),       # raw gate bias, read fp32
-        "out_norm": Spec((nh, dh), init="ones"),
-        "up": dense_specs(d, 2 * ff),
-        "down": dense_specs(ff, d),
+        "r": Spec((nh, dh, 4 * dh), (None, "hidden", "gates"),
+                  init="recurrent"),
+        "b": Spec((4 * d,), ("gates",),
+                  init="zeros"),                 # raw gate bias, read fp32
+        "out_norm": Spec((nh, dh), (None, "head_dim"), init="ones"),
+        "up": dense_specs(d, 2 * ff, ("embed", "mlp")),
+        "down": dense_specs(ff, d, ("mlp", "embed")),
     }
 
 
@@ -271,7 +275,7 @@ def _slstm_out(p: dict, cfg: ModelConfig, x, h):
 
 
 def slstm_block_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                      return_state: bool = False):
+                      ctx: ShardCtx = NO_SHARD, return_state: bool = False):
     d, nh, dh = _sdims(cfg)
     B, S, _ = x.shape
     hln = layers.norm_apply(p["ln"], x, cfg.norm)
@@ -301,30 +305,34 @@ def lm_specs(cfg: ModelConfig) -> dict:
         "pairs": stack_specs({"m": mlstm_block_specs(cfg),
                               "s": slstm_block_specs(cfg)}, pairs),
         "final_norm": layers.norm_specs(cfg.d_model, cfg.norm),
-        "lm_head": Spec((cfg.d_model, cfg.vocab_size), init="fan_in"),
+        "lm_head": Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                        init="fan_in"),
     }
 
 
-def hidden_states(params: dict, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
+def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     x = layers.embed_apply(params["embed"], tokens, cdtype(cfg))
+    x = constrain(x, ("batch", "act_seq", "act_embed"), ctx)
     for i in range(cfg.num_layers // 2):
         p_pair = layer_params(params["pairs"], i)
-        x = mlstm_block_apply(p_pair["m"], cfg, x)
-        x = slstm_block_apply(p_pair["s"], cfg, x)
+        x = mlstm_block_apply(p_pair["m"], cfg, x, ctx=ctx)
+        x = slstm_block_apply(p_pair["s"], cfg, x, ctx=ctx)
+        x = constrain(x, ("batch", "act_seq", "act_embed"), ctx)
     return layers.norm_apply(params["final_norm"], x, cfg.norm)
 
 
-def forward(params: dict, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     """Full logits (B,S,V) in fp32."""
-    h = hidden_states(params, cfg, tokens)
+    h = hidden_states(params, cfg, tokens, ctx=ctx)
     return layers.unembed_apply(params["lm_head"], h, tied=False)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            ctx: ShardCtx = NO_SHARD):
     """batch: {tokens, targets, mask optional} -> (ce, {"ce", "aux" = 0})."""
-    h = hidden_states(params, cfg, batch["tokens"])
+    h = hidden_states(params, cfg, batch["tokens"], ctx=ctx)
     ce = chunked_ce(h, params["lm_head"], batch["targets"], batch.get("mask"),
                     tied=False)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
@@ -350,18 +358,29 @@ def cache_specs(cfg: ModelConfig, batch: int, capacity: int = 0) -> dict:
     w = cfg.xlstm.conv_width
     f32 = "float32"
     return {
-        "m": {"conv_buf": Spec((pairs, batch, w - 1, di), init="zeros",
-                               dtype=cfg.dtype),
-              "C": Spec((pairs, batch, nh, dh, dh), init="zeros", dtype=f32),
-              "n": Spec((pairs, batch, nh, dh), init="zeros", dtype=f32),
-              "mm": Spec((pairs, batch, nh), init="zeros", dtype=f32)},
-        "s": {"conv_buf": Spec((pairs, batch, w - 1, d), init="zeros",
-                               dtype=cfg.dtype),
-              "c": Spec((pairs, batch, d), init="zeros", dtype=f32),
-              "n": Spec((pairs, batch, d), init="zeros", dtype=f32),
-              "sm": Spec((pairs, batch, d), init="zeros", dtype=f32),
-              "h": Spec((pairs, batch, d), init="zeros", dtype=f32)},
-        "pos": Spec((), init="zeros", dtype="int32"),
+        "m": {"conv_buf": Spec((pairs, batch, w - 1, di),
+                               ("layers", "batch", None, "gates"),
+                               init="zeros", dtype=cfg.dtype),
+              "C": Spec((pairs, batch, nh, dh, dh),
+                        ("layers", "batch", None, "head_dim", None),
+                        init="zeros", dtype=f32),
+              "n": Spec((pairs, batch, nh, dh),
+                        ("layers", "batch", None, "head_dim"), init="zeros",
+                        dtype=f32),
+              "mm": Spec((pairs, batch, nh), ("layers", "batch", None),
+                         init="zeros", dtype=f32)},
+        "s": {"conv_buf": Spec((pairs, batch, w - 1, d),
+                               ("layers", "batch", None, "embed"),
+                               init="zeros", dtype=cfg.dtype),
+              "c": Spec((pairs, batch, d), ("layers", "batch", None),
+                        init="zeros", dtype=f32),
+              "n": Spec((pairs, batch, d), ("layers", "batch", None),
+                        init="zeros", dtype=f32),
+              "sm": Spec((pairs, batch, d), ("layers", "batch", None),
+                         init="zeros", dtype=f32),
+              "h": Spec((pairs, batch, d), ("layers", "batch", None),
+                        init="zeros", dtype=f32)},
+        "pos": Spec((), (), init="zeros", dtype="int32"),
     }
 
 
@@ -415,7 +434,7 @@ def _slstm_decode(p, cfg, x, cs, i):
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, *, ctx: ShardCtx = NO_SHARD):
     """tokens (B,) -> (logits (B,V) fp32, the cache updated in place)."""
     x = layers.embed_apply(params["embed"], tokens[:, None], cdtype(cfg))
     for i in range(cfg.num_layers // 2):
@@ -431,18 +450,22 @@ def _stack_states(states):
     return {k: torch.stack([s[k] for s in states], 0) for k in states[0]}
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            ctx: ShardCtx = NO_SHARD):
     """Chunkwise-parallel prefill: the sequence runs through the parallel
     forward (mLSTM chunkwise, sLSTM with the decoupled xW product) and the
     decode cache is each block's final state. tokens (B,S) -> (last-token
     logits (B,V) fp32, cache)."""
     B, S = tokens.shape
     x = layers.embed_apply(params["embed"], tokens, cdtype(cfg))
+    x = constrain(x, ("batch", "act_seq", "act_embed"), ctx)
     m_states, s_states = [], []
     for i in range(cfg.num_layers // 2):
         p_pair = layer_params(params["pairs"], i)
-        x, m_state = mlstm_block_apply(p_pair["m"], cfg, x, return_state=True)
-        x, s_state = slstm_block_apply(p_pair["s"], cfg, x, return_state=True)
+        x, m_state = mlstm_block_apply(p_pair["m"], cfg, x, ctx=ctx,
+                                       return_state=True)
+        x, s_state = slstm_block_apply(p_pair["s"], cfg, x, ctx=ctx,
+                                       return_state=True)
         m_states.append(m_state)
         s_states.append(s_state)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
@@ -452,11 +475,13 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     return logits, cache
 
 
-def prefill_sequential(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+def prefill_sequential(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                       *, ctx: ShardCtx = NO_SHARD):
     """Baseline: per-token prefill through decode steps (re-reads every
     weight each step)."""
     B, S = tokens.shape
     cache = init_cache(cfg, B, device=tokens.device)
     for t in range(S):
-        logits, cache = decode_step(params, cfg, cache, tokens[:, t])
+        logits, cache = decode_step(params, cfg, cache, tokens[:, t],
+                                    ctx=ctx)
     return logits, cache

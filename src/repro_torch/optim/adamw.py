@@ -26,7 +26,8 @@ from repro_torch.core.params import (Spec, _map_tree, flatten, is_spec,
 def opt_specs(param_specs, dtype: str = "float32") -> dict:
     """Mirrored Spec trees for the Adam moments."""
     def f(_path, s):
-        return Spec(tuple(s.shape), init="zeros", dtype=dtype) if is_spec(s) else s
+        return (Spec(tuple(s.shape), s.axes, init="zeros", dtype=dtype)
+                if is_spec(s) else s)
     return {"mu": _map_tree(f, param_specs), "nu": _map_tree(f, param_specs)}
 
 

@@ -40,11 +40,14 @@ decode step of B requests an expert takes ceil(B*k/E*1.25) tokens in
 request order and drops the rest, so a request's stream depends on its
 wave-mates.
 
-Under a mesh (``ctx=ShardCtx(mesh)``, cell families) every rank runs an
-engine over the same requests, SPMD: the model calls and the executables
-the engine records take the ctx's placement, so a prefill or step is
-attributed to the mesh backend that served it (``cuda_sharded`` under
-``"cuda"`` for prefill) and the ranks' streams are equal.
+Under a mesh (``ctx=ShardCtx(mesh)``) every rank runs an engine over the
+same requests, SPMD, and the ranks' streams are equal. A cell family's
+model calls and the executables the engine records take the ctx's
+placement (the mesh's ``model`` axis), so a prefill or step is attributed
+to the mesh backend that served it (``cuda_sharded`` under ``"cuda"`` for
+prefill). An LM wave passes the ctx to every prefill and decode step: the
+MoE layers split their experts over the mesh (``models.moe``), and
+``prepare_params`` keeps only this rank's block of the experts.
 
 Frozen executables. The engine freezes one executor executable per decode
 key and one per prefill bucket at first use and calls every step and
@@ -159,16 +162,13 @@ class ServeEngine:
         self.bucket_ladder: Optional[tuple] = None
         self.api = mapi.get_api(cfg)
         self.ctx = ctx
-        if ctx.mesh is not None:
-            if not self._is_cell():
-                raise NotImplementedError(
-                    f"family {cfg.family!r} has no mesh path in the port "
-                    f"yet; the cell families serve under a mesh")
-            if ctx.mesh.device != self.device:
-                raise ValueError(f"engine on {self.device} but this rank's "
-                                 f"mesh device is {ctx.mesh.device}")
-        self._kw = {"ctx": ctx} if self._is_cell() else {}
-        prep = dict(self._kw, batch=max_batch) if self._is_cell() else {}
+        if ctx.mesh is not None and ctx.mesh.device != self.device:
+            raise ValueError(f"engine on {self.device} but this rank's "
+                             f"mesh device is {ctx.mesh.device}")
+        # the model calls take the ctx (an LM's only under a mesh)
+        self._kw = ({"ctx": ctx} if self._is_cell() or ctx.mesh is not None
+                    else {})
+        prep = dict(self._kw, batch=max_batch) if self._is_cell() else self._kw
         self.params = self.api.prepare_params(params, cfg, self.device,
                                               **prep)
         self._prefill_exes: Dict[int, runtime.GRUExecutable] = {}
@@ -241,7 +241,7 @@ class ServeEngine:
         t0 = self.clock.now()
         logits, cache = self.api.prefill(
             self.params, self.cfg,
-            {"tokens": torch.from_numpy(toks).to(self.device)})
+            {"tokens": torch.from_numpy(toks).to(self.device)}, **self._kw)
         self._sync()
         self._record_prefill(S, self.clock.now() - t0)
         now = self.clock.now()
@@ -254,7 +254,7 @@ class ServeEngine:
         for _ in range(max_new):
             t0 = self.clock.now()
             logits, cache = self.api.decode_step(self.params, self.cfg, cache,
-                                                 next_tok)
+                                                 next_tok, **self._kw)
             self._sync()
             self._record_step(key, self.clock.now() - t0, None)
             tok_np = next_tok.cpu().numpy()

@@ -46,10 +46,11 @@ def state_specs(model_cfg: ModelConfig, train_cfg: TrainConfig,
     pspecs = mapi.get_api(model_cfg).specs(model_cfg)
     s = {"params": pspecs,
          "opt": adamw.opt_specs(pspecs, train_cfg.opt_dtype),
-         "step": Spec((), init="zeros", dtype="int32")}
+         "step": Spec((), (), init="zeros", dtype="int32")}
     if with_ef:
         s["ef"] = _map_tree(
-            lambda _p, sp: Spec((n_pods,) + tuple(sp.shape), init="zeros",
+            lambda _p, sp: Spec((n_pods,) + tuple(sp.shape),
+                                ("podwise",) + tuple(sp.axes), init="zeros",
                                 dtype="float32") if is_spec(sp) else sp,
             pspecs)
     return s

@@ -42,7 +42,9 @@ def test_importing_the_engine_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.kernels.gru_sequence.ops, "
             "repro_torch.models.transformer, "
             "repro_torch.kernels.flash_attn.ops, "
-            "repro_torch.kernels.decode_attn.ops; "
+            "repro_torch.kernels.decode_attn.ops, "
+            "repro_torch.distributed.pipeline, "
+            "repro_torch.distributed.sharding, repro_torch.models.moe; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

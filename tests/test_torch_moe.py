@@ -258,11 +258,20 @@ def test_router_gradient_matches_jax(arch, factor):
 
 
 def test_moe_apply_under_a_mesh_raises():
+    """Under a mesh the layer serves and refuses autograd, naming the
+    ROADMAP item that brings training under a multi-axis mesh; without
+    autograd a one-rank {data, model} mesh gives the one-device bits (the
+    mesh path on many ranks: ``test_torch_moe_mesh.py``)."""
+    from repro_torch.distributed import local_mesh
     cfg, _ = _cfgs(ARCHS[0])
     p = to_torch(_params(ARCHS[0]))
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        moe.moe_apply(p, cfg, torch.zeros(1, 2, 64), ctx=ShardCtx(
-            mesh=object()))
+    ctx = ShardCtx(mesh=local_mesh("cpu", axes=("data", "model")))
+    x = torch.from_numpy(_x((2, 3, 64), seed=4))
+    assert torch.equal(moe.moe_apply(p, cfg, x, ctx=ctx)[0],
+                       moe.moe_apply(p, cfg, x)[0])
+    p["wg"].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        moe.moe_apply(p, cfg, x, ctx=ctx)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
